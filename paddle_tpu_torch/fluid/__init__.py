@@ -16,10 +16,16 @@ from .executor import Executor, Scope, global_scope
 from . import initializer
 from . import layers
 from . import unique_name
+from . import backward
+from . import clip
+from . import optimizer
+from . import regularizer
+from .backward import append_backward
 from .param_attr import ParamAttr
 
 __all__ = [
     "core", "framework", "executor", "initializer", "layers", "unique_name",
+    "backward", "clip", "optimizer", "regularizer", "append_backward",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",
     "global_scope", "CPUPlace", "CUDAPlace", "TPUPlace", "ParamAttr",

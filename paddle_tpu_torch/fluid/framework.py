@@ -15,11 +15,15 @@ from typing import Dict, List, Optional
 
 from . import core, unique_name
 
+GRAD_VAR_SUFFIX = "@GRAD"
 TEMP_VAR_NAME = "@TEMP@"
+#: the scope name under which the Executor keeps its random generators
+RNG_STATE_VAR = "@RNG_STATE@"
 
 
 class OpRole:
-    """Op role attr (ref: op_proto_maker.h); every op carries one."""
+    """Op role attr (ref: op_proto_maker.h); every op carries one.
+    ``append_backward`` and the optimizers read and write it."""
 
     Forward = 0
     Backward = 1
@@ -31,6 +35,10 @@ class OpRole:
 
     KEY = "op_role"
     VAR_KEY = "op_role_var"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_VAR_SUFFIX
 
 
 class Variable:
@@ -53,6 +61,10 @@ class Variable:
         self.is_data = is_data
         self.type = type
         self.error_clip = error_clip
+
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
 
     def to_string(self, throw_on_error=False, with_details=False):
         return (f"var {self.name} : shape{self.shape} dtype={self.dtype} "
@@ -179,6 +191,9 @@ class Block:
 
     def has_var(self, name: str) -> bool:
         return name in self.vars
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def _var_recursive(self, name: str) -> Variable:
         b = self

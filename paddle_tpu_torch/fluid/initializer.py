@@ -1,10 +1,11 @@
 """Parameter initializers (counterpart of ``paddle_tpu/fluid/initializer.py``).
 
 Each initializer appends the same init op to the startup block as the
-reference does.  The port's Executor runs ``uniform_random`` from a seeded
-``torch.Generator``, which gives other numbers than the reference's JAX
-threefry draw: tests that compare the two packages copy the reference's
-weights across (``models.transformer.load_reference_params``).
+reference does.  The port's Executor runs ``uniform_random`` and
+``gaussian_random`` from a seeded ``torch.Generator``, which gives other
+numbers than the reference's JAX threefry draw: tests that compare the two
+packages copy the reference's weights across
+(``models.transformer.load_reference_params``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,17 @@ class UniformInitializer(Initializer):
                    "min": self._low, "max": self._high, "seed": self._seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self._mean, "std": self._std, "seed": self._seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -55,21 +67,19 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Uniform Xavier only: the normal variant draws ``gaussian_random``,
-    an op the port does not carry yet."""
-
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "normal Xavier needs gaussian_random, not ported yet")
-        self._fan_in, self._fan_out, self._seed = fan_in, fan_out, seed
+        self._uniform, self._fan_in, self._fan_out, self._seed = \
+            uniform, fan_in, fan_out, seed
 
     def __call__(self, var, block):
         fin, fout = _fan_in_out(var)
         fin = self._fan_in if self._fan_in is not None else fin
         fout = self._fan_out if self._fan_out is not None else fout
-        limit = math.sqrt(6.0 / (fin + fout))
-        return UniformInitializer(-limit, limit, self._seed)(var, block)
+        if self._uniform:
+            limit = math.sqrt(6.0 / (fin + fout))
+            return UniformInitializer(-limit, limit, self._seed)(var, block)
+        std = math.sqrt(2.0 / (fin + fout))
+        return NormalInitializer(0.0, std, self._seed)(var, block)
 
 
 class NumpyArrayInitializer(Initializer):
@@ -82,3 +92,8 @@ class NumpyArrayInitializer(Initializer):
             attrs={"shape": list(self._value.shape), "dtype": var.dtype,
                    "fp32_values": [float(v) for v in self._value.flat]})
 
+
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+Xavier = XavierInitializer

@@ -110,6 +110,17 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, persistable=False, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, stop_gradient=True, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        self.startup_program.global_block().create_var(
+            name=var.name, shape=var.shape, dtype=var.dtype,
+            persistable=True)
+        initializer(var, self.startup_program.global_block())
+        return var
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])
         bias_attr = self.bias_attr

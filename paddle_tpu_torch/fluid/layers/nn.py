@@ -1,5 +1,6 @@
 """NN layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``): the builders
-the decode programs call, copied so the same calls emit the same IR."""
+the decode and training programs call, copied so the same calls emit the
+same IR."""
 
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "softmax", "mul", "matmul",
-    "elementwise_add", "scale", "reshape", "kv_cache_update",
+    "fc", "embedding", "layer_norm", "dropout", "softmax",
+    "softmax_with_cross_entropy", "mul", "matmul", "elementwise_add",
+    "elementwise_mul", "elementwise_div", "scale", "reduce_sum", "reshape",
+    "transpose", "one_hot", "label_smooth", "kv_cache_update",
     "paged_attention", "token_select",
 ]
 
@@ -89,6 +92,22 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    mask = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    mask.shape = x.shape
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
 def softmax(input, use_cudnn=True, name=None):
     helper = LayerHelper("softmax", **locals())
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -96,6 +115,25 @@ def softmax(input, use_cudnn=True, name=None):
     helper.append_op(type="softmax", inputs={"X": [input]},
                      outputs={"Out": [out]})
     return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy", **locals())
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    softmax_out.shape = logits.shape
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    if logits.shape:
+        loss.shape = tuple(logits.shape[:-1]) + (1,)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
 
 
 def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
@@ -129,15 +167,23 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    """``x + y`` with Paddle's broadcast: y's dims align to x's starting at
-    ``axis`` (-1 = trailing alignment)."""
-    helper = LayerHelper("elementwise_add", name=name, act=act)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    out.shape = x.shape
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+def _binary_layer(op_type):
+    """``x <op> y`` with Paddle's broadcast: y's dims align to x's starting
+    at ``axis`` (-1 = trailing alignment)."""
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        out.shape = x.shape
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _binary_layer("elementwise_add")
+elementwise_mul = _binary_layer("elementwise_mul")
+elementwise_div = _binary_layer("elementwise_div")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -148,6 +194,28 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        s = list(input.shape)
+        dims = dim if dim is not None else list(range(len(s)))
+        if isinstance(dims, int):
+            dims = [dims]
+        dims = [d % len(s) for d in dims]
+        if keep_dim:
+            ns = [1 if i in dims else v for i, v in enumerate(s)]
+        else:
+            ns = [v for i, v in enumerate(s) if i not in dims]
+        out.shape = tuple(ns) if ns else (1,)
+    helper.append_op(
+        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"dim": dim if isinstance(dim, (list, tuple)) or dim is None
+               else [dim],
+               "keep_dim": keep_dim, "reduce_all": dim is None})
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -165,6 +233,43 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper.append_op(type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"shape": list(shape)})
     return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(x.shape[p] for p in perm)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    if input.shape is not None:
+        s = list(input.shape)
+        if s and s[-1] == 1:
+            s = s[:-1]
+        out.shape = tuple(s) + (depth,)
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """``(1 − ε) · label + ε / n_classes``: a builder over ``scale``, not
+    an op of its own."""
+    if epsilon > 1.0 or epsilon < 0.0:
+        raise ValueError("epsilon must be in [0, 1]")
+    n_classes = label.shape[-1]
+    smoothed = scale(label, scale=1.0 - epsilon,
+                     bias=epsilon / n_classes if prior_dist is None else 0.0)
+    if prior_dist is not None:
+        smoothed = elementwise_add(smoothed, scale(prior_dist, scale=epsilon))
+    return smoothed
 
 
 def paged_attention(q, cache_k, cache_v, page_table, bias, scale=1.0,

@@ -1,7 +1,12 @@
-"""Step-form decoder-only transformer LM (counterpart of the decode half of
-``paddle_tpu/models/transformer.py``): the programs the continuous-batching
-engine drives token by token.  The builders are the reference's, call for
-call, so both packages build the same Programs.
+"""Transformer (counterpart of ``paddle_tpu/models/transformer.py``): the
+encoder-decoder training graph (``build``) and the step-form decoder-only
+LM the continuous-batching engine drives token by token (``DecodeModel``).
+The builders are the reference's, call for call, so both packages build
+the same Programs.
+
+Training runs the unfused attention chain (matmul -> softmax -> matmul).
+Flash attention, ring attention, the stacked layer-stack ops and MoE
+feed-forward layers are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,14 +18,22 @@ import torch
 
 from .. import fluid
 from ..fluid import layers
+from ..fluid.initializer import NumpyArrayInitializer
 from ..fluid.param_attr import ParamAttr
 
 _NEG_INF = -1e9
 
 
 class Config:
+    """The reference's fields.  ``flash_attention`` None (auto) resolves to
+    off in the port; True, ``ring_attention``, ``stacked`` and
+    ``moe_experts`` are not ported yet (the builders raise)."""
+
     def __init__(self, name, src_vocab_size, tgt_vocab_size, d_model,
-                 d_inner, n_head, n_layer, dropout=0.1, label_smooth=0.1):
+                 d_inner, n_head, n_layer, dropout=0.1, label_smooth=0.1,
+                 moe_experts=0, moe_top_k=2, moe_aux_weight=1e-2,
+                 stacked=False, ring_attention=False, n_microbatches=4,
+                 recompute=False, flash_attention=None):
         self.name = name
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
@@ -30,12 +43,26 @@ class Config:
         self.n_layer = n_layer
         self.dropout = dropout
         self.label_smooth = label_smooth
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_aux_weight = moe_aux_weight
+        self.stacked = stacked
+        self.ring_attention = ring_attention
+        self.flash_attention = flash_attention
+        self.n_microbatches = n_microbatches
+        self.recompute = recompute
 
 
 def base_config():
     """Transformer-base (Vaswani et al.): d_model 512, 8 heads, 6 layers."""
     return Config("base", src_vocab_size=30000, tgt_vocab_size=30000,
                   d_model=512, d_inner=2048, n_head=8, n_layer=6)
+
+
+def tiny_config():
+    """CPU-test scale."""
+    return Config("tiny", src_vocab_size=1000, tgt_vocab_size=1000,
+                  d_model=64, d_inner=128, n_head=4, n_layer=2)
 
 
 def decode_lm_config():
@@ -69,6 +96,177 @@ def _shared_causal_bias(lq, lk):
         causal_np = np.triu(np.full((lq, lk), _NEG_INF, np.float32), k=1)
         var = cache[(lq, lk)] = layers.assign(causal_np)
     return var
+
+
+def _postprocess(prev, out, dropout):
+    """Residual add + layer norm (+ dropout on the sublayer output)."""
+    if dropout:
+        out = layers.dropout(out, dropout_prob=dropout)
+    return layers.layer_norm(layers.elementwise_add(prev, out),
+                             begin_norm_axis=2)
+
+
+def _multi_head_attention(q_in, k_in, v_in, bias, d_model, n_head,
+                          dropout, prefix, causal=False):
+    """[b, lq, d] x [b, lk, d] -> [b, lq, d]; bias broadcasts into the
+    [b, h, lq, lk] logits (None, [lq, lk] causal, or [b, 1, 1, lk]
+    padding).  The unfused chain: scaled q.k^T, biases, softmax, dropout
+    on the probabilities, times v."""
+    lq, lk = q_in.shape[1], k_in.shape[1]
+    d_k = d_model // n_head
+    q = layers.fc(q_in, d_model, num_flatten_dims=2, bias_attr=False,
+                  param_attr=ParamAttr(name=f"{prefix}_q_w"))
+    k = layers.fc(k_in, d_model, num_flatten_dims=2, bias_attr=False,
+                  param_attr=ParamAttr(name=f"{prefix}_k_w"))
+    v = layers.fc(v_in, d_model, num_flatten_dims=2, bias_attr=False,
+                  param_attr=ParamAttr(name=f"{prefix}_v_w"))
+    # [b, l, d] -> [b, h, l, d_k]
+    q = layers.transpose(layers.reshape(q, [-1, lq, n_head, d_k]),
+                         perm=[0, 2, 1, 3])
+    k = layers.transpose(layers.reshape(k, [-1, lk, n_head, d_k]),
+                         perm=[0, 2, 1, 3])
+    v = layers.transpose(layers.reshape(v, [-1, lk, n_head, d_k]),
+                         perm=[0, 2, 1, 3])
+    logits = layers.matmul(layers.scale(q, scale=d_k ** -0.5), k,
+                           transpose_y=True)
+    if causal:
+        logits = layers.elementwise_add(logits, _shared_causal_bias(lq, lk))
+    if bias is not None:
+        logits = layers.elementwise_add(logits, bias)
+    weights = layers.softmax(logits)
+    if dropout:
+        weights = layers.dropout(weights, dropout_prob=dropout)
+    ctx = layers.matmul(weights, v)                      # [b, h, lq, d_k]
+    ctx = layers.reshape(layers.transpose(ctx, perm=[0, 2, 1, 3]),
+                         [-1, lq, d_model])
+    return layers.fc(ctx, d_model, num_flatten_dims=2, bias_attr=False,
+                     param_attr=ParamAttr(name=f"{prefix}_o_w"))
+
+
+def _ffn(x, d_inner, d_model, prefix):
+    h = layers.fc(x, d_inner, num_flatten_dims=2, act="relu",
+                  param_attr=ParamAttr(name=f"{prefix}_ffn1_w"))
+    return layers.fc(h, d_model, num_flatten_dims=2,
+                     param_attr=ParamAttr(name=f"{prefix}_ffn2_w"))
+
+
+def _embed(word, vocab_size, seq_len, cfg, name):
+    emb = layers.embedding(
+        word, size=[vocab_size, cfg.d_model],
+        param_attr=ParamAttr(
+            name=f"{name}_emb",
+            initializer=fluid.initializer.NormalInitializer(
+                0.0, cfg.d_model ** -0.5)))
+    emb = layers.scale(emb, scale=cfg.d_model ** 0.5)
+    pos = layers.create_parameter(
+        shape=[seq_len, cfg.d_model], dtype="float32",
+        attr=ParamAttr(name=f"{name}_pos_enc",
+                       initializer=NumpyArrayInitializer(
+                           _position_encoding(seq_len, cfg.d_model)),
+                       trainable=False))
+    out = layers.elementwise_add(emb, pos)
+    if cfg.dropout:
+        out = layers.dropout(out, dropout_prob=cfg.dropout)
+    return out
+
+
+def _padding_bias(word, seq_len):
+    """[b, len] int ids -> additive bias [b, 1, 1, len]: NEG_INF at pad(0)."""
+    zeros = layers.fill_constant_batch_size_like(
+        word, shape=[-1, seq_len], dtype="int64", value=0)
+    is_pad = layers.cast(layers.equal(word, zeros), "float32")
+    bias = layers.scale(is_pad, scale=_NEG_INF)
+    return layers.reshape(bias, [-1, 1, 1, seq_len])
+
+
+def _check_ported(cfg):
+    """The reference's other attention and layer paths are later slices
+    (ROADMAP: the flash slice, the MoE and pipeline items)."""
+    for field, what in (("flash_attention", "flash attention (the flash "
+                         "slice)"), ("ring_attention", "ring attention (the "
+                         "flash slice)"), ("stacked", "the stacked layer-"
+                         "stack ops"), ("moe_experts", "MoE feed-forward "
+                         "layers")):
+        if getattr(cfg, field, None):
+            raise NotImplementedError(
+                f"Config.{field}: {what} is not ported yet; see ROADMAP.md")
+
+
+def encoder(src_word, cfg, src_len):
+    _check_ported(cfg)
+    enc = _embed(src_word, cfg.src_vocab_size, src_len, cfg, "src")
+    src_bias = _padding_bias(src_word, src_len)
+    for i in range(cfg.n_layer):
+        attn = _multi_head_attention(
+            enc, enc, enc, src_bias, cfg.d_model, cfg.n_head, cfg.dropout,
+            prefix=f"enc{i}_self")
+        enc = _postprocess(enc, attn, cfg.dropout)
+        ff = _ffn(enc, cfg.d_inner, cfg.d_model, prefix=f"enc{i}")
+        enc = _postprocess(enc, ff, cfg.dropout)
+    return enc, src_bias
+
+
+def decoder(tgt_word, enc_out, src_bias, cfg, tgt_len):
+    _check_ported(cfg)
+    dec = _embed(tgt_word, cfg.tgt_vocab_size, tgt_len, cfg, "tgt")
+    for i in range(cfg.n_layer):
+        self_attn = _multi_head_attention(
+            dec, dec, dec, None, cfg.d_model, cfg.n_head, cfg.dropout,
+            prefix=f"dec{i}_self", causal=True)
+        dec = _postprocess(dec, self_attn, cfg.dropout)
+        cross = _multi_head_attention(
+            dec, enc_out, enc_out, src_bias, cfg.d_model, cfg.n_head,
+            cfg.dropout, prefix=f"dec{i}_cross")
+        dec = _postprocess(dec, cross, cfg.dropout)
+        ff = _ffn(dec, cfg.d_inner, cfg.d_model, prefix=f"dec{i}")
+        dec = _postprocess(dec, ff, cfg.dropout)
+    return layers.fc(dec, cfg.tgt_vocab_size, num_flatten_dims=2,
+                     param_attr=ParamAttr(name="out_proj_w"))
+
+
+def forward(cfg, src_len, tgt_len):
+    """Build data layers + logits + label-smoothed CE loss.  Returns
+    (src_word, tgt_word, lbl_word, avg_cost, logits)."""
+    src_word = layers.data(name="src_word", shape=[src_len], dtype="int64")
+    tgt_word = layers.data(name="tgt_word", shape=[tgt_len], dtype="int64")
+    lbl_word = layers.data(name="lbl_word", shape=[tgt_len, 1], dtype="int64")
+
+    enc_out, src_bias = encoder(src_word, cfg, src_len)
+    logits = decoder(tgt_word, enc_out, src_bias, cfg, tgt_len)
+
+    if cfg.label_smooth:
+        hot = layers.one_hot(lbl_word, cfg.tgt_vocab_size)
+        smooth = layers.label_smooth(hot, epsilon=cfg.label_smooth)
+        cost = layers.softmax_with_cross_entropy(logits, smooth,
+                                                 soft_label=True)
+    else:
+        cost = layers.softmax_with_cross_entropy(logits, lbl_word)
+    # mask loss at pad targets so padding doesn't dilute the objective
+    zeros = layers.fill_constant_batch_size_like(
+        lbl_word, shape=[-1, tgt_len, 1], dtype="int64", value=0)
+    non_pad = layers.cast(
+        layers.logical_not(layers.equal(lbl_word, zeros)), "float32")
+    cost = layers.elementwise_mul(cost, non_pad)
+    avg_cost = layers.elementwise_div(
+        layers.reduce_sum(cost),
+        layers.elementwise_add(layers.reduce_sum(non_pad),
+                               layers.fill_constant([1], "float32", 1e-8)))
+    return src_word, tgt_word, lbl_word, avg_cost, logits
+
+
+def build(cfg=None, src_len=64, tgt_len=64, lr=1e-3, warmup_steps=None):
+    """Full training graph with Adam.  Returns (src_word, tgt_word,
+    lbl_word, avg_cost).  The noam schedule (``warmup_steps``) is not
+    ported yet."""
+    if warmup_steps:
+        raise NotImplementedError("the noam learning-rate schedule "
+                                  "(warmup_steps) is not ported yet")
+    cfg = cfg or tiny_config()
+    src_word, tgt_word, lbl_word, avg_cost, _ = forward(cfg, src_len, tgt_len)
+    opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                               epsilon=1e-9)
+    opt.minimize(avg_cost)
+    return src_word, tgt_word, lbl_word, avg_cost
 
 
 class DecodeModel:
@@ -354,9 +552,10 @@ class DecodeModel:
 
 
 def load_reference_params(scope, arrays: Dict[str, np.ndarray], place):
-    """Carry weights across from the reference: write every ``{name:
-    ndarray}`` (as read from a ``paddle_tpu`` scope) into the port's scope
-    tensor of the same name, in place, on ``place``'s device.  Raises
+    """Carry any persistable set across from the reference (or from another
+    port scope): write every ``{name: ndarray}`` — parameters, Adam moments
+    and beta pows, the learning-rate var, decode caches — into the port's
+    scope tensor of the same name, in place, on ``place``'s device.  Raises
     KeyError for a name the scope does not hold and ValueError/TypeError on
     a shape or dtype mismatch — before writing anything."""
     from ..fluid import core

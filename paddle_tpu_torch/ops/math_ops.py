@@ -1,7 +1,8 @@
 """Dense math ops (counterpart of ``paddle_tpu/ops/math_ops.py``): mul,
-matmul, elementwise_add, scale.  Large products go to ``torch.matmul``, as
-the reference leaves them to XLA; float32 stays float32 (the port never
-turns TF32 on)."""
+matmul, the elementwise family, scale, sum, cast, equal and logical_not.
+Large products go to ``torch.matmul``, as the reference leaves them to XLA;
+float32 stays float32 (the port never turns TF32 on).  Their grads come
+from the generic grad (``registry.run_grad_generic``)."""
 
 from __future__ import annotations
 
@@ -56,10 +57,17 @@ def _bcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def elementwise_add(ctx):
-    x, y = ctx.input("X"), ctx.input("Y")
-    return {"Out": x + _bcast_y(x, y, ctx.attr("axis", -1))}
+def _elementwise(name, fn):
+    @register_op(name)
+    def _impl(ctx, _fn=fn):
+        x, y = ctx.input("X"), ctx.input("Y")
+        return {"Out": _fn(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
+    return _impl
+
+
+_elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_mul", torch.mul)
+_elementwise("elementwise_div", torch.div)
 
 
 @register_op("scale")
@@ -69,3 +77,31 @@ def scale(ctx):
     b = ctx.attr("bias", 0.0)
     out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
     return {"Out": out}
+
+
+@register_op("sum")
+def sum_op(ctx):
+    xs = [v for v in ctx.inputs_list("X") if v is not None]
+    out = xs[0]
+    for v in xs[1:]:
+        out = out + v
+    return {"Out": out}
+
+
+@register_op("cast")
+def cast(ctx):
+    from ..fluid import core as _core
+
+    return {"Out": ctx.input("X").to(_core.torch_dtype(
+        ctx.attr("out_dtype", ctx.attr("dtype", "float32"))))}
+
+
+@register_op("equal", no_grad_inputs=("X", "Y"))
+def equal(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    return {"Out": torch.eq(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
+
+
+@register_op("logical_not", no_grad_inputs=("X",))
+def logical_not(ctx):
+    return {"Out": torch.logical_not(ctx.input("X"))}
