@@ -40,7 +40,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    steps at batch 64 x length 256 on one batch: finite,
                    falling loss, and exactly 184 Adam, 2 xent-forward and 1
                    xent-backward launches a step; step time, target
-                   tokens/s and peak memory
+                   tokens/s and peak memory; then two more steps fetch the
+                   first dropout's tensors: Out = X * Mask, X@GRAD =
+                   Out@GRAD * Mask, a kept share of 1 - p and fresh masks
+                   each step, each within 5 standard errors
  8. train_parity - the same model at batch 2 x length 32, dropout 0, from
                    one initial state on the card and on the CPU (plain
                    versions): 3 steps' losses agree (rtol 1e-5 at step 0,
@@ -162,13 +165,19 @@ def paged_inputs(gen, device, s_n=SLOTS, n_pages=MAX_LEN // PAGE_SIZE,
     return q, ck, cv, pt, bias, lens
 
 
+def bound_ms(nbytes, flops):
+    """The least time on the card: bytes over the memory rate or fp32
+    operations over the fp32 rate, whichever is larger, and which."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def paged_bound_ms(q, ck, pt, bias, lens):
     """The least time for this call on the card: the bytes it must move
     (q, bias, page table and output once, and the K and V rows the finite
     bias keeps, each distinct row once) over the memory rate, or its fp32
     operations over the fp32 rate, whichever is larger."""
-    import torch
-
     s_n, _, d = q.shape
     ps = ck.shape[1]
     live_rows = set()
@@ -179,9 +188,7 @@ def paged_bound_ms(q, ck, pt, bias, lens):
     nbytes = (2 * q.numel() * 4 + bias.numel() * 4 + pt.numel() * 8
               + 2 * len(live_rows) * d * 4)
     flops = n_live * (4 * d + 4)  # q.k and p.v FMAs, exp/max/sum/divide
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_ms(nbytes, flops)
 
 
 def phase_kernel():
@@ -407,14 +414,6 @@ def phase_serving(profile_run=False):
     finally:
         eng.shutdown()
     return launches
-
-
-def bound_ms(nbytes, flops):
-    """The least time on the card: bytes over the memory rate or fp32
-    operations over the fp32 rate, whichever is larger, and which."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def xent_bound_ms(r, v, soft, backward):
@@ -653,6 +652,53 @@ def train_feed(batch, seq_len, seed=0):
             "lbl_word": rng.randint(1, VOCAB, size=(batch, seq_len, 1))}
 
 
+def check_dropout(exe, main, feed, scope, n_se=5.0):
+    """Two more training steps fetching the first dropout op's X, Out and
+    Mask and the grads of X and Out: Out = X * Mask and X@GRAD = Out@GRAD *
+    Mask exactly, the mask holds only 0 and its keep value, its kept share
+    is within ``n_se`` standard errors of 1 - p, and the two steps' masks
+    differ in a share within ``n_se`` standard errors of 2p(1 - p), as
+    independent draws do."""
+    import numpy as np
+
+    op = next(o for o in main.global_block().ops if o.type == "dropout")
+    p = float(op.attr("dropout_prob"))
+    keep = (1.0 / (1.0 - p) if op.attr("dropout_implementation")
+            == "upscale_in_train" else 1.0)
+    x_name, out_name = op.input("X")[0], op.output("Out")[0]
+    names = [x_name, out_name, op.output("Mask")[0], x_name + "@GRAD",
+             out_name + "@GRAD"]
+    kept, masks = [], []
+    for _ in range(2):
+        x, out, mask, dx, dout = exe.run(main, feed=feed, fetch_list=names,
+                                         scope=scope)
+        if not np.array_equal(out, x * mask):
+            raise AssertionError("dropout Out is not X * Mask")
+        if not np.array_equal(dx, dout * mask):
+            raise AssertionError("dropout_grad is not Out@GRAD * Mask")
+        if not np.isin(mask, (0.0, keep)).all():
+            raise AssertionError(f"dropout Mask holds values other than 0 "
+                                 f"and {keep}")
+        kept.append(float((mask != 0).mean()))
+        masks.append(mask != 0)
+    n = masks[0].size
+    kept_se = (p * (1 - p) / n) ** 0.5
+    q = 2 * p * (1 - p)
+    differ = float((masks[0] != masks[1]).mean())
+    differ_se = (q * (1 - q) / n) ** 0.5
+    if not all(abs(k - (1 - p)) <= n_se * kept_se for k in kept):
+        raise AssertionError(f"dropout kept shares {kept}, expected {1 - p} "
+                             f"within {n_se} x {kept_se}")
+    if not abs(differ - q) <= n_se * differ_se:
+        raise AssertionError(f"successive dropout masks differ in {differ} "
+                             f"of places, expected {q} within {n_se} x "
+                             f"{differ_se}")
+    return {"op_input": x_name, "values": n, "dropout_prob": p,
+            "kept_shares": kept, "kept_se": kept_se,
+            "masks_differ_share": differ, "differ_se": differ_se,
+            "out_is_x_times_mask": True, "grad_is_dout_times_mask": True}
+
+
 def phase_train(progs, profile_run=False):
     """The training main path on the card; returns the kernels' launch
     counts over its steps."""
@@ -696,12 +742,14 @@ def phase_train(progs, profile_run=False):
         raise AssertionError(f"training loss did not fall: {losses}")
     steady = step_ms[1:]
     tokens = TRAIN_BATCH * TRAIN_LEN
+    peak = torch.cuda.max_memory_allocated()
     emit("train", model="transformer_base", batch=TRAIN_BATCH,
          seq_len=TRAIN_LEN, steps=TRAIN_STEPS, losses=losses,
          launches=counts, startup_s=startup_s, step_ms=step_ms,
          steady_step_ms=sum(steady) / len(steady),
          target_tokens_per_s=tokens * len(steady) / (sum(steady) / 1e3),
-         max_memory_allocated=torch.cuda.max_memory_allocated())
+         max_memory_allocated=peak,
+         dropout=check_dropout(exe, main, feed, scope))
     if profile_run:
         from torch.profiler import ProfilerActivity, profile
 

@@ -1,33 +1,14 @@
 """Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``):
-the hooks ``Optimizer.minimize`` calls.  ``ErrorClipByValue`` builds (its
-``clip`` op is not registered yet); the gradient-clip attrs
-(``GradientClipByValue``, ``ByNorm``, ``ByGlobalNorm``) and the AMP
-``append_unscale_ops`` are not ported yet."""
+the hooks ``Optimizer.minimize`` calls.  Error clipping (its ``clip`` op),
+the gradient-clip attrs (``GradientClipByValue``, ``ByNorm``,
+``ByGlobalNorm``) and the AMP ``append_unscale_ops`` are not ported yet."""
 
 from __future__ import annotations
 
-from .framework import OpRole, default_main_program
+from .framework import default_main_program
 
-__all__ = ["ErrorClipByValue", "append_gradient_clip_ops",
-           "error_clip_callback", "set_gradient_clip"]
-
-
-class BaseErrorClipAttr:
-    def _append_clip_op(self, block, grad_name):
-        raise NotImplementedError
-
-
-class ErrorClipByValue(BaseErrorClipAttr):
-    def __init__(self, max, min=None):
-        max = float(max)
-        self.max = max
-        self.min = float(min) if min is not None else -max
-
-    def _append_clip_op(self, block, grad_name):
-        block.append_op(type="clip", inputs={"X": [grad_name]},
-                        outputs={"Out": [grad_name]},
-                        attrs={"min": self.min, "max": self.max,
-                               OpRole.KEY: OpRole.Backward})
+__all__ = ["append_gradient_clip_ops", "error_clip_callback",
+           "set_gradient_clip"]
 
 
 def error_clip_callback(block, context):
@@ -39,9 +20,10 @@ def error_clip_callback(block, context):
         if not block._has_var_recursive(fwd_var_name):
             continue
         fwd_var = block._var_recursive(fwd_var_name)
-        error_clip = getattr(fwd_var, "error_clip", None)
-        if error_clip is not None:
-            error_clip._append_clip_op(block, grad_n)
+        if getattr(fwd_var, "error_clip", None) is not None:
+            raise NotImplementedError(
+                f"{fwd_var_name}.error_clip: error clipping (the clip op) is "
+                f"not ported yet; see ROADMAP.md")
 
 
 class BaseGradientClipAttr:

@@ -25,15 +25,16 @@ _NEG_INF = -1e9
 
 
 class Config:
-    """The reference's fields.  ``flash_attention`` None (auto) resolves to
-    off in the port; True, ``ring_attention``, ``stacked`` and
-    ``moe_experts`` are not ported yet (the builders raise)."""
+    """The reference's fields that the port's builders read.
+    ``flash_attention`` None (auto) resolves to off in the port; True,
+    ``ring_attention``, ``stacked`` and ``moe_experts`` are not ported yet
+    (the builders raise).  The MoE routing, pipeline and recompute fields
+    come with their slices."""
 
     def __init__(self, name, src_vocab_size, tgt_vocab_size, d_model,
                  d_inner, n_head, n_layer, dropout=0.1, label_smooth=0.1,
-                 moe_experts=0, moe_top_k=2, moe_aux_weight=1e-2,
-                 stacked=False, ring_attention=False, n_microbatches=4,
-                 recompute=False, flash_attention=None):
+                 moe_experts=0, stacked=False, ring_attention=False,
+                 flash_attention=None):
         self.name = name
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
@@ -44,13 +45,9 @@ class Config:
         self.dropout = dropout
         self.label_smooth = label_smooth
         self.moe_experts = moe_experts
-        self.moe_top_k = moe_top_k
-        self.moe_aux_weight = moe_aux_weight
         self.stacked = stacked
         self.ring_attention = ring_attention
         self.flash_attention = flash_attention
-        self.n_microbatches = n_microbatches
-        self.recompute = recompute
 
 
 def base_config():

@@ -108,6 +108,22 @@ def test_unported_paths_raise(field, value):
         port_tm.build(cfg, src_len=L, tgt_len=L)
 
 
+def test_config_takes_no_unported_fields():
+    # recompute would otherwise be accepted and ignored
+    with pytest.raises(TypeError):
+        port_tm.Config("x", 10, 10, 8, 16, 2, 1, recompute=True)
+
+
+def test_error_clip_raises_until_ported():
+    with tf.program_guard(tf.Program(), tf.Program()):
+        x = tf.layers.data("x", shape=[4], dtype="float32")
+        h = tf.layers.fc(x, 3)
+        h.error_clip = object()
+        loss = tf.layers.reduce_sum(h)
+        with pytest.raises(NotImplementedError, match="error_clip"):
+            tf.optimizer.Adam(1e-3).minimize(loss)
+
+
 # -- per-op gradients ---------------------------------------------------------
 
 def _rand(*shape, seed=0):
