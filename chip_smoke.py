@@ -4,7 +4,8 @@ card: builds every CUDA kernel from the sources in this checkout, holds
 each against its plain PyTorch version at the shapes the port's paths give
 it, then serves a Transformer-base-width paged decode LM through the
 continuous-batching ``DecodeEngine`` and trains Transformer-base through
-``fluid.Executor``, and checks both.
+``fluid.Executor``, with unfused attention and through the flash kernels,
+and checks all three.
 
     python3 chip_smoke.py
 
@@ -28,13 +29,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    the training slice's 184 parameter shapes; the step's
                    kernel, plain, library (torch.optim.Adam fused) and
                    bound times
- 6. serving      - 16 requests (two sharing a 32-token prefix) through a
+ 6. kernel_flash - the flash forward, dQ and dK/dV kernels vs their plain
+                   versions at the training path's shape (B = 64, H = 8,
+                   T = 256, D = 64): non-causal with a ragged padding bias,
+                   causal, and Tq = 100 / Tk = 77 causal with a bias;
+                   bitwise repeatability; kernel, plain, bound and SDPA
+                   times (forward, and forward + backward under autograd)
+ 7. serving      - 16 requests (two sharing a 32-token prefix) through a
                    6-layer d_model 512 / d_inner 2048 / vocab 30000 paged
                    decode model with random weights from a seed: every
                    stream equals ``decode_static`` of it alone bitwise, the
                    kernel ran n_layer times per decode tick, prefix pages
                    were shared and every page came back
- 7. train        - Transformer-base (6+6 layers, d_model 512, vocab 30000,
+ 8. train        - Transformer-base (6+6 layers, d_model 512, vocab 30000,
                    dropout and label smoothing 0.1, Adam, fp32, unfused
                    attention) through ``fluid.Executor()`` on the card, 5
                    steps at batch 64 x length 256 on one batch: finite,
@@ -44,13 +51,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    first dropout's tensors: Out = X * Mask, X@GRAD =
                    Out@GRAD * Mask, a kept share of 1 - p and fresh masks
                    each step, each within 5 standard errors
- 8. train_parity - the same model at batch 2 x length 32, dropout 0, from
+ 9. train_parity - the same model at batch 2 x length 32, dropout 0, from
                    one initial state on the card and on the CPU (plain
                    versions): 3 steps' losses agree (rtol 1e-5 at step 0,
                    1e-4 after)
+10. train_flash  - the model of phase 8 with ``flash_attention=True``: its
+                   18 attention ops run the flash kernels; 5 steps, finite
+                   falling loss, exactly 36 forward, 18 dQ and 18 dK/dV
+                   flash launches a step besides 184 / 2 / 1; step time,
+                   target tokens/s and peak memory beside phase 8's
+11. train_flash_parity - batch 2 x length 32, dropout 0, one initial
+                   state: the flash build on the card against the same on
+                   the CPU (rtol 1e-5 at step 0, 1e-4 after) and against
+                   the unfused build on the card (rtol 2e-4)
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
-busy) and one after training (one more step), each under
+busy) and one after each training phase (one more step), each under
 ``torch.profiler``; each prints the device's busy share of the wall time
 and the kernels that take the most device time.
 
@@ -83,6 +99,18 @@ ADAM_TOL = 1e-6
 # parameter; the xent forward once in the op and once more when its
 # generic grad re-runs it, the backward once
 ADAM_PER_STEP, XENT_FWD_PER_STEP, XENT_BWD_PER_STEP = 184, 2, 1
+# flash attention on the training path: 8 heads of width 64; 18
+# ring_attention ops a step (6 encoder self, 6 decoder self with causal, 6
+# cross), each launching the forward in the op and again in its generic
+# grad, and dQ and dK/dV once
+FLASH_HEADS, FLASH_D, FLASH_OPS = 8, 64, 18
+FLASH_FWD_PER_STEP = 2 * FLASH_OPS
+FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
+# kernel vs plain version, (atol, rtol): float32 on both sides, fp32 FMA
+# sums; only their order differs (the forward's online softmax over 64-key
+# tiles against the plain whole-row softmax), worth a few ulps of values
+# of order 1-10 (out ~0.1, lse ~6, gradients up to ~10)
+FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
 
 
 def emit(phase, **fields):
@@ -133,8 +161,11 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in _build.build_logs.get(n, "")
-                 .splitlines() if "registers" in ln or "smem" in ln]
+    # per kernel: its (mangled) entry name, registers and spills
+    ptxas = {n: [ln.strip().replace("ptxas info    : ", "")
+                 for ln in _build.build_logs.get(n, "").splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
              for n in names}
     emit("build", kernels=names, seconds=secs, ptxas=ptxas)
 
@@ -622,16 +653,213 @@ def phase_kernel_adam(shapes):
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def build_training(batch_len, dropout=None):
-    """Transformer-base as the training slice builds it (unfused attention;
-    the config's dropout unless given): (main, startup, avg_cost)."""
+def flash_case_inputs(gen, device, t_q, t_k, padded):
+    """q, k, v, dO ``[64, 8, T, 64]`` and, if ``padded``, the model's
+    key-padding bias ``[64, 1, 1, Tk]``: -1e9 past a ragged length per
+    batch row (the first row unpadded, the others Tk/2..Tk keys).  Returns
+    the tensors and the key lengths."""
+    import torch
+
+    b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
+
+    def rnd(t):
+        return torch.randn(b, h, t, d, generator=gen, device=device)
+
+    q, k, v, do = rnd(t_q), rnd(t_k), rnd(t_k), rnd(t_q)
+    lens = torch.full((b,), t_k, dtype=torch.int64, device=device)
+    bias = None
+    if padded:
+        lens = torch.randint(t_k // 2, t_k + 1, (b,), generator=gen,
+                             device=device)
+        lens[0] = t_k
+        keys = torch.arange(t_k, device=device)[None, :]
+        bias = torch.where(keys < lens[:, None], 0.0, -1e9).to(
+            torch.float32).reshape(b, 1, 1, t_k)
+    return q, k, v, do, bias, lens
+
+
+def flash_live_pairs(t_q, lens, causal):
+    """(query, key) pairs of one head whose weight can be nonzero: keys
+    before each batch row's length, and at or before the query if causal."""
+    total = 0
+    for n in lens.tolist():
+        if causal:
+            total += sum(min(i + 1, n) for i in range(t_q))
+        else:
+            total += t_q * n
+    return total
+
+
+def flash_bound_ms(t_q, t_k, lens, causal, kind):
+    """The least time of one flash kernel call: its products' 2 flops a
+    multiply-add (D of them per product per live pair: 2 products forward,
+    3 in dQ, 4 in dK/dV) plus 4 for the softmax arithmetic of a live pair,
+    over the fp32 rate; or each input read once and each output written
+    once over the memory rate, whichever is larger."""
+    b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
+    pairs = h * flash_live_pairs(t_q, lens, causal)
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = pairs * (2 * products * d + 4)
+    q_bytes, kv_bytes, rows = b * h * t_q * d * 4, b * h * t_k * d * 4, \
+        b * h * t_q * 4
+    bias_bytes = b * t_k * 4
+    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + rows + bias_bytes,
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows + bias_bytes,
+              "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows + bias_bytes}[kind]
+    return bound_ms(nbytes, flops)
+
+
+def _check_close(what, name, got, want):
+    """Max abs and rel error of a flash kernel's output against its plain
+    version; raises beyond ``FLASH_TOL[name]`` or on a non-finite value."""
+    atol, rtol = FLASH_TOL[name]
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"flash {what}: {name} is not finite")
+    if not bool((got - want).abs().le(atol + rtol * want.abs()).all()):
+        raise AssertionError(
+            f"flash {what}: {name} disagrees with the plain version: max "
+            f"abs/rel err {_max_errs(got, want)} (atol {atol}, rtol {rtol})")
+    return _max_errs(got, want)
+
+
+def phase_kernel_flash():
+    """The flash forward, dQ and dK/dV kernels against their plain versions
+    at the training path's shapes (B = 64, H = 8, D = 64, float32) in three
+    cases: non-causal with a ragged padding bias, causal with none, and a
+    ragged causal case with a bias (Tq = 100, Tk = 77); two launches
+    bitwise equal; kernel, plain, bound and SDPA times for the first two."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(3)
+    scale = FLASH_D ** -0.5
+    cases = (("padding", TRAIN_LEN, TRAIN_LEN, False, True),
+             ("causal", TRAIN_LEN, TRAIN_LEN, True, False),
+             ("ragged", 100, 77, True, True))
+    report, worst = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, t_q, t_k, causal, padded in cases:
+        q, k, v, do, bias, lens = flash_case_inputs(gen, device, t_q, t_k,
+                                                    padded)
+        what = f"{name} case"
+        out, lse = fa.flash_forward(q, k, v, bias, scale, causal)
+        out2, lse2 = fa.flash_forward(q, k, v, bias, scale, causal)
+        delta = (do * out).sum(-1, keepdim=True)
+        dq = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
+        dq2 = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
+        dk, dv = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
+        dk2, dv2 = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        for a, b_, n in ((out, out2, "out"), (lse, lse2, "lse"),
+                         (dq, dq2, "dq"), (dk, dk2, "dk"), (dv, dv2, "dv")):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"flash {what}: two launches give "
+                                     f"different {n}")
+        r_out, r_lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
+        r_dq = fa.flash_dq_ref(q, k, v, bias, do, lse, delta, scale, causal)
+        r_dk, r_dv = fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale,
+                                      causal)
+        pairs = (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
+                 ("dk", dk, r_dk), ("dv", dv, r_dv))
+        errs = {n: _check_close(what, n, g, w) for n, g, w in pairs}
+        ref_max = {n: float(w.abs().max()) for n, _, w in pairs}
+        worst["fwd"] = max(worst["fwd"], errs["out"][0], errs["lse"][0])
+        worst["dq"] = max(worst["dq"], errs["dq"][0])
+        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        entry = {"t_q": t_q, "t_k": t_k, "causal": causal,
+                 "padded_keys": int(t_k * TRAIN_BATCH - lens.sum()),
+                 "max_abs_rel_err": errs, "plain_max_abs": ref_max,
+                 "bitwise_repeat": True}
+        del r_out, r_lse, r_dq, r_dk, r_dv, out2, lse2, dq2, dk2, dv2
+        if name != "ragged":
+            entry.update(_time_flash(q, k, v, do, bias, lse, delta, scale,
+                                     causal, lens))
+        report[name] = entry
+        del q, k, v, do, out, lse, dq, dk, dv
+        torch.cuda.empty_cache()
+    emit("kernel_flash", batch=TRAIN_BATCH, heads=FLASH_HEADS, d=FLASH_D,
+         tolerance={n: {"atol": a, "rtol": r} for n, (a, r)
+                    in FLASH_TOL.items()}, **report)
+    # the kernels line: the padding case, as 12 of the step's 18 ops run it
+    main = report["padding"]
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    rows = []
+    for kind, line in (("fwd", 280), ("dq", 328), ("dkv", 349)):
+        rows.append({"name": f"flash_{kind}", "route": "cuda", "source": src,
+                     "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
+                     "max_abs_err": worst[kind], "ms": main[f"{kind}_ms"],
+                     "plain_ms": main[f"{kind}_plain_ms"],
+                     "bound_ms": main[f"{kind}_bound_ms"],
+                     "bound_by": main[f"{kind}_bound_by"],
+                     "library_ms": main["fwd_library_ms"] if kind == "fwd"
+                     else None})
+    return rows
+
+
+def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
+    """Kernel, plain, bound and library times of the three kernels on one
+    case, and of a forward + backward pair under autograd."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t_q, t_k = q.shape[2], k.shape[2]
+    times = {}
+    for kind, kern, plain, iters in (
+            ("fwd", lambda: fa.flash_forward(q, k, v, bias, scale, causal),
+             lambda: fa.flash_forward_ref(q, k, v, bias, scale, causal), 50),
+            ("dq", lambda: fa.flash_dq(q, k, v, bias, do, lse, delta, scale,
+                                       causal),
+             lambda: fa.flash_dq_ref(q, k, v, bias, do, lse, delta, scale,
+                                     causal), 50),
+            ("dkv", lambda: fa.flash_dkv(q, k, v, bias, do, lse, delta,
+                                         scale, causal),
+             lambda: fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale,
+                                      causal), 50)):
+        times[f"{kind}_ms"] = cuda_time_ms(kern, iters)
+        times[f"{kind}_plain_ms"] = cuda_time_ms(plain, 10)
+        bound, by = flash_bound_ms(t_q, t_k, lens, causal, kind)
+        times[f"{kind}_bound_ms"], times[f"{kind}_bound_by"] = bound, by
+
+    # the library yardstick, timed only: SDPA on the same fp32 inputs
+    def sdpa(a, b_, c):
+        if causal:
+            return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                                  scale=scale)
+        return F.scaled_dot_product_attention(a, b_, c, attn_mask=bias,
+                                              scale=scale)
+
+    times["fwd_library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v), 50)
+    times["library_max_abs_err"] = float(
+        (sdpa(q, k, v) - fa.flash_forward(q, k, v, bias, scale, causal)[0])
+        .abs().max())
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def kernel_pair():
+        out = fa.FlashAttention.apply(*leaves, bias, scale, causal)
+        return torch.autograd.grad(out, leaves, do)
+
+    def library_pair():
+        return torch.autograd.grad(sdpa(*leaves), leaves, do)
+
+    times["fwd_bwd_pair_ms"] = cuda_time_ms(kernel_pair, 20)
+    times["library_fwd_bwd_pair_ms"] = cuda_time_ms(library_pair, 20)
+    return times
+
+
+def build_training(batch_len, dropout=None, flash=False):
+    """Transformer-base as the training slice builds it (unfused attention,
+    or every attention through the flash kernels with ``flash``; the
+    config's dropout unless given): (main, startup, avg_cost)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.fluid import framework
     from paddle_tpu_torch.models import transformer
 
     framework.fresh_session()
     cfg = transformer.base_config()
-    cfg.flash_attention = False
+    cfg.flash_attention = flash
     if dropout is not None:
         cfg.dropout = dropout
     main, startup = fluid.Program(), fluid.Program()
@@ -699,16 +927,40 @@ def check_dropout(exe, main, feed, scope, n_se=5.0):
             "out_is_x_times_mask": True, "grad_is_dout_times_mask": True}
 
 
-def phase_train(progs, profile_run=False):
-    """The training main path on the card; returns the kernels' launch
-    counts over its steps."""
+def launch_counts():
+    """Every kernel's launch count on the training path, by name."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused
+
+    return {"softmax_xent_fwd": fused.xent_fwd_launches,
+            "softmax_xent_bwd": fused.xent_bwd_launches,
+            "adam": fused.adam_launches,
+            "flash_fwd": fa.flash_fwd_launches,
+            "flash_dq": fa.flash_dq_launches,
+            "flash_dkv": fa.flash_dkv_launches}
+
+
+def reset_launch_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused
+
+    fused.xent_fwd_launches = fused.xent_bwd_launches = 0
+    fused.adam_launches = 0
+    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+
+
+def phase_train(progs, profile_run=False, flash=False, unfused=None):
+    """The training main path on the card (unfused attention, or the flash
+    kernels with ``flash``); returns the kernels' launch counts over its
+    steps and the step's numbers.  ``unfused``: the unfused run's numbers,
+    printed beside the flash run's."""
     import math
 
     import torch
 
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.ops import fused
 
+    phase = "train_flash" if flash else "train"
     main, startup, cost = progs
     exe = fluid.Executor()  # the default place: the card
     scope = fluid.Scope()
@@ -718,8 +970,7 @@ def phase_train(progs, profile_run=False):
     startup_s = time.perf_counter() - t0
     feed = train_feed(TRAIN_BATCH, TRAIN_LEN)
     torch.cuda.reset_peak_memory_stats()
-    fused.xent_fwd_launches = fused.xent_bwd_launches = 0
-    fused.adam_launches = 0
+    reset_launch_counts()
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -727,12 +978,13 @@ def phase_train(progs, profile_run=False):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss.reshape(-1)[0]))
-    counts = {"softmax_xent_fwd": fused.xent_fwd_launches,
-              "softmax_xent_bwd": fused.xent_bwd_launches,
-              "adam": fused.adam_launches}
-    want = {"softmax_xent_fwd": XENT_FWD_PER_STEP * TRAIN_STEPS,
-            "softmax_xent_bwd": XENT_BWD_PER_STEP * TRAIN_STEPS,
-            "adam": ADAM_PER_STEP * TRAIN_STEPS}
+    counts = launch_counts()
+    per_step = {"softmax_xent_fwd": XENT_FWD_PER_STEP,
+                "softmax_xent_bwd": XENT_BWD_PER_STEP, "adam": ADAM_PER_STEP,
+                "flash_fwd": FLASH_FWD_PER_STEP if flash else 0,
+                "flash_dq": FLASH_DQ_PER_STEP if flash else 0,
+                "flash_dkv": FLASH_DKV_PER_STEP if flash else 0}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
                              f"steps: {counts}, expected {want}")
@@ -742,14 +994,16 @@ def phase_train(progs, profile_run=False):
         raise AssertionError(f"training loss did not fall: {losses}")
     steady = step_ms[1:]
     tokens = TRAIN_BATCH * TRAIN_LEN
-    peak = torch.cuda.max_memory_allocated()
-    emit("train", model="transformer_base", batch=TRAIN_BATCH,
+    stats = {"steady_step_ms": sum(steady) / len(steady),
+             "target_tokens_per_s": tokens * len(steady) / (sum(steady)
+                                                            / 1e3),
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    extra = ({"unfused": unfused} if flash
+             else {"dropout": check_dropout(exe, main, feed, scope)})
+    emit(phase, model="transformer_base", batch=TRAIN_BATCH,
          seq_len=TRAIN_LEN, steps=TRAIN_STEPS, losses=losses,
-         launches=counts, startup_s=startup_s, step_ms=step_ms,
-         steady_step_ms=sum(steady) / len(steady),
-         target_tokens_per_s=tokens * len(steady) / (sum(steady) / 1e3),
-         max_memory_allocated=peak,
-         dropout=check_dropout(exe, main, feed, scope))
+         launches=counts, startup_s=startup_s, step_ms=step_ms, **stats,
+         **extra)
     if profile_run:
         from torch.profiler import ProfilerActivity, profile
 
@@ -760,10 +1014,10 @@ def phase_train(progs, profile_run=False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy_s, n_events, top = trace_summary(prof)
-        emit("train_profile", wall_s=wall, device_busy_s=busy_s,
+        emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
              device_busy_share=busy_s / wall, device_events=n_events,
              top_kernels=top)
-    return counts
+    return counts, stats
 
 
 def phase_train_parity():
@@ -805,6 +1059,65 @@ def phase_train_parity():
          torch_threads=torch.get_num_threads())
 
 
+def phase_train_flash_parity():
+    """One initial state, 3 steps of the flash build on the card, the
+    flash build on the CPU (the plain versions) and the unfused build on
+    the card: flash on the card agrees with the CPU (rtol 1e-5 at step 0,
+    1e-4 after) and with the unfused build (rtol 2e-4, the reference's
+    own flash-vs-softmax tolerance, ``tests/test_pallas_flash.py``).  At
+    length 32 every tile is ragged."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.transformer import load_reference_params
+
+    batch, seq_len = 2, 32
+    flash = build_training(seq_len, dropout=0.0, flash=True)
+    unfused = build_training(seq_len, dropout=0.0)
+    feed = train_feed(batch, seq_len, seed=2)
+    feed["src_word"][1, -5:] = 0  # padded source keys: the bias path
+    runs = []
+    for (main, startup, cost), place in ((flash, fluid.CPUPlace()),
+                                         (flash, fluid.CUDAPlace(0)),
+                                         (unfused, fluid.CUDAPlace(0))):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append((exe, scope, main, cost, place))
+    init = {v.name: runs[0][1].get(v.name).numpy()
+            for v in flash[1].list_vars() if v.persistable}
+    names = {v.name for v in unfused[1].list_vars() if v.persistable}
+    if names != set(init):
+        raise AssertionError(f"flash and unfused builds hold different "
+                             f"state: {sorted(names ^ set(init))}")
+    for _, scope, _, _, place in runs[1:]:
+        load_reference_params(scope, init, place)
+    reset_launch_counts()
+    losses = np.array([[float(exe.run(main, feed=feed, fetch_list=[cost],
+                                      scope=scope)[0].reshape(-1)[0])
+                        for _ in range(3)]
+                       for exe, scope, main, cost, _ in runs])
+    cpu, card, card_unfused = losses
+    counts = launch_counts()
+    if counts["flash_fwd"] != 3 * FLASH_FWD_PER_STEP:
+        raise AssertionError(f"the card's flash run launched {counts}")
+    rel_cpu = np.abs(card - cpu) / np.abs(cpu)
+    rel_unfused = np.abs(card - card_unfused) / np.abs(card_unfused)
+    tol_cpu, tol_unfused = np.array([1e-5, 1e-4, 1e-4]), 2e-4
+    if not (np.isfinite(card).all() and (rel_cpu <= tol_cpu).all()
+            and (rel_unfused <= tol_unfused).all()):
+        raise AssertionError(
+            f"flash training losses disagree: card {card.tolist()}, CPU "
+            f"{cpu.tolist()} (rel {rel_cpu.tolist()}, tolerance "
+            f"{tol_cpu.tolist()}), unfused card {card_unfused.tolist()} "
+            f"(rel {rel_unfused.tolist()}, tolerance {tol_unfused})")
+    emit("train_flash_parity", batch=batch, seq_len=seq_len,
+         card_losses=card.tolist(), cpu_losses=cpu.tolist(),
+         unfused_card_losses=card_unfused.tolist(),
+         rel_err_cpu=rel_cpu.tolist(), rtol_cpu=tol_cpu.tolist(),
+         rel_err_unfused=rel_unfused.tolist(), rtol_unfused=tol_unfused,
+         launches=counts)
+
+
 def main():
     import argparse
 
@@ -831,13 +1144,22 @@ def main():
         [tuple(p.shape) for p in progs[0].global_block().all_parameters()
          if p.trainable])
     torch.cuda.empty_cache()
+    flash = phase_kernel_flash()
+    torch.cuda.empty_cache()
     paged["launches"] = phase_serving(args.profile)
-    counts = phase_train(progs, args.profile)
+    counts, unfused = phase_train(progs, args.profile)
     for k in (xent_fwd, xent_bwd, adam):
         k["launches"] = counts[k["name"]]
     torch.cuda.empty_cache()
     phase_train_parity()
-    print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam]}))
+    torch.cuda.empty_cache()
+    counts, _ = phase_train(build_training(TRAIN_LEN, flash=True),
+                            args.profile, flash=True, unfused=unfused)
+    for k in flash:
+        k["launches"] = counts[k["name"]]
+    torch.cuda.empty_cache()
+    phase_train_flash_parity()
+    print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

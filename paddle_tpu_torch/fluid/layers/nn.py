@@ -14,8 +14,8 @@ __all__ = [
     "fc", "embedding", "layer_norm", "dropout", "softmax",
     "softmax_with_cross_entropy", "mul", "matmul", "elementwise_add",
     "elementwise_mul", "elementwise_div", "scale", "reduce_sum", "reshape",
-    "transpose", "one_hot", "label_smooth", "kv_cache_update",
-    "paged_attention", "token_select",
+    "transpose", "one_hot", "label_smooth", "ring_attention",
+    "kv_cache_update", "paged_attention", "token_select",
 ]
 
 
@@ -270,6 +270,30 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
     if prior_dist is not None:
         smoothed = elementwise_add(smoothed, scale(prior_dist, scale=epsilon))
     return smoothed
+
+
+def ring_attention(q, k, v, causal=False, scale=None, sp_axis="sp",
+                   bias=None, flash=None, name=None):
+    """Fused attention over q, k, v ``[B, H, T, D]`` (ops/attention_ops.py):
+    single-device the executor runs the flash kernels
+    (ops/flash_attention.py) or the plain full-softmax attention; the
+    sequence-parallel ring over an ``sp`` axis comes with the multi-GPU
+    slice.  ``bias``, if given, is an additive ``[B, 1, 1, T]`` key bias
+    (padding mask).  ``flash``: True forces the flash kernels, False
+    forbids them, None (default) = auto (on for CUDA tensors)."""
+    helper = LayerHelper("ring_attention", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype("q"))
+    out.shape = tuple(q.shape)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    helper.append_op(
+        type="ring_attention", inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"causal": causal, "scale": float(scale or 0.0),
+               "sp_axis": sp_axis,
+               "flash": -1 if flash is None else int(bool(flash))})
+    return out
 
 
 def paged_attention(q, cache_k, cache_v, page_table, bias, scale=1.0,

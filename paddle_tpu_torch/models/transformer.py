@@ -4,9 +4,13 @@ LM the continuous-batching engine drives token by token (``DecodeModel``).
 The builders are the reference's, call for call, so both packages build
 the same Programs.
 
-Training runs the unfused attention chain (matmul -> softmax -> matmul).
-Flash attention, ring attention, the stacked layer-stack ops and MoE
-feed-forward layers are not ported yet and raise ``NotImplementedError``.
+Attention in training is the unfused chain (matmul -> softmax -> dropout
+-> matmul) or, with ``flash_attention`` or ``ring_attention`` set, the
+``ring_attention`` op, which runs the flash kernels
+(``ops/flash_attention.py``) single-device; attention-probability dropout
+is skipped on that path, as in the reference.  The stacked layer-stack ops
+and MoE feed-forward layers are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +30,15 @@ _NEG_INF = -1e9
 
 class Config:
     """The reference's fields that the port's builders read.
-    ``flash_attention`` None (auto) resolves to off in the port; True,
-    ``ring_attention``, ``stacked`` and ``moe_experts`` are not ported yet
-    (the builders raise).  The MoE routing, pipeline and recompute fields
-    come with their slices."""
+    ``flash_attention``: True routes every attention through the
+    ``ring_attention`` op and its flash kernels, False forbids them, None =
+    auto (on when torch sees a CUDA device when the model is built).
+    ``ring_attention`` routes through the same op (single-device it is the
+    flash kernels on CUDA tensors, full attention on CPU ones; the sp ring
+    comes with the multi-GPU slice).  Attention-probability dropout is
+    skipped on the op's path.  ``stacked`` and ``moe_experts`` are not
+    ported yet (the builders raise); the MoE routing, pipeline and
+    recompute fields come with their slices."""
 
     def __init__(self, name, src_vocab_size, tgt_vocab_size, d_model,
                  d_inner, n_head, n_layer, dropout=0.1, label_smooth=0.1,
@@ -104,11 +113,18 @@ def _postprocess(prev, out, dropout):
 
 
 def _multi_head_attention(q_in, k_in, v_in, bias, d_model, n_head,
-                          dropout, prefix, causal=False):
+                          dropout, prefix, causal=False, use_ring=False,
+                          flash=None):
     """[b, lq, d] x [b, lk, d] -> [b, lq, d]; bias broadcasts into the
     [b, h, lq, lk] logits (None, [lq, lk] causal, or [b, 1, 1, lk]
-    padding).  The unfused chain: scaled q.k^T, biases, softmax, dropout
-    on the probabilities, times v."""
+    padding).
+
+    ``use_ring`` or ``flash`` (or ``flash`` None with
+    ``_flash_decision()`` on) routes through ``layers.ring_attention``:
+    the causal mask becomes the op's ``causal`` flag, ``bias`` must be a
+    key-padding bias ([b, 1, 1, lk]) or None, and attention-probability
+    dropout is skipped.  Otherwise the unfused chain: scaled q.k^T,
+    biases, softmax, dropout on the probabilities, times v."""
     lq, lk = q_in.shape[1], k_in.shape[1]
     d_k = d_model // n_head
     q = layers.fc(q_in, d_model, num_flatten_dims=2, bias_attr=False,
@@ -124,16 +140,23 @@ def _multi_head_attention(q_in, k_in, v_in, bias, d_model, n_head,
                          perm=[0, 2, 1, 3])
     v = layers.transpose(layers.reshape(v, [-1, lk, n_head, d_k]),
                          perm=[0, 2, 1, 3])
-    logits = layers.matmul(layers.scale(q, scale=d_k ** -0.5), k,
-                           transpose_y=True)
-    if causal:
-        logits = layers.elementwise_add(logits, _shared_causal_bias(lq, lk))
-    if bias is not None:
-        logits = layers.elementwise_add(logits, bias)
-    weights = layers.softmax(logits)
-    if dropout:
-        weights = layers.dropout(weights, dropout_prob=dropout)
-    ctx = layers.matmul(weights, v)                      # [b, h, lq, d_k]
+    from ..ops.attention_ops import _flash_decision
+    if use_ring or flash or (flash is None and _flash_decision()):
+        ctx = layers.ring_attention(q, k, v, causal=causal,
+                                    scale=d_k ** -0.5, bias=bias,
+                                    flash=flash)
+    else:
+        logits = layers.matmul(layers.scale(q, scale=d_k ** -0.5), k,
+                               transpose_y=True)
+        if causal:
+            logits = layers.elementwise_add(logits,
+                                            _shared_causal_bias(lq, lk))
+        if bias is not None:
+            logits = layers.elementwise_add(logits, bias)
+        weights = layers.softmax(logits)
+        if dropout:
+            weights = layers.dropout(weights, dropout_prob=dropout)
+        ctx = layers.matmul(weights, v)                  # [b, h, lq, d_k]
     ctx = layers.reshape(layers.transpose(ctx, perm=[0, 2, 1, 3]),
                          [-1, lq, d_model])
     return layers.fc(ctx, d_model, num_flatten_dims=2, bias_attr=False,
@@ -177,13 +200,10 @@ def _padding_bias(word, seq_len):
 
 
 def _check_ported(cfg):
-    """The reference's other attention and layer paths are later slices
-    (ROADMAP: the flash slice, the MoE and pipeline items)."""
-    for field, what in (("flash_attention", "flash attention (the flash "
-                         "slice)"), ("ring_attention", "ring attention (the "
-                         "flash slice)"), ("stacked", "the stacked layer-"
-                         "stack ops"), ("moe_experts", "MoE feed-forward "
-                         "layers")):
+    """The reference's other layer paths are later slices (ROADMAP: the
+    MoE and pipeline items)."""
+    for field, what in (("stacked", "the stacked layer-stack ops"),
+                        ("moe_experts", "MoE feed-forward layers")):
         if getattr(cfg, field, None):
             raise NotImplementedError(
                 f"Config.{field}: {what} is not ported yet; see ROADMAP.md")
@@ -196,7 +216,8 @@ def encoder(src_word, cfg, src_len):
     for i in range(cfg.n_layer):
         attn = _multi_head_attention(
             enc, enc, enc, src_bias, cfg.d_model, cfg.n_head, cfg.dropout,
-            prefix=f"enc{i}_self")
+            prefix=f"enc{i}_self", use_ring=cfg.ring_attention,
+            flash=cfg.flash_attention)
         enc = _postprocess(enc, attn, cfg.dropout)
         ff = _ffn(enc, cfg.d_inner, cfg.d_model, prefix=f"enc{i}")
         enc = _postprocess(enc, ff, cfg.dropout)
@@ -209,11 +230,13 @@ def decoder(tgt_word, enc_out, src_bias, cfg, tgt_len):
     for i in range(cfg.n_layer):
         self_attn = _multi_head_attention(
             dec, dec, dec, None, cfg.d_model, cfg.n_head, cfg.dropout,
-            prefix=f"dec{i}_self", causal=True)
+            prefix=f"dec{i}_self", causal=True, use_ring=cfg.ring_attention,
+            flash=cfg.flash_attention)
         dec = _postprocess(dec, self_attn, cfg.dropout)
         cross = _multi_head_attention(
             dec, enc_out, enc_out, src_bias, cfg.d_model, cfg.n_head,
-            cfg.dropout, prefix=f"dec{i}_cross")
+            cfg.dropout, prefix=f"dec{i}_cross", use_ring=cfg.ring_attention,
+            flash=cfg.flash_attention)
         dec = _postprocess(dec, cross, cfg.dropout)
         ff = _ffn(dec, cfg.d_inner, cfg.d_model, prefix=f"dec{i}")
         dec = _postprocess(dec, ff, cfg.dropout)

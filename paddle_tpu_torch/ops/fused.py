@@ -71,7 +71,9 @@ def _lib(name):
 
 def _on_cpu(*tensors) -> bool:
     """True for all-CPU tensors (the plain version); raises unless they all
-    lie on one CUDA device."""
+    lie on one CUDA device.  ``None`` entries (absent optional inputs) are
+    skipped."""
+    tensors = [t for t in tensors if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return True
     dev = tensors[0].device

@@ -7,8 +7,9 @@ tell who imported what.
 
 Also: the port's entry points run on the card unless told otherwise, so
 an engine built with no place raises when torch sees no CUDA device, and
-the kernel wrapper never falls back to the plain version for a tensor
-that is not on the CPU.
+the kernel wrappers (paged attention, flash forward, dQ and dK/dV) never
+fall back to the plain version for a tensor that is not on the CPU, nor
+launch anything for CPU tensors.
 """
 
 import ast
@@ -100,3 +101,50 @@ def test_kernel_wrapper_has_no_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_attention(q, ck, ck, pt, bias)
     assert pa.launches == before
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_fwd_launches, fa.flash_dq_launches,
+            fa.flash_dkv_launches)
+
+
+def _flash_args(device):
+    q = torch.ones(2, 2, 5, 16, device=device)
+    bias = torch.zeros(2, 1, 1, 5, device=device)
+    rows = torch.zeros(2, 2, 5, 1, device=device)
+    return q, bias, rows
+
+
+def test_flash_wrappers_have_no_fallback_off_the_cpu():
+    """The three flash wrappers: a tensor that is not on the CPU goes to
+    the kernel or raises, never to the plain version."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, bias, rows = _flash_args("meta")
+    before = _flash_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_forward(q, q, q, bias)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_dq(q, q, q, bias, q, rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_dkv(q, q, q, bias, q, rows, rows)
+    # CPU and other tensors mixed: refused too
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_forward(torch.ones(2, 2, 5, 16), q, q)
+    assert _flash_counts() == before
+
+
+def test_flash_wrappers_launch_nothing_on_the_cpu():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, bias, rows = _flash_args("cpu")
+    before = _flash_counts()
+    out, lse = fa.flash_forward(q, q, q, bias, causal=True)
+    fa.flash_dq(q, q, q, bias, q, lse, rows)
+    fa.flash_dkv(q, q, q, bias, q, lse, rows)
+    qr = q.clone().requires_grad_()
+    fa.FlashAttention.apply(qr, q, q, bias, None, False).sum().backward()
+    assert qr.grad is not None
+    assert _flash_counts() == before
