@@ -653,14 +653,14 @@ def phase_kernel_adam(shapes):
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def flash_case_inputs(gen, device, t_q, t_k, padded):
-    """q, k, v, dO ``[64, 8, T, 64]`` and, if ``padded``, the model's
-    key-padding bias ``[64, 1, 1, Tk]``: -1e9 past a ragged length per
-    batch row (the first row unpadded, the others Tk/2..Tk keys).  Returns
-    the tensors and the key lengths."""
+def flash_case_inputs(gen, device, t_q, t_k, padded, b=TRAIN_BATCH,
+                      h=FLASH_HEADS, d=FLASH_D):
+    """q, k, v, dO ``[B, H, T, D]`` (the training path's 64, 8, T, 64 by
+    default) and, if ``padded``, the model's key-padding bias ``[B, 1, 1,
+    Tk]``: -1e9 past a ragged length per batch row (the first row
+    unpadded, the others Tk/2..Tk keys).  Returns the tensors and the key
+    lengths."""
     import torch
-
-    b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
 
     def rnd(t):
         return torch.randn(b, h, t, d, generator=gen, device=device)
@@ -727,7 +727,8 @@ def phase_kernel_flash():
     at the training path's shapes (B = 64, H = 8, D = 64, float32) in three
     cases: non-causal with a ragged padding bias, causal with none, and a
     ragged causal case with a bias (Tq = 100, Tk = 77); two launches
-    bitwise equal; kernel, plain, bound and SDPA times for the first two."""
+    bitwise equal; kernel, plain, bound and SDPA times for the first two.
+    Then the ragged case at the other head widths the kernels take."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -742,28 +743,8 @@ def phase_kernel_flash():
     for name, t_q, t_k, causal, padded in cases:
         q, k, v, do, bias, lens = flash_case_inputs(gen, device, t_q, t_k,
                                                     padded)
-        what = f"{name} case"
-        out, lse = fa.flash_forward(q, k, v, bias, scale, causal)
-        out2, lse2 = fa.flash_forward(q, k, v, bias, scale, causal)
-        delta = (do * out).sum(-1, keepdim=True)
-        dq = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
-        dq2 = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
-        dk, dv = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
-        dk2, dv2 = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
-        torch.cuda.synchronize()
-        for a, b_, n in ((out, out2, "out"), (lse, lse2, "lse"),
-                         (dq, dq2, "dq"), (dk, dk2, "dk"), (dv, dv2, "dv")):
-            if not torch.equal(a, b_):
-                raise AssertionError(f"flash {what}: two launches give "
-                                     f"different {n}")
-        r_out, r_lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
-        r_dq = fa.flash_dq_ref(q, k, v, bias, do, lse, delta, scale, causal)
-        r_dk, r_dv = fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale,
-                                      causal)
-        pairs = (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
-                 ("dk", dk, r_dk), ("dv", dv, r_dv))
-        errs = {n: _check_close(what, n, g, w) for n, g, w in pairs}
-        ref_max = {n: float(w.abs().max()) for n, _, w in pairs}
+        errs, ref_max, lse, delta = _check_flash_case(
+            q, k, v, do, bias, scale, causal, f"{name} case")
         worst["fwd"] = max(worst["fwd"], errs["out"][0], errs["lse"][0])
         worst["dq"] = max(worst["dq"], errs["dq"][0])
         worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
@@ -771,16 +752,26 @@ def phase_kernel_flash():
                  "padded_keys": int(t_k * TRAIN_BATCH - lens.sum()),
                  "max_abs_rel_err": errs, "plain_max_abs": ref_max,
                  "bitwise_repeat": True}
-        del r_out, r_lse, r_dq, r_dk, r_dv, out2, lse2, dq2, dk2, dv2
         if name != "ragged":
             entry.update(_time_flash(q, k, v, do, bias, lse, delta, scale,
                                      causal, lens))
         report[name] = entry
-        del q, k, v, do, out, lse, dq, dk, dv
+        del q, k, v, do, lse, delta
         torch.cuda.empty_cache()
+    # the other head widths the kernels are built for, on a small ragged
+    # causal case with a padding bias
+    widths = {}
+    for d in fa.HEAD_DIMS:
+        if d != FLASH_D:
+            q, k, v, do, bias, _ = flash_case_inputs(gen, device, 100, 77,
+                                                     True, b=4, h=2, d=d)
+            widths[d] = _check_flash_case(q, k, v, do, bias, d ** -0.5,
+                                          True, f"D = {d} case")[0]
     emit("kernel_flash", batch=TRAIN_BATCH, heads=FLASH_HEADS, d=FLASH_D,
          tolerance={n: {"atol": a, "rtol": r} for n, (a, r)
-                    in FLASH_TOL.items()}, **report)
+                    in FLASH_TOL.items()}, **report,
+         other_widths={"batch": 4, "heads": 2, "t_q": 100, "t_k": 77,
+                       "max_abs_rel_err": widths})
     # the kernels line: the padding case, as 12 of the step's 18 ops run it
     main = report["padding"]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -795,6 +786,38 @@ def phase_kernel_flash():
                      "library_ms": main["fwd_library_ms"] if kind == "fwd"
                      else None})
     return rows
+
+
+def _check_flash_case(q, k, v, do, bias, scale, causal, what):
+    """Launch each flash kernel twice on one case: the two launches must be
+    bitwise equal and within ``FLASH_TOL`` of the plain versions on the
+    same inputs.  Returns the max abs/rel errors, the plain outputs' max
+    magnitudes, and the forward's lse and delta."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_forward(q, k, v, bias, scale, causal)
+    out2, lse2 = fa.flash_forward(q, k, v, bias, scale, causal)
+    delta = (do * out).sum(-1, keepdim=True)
+    dq = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
+    dq2 = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
+    dk, dv = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
+    dk2, dv2 = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    for a, b, n in ((out, out2, "out"), (lse, lse2, "lse"), (dq, dq2, "dq"),
+                    (dk, dk2, "dk"), (dv, dv2, "dv")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash {what}: two launches give "
+                                 f"different {n}")
+    r_out, r_lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
+    r_dq = fa.flash_dq_ref(q, k, v, bias, do, lse, delta, scale, causal)
+    r_dk, r_dv = fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale,
+                                  causal)
+    pairs = (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
+             ("dk", dk, r_dk), ("dv", dv, r_dv))
+    errs = {n: _check_close(what, n, g, w) for n, g, w in pairs}
+    return errs, {n: float(w.abs().max()) for n, _, w in pairs}, lse, delta
 
 
 def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
