@@ -3,9 +3,9 @@
 card: builds every CUDA kernel from the sources in this checkout, holds
 each against its plain PyTorch version at the shapes the port's paths give
 it, then serves a Transformer-base-width paged decode LM through the
-continuous-batching ``DecodeEngine`` and trains Transformer-base through
-``fluid.Executor``, with unfused attention and through the flash kernels,
-and checks all three.
+continuous-batching ``DecodeEngine``, trains Transformer-base through
+``fluid.Executor`` with unfused attention and through the flash kernels,
+and trains ResNet-50 with momentum, and checks all four.
 
     python3 chip_smoke.py
 
@@ -64,11 +64,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    state: the flash build on the card against the same on
                    the CPU (rtol 1e-5 at step 0, 1e-4 after) and against
                    the unfused build on the card (rtol 2e-4)
+12. kernel_momentum - the momentum kernel vs its plain version over tensors
+                   of ResNet-50's 161 parameter shapes, Nesterov off and
+                   on; the step's kernel, plain, library (torch.optim.SGD
+                   fused) and bound times
+13. train_resnet - ResNet-50 (bench.py's accelerator run: 224 px, 1000
+                   classes, Momentum(0.1, 0.9), fp32, batch 256 of normal
+                   images) through ``fluid.Executor()`` on the card, 5
+                   steps on one batch: finite losses, exactly 161 momentum
+                   launches a step and no other kernel's; step time,
+                   images/s and peak memory
+14. conv_fp32    - the conv2d op and its grad on the card with cuDNN's TF32
+                   switched on by the caller: within 1e-5 of the largest
+                   magnitude of a float64 convolution (a plain TF32 call's
+                   error is printed beside it)
+15. train_resnet_parity - ResNet-50 at 64 px, 10 classes, lr 0.01, batch
+                   4, one initial state on the card and on the CPU, the
+                   card re-synced to the CPU's state before each of 3
+                   steps: each step's loss (rtol 1e-4), the running stats
+                   after it (rtol 1e-3, atol 1e-4) and the velocities as
+                   one vector (cosine >= 0.999)
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
-busy) and one after each training phase (one more step), each under
-``torch.profiler``; each prints the device's busy share of the wall time
-and the kernels that take the most device time.
+busy) and one after each of the three training phases (one more step),
+each under ``torch.profiler``; each prints the device's busy share of the
+wall time and the kernels that take the most device time.
 
 The last three lines are the kernels table, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -111,6 +131,18 @@ FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
 # tiles against the plain whole-row softmax), worth a few ulps of values
 # of order 1-10 (out ~0.1, lse ~6, gradients up to ~10)
 FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
+# ResNet-50 training (bench.py's accelerator run): one momentum launch per
+# trainable parameter (53 conv filters, 53 BN scales and biases, fc w, b)
+RESNET_BATCH, RESNET_STEPS, MOMENTUM_PER_STEP = 256, 5, 161
+MOMENTUM_TOL = 1e-6
+# ResNet-50 at 64 px in float32 is ill-conditioned: a change of one part in
+# 5e6 in the input moves its step-0 gradients by more than 5 % of a
+# tensor's largest value and the step-1 loss by more than 1e-3
+# (tests/test_torch_resnet.py::test_float32_trajectory_is_chaotic), so the
+# card and the CPU are compared step by step from one state
+RESNET_PARITY_LOSS_RTOL = 1e-4
+RESNET_PARITY_STATS_TOL = (1e-3, 1e-4)  # (rtol, atol)
+RESNET_PARITY_VELOCITY_COSINE = 0.999
 
 
 def emit(phase, **fields):
@@ -960,7 +992,8 @@ def launch_counts():
             "adam": fused.adam_launches,
             "flash_fwd": fa.flash_fwd_launches,
             "flash_dq": fa.flash_dq_launches,
-            "flash_dkv": fa.flash_dkv_launches}
+            "flash_dkv": fa.flash_dkv_launches,
+            "momentum": fused.momentum_launches}
 
 
 def reset_launch_counts():
@@ -968,7 +1001,7 @@ def reset_launch_counts():
     from paddle_tpu_torch.ops import fused
 
     fused.xent_fwd_launches = fused.xent_bwd_launches = 0
-    fused.adam_launches = 0
+    fused.adam_launches = fused.momentum_launches = 0
     fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
 
 
@@ -1006,7 +1039,8 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
                 "softmax_xent_bwd": XENT_BWD_PER_STEP, "adam": ADAM_PER_STEP,
                 "flash_fwd": FLASH_FWD_PER_STEP if flash else 0,
                 "flash_dq": FLASH_DQ_PER_STEP if flash else 0,
-                "flash_dkv": FLASH_DKV_PER_STEP if flash else 0}
+                "flash_dkv": FLASH_DKV_PER_STEP if flash else 0,
+                "momentum": 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
@@ -1141,6 +1175,333 @@ def phase_train_flash_parity():
          launches=counts)
 
 
+def build_resnet(image_hw=224, class_dim=1000, lr=0.1):
+    """ResNet-50 as ``resnet.build`` makes it (Momentum(lr, 0.9), fp32):
+    (main, startup, loss, acc)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import resnet
+
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss, acc = resnet.build(
+            class_dim=class_dim, depth=50,
+            image_shape=(3, image_hw, image_hw), lr=lr)
+    return main, startup, loss, acc
+
+
+def resnet_feed(batch, image_hw, class_dim):
+    """bench.py's ResNet feed: normal images and uniform labels from
+    ``RandomState(0)``."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return {"img": rng.normal(size=(batch, 3, image_hw, image_hw)).astype(
+        np.float32),
+        "label": rng.randint(0, class_dim, size=(batch, 1)).astype(np.int64)}
+
+
+def phase_kernel_momentum(shapes):
+    """The momentum kernel over one tensor set per parameter shape of
+    ResNet-50, Nesterov off and on, against the plain version; then the
+    step's kernel, plain, library and bound times (Nesterov off, as the
+    training path runs it)."""
+    import inspect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import fused
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(4)
+    lr, mu = torch.full((1,), 0.1, device=device), 0.9
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    sets = [(rnd(sh, 0.1), rnd(sh, 1e-2), rnd(sh, 1e-2)) for sh in shapes]
+    report = {}
+    for nesterov in (False, True):
+        max_abs = max_rel = 0.0
+        bitwise = True
+        for p, g, v in sets:
+            want = fused.momentum_ref(p, g, v, lr, mu, nesterov)
+            got = [p.clone(), v.clone()]
+            fused.momentum(got[0], g, got[1], lr, mu, nesterov)
+            for a, w in zip(got, want):
+                if not bool((a - w).abs().le(MOMENTUM_TOL + MOMENTUM_TOL
+                                             * w.abs()).all()):
+                    raise AssertionError(
+                        f"momentum kernel (nesterov={nesterov}) disagrees "
+                        f"with the plain version at {tuple(p.shape)}: "
+                        f"{_max_errs(a, w)}")
+                e_abs, e_rel = _max_errs(a, w)
+                max_abs, max_rel = max(max_abs, e_abs), max(max_rel, e_rel)
+                bitwise = bitwise and torch.equal(a, w)
+        report["nesterov" if nesterov else "plain"] = {
+            "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "bitwise_equal": bitwise}
+    n = sum(p.numel() for p, _, _ in sets)
+
+    def kernel_step():
+        for p, g, v in sets:
+            fused.momentum(p, g, v, lr, mu, False)
+
+    def plain_step():
+        for p, g, v in sets:
+            fused.momentum_ref(p, g, v, lr, mu, False)
+
+    params = [torch.nn.Parameter(p.detach().clone()) for p, _, _ in sets]
+    for q, (_, g, _) in zip(params, sets):
+        q.grad = g
+    how = ("fused" if "fused" in inspect.signature(torch.optim.SGD).parameters
+           else "foreach")
+    opt = torch.optim.SGD(params, lr=0.1, momentum=mu, **{how: True})
+    ms = cuda_time_ms(kernel_step, 10)
+    plain_ms = cuda_time_ms(plain_step, 5)
+    library_ms = cuda_time_ms(opt.step, 10)
+    # the same step under the profiler: the kernels' own device time,
+    # without the host's gaps between the 161 launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernel_step()
+        torch.cuda.synchronize()
+    spans = [(a, b) for a, b, name in device_spans(prof) if "momentum" in name]
+    bound, bound_by = bound_ms(20 * n, 4 * n)
+    emit("kernel_momentum", tensors=len(sets), values=n, mu=mu, lr=0.1,
+         atol=MOMENTUM_TOL, rtol=MOMENTUM_TOL, **report, step_ms=ms,
+         step_kernels_device_ms=sum(b - a for a, b in spans) / 1e3,
+         step_kernels_profiled=len(spans), plain_step_ms=plain_ms,
+         library=f"torch.optim.SGD(momentum={mu}, {how}=True)",
+         library_step_ms=library_ms, bound_ms=bound, bound_by=bound_by,
+         smallest=min(p.numel() for p, _, _ in sets),
+         largest=max(p.numel() for p, _, _ in sets))
+    return {"name": "momentum", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/momentum.cu",
+            "replaces": "paddle_tpu/ops/pallas_fused.py:481",
+            "max_abs_err": max(r["max_abs_err"] for r in report.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def conv_tflop_per_step(main, batch):
+    """The convolutions' fp32 operations in one training step of ``main``
+    at ``batch``: 2 per multiply-add, forward, input grad and filter grad
+    (the first conv's input grad, which nothing reads, counted too)."""
+    import numpy as np
+
+    block = main.global_block()
+    flops = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            flops += 2 * int(np.prod(out[1:])) * int(np.prod(w[1:]))
+    return 3 * flops * batch / 1e12
+
+
+def phase_train_resnet(progs, profile_run=False):
+    """ResNet-50 training on the card: returns the kernels' launch counts
+    over its steps."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, acc = progs
+    exe = fluid.Executor()  # the default place: the card
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    feed = resnet_feed(RESNET_BATCH, 224, 1000)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, accs, step_ms = [], [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        lv, av = exe.run(main, feed=feed, fetch_list=[loss, acc],
+                         scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv.reshape(-1)[0]))
+        accs.append(float(av.reshape(-1)[0]))
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want["momentum"] = MOMENTUM_PER_STEP * RESNET_STEPS
+    if counts != want:
+        raise AssertionError(f"kernel launches over {RESNET_STEPS} ResNet "
+                             f"steps: {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet training loss: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise AssertionError(f"peak allocated {peak} bytes")
+    steady = step_ms[1:]
+    steady_ms = sum(steady) / len(steady)
+    conv_tflop = conv_tflop_per_step(main, RESNET_BATCH)
+    emit("train_resnet", model="resnet50", batch=RESNET_BATCH,
+         image_hw=224, classes=1000, steps=RESNET_STEPS, losses=losses,
+         loss_fell=losses[-1] < losses[0], accuracies=accs,
+         launches=counts, startup_s=startup_s, step_ms=step_ms,
+         steady_step_ms=steady_ms,
+         images_per_s=RESNET_BATCH * 1e3 / steady_ms,
+         ops_per_step=len(main.global_block().ops),
+         conv_tflop_per_step=conv_tflop,
+         conv_bound_ms=conv_tflop / PEAK_FP32_FLOPS * 1e15,
+         max_memory_allocated=peak)
+    if profile_run:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_s, n_events, top = trace_summary(prof)
+        emit("train_resnet_profile", wall_s=wall, device_busy_s=busy_s,
+             device_busy_share=busy_s / wall, device_events=n_events,
+             top_kernels=top)
+    return counts
+
+
+def phase_conv_fp32():
+    """The conv2d op and its explicit grad through the Executor on the
+    card while the caller has cuDNN's TF32 on: output, input and filter
+    gradients within float32 rounding of a float64 convolution (max error
+    at most 1e-5 of the largest magnitude); a plain ``F.conv2d`` under the
+    same setting is held against the same reference for contrast."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((32, 64, 56, 56)).astype(np.float32)
+    w = (rng.standard_normal((128, 64, 3, 3)) * 0.05).astype(np.float32)
+    wt = rng.standard_normal((32, 128, 28, 28)).astype(np.float32)
+    framework.fresh_session()
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup), fluid.unique_name.guard():
+        xv = fluid.layers.data("x", shape=list(x.shape), dtype="float32",
+                               append_batch_size=False, stop_gradient=False)
+        out = fluid.layers.conv2d(xv, 128, 3, stride=2, padding=1,
+                                  bias_attr=False,
+                                  param_attr=fluid.ParamAttr(name="w"))
+        wv = fluid.layers.data("wt", shape=list(wt.shape), dtype="float32",
+                               append_batch_size=False)
+        fluid.backward.append_backward(
+            fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out, wv)))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_reference_params(scope, {"w": w}, fluid.CUDAPlace(0))
+    x64, w64 = (torch.from_numpy(a).to(device, torch.float64).requires_grad_()
+                for a in (x, w))
+    ref = F.conv2d(x64, w64, None, 2, 1)
+    rdx, rdw = torch.autograd.grad(ref, [x64, w64],
+                                   torch.from_numpy(wt).to(device,
+                                                           torch.float64))
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    try:
+        got = exe.run(prog, feed={"x": x, "wt": wt},
+                      fetch_list=[out, "x@GRAD", "w@GRAD"], scope=scope)
+        plain = F.conv2d(torch.from_numpy(x).to(device),
+                         torch.from_numpy(w).to(device), None, 2, 1)
+        torch.cuda.synchronize()
+    finally:
+        conv.fp32_precision = prev
+
+    def rel_err(a, want):
+        want = want.detach().cpu().numpy()
+        return float(np.abs(np.asarray(a, np.float64) - want).max()
+                     / np.abs(want).max())
+
+    errs = {n: rel_err(a, r) for n, a, r in (("out", got[0], ref),
+                                              ("dx", got[1], rdx),
+                                              ("dw", got[2], rdw))}
+    plain_err = rel_err(plain.cpu().numpy(), ref)
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"conv2d op under a caller's TF32 setting is "
+                             f"not float32: errors {errs} of the largest "
+                             f"magnitude (plain TF32 conv {plain_err})")
+    emit("conv_fp32", shape={"x": list(x.shape), "w": list(w.shape),
+                             "stride": 2, "padding": 1},
+         caller_conv_fp32_precision="tf32", op_rel_err=errs, tol=1e-5,
+         plain_conv_under_tf32_rel_err=plain_err)
+
+
+def phase_train_resnet_parity():
+    """ResNet-50 at 64 px from one initial state on the CPU (the plain
+    versions) and on the card, the card given the CPU's state again
+    before each of 3 steps: each step's loss, the running stats after it,
+    and the velocities after it as one vector agree."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    batch, steps = 4, 3
+    main, startup, loss, _ = build_resnet(image_hw=64, class_dim=10, lr=0.01)
+    feed = resnet_feed(batch, 64, 10)
+    names = sorted(v.name for v in startup.list_vars() if v.persistable)
+    stats = [n for n in names if ".w_mean" in n or ".w_variance" in n]
+    vel = [n for n in names if "velocity" in n]
+    runs = []
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append((exe, scope, place))
+
+    def state(scope):
+        return {n: scope.get(n).detach().cpu().numpy().copy() for n in names}
+
+    reset_launch_counts()
+    rtol_s, atol_s = RESNET_PARITY_STATS_TOL
+    per_step = []
+    for step in range(steps):
+        load_reference_params(runs[1][1], state(runs[0][1]), runs[1][2])
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for exe, scope, _ in runs]
+        cpu, card = state(runs[0][1]), state(runs[1][1])
+        a = np.concatenate([cpu[n].ravel() for n in vel])
+        b = np.concatenate([card[n].ravel() for n in vel])
+        cosine = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+        stats_err = max(float((np.abs(card[n] - cpu[n])
+                               - rtol_s * np.abs(cpu[n])).max())
+                        for n in stats)
+        rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        per_step.append({"cpu_loss": losses[0], "card_loss": losses[1],
+                         "loss_rel_err": rel, "velocity_cosine": cosine,
+                         "stats_excess_over_rtol": stats_err})
+        if not (np.isfinite(losses).all()
+                and rel <= RESNET_PARITY_LOSS_RTOL
+                and stats_err <= atol_s
+                and cosine >= RESNET_PARITY_VELOCITY_COSINE):
+            raise AssertionError(f"ResNet card and CPU steps disagree at "
+                                 f"step {step}: {per_step[-1]}")
+    counts = launch_counts()
+    if counts["momentum"] != steps * MOMENTUM_PER_STEP:
+        raise AssertionError(f"the card's ResNet steps launched {counts}")
+    emit("train_resnet_parity", batch=batch, image_hw=64, classes=10,
+         lr=0.01, steps=per_step, loss_rtol=RESNET_PARITY_LOSS_RTOL,
+         stats_rtol=rtol_s, stats_atol=atol_s,
+         velocity_cosine_min=RESNET_PARITY_VELOCITY_COSINE,
+         values_carried=len(names), launches=counts)
+
+
 def main():
     import argparse
 
@@ -1182,7 +1543,19 @@ def main():
         k["launches"] = counts[k["name"]]
     torch.cuda.empty_cache()
     phase_train_flash_parity()
-    print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash]}))
+    torch.cuda.empty_cache()
+    resnet_progs = build_resnet()
+    momentum = phase_kernel_momentum(
+        [tuple(p.shape) for p in resnet_progs[0].global_block()
+         .all_parameters() if p.trainable])
+    torch.cuda.empty_cache()
+    momentum["launches"] = phase_train_resnet(
+        resnet_progs, args.profile)["momentum"]
+    torch.cuda.empty_cache()
+    phase_conv_fp32()
+    phase_train_resnet_parity()
+    print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
+                                  momentum]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ reference does.  The port's Executor runs ``uniform_random`` and
 ``gaussian_random`` from a seeded ``torch.Generator``, which gives other
 numbers than the reference's JAX threefry draw: tests that compare the two
 packages copy the reference's weights across
-(``models.transformer.load_reference_params``).
+(``models.params.load_reference_params``).
 """
 
 from __future__ import annotations

@@ -1,21 +1,22 @@
 """NN layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``): the builders
-the decode and training programs call, copied so the same calls emit the
-same IR."""
+the decode and training programs (Transformer, ResNet) call, copied so the
+same calls emit the same IR."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .. import core
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax",
-    "softmax_with_cross_entropy", "mul", "matmul", "elementwise_add",
-    "elementwise_mul", "elementwise_div", "scale", "reduce_sum", "reshape",
-    "transpose", "one_hot", "label_smooth", "ring_attention",
-    "kv_cache_update", "paged_attention", "token_select",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "softmax", "cross_entropy", "softmax_with_cross_entropy",
+    "mean", "mul", "matmul", "elementwise_add", "elementwise_mul",
+    "elementwise_div", "scale", "reduce_sum", "reshape", "transpose",
+    "topk", "one_hot", "label_smooth", "ring_attention", "kv_cache_update",
+    "paged_attention", "token_select",
 ]
 
 
@@ -62,6 +63,136 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": -1 if padding_idx is None else padding_idx})
     return out
+
+
+def _conv_out_dim(size, k, pad, stride, dilation=1):
+    if size in (-1, None):
+        return -1
+    return (size + 2 * pad - (dilation * (k - 1) + 1)) // stride + 1
+
+
+def _to_list(v, n):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """NCHW conv; the filter draws from ``Normal(0, sqrt(2 / fan_in))``."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _to_list(filter_size, 2)
+    stride = _to_list(stride, 2)
+    padding = _to_list(padding, 2)
+    dilation = _to_list(dilation, 2)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+
+    def _std(shape):
+        fan_in = num_channels * shape[2] * shape[3] // groups
+        return (2.0 / fan_in) ** 0.5
+
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, _std(filter_shape)))
+    out = helper.create_variable_for_type_inference(dtype)
+    n, c, h, wd = input.shape
+    out.shape = (n, num_filters,
+                 _conv_out_dim(h, filter_size[0], padding[0], stride[0],
+                               dilation[0]),
+                 _conv_out_dim(wd, filter_size[1], padding[1], stride[1],
+                               dilation[1]))
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "use_cudnn": use_cudnn})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", **locals())
+    pool_size = _to_list(pool_size, 2)
+    pool_stride = _to_list(pool_stride, 2)
+    pool_padding = _to_list(pool_padding, 2)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    n, c, h, w = input.shape
+    if global_pooling:
+        out.shape = (n, c, 1, 1)
+    else:
+        def _po(size, k, pad, s):
+            if size in (-1, None):
+                return -1
+            if ceil_mode:
+                return (size - k + 2 * pad + s - 1) // s + 1
+            return (size - k + 2 * pad) // s + 1
+        out.shape = (n, c,
+                     _po(h, pool_size[0], pool_padding[0], pool_stride[0]),
+                     _po(w, pool_size[1], pool_padding[1], pool_stride[1]))
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "global_pooling": global_pooling, "strides": pool_stride,
+               "paddings": pool_padding, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False):
+    """The running mean and variance are persistable globals named
+    ``<layer>.w_mean`` / ``.w_variance``; the op's ``MeanOut`` and
+    ``VarianceOut`` name the same vars as its ``Mean`` and ``Variance``."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    channel_num = input_shape[1] if data_layout == "NCHW" \
+        else input_shape[-1]
+    param_shape = [channel_num]
+
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype=dtype, is_bias=True)
+    from .. import unique_name
+    mean = helper.create_global_variable(
+        name=moving_mean_name or unique_name.generate(
+            helper.name + ".w_mean"),
+        dtype=dtype, shape=param_shape, persistable=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name or unique_name.generate(
+            helper.name + ".w_variance"),
+        dtype=dtype, shape=param_shape, persistable=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input_shape
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -117,6 +248,19 @@ def softmax(input, use_cudnn=True, name=None):
     return out
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape:
+        out.shape = tuple(input.shape[:-1]) + (1,)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False):
@@ -134,6 +278,14 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (1,)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
 
 
 def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
@@ -243,6 +395,22 @@ def transpose(x, perm, name=None):
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": list(perm)})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    if input.shape is not None:
+        s = tuple(input.shape[:-1]) + (k,)
+        values.shape = s
+        indices.shape = s
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    return values, indices
 
 
 def one_hot(input, depth):

@@ -1,0 +1,108 @@
+"""ResNet for ImageNet and cifar shapes (counterpart of
+``paddle_tpu/models/resnet.py``): the bottleneck and basic-block networks in
+the Fluid layer API, the builders the reference's call for call, so both
+packages build the same Programs.  The Executor runs the train step op by
+op: convolutions and batch norm in cuDNN / ATen float32, the momentum
+update through the port's kernel (``ops/fused.py``)."""
+
+from __future__ import annotations
+
+from .. import fluid
+from .params import load_reference_params  # noqa: F401
+
+
+def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu"):
+    conv = fluid.layers.conv2d(
+        input=input, num_filters=ch_out, filter_size=filter_size,
+        stride=stride, padding=padding, act=None, bias_attr=False)
+    return fluid.layers.batch_norm(input=conv, act=act)
+
+
+def _shortcut(input, ch_out, stride):
+    ch_in = input.shape[1]
+    if ch_in != ch_out or stride != 1:
+        return conv_bn_layer(input, ch_out, 1, stride, 0, act=None)
+    return input
+
+
+def basicblock(input, ch_out, stride):
+    short = _shortcut(input, ch_out, stride)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, act=None)
+    return fluid.layers.elementwise_add(x=short, y=conv2, act="relu")
+
+
+def bottleneck(input, ch_out, stride):
+    short = _shortcut(input, ch_out * 4, stride)
+    conv1 = conv_bn_layer(input, ch_out, 1, stride, 0)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1)
+    conv3 = conv_bn_layer(conv2, ch_out * 4, 1, 1, 0, act=None)
+    return fluid.layers.elementwise_add(x=short, y=conv3, act="relu")
+
+
+def _layer_warp(block_func, input, ch_out, count, stride):
+    res_out = block_func(input, ch_out, stride)
+    for _ in range(1, count):
+        res_out = block_func(res_out, ch_out, 1)
+    return res_out
+
+
+_DEPTH_CFG = {
+    18: (basicblock, [2, 2, 2, 2]),
+    34: (basicblock, [3, 4, 6, 3]),
+    50: (bottleneck, [3, 4, 6, 3]),
+    101: (bottleneck, [3, 4, 23, 3]),
+    152: (bottleneck, [3, 8, 36, 3]),
+}
+
+
+def resnet_imagenet(input, class_dim=1000, depth=50):
+    block_func, layers_cfg = _DEPTH_CFG[depth]
+    conv1 = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
+                          padding=3)
+    pool1 = fluid.layers.pool2d(input=conv1, pool_type="max", pool_size=3,
+                                pool_stride=2, pool_padding=1)
+    res1 = _layer_warp(block_func, pool1, 64, layers_cfg[0], 1)
+    res2 = _layer_warp(block_func, res1, 128, layers_cfg[1], 2)
+    res3 = _layer_warp(block_func, res2, 256, layers_cfg[2], 2)
+    res4 = _layer_warp(block_func, res3, 512, layers_cfg[3], 2)
+    pool2 = fluid.layers.pool2d(input=res4, pool_size=7, pool_type="avg",
+                                global_pooling=True)
+    return fluid.layers.fc(input=pool2, size=class_dim, act="softmax")
+
+
+def resnet_cifar10(input, class_dim=10, depth=32):
+    assert (depth - 2) % 6 == 0
+    n = (depth - 2) // 6
+    conv1 = conv_bn_layer(input=input, ch_out=16, filter_size=3, stride=1,
+                          padding=1)
+    res1 = _layer_warp(basicblock, conv1, 16, n, 1)
+    res2 = _layer_warp(basicblock, res1, 32, n, 2)
+    res3 = _layer_warp(basicblock, res2, 64, n, 2)
+    pool = fluid.layers.pool2d(input=res3, pool_size=8, pool_type="avg",
+                               global_pooling=True)
+    return fluid.layers.fc(input=pool, size=class_dim, act="softmax")
+
+
+def build(batch_size=None, class_dim=1000, depth=50,
+          image_shape=(3, 224, 224), lr=0.01, with_momentum=True):
+    """The full train graph in the default main program: returns (img,
+    label, prediction, loss, acc).  Images of width ≤ 32 take the cifar
+    network (depth 32), wider ones the ImageNet network of ``depth``;
+    ``with_momentum`` picks Momentum(lr, 0.9), else SGD(lr)."""
+    img = fluid.layers.data(name="img", shape=list(image_shape),
+                            dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    if image_shape[-1] <= 32:
+        prediction = resnet_cifar10(img, class_dim, depth=32)
+    else:
+        prediction = resnet_imagenet(img, class_dim, depth=depth)
+    loss = fluid.layers.mean(
+        fluid.layers.cross_entropy(input=prediction, label=label))
+    acc = fluid.layers.accuracy(input=prediction, label=label)
+    if with_momentum:
+        opt = fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9)
+    else:
+        opt = fluid.optimizer.SGD(learning_rate=lr)
+    opt.minimize(loss)
+    return img, label, prediction, loss, acc

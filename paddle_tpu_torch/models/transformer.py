@@ -15,15 +15,13 @@ and MoE feed-forward layers are not ported yet and raise
 
 from __future__ import annotations
 
-from typing import Dict
-
 import numpy as np
-import torch
 
 from .. import fluid
 from ..fluid import layers
 from ..fluid.initializer import NumpyArrayInitializer
 from ..fluid.param_attr import ParamAttr
+from .params import load_reference_params  # noqa: F401
 
 _NEG_INF = -1e9
 
@@ -569,34 +567,3 @@ class DecodeModel:
         idx = np.arange(self.max_len, dtype=np.int64)[None, :]
         bias = np.where(idx <= pos, 0.0, -np.inf).astype(np.float32)
         return bias.reshape(len(positions), 1, self.max_len)
-
-
-def load_reference_params(scope, arrays: Dict[str, np.ndarray], place):
-    """Carry any persistable set across from the reference (or from another
-    port scope): write every ``{name: ndarray}`` — parameters, Adam moments
-    and beta pows, the learning-rate var, decode caches — into the port's
-    scope tensor of the same name, in place, on ``place``'s device.  Raises
-    KeyError for a name the scope does not hold and ValueError/TypeError on
-    a shape or dtype mismatch — before writing anything."""
-    from ..fluid import core
-
-    device = core.torch_device(place)
-    staged = []
-    for name, arr in arrays.items():
-        arr = np.asarray(arr)
-        cur = scope.get(name)
-        if cur is None:
-            raise KeyError(f"the port's scope holds no var named {name!r} "
-                           f"(run the model's startup program first)")
-        if tuple(cur.shape) != tuple(arr.shape):
-            raise ValueError(f"{name}: reference shape {tuple(arr.shape)} != "
-                             f"port shape {tuple(cur.shape)}")
-        if core.convert_dtype(cur.dtype) != core.convert_dtype(arr.dtype):
-            raise TypeError(f"{name}: reference dtype {arr.dtype} != port "
-                            f"dtype {cur.dtype}")
-        if cur.device != device:
-            raise ValueError(f"{name} lies on {cur.device}, not on "
-                             f"{device}")
-        staged.append((cur, arr))
-    for cur, arr in staged:
-        cur.copy_(torch.tensor(arr))

@@ -1,5 +1,5 @@
-"""Softmax-with-cross-entropy and Adam: the CUDA kernels' wrappers and their
-plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
+"""Softmax-with-cross-entropy, Adam and momentum: the CUDA kernels' wrappers
+and their plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
 
  - :func:`softmax_xent_fwd` replaces ``_xent_partial_kernel`` + the
    ``_finalize_loss`` arithmetic: per row of logits ``[R, V]`` it returns
@@ -14,12 +14,16 @@ plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
  - :func:`adam` replaces ``_adam_kernel``: one in-place update of
    ``p, m1, m2`` per parameter with the bias-corrected ``lr_eff`` read
    from a ``[1]`` device tensor.
+ - :func:`momentum` replaces ``_momentum_kernel``: one in-place update of
+   ``p, v`` per parameter (plain or Nesterov) with ``lr`` read from a
+   ``[1]`` device tensor.
 
 Every wrapper uses its plain version (``*_ref``) only for tensors on the
 CPU; for CUDA tensors it launches the kernel (``csrc/softmax_xent.cu``,
-``csrc/adam.cu``; float32, contiguous) or raises.  ``xent_fwd_launches``,
-``xent_bwd_launches`` and ``adam_launches`` count kernel launches, so a
-run can show the main path went through them.
+``csrc/adam.cu``, ``csrc/momentum.cu``; float32, contiguous) or raises.
+``xent_fwd_launches``, ``xent_bwd_launches``, ``adam_launches`` and
+``momentum_launches`` count kernel launches, so a run can show the main
+path went through them.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ import torch
 
 __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_bwd",
            "softmax_xent_bwd_ref", "xent_bwd_coeffs", "SoftmaxXent", "adam",
-           "adam_ref"]
+           "adam_ref", "momentum", "momentum_ref"]
 
 #: kernel launches since the last reset (each wrapper adds one per launch)
 xent_fwd_launches = 0
 xent_bwd_launches = 0
 adam_launches = 0
+momentum_launches = 0
 
 _libs = {}
 
@@ -58,6 +63,13 @@ def _lib(name):
             lib.pta_xent_bwd_f32.restype = ctypes.c_int
             lib.pta_xent_error_string.argtypes = [ctypes.c_int]
             lib.pta_xent_error_string.restype = ctypes.c_char_p
+        elif name == "momentum":
+            lib.pta_momentum_f32.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_float,
+                                         ctypes.c_int, ctypes.c_void_p])
+            lib.pta_momentum_f32.restype = ctypes.c_int
+            lib.pta_momentum_error_string.argtypes = [ctypes.c_int]
+            lib.pta_momentum_error_string.restype = ctypes.c_char_p
         else:
             lib.pta_adam_f32.argtypes = (
                 [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
@@ -283,3 +295,47 @@ def adam(p, g, m1, m2, lr_eff, b1, b2, eps):
         _raise(lib.pta_adam_error_string, rc, "adam")
     adam_launches += 1
     return p, m1, m2
+
+
+# ---------------------------------------------------------------------------
+# momentum
+# ---------------------------------------------------------------------------
+
+
+def momentum_ref(p, g, v, lr, mu, nesterov):
+    """The plain version: new ``(p, v)`` in the kernel's (and the
+    reference's) order of operations."""
+    vo = mu * v + g
+    if nesterov:
+        return p - (g + mu * vo) * lr, vo
+    return p - lr * vo, vo
+
+
+def momentum(p, g, v, lr, mu, nesterov):
+    """One momentum update of ``p`` and ``v`` IN PLACE from grad ``g`` and
+    ``lr`` (a ``[1]`` tensor on the same device): ``v = mu·v + g``, then
+    ``p -= lr·v``, or ``p -= (g + mu·v)·lr`` with ``nesterov``.  Returns
+    ``(p, v)``."""
+    global momentum_launches
+    if not (p.shape == g.shape == v.shape):
+        raise ValueError(f"param, grad and velocity must share a shape; got "
+                         f"{[tuple(t.shape) for t in (p, g, v)]}")
+    if lr.numel() != 1:
+        raise ValueError("lr must hold one value")
+    if _on_cpu(p, g, v, lr):
+        po, vo = momentum_ref(p, g, v, lr, mu, nesterov)
+        p.copy_(po)
+        v.copy_(vo)
+        return p, v
+    for name, t in (("param", p), ("grad", g), ("velocity", v), ("lr", lr)):
+        _check(name, t)
+    lib = _lib("momentum")
+    with torch.cuda.device(p.device):
+        rc = lib.pta_momentum_f32(
+            p.data_ptr(), g.data_ptr(), v.data_ptr(), lr.data_ptr(),
+            p.numel(), float(mu), int(bool(nesterov)),
+            torch.cuda.current_stream(p.device).cuda_stream)
+    if rc != 0:
+        _raise(lib.pta_momentum_error_string, rc, "momentum")
+    momentum_launches += 1
+    return p, v

@@ -1,5 +1,5 @@
-"""Loss ops (counterpart of ``paddle_tpu/ops/loss_ops.py``):
-softmax_with_cross_entropy."""
+"""Loss ops (counterpart of ``paddle_tpu/ops/loss_ops.py``): cross_entropy
+and softmax_with_cross_entropy."""
 
 from __future__ import annotations
 
@@ -7,6 +7,29 @@ import torch
 
 from . import fused
 from .registry import register_op
+
+
+def _hard_xent(probs, label, ignore_index=-100):
+    """``-log(max(probs[label], 1e-20))``, 0 where label == ignore_index
+    (≥ 0)."""
+    if label.dim() == probs.dim() and label.shape[-1] == 1:
+        label = label.reshape(label.shape[:-1])
+    li = label.long()
+    loss = -torch.log(probs.gather(-1, li[..., None]).clamp_min(1e-20))
+    if ignore_index >= 0:
+        loss = torch.where((li == ignore_index)[..., None], 0.0, loss)
+    return loss
+
+
+@register_op("cross_entropy", no_grad_inputs=("Label",))
+def cross_entropy(ctx):
+    """Cross entropy of probabilities ``X [..., C]``: hard labels
+    ``[..., 1]`` (int) or soft labels ``[..., C]`` -> ``Y [..., 1]``."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    if ctx.attr("soft_label", False):
+        return {"Y": -torch.sum(label * torch.log(x.clamp_min(1e-20)), -1,
+                                keepdim=True)}
+    return {"Y": _hard_xent(x, label, ctx.attr("ignore_index", -100))}
 
 
 @register_op("softmax_with_cross_entropy", no_grad_inputs=("Label",))

@@ -1,5 +1,6 @@
 """Dense math ops (counterpart of ``paddle_tpu/ops/math_ops.py``): mul,
-matmul, the elementwise family, scale, sum, cast, equal and logical_not.
+matmul, the elementwise family, scale, sum, mean, cast, equal and
+logical_not.
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
 float32 stays float32 (the port never turns TF32 on).  Their grads come
 from the generic grad (``registry.run_grad_generic``)."""
@@ -86,6 +87,12 @@ def sum_op(ctx):
     for v in xs[1:]:
         out = out + v
     return {"Out": out}
+
+
+@register_op("mean")
+def mean(ctx):
+    """Shape ``[1]``, not 0-d, as Fluid's mean op (and the reference)."""
+    return {"Out": torch.mean(ctx.input("X")).reshape(1)}
 
 
 @register_op("cast")

@@ -1,12 +1,138 @@
-"""NN ops (counterpart of ``paddle_tpu/ops/nn_ops.py``): layer_norm and
-lookup_table, with lookup_table's dense grad."""
+"""NN ops (counterpart of ``paddle_tpu/ops/nn_ops.py``): conv2d (with an
+explicit grad), pool2d, batch_norm, layer_norm and lookup_table (with its
+dense grad).
+
+Convolutions are no Pallas kernel in the reference (``lax.conv_general_
+dilated``, left to XLA), so here they go to cuDNN / ATen, always in full
+float32: the reference asks for float32 results (``preferred_element_type``)
+and cuDNN would otherwise take TF32 when the caller's flag allows it."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from .registry import register_grad, register_op
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+@contextlib.contextmanager
+def _fp32_conv():
+    """cuDNN convolutions in IEEE float32 inside the block, whatever the
+    caller's TF32 setting; the setting is restored after."""
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = prev
+
+
+def _conv_attrs(ctx):
+    return (_pair(ctx.attr("strides", [1, 1])),
+            _pair(ctx.attr("paddings", [0, 0])),
+            _pair(ctx.attr("dilations", [1, 1])), ctx.attr("groups", 1) or 1)
+
+
+@register_op("conv2d")
+def conv2d(ctx):
+    """NCHW input, OIHW filter, symmetric paddings, as the reference's
+    ``_conv``."""
+    strides, paddings, dilations, groups = _conv_attrs(ctx)
+    with _fp32_conv():
+        out = F.conv2d(ctx.input("Input"), ctx.input("Filter"), None,
+                       strides, paddings, dilations, groups)
+    return {"Output": out}
+
+
+@register_grad("conv2d")
+def conv2d_grad(ctx):
+    """dInput and dFilter from ``aten.convolution_backward`` (float32, as
+    the forward), only for the grads someone reads: the generic grad
+    would run the convolution forward again first."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    strides, paddings, dilations, groups = _conv_attrs(ctx)
+    want_x = "Input@GRAD" in ctx.outputs_spec
+    want_w = "Filter@GRAD" in ctx.outputs_spec
+    with _fp32_conv():
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            ctx.input("Output@GRAD"), x, w, None, strides, paddings,
+            dilations, False, [0, 0], groups, [want_x, want_w, False])
+    out = {}
+    if want_x:
+        out["Input@GRAD"] = dx
+    if want_w:
+        out["Filter@GRAD"] = dw
+    return out
+
+
+@register_op("pool2d")
+def pool2d(ctx):
+    """max (``-inf`` padding; the gradient goes to the first maximum of a
+    window in row-major order, as the reference's ``reduce_window`` VJP)
+    or avg (``exclusive``: divide by the window's unpadded count); global
+    pooling over H and W.  ``ceil_mode`` is not read, as in the
+    reference."""
+    x = ctx.input("X")
+    ptype = ctx.attr("pooling_type", "max")
+    if ctx.attr("global_pooling", False):
+        if ptype == "max":
+            return {"Out": torch.amax(x, (2, 3), keepdim=True)}
+        return {"Out": torch.mean(x, (2, 3), keepdim=True)}
+    ksize = _pair(ctx.attr("ksize"))
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    paddings = _pair(ctx.attr("paddings", [0, 0]))
+    if ptype == "max":
+        return {"Out": F.max_pool2d(x, ksize, strides, paddings)}
+    return {"Out": F.avg_pool2d(
+        x, ksize, strides, paddings,
+        count_include_pad=not ctx.attr("exclusive", True))}
+
+
+@register_op("batch_norm", no_grad_inputs=("Mean", "Variance"))
+def batch_norm(ctx):
+    """Training: normalize by the batch's mean and BIASED variance, and
+    return the running stats ``momentum · old + (1 − momentum) · batch``
+    as NEW tensors (the generic grad re-runs this forward: an in-place
+    update would move the stats twice a step).  ``SavedVariance`` is
+    ``rsqrt(var + eps)``, as in the reference.  ``is_test``: normalize by
+    the running stats.  The stats are built only when some op or the
+    caller reads them (not in the generic grad's re-run)."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    mean, var = ctx.input("Mean"), ctx.input("Variance")
+    momentum = ctx.attr("momentum", 0.9)
+    eps = ctx.attr("epsilon", 1e-5)
+    is_test = ctx.attr("is_test", False)
+    nchw = ctx.attr("data_layout", "NCHW") == "NCHW"
+    xc = x if nchw else x.movedim(-1, 1)
+    y = F.batch_norm(xc, mean if is_test else None,
+                     var if is_test else None, scale, bias,
+                     training=not is_test, eps=eps)
+    out = {"Y": y if nchw else y.movedim(1, -1)}
+    stats = ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
+    if not any(s in ctx.outputs_spec for s in stats):
+        return out
+    if is_test:
+        # SavedMean is a copy: no other name may alias a scope tensor
+        out.update(MeanOut=mean, VarianceOut=var, SavedMean=mean.clone(),
+                   SavedVariance=torch.rsqrt(var + eps))
+        return out
+    with torch.no_grad():
+        use_var, use_mean = torch.var_mean(
+            xc, dim=[d for d in range(xc.dim()) if d != 1], correction=0)
+    out.update(MeanOut=momentum * mean + (1.0 - momentum) * use_mean,
+               VarianceOut=momentum * var + (1.0 - momentum) * use_var,
+               SavedMean=use_mean, SavedVariance=torch.rsqrt(use_var + eps))
+    return out
 
 
 @register_op("layer_norm")

@@ -1,5 +1,5 @@
 """Reduction ops (counterpart of ``paddle_tpu/ops/reduce_ops.py``):
-reduce_sum."""
+reduce_sum and top_k."""
 
 from __future__ import annotations
 
@@ -20,3 +20,11 @@ def reduce_sum(ctx):
     dims = [dim] if isinstance(dim, int) else list(dim)
     return {"Out": torch.sum(x, dim=tuple(d % x.dim() for d in dims),
                              keepdim=bool(ctx.attr("keep_dim", False)))}
+
+
+@register_op("top_k", no_grad_inputs=("X",))
+def top_k(ctx):
+    """The ``k`` largest values along the last dim, in descending order,
+    and their int64 indices."""
+    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx.to(torch.int64)}

@@ -7,9 +7,9 @@ tell who imported what.
 
 Also: the port's entry points run on the card unless told otherwise, so
 an engine built with no place raises when torch sees no CUDA device, and
-the kernel wrappers (paged attention, flash forward, dQ and dK/dV) never
-fall back to the plain version for a tensor that is not on the CPU, nor
-launch anything for CPU tensors.
+the kernel wrappers (paged attention, flash forward, dQ and dK/dV,
+momentum) never fall back to the plain version for a tensor that is not
+on the CPU, nor launch anything for CPU tensors.
 """
 
 import ast
@@ -148,3 +148,31 @@ def test_flash_wrappers_launch_nothing_on_the_cpu():
     fa.FlashAttention.apply(qr, q, q, bias, None, False).sum().backward()
     assert qr.grad is not None
     assert _flash_counts() == before
+
+
+def test_momentum_wrapper_has_no_fallback_off_the_cpu():
+    """The momentum wrapper: a tensor that is not on the CPU goes to the
+    kernel or raises, never to the plain version; nor does a mix of CPU
+    and other tensors."""
+    from paddle_tpu_torch.ops import fused
+
+    p = torch.empty(8, device="meta")
+    lr = torch.empty(1, device="meta")
+    before = fused.momentum_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.momentum(p, p, p, lr, 0.9, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.momentum(torch.zeros(8), p, p, torch.ones(1), 0.9, True)
+    assert fused.momentum_launches == before
+
+
+def test_momentum_wrapper_launches_nothing_on_the_cpu():
+    from paddle_tpu_torch.ops import fused
+
+    p, v = torch.ones(6), torch.zeros(6)
+    before = fused.momentum_launches
+    for nesterov in (False, True):
+        fused.momentum(p, torch.ones(6), v, torch.tensor([0.5]), 0.9,
+                       nesterov)
+    assert fused.momentum_launches == before
+    assert bool((p < 1).all()) and bool((v > 0).all())
