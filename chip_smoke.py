@@ -25,10 +25,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    one_hot + label_smooth, and hard labels with
                    ignore_index rows; bitwise repeatability; kernel, plain,
                    library and bound times
- 5. kernel_adam  - the Adam kernel vs its plain version over tensors of
-                   the training slice's 184 parameter shapes; the step's
-                   kernel, plain, library (torch.optim.Adam fused) and
-                   bound times
+ 5. kernel_adam  - the Adam group kernel vs its plain version in one call
+                   over tensors of the training slice's 184 parameter
+                   shapes, and over a ragged group (odd sizes, empty and
+                   1-element tensors, a view off 16-byte alignment), each
+                   tensor with beta pows of its own step count: exactly
+                   one launch a call; the call's time between CUDA events,
+                   its kernel's device time, plain, library
+                   (torch.optim.Adam fused), host and bound times
  6. kernel_flash - the flash forward, dQ and dK/dV kernels vs their plain
                    versions at the training path's shape (B = 64, H = 8,
                    T = 256, D = 64): non-causal with a ragged padding bias,
@@ -45,8 +49,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    dropout and label smoothing 0.1, Adam, fp32, unfused
                    attention) through ``fluid.Executor()`` on the card, 5
                    steps at batch 64 x length 256 on one batch: finite,
-                   falling loss, and exactly 184 Adam, 2 xent-forward and 1
-                   xent-backward launches a step; step time, target
+                   falling loss, and exactly 1 Adam launch for 184 tensors,
+                   2 xent-forward and 1 xent-backward launches a step; op
+                   dispatches a step; step time, target
                    tokens/s and peak memory; then two more steps fetch the
                    first dropout's tensors: Out = X * Mask, X@GRAD =
                    Out@GRAD * Mask, a kept share of 1 - p and fresh masks
@@ -58,22 +63,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 10. train_flash  - the model of phase 8 with ``flash_attention=True``: its
                    18 attention ops run the flash kernels; 5 steps, finite
                    falling loss, exactly 36 forward, 18 dQ and 18 dK/dV
-                   flash launches a step besides 184 / 2 / 1; step time,
+                   flash launches a step besides 1 / 2 / 1; step time,
                    target tokens/s and peak memory beside phase 8's
 11. train_flash_parity - batch 2 x length 32, dropout 0, one initial
                    state: the flash build on the card against the same on
                    the CPU (rtol 1e-5 at step 0, 1e-4 after) and against
                    the unfused build on the card (rtol 2e-4)
-12. kernel_momentum - the momentum kernel vs its plain version over tensors
-                   of ResNet-50's 161 parameter shapes, Nesterov off and
-                   on; the step's kernel, plain, library (torch.optim.SGD
-                   fused) and bound times
+12. kernel_momentum - the momentum group kernel vs its plain version in
+                   one call over tensors of ResNet-50's 161 parameter
+                   shapes and over phase 5's ragged group, Nesterov off
+                   and on: exactly one launch a call; the call's time
+                   between CUDA events, its kernel's device time, plain,
+                   library (torch.optim.SGD fused), host and bound times
 13. train_resnet - ResNet-50 (bench.py's accelerator run: 224 px, 1000
                    classes, Momentum(0.1, 0.9), fp32, batch 256 of normal
                    images) through ``fluid.Executor()`` on the card, 5
-                   steps on one batch: finite losses, exactly 161 momentum
-                   launches a step and no other kernel's; step time,
-                   images/s and peak memory
+                   steps on one batch: finite losses, exactly 1 momentum
+                   launch a step for 161 tensors and no other kernel's; op
+                   dispatches a step; step time, images/s and peak
+                   memory
 14. conv_fp32    - the conv2d op and its grad on the card with cuDNN's TF32
                    switched on by the caller: within 1e-5 of the largest
                    magnitude of a float64 convolution (a plain TF32 call's
@@ -83,7 +91,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    card re-synced to the CPU's state before each of 3
                    steps: each step's loss (rtol 1e-4), the running stats
                    after it (rtol 1e-3, atol 1e-4) and the velocities as
-                   one vector (cosine >= 0.999)
+                   one vector (cosine >= 0.999); 1 momentum launch a step
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy) and one after each of the three training phases (one more step),
@@ -115,10 +123,12 @@ TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, VOCAB = 64, 256, 5, 30000
 XENT_IGNORE = 0            # the hard-label case's ignore_index (the pad id)
 DX_ATOL = 1e-6
 ADAM_TOL = 1e-6
-# launches a training step makes of each kernel: one Adam per trainable
-# parameter; the xent forward once in the op and once more when its
-# generic grad re-runs it, the backward once
-ADAM_PER_STEP, XENT_FWD_PER_STEP, XENT_BWD_PER_STEP = 184, 2, 1
+# launches a training step makes of each kernel: one Adam launch for the
+# Executor's group of the 184 adam ops (one a trainable parameter); the
+# xent forward once in the op and once more when its generic grad re-runs
+# it, the backward once
+ADAM_PER_STEP, XENT_FWD_PER_STEP, XENT_BWD_PER_STEP = 1, 2, 1
+ADAM_TENSORS_PER_STEP = 184
 # flash attention on the training path: 8 heads of width 64; 18
 # ring_attention ops a step (6 encoder self, 6 decoder self with causal, 6
 # cross), each launching the forward in the op and again in its generic
@@ -131,9 +141,11 @@ FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
 # tiles against the plain whole-row softmax), worth a few ulps of values
 # of order 1-10 (out ~0.1, lse ~6, gradients up to ~10)
 FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
-# ResNet-50 training (bench.py's accelerator run): one momentum launch per
-# trainable parameter (53 conv filters, 53 BN scales and biases, fc w, b)
-RESNET_BATCH, RESNET_STEPS, MOMENTUM_PER_STEP = 256, 5, 161
+# ResNet-50 training (bench.py's accelerator run): one momentum launch for
+# the Executor's group of the 161 momentum ops, one a trainable parameter
+# (53 conv filters, 53 BN scales and biases, fc w, b)
+RESNET_BATCH, RESNET_STEPS, MOMENTUM_PER_STEP = 256, 5, 1
+MOMENTUM_TENSORS_PER_STEP = 161
 MOMENTUM_TOL = 1e-6
 # ResNet-50 at 64 px in float32 is ill-conditioned: a change of one part in
 # 5e6 in the input moves its step-0 gradients by more than 5 % of a
@@ -350,13 +362,36 @@ def device_spans(prof):
             events = json.load(f)["traceEvents"]
     return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                   if e.get("ph") == "X" and e.get("cat") in (
-                      "kernel", "gpu_memcpy", "gpu_memset"))
+                      "kernel", "gpu_memcpy", "gpu_memset")
+                  and "spin_kernel" not in e["name"])
 
 
-def trace_summary(prof):
+def pad_trace():
+    """Spin kernels and a sync around the profiled work, inside the
+    profiler: it may miss a few device events at either end of a trace
+    (up to 4 of 161 per-parameter launches, or a group call's one
+    launch), and these stand there instead of the work's.
+    ``device_spans`` leaves them out."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(8):
+        torch.cuda._sleep(100_000)
+    torch.cuda.synchronize()
+
+
+def optimizer_kernels(spans):
+    """Launches and device ms of the port's optimizer kernels (Adam and
+    momentum, per parameter or per group) among a trace's device spans."""
+    spans = [(a, b) for a, b, name in spans
+             if "adam_" in name or "momentum_" in name]
+    return {"launches": len(spans),
+            "device_ms": sum(b - a for a, b in spans) / 1e3}
+
+
+def trace_summary(spans):
     """Device busy time, event count and the kernels that take the most
-    device time, read from a ``torch.profiler`` trace."""
-    spans = device_spans(prof)
+    device time, from a trace's device spans."""
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
@@ -382,14 +417,16 @@ def phase_profile(eng, jobs):
     ticks0 = eng.metrics.counter("decode_ticks")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_trace()
         t0 = time.perf_counter()
         for f in [eng.submit(p, n) for p, n in jobs]:
             f.result(timeout=600)
         eng.wait_idle(timeout_s=60)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        pad_trace()
     ticks = eng.metrics.counter("decode_ticks") - ticks0
-    busy_s, n_events, top = trace_summary(prof)
+    busy_s, n_events, top = trace_summary(device_spans(prof))
     emit("profile", requests=len(jobs), decode_ticks=ticks, wall_s=wall,
          device_busy_s=busy_s, device_busy_share=busy_s / wall,
          device_events=n_events, ms_per_tick=wall / ticks * 1e3,
@@ -611,10 +648,94 @@ def phase_kernel_xent():
          "bound_by": bwd_by, "library_ms": None})
 
 
+def _compare_group(what, got, want, tol):
+    """Hold every tensor of ``got`` to ``want`` within ``tol`` (atol and
+    rtol); returns the largest absolute and relative errors and whether
+    all agree to the bit."""
+    import torch
+
+    max_abs = max_rel = 0.0
+    bitwise = True
+    for a, w in zip(got, want):
+        if a.numel() == 0:
+            continue
+        if not bool((a - w).abs().le(tol + tol * w.abs()).all()):
+            raise AssertionError(f"{what} disagrees with the plain version "
+                                 f"at {tuple(a.shape)}: {_max_errs(a, w)}")
+        e_abs, e_rel = _max_errs(a, w)
+        max_abs, max_rel = max(max_abs, e_abs), max(max_rel, e_rel)
+        bitwise = bitwise and torch.equal(a, w)
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel,
+            "bitwise_equal": bitwise}
+
+
+def ragged_sizes():
+    """A ragged group beside the main path's shapes: odd sizes, an empty
+    and a 1-element tensor, sizes just past one and three 16 K chunks (one
+    a multiple of 4, so its float4 path ends in a part chunk)."""
+    return [0, 1, 3, 7, 127, 1025, 16385, 3 * 16384 + 4, 100003, 262147]
+
+
+def offset_view(gen, device, n, scale=1.0):
+    """``n`` values at a 4-byte offset into their storage: n % 4 == 0 but
+    not 16-byte aligned, so the kernel takes its scalar path."""
+    import torch
+
+    return (torch.randn(n + 1, generator=gen, device=device) * scale)[1:]
+
+
+def time_group(call, plain, library, kernel_name, launches, iters=20):
+    """The group call's ms between CUDA events, its kernel's device ms
+    under the profiler (the mean captured launch times ``launches()``'s
+    count a call), the plain version's and the library call's ms, the
+    host ms to issue one group call (the card idle before it; median of
+    20) and the library's device ms under the profiler (its captured
+    kernels over the calls); with the launches each trace captured."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"ms": cuda_time_ms(call, iters),
+           "plain_ms": cuda_time_ms(plain, 3),
+           "library_ms": cuda_time_ms(library, iters)}
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out["host_ms"] = statistics.median(host)
+    calls = 5
+    for key, fn in (("kernel", call), ("library", library)):
+        before = launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad_trace()
+            for _ in range(calls):
+                fn()
+            pad_trace()
+        spans = [b - a for a, b, name in device_spans(prof)
+                 if key == "library" or kernel_name in name]
+        out[f"{key}_device_launches_captured"] = len(spans)
+        if key == "kernel":
+            out["launches_per_call"] = (launches() - before) / calls
+            out["kernel_device_ms"] = (sum(spans) / len(spans) / 1e3
+                                       * out["launches_per_call"]
+                                       if spans else None)
+        else:
+            out["library_device_ms"] = sum(spans) / calls / 1e3
+    return out
+
+
 def phase_kernel_adam(shapes):
-    """The Adam kernel over one tensor set per parameter shape of the
-    training slice: one step against the plain version, then the step's
-    kernel, plain, library and bound times."""
+    """The Adam group kernel over one tensor set per parameter shape of the
+    training slice (one shared learning rate, as the path has it) and over
+    a ragged set (own learning rates, a view off 16-byte alignment), each
+    entry with beta pows of its own step count: one call against the plain
+    version, then the call's kernel, device, plain, library, host and
+    bound times."""
     import torch
 
     from paddle_tpu_torch.ops import fused
@@ -622,67 +743,76 @@ def phase_kernel_adam(shapes):
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(2)
     b1, b2, eps = 0.9, 0.98, 1e-9
-    lr_eff = torch.full((1,), 1e-3 * (1 - b2) ** 0.5 / (1 - b1),
-                        device=device)
+    steps = torch.randint(1, 60, (len(shapes) + len(ragged_sizes()) + 1,),
+                          generator=gen, device=device).tolist()
 
     def rnd(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
 
-    sets = [(rnd(s), rnd(s, 1e-2), rnd(s, 1e-3), rnd(s, 1e-4).abs())
-            for s in shapes]
-    max_abs = max_rel = 0.0
-    for p, g, m1, m2 in sets:
-        want = fused.adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps)
-        got = [t.clone() for t in (p, g, m1, m2)]
-        fused.adam(got[0], got[1], got[2], got[3], lr_eff, b1, b2, eps)
-        for a, w in zip((got[0], got[2], got[3]), want):
-            if not bool((a - w).abs().le(ADAM_TOL + ADAM_TOL * w.abs())
-                        .all()):
-                raise AssertionError(f"adam kernel disagrees with the "
-                                     f"plain version at {tuple(p.shape)}: "
-                                     f"{_max_errs(a, w)}")
-            e_abs, e_rel = _max_errs(a, w)
-            max_abs, max_rel = max(max_abs, e_abs), max(max_rel, e_rel)
-    n = sum(p.numel() for p, _, _, _ in sets)
+    def group(shape_list, lrs):
+        ps = [rnd(s) for s in shape_list]
+        gs = [rnd(s, 1e-2) for s in shape_list]
+        m1s = [rnd(s, 1e-3) for s in shape_list]
+        m2s = [rnd(s, 1e-4).abs() for s in shape_list]
+        t = [steps.pop() for _ in shape_list]
+        b1ps = [torch.full((1,), b1 ** k, device=device) for k in t]
+        b2ps = [torch.full((1,), b2 ** k, device=device) for k in t]
+        return [ps, gs, m1s, m2s, lrs, b1ps, b2ps]
 
-    def kernel_step():
-        for p, g, m1, m2 in sets:
-            fused.adam(p, g, m1, m2, lr_eff, b1, b2, eps)
-
-    def plain_step():
-        for p, g, m1, m2 in sets:
-            fused.adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps)
-
-    params = [torch.nn.Parameter(p.detach().clone()) for p, _, _, _ in sets]
-    for p, (_, g, _, _) in zip(params, sets):
+    lr = torch.full((1,), 1e-3, device=device)
+    main = group(shapes, [lr] * len(shapes))
+    sizes = ragged_sizes()
+    ragged = group([(n,) for n in sizes],
+                   [torch.full((1,), 1e-3 * (1 + k), device=device)
+                    for k in range(len(sizes))])
+    for col, scale in ((0, 1.0), (1, 1e-2), (2, 1e-3)):
+        ragged[col].append(offset_view(gen, device, 4096, scale))
+    ragged[3].append(rnd(4096, 1e-4).abs())
+    ragged[4].append(torch.full((1,), 2e-3, device=device))
+    t = steps.pop()
+    ragged[5].append(torch.full((1,), b1 ** t, device=device))
+    ragged[6].append(torch.full((1,), b2 ** t, device=device))
+    report = {}
+    for name, cols in (("main", main), ("ragged", ragged)):
+        want = fused.adam_group_ref(*cols, b1, b2, eps)
+        got = [[t.clone() for t in col] for col in cols]
+        before = (fused.adam_launches, fused.adam_tensors)
+        fused.adam_group(*got, b1, b2, eps)
+        torch.cuda.synchronize()
+        launches = fused.adam_launches - before[0]
+        if (launches, fused.adam_tensors - before[1]) != (1, len(cols[0])):
+            raise AssertionError(f"the {name} Adam group launched {launches} "
+                                 f"times for {len(cols[0])} tensors")
+        report[name] = _compare_group(
+            f"the adam kernel ({name} set)",
+            [t for k in (0, 2, 3, 5, 6) for t in got[k]],
+            [w[i] for i in range(5) for w in want], ADAM_TOL)
+    n = sum(p.numel() for p in main[0])
+    params = [torch.nn.Parameter(p.detach().clone()) for p in main[0]]
+    for p, g in zip(params, main[1]):
         p.grad = g
     opt = torch.optim.Adam(params, lr=1e-3, betas=(b1, b2), eps=eps,
                            fused=True)
-    ms = cuda_time_ms(kernel_step, 10)
-    plain_ms = cuda_time_ms(plain_step, 5)
-    library_ms = cuda_time_ms(opt.step, 10)
-    # the same step under the profiler: the kernels' own device time,
-    # without the host's gaps between the 184 launches
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        kernel_step()
-        torch.cuda.synchronize()
-    spans = [(a, b) for a, b, name in device_spans(prof) if "adam" in name]
-    bound, bound_by = bound_ms(28 * n, 12 * n)
-    emit("kernel_adam", tensors=len(sets), values=n, atol=ADAM_TOL,
-         rtol=ADAM_TOL, max_abs_err=max_abs, max_rel_err=max_rel,
-         step_ms=ms, step_kernels_device_ms=sum(b - a for a, b in spans)
-         / 1e3, step_kernels_profiled=len(spans), plain_step_ms=plain_ms,
-         library_step_ms=library_ms, bound_ms=bound,
+    times = time_group(lambda: fused.adam_group(*main, b1, b2, eps),
+                       lambda: fused.adam_group_ref(*main, b1, b2, eps),
+                       opt.step, "adam_group", lambda: fused.adam_launches)
+    # p, g, m1, m2 read and p, m1, m2 written; the shared lr read and each
+    # entry's two beta pows read and written once
+    n_t = len(main[0])
+    bound, bound_by = bound_ms(28 * n + 4 + 16 * n_t, 12 * n + 7 * n_t)
+    emit("kernel_adam", tensors=n_t, values=n, ragged_tensors=len(ragged[0]),
+         ragged_sizes=[p.numel() for p in ragged[0]], atol=ADAM_TOL,
+         rtol=ADAM_TOL, **report, **times, bound_ms=bound, bound_by=bound_by,
+         library="torch.optim.Adam(fused=True)",
          smallest=min(p.numel() for p in params),
          largest=max(p.numel() for p in params))
     return {"name": "adam", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/adam.cu",
             "replaces": "paddle_tpu/ops/pallas_fused.py:496",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": max(r["max_abs_err"] for r in report.values()),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": times["library_ms"]}
 
 
 def flash_case_inputs(gen, device, t_q, t_k, padded, b=TRAIN_BATCH,
@@ -990,10 +1120,23 @@ def launch_counts():
     return {"softmax_xent_fwd": fused.xent_fwd_launches,
             "softmax_xent_bwd": fused.xent_bwd_launches,
             "adam": fused.adam_launches,
+            "adam_tensors": fused.adam_tensors,
             "flash_fwd": fa.flash_fwd_launches,
             "flash_dq": fa.flash_dq_launches,
             "flash_dkv": fa.flash_dkv_launches,
-            "momentum": fused.momentum_launches}
+            "momentum": fused.momentum_launches,
+            "momentum_tensors": fused.momentum_tensors}
+
+
+def op_dispatches(exe, program, *fetches):
+    """The calls a run of ``program`` fetching ``fetches`` makes after its
+    first: one per op, one per group of ops the Executor runs at once, none
+    for the constant ops it ran the first time."""
+    names = tuple(f.name for f in fetches)
+    plan = next(p for key, p in exe._plans.items()
+                if key[0] == program._cache_token and key[3] == names)
+    return sum(1 for k, op in enumerate(plan.ops)
+               if k not in plan.grouped and id(op) not in plan.const_ops)
 
 
 def reset_launch_counts():
@@ -1002,6 +1145,7 @@ def reset_launch_counts():
 
     fused.xent_fwd_launches = fused.xent_bwd_launches = 0
     fused.adam_launches = fused.momentum_launches = 0
+    fused.adam_tensors = fused.momentum_tensors = 0
     fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
 
 
@@ -1037,10 +1181,11 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
     counts = launch_counts()
     per_step = {"softmax_xent_fwd": XENT_FWD_PER_STEP,
                 "softmax_xent_bwd": XENT_BWD_PER_STEP, "adam": ADAM_PER_STEP,
+                "adam_tensors": ADAM_TENSORS_PER_STEP,
                 "flash_fwd": FLASH_FWD_PER_STEP if flash else 0,
                 "flash_dq": FLASH_DQ_PER_STEP if flash else 0,
                 "flash_dkv": FLASH_DKV_PER_STEP if flash else 0,
-                "momentum": 0}
+                "momentum": 0, "momentum_tensors": 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
@@ -1059,20 +1204,25 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
              else {"dropout": check_dropout(exe, main, feed, scope)})
     emit(phase, model="transformer_base", batch=TRAIN_BATCH,
          seq_len=TRAIN_LEN, steps=TRAIN_STEPS, losses=losses,
-         launches=counts, startup_s=startup_s, step_ms=step_ms, **stats,
-         **extra)
+         launches=counts, ops_per_step=len(main.global_block().ops),
+         op_dispatches_per_step=op_dispatches(exe, main, cost),
+         startup_s=startup_s, step_ms=step_ms, **stats, **extra)
     if profile_run:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad_trace()
             t0 = time.perf_counter()
             exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        busy_s, n_events, top = trace_summary(prof)
+            pad_trace()
+        spans = device_spans(prof)
+        busy_s, n_events, top = trace_summary(spans)
         emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
              device_busy_share=busy_s / wall, device_events=n_events,
+             optimizer_kernels=optimizer_kernels(spans),
              top_kernels=top)
     return counts, stats
 
@@ -1204,87 +1354,86 @@ def resnet_feed(batch, image_hw, class_dim):
 
 
 def phase_kernel_momentum(shapes):
-    """The momentum kernel over one tensor set per parameter shape of
-    ResNet-50, Nesterov off and on, against the plain version; then the
-    step's kernel, plain, library and bound times (Nesterov off, as the
-    training path runs it)."""
+    """The momentum group kernel over one tensor set per parameter shape of
+    ResNet-50 (one shared learning rate, as the path has it) and over a
+    ragged set (own learning rates, a view off 16-byte alignment),
+    Nesterov off and on, against the plain version; then the call's
+    kernel, device, plain, library, host and bound times (Nesterov off, as
+    the training path runs it)."""
     import inspect
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.ops import fused
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(4)
-    lr, mu = torch.full((1,), 0.1, device=device), 0.9
+    mu = 0.9
 
     def rnd(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
 
-    sets = [(rnd(sh, 0.1), rnd(sh, 1e-2), rnd(sh, 1e-2)) for sh in shapes]
+    def group(shape_list, lrs):
+        return [[rnd(sh, 0.1) for sh in shape_list],
+                [rnd(sh, 1e-2) for sh in shape_list],
+                [rnd(sh, 1e-2) for sh in shape_list], lrs]
+
+    lr = torch.full((1,), 0.1, device=device)
+    main = group(shapes, [lr] * len(shapes))
+    sizes = ragged_sizes()
+    ragged = group([(n,) for n in sizes],
+                   [torch.full((1,), 0.1 / (1 + k), device=device)
+                    for k in range(len(sizes))])
+    for col, scale in ((0, 0.1), (1, 1e-2), (2, 1e-2)):
+        ragged[col].append(offset_view(gen, device, 4096, scale))
+    ragged[3].append(torch.full((1,), 0.05, device=device))
     report = {}
-    for nesterov in (False, True):
-        max_abs = max_rel = 0.0
-        bitwise = True
-        for p, g, v in sets:
-            want = fused.momentum_ref(p, g, v, lr, mu, nesterov)
-            got = [p.clone(), v.clone()]
-            fused.momentum(got[0], g, got[1], lr, mu, nesterov)
-            for a, w in zip(got, want):
-                if not bool((a - w).abs().le(MOMENTUM_TOL + MOMENTUM_TOL
-                                             * w.abs()).all()):
-                    raise AssertionError(
-                        f"momentum kernel (nesterov={nesterov}) disagrees "
-                        f"with the plain version at {tuple(p.shape)}: "
-                        f"{_max_errs(a, w)}")
-                e_abs, e_rel = _max_errs(a, w)
-                max_abs, max_rel = max(max_abs, e_abs), max(max_rel, e_rel)
-                bitwise = bitwise and torch.equal(a, w)
-        report["nesterov" if nesterov else "plain"] = {
-            "max_abs_err": max_abs, "max_rel_err": max_rel,
-            "bitwise_equal": bitwise}
-    n = sum(p.numel() for p, _, _ in sets)
-
-    def kernel_step():
-        for p, g, v in sets:
-            fused.momentum(p, g, v, lr, mu, False)
-
-    def plain_step():
-        for p, g, v in sets:
-            fused.momentum_ref(p, g, v, lr, mu, False)
-
-    params = [torch.nn.Parameter(p.detach().clone()) for p, _, _ in sets]
-    for q, (_, g, _) in zip(params, sets):
+    for name, cols in (("main", main), ("ragged", ragged)):
+        for nesterov in (False, True):
+            want = fused.momentum_group_ref(*cols, mu, nesterov)
+            got = [[t.clone() for t in col] for col in cols]
+            before = (fused.momentum_launches, fused.momentum_tensors)
+            fused.momentum_group(*got, mu, nesterov)
+            torch.cuda.synchronize()
+            launches = fused.momentum_launches - before[0]
+            if (launches, fused.momentum_tensors - before[1]) != (
+                    1, len(cols[0])):
+                raise AssertionError(
+                    f"the {name} momentum group launched {launches} times "
+                    f"for {len(cols[0])} tensors")
+            report[f"{name}_{'nesterov' if nesterov else 'plain'}"] = \
+                _compare_group(
+                    f"the momentum kernel ({name} set, nesterov={nesterov})",
+                    got[0] + got[2], [w[i] for i in range(2) for w in want],
+                    MOMENTUM_TOL)
+    n = sum(p.numel() for p in main[0])
+    params = [torch.nn.Parameter(p.detach().clone()) for p in main[0]]
+    for q, g in zip(params, main[1]):
         q.grad = g
     how = ("fused" if "fused" in inspect.signature(torch.optim.SGD).parameters
            else "foreach")
     opt = torch.optim.SGD(params, lr=0.1, momentum=mu, **{how: True})
-    ms = cuda_time_ms(kernel_step, 10)
-    plain_ms = cuda_time_ms(plain_step, 5)
-    library_ms = cuda_time_ms(opt.step, 10)
-    # the same step under the profiler: the kernels' own device time,
-    # without the host's gaps between the 161 launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        kernel_step()
-        torch.cuda.synchronize()
-    spans = [(a, b) for a, b, name in device_spans(prof) if "momentum" in name]
-    bound, bound_by = bound_ms(20 * n, 4 * n)
-    emit("kernel_momentum", tensors=len(sets), values=n, mu=mu, lr=0.1,
-         atol=MOMENTUM_TOL, rtol=MOMENTUM_TOL, **report, step_ms=ms,
-         step_kernels_device_ms=sum(b - a for a, b in spans) / 1e3,
-         step_kernels_profiled=len(spans), plain_step_ms=plain_ms,
+    times = time_group(lambda: fused.momentum_group(*main, mu, False),
+                       lambda: fused.momentum_group_ref(*main, mu, False),
+                       opt.step, "momentum_group",
+                       lambda: fused.momentum_launches)
+    # p, g, v read and p, v written; the shared lr read once
+    bound, bound_by = bound_ms(20 * n + 4, 4 * n)
+    emit("kernel_momentum", tensors=len(main[0]), values=n, mu=mu, lr=0.1,
+         ragged_tensors=len(ragged[0]),
+         ragged_sizes=[p.numel() for p in ragged[0]], atol=MOMENTUM_TOL,
+         rtol=MOMENTUM_TOL, **report, **times, bound_ms=bound,
+         bound_by=bound_by,
          library=f"torch.optim.SGD(momentum={mu}, {how}=True)",
-         library_step_ms=library_ms, bound_ms=bound, bound_by=bound_by,
-         smallest=min(p.numel() for p, _, _ in sets),
-         largest=max(p.numel() for p, _, _ in sets))
+         smallest=min(p.numel() for p in main[0]),
+         largest=max(p.numel() for p in main[0]))
     return {"name": "momentum", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/momentum.cu",
             "replaces": "paddle_tpu/ops/pallas_fused.py:481",
             "max_abs_err": max(r["max_abs_err"] for r in report.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": times["library_ms"]}
 
 
 def conv_tflop_per_step(main, batch):
@@ -1334,6 +1483,7 @@ def phase_train_resnet(progs, profile_run=False):
     counts = launch_counts()
     want = {k: 0 for k in counts}
     want["momentum"] = MOMENTUM_PER_STEP * RESNET_STEPS
+    want["momentum_tensors"] = MOMENTUM_TENSORS_PER_STEP * RESNET_STEPS
     if counts != want:
         raise AssertionError(f"kernel launches over {RESNET_STEPS} ResNet "
                              f"steps: {counts}, expected {want}")
@@ -1352,6 +1502,7 @@ def phase_train_resnet(progs, profile_run=False):
          steady_step_ms=steady_ms,
          images_per_s=RESNET_BATCH * 1e3 / steady_ms,
          ops_per_step=len(main.global_block().ops),
+         op_dispatches_per_step=op_dispatches(exe, main, loss, acc),
          conv_tflop_per_step=conv_tflop,
          conv_bound_ms=conv_tflop / PEAK_FP32_FLOPS * 1e15,
          max_memory_allocated=peak)
@@ -1360,13 +1511,17 @@ def phase_train_resnet(progs, profile_run=False):
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad_trace()
             t0 = time.perf_counter()
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        busy_s, n_events, top = trace_summary(prof)
+            pad_trace()
+        spans = device_spans(prof)
+        busy_s, n_events, top = trace_summary(spans)
         emit("train_resnet_profile", wall_s=wall, device_busy_s=busy_s,
              device_busy_share=busy_s / wall, device_events=n_events,
+             optimizer_kernels=optimizer_kernels(spans),
              top_kernels=top)
     return counts
 
@@ -1493,7 +1648,8 @@ def phase_train_resnet_parity():
             raise AssertionError(f"ResNet card and CPU steps disagree at "
                                  f"step {step}: {per_step[-1]}")
     counts = launch_counts()
-    if counts["momentum"] != steps * MOMENTUM_PER_STEP:
+    if (counts["momentum"], counts["momentum_tensors"]) != (
+            steps * MOMENTUM_PER_STEP, steps * MOMENTUM_TENSORS_PER_STEP):
         raise AssertionError(f"the card's ResNet steps launched {counts}")
     emit("train_resnet_parity", batch=batch, image_hw=64, classes=10,
          lr=0.01, steps=per_step, loss_rtol=RESNET_PARITY_LOSS_RTOL,

@@ -20,6 +20,13 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    so updated;
  - constant ops (``assign_value``, ``fill_constant`` of non-persistables)
    run once per plan and their device tensors are reused;
+ - a run of consecutive ops of one type that has a group impl
+   (``ops/registry.py`` ``register_group``: momentum, adam) runs as one
+   call at its first op, when their attrs are equal but for the op role
+   and none reads a name another writes (``BlockPlan`` finds the runs and
+   splits one where that would break): the optimizer's per-parameter
+   updates become one kernel launch.  Every other op, and a run of one,
+   runs on its own;
  - random ops draw from one ``torch.Generator`` per (scope, device), kept
    in the scope under ``@RNG_STATE@`` and seeded from the
    ``Program.random_seed`` of the first run that needs it; later runs,
@@ -37,10 +44,13 @@ import numpy as np
 import torch
 
 from . import core
-from .framework import RNG_STATE_VAR, Program, Variable, default_main_program
+from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
+                        default_main_program)
 from ..ops import registry as _reg
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
+# attrs that name an op's own role and vars, not what it computes
+_ROLE_ATTRS = frozenset([OpRole.KEY, OpRole.VAR_KEY])
 
 
 class Scope:
@@ -86,6 +96,38 @@ def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
 
 def _storage(t) -> int:
     return t.untyped_storage().data_ptr()
+
+
+def _find_groups(ops, const_ops) -> List[List[int]]:
+    """The indices of each maximal run of two or more consecutive ops that
+    one group impl runs at once: non-constant ops of one type that has a
+    group impl, their attrs equal but for ``op_role`` / ``op_role_var``,
+    and no member reading or writing a name another member writes (an op
+    that would break this starts a new run)."""
+    runs: List[List[int]] = []
+    cur: List[int] = []
+    reads, writes, attrs = set(), set(), None
+    for k, op in enumerate(ops):
+        opdef = _reg.REGISTRY.get(op.type)
+        if opdef is None or opdef.group_fn is None or id(op) in const_ops:
+            if len(cur) > 1:
+                runs.append(cur)
+            cur = []
+            continue
+        r = {n for n in op.input_arg_names if n}
+        w = {n for n in op.output_arg_names if n}
+        a = {key: v for key, v in op.attrs.items() if key not in _ROLE_ATTRS}
+        if not (cur and op.type == ops[cur[0]].type and a == attrs
+                and not r & writes and not w & (reads | writes)):
+            if len(cur) > 1:
+                runs.append(cur)
+            cur, reads, writes, attrs = [], set(), set(), a
+        cur.append(k)
+        reads |= r
+        writes |= w
+    if len(cur) > 1:
+        runs.append(cur)
+    return runs
 
 
 class BlockPlan:
@@ -173,7 +215,31 @@ class BlockPlan:
         self.in_place = [sorted(set(op.output_arg_names)
                                 & set(op.input_arg_names) - {""})
                          for op in self.ops]
+        # runs executed as one group: first member's index -> members
+        self.groups: Dict[int, List[int]] = {
+            run[0]: run for run in _find_groups(self.ops, self.const_ops)}
+        self.grouped = {k for run in self.groups.values() for k in run[1:]}
         self.checked = False
+
+
+def _context(op, env, device, generator, outputs_spec):
+    inputs = {slot: [env.get(n) if n else None for n in names]
+              for slot, names in op.inputs.items()}
+    if outputs_spec is None:
+        outputs_spec = {slot: list(names)
+                        for slot, names in op.outputs.items() if names}
+    return _reg.ExecContext(op.type, inputs, outputs_spec, op.attrs, device,
+                            generator)
+
+
+def _store(op, env, raw):
+    outs = _reg.normalize_outputs(raw)
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot)
+        for i, name in enumerate(names):
+            if name and vals is not None and i < len(vals) \
+                    and vals[i] is not None:
+                env[name] = vals[i]
 
 
 def run_op(op, env: Dict[str, object], device, generator=None,
@@ -182,26 +248,26 @@ def run_op(op, env: Dict[str, object], device, generator=None,
     ``outputs_spec`` (default: every output) names the outputs someone
     reads."""
     opdef, is_grad = _resolve(op.type)
-    inputs = {slot: [env.get(n) if n else None for n in names]
-              for slot, names in op.inputs.items()}
-    if outputs_spec is None:
-        outputs_spec = {slot: list(names)
-                        for slot, names in op.outputs.items() if names}
-    ctx = _reg.ExecContext(op.type, inputs, outputs_spec, op.attrs, device,
-                           generator)
+    ctx = _context(op, env, device, generator, outputs_spec)
     if not is_grad:
         raw = opdef.fn(ctx)
     elif opdef.grad_fn is not None:
         raw = opdef.grad_fn(ctx)
     else:
         raw = _reg.run_grad_generic(opdef, ctx)
-    outs = _reg.normalize_outputs(raw)
-    for slot, names in op.outputs.items():
-        vals = outs.get(slot)
-        for i, name in enumerate(names):
-            if name and vals is not None and i < len(vals) \
-                    and vals[i] is not None:
-                env[name] = vals[i]
+    _store(op, env, raw)
+
+
+def run_group(ops, env: Dict[str, object], device, generator=None,
+              outputs_specs=None):
+    """Execute a run of ops of one type at once through the type's group
+    impl, against ``env``; ``outputs_specs``: each op's ``outputs_spec``
+    of :func:`run_op`."""
+    specs = outputs_specs or [None] * len(ops)
+    ctxs = [_context(op, env, device, generator, spec)
+            for op, spec in zip(ops, specs)]
+    for op, raw in zip(ops, _reg.get_op_def(ops[0].type).group_fn(ctxs)):
+        _store(op, env, raw)
 
 
 def _check_no_alias(reader, names, env, updated):
@@ -294,14 +360,27 @@ class Executor:
                     run_op(op, env, self.device, generator)
                     for n in op.output_arg_names:
                         plan.consts[n] = env[n]
-            else:
+            elif k not in plan.grouped:
+                members = plan.groups.get(k, [k])
                 before = {}
                 if updated is not None:
-                    _check_no_alias(op.type, plan.reads[k], env, updated)
-                    before = {n: _storage(env[n]) for n in plan.in_place[k]
-                              if isinstance(env.get(n), torch.Tensor)}
-                run_op(op, env, self.device, generator,
-                       plan.live_outputs[k])
+                    # each member as if the earlier ones had run before it
+                    seen = dict(updated)
+                    for j in members:
+                        _check_no_alias(plan.ops[j].type, plan.reads[j], env,
+                                        seen)
+                        for n in plan.in_place[j]:
+                            t = env.get(n)
+                            if isinstance(t, torch.Tensor):
+                                ptr = before[n] = _storage(t)
+                                seen[ptr] = n
+                if len(members) > 1:
+                    run_group([plan.ops[j] for j in members], env,
+                              self.device, generator,
+                              [plan.live_outputs[j] for j in members])
+                else:
+                    run_op(op, env, self.device, generator,
+                           plan.live_outputs[k])
                 for n, ptr in before.items():
                     if ptr and _storage(env[n]) == ptr:
                         updated[ptr] = n

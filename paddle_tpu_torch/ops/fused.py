@@ -11,36 +11,46 @@ and their plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
  - :class:`SoftmaxXent` ties the two into a ``torch.autograd.Function``,
    so the op's generic grad (``torch.autograd.grad`` over the forward)
    reaches the backward kernel.
- - :func:`adam` replaces ``_adam_kernel``: one in-place update of
-   ``p, m1, m2`` per parameter with the bias-corrected ``lr_eff`` read
-   from a ``[1]`` device tensor.
- - :func:`momentum` replaces ``_momentum_kernel``: one in-place update of
-   ``p, v`` per parameter (plain or Nesterov) with ``lr`` read from a
-   ``[1]`` device tensor.
+ - :func:`adam_group` replaces ``_adam_kernel`` and the adam op's scalar
+   math: one launch updates ``p, m1, m2`` of every entry of a group in
+   place, each with its bias-corrected ``lr_eff`` computed in the kernel
+   from its own ``[1]`` learning rate and beta pows, which it then moves
+   on; :func:`adam` is a one-entry group given ``lr_eff`` itself.
+ - :func:`momentum_group` replaces ``_momentum_kernel``: one launch
+   updates ``p, v`` of every entry (plain or Nesterov), each entry's
+   ``lr`` read from its own ``[1]`` tensor; :func:`momentum` is a
+   one-entry group.
 
 Every wrapper uses its plain version (``*_ref``) only for tensors on the
 CPU; for CUDA tensors it launches the kernel (``csrc/softmax_xent.cu``,
 ``csrc/adam.cu``, ``csrc/momentum.cu``; float32, contiguous) or raises.
 ``xent_fwd_launches``, ``xent_bwd_launches``, ``adam_launches`` and
 ``momentum_launches`` count kernel launches, so a run can show the main
-path went through them.
+path went through them; ``adam_tensors`` and ``momentum_tensors`` count
+the parameters those launches updated.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
+import numpy as np
 import torch
 
 __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_bwd",
-           "softmax_xent_bwd_ref", "xent_bwd_coeffs", "SoftmaxXent", "adam",
-           "adam_ref", "momentum", "momentum_ref"]
+           "softmax_xent_bwd_ref", "xent_bwd_coeffs", "SoftmaxXent",
+           "adam_group", "adam_group_ref", "adam", "adam_ref",
+           "momentum_group", "momentum_group_ref", "momentum", "momentum_ref"]
 
 #: kernel launches since the last reset (each wrapper adds one per launch)
 xent_fwd_launches = 0
 xent_bwd_launches = 0
 adam_launches = 0
 momentum_launches = 0
+#: parameters the Adam and momentum launches updated since the last reset
+adam_tensors = 0
+momentum_tensors = 0
 
 _libs = {}
 
@@ -64,17 +74,20 @@ def _lib(name):
             lib.pta_xent_error_string.argtypes = [ctypes.c_int]
             lib.pta_xent_error_string.restype = ctypes.c_char_p
         elif name == "momentum":
-            lib.pta_momentum_f32.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_float,
-                                         ctypes.c_int, ctypes.c_void_p])
-            lib.pta_momentum_f32.restype = ctypes.c_int
+            lib.pta_momentum_group_f32.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+            lib.pta_momentum_group_f32.restype = ctypes.c_int
             lib.pta_momentum_error_string.argtypes = [ctypes.c_int]
             lib.pta_momentum_error_string.restype = ctypes.c_char_p
         else:
-            lib.pta_adam_f32.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-            lib.pta_adam_f32.restype = ctypes.c_int
+            lib.pta_adam_group_f32.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_float] * 5
+                + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+            lib.pta_adam_group_f32.restype = ctypes.c_int
+            lib.pta_adam_group_capacity.argtypes = []
+            lib.pta_adam_group_capacity.restype = ctypes.c_int
             lib.pta_adam_error_string.argtypes = [ctypes.c_int]
             lib.pta_adam_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -253,89 +266,205 @@ class SoftmaxXent(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Adam
+# Adam and momentum over a group of parameters, one launch
 # ---------------------------------------------------------------------------
+
+_F32 = torch.float32
+# groups whose params, states and one-value tensors passed the checks, by
+# kernel, newest last: (weak references, addresses, sizes); grads are
+# checked on every call
+_checked = {"momentum": [], "adam": []}
+_CHECKED_KEEP = 4
+# the Adam kernel's per-entry counters of finished blocks, zeroed, by device
+_adam_done = {}
+
+
+def _check_entries(ps, gs, like_p, scalars):
+    """Raise unless every entry's grad and ``like_p`` states (by name)
+    share its param's shape, every ``scalars`` tensor (by name) holds one
+    value, and no tensor the group writes (params, states, the one-value
+    tensors other than ``lr``) appears twice."""
+    names = ["param", "grad", *like_p]
+    cols = (ps, gs, *like_p.values())
+    for i, p in enumerate(ps):
+        if not all(col[i].shape == p.shape for col in cols):
+            raise ValueError(
+                f"{', '.join(names[:-1])} and {names[-1]} must share a "
+                f"shape; got {[tuple(col[i].shape) for col in cols]}")
+    for name, col in scalars.items():
+        if any(t.numel() != 1 for t in col):
+            raise ValueError(f"{name} must hold one value")
+    written = [t for col in (ps, *like_p.values()) for t in col]
+    written += [t for name, col in scalars.items() if name != "lr"
+                for t in col]
+    written = [t for t in written if t.numel()]  # an empty one has no address
+    if len({(t.device, t.data_ptr()) for t in written}) != len(written):
+        raise ValueError("a tensor the group updates appears in it twice")
+
+
+def _group_cols(kind, ps, gs, like_p, scalars):
+    """The kernel's table for a group on the card, as ``int64`` columns:
+    the addresses of the params, the grads, each ``like_p`` state and each
+    ``scalars`` column (both by name), then the sizes.  Raises unless every
+    tensor suits the kernel.  Params, states and one-value tensors persist
+    across steps: they are checked once per set of objects, addresses and
+    sizes; the grads on every call."""
+    named = [("param", ps), *like_p.items(), *scalars.items()]
+    stable = [t for _, col in named for t in col]
+    ptrs = [t.data_ptr() for t in stable]
+    sizes = [p.numel() for p in ps]
+    seen = _checked[kind]
+    if not any(c_ptrs == ptrs and c_sizes == sizes
+               and all(r() is t for r, t in zip(refs, stable))
+               for refs, c_ptrs, c_sizes in seen):
+        _on_cpu(*stable)  # raises unless all lie on one CUDA device
+        for name, col in named:
+            for t in col:
+                _check(name, t)
+        _check_entries(ps, gs, like_p, scalars)
+        seen.append(([weakref.ref(t) for t in stable], ptrs, sizes))
+        del seen[:-_CHECKED_KEEP]
+    idx = ps[0].get_device()
+    if not all([g.dtype is _F32 and g.is_contiguous()
+                and g.get_device() == idx and g.shape == p.shape
+                for p, g in zip(ps, gs)]):
+        _on_cpu(ps[0], *gs)
+        for g in gs:
+            _check("grad", g)
+        _check_entries(ps, gs, like_p, scalars)
+    n = len(ps)
+    return np.array(ptrs[:n] + [g.data_ptr() for g in gs] + ptrs[n:]
+                    + sizes, dtype=np.int64)
 
 
 def adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps):
-    """The plain version: new ``(p, m1, m2)`` in the kernel's order of
-    operations."""
+    """The plain version of one entry: new ``(p, m1, m2)`` in the kernel's
+    order of operations."""
     m1o = b1 * m1 + (1.0 - b1) * g
     m2o = b2 * m2 + (1.0 - b2) * g * g
     return p - lr_eff * m1o / (torch.sqrt(m2o) + eps), m1o, m2o
 
 
+def adam_group_ref(ps, gs, m1s, m2s, lrs, b1ps, b2ps, b1, b2, eps):
+    """The plain version, in the adam op's torch arithmetic: for each entry
+    ``lr_eff = lr · √(1 − b2p) / (1 − b1p)``, :func:`adam_ref`, and the new
+    pows ``b1p · b1``, ``b2p · b2``.  Returns a list of new ``(p, m1, m2,
+    b1p, b2p)``."""
+    out = []
+    for p, g, m1, m2, lr, b1p, b2p in zip(ps, gs, m1s, m2s, lrs, b1ps, b2ps):
+        lr_eff = lr * (1.0 - b2p).sqrt() / (1.0 - b1p)
+        out.append((*adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps), b1p * b1,
+                    b2p * b2))
+    return out
+
+
+def adam_group(ps, gs, m1s, m2s, lrs, b1ps, b2ps, b1, b2, eps):
+    """One Adam update of every entry IN PLACE: ``p``, ``m1``, ``m2`` from
+    grad ``g``, the entry's learning rate ``lr`` and beta pows ``b1p``,
+    ``b2p`` (``[1]`` tensors on the same device), which become ``b1p ·
+    b1`` and ``b2p · b2``.  On the card one launch covers the group (more
+    only past the kernel's table capacity).  Returns the new beta pows
+    ``(b1ps, b2ps)``: the tensors given, updated."""
+    global adam_launches, adam_tensors
+    cols = (ps, gs, m1s, m2s, lrs, b1ps, b2ps)
+    if len({len(c) for c in cols}) != 1:
+        raise ValueError("adam_group takes one of each tensor per entry")
+    if not ps:
+        return b1ps, b2ps
+    if ps[0].device.type != "cuda" and _on_cpu(*(t for c in cols for t in c)):
+        _check_entries(ps, gs, {"moment1": m1s, "moment2": m2s},
+                       {"lr": lrs, "beta1_pow": b1ps, "beta2_pow": b2ps})
+        new = adam_group_ref(ps, gs, m1s, m2s, lrs, b1ps, b2ps, b1, b2, eps)
+        for old, upd in zip(zip(ps, m1s, m2s, b1ps, b2ps), new):
+            for t, u in zip(old, upd):
+                t.copy_(u)
+        return b1ps, b2ps
+    table = _group_cols("adam", ps, gs, {"moment1": m1s, "moment2": m2s},
+                        {"lr": lrs, "beta1_pow": b1ps, "beta2_pow": b2ps})
+    lib = _lib("adam")
+    dev = ps[0].device
+    done = _adam_done.get(dev)
+    if done is None:
+        done = _adam_done[dev] = torch.zeros(
+            lib.pta_adam_group_capacity(), dtype=torch.int32, device=dev)
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.pta_adam_group_f32(
+            table.ctypes.data, len(ps), done.data_ptr(), float(b1),
+            float(1.0 - b1), float(b2), float(1.0 - b2), float(eps),
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(launches))
+    adam_launches += launches.value
+    if rc != 0:
+        _raise(lib.pta_adam_error_string, rc, "adam")
+    adam_tensors += len(ps)
+    return b1ps, b2ps
+
+
 def adam(p, g, m1, m2, lr_eff, b1, b2, eps):
     """One Adam update of ``p``, ``m1``, ``m2`` IN PLACE from grad ``g``
     and the bias-corrected ``lr_eff`` (a ``[1]`` tensor on the same
-    device).  Returns ``(p, m1, m2)``."""
-    global adam_launches
-    if not (p.shape == g.shape == m1.shape == m2.shape):
-        raise ValueError(f"param, grad and moments must share a shape; got "
-                         f"{[tuple(t.shape) for t in (p, g, m1, m2)]}")
-    if lr_eff.numel() != 1:
-        raise ValueError("lr_eff must hold one value")
-    if _on_cpu(p, g, m1, m2, lr_eff):
-        po, m1o, m2o = adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps)
-        p.copy_(po)
-        m1.copy_(m1o)
-        m2.copy_(m2o)
-        return p, m1, m2
-    for name, t in (("param", p), ("grad", g), ("moment1", m1),
-                    ("moment2", m2), ("lr_eff", lr_eff)):
-        _check(name, t)
-    lib = _lib("adam")
-    with torch.cuda.device(p.device):
-        rc = lib.pta_adam_f32(
-            p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-            lr_eff.data_ptr(), p.numel(), float(b1), float(1.0 - b1),
-            float(b2), float(1.0 - b2), float(eps),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    if rc != 0:
-        _raise(lib.pta_adam_error_string, rc, "adam")
-    adam_launches += 1
+    device): a one-entry :func:`adam_group` whose beta pows are 0, so its
+    ``lr · √(1 − 0) / (1 − 0)`` is ``lr_eff`` exactly.  Returns ``(p, m1,
+    m2)``."""
+    zeros = [torch.zeros(1, device=p.device) for _ in range(2)]
+    adam_group([p], [g], [m1], [m2], [lr_eff], zeros[:1], zeros[1:], b1, b2,
+               eps)
     return p, m1, m2
 
 
-# ---------------------------------------------------------------------------
-# momentum
-# ---------------------------------------------------------------------------
-
-
 def momentum_ref(p, g, v, lr, mu, nesterov):
-    """The plain version: new ``(p, v)`` in the kernel's (and the
-    reference's) order of operations."""
+    """The plain version of one entry: new ``(p, v)`` in the kernel's (and
+    the reference's) order of operations."""
     vo = mu * v + g
     if nesterov:
         return p - (g + mu * vo) * lr, vo
     return p - lr * vo, vo
 
 
-def momentum(p, g, v, lr, mu, nesterov):
-    """One momentum update of ``p`` and ``v`` IN PLACE from grad ``g`` and
-    ``lr`` (a ``[1]`` tensor on the same device): ``v = mu·v + g``, then
-    ``p -= lr·v``, or ``p -= (g + mu·v)·lr`` with ``nesterov``.  Returns
+def momentum_group_ref(ps, gs, vs, lrs, mu, nesterov):
+    """The plain version: :func:`momentum_ref` of each entry, a list of new
     ``(p, v)``."""
-    global momentum_launches
-    if not (p.shape == g.shape == v.shape):
-        raise ValueError(f"param, grad and velocity must share a shape; got "
-                         f"{[tuple(t.shape) for t in (p, g, v)]}")
-    if lr.numel() != 1:
-        raise ValueError("lr must hold one value")
-    if _on_cpu(p, g, v, lr):
-        po, vo = momentum_ref(p, g, v, lr, mu, nesterov)
-        p.copy_(po)
-        v.copy_(vo)
-        return p, v
-    for name, t in (("param", p), ("grad", g), ("velocity", v), ("lr", lr)):
-        _check(name, t)
+    return [momentum_ref(p, g, v, lr, mu, nesterov)
+            for p, g, v, lr in zip(ps, gs, vs, lrs)]
+
+
+def momentum_group(ps, gs, vs, lrs, mu, nesterov):
+    """One momentum update of every entry's ``p`` and ``v`` IN PLACE from
+    grad ``g`` and the entry's ``lr`` (a ``[1]`` tensor on the same
+    device): ``v = mu·v + g``, then ``p -= lr·v``, or ``p -= (g + mu·v)·lr``
+    with ``nesterov``.  On the card one launch covers the group (more only
+    past the kernel's table capacity)."""
+    global momentum_launches, momentum_tensors
+    cols = (ps, gs, vs, lrs)
+    if len({len(c) for c in cols}) != 1:
+        raise ValueError("momentum_group takes one of each tensor per entry")
+    if not ps:
+        return
+    if ps[0].device.type != "cuda" and _on_cpu(*(t for c in cols for t in c)):
+        _check_entries(ps, gs, {"velocity": vs}, {"lr": lrs})
+        for (p, v), (po, vo) in zip(zip(ps, vs), momentum_group_ref(
+                ps, gs, vs, lrs, mu, nesterov)):
+            p.copy_(po)
+            v.copy_(vo)
+        return
+    table = _group_cols("momentum", ps, gs, {"velocity": vs}, {"lr": lrs})
     lib = _lib("momentum")
-    with torch.cuda.device(p.device):
-        rc = lib.pta_momentum_f32(
-            p.data_ptr(), g.data_ptr(), v.data_ptr(), lr.data_ptr(),
-            p.numel(), float(mu), int(bool(nesterov)),
-            torch.cuda.current_stream(p.device).cuda_stream)
+    dev = ps[0].device
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.pta_momentum_group_f32(
+            table.ctypes.data, len(ps), float(mu), int(bool(nesterov)),
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(launches))
+    momentum_launches += launches.value
     if rc != 0:
         _raise(lib.pta_momentum_error_string, rc, "momentum")
-    momentum_launches += 1
+    momentum_tensors += len(ps)
+
+
+def momentum(p, g, v, lr, mu, nesterov):
+    """One momentum update of ``p`` and ``v`` IN PLACE: a one-entry
+    :func:`momentum_group`.  Returns ``(p, v)``."""
+    momentum_group([p], [g], [v], [lr], mu, nesterov)
     return p, v

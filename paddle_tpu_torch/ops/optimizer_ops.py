@@ -1,5 +1,8 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``):
 sgd (dense grads), momentum and adam, each updating its state IN PLACE.
+Momentum and adam also register a group hook: the Executor hands a run of
+consecutive such ops with equal attrs to it at once, and one kernel
+launch updates every parameter of the run.
 The other optimizers' ops (adagrad, adamax, decayed_adagrad, adadelta,
 rmsprop, ftrl, proximal_gd, proximal_adagrad) and sgd's SelectedRows grad
 are not registered yet: their programs build, and running them raises
@@ -8,7 +11,7 @@ are not registered yet: their programs build, and running them raises
 from __future__ import annotations
 
 from . import fused
-from .registry import register_op
+from .registry import register_group, register_op
 
 
 def _lr(ctx):
@@ -27,34 +30,54 @@ def sgd(ctx):
 @register_op("momentum", no_grad_inputs=("Param", "Grad", "Velocity",
                                          "LearningRate"))
 def momentum(ctx):
-    """``Param`` and ``Velocity`` are updated IN PLACE by
-    :func:`fused.momentum` (the kernel on the card, its plain version on
-    the CPU) and returned as ``ParamOut`` and ``VelocityOut``, which the
-    Program names like the inputs."""
-    p, v = ctx.input("Param"), ctx.input("Velocity")
-    fused.momentum(p, ctx.input("Grad").contiguous(), v, _lr(ctx),
-                   ctx.attr("mu"), ctx.attr("use_nesterov", False))
-    return {"ParamOut": p, "VelocityOut": v}
+    """``Param`` and ``Velocity`` are updated IN PLACE and returned as
+    ``ParamOut`` and ``VelocityOut``, which the Program names like the
+    inputs: a group of one (:func:`momentum_group`)."""
+    return momentum_group([ctx])[0]
+
+
+@register_group("momentum")
+def momentum_group(ctxs):
+    """A run of momentum ops with one ``mu`` and ``use_nesterov``, as one
+    :func:`fused.momentum_group` call (one launch on the card, the plain
+    version on the CPU); each op's ``LearningRate`` is its own."""
+    ps = [c.input("Param") for c in ctxs]
+    vs = [c.input("Velocity") for c in ctxs]
+    fused.momentum_group(ps, [c.input("Grad").contiguous() for c in ctxs],
+                         vs, [c.input("LearningRate") for c in ctxs],
+                         ctxs[0].attr("mu"),
+                         ctxs[0].attr("use_nesterov", False))
+    return [{"ParamOut": p, "VelocityOut": v} for p, v in zip(ps, vs)]
 
 
 @register_op("adam", no_grad_inputs=("Param", "Grad", "LearningRate",
                                      "Moment1", "Moment2", "Beta1Pow",
                                      "Beta2Pow"))
 def adam(ctx):
-    """``Param``, ``Moment1`` and ``Moment2`` are updated IN PLACE by
-    :func:`fused.adam` (the kernel on the card, its plain version on the
-    CPU) and returned as ``ParamOut`` etc., which the Program names like
-    the inputs.  The bias-corrected ``lr_eff`` and the beta-pow updates
-    are ``[1]`` tensors on the device, as the reference computes them
-    outside its kernel: no host sync per parameter."""
-    p, m1, m2 = ctx.input("Param"), ctx.input("Moment1"), ctx.input("Moment2")
-    b1p, b2p = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
-    b1 = ctx.attr("beta1", 0.9)
-    b2 = ctx.attr("beta2", 0.999)
-    eps = ctx.attr("epsilon", 1e-8)
-    lr_eff = _lr(ctx) * (1.0 - b2p.reshape(1)).sqrt() / (1.0 - b1p.reshape(1))
-    fused.adam(p, ctx.input("Grad").contiguous(), m1, m2, lr_eff, b1, b2,
-               eps)
-    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
-            "Beta1PowOut": (b1p * b1).reshape(1),
-            "Beta2PowOut": (b2p * b2).reshape(1)}
+    """``Param``, ``Moment1``, ``Moment2`` and the beta pows are updated IN
+    PLACE and returned as ``ParamOut`` etc., which the Program names like
+    the inputs: a group of one (:func:`adam_group`)."""
+    return adam_group([ctx])[0]
+
+
+@register_group("adam")
+def adam_group(ctxs):
+    """A run of adam ops with one ``beta1``, ``beta2`` and ``epsilon``, as
+    one :func:`fused.adam_group` call (one launch on the card, the plain
+    version on the CPU).  The bias-corrected ``lr·√(1 − β2ᵗ)/(1 − β1ᵗ)``
+    and the beta-pow updates, which the reference computes as scalar math
+    outside its kernel, happen inside it: no host sync and no small
+    launches per parameter."""
+    c0 = ctxs[0]
+    ps = [c.input("Param") for c in ctxs]
+    m1s = [c.input("Moment1") for c in ctxs]
+    m2s = [c.input("Moment2") for c in ctxs]
+    b1ps, b2ps = fused.adam_group(
+        ps, [c.input("Grad").contiguous() for c in ctxs], m1s, m2s,
+        [c.input("LearningRate") for c in ctxs],
+        [c.input("Beta1Pow") for c in ctxs],
+        [c.input("Beta2Pow") for c in ctxs], c0.attr("beta1", 0.9),
+        c0.attr("beta2", 0.999), c0.attr("epsilon", 1e-8))
+    return [{"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+             "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+            for p, m1, m2, b1p, b2p in zip(ps, m1s, m2s, b1ps, b2ps)]

@@ -5,6 +5,11 @@ An op impl is a plain function ``fn(ctx) -> {slot: tensor | [tensors]}``
 over the tensors the Executor hands it; it runs eagerly on whatever device
 those tensors lie on.
 
+Groups: an op may also register a group impl (:func:`register_group`) that
+runs several ops of its type at once; the Executor hands it each run of
+consecutive such ops (the optimizer's per-parameter updates), so one
+kernel launch can serve them all.
+
 Gradients: ``append_backward`` emits ``<type>_grad`` ops into the Program.
 An op that registers a grad impl (:func:`register_grad`) runs it; every
 other grad op runs :func:`run_grad_generic`, which re-runs the forward impl
@@ -59,14 +64,17 @@ class ExecContext:
 class OpDef:
     """``stateful``: the op draws random numbers (the executor hands it the
     scope's generator).  ``no_grad_inputs``: input slots that never get a
-    gradient.  ``grad_fn``: an explicit grad impl (else the generic one)."""
+    gradient.  ``grad_fn``: an explicit grad impl (else the generic one).
+    ``group_fn``: runs several ops of this type at once (else None)."""
 
-    __slots__ = ("type", "fn", "grad_fn", "no_grad_inputs", "stateful")
+    __slots__ = ("type", "fn", "grad_fn", "group_fn", "no_grad_inputs",
+                 "stateful")
 
     def __init__(self, type, fn, no_grad_inputs=(), stateful=False):
         self.type = type
         self.fn = fn
         self.grad_fn = None
+        self.group_fn = None
         self.no_grad_inputs = frozenset(no_grad_inputs)
         self.stateful = stateful
 
@@ -96,6 +104,22 @@ def register_grad(op_type: str) -> Callable:
 
     def deco(fn):
         REGISTRY[op_type].grad_fn = fn
+        return fn
+
+    return deco
+
+
+def register_group(op_type: str) -> Callable:
+    """Decorator: attach a group impl to a registered op,
+    ``fn([ctx, ...]) -> [{slot: tensor | [tensors]}, ...]``: the outputs of
+    several ops of this type, each with its own context, computed at once.
+    The Executor hands it each run of consecutive ops of the type whose
+    attrs are equal (but for the op role) and none of which reads a name
+    another writes; the result must equal running ``fn`` on each context in
+    turn."""
+
+    def deco(fn):
+        REGISTRY[op_type].group_fn = fn
         return fn
 
     return deco
