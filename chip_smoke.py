@@ -36,9 +36,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  6. kernel_flash - the flash forward, dQ and dK/dV kernels vs their plain
                    versions at the training path's shape (B = 64, H = 8,
                    T = 256, D = 64): non-causal with a ragged padding bias,
-                   causal, and Tq = 100 / Tk = 77 causal with a bias;
-                   bitwise repeatability; kernel, plain, bound and SDPA
-                   times (forward, and forward + backward under autograd)
+                   causal, and Tq = 100 / Tk = 77 causal with a bias, then
+                   the ragged case at D = 16, 32 and 128; bitwise
+                   repeatability; kernel, plain and SDPA times (forward,
+                   and forward + backward under autograd); each kernel's
+                   bound on both routes (the tensor cores' TF32 rate, three
+                   products per fp32 product, and the CUDA cores' fp32
+                   rate; ``bound_ms`` the lesser, the CUDA cores' beside
+                   it as ``*_fp32_core_bound_ms``); blocks per SM of each
+                   kernel at each head width
  7. serving      - 16 requests (two sharing a 32-token prefix) through a
                    6-layer d_model 512 / d_inner 2048 / vocab 30000 paged
                    decode model with random weights from a seed: every
@@ -110,10 +116,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32
+# FLOP/s outside the tensor cores, and TF32 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 
 # serving shape of the smoke model (Transformer-base widths, paged decode)
 SLOTS, MAX_LEN, PAGE_SIZE, BUCKETS = 8, 512, 16, [32, 64, 128]
@@ -136,10 +143,13 @@ ADAM_TENSORS_PER_STEP = 184
 FLASH_HEADS, FLASH_D, FLASH_OPS = 8, 64, 18
 FLASH_FWD_PER_STEP = 2 * FLASH_OPS
 FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
-# kernel vs plain version, (atol, rtol): float32 on both sides, fp32 FMA
-# sums; only their order differs (the forward's online softmax over 64-key
-# tiles against the plain whole-row softmax), worth a few ulps of values
-# of order 1-10 (out ~0.1, lse ~6, gradients up to ~10)
+# kernel vs plain version, (atol, rtol): float32 on both sides.  dQ sums
+# fp32 FMAs; the forward and dK/dV multiply on the tensor cores by 3xTF32
+# (three TF32 products per fp32 product, ~2^-21 relative each; see
+# tests/test_torch_flash_tf32.py); the sums' order differs too (the
+# forward's online softmax over key tiles against the plain whole-row
+# softmax).  Worth a few ulps of values of order 1-10 (out ~0.1, lse ~6,
+# gradients up to ~10)
 FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
 # ResNet-50 training (bench.py's accelerator run): one momentum launch for
 # the Executor's group of the 161 momentum ops, one a trainable parameter
@@ -853,22 +863,34 @@ def flash_live_pairs(t_q, lens, causal):
 
 
 def flash_bound_ms(t_q, t_k, lens, causal, kind):
-    """The least time of one flash kernel call: its products' 2 flops a
-    multiply-add (D of them per product per live pair: 2 products forward,
-    3 in dQ, 4 in dK/dV) plus 4 for the softmax arithmetic of a live pair,
-    over the fp32 rate; or each input read once and each output written
-    once over the memory rate, whichever is larger."""
+    """The least time of one flash kernel call: each input read once and
+    each output written once over the memory rate, or the operations over
+    their rate, whichever is larger; on the better of two routes.  The
+    products are 2 flops a multiply-add, D of them per product per live
+    pair (2 products forward, 3 in dQ, 4 in dK/dV), plus 4 flops of softmax
+    arithmetic a live pair on the CUDA cores: on the CUDA cores all at the
+    fp32 rate, on the tensor cores the products three times over (3xTF32)
+    at the TF32 rate.  Returns ``{"bound_ms", "bound_by",
+    "fp32_core_bound_ms", "tensor_core_bound_ms"}``."""
     b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
     pairs = h * flash_live_pairs(t_q, lens, causal)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
-    flops = pairs * (2 * products * d + 4)
+    product_flops, softmax_flops = pairs * 2 * products * d, pairs * 4
     q_bytes, kv_bytes, rows = b * h * t_q * d * 4, b * h * t_k * d * 4, \
         b * h * t_q * 4
     bias_bytes = b * t_k * 4
     nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + rows + bias_bytes,
               "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows + bias_bytes,
               "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows + bias_bytes}[kind]
-    return bound_ms(nbytes, flops)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_fp32 = (product_flops + softmax_flops) / PEAK_FP32_FLOPS * 1e3
+    t_tc = (3 * product_flops / PEAK_TF32_FLOPS
+            + softmax_flops / PEAK_FP32_FLOPS) * 1e3
+    t_ops = min(t_fp32, t_tc)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fp32_core_bound_ms": max(t_bytes, t_fp32),
+            "tensor_core_bound_ms": max(t_bytes, t_tc)}
 
 
 def _check_close(what, name, got, want):
@@ -882,6 +904,30 @@ def _check_close(what, name, got, want):
             f"flash {what}: {name} disagrees with the plain version: max "
             f"abs/rel err {_max_errs(got, want)} (atol {atol}, rtol {rtol})")
     return _max_errs(got, want)
+
+
+def flash_blocks_per_sm(kind, d):
+    """How many blocks of the flash forward (``"fwd"``), dQ (``"dq"``) or
+    dK/dV (``"dkv"``) kernel at head width ``d`` fit one SM of the card at
+    once, from their threads, registers and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` behind the kernels'
+    C interface)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._lib()
+    query = lib.pta_flash_blocks_per_sm
+    query.argtypes = [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)]
+    query.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    rc = query({"fwd": 0, "dq": 1, "dkv": 2}[kind], d, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"flash {kind} occupancy query failed: "
+                           f"{lib.pta_flash_error_string(rc).decode()} "
+                           f"(error {rc})")
+    return blocks.value
 
 
 def phase_kernel_flash():
@@ -929,11 +975,14 @@ def phase_kernel_flash():
                                                      True, b=4, h=2, d=d)
             widths[d] = _check_flash_case(q, k, v, do, bias, d ** -0.5,
                                           True, f"D = {d} case")[0]
+    blocks = {kind: {d: flash_blocks_per_sm(kind, d) for d in fa.HEAD_DIMS}
+              for kind in ("fwd", "dq", "dkv")}
     emit("kernel_flash", batch=TRAIN_BATCH, heads=FLASH_HEADS, d=FLASH_D,
          tolerance={n: {"atol": a, "rtol": r} for n, (a, r)
                     in FLASH_TOL.items()}, **report,
          other_widths={"batch": 4, "heads": 2, "t_q": 100, "t_k": 77,
-                       "max_abs_rel_err": widths})
+                       "max_abs_rel_err": widths},
+         blocks_per_sm=blocks)
     # the kernels line: the padding case, as 12 of the step's 18 ops run it
     main = report["padding"]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -1005,8 +1054,8 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
                                       causal), 50)):
         times[f"{kind}_ms"] = cuda_time_ms(kern, iters)
         times[f"{kind}_plain_ms"] = cuda_time_ms(plain, 10)
-        bound, by = flash_bound_ms(t_q, t_k, lens, causal, kind)
-        times[f"{kind}_bound_ms"], times[f"{kind}_bound_by"] = bound, by
+        for key, val in flash_bound_ms(t_q, t_k, lens, causal, kind).items():
+            times[f"{kind}_{key}"] = val
 
     # the library yardstick, timed only: SDPA on the same fp32 inputs
     def sdpa(a, b_, c):

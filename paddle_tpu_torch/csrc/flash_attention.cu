@@ -22,36 +22,66 @@
 // What bounds them: operations.  One (query, key) pair costs 2*D FMAs in
 // the forward (q.k and p.v), 3*D in dQ and 4*D in dK/dV, against 4 * 4 * D
 // bytes of q, k, v, out read once: at B*H = 512, T = 256, D = 64 the forward
-// is 8.6 GFLOP over 134 MB, ~64 flops per byte, far above the H100's ~20
-// fp32 flops per byte.  So the least time is the FMAs over the 67 TFLOP/s of
-// the CUDA cores (fp32, no TF32: the training path is full float32).
+// is 8.6 GFLOP over 134 MB, ~64 flops per byte.  In the main path's padding
+// case (B 64, H 8, T 256, D 64; 25.3 M live pairs a call):
+//   - on the CUDA cores (fp32 FMA, 67 TFLOP/s) the least time is 0.098 ms
+//     for the forward and 0.195 ms for dK/dV;
+//   - on the tensor cores, three TF32 products per fp32 product (below) at
+//     495 TFLOP/s plus 4 CUDA-core flops a live pair: 0.041 ms for the
+//     forward (its bytes over 3.35 TB/s: 0.040 ms) and 0.080 ms for dK/dV
+//     (bytes 0.060 ms).
 //
-// Design.  The Pallas grid carries (m, l, acc) in VMEM scratch across a
-// sequential k axis; Hopper's blocks run in parallel and in no order, so a
-// loop inside one block takes its place:
-//   - forward and dQ: one block per (b*h, 64-row q tile); the q tile (and
-//     dO) stay in shared memory while 64-row k/v tiles stream through it;
-//   - dK/dV: one block per (b*h, 64-row k tile); q, dO, lse and delta tiles
-//     stream.
-// 256 threads as 16 x 16: thread (ty, tx) owns tile rows ty + 16 i and
-// columns tx + 16 j (i, j < 4) of a 64 x 64 score tile, computed as 4 x 4
-// register outer products over float4 reads along D.  The tile's
-// probabilities go through shared memory for the second product (P v,
-// dS k, P^T dO, dS^T q), where the thread owns rows ty + 16 i and D/16
-// columns.  A row's max and sum are shuffles within the 16 lanes that share
-// it.  Rows are padded to D + 4 floats: 16-byte aligned, and the float4
-// reads of 8 neighbouring rows fall into distinct banks.  At B*H = 512,
-// T = 256 that is 2,048 blocks over 132 SMs.
+// Forward and dK/dV: fp32 on the tensor cores by 3xTF32.  Each fp32 operand
+// x is split as big = tf32(x) (round to nearest), small = x - big, and a
+// product a b is small_a big_b + big_a small_b + big_a big_b, three
+// mma.sync.m16n8k8 TF32 products: ~2^-21 relative per product against
+// plain TF32's 2^-11.  The tensor core truncates its fp32 sums, so each k
+// step (8 products) goes into a fresh accumulator that is added to the
+// running sum rounded to nearest (mma3): summed along a 256-long row, the
+// truncations alone reached 1e-5 of dK.  The kernels so keep the fp32 plain
+// versions' tolerance (tests/test_torch_flash_tf32.py emulates the scheme
+// on the CPU).  mma.sync rather than wgmma: TF32 wgmma reads B K-major
+// from shared memory, and the B operand of P V (and of P^T dO, dS^T q) is
+// N-major as stored; mma.sync fragments load at any stride.  4 warps a
+// block, each owning 16 rows of the score tile:
+//   - forward: a block per (b*h, 64 query rows); the q tile stays in shared
+//     memory, 32-key K/V tiles (16 at D = 128) are double-buffered by
+//     cp.async, so tile k+1 is in flight while tile k is computed; S stays
+//     in the accumulators, a row's max and sum are shuffles within the 4
+//     lanes of a quad, and the accumulators are, unchanged, the A fragment
+//     of P V (the k positions stand for keys 8j + 2t and 8j + 2t + 1); out
+//     and lse are written once;
+//   - dK/dV: a block per (b*h, 64 keys), the K/V tile in shared memory; q,
+//     dO, lse and delta tiles of 32 queries (16 at D = 128) stream through
+//     a double buffer; S^T and dP^T in registers, P^T and dS^T the A
+//     operands of P^T dO and dS^T q; dK and dV accumulate in registers and
+//     are written once, dK scaled.  At D = 128 the two accumulators do not
+//     fit the registers together, so dV and then dK take a sweep each over
+//     the queries (S^T computed twice).
+// This takes the CUDA cores' shared-memory cap off the products (a 4 x 4
+// register tile reads 2 floats of shared memory per FMA, and an SM
+// delivers 32 floats a clock against 128 FMAs) and lets copies overlap
+// compute.  What bounds them now is the issue of the split, the 3 mma and
+// the add per k step at 2 blocks (8 warps) an SM: the registers (190-245 a
+// thread at D = 64) allow no more without spills.
+
+// dQ keeps its CUDA-core design: 256 threads as 16 x 16, thread (ty, tx)
+// owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of a 64 x 64 score
+// tile, 4 x 4 register outer products over float4 reads along D, the tile's
+// dS through shared memory for dS k; rows padded to D + 4 floats.  One
+// block per (b*h, 64-row q tile), q and dO in shared memory while k/v tiles
+// stream through it.
 //
 // Dead causal tiles are skipped (the reference's `live`, :80, :131, :180).
 // The ragged edge of Tq and Tk is masked here (rows past the end load as
 // zeros, keys past the end get weight 0), so any Tq, Tk >= 1 works, with no
 // power-of-two block halving.  Every sum has a fixed order and there are no
-// atomics, so two launches are bitwise equal.  All arithmetic is fp32 FMA on
-// the CUDA cores; wgmma, TMA and bf16 tensor-core tiles are later work.
+// atomics, so two launches are bitwise equal.  The TF32 mma fragments here
+// are the machinery a bf16 path (m16n8k16) reuses.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -92,30 +122,17 @@ __device__ __forceinline__ int own_col(int tx, int e) {
   return (e / VW) * 16 * VW + tx * VW + (e % VW);
 }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dst [64, D] (stride kLd) <- mul * src rows [0, n_valid) (stride D); rows
-// past n_valid are zeros.
+// dst [64, D] (stride kLd) <- src rows [0, n_valid) (stride D); rows past
+// n_valid are zeros.
 template <int D>
-__device__ void load_tile(float* dst, const float* __restrict__ src, int n_valid,
-                          float mul) {
+__device__ void load_tile(float* dst, const float* __restrict__ src,
+                          int n_valid) {
   constexpr int kV = D / 4;
   for (int i = threadIdx.x; i < kTile * kV; i += kThreads) {
     const int r = i / kV, c = i % kV;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < n_valid) {
       x = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D) + c);
-      x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
     }
     *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLd + c * 4) = x;
   }
@@ -194,87 +211,360 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core machinery of the forward and dK/dV kernels: fp32 products as
+// three TF32 mma.sync.m16n8k8 (3xTF32), tiles copied by cp.async.
+//
+// In an m16n8k8 fragment lane = 4 g + t.  A (16 x 8, row) holds a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, col) b0 (t, g),
+// b1 (t + 4, g); the fp32 accumulator C (16 x 8) c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1).  Which index of the operands a k
+// position stands for is free, as long as A and B agree: the kernels pick
+// it so that a lane's values lie side by side in shared memory (vector
+// reads) and so that a score accumulator is, unchanged, the A fragment of
+// the next product (no shuffles).
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// exp(x) as ex2 of x log2(e): within a few ulps of expf for the softmax's
+// arguments (<= 0), exactly 0 at -inf and -1e30.
+__device__ __forceinline__ float exp_e(float x) { return exp2f(x * kLog2e); }
+
+// x = big + small: big = tf32(x) rounded to nearest, ties away (cvt.rna;
+// done here in two integer ops, as cvt.rna.tf32.f32 becomes a longer
+// sequence on sm_90), small = x - big exactly in fp32, of which the tensor
+// core reads the top 19 bits (truncation).  big + small keeps x to 2^-21.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split4(const float x[4], uint32_t big[4],
+                                       uint32_t small[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(x[e], big[e], small[e]);
+}
+
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b for one k step in fp32 accuracy: small_a big_b + big_a small_b
+// + big_a big_b, the small terms first, into a fresh accumulator, then one
+// round-to-nearest add into d.  The tensor core rounds its sums toward
+// zero: summed into d along a whole row, that bias would grow with the
+// row's length (96 truncations of a dK element at T = 256, ~1e-5 of it);
+// here it is one truncation of an 8-product partial per step.  b0/b1 are
+// fp32, split here.
+__device__ __forceinline__ void mma3(float d[4], const uint32_t a_big[4],
+                                     const uint32_t a_small[4], float b0,
+                                     float b1) {
+  uint32_t b0_big, b0_small, b1_big, b1_small;
+  split_tf32(b0, b0_big, b0_small);
+  split_tf32(b1, b1_big, b1_small);
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(part, a_small, b0_big, b1_big);
+  mma_tf32(part, a_big, b0_small, b1_small);
+  mma_tf32(part, a_big, b0_big, b1_big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += part[e];
+}
+
+// 16-byte copy global -> shared that does not hold the thread; zeros when
+// !valid (the source is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// dst [ROWS, ld] <- rows [0, n_valid) of src [*, D]; zeros past n_valid.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void async_rows(float* dst, int ld,
+                                           const float* __restrict__ src,
+                                           int n_valid) {
+  constexpr int kV = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kV; i += NT) {
+    const int r = i / kV, c = i % kV;
+    const bool ok = r < n_valid;
+    cp_async16(dst + r * ld + c * 4, src + (size_t)(ok ? r : 0) * D + c * 4,
+               ok);
+  }
+}
+
+// dst [n] <- src [0, n_valid), zeros past it.
+template <int NT>
+__device__ __forceinline__ void async_vec(float* dst, const float* src, int n,
+                                          int n_valid) {
+  for (int i = threadIdx.x; i < n; i += NT)
+    cp_async4(dst + i, src + (i < n_valid ? i : 0), i < n_valid);
+}
+
+// The columns of a [*, D] tile as the B operand of a product over rows
+// (P V, P^T dO, dS^T q): n-tile i = VW c + u and B column n stand for
+// column CHUNK c + VW n + u, so that a lane reads its VW columns of a row
+// at once and holds, in the accumulator, 2 VW adjacent output columns.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct ColMap {
+  static constexpr int kVw = D >= 32 ? 4 : 2;
+  static constexpr int kChunk = 8 * kVw;
+  static constexpr int kChunks = D / kChunk;
+};
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* x) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
+  }
+}
+
+// acc [D/8][4] (16 rows x D) += P X over the 8 NK rows of X [8 NK, ld]:
+// P [NK][4] is a 16 x 8 NK score accumulator, taken as A with k position
+// t <-> row 8j + 2t and t + 4 <-> row 8j + 2t + 1 (so a0..a3 = p0, p2, p1,
+// p3); X is read by ColMap.  ld = 4 (mod 32): the VW-wide reads of 8 (or
+// 16) lanes fall into distinct banks.
+template <int D, int NK>
+__device__ __forceinline__ void acc_rows(float acc[D / 8][4],
+                                         const float P[NK][4],
+                                         const float* X, int ld, int g,
+                                         int t) {
+  using CM = ColMap<D>;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float pa[4] = {P[j][0], P[j][2], P[j][1], P[j][3]};
+    uint32_t p_big[4], p_small[4];
+    split4(pa, p_big, p_small);
+    const float* x0 = X + (8 * j + 2 * t) * ld + CM::kVw * g;
+    float v0[D / 8], v1[D / 8];
+#pragma unroll
+    for (int c = 0; c < CM::kChunks; ++c) {
+      load_vec<CM::kVw>(x0 + CM::kChunk * c, v0 + CM::kVw * c);
+      load_vec<CM::kVw>(x0 + ld + CM::kChunk * c, v1 + CM::kVw * c);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      mma3(acc[i], p_big, p_small, v0[i], v1[i]);
+  }
+}
+
+// rows r and r + 8 of out [rows, D] <- acc (as acc_rows leaves it), rows
+// < n_rows only.
+template <int D>
+__device__ __forceinline__ void store_acc(float* __restrict__ out,
+                                          const float acc[D / 8][4], int r,
+                                          int n_rows, int t) {
+  using CM = ColMap<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int c = 0; c < CM::kChunks; ++c) {
+      float x[2 * CM::kVw];
+#pragma unroll
+      for (int u = 0; u < CM::kVw; ++u) {
+        x[u] = acc[CM::kVw * c + u][2 * h];
+        x[CM::kVw + u] = acc[CM::kVw * c + u][2 * h + 1];
+      }
+      float* dst = out + (size_t)row * D + CM::kChunk * c + 2 * CM::kVw * t;
+      store_vec<CM::kVw>(dst, x);
+      store_vec<CM::kVw>(dst + CM::kVw, x + CM::kVw);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block per (b*h, 64 query rows), 4 warps of 16 rows each.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FwdCfg {
+  static constexpr int kWarps = 4, kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;         // query rows a block
+  static constexpr int kKeys = D == 128 ? 16 : 32;  // keys a tile
+  // float2 reads along d of 16 lanes (rows g, columns 2t): no conflict
+  static constexpr int kLdQ = D + 8, kLdK = D + 8;
+  static constexpr int kLdV = D + 4;  // acc_rows' reads
+  // smem: q [kRows, kLdQ] once; two stages of K [kKeys, kLdK], V [kKeys,
+  // kLdV] and bias [kKeys]
+  static constexpr int kQ = kRows * kLdQ;
+  static constexpr int kStage = kKeys * (kLdK + kLdV + 1);
+  static constexpr size_t kSmem = (kQ + 2 * kStage) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ out, float* __restrict__ lse, int H, int Tq,
                  int Tk, float scale, int causal, int n_qt) {
-  constexpr int LD = Cfg<D>::kLd, NC = Cfg<D>::kCols;
+  using C = FwdCfg<D>;
+  constexpr int kN = C::kKeys / 8, kDn = D / 8, NT = C::kThreads;
+  constexpr int LQ = C::kLdQ, LK = C::kLdK, LV = C::kLdV;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [64, LD] scale * q
-  float* Ks = Qs + kTile * LD;   // [64, LD]
-  float* Vs = Ks + kTile * LD;   // [64, LD]
-  float* Ps = Vs + kTile * LD;   // [64, kLdP] probabilities of the tile
-  const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // within a head, the q tiles with the most causal work start first
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * C::kRows;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = 16 * (threadIdx.x >> 5);  // this warp's first row (local)
+  const int r0 = q0 + w0 + g;              // this lane's rows r0, r0 + 8
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
   const float* bb = bias ? bias + (size_t)(bh / H) * Tk : nullptr;
-  load_tile<D>(Qs, q + ((size_t)bh * Tq + q0) * D, min(kTile, Tq - q0), scale);
+  float* Qs = smem;
+  float* stages = Qs + C::kQ;
 
-  float m[4], l[4], o[4][NC];
+  auto load_stage = [&](int buf, int k0) {
+    float* Ks = stages + buf * C::kStage;
+    float* Vs = Ks + C::kKeys * LK;
+    const int nk = min(C::kKeys, Tk - k0);
+    async_rows<D, C::kKeys, NT>(Ks, LK, kb + (size_t)k0 * D, nk);
+    async_rows<D, C::kKeys, NT>(Vs, LV, vb + (size_t)k0 * D, nk);
+    if (bb) async_vec<NT>(Vs + C::kKeys * LV, bb + k0, C::kKeys, nk);
+  };
+  const int k_end = causal ? min(Tk, q0 + C::kRows) : Tk;
+  const int n_kt = (k_end + C::kKeys - 1) / C::kKeys;
+  async_rows<D, C::kRows, NT>(Qs, LQ, q + ((size_t)bh * Tq + q0) * D,
+                              min(C::kRows, Tq - q0));
+  load_stage(0, 0);
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[kDn][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int i = 0; i < kDn; ++i)
 #pragma unroll
-    for (int e = 0; e < NC; ++e) o[i][e] = 0.f;
-  }
-  // causal: key tiles past the q tile's last row are dead
-  const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's K, V and P are read
-    const int nk = min(kTile, Tk - k0);
-    load_tile<D>(Ks, kb + (size_t)k0 * D, nk, 1.f);
-    load_tile<D>(Vs, vb + (size_t)k0 * D, nk, 1.f);
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * C::kKeys;
+    // tile kt + 1 is copied while tile kt is computed
+    if (kt + 1 < n_kt) load_stage((kt + 1) & 1, k0 + C::kKeys);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    float s[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
+    const float* Ks = stages + (kt & 1) * C::kStage;
+    const float* Vs = Ks + C::kKeys * LK;
+    const float* Bs = Vs + C::kKeys * LV;
+
+    // S = (scale q) k^T, 16 rows x kKeys keys a warp.  k position t
+    // stands for d = 8 ks + 2t, t + 4 for 8 ks + 2t + 1 (float2 reads); A
+    // rows r0 (a0, a2) and r0 + 8 (a1, a3); key 8j + g is B column g of
+    // n-tile j
+    float s[kN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = -INFINITY;  // keys past Tk: weight exactly 0
-        if (col < Tk) {
-          x = s[i][j];
-          if (bb) x += bb[col];
-          if (causal && row < col) x = kNegInf;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kDn; ++ks) {
+      const float* qa = Qs + (w0 + g) * LQ + 8 * ks + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(qa);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * LQ);
+      const float a[4] = {x0.x * scale, x1.x * scale, x0.y * scale,
+                          x1.y * scale};
+      uint32_t a_big[4], a_small[4];
+      split4(a, a_big, a_small);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * LK + 8 * ks + 2 * t);
+        mma3(s[j], a_big, a_small, kv.x, kv.y);
       }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * corr + row_sum16(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < NC; ++e) o[i][e] *= corr;
     }
-    __syncthreads();
-    acc_tile<D>(Ps, Vs, ty, tx, o);
+
+    // bias, masks and the online softmax; c_e holds row r0 + 8 (e >> 1),
+    // key k0 + 8j + 2t + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1), kc = 8 * j + 2 * t + (e & 1);
+        float x = -INFINITY;  // keys past Tk: weight exactly 0
+        if (k0 + kc < Tk) {
+          x = s[j][e];
+          if (bb) x += Bs[kc];
+          if (causal && row < k0 + kc) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      const float corr = exp_e(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr;  // this lane's share of the row sum
+#pragma unroll
+      for (int i = 0; i < kDn; ++i) {
+        o[i][2 * h] *= corr;
+        o[i][2 * h + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp_e(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    // o += P V, P straight from the score registers
+    acc_rows<D, kN>(o, s, Vs, LV, g, t);
+    __syncthreads();  // every warp is done with this stage
   }
 
-  float* ob = out + (size_t)bh * Tq * D;
+  float lf[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
+  for (int h = 0; h < 2; ++h) lf[h] = fmaxf(quad_sum(l[h]), 1e-30f);
 #pragma unroll
-    for (int e = 0; e < NC; ++e)
-      ob[(size_t)row * D + own_col<D>(tx, e)] = o[i][e] / lf;
-    if (tx == 0) lse[(size_t)bh * Tq + row] = m[i] + logf(lf);
+  for (int i = 0; i < kDn; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] /= lf[e >> 1];
+  store_acc<D>(out + (size_t)bh * Tq * D, o, r0, Tq, t);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < Tq)
+        lse[(size_t)bh * Tq + r0 + 8 * h] = m[h] + logf(lf[h]);
   }
 }
 
@@ -298,8 +588,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
   const float* bb = bias ? bias + (size_t)(bh / H) * Tk : nullptr;
-  load_tile<D>(Qs, q + ((size_t)bh * Tq + q0) * D, nq, 1.f);
-  load_tile<D>(dOs, dout + ((size_t)bh * Tq + q0) * D, nq, 1.f);
+  load_tile<D>(Qs, q + ((size_t)bh * Tq + q0) * D, nq);
+  load_tile<D>(dOs, dout + ((size_t)bh * Tq + q0) * D, nq);
 
   float lse_r[4], delta_r[4], acc[4][NC];
 #pragma unroll
@@ -314,8 +604,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
     const int nk = min(kTile, Tk - k0);
-    load_tile<D>(Ks, kb + (size_t)k0 * D, nk, 1.f);
-    load_tile<D>(Vs, vb + (size_t)k0 * D, nk, 1.f);
+    load_tile<D>(Ks, kb + (size_t)k0 * D, nk);
+    load_tile<D>(Vs, vb + (size_t)k0 * D, nk);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D>(Qs, Ks, ty, tx, s);
@@ -342,77 +632,197 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<D>(dq + (size_t)bh * Tq * D, acc, q0, Tq, ty, tx, scale);
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV: one block per (b*h, 64 keys), 4 warps of 16 keys each.
+// ---------------------------------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DkvCfg {
+  static constexpr int kWarps = 4, kThreads = 32 * kWarps;
+  static constexpr int kKeys = 16 * kWarps;      // keys a block
+  static constexpr int kQ = D == 128 ? 16 : 32;  // queries a tile
+  static constexpr int kLd = D + 4;  // scalar reads along d and acc_rows'
+  // D = 128: dV, then dK, in two sweeps over the queries, so that one set
+  // of accumulators (64 registers) is live at a time
+  static constexpr bool kTwoSweeps = D == 128;
+  // smem: K, V [kKeys, kLd] once; two stages of q, dO [kQ, kLd], lse,
+  // delta [kQ]
+  static constexpr int kKV = 2 * kKeys * kLd;
+  static constexpr int kStage = 2 * kQ * kLd + 2 * kQ;
+  static constexpr size_t kSmem = (kKV + 2 * kStage) * sizeof(float);
+};
+
+// acc [NQ][4] = A B^T over d: A rows g and g + 8 of [*, ld], B [8 NQ,
+// ld]; k position t <-> d = 8s + t, t + 4 <-> 8s + t + 4 (ld = 4 mod 32:
+// the scalar reads of a warp fall into distinct banks).
+template <int D, int NQ>
+__device__ __forceinline__ void dot_rows(float acc[NQ][4], const float* A,
+                                         const float* B, int ld, int g,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const float* a = A + g * ld + 8 * ks + t;
+    const float af[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
+    uint32_t a_big[4], a_small[4];
+    split4(af, a_big, a_small);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float* b = B + (8 * j + g) * ld + 8 * ks + t;
+      mma3(acc[j], a_big, a_small, b[0], b[4]);
+    }
+  }
+}
+
+// What one sweep over a block's query tiles needs.
+struct DkvSweep {
+  const float* qb;   // q [Tq, D] of this head
+  const float* ob;   // dO [Tq, D]
+  const float* lb;   // lse [Tq]
+  const float* db;   // delta [Tq]
+  const float* Ks;   // this warp's K rows (raw, shared memory)
+  const float* Vs;   // its V rows
+  float* stages;     // two stages of q, dO, lse, delta
+  int Tq, Tk, key, q_begin, n_qt, causal;
+  float scale, bias_k[2];
+};
+
+// One sweep: dV (kDv) and/or dK (kDk) of this lane's keys key + 8h into
+// dv_acc / dk_acc (dK unscaled).
+template <int D, bool kDv, bool kDk>
+__device__ __forceinline__ void dkv_sweep(const DkvSweep& w,
+                                          float dv_acc[D / 8][4],
+                                          float dk_acc[D / 8][4], int g,
+                                          int t) {
+  using C = DkvCfg<D>;
+  constexpr int kN = C::kQ / 8, NT = C::kThreads, LD = C::kLd;
+  auto load_stage = [&](int buf, int q0) {
+    float* Qs = w.stages + buf * C::kStage;
+    float* Os = Qs + C::kQ * LD;
+    float* Ls = Os + C::kQ * LD;
+    const int nq = min(C::kQ, w.Tq - q0);
+    async_rows<D, C::kQ, NT>(Qs, LD, w.qb + (size_t)q0 * D, nq);
+    async_rows<D, C::kQ, NT>(Os, LD, w.ob + (size_t)q0 * D, nq);
+    async_vec<NT>(Ls, w.lb + q0, C::kQ, nq);
+    if (kDk) async_vec<NT>(Ls + C::kQ, w.db + q0, C::kQ, nq);
+  };
+  if (w.n_qt > 0) load_stage(0, w.q_begin);
+  cp_async_commit();
+
+  for (int it = 0; it < w.n_qt; ++it) {
+    const int q0 = w.q_begin + it * C::kQ;
+    // tile it + 1 is copied while tile it is computed
+    if (it + 1 < w.n_qt) load_stage((it + 1) & 1, q0 + C::kQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qs = w.stages + (it & 1) * C::kStage;
+    const float* Os = Qs + C::kQ * LD;
+    const float* Ls = Os + C::kQ * LD;
+    const float* Ds = Ls + C::kQ;
+
+    // S^T = K q^T and P^T = exp(scale S^T + bias - lse): rows keys, c_e
+    // key w.key + 8 (e >> 1), query q0 + 8j + 2t + (e & 1)
+    float p[kN][4];
+    dot_rows<D, kN>(p, w.Ks, Qs, LD, g, t);
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = w.key + 8 * (e >> 1);
+        const int qc = 8 * j + 2 * t + (e & 1), query = q0 + qc;
+        float pe = 0.f;
+        if (query < w.Tq && key < w.Tk && !(w.causal && query < key))
+          pe = exp_e(p[j][e] * w.scale + w.bias_k[e >> 1] - Ls[qc]);
+        p[j][e] = pe;
+      }
+    // dV += P^T dO
+    if (kDv) acc_rows<D, kN>(dv_acc, p, Os, LD, g, t);
+    if (kDk) {
+      // dS^T = P^T (dP^T - delta), dP^T = V dO^T; dK += dS^T q
+      float ds[kN][4];
+      dot_rows<D, kN>(ds, w.Vs, Os, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - Ds[8 * j + 2 * t + (e & 1)]);
+      acc_rows<D, kN>(dk_acc, ds, Qs, LD, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads, 2)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  const float* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int H, int Tq, int Tk, float scale,
                  int causal, int n_kt) {
-  constexpr int LD = Cfg<D>::kLd, NC = Cfg<D>::kCols;
+  using C = DkvCfg<D>;
+  constexpr int kDn = D / 8, NT = C::kThreads, LD = C::kLd;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;               // [64, LD]
-  float* Vs = Ks + kTile * LD;    // [64, LD]
-  float* Qs = Vs + kTile * LD;    // [64, LD]
-  float* dOs = Qs + kTile * LD;   // [64, LD]
-  float* Pt = dOs + kTile * LD;   // [64, kLdP] P^T: rows keys, columns queries
-  float* dSt = Pt + kTile * kLdP; // [64, kLdP] dS^T
-  float* lse_s = dSt + kTile * kLdP;  // [64]
-  float* delta_s = lse_s + kTile;     // [64]
-  const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* ob = dout + (size_t)bh * Tq * D;
+  const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * C::kKeys;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kr = 16 * (threadIdx.x >> 5);  // this warp's first key (local)
+  float* Ks = smem;
+  float* Vs = Ks + C::kKeys * LD;
   const float* bb = bias ? bias + (size_t)(bh / H) * Tk : nullptr;
-  load_tile<D>(Ks, k + ((size_t)bh * Tk + k0) * D, min(kTile, Tk - k0), 1.f);
-  load_tile<D>(Vs, v + ((size_t)bh * Tk + k0) * D, min(kTile, Tk - k0), 1.f);
 
-  float bias_c[4], dk_acc[4][NC], dv_acc[4][NC];
+  DkvSweep w;
+  w.qb = q + (size_t)bh * Tq * D;
+  w.ob = dout + (size_t)bh * Tq * D;
+  w.lb = lse + (size_t)bh * Tq;
+  w.db = delta + (size_t)bh * Tq;
+  w.Ks = Ks + kr * LD;
+  w.Vs = Vs + kr * LD;
+  w.stages = Vs + C::kKeys * LD;
+  w.Tq = Tq;
+  w.Tk = Tk;
+  w.key = k0 + kr + g;  // this lane's keys w.key, w.key + 8
+  // causal: query tiles whose last row is above this block's first key
+  // are dead (k0 is a multiple of kQ)
+  w.q_begin = causal ? k0 : 0;
+  w.n_qt = w.q_begin < Tq ? (Tq - w.q_begin + C::kQ - 1) / C::kQ : 0;
+  w.causal = causal;
+  w.scale = scale;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = k0 + ty + 16 * i;
-    bias_c[i] = (bb && col < Tk) ? bb[col] : 0.f;
-#pragma unroll
-    for (int e = 0; e < NC; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int key = w.key + 8 * h;
+    w.bias_k[h] = (bb && key < Tk) ? bb[key] : 0.f;
   }
-  // causal: query tiles whose last row is above this tile's first key are dead
-  for (int q0 = causal ? k0 : 0; q0 < Tq; q0 += kTile) {
-    __syncthreads();
-    const int nq = min(kTile, Tq - q0);
-    load_tile<D>(Qs, qb + (size_t)q0 * D, nq, 1.f);
-    load_tile<D>(dOs, ob + (size_t)q0 * D, nq, 1.f);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      lse_s[r] = r < nq ? lse[(size_t)bh * Tq + q0 + r] : 0.f;
-      delta_s[r] = r < nq ? delta[(size_t)bh * Tq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4], dpt[4][4];
-    dot_tile<D>(Ks, Qs, ty, tx, st);   // rows keys, columns queries
-    dot_tile<D>(Vs, dOs, ty, tx, dpt);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j, row = q0 + r;
-        float p = 0.f;
-        if (row < Tq && col < Tk) {
-          float x = st[i][j] * scale;
-          if (bb) x += bias_c[i];
-          if (causal && row < col) x = kNegInf;
-          p = expf(x - lse_s[r]);
-        }
-        Pt[(ty + 16 * i) * kLdP + r] = p;
-        dSt[(ty + 16 * i) * kLdP + r] = p * (dpt[i][j] - delta_s[r]);
-      }
-    }
-    __syncthreads();
-    acc_tile<D>(Pt, dOs, ty, tx, dv_acc);
-    acc_tile<D>(dSt, Qs, ty, tx, dk_acc);
+  if (w.n_qt > 0) {
+    const int nk = min(C::kKeys, Tk - k0);
+    async_rows<D, C::kKeys, NT>(Ks, LD, k + ((size_t)bh * Tk + k0) * D, nk);
+    async_rows<D, C::kKeys, NT>(Vs, LD, v + ((size_t)bh * Tk + k0) * D, nk);
   }
-  store_rows<D>(dk + (size_t)bh * Tk * D, dk_acc, k0, Tk, ty, tx, scale);
-  store_rows<D>(dv + (size_t)bh * Tk * D, dv_acc, k0, Tk, ty, tx, 1.f);
+  // (committed with the first sweep's first stage)
+
+  float dk_acc[kDn][4], dv_acc[kDn][4];
+#pragma unroll
+  for (int i = 0; i < kDn; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  float* dk_out = dk + (size_t)bh * Tk * D;
+  float* dv_out = dv + (size_t)bh * Tk * D;
+  if constexpr (C::kTwoSweeps) {
+    dkv_sweep<D, true, false>(w, dv_acc, dk_acc, g, t);
+    store_acc<D>(dv_out, dv_acc, w.key, Tk, t);
+    dkv_sweep<D, false, true>(w, dv_acc, dk_acc, g, t);
+  } else {
+    dkv_sweep<D, true, true>(w, dv_acc, dk_acc, g, t);
+    store_acc<D>(dv_out, dv_acc, w.key, Tk, t);
+  }
+#pragma unroll
+  for (int i = 0; i < kDn; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] *= scale;
+  store_acc<D>(dk_out, dk_acc, w.key, Tk, t);
 }
 
 template <int D>
@@ -424,7 +834,8 @@ constexpr size_t kScoreBytes = (size_t)kTile * kLdP * sizeof(float);
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute((const void*)kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
@@ -438,12 +849,12 @@ struct Dims {
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* out, void* lse, const Dims& d) {
-  const size_t smem = 3 * tile_bytes<D>() + kScoreBytes;
-  cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
+  using C = FwdCfg<D>;
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const int n_qt = (d.Tq + kTile - 1) / kTile;
-  flash_fwd_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), kThreads, smem,
-                        d.stream>>>(
+  const int n_qt = (d.Tq + C::kRows - 1) / C::kRows;
+  flash_fwd_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), C::kThreads,
+                        C::kSmem, d.stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(out), static_cast<float*>(lse), d.H, d.Tq, d.Tk,
@@ -473,19 +884,46 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
                const void* dout, const void* lse, const void* delta, void* dk,
                void* dv, const Dims& d) {
-  const size_t smem = 4 * tile_bytes<D>() + 2 * kScoreBytes +
-                      2 * kTile * sizeof(float);
-  cudaError_t e = allow_smem(flash_dkv_kernel<D>, smem);
+  using C = DkvCfg<D>;
+  cudaError_t e = allow_smem(flash_dkv_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const int n_kt = (d.Tk + kTile - 1) / kTile;
-  flash_dkv_kernel<D><<<(unsigned)((long long)d.B * d.H * n_kt), kThreads, smem,
-                        d.stream>>>(
+  const int n_kt = (d.Tk + C::kKeys - 1) / C::kKeys;
+  flash_dkv_kernel<D><<<(unsigned)((long long)d.B * d.H * n_kt), C::kThreads,
+                        C::kSmem, d.stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), d.H, d.Tq, d.Tk, d.scale, d.causal, n_kt);
   return (int)cudaGetLastError();
+}
+
+// Blocks of one kernel that fit an SM at once (kind 0 forward, 1 dQ, 2
+// dK/dV), from its threads, registers and shared memory.
+template <int D>
+int blocks_per_sm(int kind, int* blocks) {
+  const void* kernel;
+  int threads;
+  size_t smem;
+  if (kind == 0) {
+    kernel = (const void*)flash_fwd_kernel<D>;
+    threads = FwdCfg<D>::kThreads;
+    smem = FwdCfg<D>::kSmem;
+  } else if (kind == 1) {
+    kernel = (const void*)flash_dq_kernel<D>;
+    threads = kThreads;
+    smem = 4 * tile_bytes<D>() + kScoreBytes;
+  } else if (kind == 2) {
+    kernel = (const void*)flash_dkv_kernel<D>;
+    threads = DkvCfg<D>::kThreads;
+    smem = DkvCfg<D>::kSmem;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                             threads, smem);
 }
 
 }  // namespace
@@ -536,6 +974,12 @@ int pta_flash_dkv_f32(const void* q, const void* k, const void* v,
   if ((long long)B * H * Tk == 0) return 0;
   const Dims d{B, H, Tq, Tk, scale, causal, (cudaStream_t)stream};
 #define PTA_CALL(N) launch_dkv<N>(q, k, v, bias, dout, lse, delta, dk, dv, d)
+  PTA_FLASH_DISPATCH(D, PTA_CALL)
+#undef PTA_CALL
+}
+
+int pta_flash_blocks_per_sm(int kind, int D, int* blocks) {
+#define PTA_CALL(N) blocks_per_sm<N>(kind, blocks)
   PTA_FLASH_DISPATCH(D, PTA_CALL)
 #undef PTA_CALL
 }

@@ -12,7 +12,7 @@ from .framework import (Program, Operator, Parameter, Variable,
                         default_main_program, default_startup_program,
                         program_guard)
 from . import executor
-from .executor import Executor, Scope, global_scope
+from .executor import Executor, Scope, global_scope, scope_guard
 from . import initializer
 from . import layers
 from . import unique_name
@@ -28,5 +28,6 @@ __all__ = [
     "backward", "clip", "optimizer", "regularizer", "append_backward",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",
-    "global_scope", "CPUPlace", "CUDAPlace", "TPUPlace", "ParamAttr",
+    "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
+    "ParamAttr",
 ]

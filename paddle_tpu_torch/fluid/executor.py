@@ -31,13 +31,18 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    in the scope under ``@RNG_STATE@`` and seeded from the
    ``Program.random_seed`` of the first run that needs it; later runs,
    startup and main alike, advance it, as the reference's threaded key;
- - fetches come back as numpy arrays.
+ - fetches come back as snapshots: numpy arrays (or, with
+   ``return_numpy=False``, tensor copies) that the next run cannot change
+   and that write nothing back into the scope.  A fed ``torch.Tensor``
+   that an op of the plan updates in place is cloned first, so the
+   caller's tensor is never written; numpy feeds are always copied.
 
 No jit, windows, guardian, compile cache or verifier in this slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -73,6 +78,19 @@ def global_scope() -> Scope:
     return _global_scope
 
 
+@contextlib.contextmanager
+def scope_guard(scope):
+    """Make ``scope`` the :func:`global_scope` inside the ``with`` block
+    (the reference's ``fluid.scope_guard``)."""
+    global _global_scope
+    old = _global_scope
+    _global_scope = scope
+    try:
+        yield
+    finally:
+        _global_scope = old
+
+
 def _resolve(op_type: str):
     """(op def, is_grad): a ``<type>_grad`` op resolves to its forward
     op's def unless registered on its own."""
@@ -96,6 +114,13 @@ def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
 
 def _storage(t) -> int:
     return t.untyped_storage().data_ptr()
+
+
+def _snapshot(t) -> np.ndarray:
+    """A numpy copy of ``t``: ``numpy()`` of a CPU tensor shares its
+    memory, ``cpu()`` of a device tensor already copies."""
+    t = t.detach()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def _find_groups(ops, const_ops) -> List[List[int]]:
@@ -215,6 +240,7 @@ class BlockPlan:
         self.in_place = [sorted(set(op.output_arg_names)
                                 & set(op.input_arg_names) - {""})
                          for op in self.ops]
+        self.in_place_names = {n for names in self.in_place for n in names}
         # runs executed as one group: first member's index -> members
         self.groups: Dict[int, List[int]] = {
             run[0]: run for run in _find_groups(self.ops, self.const_ops)}
@@ -328,19 +354,35 @@ class Executor:
             gen.manual_seed(int(program.random_seed or 0))
         return gen
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None):
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True):
+        """Run ``program`` (default: the main program) on ``feed`` and
+        return the values of ``fetch_list`` as snapshots: numpy arrays, or
+        tensor copies on the place's device with ``return_numpy=False``.
+        ``use_program_cache=False`` analyses the block afresh and keeps
+        nothing.  ``feed_var_name`` and ``fetch_var_name`` are accepted as
+        in the reference, which names no feed or fetch var either."""
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list or []]
+        feed = feed or {}
         feed_vals = {k: self._coerce_feed(program, k, v)
-                     for k, v in (feed or {}).items()}
+                     for k, v in feed.items()}
         key = (program._cache_token, program._version,
                tuple(sorted(feed_vals)), tuple(fetch_names))
-        plan = self._plans.get(key)
+        plan = self._plans.get(key) if use_program_cache else None
         if plan is None:
-            plan = self._plans[key] = BlockPlan(program, list(feed_vals),
-                                                fetch_names)
+            plan = BlockPlan(program, list(feed_vals), fetch_names)
+            if use_program_cache:
+                self._plans[key] = plan
+        for name in plan.in_place_names.intersection(feed_vals):
+            t = feed_vals[name]
+            if isinstance(feed[name], torch.Tensor) and \
+                    _storage(t) == _storage(feed[name]):
+                # an op updates this name in place: never the caller's
+                feed_vals[name] = t.clone()
         env: Dict[str, object] = {}
         for name in plan.state_in:
             val = scope.get(name)
@@ -391,4 +433,6 @@ class Executor:
             plan.checked = True
         for name in plan.state_out:
             scope.set(name, env[name])
-        return [env[n].detach().cpu().numpy() for n in fetch_names]
+        if not return_numpy:
+            return [env[n].detach().clone() for n in fetch_names]
+        return [_snapshot(env[n]) for n in fetch_names]
