@@ -17,8 +17,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  3. kernel       - paged attention vs ``paged_attention_ref`` at S=8,
                    D=512, page_size=16, 32 pages per slot, a pool of
                    8*32+1 pages, a shuffled page table with trash entries
-                   and ragged -inf bias; bitwise repeatability; kernel,
-                   plain and library times and the memory-bound time
+                   and ragged -inf bias; bitwise repeatability; each slot
+                   alone, and with its page table cut to the pages it
+                   uses, bitwise equal to its row of the batch; the dead
+                   chunks and the CUDA launches of a call; a call's time
+                   replayed from a CUDA graph, its kernels' device time,
+                   eager and host times, plain and library times and the
+                   memory-bound time
  4. kernel_xent  - the softmax-cross-entropy forward and backward kernels
                    vs their plain versions at the training path's shape
                    (R = 64 x 256 rows, V = 30000): soft labels from
@@ -43,8 +48,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    bound on both routes (the tensor cores' TF32 rate, three
                    products per fp32 product, and the CUDA cores' fp32
                    rate; ``bound_ms`` the lesser, the CUDA cores' beside
-                   it as ``*_fp32_core_bound_ms``); blocks per SM of each
-                   kernel at each head width
+                   it as ``*_fp32_core_bound_ms``); registers, spills and
+                   blocks per SM of each kernel at each head width
  7. serving      - 16 requests (two sharing a 32-token prefix) through a
                    6-layer d_model 512 / d_inner 2048 / vocab 30000 paged
                    decode model with random weights from a seed: every
@@ -143,13 +148,13 @@ ADAM_TENSORS_PER_STEP = 184
 FLASH_HEADS, FLASH_D, FLASH_OPS = 8, 64, 18
 FLASH_FWD_PER_STEP = 2 * FLASH_OPS
 FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
-# kernel vs plain version, (atol, rtol): float32 on both sides.  dQ sums
-# fp32 FMAs; the forward and dK/dV multiply on the tensor cores by 3xTF32
-# (three TF32 products per fp32 product, ~2^-21 relative each; see
-# tests/test_torch_flash_tf32.py); the sums' order differs too (the
-# forward's online softmax over key tiles against the plain whole-row
-# softmax).  Worth a few ulps of values of order 1-10 (out ~0.1, lse ~6,
-# gradients up to ~10)
+# kernel vs plain version, (atol, rtol): float32 on both sides.  All three
+# kernels multiply on the tensor cores by 3xTF32 (three TF32 products per
+# fp32 product, ~2^-21 relative each; see tests/test_torch_flash_tf32.py);
+# the sums' order differs too (the forward's online softmax over key tiles
+# against the plain whole-row softmax; dQ's and dK/dV's sums tile by tile).
+# Worth a few ulps of values of order 1-10 (out ~0.1, lse ~6, gradients up
+# to ~10)
 FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
 # ResNet-50 training (bench.py's accelerator run): one momentum launch for
 # the Executor's group of the 161 momentum ops, one a trainable parameter
@@ -302,6 +307,15 @@ def phase_kernel():
     if not torch.equal(out, again):
         raise AssertionError("paged_attention kernel is not bitwise "
                              "repeatable")
+    check_paged_invariance(pa, q, ck, cv, pt, bias, lens, out)
+    if not torch.equal(pa.paged_attention(q, ck, cv, pt.int(), bias, 1.0),
+                       out):
+        raise AssertionError("paged_attention: an int32 page table gives "
+                             "other bits than the int64 one")
+    geometry = pa.split_geometry(q.shape[0], q.shape[2], pt.shape[1],
+                                 ck.shape[1])
+    ell = pt.shape[1] * ck.shape[1]
+    dead = bias.reshape(q.shape[0], -1, pa.CHUNK).isinf().all(-1)
 
     # time over one cache pool per decoder layer (6 x 16.8 MB > the 50 MB
     # L2), cycled, so each launch finds its K/V cold as a decode tick does
@@ -325,7 +339,12 @@ def phase_kernel():
             attn_mask=bias[:, None], scale=1.0)
 
     lib_out = library()[:, 0]
-    ms = cuda_time_ms(rotating(pa.paged_attention), 300)
+    times = paged_times([lambda k=k, v=v: pa.paged_attention(
+        q, k, v, pt, bias, 1.0) for k, v in sets])
+    cuda_launches = times.pop("device_launches_captured") / n_sets
+    if cuda_launches != pa.CUDA_LAUNCHES:
+        raise AssertionError(f"a paged_attention call made {cuda_launches} "
+                             f"CUDA launches; expected {pa.CUDA_LAUNCHES}")
     plain_ms = cuda_time_ms(rotating(pa.paged_attention_ref), 100)
     library_ms = cuda_time_ms(library, 300)
     bound_ms, bound_by = paged_bound_ms(q, ck, pt.cpu(), bias, lens.cpu())
@@ -334,15 +353,101 @@ def phase_kernel():
         "pages_per_slot": pt.shape[1], "pool_pages": ck.shape[0]},
         live_lengths=[int(x) for x in lens.cpu()], max_abs_err=max_abs,
         max_rel_err=max_rel, atol=ATOL, rtol=RTOL, bitwise_repeat=True,
+        alone_equals_batched=True, cut_table_equals_full=True,
+        int32_table_equals_int64=True,
+        chunk_keys=pa.CHUNK, score_grid=geometry["score_grid"],
+        pv_grid=geometry["pv_grid"], chunks=int(dead.numel()),
+        dead_chunks=int(dead.sum()), cuda_launches_per_call=cuda_launches,
+        row_positions=ell,
         library_max_abs_err=float((lib_out - ref).abs().max()),
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **times, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_by=bound_by)
     return {"name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas_paged.py:40",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_abs, "ms": times["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def paged_times(calls):
+    """Times of one paged-attention call, each of ``calls`` reading its own
+    cache pool (as a decode tick's layers do): ``ms``, the device time a
+    call takes when the calls are captured as one CUDA graph and replayed
+    (no host work between launches, as a tick captured whole would run);
+    ``device_ms``, its kernels' device spans under the profiler (without
+    the gap between them); ``eager_ms``, back-to-back eager calls between
+    CUDA events (the host's issue time where that is longer); ``host_ms``,
+    the host time to issue one call (the card idle before it; median of
+    20); ``device_launches_captured``, the kernels the profiled calls
+    launched."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    out = {"ms": cuda_time_ms(graph.replay, 50) / len(calls)}
+    it = [0]
+
+    def rotating():
+        calls[it[0] % len(calls)]()
+        it[0] += 1
+
+    out["eager_ms"] = cuda_time_ms(rotating, 300)
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rotating()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out["host_ms"] = statistics.median(host)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        for fn in calls:
+            fn()
+        pad_trace()
+    spans = [b - a for a, b, name in device_spans(prof) if "paged_" in name]
+    out["device_ms"] = sum(spans) / len(calls) / 1e3
+    out["device_launches_captured"] = len(spans)
+    return out
+
+
+def check_paged_invariance(pa, q, ck, cv, pt, bias, lens, out):
+    """Each slot's output computed alone (its q row, table row and bias
+    row), and computed with its page table cut to the pages it uses (the
+    bias cut to match), is bitwise equal to its row of ``out``, the batch
+    of all slots at the full table."""
+    import torch
+
+    ps = ck.shape[1]
+    for s in range(q.shape[0]):
+        alone = pa.paged_attention(q[s:s + 1], ck, cv, pt[s:s + 1],
+                                   bias[s:s + 1], 1.0)
+        used = (int(lens[s]) + ps - 1) // ps
+        cut = pa.paged_attention(q[s:s + 1], ck, cv,
+                                 pt[s:s + 1, :used].contiguous(),
+                                 bias[s:s + 1, :, :used * ps].contiguous(),
+                                 1.0)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, out[s:s + 1]):
+            raise AssertionError(f"paged_attention: slot {s} alone differs "
+                                 f"from its row of the batch")
+        if not torch.equal(cut, out[s:s + 1]):
+            raise AssertionError(
+                f"paged_attention: slot {s} with its page table cut to "
+                f"{used} pages differs from the full table's output")
 
 
 def smoke_jobs(rng, vocab):
@@ -436,11 +541,15 @@ def phase_profile(eng, jobs):
         wall = time.perf_counter() - t0
         pad_trace()
     ticks = eng.metrics.counter("decode_ticks") - ticks0
-    busy_s, n_events, top = trace_summary(device_spans(prof))
+    spans = device_spans(prof)
+    busy_s, n_events, top = trace_summary(spans)
+    paged = [b - a for a, b, name in spans if "paged_" in name]
     emit("profile", requests=len(jobs), decode_ticks=ticks, wall_s=wall,
          device_busy_s=busy_s, device_busy_share=busy_s / wall,
          device_events=n_events, ms_per_tick=wall / ticks * 1e3,
-         device_ms_per_tick=busy_s * 1e3 / ticks, top_kernels=top)
+         device_ms_per_tick=busy_s * 1e3 / ticks,
+         paged_kernels_per_tick=len(paged) / ticks,
+         paged_device_ms_per_tick=sum(paged) / 1e3 / ticks, top_kernels=top)
 
 
 def phase_serving(profile_run=False):
@@ -930,6 +1039,33 @@ def flash_blocks_per_sm(kind, d):
     return blocks.value
 
 
+def flash_registers():
+    """Registers and spill-store bytes of each flash kernel (``"fwd"``,
+    ``"dq"``, ``"dkv"``) at each head width, from ptxas's report of this
+    process's build (empty where the library was built before)."""
+    import re
+
+    from paddle_tpu_torch.ops import _build
+
+    found, cur = {}, None
+    for ln in _build.build_logs.get("flash_attention", "").splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            k = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)E",
+                          entry.group(1))
+            cur = found.setdefault(k.group(1), {}).setdefault(
+                int(k.group(2)), {}) if k else None
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    return found
+
+
 def phase_kernel_flash():
     """The flash forward, dQ and dK/dV kernels against their plain versions
     at the training path's shapes (B = 64, H = 8, D = 64, float32) in three
@@ -982,7 +1118,7 @@ def phase_kernel_flash():
                     in FLASH_TOL.items()}, **report,
          other_widths={"batch": 4, "heads": 2, "t_q": 100, "t_k": 77,
                        "max_abs_rel_err": widths},
-         blocks_per_sm=blocks)
+         registers=flash_registers(), blocks_per_sm=blocks)
     # the kernels line: the padding case, as 12 of the step's 18 ops run it
     main = report["padding"]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"

@@ -20,28 +20,30 @@
 // to XLA (:307).  The bias gets no gradient.
 //
 // What bounds them: operations.  One (query, key) pair costs 2*D FMAs in
-// the forward (q.k and p.v), 3*D in dQ and 4*D in dK/dV, against 4 * 4 * D
-// bytes of q, k, v, out read once: at B*H = 512, T = 256, D = 64 the forward
-// is 8.6 GFLOP over 134 MB, ~64 flops per byte.  In the main path's padding
-// case (B 64, H 8, T 256, D 64; 25.3 M live pairs a call):
+// the forward (q.k and p.v), 3*D in dQ (q.k, dO.v, dS.k) and 4*D in dK/dV,
+// against 4 * 4 * D bytes of q, k, v, out read once: at B*H = 512, T = 256,
+// D = 64 the forward is 8.6 GFLOP over 134 MB, ~64 flops per byte.  In the
+// main path's padding case (B 64, H 8, T 256, D 64; 25.3 M live pairs a
+// call):
 //   - on the CUDA cores (fp32 FMA, 67 TFLOP/s) the least time is 0.098 ms
-//     for the forward and 0.195 ms for dK/dV;
+//     for the forward, 0.147 ms for dQ and 0.195 ms for dK/dV;
 //   - on the tensor cores, three TF32 products per fp32 product (below) at
 //     495 TFLOP/s plus 4 CUDA-core flops a live pair: 0.041 ms for the
-//     forward (its bytes over 3.35 TB/s: 0.040 ms) and 0.080 ms for dK/dV
-//     (bytes 0.060 ms).
+//     forward (its bytes over 3.35 TB/s: 0.040 ms), 0.061 ms for dQ and
+//     0.080 ms for dK/dV (bytes 0.060 ms).
 //
-// Forward and dK/dV: fp32 on the tensor cores by 3xTF32.  Each fp32 operand
-// x is split as big = tf32(x) (round to nearest), small = x - big, and a
+// All three: fp32 on the tensor cores by 3xTF32.  Each fp32 operand x is
+// split as big = tf32(x) (round to nearest), small = x - big, and a
 // product a b is small_a big_b + big_a small_b + big_a big_b, three
 // mma.sync.m16n8k8 TF32 products: ~2^-21 relative per product against
 // plain TF32's 2^-11.  The tensor core truncates its fp32 sums, so each k
 // step (8 products) goes into a fresh accumulator that is added to the
 // running sum rounded to nearest (mma3): summed along a 256-long row, the
 // truncations alone reached 1e-5 of dK.  The kernels so keep the fp32 plain
-// versions' tolerance (tests/test_torch_flash_tf32.py emulates the scheme
-// on the CPU).  mma.sync rather than wgmma: TF32 wgmma reads B K-major
-// from shared memory, and the B operand of P V (and of P^T dO, dS^T q) is
+// versions' tolerance, though no output is bitwise equal to its plain
+// version (tests/test_torch_flash_tf32.py emulates the scheme on the CPU).
+// mma.sync rather than wgmma: TF32 wgmma reads B K-major from shared
+// memory, and the B operand of P V (and of dS k, P^T dO, dS^T q) is
 // N-major as stored; mma.sync fragments load at any stride.  4 warps a
 // block, each owning 16 rows of the score tile:
 //   - forward: a block per (b*h, 64 query rows); the q tile stays in shared
@@ -51,6 +53,13 @@
 //     lanes of a quad, and the accumulators are, unchanged, the A fragment
 //     of P V (the k positions stand for keys 8j + 2t and 8j + 2t + 1); out
 //     and lse are written once;
+//   - dQ: the forward's blocks, tile order and K/V stages (bias with them);
+//     q and dO stay in shared memory, each lane holds its two rows' lse and
+//     delta; per tile S = q k^T and dP = dO v^T in registers, P and dS =
+//     P (dP - delta) formed there, and dS, unchanged, the A fragment of
+//     dS k.  k is the B operand of q k^T (read along d) and the X of dS k
+//     (read along rows): every tile at stride D + 4, where both reads are
+//     free of bank conflicts.  dq is written once, scaled;
 //   - dK/dV: a block per (b*h, 64 keys), the K/V tile in shared memory; q,
 //     dO, lse and delta tiles of 32 queries (16 at D = 128) stream through
 //     a double buffer; S^T and dP^T in registers, P^T and dS^T the A
@@ -64,16 +73,10 @@
 // compute.  What bounds them now is the issue of the split, the 3 mma and
 // the add per k step at 2 blocks (8 warps) an SM: the registers (190-245 a
 // thread at D = 64) allow no more without spills.
-
-// dQ keeps its CUDA-core design: 256 threads as 16 x 16, thread (ty, tx)
-// owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of a 64 x 64 score
-// tile, 4 x 4 register outer products over float4 reads along D, the tile's
-// dS through shared memory for dS k; rows padded to D + 4 floats.  One
-// block per (b*h, 64-row q tile), q and dO in shared memory while k/v tiles
-// stream through it.
 //
-// Dead causal tiles are skipped (the reference's `live`, :80, :131, :180).
-// The ragged edge of Tq and Tk is masked here (rows past the end load as
+// Dead causal tiles are skipped (the reference's `live`, :80, :131, :180),
+// and in dQ also a warp's tiles that lie wholly above its rows.  The
+// ragged edge of Tq and Tk is masked here (rows past the end load as
 // zeros, keys past the end get weight 0), so any Tq, Tk >= 1 works, with no
 // power-of-two block halving.  Every sum has a fixed order and there are no
 // atomics, so two launches are bitwise equal.  The TF32 mma fragments here
@@ -85,129 +88,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;
-constexpr int kLdP = kTile + 4;  // row stride of a 64 x 64 score tile
 constexpr float kNegInf = -1e30f;
-
-template <int D>
-struct Cfg {
-  static constexpr int kLd = D + 4;                 // row stride of a [64, D] tile
-  static constexpr int kVw = D >= 64 ? 4 : D / 16;  // floats per vector read
-  static constexpr int kGroups = D / (16 * kVw);    // vectors a thread owns in a row
-  static constexpr int kCols = D / 16;              // columns a thread owns in a row
-};
-
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
-}
 
 template <int VW>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   if constexpr (VW == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else if constexpr (VW == 2) {
+  } else {
     const float2 t = *reinterpret_cast<const float2*>(p);
     out[0] = t.x; out[1] = t.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-// Column of a thread's e-th owned value in a row of a [64, D] tile.
-template <int D>
-__device__ __forceinline__ int own_col(int tx, int e) {
-  constexpr int VW = Cfg<D>::kVw;
-  return (e / VW) * 16 * VW + tx * VW + (e % VW);
-}
-
-// dst [64, D] (stride kLd) <- src rows [0, n_valid) (stride D); rows past
-// n_valid are zeros.
-template <int D>
-__device__ void load_tile(float* dst, const float* __restrict__ src,
-                          int n_valid) {
-  constexpr int kV = D / 4;
-  for (int i = threadIdx.x; i < kTile * kV; i += kThreads) {
-    const int r = i / kV, c = i % kV;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid) {
-      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D) + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLd + c * 4) = x;
-  }
-}
-
-// s[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d], d in order.
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, int ty,
-                                         int tx, float s[4][4]) {
-  constexpr int LD = Cfg<D>::kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-// acc[i][e] += sum_c P[ty + 16 i][c] * X[c][own_col(tx, e)], c in order;
-// P is a 64 x 64 tile (stride kLdP), X a [64, D] tile.
-template <int D>
-__device__ __forceinline__ void acc_tile(const float* P, const float* X, int ty,
-                                         int tx, float acc[4][D / 16]) {
-  constexpr int LD = Cfg<D>::kLd, VW = Cfg<D>::kVw, G = Cfg<D>::kGroups;
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * kLdP + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float x[G * VW];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        load_vec<VW>(X + (c + cc) * LD + g * 16 * VW + tx * VW, x + g * VW);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = comp(p[i], cc);
-#pragma unroll
-        for (int e = 0; e < G * VW; ++e) acc[i][e] = fmaf(pv, x[e], acc[i][e]);
-      }
-    }
-  }
-}
-
-// rows [row0, row0 + 64) of out [rows, D] <- mul * acc, rows < n_rows only.
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ out,
-                                           const float acc[4][D / 16], int row0,
-                                           int n_rows, int ty, int tx, float mul) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e)
-      out[(size_t)r * D + own_col<D>(tx, e)] = mul * acc[i][e];
   }
 }
 
@@ -401,6 +291,31 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out,
   }
 }
 
+// acc [NQ][4] = A B^T over d: A rows g and g + 8 of [*, ld], B [8 NQ,
+// ld]; k position t <-> d = 8s + t, t + 4 <-> 8s + t + 4 (ld = 4 mod 32:
+// the scalar reads of a warp fall into distinct banks).
+template <int D, int NQ>
+__device__ __forceinline__ void dot_rows(float acc[NQ][4], const float* A,
+                                         const float* B, int ld, int g,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const float* a = A + g * ld + 8 * ks + t;
+    const float af[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
+    uint32_t a_big[4], a_small[4];
+    split4(af, a_big, a_small);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float* b = B + (8 * j + g) * ld + 8 * ks + t;
+      mma3(acc[j], a_big, a_small, b[0], b[4]);
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -568,68 +483,126 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dQ: one block per (b*h, 64 query rows), 4 warps of 16 rows each.
+// ---------------------------------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DqCfg {
+  static constexpr int kWarps = 4, kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;         // query rows a block
+  static constexpr int kKeys = D == 128 ? 16 : 32;  // keys a tile
+  // one stride for every tile: dot_rows' scalar reads along d (q, dO as A,
+  // k, v as B) and acc_rows' reads of k (the X of dS k) are conflict-free
+  static constexpr int kLd = D + 4;
+  // smem: q, dO [kRows, kLd] once; two stages of K, V [kKeys, kLd] and
+  // bias [kKeys]
+  static constexpr int kQO = 2 * kRows * kLd;
+  static constexpr int kStage = 2 * kKeys * kLd + kKeys;
+  static constexpr size_t kSmem = (kQO + 2 * kStage) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ bias,
                 const float* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq, int H,
                 int Tq, int Tk, float scale, int causal, int n_qt) {
-  constexpr int LD = Cfg<D>::kLd, NC = Cfg<D>::kCols;
+  using C = DqCfg<D>;
+  constexpr int kN = C::kKeys / 8, kDn = D / 8, NT = C::kThreads;
+  constexpr int LD = C::kLd;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [64, LD]
-  float* dOs = Qs + kTile * LD;  // [64, LD]
-  float* Ks = dOs + kTile * LD;  // [64, LD]
-  float* Vs = Ks + kTile * LD;   // [64, LD]
-  float* dSs = Vs + kTile * LD;  // [64, kLdP]
-  const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nq = min(kTile, Tq - q0);
+  // within a head, the q tiles with the most causal work start first
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * C::kRows;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = 16 * (threadIdx.x >> 5);  // this warp's first row (local)
+  const int r0 = q0 + w0 + g;              // this lane's rows r0, r0 + 8
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
   const float* bb = bias ? bias + (size_t)(bh / H) * Tk : nullptr;
-  load_tile<D>(Qs, q + ((size_t)bh * Tq + q0) * D, nq);
-  load_tile<D>(dOs, dout + ((size_t)bh * Tq + q0) * D, nq);
+  float* Qs = smem;
+  float* Os = Qs + C::kRows * LD;
+  float* stages = Os + C::kRows * LD;
 
-  float lse_r[4], delta_r[4], acc[4][NC];
+  auto load_stage = [&](int buf, int k0) {
+    float* Ks = stages + buf * C::kStage;
+    float* Vs = Ks + C::kKeys * LD;
+    const int nk = min(C::kKeys, Tk - k0);
+    async_rows<D, C::kKeys, NT>(Ks, LD, kb + (size_t)k0 * D, nk);
+    async_rows<D, C::kKeys, NT>(Vs, LD, vb + (size_t)k0 * D, nk);
+    if (bb) async_vec<NT>(Vs + C::kKeys * LD, bb + k0, C::kKeys, nk);
+  };
+  const int nq = min(C::kRows, Tq - q0);
+  const int k_end = causal ? min(Tk, q0 + C::kRows) : Tk;
+  const int n_kt = (k_end + C::kKeys - 1) / C::kKeys;
+  async_rows<D, C::kRows, NT>(Qs, LD, q + ((size_t)bh * Tq + q0) * D, nq);
+  async_rows<D, C::kRows, NT>(Os, LD, dout + ((size_t)bh * Tq + q0) * D, nq);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  float lse_r[2], delta_r[2], acc[kDn][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    lse_r[i] = r < nq ? lse[(size_t)bh * Tq + q0 + r] : 0.f;
-    delta_r[i] = r < nq ? delta[(size_t)bh * Tq + q0 + r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < NC; ++e) acc[i][e] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse_r[h] = row < Tq ? lse[(size_t)bh * Tq + row] : 0.f;
+    delta_r[h] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
   }
-  const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    const int nk = min(kTile, Tk - k0);
-    load_tile<D>(Ks, kb + (size_t)k0 * D, nk);
-    load_tile<D>(Vs, vb + (size_t)k0 * D, nk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    dot_tile<D>(dOs, Vs, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < kDn; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float p = 0.f;
-        if (col < Tk) {
-          float x = s[i][j] * scale;
-          if (bb) x += bb[col];
-          if (causal && row < col) x = kNegInf;
-          p = expf(x - lse_r[i]);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // causal: a tile whose first key is past this warp's last row adds
+  // nothing to the warp's rows
+  const int warp_end = causal ? q0 + w0 + 16 : Tk;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * C::kKeys;
+    // tile kt + 1 is copied while tile kt is computed
+    if (kt + 1 < n_kt) load_stage((kt + 1) & 1, k0 + C::kKeys);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (k0 < warp_end) {
+      const float* Ks = stages + (kt & 1) * C::kStage;
+      const float* Vs = Ks + C::kKeys * LD;
+      const float* Bs = Vs + C::kKeys * LD;
+      // S = q k^T, then P = exp(scale S + bias - lse); c_e holds row r0 +
+      // 8 (e >> 1), key k0 + 8j + 2t + (e & 1)
+      float p[kN][4], ds[kN][4];
+      dot_rows<D, kN>(p, Qs + w0 * LD, Ks, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * (e >> 1), key = k0 + 8 * j + 2 * t + (e & 1);
+          float pe = 0.f;  // keys past Tk, and above the causal diagonal
+          if (key < Tk && !(causal && row < key)) {
+            float x = p[j][e] * scale;
+            if (bb) x += Bs[key - k0];
+            pe = exp_e(x - lse_r[e >> 1]);
+          }
+          p[j][e] = pe;
         }
-        dSs[(ty + 16 * i) * kLdP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
+      // dS = P (dP - delta), dP = dO v^T; dq += dS k, dS as it stands the A
+      // fragment
+      dot_rows<D, kN>(ds, Os + w0 * LD, Vs, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - delta_r[e >> 1]);
+      acc_rows<D, kN>(acc, ds, Ks, LD, g, t);
     }
-    __syncthreads();
-    acc_tile<D>(dSs, Ks, ty, tx, acc);
+    __syncthreads();  // every warp is done with this stage
   }
-  store_rows<D>(dq + (size_t)bh * Tq * D, acc, q0, Tq, ty, tx, scale);
+
+#pragma unroll
+  for (int i = 0; i < kDn; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] *= scale;
+  store_acc<D>(dq + (size_t)bh * Tq * D, acc, r0, Tq, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -651,31 +624,6 @@ struct DkvCfg {
   static constexpr int kStage = 2 * kQ * kLd + 2 * kQ;
   static constexpr size_t kSmem = (kKV + 2 * kStage) * sizeof(float);
 };
-
-// acc [NQ][4] = A B^T over d: A rows g and g + 8 of [*, ld], B [8 NQ,
-// ld]; k position t <-> d = 8s + t, t + 4 <-> 8s + t + 4 (ld = 4 mod 32:
-// the scalar reads of a warp fall into distinct banks).
-template <int D, int NQ>
-__device__ __forceinline__ void dot_rows(float acc[NQ][4], const float* A,
-                                         const float* B, int ld, int g,
-                                         int t) {
-#pragma unroll
-  for (int j = 0; j < NQ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll 2
-  for (int ks = 0; ks < D / 8; ++ks) {
-    const float* a = A + g * ld + 8 * ks + t;
-    const float af[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
-    uint32_t a_big[4], a_small[4];
-    split4(af, a_big, a_small);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      const float* b = B + (8 * j + g) * ld + 8 * ks + t;
-      mma3(acc[j], a_big, a_small, b[0], b[4]);
-    }
-  }
-}
 
 // What one sweep over a block's query tiles needs.
 struct DkvSweep {
@@ -825,12 +773,6 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_acc<D>(dk_out, dk_acc, w.key, Tk, t);
 }
 
-template <int D>
-constexpr size_t tile_bytes() {
-  return (size_t)kTile * Cfg<D>::kLd * sizeof(float);
-}
-constexpr size_t kScoreBytes = (size_t)kTile * kLdP * sizeof(float);
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -866,12 +808,12 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* bias,
               const void* dout, const void* lse, const void* delta, void* dq,
               const Dims& d) {
-  const size_t smem = 4 * tile_bytes<D>() + kScoreBytes;
-  cudaError_t e = allow_smem(flash_dq_kernel<D>, smem);
+  using C = DqCfg<D>;
+  cudaError_t e = allow_smem(flash_dq_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const int n_qt = (d.Tq + kTile - 1) / kTile;
-  flash_dq_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), kThreads, smem,
-                       d.stream>>>(
+  const int n_qt = (d.Tq + C::kRows - 1) / C::kRows;
+  flash_dq_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), C::kThreads,
+                       C::kSmem, d.stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -911,8 +853,8 @@ int blocks_per_sm(int kind, int* blocks) {
     smem = FwdCfg<D>::kSmem;
   } else if (kind == 1) {
     kernel = (const void*)flash_dq_kernel<D>;
-    threads = kThreads;
-    smem = 4 * tile_bytes<D>() + kScoreBytes;
+    threads = DqCfg<D>::kThreads;
+    smem = DqCfg<D>::kSmem;
   } else if (kind == 2) {
     kernel = (const void*)flash_dkv_kernel<D>;
     threads = DkvCfg<D>::kThreads;

@@ -10,16 +10,24 @@ runs (max, exp, divide), not the online recurrence.
 What bounds it on the card: bytes.  Each live key position reads one K and
 one V row of ``d`` floats for 4·d flops, 0.5 flop per byte against the
 H100's ~20 fp32 flops per byte, so the least time is the K/V pages the
-slots reference over the memory rate.  The design keeps the whole score
-row in shared memory and streams V in a second pass (the TPU kernel's
-gathered fp32 V scratch, 1 MiB at L = D = 512, does not fit in a block's
-227 KB); one block per slot, reductions in a fixed order and no atomics, so
-a slot's output repeats bitwise whatever the other slots hold.  At 8 slots
-only 8 SMs work: splitting a slot over several blocks is later work.
+slots reference over the memory rate; at the decode path's shapes that is
+about a microsecond, so the bytes in flight and then the launches' latency
+set the time.  The design splits each slot's row over many blocks, so 8
+slots fill the card, in two CUDA launches a call (:data:`CUDA_LAUNCHES`):
+the scores of fixed chunks of :data:`CHUNK` key positions into a scratch
+row ``[S, L]``, then per block of :data:`COLS` output columns the exact
+softmax over the slot's whole score row and ``p · V`` over its columns.
+The partition is fixed in key positions and columns, the sums run in a
+fixed order and there are no atomics, so a slot's output repeats bitwise
+whatever the other slots hold, and a page table cut to the pages a slot
+uses gives the same bits as a longer one padded with ``-inf`` bias.
+Both launches go out in one ctypes call, a host cost of one call a layer
+on a host-bound decode tick.
 
 :func:`paged_attention` launches the kernel for CUDA tensors and uses
 :func:`paged_attention_ref` only for tensors on the CPU.  ``launches``
-counts kernel launches, so a run can show the main path went through it.
+counts wrapper calls that launched the kernels, so a run can show the main
+path went through them.
 """
 
 from __future__ import annotations
@@ -28,9 +36,18 @@ import ctypes
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_ref", "launches"]
+__all__ = ["paged_attention", "paged_attention_ref", "scratch_numel",
+           "split_geometry", "launches"]
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
+#: key positions a score block takes (two pages of 16): the fixed chunk
+#: partition of every slot's row
+CHUNK = 32
+#: output columns a softmax-and-p·V block takes
+COLS = 32
+#: CUDA launches one wrapper call makes (scores, then softmax and p·V)
+CUDA_LAUNCHES = 2
+
+#: wrapper calls that launched the kernels since the last reset
 launches = 0
 
 _fn = None
@@ -49,6 +66,24 @@ def paged_attention_ref(q, cache_k, cache_v, page_table, bias, scale=1.0):
     return torch.matmul(torch.softmax(scores, dim=-1), gv)
 
 
+def scratch_numel(s_n, n_pages, ps):
+    """float32 scratch one call takes: the scores, one a (slot, position)."""
+    return s_n * n_pages * ps
+
+
+def split_geometry(s_n, d, n_pages, ps):
+    """How one call splits its work: the grids of its two launches as
+    ``(blocks along the row, slots)``, the key positions each score block
+    starts at (fixed in key positions: a longer page table only adds
+    chunks), and the float32 scratch the scores take."""
+    ell = n_pages * ps
+    n_chunks = -(-ell // CHUNK)
+    return {"score_grid": (n_chunks, s_n),
+            "pv_grid": (-(-d // COLS), s_n),
+            "chunk_starts": [CHUNK * c for c in range(n_chunks)],
+            "scratch_numel": scratch_numel(s_n, n_pages, ps)}
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -56,7 +91,8 @@ def _kernel():
 
         lib = _build.load("paged_attention")
         fn = lib.pta_paged_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.pta_paged_attention_smem.argtypes = [ctypes.c_int] * 3
@@ -121,17 +157,20 @@ def paged_attention(q, cache_k, cache_v, page_table, bias, scale=1.0):
     fn, smem_bytes, err_str = _kernel()
     s_n, _, d = q.shape
     n_pages, ps = page_table.shape[1], cache_k.shape[1]
-    pt32 = page_table.to(torch.int32).contiguous()
+    pt = page_table.to(torch.int64).contiguous()  # the decode path's own
     out = torch.empty_like(q)
+    scores = torch.empty(scratch_numel(s_n, n_pages, ps), dtype=torch.float32,
+                         device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                pt32.data_ptr(), bias.data_ptr(), out.data_ptr(), s_n, d,
-                n_pages, ps, cache_k.shape[0], float(scale), stream)
+                pt.data_ptr(), bias.data_ptr(), scores.data_ptr(),
+                scores.numel(), out.data_ptr(), s_n, d, n_pages, ps,
+                cache_k.shape[0], float(scale), stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: {err_str(rc).decode()} "
-            f"(cudaError {rc}; the launch keeps the score row in "
-            f"{smem_bytes(d, n_pages, ps)} bytes of shared memory)")
+            f"(cudaError {rc}; a block keeps up to "
+            f"{smem_bytes(d, n_pages, ps)} bytes in shared memory)")
     launches += 1
     return out

@@ -1,6 +1,7 @@
-"""The numerical scheme of the flash forward and dK/dV kernels, on the CPU.
+"""The numerical scheme of the flash forward, dQ and dK/dV kernels, on the
+CPU.
 
-On the card the two kernels multiply on the tensor cores in TF32 (10
+On the card the three kernels multiply on the tensor cores in TF32 (10
 mantissa bits) and keep fp32 accuracy by a 3xTF32 split: each fp32
 operand ``x`` becomes ``big = tf32(x)`` (round to nearest, ties away from
 zero, as ``cvt.rna.tf32.f32``) and ``small = x - big``, of which the
@@ -15,12 +16,13 @@ time is spent on it:
  - a plain emulation of it (TF32 rounding by int32 bit operations on
    float32; each step's three products summed exactly in float64 and
    truncated to float32, as the tensor core's sums are) replaces every
-   matrix product of the plain versions ``flash_forward_ref`` and
-   ``flash_dkv_ref``;
+   matrix product of the plain versions ``flash_forward_ref``,
+   ``flash_dq_ref`` and ``flash_dkv_ref``;
  - at each head width the kernels take, with the key-padding bias of
    -1e9 past ragged lengths and with the causal mask (as
-   ``chip_smoke.flash_case_inputs`` makes them), the split's out, lse, dk
-   and dv stay within ``chip_smoke.FLASH_TOL`` of the fp32 plain versions,
+   ``chip_smoke.flash_case_inputs`` makes them), the split's out, lse, dq,
+   dk and dv stay within ``chip_smoke.FLASH_TOL`` of the fp32 plain
+   versions,
    the tolerance the card holds the kernels to;
  - a single TF32 product exceeds that tolerance, which is why the split
    is needed.
@@ -117,22 +119,27 @@ def _inputs(d, causal, seed):
 
 
 def _run(q, k, v, do, bias, causal, matmul, monkeypatch):
-    """out, lse of the forward and dk, dv of dK/dV with every product of
-    the plain versions done by ``matmul``, and the same in fp32.  The
-    backward takes the fp32 forward's lse and delta, as the kernel is
+    """out, lse of the forward, dq of dQ and dk, dv of dK/dV with every
+    product of the plain versions done by ``matmul``, and the same in fp32.
+    The backward takes the fp32 forward's lse and delta, as the kernels are
     handed them."""
     scale = q.shape[-1] ** -0.5
     ref_out, ref_lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
     delta = (do * ref_out).sum(-1, keepdim=True)
+    ref_dq = fa.flash_dq_ref(q, k, v, bias, do, ref_lse, delta, scale,
+                             causal)
     ref_dk, ref_dv = fa.flash_dkv_ref(q, k, v, bias, do, ref_lse, delta,
                                       scale, causal)
     with monkeypatch.context() as m:
         m.setattr(torch, "matmul", matmul)
         out, lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
+        dq = fa.flash_dq_ref(q, k, v, bias, do, ref_lse, delta, scale,
+                             causal)
         dk, dv = fa.flash_dkv_ref(q, k, v, bias, do, ref_lse, delta, scale,
                                   causal)
-    got = {"out": out, "lse": lse, "dk": dk, "dv": dv}
-    want = {"out": ref_out, "lse": ref_lse, "dk": ref_dk, "dv": ref_dv}
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    want = {"out": ref_out, "lse": ref_lse, "dq": ref_dq, "dk": ref_dk,
+            "dv": ref_dv}
     return got, want
 
 
