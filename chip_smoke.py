@@ -5,7 +5,8 @@ each against its plain PyTorch version at the shapes the port's paths give
 it, then serves a Transformer-base-width paged decode LM through the
 continuous-batching ``DecodeEngine``, trains Transformer-base through
 ``fluid.Executor`` with unfused attention and through the flash kernels,
-and trains ResNet-50 with momentum, and checks all four.
+and trains ResNet-50 with momentum, in fp32 and then under bf16 / fp16
+mixed precision (``fluid.amp``), and checks them all.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    one_hot + label_smooth, and hard labels with
                    ignore_index rows; bitwise repeatability; kernel, plain,
                    library and bound times
- 5. kernel_adam  - the Adam group kernel vs its plain version in one call
+ 5. kernel_xent_amp - the same with bf16 and fp16 logits (soft labels
+                   fp32): loss and lse at the fp32 tolerance, dx within 1
+                   ulp of its dtype, bitwise repeatability; kernel, plain,
+                   F.cross_entropy (on the same low logits) and bound
+                   times, soft and hard labels
+ 6. kernel_adam  - the Adam group kernel vs its plain version in one call
                    over tensors of the training slice's 184 parameter
                    shapes, and over a ragged group (odd sizes, empty and
                    1-element tensors, a view off 16-byte alignment), each
@@ -38,7 +44,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    one launch a call; the call's time between CUDA events,
                    its kernel's device time, plain, library
                    (torch.optim.Adam fused), host and bound times
- 6. kernel_flash - the flash forward, dQ and dK/dV kernels vs their plain
+ 7. kernel_flash - the flash forward, dQ and dK/dV kernels vs their plain
                    versions at the training path's shape (B = 64, H = 8,
                    T = 256, D = 64): non-causal with a ragged padding bias,
                    causal, and Tq = 100 / Tk = 77 causal with a bias, then
@@ -50,13 +56,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    rate; ``bound_ms`` the lesser, the CUDA cores' beside
                    it as ``*_fp32_core_bound_ms``); registers, spills and
                    blocks per SM of each kernel at each head width
- 7. serving      - 16 requests (two sharing a 32-token prefix) through a
+ 8. serving      - 16 requests (two sharing a 32-token prefix) through a
                    6-layer d_model 512 / d_inner 2048 / vocab 30000 paged
                    decode model with random weights from a seed: every
                    stream equals ``decode_static`` of it alone bitwise, the
                    kernel ran n_layer times per decode tick, prefix pages
                    were shared and every page came back
- 8. train        - Transformer-base (6+6 layers, d_model 512, vocab 30000,
+ 9. train        - Transformer-base (6+6 layers, d_model 512, vocab 30000,
                    dropout and label smoothing 0.1, Adam, fp32, unfused
                    attention) through ``fluid.Executor()`` on the card, 5
                    steps at batch 64 x length 256 on one batch: finite,
@@ -67,45 +73,63 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    first dropout's tensors: Out = X * Mask, X@GRAD =
                    Out@GRAD * Mask, a kept share of 1 - p and fresh masks
                    each step, each within 5 standard errors
- 9. train_parity - the same model at batch 2 x length 32, dropout 0, from
+10. train_parity - the same model at batch 2 x length 32, dropout 0, from
                    one initial state on the card and on the CPU (plain
                    versions): 3 steps' losses agree (rtol 1e-5 at step 0,
                    1e-4 after)
-10. train_flash  - the model of phase 8 with ``flash_attention=True``: its
+11. train_flash  - the model of phase 9 with ``flash_attention=True``: its
                    18 attention ops run the flash kernels; 5 steps, finite
                    falling loss, exactly 36 forward, 18 dQ and 18 dK/dV
                    flash launches a step besides 1 / 2 / 1; step time,
-                   target tokens/s and peak memory beside phase 8's
-11. train_flash_parity - batch 2 x length 32, dropout 0, one initial
+                   target tokens/s and peak memory beside phase 9's
+12. train_flash_parity - batch 2 x length 32, dropout 0, one initial
                    state: the flash build on the card against the same on
                    the CPU (rtol 1e-5 at step 0, 1e-4 after) and against
                    the unfused build on the card (rtol 2e-4)
-12. kernel_momentum - the momentum group kernel vs its plain version in
+13. kernel_momentum - the momentum group kernel vs its plain version in
                    one call over tensors of ResNet-50's 161 parameter
-                   shapes and over phase 5's ragged group, Nesterov off
+                   shapes and over phase 6's ragged group, Nesterov off
                    and on: exactly one launch a call; the call's time
                    between CUDA events, its kernel's device time, plain,
                    library (torch.optim.SGD fused), host and bound times
-13. train_resnet - ResNet-50 (bench.py's accelerator run: 224 px, 1000
+14. train_resnet - ResNet-50 (bench.py's accelerator run: 224 px, 1000
                    classes, Momentum(0.1, 0.9), fp32, batch 256 of normal
                    images) through ``fluid.Executor()`` on the card, 5
                    steps on one batch: finite losses, exactly 1 momentum
                    launch a step for 161 tensors and no other kernel's; op
                    dispatches a step; step time, images/s and peak
                    memory
-14. conv_fp32    - the conv2d op and its grad on the card with cuDNN's TF32
+15. conv_fp32    - the conv2d op and its grad on the card with cuDNN's TF32
                    switched on by the caller: within 1e-5 of the largest
                    magnitude of a float64 convolution (a plain TF32 call's
                    error is printed beside it)
-15. train_resnet_parity - ResNet-50 at 64 px, 10 classes, lr 0.01, batch
+16. train_resnet_parity - ResNet-50 at 64 px, 10 classes, lr 0.01, batch
                    4, one initial state on the card and on the CPU, the
                    card re-synced to the CPU's state before each of 3
                    steps: each step's loss (rtol 1e-4), the running stats
                    after it (rtol 1e-3, atol 1e-4) and the velocities as
                    one vector (cosine >= 0.999); 1 momentum launch a step
+17. train_amp    - phase 9's model and feed under fluid.amp bf16 with kept
+                   activations (bench.py's accelerator run): finite,
+                   falling loss, exactly 2 bf16 xent-forward, 1 bf16
+                   xent-backward and 1 Adam launch a step and no fp32
+                   xent launch; op dispatches, step time, target tokens/s
+                   and peak memory beside phase 9's
+18. train_amp_parity - phase 10's run in bf16 with kept activations, card
+                   against CPU: losses within 2^-8
+19. train_resnet_amp - phase 14's model and feed in bf16 with kept
+                   activations: finite losses, exactly 1 momentum launch a
+                   step for 161 tensors; images/s and peak memory
+20. train_amp_fp16_scaler - the tiny Transformer in fp16 with kept
+                   activations and the dynamic loss scaler from a scale
+                   (2^24) that overflows step 1: an overflow step leaves
+                   every read-write persistable bitwise as it was and
+                   halves the scale, good steps train and grow it after 3
+                   in a row; fp16 xent launches every step, Adam on good
+                   steps only
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
-busy) and one after each of the three training phases (one more step),
+busy) and one after each full-size training phase (one more step),
 each under ``torch.profiler``; each prints the device's busy share of the
 wall time and the kernels that take the most device time.
 
@@ -122,10 +146,12 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32
-# FLOP/s outside the tensor cores, and TF32 FLOP/s on the tensor cores
+# FLOP/s outside the tensor cores, and TF32 and bf16 FLOP/s on the tensor
+# cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
+PEAK_BF16_FLOPS = 989.4e12
 
 # serving shape of the smoke model (Transformer-base widths, paged decode)
 SLOTS, MAX_LEN, PAGE_SIZE, BUCKETS = 8, 512, 16, [32, 64, 128]
@@ -134,6 +160,11 @@ ATOL = RTOL = 1e-5
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, VOCAB = 64, 256, 5, 30000
 XENT_IGNORE = 0            # the hard-label case's ignore_index (the pad id)
 DX_ATOL = 1e-6
+# bf16 / fp16 logits: dx is one fp32 value rounded to its dtype in the
+# kernel and in the plain version; the two fp32 values differ by an ulp or
+# two of fp32 (expf against torch.exp), so the rounded ones by at most one
+# ulp of the low dtype
+XENT_DX_ULPS = 1
 ADAM_TOL = 1e-6
 # launches a training step makes of each kernel: one Adam launch for the
 # Executor's group of the 184 adam ops (one a trainable parameter); the
@@ -167,6 +198,17 @@ MOMENTUM_TOL = 1e-6
 # tensor's largest value and the step-1 loss by more than 1e-3
 # (tests/test_torch_resnet.py::test_float32_trajectory_is_chaotic), so the
 # card and the CPU are compared step by step from one state
+# AMP: bf16 with kept activations, as bench.py runs on an accelerator.
+# The card and the CPU sum each bf16 product in another order, so an
+# occasional bf16 rounding lands on the other neighbour and the losses,
+# fp32 means of bf16 logits, part by a few parts in 1e4 over 3 steps: held
+# within one bf16 relative step, 2^-8
+AMP_PARITY_RTOL = 2.0 ** -8
+# the fp16 dynamic loss scaler on the tiny Transformer: the seed 2^24 over
+# 4 x 16 target tokens is 2^18 as it enters the fp16 products, past fp16's
+# 65504, so step 1 overflows and the scale halves until the products fit
+FP16_BATCH, FP16_LEN, FP16_STEPS = 4, 16, 24
+FP16_INIT_SCALE, FP16_GROWTH = 2.0 ** 24, 3
 RESNET_PARITY_LOSS_RTOL = 1e-4
 RESNET_PARITY_STATS_TOL = (1e-3, 1e-4)  # (rtol, atol)
 RESNET_PARITY_VELOCITY_COSINE = 0.999
@@ -504,6 +546,51 @@ def optimizer_kernels(spans):
             "device_ms": sum(b - a for a, b in spans) / 1e3}
 
 
+# kernel-name fragments of the products' kernels: cuBLAS / CUTLASS GEMMs
+# (``gemm``, ``nvjet``, ``xmma``) and cuDNN convolutions (``conv``,
+# ``fprop``, ``dgrad``, ``wgrad``, ``implicit``)
+GEMM_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+CONV_KEYS = ("conv", "fprop", "dgrad", "wgrad", "implicit")
+
+
+def kernel_family(spans, keys, busy_s):
+    """Device ms and share of the busy time of the kernels whose name holds
+    one of ``keys`` (lower case), and the ten largest by name."""
+    by_name = {}
+    for a, b, name in spans:
+        if any(k in name.lower() for k in keys):
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + (b - a))
+    total = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"device_ms": total / 1e3, "share_of_busy": total / 1e6 / busy_s,
+            "kernels": [{"name": k[:110], "count": n, "ms": us / 1e3}
+                        for k, (n, us) in top]}
+
+
+def host_profile(run, top=15):
+    """The Python functions that take the most host time in ``run()`` (one
+    training step, synchronized at its end) under ``cProfile``: calls and
+    own (tottime) and cumulative ms.  cProfile slows every Python call, so
+    the shares, not the times, carry over to a run without it."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"total_ms": total * 1e3, "functions": [
+        {"fn": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}", "calls": v[1],
+         "own_ms": v[2] * 1e3, "cum_ms": v[3] * 1e3} for k, v in rows]}
+
+
 def trace_summary(spans):
     """Device busy time, event count and the kernels that take the most
     device time, from a trace's device spans."""
@@ -635,16 +722,17 @@ def phase_serving(profile_run=False):
     return launches
 
 
-def xent_bound_ms(r, v, soft, backward):
-    """Each input read once, each output written once: logits, soft labels
-    (or one int64 label a row), and per row loss, lse (and sum y) forward;
-    lse, g1, g2 in and dx out backward.  Operations a logit: max, subtract,
-    exp, add (+ multiply and two adds for soft labels) forward; subtract,
-    exp, two multiplies and a subtract backward."""
+def xent_bound_ms(r, v, soft, backward, x_bytes=4, y_bytes=4):
+    """Each input read once, each output written once: logits (``x_bytes``
+    a value), soft labels (``y_bytes``) or one int64 label a row, and per
+    row fp32 loss, lse (and sum y) forward; lse, g1, g2 in and dx (in the
+    logits' dtype) out backward.  Operations a logit: max, subtract, exp,
+    add (+ multiply and two adds for soft labels) forward; subtract, exp,
+    two multiplies and a subtract backward."""
     elems = r * v
-    nbytes = elems * 4 + (elems * 4 if soft else r * 8)
+    nbytes = elems * x_bytes + (elems * y_bytes if soft else r * 8)
     if backward:
-        nbytes += elems * 4 + 3 * r * 4
+        nbytes += elems * x_bytes + 3 * r * 4
         flops = elems * 5
     else:
         nbytes += (3 if soft else 2) * r * 4
@@ -765,6 +853,149 @@ def phase_kernel_xent():
                             out["hard"]["dx_max_abs_err"]),
          "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound,
          "bound_by": bwd_by, "library_ms": None})
+
+
+def ulp_err(got, want):
+    """The largest |got - want| of two low-precision tensors in ulps of
+    their dtype, each element's ulp taken at the larger magnitude of the
+    two (subnormals: the smallest normal's ulp)."""
+    import torch
+
+    mant = {torch.bfloat16: 7, torch.float16: 10}[got.dtype]
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(got.dtype)
+                                                    .tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+    return float(((g - w).abs() / ulp).max())
+
+
+def phase_kernel_xent_amp():
+    """The xent kernels with bf16 and fp16 logits (AMP keep_activations:
+    the Transformer's logits stay in the compute dtype) at the training
+    path's shape, soft labels in fp32 (one_hot + label_smooth, as the
+    program builds them) and hard labels with ignore_index rows, against
+    their plain versions on the same low-precision inputs: loss and lse
+    within the fp32 tolerance (only the order of sums differs), dx within
+    ``XENT_DX_ULPS`` ulp of its dtype (both round one fp32 value to it),
+    two launches bitwise equal; kernel, plain, ``F.cross_entropy`` (on the
+    same low logits) and bound times.  Returns the kernels-line entries,
+    one a dtype and direction."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    r, v = TRAIN_BATCH * TRAIN_LEN, VOCAB
+    ids = torch.randint(1, v, (r,), generator=gen, device=device)
+    soft_y = torch.zeros(r, v, device=device).scatter_(
+        1, ids[:, None], 1.0) * 0.9 + 0.1 / v
+    hard_y = ids.clone()
+    hard_y[::7] = XENT_IGNORE
+    entries, report = [], {}
+    src = "paddle_tpu_torch/csrc/softmax_xent.cu"
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        x = (torch.randn(r, v, generator=gen, device=device) * 2).to(dtype)
+        out, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+        for soft, lab in ((True, soft_y), (False, hard_y)):
+            kind = "soft" if soft else "hard"
+            ignore = -100 if soft else XENT_IGNORE
+            loss, lse, _ = fused.softmax_xent_fwd(x, lab, soft, ignore)
+            loss2, lse2, _ = fused.softmax_xent_fwd(x, lab, soft, ignore)
+            torch.cuda.synchronize()
+            rloss, rlse, rsum = fused.softmax_xent_fwd_ref(x, lab, soft,
+                                                           ignore)
+            if not (torch.equal(loss, loss2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"xent forward ({tag}, {kind}) is not "
+                                     f"bitwise repeatable")
+            if loss.dtype != torch.float32 or lse.dtype != torch.float32:
+                raise AssertionError(f"xent forward ({tag}) returned "
+                                     f"{loss.dtype} / {lse.dtype}")
+            for name, got, want in (("loss", loss, rloss), ("lse", lse, rlse)):
+                if not bool((got - want).abs().le(ATOL + RTOL * want.abs())
+                            .all()):
+                    raise AssertionError(
+                        f"xent forward ({tag}, {kind}) {name} disagrees "
+                        f"with the plain version: max abs/rel err "
+                        f"{_max_errs(got, want)}")
+            if not soft and not bool((loss[hard_y == XENT_IGNORE] == 0)
+                                     .all()):
+                raise AssertionError("ignored rows have a nonzero loss")
+            g1, g2 = fused.xent_bwd_coeffs(lab, rsum, torch.ones_like(rlse),
+                                           None, soft, ignore)
+            dx = fused.softmax_xent_bwd(x, lab, rlse, g1, g2, soft)
+            dx2 = fused.softmax_xent_bwd(x, lab, rlse, g1, g2, soft)
+            torch.cuda.synchronize()
+            rdx = fused.softmax_xent_bwd_ref(x, lab, rlse, g1, g2, soft)
+            if dx.dtype != dtype or not torch.equal(dx, dx2):
+                raise AssertionError(f"xent backward ({tag}, {kind}): dtype "
+                                     f"{dx.dtype}, or not bitwise "
+                                     f"repeatable")
+            dx_ulps = ulp_err(dx, rdx)
+            if not dx_ulps <= XENT_DX_ULPS:
+                raise AssertionError(
+                    f"xent backward ({tag}, {kind}) disagrees with the "
+                    f"plain version by {dx_ulps} ulp of {dtype}")
+            out[kind] = {"loss_err": _max_errs(loss, rloss),
+                         "lse_err": _max_errs(lse, rlse),
+                         "dx_max_ulps": dx_ulps,
+                         "dx_max_abs_err": float((dx.float() - rdx.float())
+                                                 .abs().max())}
+            errs["fwd"] = max(errs["fwd"], out[kind]["loss_err"][0],
+                              out[kind]["lse_err"][0])
+            errs["bwd"] = max(errs["bwd"], out[kind]["dx_max_abs_err"])
+            del dx, dx2, rdx, rloss, rlse
+        times = {}
+        for soft, lab in ((True, soft_y), (False, hard_y)):
+            kind = "soft" if soft else "hard"
+            ignore = -100 if soft else XENT_IGNORE
+            _, lse, sum_y = fused.softmax_xent_fwd(x, lab, soft, ignore)
+            g1, g2 = fused.xent_bwd_coeffs(lab, sum_y, torch.ones_like(lse),
+                                           None, soft, ignore)
+            # the library call on the same low logits (a soft target in
+            # their dtype: F.cross_entropy takes no other)
+            target = lab.to(dtype) if soft else lab
+            lib_kw = {} if soft else {"ignore_index": XENT_IGNORE}
+            times[kind] = {
+                "fwd_ms": cuda_time_ms(lambda: fused.softmax_xent_fwd(
+                    x, lab, soft, ignore), 20),
+                "fwd_plain_ms": cuda_time_ms(
+                    lambda: fused.softmax_xent_fwd_ref(x, lab, soft, ignore),
+                    5),
+                "fwd_library_ms": cuda_time_ms(lambda: F.cross_entropy(
+                    x, target, reduction="none", **lib_kw), 20),
+                "bwd_ms": cuda_time_ms(lambda: fused.softmax_xent_bwd(
+                    x, lab, lse, g1, g2, soft), 20),
+                "bwd_plain_ms": cuda_time_ms(
+                    lambda: fused.softmax_xent_bwd_ref(x, lab, lse, g1, g2,
+                                                       soft), 5)}
+            for d in ("fwd", "bwd"):
+                times[kind][f"{d}_bound_ms"], times[kind][f"{d}_bound_by"] = \
+                    xent_bound_ms(r, v, soft, d == "bwd", x.element_size())
+            del target
+        report[tag] = {"checks": out, "times": times}
+        soft_t = times["soft"]
+        entries += [
+            {"name": f"softmax_xent_fwd_{tag}", "route": "cuda",
+             "source": src, "replaces": "paddle_tpu/ops/pallas_fused.py:130",
+             "max_abs_err": errs["fwd"], "ms": soft_t["fwd_ms"],
+             "plain_ms": soft_t["fwd_plain_ms"],
+             "bound_ms": soft_t["fwd_bound_ms"],
+             "bound_by": soft_t["fwd_bound_by"],
+             "library_ms": soft_t["fwd_library_ms"]},
+            {"name": f"softmax_xent_bwd_{tag}", "route": "cuda",
+             "source": src, "replaces": "paddle_tpu/ops/pallas_fused.py:185",
+             "max_abs_err": errs["bwd"], "ms": soft_t["bwd_ms"],
+             "plain_ms": soft_t["bwd_plain_ms"],
+             "bound_ms": soft_t["bwd_bound_ms"],
+             "bound_by": soft_t["bwd_bound_by"], "library_ms": None}]
+        del x
+        torch.cuda.empty_cache()
+    emit("kernel_xent_amp", rows=r, vocab=v, soft_label_dtype="float32",
+         ignore_index=XENT_IGNORE, atol=ATOL, rtol=RTOL,
+         dx_ulps=XENT_DX_ULPS, bitwise_repeat=True, **report)
+    return entries
 
 
 def _compare_group(what, got, want, tol):
@@ -1302,8 +1533,14 @@ def launch_counts():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused
 
+    by_fwd, by_bwd = (fused.xent_fwd_launches_by_dtype,
+                      fused.xent_bwd_launches_by_dtype)
     return {"softmax_xent_fwd": fused.xent_fwd_launches,
             "softmax_xent_bwd": fused.xent_bwd_launches,
+            "softmax_xent_fwd_bf16": by_fwd["bfloat16"],
+            "softmax_xent_bwd_bf16": by_bwd["bfloat16"],
+            "softmax_xent_fwd_f16": by_fwd["float16"],
+            "softmax_xent_bwd_f16": by_bwd["float16"],
             "adam": fused.adam_launches,
             "adam_tensors": fused.adam_tensors,
             "flash_fwd": fa.flash_fwd_launches,
@@ -1329,23 +1566,29 @@ def reset_launch_counts():
     from paddle_tpu_torch.ops import fused
 
     fused.xent_fwd_launches = fused.xent_bwd_launches = 0
+    for by in (fused.xent_fwd_launches_by_dtype,
+               fused.xent_bwd_launches_by_dtype):
+        for k in by:
+            by[k] = 0
     fused.adam_launches = fused.momentum_launches = 0
     fused.adam_tensors = fused.momentum_tensors = 0
     fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
 
 
-def phase_train(progs, profile_run=False, flash=False, unfused=None):
+def phase_train(progs, profile_run=False, flash=False, unfused=None,
+                amp=False):
     """The training main path on the card (unfused attention, or the flash
-    kernels with ``flash``); returns the kernels' launch counts over its
-    steps and the step's numbers.  ``unfused``: the unfused run's numbers,
-    printed beside the flash run's."""
+    kernels with ``flash``; under bf16 AMP with kept activations with
+    ``amp``, the caller having enabled it); returns the kernels' launch
+    counts over its steps and the step's numbers.  ``unfused``: the fp32
+    unfused run's numbers, printed beside this run's."""
     import math
 
     import torch
 
     from paddle_tpu_torch import fluid
 
-    phase = "train_flash" if flash else "train"
+    phase = "train_amp" if amp else "train_flash" if flash else "train"
     main, startup, cost = progs
     exe = fluid.Executor()  # the default place: the card
     scope = fluid.Scope()
@@ -1366,12 +1609,15 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
     counts = launch_counts()
     per_step = {"softmax_xent_fwd": XENT_FWD_PER_STEP,
                 "softmax_xent_bwd": XENT_BWD_PER_STEP, "adam": ADAM_PER_STEP,
-                "adam_tensors": ADAM_TENSORS_PER_STEP,
-                "flash_fwd": FLASH_FWD_PER_STEP if flash else 0,
-                "flash_dq": FLASH_DQ_PER_STEP if flash else 0,
-                "flash_dkv": FLASH_DKV_PER_STEP if flash else 0,
-                "momentum": 0, "momentum_tensors": 0}
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+                "adam_tensors": ADAM_TENSORS_PER_STEP}
+    if amp:  # the logits are bf16: every xent launch is the bf16 kernels'
+        per_step.update(softmax_xent_fwd_bf16=XENT_FWD_PER_STEP,
+                        softmax_xent_bwd_bf16=XENT_BWD_PER_STEP)
+    if flash:
+        per_step.update(flash_fwd=FLASH_FWD_PER_STEP,
+                        flash_dq=FLASH_DQ_PER_STEP,
+                        flash_dkv=FLASH_DKV_PER_STEP)
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
                              f"steps: {counts}, expected {want}")
@@ -1385,8 +1631,10 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
              "target_tokens_per_s": tokens * len(steady) / (sum(steady)
                                                             / 1e3),
              "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    extra = ({"unfused": unfused} if flash
+    extra = ({"unfused": unfused} if unfused
              else {"dropout": check_dropout(exe, main, feed, scope)})
+    if amp:
+        extra["amp"] = {"dtype": "bfloat16", "keep_activations": True}
     emit(phase, model="transformer_base", batch=TRAIN_BATCH,
          seq_len=TRAIN_LEN, steps=TRAIN_STEPS, losses=losses,
          launches=counts, ops_per_step=len(main.global_block().ops),
@@ -1408,7 +1656,11 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None):
         emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
              device_busy_share=busy_s / wall, device_events=n_events,
              optimizer_kernels=optimizer_kernels(spans),
-             top_kernels=top)
+             gemm_kernels=kernel_family(spans, GEMM_KEYS, busy_s),
+             top_kernels=top,
+             host=host_profile(lambda: exe.run(main, feed=feed,
+                                               fetch_list=[cost],
+                                               scope=scope)))
     return counts, stats
 
 
@@ -1508,6 +1760,138 @@ def phase_train_flash_parity():
          rel_err_cpu=rel_cpu.tolist(), rtol_cpu=tol_cpu.tolist(),
          rel_err_unfused=rel_unfused.tolist(), rtol_unfused=tol_unfused,
          launches=counts)
+
+
+def phase_train_amp_parity():
+    """bf16 with kept activations, one initial state, 3 steps on the card
+    and on the CPU (the plain versions): the losses agree within
+    ``AMP_PARITY_RTOL``."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.transformer import load_reference_params
+
+    batch, seq_len = 2, 32
+    main, startup, cost = build_training(seq_len, dropout=0.0)
+    feed = train_feed(batch, seq_len, seed=1)
+    runs = []
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append((exe, scope))
+    init = {v.name: runs[0][1].get(v.name).numpy()
+            for v in startup.list_vars() if v.persistable}
+    load_reference_params(runs[1][1], init, fluid.CUDAPlace(0))
+    reset_launch_counts()
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        losses = [[float(exe.run(main, feed=feed, fetch_list=[cost],
+                                 scope=scope)[0].reshape(-1)[0])
+                   for _ in range(3)] for exe, scope in runs]
+    counts = launch_counts()
+    cpu, card = np.array(losses[0]), np.array(losses[1])
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    if not (np.isfinite(card).all() and (rel <= AMP_PARITY_RTOL).all()
+            and counts["softmax_xent_fwd_bf16"] == 3 * XENT_FWD_PER_STEP):
+        raise AssertionError(
+            f"bf16 training on the card and the CPU disagree: card "
+            f"{card.tolist()}, CPU {cpu.tolist()} (rel {rel.tolist()}, "
+            f"tolerance {AMP_PARITY_RTOL}); launches {counts}")
+    emit("train_amp_parity", batch=batch, seq_len=seq_len,
+         amp={"dtype": "bfloat16", "keep_activations": True},
+         card_losses=card.tolist(), cpu_losses=cpu.tolist(),
+         rel_err=rel.tolist(), rtol=AMP_PARITY_RTOL, launches=counts)
+
+
+def phase_train_amp_fp16_scaler():
+    """The tiny Transformer in fp16 with kept activations and the dynamic
+    loss scaler on the card, from an ``init_loss_scale`` that overflows
+    step 1: that step leaves every read-write persistable bitwise as it
+    was and halves the scale; the scale halves on each overflow, and
+    after ``FP16_GROWTH`` good steps in a row it doubles; the good steps
+    train (finite loss that falls) and launch Adam once each, every step
+    the fp16 xent kernels.  Returns the launch counts."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import transformer
+
+    framework.fresh_session()
+    batch, seq_len = FP16_BATCH, FP16_LEN
+    with fluid.amp.amp_guard("float16", keep_activations=True):
+        fluid.amp.enable("float16", keep_activations=True,
+                         init_loss_scale=FP16_INIT_SCALE,
+                         growth_interval=FP16_GROWTH)
+        cfg = transformer.tiny_config()
+        cfg.flash_attention = False
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 1
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, cost = transformer.build(cfg, src_len=seq_len,
+                                              tgt_len=seq_len, lr=1e-3)
+        block = main.global_block()
+        reads = {n for op in block.ops for n in op.input_arg_names if n}
+        writes = {n for op in block.ops for n in op.output_arg_names if n}
+        state = sorted(n for n in reads & writes
+                       if block._var_recursive(n).persistable)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        rng_feed = train_feed(batch, seq_len, seed=3)
+        feed = {k: v % cfg.src_vocab_size for k, v in rng_feed.items()}
+        reset_launch_counts()
+        steps = []
+        for _ in range(FP16_STEPS):
+            before = {n: scope.get(n).clone() for n in state}
+            loss = float(exe.run(main, feed=feed, fetch_list=[cost],
+                                 scope=scope)[0].reshape(-1)[0])
+            torch.cuda.synchronize()
+            steps.append({
+                "loss": loss,
+                "skipped": all(torch.equal(scope.get(n), before[n])
+                               for n in state),
+                "scale": float(scope.get("@LOSS_SCALE@").reshape(-1)[0]),
+                "good": int(scope.get("@LOSS_SCALE_GOOD@").reshape(-1)[0])})
+        counts = launch_counts()
+    scale, good, grew = FP16_INIT_SCALE, 0, 0
+    for k, st in enumerate(steps):  # the scaler's rule, step by step
+        if st["skipped"]:
+            scale, good = max(scale / 2, 1.0), 0
+        else:
+            good += 1
+            if good >= FP16_GROWTH:
+                scale, good, grew = scale * 2, 0, grew + 1
+        if (st["scale"], st["good"]) != (scale, good):
+            raise AssertionError(f"loss scale after step {k + 1}: "
+                                 f"{st['scale']} / {st['good']} good steps, "
+                                 f"expected {scale} / {good}: {steps}")
+    good_losses = [st["loss"] for st in steps if not st["skipped"]]
+    n_good = len(good_losses)
+    if not (steps[0]["skipped"] and steps[0]["scale"] == FP16_INIT_SCALE / 2
+            and grew >= 1 and n_good >= 2 * FP16_GROWTH
+            and all(math.isfinite(v) for v in good_losses)
+            and good_losses[-1] < good_losses[0]):
+        raise AssertionError(f"fp16 loss scaler run: {steps}")
+    want = {k: 0 for k in counts}
+    want.update(softmax_xent_fwd=XENT_FWD_PER_STEP * FP16_STEPS,
+                softmax_xent_bwd=XENT_BWD_PER_STEP * FP16_STEPS,
+                softmax_xent_fwd_f16=XENT_FWD_PER_STEP * FP16_STEPS,
+                softmax_xent_bwd_f16=XENT_BWD_PER_STEP * FP16_STEPS,
+                adam=n_good, adam_tensors=n_good * len(
+                    [p for p in block.all_parameters() if p.trainable]))
+    if counts != want:
+        raise AssertionError(f"fp16 scaler launches {counts}, expected "
+                             f"{want}")
+    emit("train_amp_fp16_scaler", model="transformer_tiny", batch=batch,
+         seq_len=seq_len, amp={"dtype": "float16", "keep_activations": True,
+                               "init_loss_scale": FP16_INIT_SCALE,
+                               "growth_interval": FP16_GROWTH},
+         steps=steps, skipped=[k + 1 for k, st in enumerate(steps)
+                               if st["skipped"]],
+         growths=grew, state_vars=len(state), launches=counts,
+         first_step_bitwise_unchanged=True)
+    return counts
 
 
 def build_resnet(image_hw=224, class_dim=1000, lr=0.1):
@@ -1637,9 +2021,10 @@ def conv_tflop_per_step(main, batch):
     return 3 * flops * batch / 1e12
 
 
-def phase_train_resnet(progs, profile_run=False):
-    """ResNet-50 training on the card: returns the kernels' launch counts
-    over its steps."""
+def phase_train_resnet(progs, profile_run=False, amp=False):
+    """ResNet-50 training on the card (under bf16 AMP with kept activations
+    with ``amp``, the caller having enabled it): returns the kernels'
+    launch counts over its steps."""
     import math
 
     import torch
@@ -1680,7 +2065,11 @@ def phase_train_resnet(progs, profile_run=False):
     steady = step_ms[1:]
     steady_ms = sum(steady) / len(steady)
     conv_tflop = conv_tflop_per_step(main, RESNET_BATCH)
-    emit("train_resnet", model="resnet50", batch=RESNET_BATCH,
+    phase = "train_resnet_amp" if amp else "train_resnet"
+    # the convolutions' least time at the dtype's peak (bf16 dense tensor
+    # cores under AMP, fp32 CUDA cores otherwise)
+    conv_peak = PEAK_BF16_FLOPS if amp else PEAK_FP32_FLOPS
+    emit(phase, model="resnet50", batch=RESNET_BATCH,
          image_hw=224, classes=1000, steps=RESNET_STEPS, losses=losses,
          loss_fell=losses[-1] < losses[0], accuracies=accs,
          launches=counts, startup_s=startup_s, step_ms=step_ms,
@@ -1689,8 +2078,10 @@ def phase_train_resnet(progs, profile_run=False):
          ops_per_step=len(main.global_block().ops),
          op_dispatches_per_step=op_dispatches(exe, main, loss, acc),
          conv_tflop_per_step=conv_tflop,
-         conv_bound_ms=conv_tflop / PEAK_FP32_FLOPS * 1e15,
-         max_memory_allocated=peak)
+         conv_bound_ms=conv_tflop / conv_peak * 1e15,
+         max_memory_allocated=peak,
+         **({"amp": {"dtype": "bfloat16", "keep_activations": True}}
+            if amp else {}))
     if profile_run:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1704,10 +2095,14 @@ def phase_train_resnet(progs, profile_run=False):
             pad_trace()
         spans = device_spans(prof)
         busy_s, n_events, top = trace_summary(spans)
-        emit("train_resnet_profile", wall_s=wall, device_busy_s=busy_s,
+        emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
              device_busy_share=busy_s / wall, device_events=n_events,
              optimizer_kernels=optimizer_kernels(spans),
-             top_kernels=top)
+             conv_kernels=kernel_family(spans, CONV_KEYS, busy_s),
+             top_kernels=top,
+             host=host_profile(lambda: exe.run(main, feed=feed,
+                                               fetch_list=[loss],
+                                               scope=scope)))
     return counts
 
 
@@ -1864,6 +2259,8 @@ def main():
     paged = phase_kernel()
     xent_fwd, xent_bwd = phase_kernel_xent()
     torch.cuda.empty_cache()
+    xent_amp = phase_kernel_xent_amp()
+    torch.cuda.empty_cache()
     progs = build_training(TRAIN_LEN)
     adam = phase_kernel_adam(
         [tuple(p.shape) for p in progs[0].global_block().all_parameters()
@@ -1895,8 +2292,26 @@ def main():
     torch.cuda.empty_cache()
     phase_conv_fp32()
     phase_train_resnet_parity()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch import fluid
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        counts, _ = phase_train(build_training(TRAIN_LEN), args.profile,
+                                unfused=unfused, amp=True)
+    for k in xent_amp:
+        k["launches"] = counts.get(k["name"], 0)
+    torch.cuda.empty_cache()
+    phase_train_amp_parity()
+    torch.cuda.empty_cache()
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        phase_train_resnet(build_resnet(), args.profile, amp=True)
+    torch.cuda.empty_cache()
+    counts = phase_train_amp_fp16_scaler()
+    for k in xent_amp:
+        if k["name"].endswith("_f16"):
+            k["launches"] = counts[k["name"]]
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
-                                  momentum]}))
+                                  momentum, *xent_amp]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

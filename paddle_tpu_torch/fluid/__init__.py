@@ -5,6 +5,7 @@ place; ``CPUPlace()`` runs the plain PyTorch versions of every op."""
 # ops must register before any program executes
 from .. import ops as _ops  # noqa: F401
 
+from . import amp
 from . import core
 from .core import CPUPlace, CUDAPlace, TPUPlace
 from . import framework
@@ -24,7 +25,7 @@ from .backward import append_backward
 from .param_attr import ParamAttr
 
 __all__ = [
-    "core", "framework", "executor", "initializer", "layers", "unique_name",
+    "amp", "core", "framework", "executor", "initializer", "layers", "unique_name",
     "backward", "clip", "optimizer", "regularizer", "append_backward",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",

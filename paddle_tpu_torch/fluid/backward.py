@@ -58,8 +58,7 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
     produced: Dict[str, List[str]] = {}
 
     # seed: d loss / d loss = 1.  The __loss_seed__ tag is where the
-    # reference folds a dynamic loss scale into the seed; the port runs
-    # the op plainly until AMP is ported.
+    # Executor folds a dynamic loss scale (fluid.amp fp16) into the seed.
     loss_grad = grad_var_name(loss.name)
     _ensure_grad_var(block, loss.name, loss_grad)
     block.append_op(

@@ -1,14 +1,15 @@
 """Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``):
-the hooks ``Optimizer.minimize`` calls.  Error clipping (its ``clip`` op),
-the gradient-clip attrs (``GradientClipByValue``, ``ByNorm``,
-``ByGlobalNorm``) and the AMP ``append_unscale_ops`` are not ported yet."""
+the hooks ``Optimizer.minimize`` calls, and the AMP loss scaler's
+``append_unscale_ops``.  Error clipping (its ``clip`` op) and the
+gradient-clip attrs (``GradientClipByValue``, ``ByNorm``,
+``ByGlobalNorm``) are not ported yet."""
 
 from __future__ import annotations
 
-from .framework import default_main_program
+from .framework import OpRole, default_main_program
 
-__all__ = ["append_gradient_clip_ops", "error_clip_callback",
-           "set_gradient_clip"]
+__all__ = ["append_gradient_clip_ops", "append_unscale_ops",
+           "error_clip_callback", "set_gradient_clip"]
 
 
 def error_clip_callback(block, context):
@@ -50,6 +51,29 @@ def set_gradient_clip(clip, param_list=None, program=None):
                   else p for p in param_list]
     for param in param_list:
         param.gradient_clip_attr = clip
+
+
+def append_unscale_ops(params_grads, loss_scale_var):
+    """Divide every raw grad by the dynamic loss scale (``fluid.amp`` fp16
+    training), between ``append_backward`` and the clip ops, so clip and
+    the update see true gradient magnitudes.  Returns fresh (param, grad)
+    pairs; the raw (scaled) grads stay in ``program._params_grads``, which
+    the Executor's overflow check reads."""
+    from .framework import program_guard
+    from .layers import nn as _nn
+
+    res = []
+    for p, g in params_grads:
+        if g is None:
+            res.append((p, g))
+            continue
+        block = p.block
+        with program_guard(block.program):
+            new_grad = _nn.elementwise_div(g, loss_scale_var)
+        # backward role: the unscale ops go with the backward graph
+        block.ops[-1].attrs[OpRole.KEY] = OpRole.Backward
+        res.append((p, new_grad))
+    return res
 
 
 def append_gradient_clip_ops(param_grad):

@@ -1,16 +1,17 @@
 """Env-knob contract (counterpart of ``paddle_tpu/fluid/envcontract.py``):
-the ``PADDLE_SERVE_*`` knobs the serving slice reads, with the reference's
-names, types and defaults.  Values are read live through :func:`get`."""
+the ``PADDLE_SERVE_*`` knobs the serving slice reads and the
+``PADDLE_TPU_AMP*`` knobs of ``fluid.amp``, with the reference's names,
+types and defaults.  Values are read live through :func:`get`."""
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 __all__ = ["EnvKnob", "declare", "get", "REGISTRY"]
 
-_TYPES = ("str", "int", "float", "bool")
+_TYPES = ("str", "int", "float", "bool", "enum")
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -23,6 +24,7 @@ class EnvKnob:
     default: object                # the value `get` returns when unset
     subsystem: str
     help: str
+    choices: Tuple[str, ...] = ()  # for type == "enum"
 
     def parse(self, raw: Optional[str]):
         """Typed value for a raw env string (None/empty -> default)."""
@@ -42,19 +44,22 @@ class EnvKnob:
             if low in _FALSE:
                 return False
             return self.default
+        if self.type == "enum":
+            low = raw.lower()
+            return low if low in self.choices else self.default
         return raw
 
 
 REGISTRY: Dict[str, EnvKnob] = {}
 
 
-def declare(name: str, type: str, default, subsystem: str,
-            help: str) -> EnvKnob:
+def declare(name: str, type: str, default, subsystem: str, help: str,
+            choices: Tuple[str, ...] = ()) -> EnvKnob:
     if type not in _TYPES:
         raise ValueError(f"knob type must be one of {_TYPES}, got {type!r}")
     if name in REGISTRY:
         raise ValueError(f"env knob {name} declared twice")
-    knob = EnvKnob(name, type, default, subsystem, help)
+    knob = EnvKnob(name, type, default, subsystem, help, tuple(choices))
     REGISTRY[name] = knob
     return knob
 
@@ -98,3 +103,13 @@ declare("PADDLE_SERVE_PREFIX_SHARE", "bool", True, "serving",
 declare("PADDLE_SERVE_SPEC", "int", 0, "serving",
         "Speculative decoding depth k; the port does not carry "
         "speculative decoding yet and refuses k > 0")
+
+# -- AMP (read by fluid.amp at import and by amp.enable) --
+declare("PADDLE_TPU_AMP", "enum", None, "amp",
+        "Enable mixed precision at import", choices=("bfloat16", "float16"))
+declare("PADDLE_TPU_AMP_KEEP", "bool", False, "amp",
+        "Keep activations in the low compute dtype (pure-low regime)")
+declare("PADDLE_TPU_AMP_INIT_SCALE", "float", 2.0 ** 15, "amp",
+        "Initial dynamic fp16 loss scale")
+declare("PADDLE_TPU_AMP_SCALE_INTERVAL", "int", 1000, "amp",
+        "Overflow-free steps between loss-scale growth events")

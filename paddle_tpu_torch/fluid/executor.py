@@ -37,7 +37,20 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    that an op of the plan updates in place is cloned first, so the
    caller's tensor is never written; numpy feeds are always copied.
 
-No jit, windows, guardian, compile cache or verifier in this slice.
+ - a program built with ``fluid.amp`` dynamic loss scaling runs guarded
+   (``fluid/guardian.py``): the backward seed is multiplied by the loss
+   scale; before the first ``Optimize``-role op one host read checks that
+   the loss and every raw grad are finite; on overflow the ``Optimize``
+   ops are skipped and every read-write persistable keeps the value the
+   step started from (the ops before them only rebind names), and the
+   scale vars are updated either way.
+
+Fetches of bfloat16 vars come back as float32 numpy arrays (exact): numpy
+has no bfloat16, and the reference's ``ml_dtypes`` arrays are not available
+on every host.
+
+No jit, windows, compile cache or verifier in this slice, and of the
+guardian only the loss scaler's part.
 """
 
 from __future__ import annotations
@@ -118,8 +131,11 @@ def _storage(t) -> int:
 
 def _snapshot(t) -> np.ndarray:
     """A numpy copy of ``t``: ``numpy()`` of a CPU tensor shares its
-    memory, ``cpu()`` of a device tensor already copies."""
+    memory, ``cpu()`` of a device tensor already copies.  bfloat16 comes
+    back as float32 (exact; numpy has no bfloat16)."""
     t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
     return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
@@ -246,6 +262,11 @@ class BlockPlan:
             run[0]: run for run in _find_groups(self.ops, self.const_ops)}
         self.grouped = {k for run in self.groups.values() for k in run[1:]}
         self.checked = False
+        # the guarded step's check goes before the first optimizer op
+        self.optimize = [op.attr(OpRole.KEY) == OpRole.Optimize
+                         for op in self.ops]
+        self.first_optimize = next(
+            (k for k, o in enumerate(self.optimize) if o), len(self.ops))
 
 
 def _context(op, env, device, generator, outputs_spec):
@@ -363,6 +384,8 @@ class Executor:
         ``use_program_cache=False`` analyses the block afresh and keeps
         nothing.  ``feed_var_name`` and ``fetch_var_name`` are accepted as
         in the reference, which names no feed or fetch var either."""
+        from . import guardian as _guardian
+
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
@@ -370,11 +393,15 @@ class Executor:
         feed = feed or {}
         feed_vals = {k: self._coerce_feed(program, k, v)
                      for k, v in feed.items()}
+        guard = _guardian.for_program(program)
         key = (program._cache_token, program._version,
                tuple(sorted(feed_vals)), tuple(fetch_names))
         plan = self._plans.get(key) if use_program_cache else None
         if plan is None:
-            plan = BlockPlan(program, list(feed_vals), fetch_names)
+            # a guarded step keeps the loss and the raw grads to its check
+            extra = guard.extra_fetch_names() if guard is not None else []
+            plan = BlockPlan(program, list(feed_vals),
+                             list(dict.fromkeys(fetch_names + extra)))
             if use_program_cache:
                 self._plans[key] = plan
         for name in plan.in_place_names.intersection(feed_vals):
@@ -396,7 +423,20 @@ class Executor:
         generator = self._generator(scope, program) if plan.needs_rng \
             else None
         updated = None if plan.checked else {}
+        started, seed_mul, finite = None, None, True
+        if guard is not None:
+            started = dict(env)
+            seed_mul = _guardian.seed_multiplier(
+                guard, {n: scope.get(n) for n in guard.scale_vars})
         for k, op in enumerate(plan.ops):
+            if guard is not None and k == plan.first_optimize:
+                finite = _guardian.step_finite(
+                    env[guard.loss_name], [env[n] for n in guard.grad_names])
+            if not finite and plan.optimize[k]:
+                # overflow: the update is skipped (its group with it)
+                for n in plan.release[k]:
+                    env.pop(n, None)
+                continue
             if id(op) in plan.const_ops:
                 if op.output_arg_names[0] not in plan.consts:
                     run_op(op, env, self.device, generator)
@@ -426,13 +466,26 @@ class Executor:
                 for n, ptr in before.items():
                     if ptr and _storage(env[n]) == ptr:
                         updated[ptr] = n
+                if seed_mul is not None and "__loss_seed__" in op.attrs:
+                    for n in op.output_arg_names:
+                        env[n] = env[n] * seed_mul.to(env[n].dtype)
             for n in plan.release[k]:
                 env.pop(n, None)
         if updated is not None:
             _check_no_alias("the fetch list", fetch_names, env, updated)
             plan.checked = True
-        for name in plan.state_out:
-            scope.set(name, env[name])
+        new_state = {name: env[name] for name in plan.state_out}
+        if guard is not None:
+            if plan.first_optimize == len(plan.ops):
+                finite = _guardian.step_finite(
+                    env[guard.loss_name], [env[n] for n in guard.grad_names])
+            scale_state = {n: scope.get(n) for n in guard.scale_vars}
+            new_state = _guardian.fold_health(
+                guard, finite, new_state,
+                {n: started[n] for n in plan.state_out if n in started},
+                scale_state)
+        for name, val in new_state.items():
+            scope.set(name, val)
         if not return_numpy:
             return [env[n].detach().clone() for n in fetch_names]
         return [_snapshot(env[n]) for n in fetch_names]

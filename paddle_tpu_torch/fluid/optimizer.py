@@ -138,9 +138,24 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from . import amp as _amp
+
+        # fp16 dynamic loss scaling is a build-time transform: a
+        # persistable scale var seeds the backward (the Executor folds it
+        # into the __loss_seed__ op) and the raw grads are unscaled here,
+        # before clip, regularization and the update see them
+        scale_var = None
+        if _amp.dynamic_scaling_active():
+            scale_var = _amp.create_loss_scaling_vars(
+                loss.block.program,
+                startup_program or default_startup_program())
         params_grads = append_backward(loss, parameter_list, no_grad_set,
                                        [error_clip_callback])
         params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        if scale_var is not None:
+            from .clip import append_unscale_ops
+
+            params_grads = append_unscale_ops(params_grads, scale_var)
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)

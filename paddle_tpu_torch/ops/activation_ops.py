@@ -15,4 +15,12 @@ def relu(ctx):
 
 @register_op("softmax")
 def softmax(ctx):
-    return {"Out": torch.softmax(ctx.input("X"), dim=-1)}
+    """A bf16 / fp16 input is exponentiated and renormalized in fp32 (low
+    exponentials lose the tail mass) and the result cast back, so
+    attention maps stay low under AMP keep_activations."""
+    from ..fluid import amp
+
+    x = ctx.input("X")
+    if amp.is_low_float(x.dtype):
+        return {"Out": torch.softmax(x.float(), dim=-1).to(x.dtype)}
+    return {"Out": torch.softmax(x, dim=-1)}

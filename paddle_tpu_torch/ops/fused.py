@@ -23,11 +23,15 @@ and their plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
 
 Every wrapper uses its plain version (``*_ref``) only for tensors on the
 CPU; for CUDA tensors it launches the kernel (``csrc/softmax_xent.cu``,
-``csrc/adam.cu``, ``csrc/momentum.cu``; float32, contiguous) or raises.
-``xent_fwd_launches``, ``xent_bwd_launches``, ``adam_launches`` and
-``momentum_launches`` count kernel launches, so a run can show the main
-path went through them; ``adam_tensors`` and ``momentum_tensors`` count
-the parameters those launches updated.
+``csrc/adam.cu``, ``csrc/momentum.cu``; contiguous) or raises.  The xent
+kernels take float32, bfloat16 or float16 logits (soft labels float32 or
+the logits' dtype), compute in fp32, and write ``dx`` in the logits'
+dtype; the optimizer kernels take float32.  ``xent_fwd_launches``,
+``xent_bwd_launches`` (with ``xent_fwd_launches_by_dtype`` /
+``xent_bwd_launches_by_dtype`` splitting them by the logits' dtype),
+``adam_launches`` and ``momentum_launches`` count kernel launches, so a
+run can show the main path went through them; ``adam_tensors`` and
+``momentum_tensors`` count the parameters those launches updated.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_bwd",
 #: kernel launches since the last reset (each wrapper adds one per launch)
 xent_fwd_launches = 0
 xent_bwd_launches = 0
+#: the xent launches by the logits' dtype (their sums are the totals above)
+xent_fwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
+xent_bwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
 adam_launches = 0
 momentum_launches = 0
 #: parameters the Adam and momentum launches updated since the last reset
@@ -62,15 +69,19 @@ def _lib(name):
 
         lib = _build.load(name)
         if name == "softmax_xent":
-            lib.pta_xent_fwd_f32.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p])
-            lib.pta_xent_bwd_f32.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-            lib.pta_xent_fwd_f32.restype = ctypes.c_int
-            lib.pta_xent_bwd_f32.restype = ctypes.c_int
+            for sx, sy in _XENT_ENTRIES:
+                fwd = getattr(lib, f"pta_xent_fwd_{sx}_{sy}")
+                bwd = getattr(lib, f"pta_xent_bwd_{sx}_{sy}")
+                fwd.argtypes = (
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 3
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p])
+                bwd.argtypes = (
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 4
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                fwd.restype = bwd.restype = ctypes.c_int
             lib.pta_xent_error_string.argtypes = [ctypes.c_int]
             lib.pta_xent_error_string.restype = ctypes.c_char_p
         elif name == "momentum":
@@ -108,10 +119,10 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check(name, t, dtype=torch.float32):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype} for the kernel (other "
-                        f"dtypes come with the AMP slice); got {t.dtype}")
+def _check(name, t, dtypes=(torch.float32,)):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {list(dtypes)} for the "
+                        f"kernel; got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -126,6 +137,14 @@ def _raise(lib_err, rc, what):
 # ---------------------------------------------------------------------------
 
 
+# logits dtypes the kernels take, by the suffix of their entries; soft
+# labels come in float32 or the logits' dtype, hard labels as int64
+_XENT_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
+_XENT_ENTRIES = [(sx, sy) for sx in _XENT_DTYPES.values()
+                 for sy in dict.fromkeys(("f32", sx, "i64"))]
+
+
 def _check_xent(x, label, soft):
     if x.dim() != 2:
         raise ValueError(f"logits must be [R, V]; got {tuple(x.shape)}")
@@ -135,16 +154,39 @@ def _check_xent(x, label, soft):
                          f"{list(want)}; got {tuple(label.shape)}")
 
 
+def _xent_entry(kind, x, label, soft):
+    """The name of the kernel entry for the logits' and labels' dtypes;
+    raises for dtypes the kernels do not take."""
+    _check("logits", x, tuple(_XENT_DTYPES))
+    sx = _XENT_DTYPES[x.dtype]
+    if soft:
+        _check("soft labels", label, tuple(dict.fromkeys(
+            (torch.float32, x.dtype))))
+        sy = _XENT_DTYPES[label.dtype]
+    else:
+        sy = "i64"
+    return f"pta_xent_{kind}_{sx}_{sy}"
+
+
+def _f32(t):
+    """``t`` in fp32 if it is bf16 / fp16 (the kernels widen every value as
+    they read it), else as it is."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
 def softmax_xent_fwd_ref(x, label, soft, ignore_index=-100):
     """The plain version: ``(loss [R, 1], lse [R, 1], sum_y [R, 1] or
     None)`` by the kernel's formulas (``_finalize_loss``): ``lse = m +
     log(max(l, 1e-30))``; soft ``loss = lse · Σy − Σ y·x``; hard ``loss =
     lse − x[label]`` (a label outside ``[0, V)`` picks 0; 0 where label ==
-    ignore_index ≥ 0)."""
+    ignore_index ≥ 0).  bf16 / fp16 logits and labels are widened to fp32
+    first, as the kernels read them."""
+    x = _f32(x)
     m = x.max(dim=-1, keepdim=True).values
     lse = m + torch.log(torch.exp(x - m).sum(-1, keepdim=True)
                         .clamp_min(1e-30))
     if soft:
+        label = _f32(label)
         b = label.sum(-1, keepdim=True)
         return lse * b - (label * x).sum(-1, keepdim=True), lse, b
     lab = label.reshape(-1, 1).long()
@@ -158,25 +200,24 @@ def softmax_xent_fwd_ref(x, label, soft, ignore_index=-100):
 
 
 def softmax_xent_fwd(x, label, soft, ignore_index=-100):
-    """Per-row softmax cross entropy of logits ``x [R, V]`` against hard
-    labels ``[R]`` (int) or soft labels ``[R, V]``.  Returns ``(loss [R, 1],
-    lse [R, 1], sum_y [R, 1] or None)``."""
+    """Per-row softmax cross entropy of logits ``x [R, V]`` (float32,
+    bfloat16 or float16) against hard labels ``[R]`` (int) or soft labels
+    ``[R, V]``.  Returns fp32 ``(loss [R, 1], lse [R, 1], sum_y [R, 1] or
+    None)``."""
     global xent_fwd_launches
     _check_xent(x, label, soft)
     if _on_cpu(x, label):
         return softmax_xent_fwd_ref(x, label, soft, ignore_index)
-    _check("logits", x)
-    if soft:
-        _check("soft labels", label)
-    else:
+    entry = _xent_entry("fwd", x, label, soft)
+    lib = _lib("softmax_xent")
+    if not soft:
         label = label.to(torch.int64).contiguous()
     r, v = x.shape
-    lib = _lib("softmax_xent")
     loss = torch.empty(r, 1, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     sum_y = torch.empty_like(loss) if soft else None
     with torch.cuda.device(x.device):
-        rc = lib.pta_xent_fwd_f32(
+        rc = getattr(lib, entry)(
             x.data_ptr(), label.data_ptr() if soft else None,
             None if soft else label.data_ptr(), int(soft), loss.data_ptr(),
             lse.data_ptr(), sum_y.data_ptr() if soft else None, r, v,
@@ -184,6 +225,7 @@ def softmax_xent_fwd(x, label, soft, ignore_index=-100):
     if rc != 0:
         _raise(lib.pta_xent_error_string, rc, "softmax_xent forward")
     xent_fwd_launches += 1
+    xent_fwd_launches_by_dtype[str(x.dtype)[6:]] += 1
     return loss, lse, sum_y
 
 
@@ -201,36 +243,37 @@ def xent_bwd_coeffs(label, sum_y, dloss, dlse, soft, ignore_index=-100):
 
 
 def softmax_xent_bwd_ref(x, label, lse, g1, g2, soft):
-    """The plain version: ``g1 · exp(x − lse) − g2 · target``."""
+    """The plain version: ``g1 · exp(x − lse) − g2 · target``, computed in
+    fp32 from bf16 / fp16 inputs and returned in the logits' dtype."""
+    xf = _f32(x)
     if soft:
-        tgt = label
+        tgt = _f32(label)
     else:
         cols = torch.arange(x.shape[-1], device=x.device)
-        tgt = (cols[None, :] == label.reshape(-1, 1)).to(x.dtype)
-    return g1 * torch.exp(x - lse) - g2 * tgt
+        tgt = (cols[None, :] == label.reshape(-1, 1)).to(xf.dtype)
+    return (g1 * torch.exp(xf - lse) - g2 * tgt).to(x.dtype)
 
 
 def softmax_xent_bwd(x, label, lse, g1, g2, soft):
-    """``dx [R, V] = g1 · exp(x − lse) − g2 · target`` with per-row
+    """``dx [R, V] = g1 · exp(x − lse) − g2 · target`` with per-row fp32
     ``lse``, ``g1``, ``g2`` ``[R, 1]``; target is the one-hot of a hard
-    label or the soft label row."""
+    label or the soft label row; ``dx`` in the logits' dtype."""
     global xent_bwd_launches
     _check_xent(x, label, soft)
     if _on_cpu(x, label, lse, g1, g2):
         return softmax_xent_bwd_ref(x, label, lse, g1, g2, soft)
     r, v = x.shape
-    for name, t in (("logits", x), ("lse", lse), ("g1", g1), ("g2", g2)):
+    for name, t in (("lse", lse), ("g1", g1), ("g2", g2)):
         _check(name, t)
-        if name != "logits" and t.numel() != r:
+        if t.numel() != r:
             raise ValueError(f"{name} must hold one value per row")
-    if soft:
-        _check("soft labels", label)
-    else:
-        label = label.to(torch.int64).contiguous()
+    entry = _xent_entry("bwd", x, label, soft)
     lib = _lib("softmax_xent")
+    if not soft:
+        label = label.to(torch.int64).contiguous()
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = lib.pta_xent_bwd_f32(
+        rc = getattr(lib, entry)(
             x.data_ptr(), label.data_ptr() if soft else None,
             None if soft else label.data_ptr(), int(soft), lse.data_ptr(),
             g1.data_ptr(), g2.data_ptr(), dx.data_ptr(), r, v,
@@ -238,6 +281,7 @@ def softmax_xent_bwd(x, label, lse, g1, g2, soft):
     if rc != 0:
         _raise(lib.pta_xent_error_string, rc, "softmax_xent backward")
     xent_bwd_launches += 1
+    xent_bwd_launches_by_dtype[str(x.dtype)[6:]] += 1
     return dx
 
 

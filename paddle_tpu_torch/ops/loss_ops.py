@@ -25,7 +25,11 @@ def _hard_xent(probs, label, ignore_index=-100):
 def cross_entropy(ctx):
     """Cross entropy of probabilities ``X [..., C]``: hard labels
     ``[..., 1]`` (int) or soft labels ``[..., C]`` -> ``Y [..., 1]``."""
+    from ..fluid import amp
+
     x, label = ctx.input("X"), ctx.input("Label")
+    if amp.is_low_float(x.dtype):
+        x = x.float()  # log() at the loss boundary is fp32
     if ctx.attr("soft_label", False):
         return {"Y": -torch.sum(label * torch.log(x.clamp_min(1e-20)), -1,
                                 keepdim=True)}
@@ -44,7 +48,10 @@ def softmax_with_cross_entropy(ctx):
     grad, or the caller, reads it (``ctx.outputs_spec``): the reference
     leaves the same expression to XLA's dead-code elimination, and eager
     PyTorch eliminates nothing — on the training path it would be another
-    ``[R, V]`` tensor."""
+    ``[R, V]`` tensor.  Logits in bf16 or fp16 (AMP keep_activations) go
+    to the kernels as they are, which compute in fp32; ``Loss`` is fp32
+    and ``Softmax`` is ``exp(float32(logits) − lse)`` in the logits'
+    dtype, as the reference's ``softmax_xent_op``."""
     logits, label = ctx.input("Logits"), ctx.input("Label")
     soft = bool(ctx.attr("soft_label", False))
     v = logits.shape[-1]
@@ -55,5 +62,6 @@ def softmax_with_cross_entropy(ctx):
                                         int(ctx.attr("ignore_index", -100)))
     out = {"Loss": loss.reshape(lead + (1,))}
     if "Softmax" in ctx.outputs_spec:
-        out["Softmax"] = torch.exp(logits - lse.reshape(lead + (1,)))
+        out["Softmax"] = torch.exp(
+            logits.float() - lse.reshape(lead + (1,))).to(logits.dtype)
     return out

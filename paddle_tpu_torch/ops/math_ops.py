@@ -2,8 +2,12 @@
 matmul, the elementwise family, scale, sum, mean, cast, equal and
 logical_not.
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
-float32 stays float32 (the port never turns TF32 on).  Their grads come
-from the generic grad (``registry.run_grad_generic``)."""
+float32 stays float32 (the port never turns TF32 on).  Under ``fluid.amp``
+``mul`` and ``matmul`` multiply in the compute dtype (``amp.cast_operands``
+/ ``restore_astype``, cuBLAS summing in fp32: ``amp.fp32_sums``), and under
+``keep_activations`` an elementwise op's broadcast operand follows the main
+operand's dtype.  Their grads come from the generic grad
+(``registry.run_grad_generic``)."""
 
 from __future__ import annotations
 
@@ -25,7 +29,11 @@ def mul(ctx):
     x, y = ctx.input("X"), ctx.input("Y")
     xnc = ctx.attr("x_num_col_dims", 1)
     ync = ctx.attr("y_num_col_dims", 1)
-    out = torch.matmul(_flatten2(x, xnc), _flatten2(y, ync))
+    from ..fluid import amp
+
+    x2, y2, back = amp.cast_operands(_flatten2(x, xnc), _flatten2(y, ync))
+    with amp.fp32_sums():
+        out = amp.restore_astype(torch.matmul(*amp.promote(x2, y2)), back)
     return {"Out": out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))}
 
 
@@ -40,10 +48,14 @@ def matmul(ctx):
         x = x.transpose(-1, -2)
     if ctx.attr("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    from ..fluid import amp
+
+    x, y, back = amp.cast_operands(x, y)
+    with amp.fp32_sums():
+        out = amp.restore_astype(torch.matmul(*amp.promote(x, y)), back)
     alpha = ctx.attr("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * amp.weak_scalar(alpha, out.dtype)
     return {"Out": out}
 
 
@@ -62,7 +74,15 @@ def _elementwise(name, fn):
     @register_op(name)
     def _impl(ctx, _fn=fn):
         x, y = ctx.input("X"), ctx.input("Y")
-        return {"Out": _fn(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
+        y = _bcast_y(x, y, ctx.attr("axis", -1))
+        from ..fluid import amp
+
+        if (amp.keep_low_activations() and x.dtype != y.dtype
+                and x.is_floating_point() and y.is_floating_point()):
+            # the broadcast operand (an fp32 bias or scale) follows the
+            # main operand, so a bias add keeps the activation low
+            y = y.to(x.dtype)
+        return {"Out": _fn(x, y)}
     return _impl
 
 
@@ -73,9 +93,11 @@ _elementwise("elementwise_div", torch.div)
 
 @register_op("scale")
 def scale(ctx):
+    from ..fluid import amp
+
     x = ctx.input("X")
-    s = ctx.attr("scale", 1.0)
-    b = ctx.attr("bias", 0.0)
+    s = amp.weak_scalar(ctx.attr("scale", 1.0), x.dtype)
+    b = amp.weak_scalar(ctx.attr("bias", 0.0), x.dtype)
     out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
     return {"Out": out}
 

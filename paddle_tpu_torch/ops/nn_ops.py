@@ -3,9 +3,14 @@ explicit grad), pool2d, batch_norm, layer_norm and lookup_table (with its
 dense grad).
 
 Convolutions are no Pallas kernel in the reference (``lax.conv_general_
-dilated``, left to XLA), so here they go to cuDNN / ATen, always in full
-float32: the reference asks for float32 results (``preferred_element_type``)
-and cuDNN would otherwise take TF32 when the caller's flag allows it."""
+dilated``, left to XLA), so here they go to cuDNN / ATen, float32 ones
+always in full float32: the reference asks for float32 results
+(``preferred_element_type``) and cuDNN would otherwise take TF32 when the
+caller's flag allows it.  Under ``fluid.amp`` the convolution takes its
+operands through ``amp.cast_operands`` (bf16 / fp16 on the tensor cores)
+and ``restore_astype``, as the reference's ``_conv``; ``batch_norm`` and
+``layer_norm`` normalize a bf16 / fp16 input in fp32 and return it in the
+input's dtype, their statistics fp32."""
 
 from __future__ import annotations
 
@@ -46,31 +51,41 @@ def _conv_attrs(ctx):
 def conv2d(ctx):
     """NCHW input, OIHW filter, symmetric paddings, as the reference's
     ``_conv``."""
+    from ..fluid import amp
+
     strides, paddings, dilations, groups = _conv_attrs(ctx)
+    x, w, back = amp.cast_operands(ctx.input("Input"), ctx.input("Filter"))
     with _fp32_conv():
-        out = F.conv2d(ctx.input("Input"), ctx.input("Filter"), None,
-                       strides, paddings, dilations, groups)
-    return {"Output": out}
+        out = F.conv2d(x, w, None, strides, paddings, dilations, groups)
+    return {"Output": amp.restore_astype(out, back)}
 
 
 @register_grad("conv2d")
 def conv2d_grad(ctx):
-    """dInput and dFilter from ``aten.convolution_backward`` (float32, as
-    the forward), only for the grads someone reads: the generic grad
-    would run the convolution forward again first."""
-    x, w = ctx.input("Input"), ctx.input("Filter")
+    """dInput and dFilter from ``aten.convolution_backward`` in the dtype
+    the forward convolved in, only for the grads someone reads: the
+    generic grad would run the convolution forward again first.  Under AMP
+    the casts' transposes hold: the incoming grad is cast to the compute
+    dtype (the restore's transpose), and each grad comes back in its
+    input's own dtype (dFilter fp32; dInput fp32 for an fp32 input such as
+    the image feed, bf16 for a kept activation)."""
+    from ..fluid import amp
+
+    x_in, w_in = ctx.input("Input"), ctx.input("Filter")
+    x, w, _ = amp.cast_operands(x_in, w_in)
+    dout = ctx.input("Output@GRAD").to(x.dtype)
     strides, paddings, dilations, groups = _conv_attrs(ctx)
     want_x = "Input@GRAD" in ctx.outputs_spec
     want_w = "Filter@GRAD" in ctx.outputs_spec
     with _fp32_conv():
         dx, dw, _ = torch.ops.aten.convolution_backward(
-            ctx.input("Output@GRAD"), x, w, None, strides, paddings,
-            dilations, False, [0, 0], groups, [want_x, want_w, False])
+            dout, x, w, None, strides, paddings, dilations, False, [0, 0],
+            groups, [want_x, want_w, False])
     out = {}
     if want_x:
-        out["Input@GRAD"] = dx
+        out["Input@GRAD"] = dx.to(x_in.dtype)
     if want_w:
-        out["Filter@GRAD"] = dw
+        out["Filter@GRAD"] = dw.to(w_in.dtype)
     return out
 
 
@@ -105,8 +120,14 @@ def batch_norm(ctx):
     update would move the stats twice a step).  ``SavedVariance`` is
     ``rsqrt(var + eps)``, as in the reference.  ``is_test``: normalize by
     the running stats.  The stats are built only when some op or the
-    caller reads them (not in the generic grad's re-run)."""
-    x = ctx.input("X")
+    caller reads them (not in the generic grad's re-run).  A bf16 / fp16
+    input (AMP keep_activations) is normalized in fp32 and ``Y`` cast back
+    to its dtype; the statistics stay fp32, as in the reference."""
+    from ..fluid import amp
+
+    x_in = ctx.input("X")
+    low = amp.is_low_float(x_in.dtype)
+    x = x_in.float() if low else x_in
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     mean, var = ctx.input("Mean"), ctx.input("Variance")
     momentum = ctx.attr("momentum", 0.9)
@@ -117,6 +138,8 @@ def batch_norm(ctx):
     y = F.batch_norm(xc, mean if is_test else None,
                      var if is_test else None, scale, bias,
                      training=not is_test, eps=eps)
+    if low:
+        y = y.to(x_in.dtype)
     out = {"Y": y if nchw else y.movedim(1, -1)}
     stats = ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
     if not any(s in ctx.outputs_spec for s in stats):
@@ -138,8 +161,14 @@ def batch_norm(ctx):
 @register_op("layer_norm")
 def layer_norm(ctx):
     """Normalize over dims ``begin_norm_axis:``; Mean and Variance are the
-    flattened per-row statistics (biased variance), as in the reference."""
-    x = ctx.input("X")
+    flattened per-row statistics (biased variance), as in the reference.
+    A bf16 / fp16 input is normalized in fp32 and ``Y`` cast back to its
+    dtype; Mean and Variance stay fp32."""
+    from ..fluid import amp
+
+    x_in = ctx.input("X")
+    low = amp.is_low_float(x_in.dtype)
+    x = x_in.float() if low else x_in
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     axis = ctx.attr("begin_norm_axis", 1)
     eps = ctx.attr("epsilon", 1e-5)
@@ -147,6 +176,8 @@ def layer_norm(ctx):
     y = F.layer_norm(x, norm_shape,
                      None if scale is None else scale.reshape(norm_shape),
                      None if bias is None else bias.reshape(norm_shape), eps)
+    if low:
+        y = y.to(x_in.dtype)
     var, mean = torch.var_mean(x, dim=tuple(range(axis, x.dim())),
                                unbiased=False)
     return {"Y": y, "Mean": mean.reshape(-1), "Variance": var.reshape(-1)}

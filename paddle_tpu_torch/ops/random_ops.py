@@ -61,8 +61,8 @@ def fill_constant_batch_size_like(ctx):
 
 @register_op("fill_any_like")
 def fill_any_like(ctx):
-    """Also the backward seed ``append_backward`` tags ``__loss_seed__``:
-    run as a plain op (the loss-scale multiplier comes with AMP)."""
+    """Also the backward seed ``append_backward`` tags ``__loss_seed__``;
+    a guarded Executor step multiplies its output by the loss scale."""
     return {"Out": torch.full_like(ctx.input("X"), ctx.attr("value", 0.0))}
 
 
@@ -99,7 +99,9 @@ def dropout(ctx):
                    generator=_generator(ctx, x.device))
     mask = (u < 1.0 - p).to(x.dtype)
     if upscale:
-        mask = mask / max(1.0 - p, 1e-12)
+        from ..fluid import amp
+
+        mask = mask / amp.weak_scalar(max(1.0 - p, 1e-12), x.dtype)
     return {"Out": x * mask, "Mask": mask}
 
 

@@ -187,22 +187,31 @@ def run_grad_generic(fwd_def: OpDef, ctx: ExecContext) -> Dict[str, Any]:
                        if _is_float(v)]
         inputs[slot] = vals
     fctx = ExecContext(fwd_def.type, inputs, {}, ctx.attrs, ctx.device)
-    with torch.enable_grad():
-        outs = normalize_outputs(fwd_def.fn(fctx))
-    primals, cots = [], []
-    for slot in sorted(out_grads):
-        floats = [v for v in outs.get(slot) or [] if _is_float(v)]
-        gs = out_grads[slot]
-        for i, p in enumerate(floats):
-            if not p.requires_grad:
-                continue
-            g = gs[i] if i < len(gs) else None
-            primals.append(p)
-            cots.append(torch.zeros_like(p) if g is None else g.to(p.dtype))
-    grads = [None] * len(leaves)
-    if primals and leaves:
-        grads = torch.autograd.grad(primals, [t for _, _, t in leaves], cots,
-                                    allow_unused=True)
+    from ..fluid import amp
+
+    # the backward's bf16/fp16 products sum in fp32, as the forward's
+    with amp.fp32_sums():
+        with torch.enable_grad():
+            outs = normalize_outputs(fwd_def.fn(fctx))
+        primals, cots = [], []
+        for slot in sorted(out_grads):
+            floats = [v for v in outs.get(slot) or [] if _is_float(v)]
+            gs = out_grads[slot]
+            for i, p in enumerate(floats):
+                if not p.requires_grad:
+                    continue
+                g = gs[i] if i < len(gs) else None
+                primals.append(p)
+                # the cotangent in the output's runtime dtype (the
+                # reference's ``jnp.asarray(g, p.dtype)``): under AMP a
+                # bf16 activation read by two ops may sum grads of two
+                # dtypes, and autograd refuses a mismatched grad_output
+                cots.append(torch.zeros_like(p) if g is None
+                            else g.to(p.dtype))
+        grads = [None] * len(leaves)
+        if primals and leaves:
+            grads = torch.autograd.grad(primals, [t for _, _, t in leaves],
+                                        cots, allow_unused=True)
     result: Dict[str, List[Any]] = {
         slot + GRAD_SUFFIX: [None] * len(inputs[slot]) for slot in want}
     for (slot, i, t), g in zip(leaves, grads):

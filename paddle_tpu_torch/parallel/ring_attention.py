@@ -17,10 +17,14 @@ import torch
 def full_attention(q, k, v, causal: bool = False, scale=None, bias=None):
     """``softmax(scale · q kᵀ + bias [+ causal]) v`` over ``[B, H, T, D]``
     with a plain softmax; the causal mask is top-left aligned (query i sees
-    keys j ≤ i) and fills ``-inf``."""
+    keys j ≤ i) and fills ``-inf``.  Both products follow ``fluid.amp``
+    (``amp.einsum``, the reference's ``_amp_einsum``)."""
+    from ..fluid import amp
+
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = amp.einsum("bhqd,bhkd->bhqk", q, k)
+    s = s * amp.weak_scalar(scale, s.dtype)
     if bias is not None:
         s = s + bias
     if causal:
@@ -28,5 +32,11 @@ def full_attention(q, k, v, causal: bool = False, scale=None, bias=None):
         mask = (torch.arange(t_q, device=q.device)[:, None]
                 >= torch.arange(t_k, device=q.device)[None, :])
         s = torch.where(mask, s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v)
+    if amp.is_low_float(s.dtype):
+        # the reference's jax.nn.softmax in the scores' own dtype: the
+        # exponentials, their sum and the quotient each rounded to it
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1)
+    return amp.einsum("bhqk,bhkd->bhqd", p, v)
