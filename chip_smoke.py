@@ -6,7 +6,8 @@ it, then serves a Transformer-base-width paged decode LM through the
 continuous-batching ``DecodeEngine``, trains Transformer-base through
 ``fluid.Executor`` with unfused attention and through the flash kernels,
 and trains ResNet-50 with momentum, in fp32 and then under bf16 / fp16
-mixed precision (``fluid.amp``), and checks them all.
+mixed precision (``fluid.amp``; Transformer-base also through the bf16
+flash kernels), and checks them all.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    halves the scale, good steps train and grow it after 3
                    in a row; fp16 xent launches every step, Adam on good
                    steps only
+21. kernel_flash_amp - phase 7's cases with bf16 and fp16 q, k, v, dO (the
+                   padded cases with the bias in fp32 and in the inputs'
+                   dtype), then the other head widths: out, dq, dk, dv
+                   within ``FLASH_LOW_TOL`` (1 ulp of the dtype plus 2^-14
+                   of the largest magnitude), lse within (1e-5, 1e-5),
+                   bitwise repeatability; kernel, plain and SDPA times (SDPA
+                   on the same low inputs), each kernel's bound (bytes at
+                   2 bytes a value; products once at the bf16 tensor-core
+                   rate), registers, spills and blocks per SM
+22. train_flash_amp - phase 11's model under bf16 with kept activations:
+                   finite, falling loss, exactly 36 / 18 / 18 bf16 flash
+                   launches a step and no fp32 one, 2 / 1 bf16 xent and 1
+                   Adam launch; op dispatches, step time, target tokens/s
+                   and peak memory beside train_amp's and train_flash's
+23. train_flash_amp_parity - phase 12 in bf16 with kept activations: card
+                   against CPU within 2^-8, flash against unfused on the
+                   card within ``FLASH_AMP_UNFUSED_RTOL``
+24. train_flash_amp_fp16_scaler - phase 20 with the tiny model's attention
+                   through the fp16 flash kernels (D = 16): the same scaler
+                   contract, 12 / 6 / 6 fp16 flash launches every step
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy) and one after each full-size training phase (one more step),
@@ -187,6 +208,19 @@ FLASH_DQ_PER_STEP = FLASH_DKV_PER_STEP = FLASH_OPS
 # Worth a few ulps of values of order 1-10 (out ~0.1, lse ~6, gradients up
 # to ~10)
 FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
+# the same kernels on bf16 / fp16 q, k, v and dO (AMP with kept
+# activations).  out, dq, dk and dv are each one fp32 value rounded once to
+# the input dtype, in the kernel and in the plain version alike, so where
+# the two fp32 values lie within an ulp of that dtype the outputs part by
+# at most one ulp of it; plus a floor of 2^-14 of the tensor's largest
+# magnitude for what the fp32 values do differ by where a sum cancels
+# (dS sums to ~0 over a row, so a dk or dq element can be small beside its
+# terms): the split P and dS (two TF32 parts, ~2^-21 of each term) and the
+# tensor core's truncated sums over up to 256 keys.  A single bf16
+# rounding of P or dS (2^-9 of each term) does not fit it
+# (tests/test_torch_flash_amp_split.py).  lse is fp32 on both sides, as in
+# FLASH_TOL
+FLASH_LOW_TOL = {"ulps": 1, "floor": 2.0 ** -14, "lse": FLASH_TOL["lse"]}
 # ResNet-50 training (bench.py's accelerator run): one momentum launch for
 # the Executor's group of the 161 momentum ops, one a trainable parameter
 # (53 conv filters, 53 BN scales and biases, fc w, b)
@@ -204,6 +238,13 @@ MOMENTUM_TOL = 1e-6
 # fp32 means of bf16 logits, part by a few parts in 1e4 over 3 steps: held
 # within one bf16 relative step, 2^-8
 AMP_PARITY_RTOL = 2.0 ** -8
+# the flash build against the unfused build, both in bf16 with kept
+# activations: the unfused attention rounds P to bf16 (2^-9 of each
+# weight, amp.einsum) and takes its softmax in bf16, the flash kernels keep
+# P in fp32; on the CPU at tiny width their losses part by up to 4.0e-4
+# over 3 steps (tests/test_torch_flash_amp.py holds them to this bound):
+# held, as above, within one bf16 relative step
+FLASH_AMP_UNFUSED_RTOL = 2.0 ** -8
 # the fp16 dynamic loss scaler on the tiny Transformer: the seed 2^24 over
 # 4 x 16 target tokens is 2^18 as it enters the fp16 products, past fp16's
 # 65504, so step 1 overflows and the scale halves until the products fit
@@ -855,18 +896,31 @@ def phase_kernel_xent():
          "bound_by": bwd_by, "library_ms": None})
 
 
-def ulp_err(got, want):
-    """The largest |got - want| of two low-precision tensors in ulps of
-    their dtype, each element's ulp taken at the larger magnitude of the
-    two (subnormals: the smallest normal's ulp)."""
+def _ulp(got, want):
+    """Per element, the ulp of two low-precision tensors' dtype at the
+    larger magnitude of the pair (subnormals: the smallest normal's ulp)."""
     import torch
 
     mant = {torch.bfloat16: 7, torch.float16: 10}[got.dtype]
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(got.dtype)
-                                                    .tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
-    return float(((g - w).abs() / ulp).max())
+    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(
+        torch.finfo(got.dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - mant)
+
+
+def ulp_err(got, want):
+    """The largest |got - want| of two low-precision tensors in ulps of
+    their dtype (``_ulp``)."""
+    return float(((got.float() - want.float()).abs() / _ulp(got, want))
+                 .max())
+
+
+def low_excess(got, want, tol=FLASH_LOW_TOL):
+    """max over elements of |got - want| - (ulps · ulp + floor · max|want|)
+    of two bf16 / fp16 tensors: <= 0 within ``tol``."""
+    diff = (got.float() - want.float()).abs()
+    allowed = (tol["ulps"] * _ulp(got, want)
+               + tol["floor"] * float(want.float().abs().max()))
+    return float((diff - allowed).max())
 
 
 def phase_kernel_xent_amp():
@@ -1202,30 +1256,35 @@ def flash_live_pairs(t_q, lens, causal):
     return total
 
 
-def flash_bound_ms(t_q, t_k, lens, causal, kind):
+def flash_bound_ms(t_q, t_k, lens, causal, kind, elem=4):
     """The least time of one flash kernel call: each input read once and
     each output written once over the memory rate, or the operations over
-    their rate, whichever is larger; on the better of two routes.  The
-    products are 2 flops a multiply-add, D of them per product per live
-    pair (2 products forward, 3 in dQ, 4 in dK/dV), plus 4 flops of softmax
-    arithmetic a live pair on the CUDA cores: on the CUDA cores all at the
-    fp32 rate, on the tensor cores the products three times over (3xTF32)
-    at the TF32 rate.  Returns ``{"bound_ms", "bound_by",
-    "fp32_core_bound_ms", "tensor_core_bound_ms"}``."""
+    their rate, whichever is larger; on the better of two routes.  ``elem``
+    is the bytes of a q, k, v, dO, out, dq, dk or dv value (4 in fp32, 2 in
+    bf16 / fp16; lse, delta and the bias are fp32).  The products are 2
+    flops a multiply-add, D of them per product per live pair (2 products
+    forward, 3 in dQ, 4 in dK/dV), plus 4 flops of softmax arithmetic a
+    live pair on the CUDA cores: on the CUDA cores all at the fp32 rate; on
+    the tensor cores, in fp32 the products three times over (3xTF32) at the
+    TF32 rate, in bf16 / fp16 each of the reference's products once at the
+    bf16 rate (the kernels' split of P and dS is their own cost).  Returns
+    ``{"bound_ms", "bound_by", "fp32_core_bound_ms",
+    "tensor_core_bound_ms"}``."""
     b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
     pairs = h * flash_live_pairs(t_q, lens, causal)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     product_flops, softmax_flops = pairs * 2 * products * d, pairs * 4
-    q_bytes, kv_bytes, rows = b * h * t_q * d * 4, b * h * t_k * d * 4, \
-        b * h * t_q * 4
+    q_bytes, kv_bytes, rows = b * h * t_q * d * elem, \
+        b * h * t_k * d * elem, b * h * t_q * 4
     bias_bytes = b * t_k * 4
     nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + rows + bias_bytes,
               "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows + bias_bytes,
               "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows + bias_bytes}[kind]
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_fp32 = (product_flops + softmax_flops) / PEAK_FP32_FLOPS * 1e3
-    t_tc = (3 * product_flops / PEAK_TF32_FLOPS
-            + softmax_flops / PEAK_FP32_FLOPS) * 1e3
+    tc_flops = (3 * product_flops / PEAK_TF32_FLOPS if elem == 4
+                else product_flops / PEAK_BF16_FLOPS)
+    t_tc = (tc_flops + softmax_flops / PEAK_FP32_FLOPS) * 1e3
     t_ops = min(t_fp32, t_tc)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1246,10 +1305,11 @@ def _check_close(what, name, got, want):
     return _max_errs(got, want)
 
 
-def flash_blocks_per_sm(kind, d):
+def flash_blocks_per_sm(kind, d, sfx="f32"):
     """How many blocks of the flash forward (``"fwd"``), dQ (``"dq"``) or
-    dK/dV (``"dkv"``) kernel at head width ``d`` fit one SM of the card at
-    once, from their threads, registers and shared memory
+    dK/dV (``"dkv"``) kernel at head width ``d`` on inputs of dtype ``sfx``
+    (``"f32"``, ``"bf16"``, ``"f16"``) fit one SM of the card at once, from
+    their threads, registers and shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` behind the kernels'
     C interface)."""
     import ctypes
@@ -1258,11 +1318,12 @@ def flash_blocks_per_sm(kind, d):
 
     lib = fa._lib()
     query = lib.pta_flash_blocks_per_sm
-    query.argtypes = [ctypes.c_int, ctypes.c_int,
+    query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_int)]
     query.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    rc = query({"fwd": 0, "dq": 1, "dkv": 2}[kind], d, ctypes.byref(blocks))
+    rc = query({"fwd": 0, "dq": 1, "dkv": 2}[kind],
+               {"f32": 0, "bf16": 1, "f16": 2}[sfx], d, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"flash {kind} occupancy query failed: "
                            f"{lib.pta_flash_error_string(rc).decode()} "
@@ -1270,20 +1331,26 @@ def flash_blocks_per_sm(kind, d):
     return blocks.value
 
 
-def flash_registers():
+def flash_registers(sfx="f32", log=None):
     """Registers and spill-store bytes of each flash kernel (``"fwd"``,
-    ``"dq"``, ``"dkv"``) at each head width, from ptxas's report of this
-    process's build (empty where the library was built before)."""
+    ``"dq"``, ``"dkv"``) on inputs of dtype ``sfx`` at each head width,
+    from ptxas's report ``log``: by default this process's build of the
+    library (empty where the library was built before)."""
     import re
 
     from paddle_tpu_torch.ops import _build
 
+    if log is None:
+        log = _build.build_logs.get("flash_attention", "")
+    # (fp32 kernels built before the element type was a template
+    # parameter carry none)
+    mangled = {"f32": "f?", "bf16": "13__nv_bfloat16", "f16": "6__half"}[sfx]
     found, cur = {}, None
-    for ln in _build.build_logs.get("flash_attention", "").splitlines():
+    for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
-            k = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)E",
-                          entry.group(1))
+            k = re.search(r"flash_(fwd|dq|dkv)_kernelI" + mangled
+                          + r"Li(\d+)E", entry.group(1))
             cur = found.setdefault(k.group(1), {}).setdefault(
                 int(k.group(2)), {}) if k else None
             continue
@@ -1366,18 +1433,38 @@ def phase_kernel_flash():
     return rows
 
 
+def _check_low(what, name, got, want):
+    """Max abs error and max ulps of a bf16 / fp16 flash output against its
+    plain version; raises beyond ``FLASH_LOW_TOL`` or on a non-finite
+    value."""
+    if got.dtype != want.dtype:
+        raise AssertionError(f"flash {what}: {name} is {got.dtype}, the "
+                             f"plain version's {want.dtype}")
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"flash {what}: {name} is not finite")
+    err = ((got.float() - want.float()).abs().max().item(),
+           ulp_err(got, want))
+    if low_excess(got, want) > 0:
+        raise AssertionError(
+            f"flash {what}: {name} disagrees with the plain version: max "
+            f"abs err / ulps {err} (tolerance {FLASH_LOW_TOL})")
+    return err
+
+
 def _check_flash_case(q, k, v, do, bias, scale, causal, what):
     """Launch each flash kernel twice on one case: the two launches must be
-    bitwise equal and within ``FLASH_TOL`` of the plain versions on the
-    same inputs.  Returns the max abs/rel errors, the plain outputs' max
-    magnitudes, and the forward's lse and delta."""
+    bitwise equal and within ``FLASH_TOL`` (fp32) or ``FLASH_LOW_TOL``
+    (bf16 / fp16) of the plain versions on the same inputs.  Returns the
+    errors (max abs and max rel; in bf16 / fp16 max abs and max ulps but
+    for lse), the plain outputs' max magnitudes, and the forward's lse and
+    delta."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
 
     out, lse = fa.flash_forward(q, k, v, bias, scale, causal)
     out2, lse2 = fa.flash_forward(q, k, v, bias, scale, causal)
-    delta = (do * out).sum(-1, keepdim=True)
+    delta = fa._delta(out, do)
     dq = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
     dq2 = fa.flash_dq(q, k, v, bias, do, lse, delta, scale, causal)
     dk, dv = fa.flash_dkv(q, k, v, bias, do, lse, delta, scale, causal)
@@ -1394,13 +1481,16 @@ def _check_flash_case(q, k, v, do, bias, scale, causal, what):
                                   causal)
     pairs = (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
              ("dk", dk, r_dk), ("dv", dv, r_dv))
-    errs = {n: _check_close(what, n, g, w) for n, g, w in pairs}
+    low = q.dtype != torch.float32
+    errs = {n: (_check_low if low and n != "lse" else _check_close)(
+        what, n, g, w) for n, g, w in pairs}
     return errs, {n: float(w.abs().max()) for n, _, w in pairs}, lse, delta
 
 
 def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
     """Kernel, plain, bound and library times of the three kernels on one
-    case, and of a forward + backward pair under autograd."""
+    case, and of a forward + backward pair under autograd; the library
+    call (SDPA) on the same inputs, its mask the bias in q's dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -1421,20 +1511,24 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
                                       causal), 50)):
         times[f"{kind}_ms"] = cuda_time_ms(kern, iters)
         times[f"{kind}_plain_ms"] = cuda_time_ms(plain, 10)
-        for key, val in flash_bound_ms(t_q, t_k, lens, causal, kind).items():
+        for key, val in flash_bound_ms(t_q, t_k, lens, causal, kind,
+                                       q.element_size()).items():
             times[f"{kind}_{key}"] = val
 
-    # the library yardstick, timed only: SDPA on the same fp32 inputs
+    # the library yardstick, timed only: SDPA on the same inputs
+    mask = None if bias is None else bias.to(q.dtype)
+
     def sdpa(a, b_, c):
         if causal:
             return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
                                                   scale=scale)
-        return F.scaled_dot_product_attention(a, b_, c, attn_mask=bias,
+        return F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
                                               scale=scale)
 
     times["fwd_library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v), 50)
     times["library_max_abs_err"] = float(
-        (sdpa(q, k, v) - fa.flash_forward(q, k, v, bias, scale, causal)[0])
+        (sdpa(q, k, v).float()
+         - fa.flash_forward(q, k, v, bias, scale, causal)[0].float())
         .abs().max())
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
@@ -1448,6 +1542,92 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
     times["fwd_bwd_pair_ms"] = cuda_time_ms(kernel_pair, 20)
     times["library_fwd_bwd_pair_ms"] = cuda_time_ms(library_pair, 20)
     return times
+
+
+def phase_kernel_flash_amp():
+    """The flash forward, dQ and dK/dV kernels on bf16 and fp16 q, k, v and
+    dO (AMP with kept activations) against their plain versions on the same
+    inputs: ``phase_kernel_flash``'s three cases at the training path's
+    shape, each padded case with its bias in fp32 and in the inputs' dtype,
+    then the ragged case at the other head widths; within
+    ``FLASH_LOW_TOL``, two launches bitwise equal; kernel, plain, bound and
+    SDPA times (SDPA on the same low inputs, forward and forward + backward
+    under autograd) for the padding and causal cases; registers, spills and
+    blocks per SM.  Returns the kernels-line entries, one a dtype and
+    kernel."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(4)
+    scale = FLASH_D ** -0.5
+    cases = (("padding", TRAIN_LEN, TRAIN_LEN, False, True),
+             ("causal", TRAIN_LEN, TRAIN_LEN, True, False),
+             ("ragged", 100, 77, True, True))
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    entries, report = [], {}
+    for dtype in (torch.bfloat16, torch.float16):
+        sfx = fa.DTYPES[dtype]
+        out, worst = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        for name, t_q, t_k, causal, padded in cases:
+            q, k, v, do, bias, lens = flash_case_inputs(gen, device, t_q,
+                                                        t_k, padded)
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            entry = {"t_q": t_q, "t_k": t_k, "causal": causal,
+                     "padded_keys": int(t_k * TRAIN_BATCH - lens.sum()),
+                     "bitwise_repeat": True}
+            biases = {"f32": bias} if bias is None else {
+                "f32": bias, sfx: bias.to(dtype)}
+            for bias_sfx, b_ in biases.items():
+                errs, ref_max, lse_b, delta_b = _check_flash_case(
+                    q, k, v, do, b_, scale, causal,
+                    f"{sfx} {name} case, {bias_sfx} bias")
+                if bias_sfx == "f32":
+                    lse, delta = lse_b, delta_b
+                worst["fwd"] = max(worst["fwd"], errs["out"][0],
+                                   errs["lse"][0])
+                worst["dq"] = max(worst["dq"], errs["dq"][0])
+                worst["dkv"] = max(worst["dkv"], errs["dk"][0],
+                                   errs["dv"][0])
+                entry[f"{bias_sfx}_bias"] = {"max_abs_err_ulps": errs,
+                                             "plain_max_abs": ref_max}
+            if name != "ragged":
+                entry.update(_time_flash(q, k, v, do, bias, lse, delta,
+                                         scale, causal, lens))
+            out[name] = entry
+            del q, k, v, do, lse, delta
+            torch.cuda.empty_cache()
+        widths = {}
+        for d in fa.HEAD_DIMS:
+            if d != FLASH_D:
+                q, k, v, do, bias, _ = flash_case_inputs(
+                    gen, device, 100, 77, True, b=4, h=2, d=d)
+                q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+                widths[d] = _check_flash_case(q, k, v, do, bias, d ** -0.5,
+                                              True, f"{sfx} D = {d} case")[0]
+        out["other_widths"] = {"batch": 4, "heads": 2, "t_q": 100, "t_k": 77,
+                               "max_abs_err_ulps": widths}
+        out["registers"] = flash_registers(sfx)
+        out["blocks_per_sm"] = {kind: {d: flash_blocks_per_sm(kind, d, sfx)
+                                       for d in fa.HEAD_DIMS}
+                                for kind in ("fwd", "dq", "dkv")}
+        report[sfx] = out
+        main = out["padding"]
+        for kind, line in (("fwd", 280), ("dq", 328), ("dkv", 349)):
+            entries.append({
+                "name": f"flash_{kind}_{sfx}", "route": "cuda",
+                "source": src,
+                "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
+                "max_abs_err": worst[kind], "ms": main[f"{kind}_ms"],
+                "plain_ms": main[f"{kind}_plain_ms"],
+                "bound_ms": main[f"{kind}_bound_ms"],
+                "bound_by": main[f"{kind}_bound_by"],
+                "library_ms": main["fwd_library_ms"] if kind == "fwd"
+                else None})
+    emit("kernel_flash_amp", batch=TRAIN_BATCH, heads=FLASH_HEADS, d=FLASH_D,
+         tolerance=FLASH_LOW_TOL, **report)
+    return entries
 
 
 def build_training(batch_len, dropout=None, flash=False):
@@ -1546,6 +1726,11 @@ def launch_counts():
             "flash_fwd": fa.flash_fwd_launches,
             "flash_dq": fa.flash_dq_launches,
             "flash_dkv": fa.flash_dkv_launches,
+            **{f"flash_{kind}_{sfx}": by[dtype]
+               for kind, by in (("fwd", fa.flash_fwd_launches_by_dtype),
+                                ("dq", fa.flash_dq_launches_by_dtype),
+                                ("dkv", fa.flash_dkv_launches_by_dtype))
+               for dtype, sfx in (("bfloat16", "bf16"), ("float16", "f16"))},
             "momentum": fused.momentum_launches,
             "momentum_tensors": fused.momentum_tensors}
 
@@ -1573,22 +1758,27 @@ def reset_launch_counts():
     fused.adam_launches = fused.momentum_launches = 0
     fused.adam_tensors = fused.momentum_tensors = 0
     fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
+    for by in (fa.flash_fwd_launches_by_dtype, fa.flash_dq_launches_by_dtype,
+               fa.flash_dkv_launches_by_dtype):
+        for k in by:
+            by[k] = 0
 
 
-def phase_train(progs, profile_run=False, flash=False, unfused=None,
+def phase_train(progs, profile_run=False, flash=False, beside=None,
                 amp=False):
     """The training main path on the card (unfused attention, or the flash
     kernels with ``flash``; under bf16 AMP with kept activations with
     ``amp``, the caller having enabled it); returns the kernels' launch
-    counts over its steps and the step's numbers.  ``unfused``: the fp32
-    unfused run's numbers, printed beside this run's."""
+    counts over its steps and the step's numbers.  ``beside``: other
+    training phases' numbers by name, printed beside this run's (without
+    it, the run checks dropout)."""
     import math
 
     import torch
 
     from paddle_tpu_torch import fluid
 
-    phase = "train_amp" if amp else "train_flash" if flash else "train"
+    phase = "train" + "_flash" * flash + "_amp" * amp
     main, startup, cost = progs
     exe = fluid.Executor()  # the default place: the card
     scope = fluid.Scope()
@@ -1617,6 +1807,10 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None,
         per_step.update(flash_fwd=FLASH_FWD_PER_STEP,
                         flash_dq=FLASH_DQ_PER_STEP,
                         flash_dkv=FLASH_DKV_PER_STEP)
+    if flash and amp:  # every flash launch the bf16 kernels', none fp32
+        per_step.update(flash_fwd_bf16=FLASH_FWD_PER_STEP,
+                        flash_dq_bf16=FLASH_DQ_PER_STEP,
+                        flash_dkv_bf16=FLASH_DKV_PER_STEP)
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
@@ -1631,7 +1825,7 @@ def phase_train(progs, profile_run=False, flash=False, unfused=None,
              "target_tokens_per_s": tokens * len(steady) / (sum(steady)
                                                             / 1e3),
              "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    extra = ({"unfused": unfused} if unfused
+    extra = ({"beside": beside} if beside
              else {"dropout": check_dropout(exe, main, feed, scope)})
     if amp:
         extra["amp"] = {"dtype": "bfloat16", "keep_activations": True}
@@ -1703,13 +1897,18 @@ def phase_train_parity():
          torch_threads=torch.get_num_threads())
 
 
-def phase_train_flash_parity():
+def phase_train_flash_parity(amp=False):
     """One initial state, 3 steps of the flash build on the card, the
     flash build on the CPU (the plain versions) and the unfused build on
     the card: flash on the card agrees with the CPU (rtol 1e-5 at step 0,
     1e-4 after) and with the unfused build (rtol 2e-4, the reference's
     own flash-vs-softmax tolerance, ``tests/test_pallas_flash.py``).  At
-    length 32 every tile is ragged."""
+    length 32 every tile is ragged.  With ``amp``, all three in bf16 with
+    kept activations: the card against the CPU within
+    ``AMP_PARITY_RTOL``, flash against unfused within
+    ``FLASH_AMP_UNFUSED_RTOL``, every flash launch a bf16 one."""
+    import contextlib
+
     import numpy as np
 
     from paddle_tpu_torch import fluid
@@ -1736,17 +1935,25 @@ def phase_train_flash_parity():
     for _, scope, _, _, place in runs[1:]:
         load_reference_params(scope, init, place)
     reset_launch_counts()
-    losses = np.array([[float(exe.run(main, feed=feed, fetch_list=[cost],
-                                      scope=scope)[0].reshape(-1)[0])
-                        for _ in range(3)]
-                       for exe, scope, main, cost, _ in runs])
+    with (fluid.amp.amp_guard("bfloat16", keep_activations=True) if amp
+          else contextlib.nullcontext()):
+        losses = np.array([[float(exe.run(main, feed=feed, fetch_list=[cost],
+                                          scope=scope)[0].reshape(-1)[0])
+                            for _ in range(3)]
+                           for exe, scope, main, cost, _ in runs])
     cpu, card, card_unfused = losses
     counts = launch_counts()
-    if counts["flash_fwd"] != 3 * FLASH_FWD_PER_STEP:
+    launched = counts["flash_fwd_bf16" if amp else "flash_fwd"]
+    if counts["flash_fwd"] != 3 * FLASH_FWD_PER_STEP \
+            or launched != counts["flash_fwd"]:
         raise AssertionError(f"the card's flash run launched {counts}")
     rel_cpu = np.abs(card - cpu) / np.abs(cpu)
     rel_unfused = np.abs(card - card_unfused) / np.abs(card_unfused)
-    tol_cpu, tol_unfused = np.array([1e-5, 1e-4, 1e-4]), 2e-4
+    if amp:
+        tol_cpu = np.full(3, AMP_PARITY_RTOL)
+        tol_unfused = FLASH_AMP_UNFUSED_RTOL
+    else:
+        tol_cpu, tol_unfused = np.array([1e-5, 1e-4, 1e-4]), 2e-4
     if not (np.isfinite(card).all() and (rel_cpu <= tol_cpu).all()
             and (rel_unfused <= tol_unfused).all()):
         raise AssertionError(
@@ -1754,7 +1961,8 @@ def phase_train_flash_parity():
             f"{cpu.tolist()} (rel {rel_cpu.tolist()}, tolerance "
             f"{tol_cpu.tolist()}), unfused card {card_unfused.tolist()} "
             f"(rel {rel_unfused.tolist()}, tolerance {tol_unfused})")
-    emit("train_flash_parity", batch=batch, seq_len=seq_len,
+    emit("train_flash_amp_parity" if amp else "train_flash_parity",
+         batch=batch, seq_len=seq_len, amp=amp,
          card_losses=card.tolist(), cpu_losses=cpu.tolist(),
          unfused_card_losses=card_unfused.tolist(),
          rel_err_cpu=rel_cpu.tolist(), rtol_cpu=tol_cpu.tolist(),
@@ -1802,14 +2010,15 @@ def phase_train_amp_parity():
          rel_err=rel.tolist(), rtol=AMP_PARITY_RTOL, launches=counts)
 
 
-def phase_train_amp_fp16_scaler():
+def phase_train_amp_fp16_scaler(flash=False):
     """The tiny Transformer in fp16 with kept activations and the dynamic
     loss scaler on the card, from an ``init_loss_scale`` that overflows
     step 1: that step leaves every read-write persistable bitwise as it
     was and halves the scale; the scale halves on each overflow, and
     after ``FP16_GROWTH`` good steps in a row it doubles; the good steps
     train (finite loss that falls) and launch Adam once each, every step
-    the fp16 xent kernels.  Returns the launch counts."""
+    the fp16 xent kernels and, with ``flash``, the fp16 flash kernels
+    (its attention through them).  Returns the launch counts."""
     import math
 
     import torch
@@ -1825,13 +2034,14 @@ def phase_train_amp_fp16_scaler():
                          init_loss_scale=FP16_INIT_SCALE,
                          growth_interval=FP16_GROWTH)
         cfg = transformer.tiny_config()
-        cfg.flash_attention = False
+        cfg.flash_attention = flash
         main, startup = fluid.Program(), fluid.Program()
         main.random_seed = startup.random_seed = 1
         with fluid.program_guard(main, startup), fluid.unique_name.guard():
             _, _, _, cost = transformer.build(cfg, src_len=seq_len,
                                               tgt_len=seq_len, lr=1e-3)
         block = main.global_block()
+        n_ring = sum(op.type == "ring_attention" for op in block.ops)
         reads = {n for op in block.ops for n in op.input_arg_names if n}
         writes = {n for op in block.ops for n in op.output_arg_names if n}
         state = sorted(n for n in reads & writes
@@ -1844,10 +2054,13 @@ def phase_train_amp_fp16_scaler():
         steps = []
         for _ in range(FP16_STEPS):
             before = {n: scope.get(n).clone() for n in state}
+            fwd0 = launch_counts()["flash_fwd_f16"]
             loss = float(exe.run(main, feed=feed, fetch_list=[cost],
                                  scope=scope)[0].reshape(-1)[0])
             torch.cuda.synchronize()
             steps.append({
+                **({"flash_fwd_f16": launch_counts()["flash_fwd_f16"] - fwd0}
+                   if flash else {}),
                 "loss": loss,
                 "skipped": all(torch.equal(scope.get(n), before[n])
                                for n in state),
@@ -1880,16 +2093,24 @@ def phase_train_amp_fp16_scaler():
                 softmax_xent_bwd_f16=XENT_BWD_PER_STEP * FP16_STEPS,
                 adam=n_good, adam_tensors=n_good * len(
                     [p for p in block.all_parameters() if p.trainable]))
+    if flash:  # the forward in each op and its grad, dQ and dK/dV once
+        for kind, per_op in (("fwd", 2), ("dq", 1), ("dkv", 1)):
+            want[f"flash_{kind}"] = want[f"flash_{kind}_f16"] = \
+                per_op * n_ring * FP16_STEPS
+        if any(st["flash_fwd_f16"] != 2 * n_ring for st in steps):
+            raise AssertionError(f"fp16 flash launches a step: {steps}")
     if counts != want:
         raise AssertionError(f"fp16 scaler launches {counts}, expected "
                              f"{want}")
-    emit("train_amp_fp16_scaler", model="transformer_tiny", batch=batch,
+    emit("train_flash_amp_fp16_scaler" if flash else "train_amp_fp16_scaler",
+         model="transformer_tiny", batch=batch,
          seq_len=seq_len, amp={"dtype": "float16", "keep_activations": True,
                                "init_loss_scale": FP16_INIT_SCALE,
                                "growth_interval": FP16_GROWTH},
          steps=steps, skipped=[k + 1 for k, st in enumerate(steps)
                                if st["skipped"]],
          growths=grew, state_vars=len(state), launches=counts,
+         **({"flash_attention_ops": n_ring} if flash else {}),
          first_step_bitwise_unchanged=True)
     return counts
 
@@ -2275,8 +2496,9 @@ def main():
     torch.cuda.empty_cache()
     phase_train_parity()
     torch.cuda.empty_cache()
-    counts, _ = phase_train(build_training(TRAIN_LEN, flash=True),
-                            args.profile, flash=True, unfused=unfused)
+    counts, flash_stats = phase_train(build_training(TRAIN_LEN, flash=True),
+                                      args.profile, flash=True,
+                                      beside={"train": unfused})
     for k in flash:
         k["launches"] = counts[k["name"]]
     torch.cuda.empty_cache()
@@ -2296,8 +2518,9 @@ def main():
     from paddle_tpu_torch import fluid
 
     with fluid.amp.amp_guard("bfloat16", keep_activations=True):
-        counts, _ = phase_train(build_training(TRAIN_LEN), args.profile,
-                                unfused=unfused, amp=True)
+        counts, amp_stats = phase_train(build_training(TRAIN_LEN),
+                                        args.profile,
+                                        beside={"train": unfused}, amp=True)
     for k in xent_amp:
         k["launches"] = counts.get(k["name"], 0)
     torch.cuda.empty_cache()
@@ -2310,8 +2533,25 @@ def main():
     for k in xent_amp:
         if k["name"].endswith("_f16"):
             k["launches"] = counts[k["name"]]
+    torch.cuda.empty_cache()
+    flash_amp = phase_kernel_flash_amp()
+    torch.cuda.empty_cache()
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        counts, _ = phase_train(
+            build_training(TRAIN_LEN, flash=True), args.profile, flash=True,
+            beside={"train_amp": amp_stats, "train_flash": flash_stats},
+            amp=True)
+    for k in flash_amp:
+        k["launches"] = counts[k["name"]]
+    torch.cuda.empty_cache()
+    phase_train_flash_parity(amp=True)
+    torch.cuda.empty_cache()
+    counts = phase_train_amp_fp16_scaler(flash=True)
+    for k in flash_amp:
+        if k["name"].endswith("_f16"):
+            k["launches"] = counts[k["name"]]
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
-                                  momentum, *xent_amp]}))
+                                  momentum, *xent_amp, *flash_amp]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,14 @@ mask is top-left aligned (query i sees keys j ≤ i) and fills −1e30.
 
 Every wrapper uses its plain version (``*_ref``) only for tensors on the
 CPU; for CUDA tensors it launches the kernel (``csrc/flash_attention.cu``;
-float32, contiguous, D ∈ {16, 32, 64, 128}) or raises.
+contiguous, D ∈ {16, 32, 64, 128}) or raises.  q, k, v and dO are all one
+dtype of float32, bfloat16 and float16 (the reference's three), the bias
+float32 or that dtype, lse and delta float32 (:func:`kernel_dtype`); out,
+dq, dk and dv come back in q's dtype.  The plain versions widen every
+value to float32 and round each output once, as the kernels do.
 ``flash_fwd_launches``, ``flash_dq_launches`` and ``flash_dkv_launches``
-count kernel launches, so a run can show the main path went through them.
+count kernel launches, so a run can show the main path went through them;
+``flash_{fwd,dq,dkv}_launches_by_dtype`` split them by q's dtype.
 """
 
 from __future__ import annotations
@@ -32,18 +37,25 @@ import torch
 
 from .fused import _on_cpu
 
-__all__ = ["bias_supported", "flash_forward", "flash_forward_ref",
-           "flash_dq", "flash_dq_ref", "flash_dkv", "flash_dkv_ref",
-           "flash_backward_ref", "FlashAttention"]
+__all__ = ["bias_supported", "kernel_dtype", "flash_forward",
+           "flash_forward_ref", "flash_dq", "flash_dq_ref", "flash_dkv",
+           "flash_dkv_ref", "flash_backward_ref", "FlashAttention"]
 
 NEG_INF = -1e30
 #: head widths the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
 
-#: kernel launches since the last reset (each wrapper adds one per launch)
+#: the input dtypes the kernels take, by the suffix of their C entries
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+#: kernel launches since the last reset (each wrapper adds one per launch),
+#: in all and by q's dtype
 flash_fwd_launches = 0
 flash_dq_launches = 0
 flash_dkv_launches = 0
+flash_fwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
+flash_dq_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
+flash_dkv_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
 
 _lib_handle = None
 
@@ -56,12 +68,14 @@ def _lib():
         lib = _build.load("flash_attention")
         common = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                        ctypes.c_void_p]
-        lib.pta_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + common
-        lib.pta_flash_dq_f32.argtypes = [ctypes.c_void_p] * 8 + common
-        lib.pta_flash_dkv_f32.argtypes = [ctypes.c_void_p] * 9 + common
-        for fn in (lib.pta_flash_fwd_f32, lib.pta_flash_dq_f32,
-                   lib.pta_flash_dkv_f32):
-            fn.restype = ctypes.c_int
+        for sfx in DTYPES.values():
+            # the bf16 / f16 entries also take whether the bias is in
+            # their dtype
+            tail = common if sfx == "f32" else common + [ctypes.c_int]
+            for kind, n_ptrs in (("fwd", 6), ("dq", 8), ("dkv", 9)):
+                fn = getattr(lib, f"pta_flash_{kind}_{sfx}")
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
+                fn.restype = ctypes.c_int
         lib.pta_flash_error_string.argtypes = [ctypes.c_int]
         lib.pta_flash_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -202,20 +216,33 @@ def _check_shapes(q, k, v):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
+def kernel_dtype(q, k, v, bias=None, do=None, lse=None, delta=None):
+    """The dtype of the kernels' entry for these inputs: q, k, v and dO one
+    dtype of :data:`DTYPES`, the bias float32 or that dtype, lse and delta
+    float32.  Raises ``TypeError`` for anything else (a mix included)."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the flash kernels take q, k, v in "
+                        f"{list(DTYPES)}; got {q.dtype}")
+    for name, t, allowed in (("k", k, (q.dtype,)), ("v", v, (q.dtype,)),
+                             ("dO", do, (q.dtype,)),
+                             ("bias", bias, (torch.float32, q.dtype)),
+                             ("lse", lse, (torch.float32,)),
+                             ("delta", delta, (torch.float32,))):
+        if t is not None and t.dtype not in allowed:
+            raise TypeError(f"{name} must be one of {list(allowed)} for the "
+                            f"flash kernels with q in {q.dtype}; got "
+                            f"{t.dtype}")
+    return q.dtype
+
+
 def _check_kernel(named, d):
-    """What the kernels take: float32, contiguous, 16-byte aligned, D one
-    of :data:`HEAD_DIMS`."""
+    """What the kernels take besides the dtypes: contiguous, 16-byte
+    aligned, D one of :data:`HEAD_DIMS`."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash kernels are built for head widths "
                          f"{HEAD_DIMS}; got D = {d}")
     for name, t in named:
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 for the flash kernels "
-                            f"(bf16/fp16 inputs come with the AMP slice); "
-                            f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
 
@@ -226,9 +253,15 @@ def _rows(t, b, h, t_q, name):
                          f"[B, H, Tq, 1]; got {tuple(t.shape)}")
 
 
-def _launch(fn, what, *args):
+def _launch(kind, what, q, bias2, *pointers_and_dims):
+    """Launch the ``kind`` entry for q's dtype; the bf16 / f16 entries also
+    take whether the bias is in that dtype."""
     lib = _lib()
-    rc = fn(*args)
+    sfx = DTYPES[q.dtype]
+    args = list(pointers_and_dims)
+    if sfx != "f32":
+        args.append(int(bias2 is not None and bias2.dtype == q.dtype))
+    rc = getattr(lib, f"pta_flash_{kind}_{sfx}")(*args)
     if rc != 0:
         raise RuntimeError(f"flash attention {what} kernel launch failed: "
                            f"{lib.pta_flash_error_string(rc).decode()} "
@@ -239,6 +272,10 @@ def _dims(q, k, scale, causal):
     b, h, t_q, d = q.shape
     return [b, h, t_q, k.shape[2], d, float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def _count(by_dtype, q):
+    by_dtype[str(q.dtype)[6:]] += 1
 
 
 def flash_forward(q, k, v, bias=None, scale=None, causal=False):
@@ -252,16 +289,17 @@ def flash_forward(q, k, v, bias=None, scale=None, causal=False):
     b, h, t_q, d = q.shape
     bias2 = _bias_2d(bias, b, h, k.shape[2])
     bias2 = None if bias2 is None else bias2.contiguous()
+    kernel_dtype(q, k, v, bias2)
     _check_kernel((("q", q), ("k", k), ("v", v), ("bias", bias2)), d)
     scale = _scale(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t_q, 1, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch(_lib().pta_flash_fwd_f32, "forward", q.data_ptr(),
-                k.data_ptr(), v.data_ptr(),
-                None if bias2 is None else bias2.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), *_dims(q, k, scale, causal))
+        _launch("fwd", "forward", q, bias2, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), None if bias2 is None else bias2.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), *_dims(q, k, scale, causal))
     flash_fwd_launches += 1
+    _count(flash_fwd_launches_by_dtype, q)
     return out, lse
 
 
@@ -274,6 +312,7 @@ def _bwd_inputs(q, k, v, bias, do, lse, delta):
                          f"{tuple(do.shape)}")
     _rows(lse, b, h, t_q, "lse")
     _rows(delta, b, h, t_q, "delta")
+    kernel_dtype(q, k, v, bias2, do, lse, delta)
     _check_kernel((("q", q), ("k", k), ("v", v), ("bias", bias2),
                    ("dO", do), ("lse", lse), ("delta", delta)), d)
     return bias2
@@ -290,11 +329,12 @@ def flash_dq(q, k, v, bias, do, lse, delta, scale=None, causal=False):
     bias2 = _bwd_inputs(q, k, v, bias, do, lse, delta)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch(_lib().pta_flash_dq_f32, "dQ", q.data_ptr(), k.data_ptr(),
+        _launch("dq", "dQ", q, bias2, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), None if bias2 is None else bias2.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), *_dims(q, k, scale, causal))
     flash_dq_launches += 1
+    _count(flash_dq_launches_by_dtype, q)
     return dq
 
 
@@ -309,12 +349,12 @@ def flash_dkv(q, k, v, bias, do, lse, delta, scale=None, causal=False):
     bias2 = _bwd_inputs(q, k, v, bias, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch(_lib().pta_flash_dkv_f32, "dK/dV", q.data_ptr(),
-                k.data_ptr(), v.data_ptr(),
-                None if bias2 is None else bias2.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *_dims(q, k, scale, causal))
+        _launch("dkv", "dK/dV", q, bias2, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), None if bias2 is None else bias2.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), *_dims(q, k, scale, causal))
     flash_dkv_launches += 1
+    _count(flash_dkv_launches_by_dtype, q)
     return dk, dv
 
 

@@ -1,0 +1,194 @@
+"""The numerical scheme of the flash forward, dQ and dK/dV kernels on bf16
+and fp16 inputs, on the CPU.
+
+On the card (``csrc/flash_attention.cu``) the kernels widen every value to
+fp32 and:
+
+ - multiply two input tensors (q kᵀ, dO vᵀ) by ``mma.sync.m16n8k16`` in
+   the input type: each product exact in fp32, a 16-wide k step's products
+   summed by the tensor core into the running fp32 accumulator, the sum
+   rounded toward zero; ``scale`` multiplies the fp32 scores after;
+ - multiply P or dS (kept fp32) by an input tensor (P v, Pᵀ dO, dS k,
+   dSᵀ q) by the TF32 route: ``big = tf32(P)`` rounded to nearest, ``small
+   = P - big`` of which the tensor core reads the top 19 bits, the other
+   operand exact in TF32; per 8-wide k step ``small · x`` then ``big · x``
+   into a fresh accumulator (sums rounded toward zero), the step's partial
+   added to the running sum rounded to nearest;
+ - round out, dq, dk and dv once to the input type.
+
+The kernels cannot run here, so this file holds the scheme itself:
+
+ - a plain emulation of it (exact products and sums in float64, rounded
+   toward zero to float32 where the tensor core's sums are) at each head
+   width the kernels take, with the key-padding bias of -1e9 past ragged
+   lengths and with the causal mask, in bf16 and fp16, stays within
+   ``chip_smoke.FLASH_LOW_TOL`` of the plain versions on the same inputs
+   (the tolerance the card holds the kernels to);
+ - rounding P and dS to bf16 once before their products
+   (FlashAttention-2's usual move) does not: the tolerance tells the two
+   apart.
+
+These tests guard the scheme, not the kernels: a change to the kernels'
+fragment code cannot make them fail.  ``chip_smoke.py``'s
+``kernel_flash_amp`` phase holds the kernels to the same tolerance on the
+card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from paddle_tpu_torch.ops import flash_attention as fa
+
+B, H = 2, 2
+T_Q, T_K = 80, 72
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32's 10 mantissa bits, to nearest with ties away
+    from zero, as the kernels' split does in integer ops."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an fp32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def to_float32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero (the tensor core's sums)."""
+    r = x.to(torch.float32)
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _steps(a, b, width):
+    """``a [.., M, K]`` and ``b [.., K, N]`` cut into k steps of ``width``."""
+    for k0 in range(0, a.shape[-1], width):
+        yield a[..., k0:k0 + width], b[..., k0:k0 + width, :]
+
+
+def mm_inputs(a, b):
+    """``a @ b`` of two input tensors widened to fp32 (m16n8k16): exact
+    products, each step's sum added to the accumulator toward zero."""
+    acc = None
+    for a_s, b_s in _steps(a, b, 16):
+        part = torch.matmul(a_s.double(), b_s.double())
+        acc = to_float32_toward_zero(part if acc is None
+                                     else acc.double() + part)
+    return acc
+
+
+def mm_split(p, x):
+    """``p @ x`` for fp32 P or dS and an input tensor ``x`` (TF32 route):
+    per 8-wide step ``small · x`` then ``big · x`` into a fresh accumulator
+    toward zero, the partial added to the running sum to nearest."""
+    big = tf32(p)
+    small = tf32_truncated(p - big)
+    out = None
+    for (s_s, x_s), (b_s, _) in zip(_steps(small, x, 8), _steps(big, x, 8)):
+        part = to_float32_toward_zero(torch.matmul(s_s.double(),
+                                                   x_s.double()))
+        part = to_float32_toward_zero(part.double() + torch.matmul(
+            b_s.double(), x_s.double()))
+        out = part if out is None else out + part
+    return out
+
+
+def mm_round_bf16(p, x):
+    """``p @ x`` with P or dS rounded to bf16 once (the usual FlashAttention
+    move), summed in fp32."""
+    return torch.matmul(p.to(torch.bfloat16).float(), x)
+
+
+def emulated(q, k, v, do, bias, causal, mm_p):
+    """out, lse, dq, dk, dv by the kernels' formulas: scores by
+    ``mm_inputs`` and scaled after, products with P or dS by ``mm_p``.
+    The backward takes the plain forward's lse and delta, as the kernels
+    are handed them."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    bias2 = fa._bias_2d(bias, q.shape[0], q.shape[1], k.shape[2])
+    s = fa._masked(mm_inputs(qf, kf.transpose(-1, -2)) * scale, bias2,
+                   causal)
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = (mm_p(p, vf) / l).to(q.dtype)
+    lse = m + torch.log(l)
+    ref_out, ref_lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
+    delta = fa._delta(ref_out, do)
+    p = torch.exp(s - ref_lse)
+    ds = p * (mm_inputs(dof, vf.transpose(-1, -2)) - delta)
+    dq = (scale * mm_p(ds, kf)).to(q.dtype)
+    dk = (scale * mm_p(ds.transpose(-1, -2), qf)).to(q.dtype)
+    dv = mm_p(p.transpose(-1, -2), dof).to(q.dtype)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def plain(q, k, v, do, bias, causal):
+    """The plain versions' outputs on the same inputs."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_forward_ref(q, k, v, bias, scale, causal)
+    delta = fa._delta(out, do)
+    dq = fa.flash_dq_ref(q, k, v, bias, do, lse, delta, scale, causal)
+    dk, dv = fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale, causal)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def _inputs(dtype, d, causal, seed):
+    """q, k, v, dO ``[B, H, T, D]`` in ``dtype`` from a seed, and for the
+    non-causal case the model's fp32 key-padding bias: -1e9 past a ragged
+    length per batch row (the first row unpadded)."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(t):
+        return torch.from_numpy(rng.standard_normal((B, H, t, d)).astype(
+            np.float32)).to(dtype)
+
+    q, k, v, do = rnd(T_Q), rnd(T_K), rnd(T_K), rnd(T_Q)
+    bias = None
+    if not causal:
+        lens = rng.integers(T_K // 2, T_K + 1, size=B)
+        lens[0] = T_K
+        keys = np.arange(T_K)[None, :]
+        bias = torch.from_numpy(np.where(keys < lens[:, None], 0.0, -1e9)
+                                .astype(np.float32).reshape(B, 1, 1, T_K))
+    return q, k, v, do, bias
+
+
+def _excess(got, want, name):
+    """<= 0 within ``FLASH_LOW_TOL``: lse by its (atol, rtol), the others by
+    ``chip_smoke.low_excess``."""
+    if name == "lse":
+        atol, rtol = chip_smoke.FLASH_LOW_TOL["lse"]
+        return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+    return chip_smoke.low_excess(got, want)
+
+
+CASES = [(dt, d, causal) for dt in (torch.bfloat16, torch.float16)
+         for d in fa.HEAD_DIMS for causal in (False, True)]
+IDS = [f"{str(dt)[6:]}-D{d}-{'causal' if c else 'padding'}"
+       for dt, d, c in CASES]
+
+
+@pytest.mark.parametrize("dtype,d,causal", CASES, ids=IDS)
+def test_split_holds_low_tolerance(dtype, d, causal):
+    inputs = _inputs(dtype, d, causal, seed=d)
+    got = emulated(*inputs, causal, mm_split)
+    want = plain(*inputs, causal)
+    for name in got:
+        assert got[name].dtype == want[name].dtype, name
+        assert bool(got[name].isfinite().all()), name
+        assert _excess(got[name], want[name], name) <= 0, (
+            name, float((got[name].float() - want[name].float()).abs()
+                        .max()))
+
+
+def test_bf16_rounded_p_exceeds_low_tolerance():
+    inputs = _inputs(torch.bfloat16, 64, False, seed=64)
+    got = emulated(*inputs, False, mm_round_bf16)
+    want = plain(*inputs, False)
+    assert max(_excess(got[n], want[n], n) for n in got) > 0
