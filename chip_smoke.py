@@ -133,10 +133,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    dtype), then the other head widths: out, dq, dk, dv
                    within ``FLASH_LOW_TOL`` (1 ulp of the dtype plus 2^-14
                    of the largest magnitude), lse within (1e-5, 1e-5),
-                   bitwise repeatability; kernel, plain and SDPA times (SDPA
-                   on the same low inputs), each kernel's bound (bytes at
-                   2 bytes a value; products once at the bf16 tensor-core
-                   rate), registers, spills and blocks per SM
+                   bitwise repeatability; in fp16 a case whose dS passes
+                   65504 (dO at 4000 x normal): dk and dv finite exactly
+                   where the plain versions' are, and within the tolerance
+                   there; kernel, plain and SDPA times (SDPA
+                   on the same low inputs: forward, forward + backward, and
+                   its backward alone beside dQ + dK/dV), each kernel's
+                   bound (bytes at 2 bytes a value; products once at the
+                   bf16 tensor-core rate), each kernel's name, registers,
+                   spills and blocks per SM, and the HGMMA (wgmma)
+                   instructions in its SASS: the forward and dK/dV must be
+                   the wgmma kernels, with HGMMA and no spill, at every
+                   head width
 22. train_flash_amp - phase 11's model under bf16 with kept activations:
                    finite, falling loss, exactly 36 / 18 / 18 bf16 flash
                    launches a step and no fp32 one, 2 / 1 bf16 xent and 1
@@ -1331,28 +1339,39 @@ def flash_blocks_per_sm(kind, d, sfx="f32"):
     return blocks.value
 
 
+def _flash_entry(mangled_name, sfx):
+    """``(kind, D, kernel name)`` of a flash kernel's mangled name on inputs
+    of dtype ``sfx``, or None: the forward and dK/dV on bf16 / fp16 are the
+    ``flash_{fwd,dkv}_wgmma_kernel``s (an older source's, held against this
+    one by ``tools/flash_ab.py``, the ``flash_{fwd,dkv}_kernel``s), fp32 and
+    dQ the ``flash_*_kernel``s."""
+    import re
+
+    # (the fp32 forward and dK/dV carry no element type)
+    mangled = {"f32": "f?", "bf16": "13__nv_bfloat16", "f16": "6__half"}[sfx]
+    k = re.search(r"(flash_(fwd|dq|dkv)(?:_wgmma)?_kernel)I" + mangled
+                  + r"Li(\d+)E", mangled_name)
+    return (k.group(2), int(k.group(3)), k.group(1)) if k else None
+
+
 def flash_registers(sfx="f32", log=None):
-    """Registers and spill-store bytes of each flash kernel (``"fwd"``,
-    ``"dq"``, ``"dkv"``) on inputs of dtype ``sfx`` at each head width,
-    from ptxas's report ``log``: by default this process's build of the
-    library (empty where the library was built before)."""
+    """Name, registers and spill-store bytes of each flash kernel
+    (``"fwd"``, ``"dq"``, ``"dkv"``) on inputs of dtype ``sfx`` at each head
+    width, from ptxas's report ``log``: by default this process's build of
+    the library (empty where the library was built before)."""
     import re
 
     from paddle_tpu_torch.ops import _build
 
     if log is None:
         log = _build.build_logs.get("flash_attention", "")
-    # (fp32 kernels built before the element type was a template
-    # parameter carry none)
-    mangled = {"f32": "f?", "bf16": "13__nv_bfloat16", "f16": "6__half"}[sfx]
     found, cur = {}, None
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
-            k = re.search(r"flash_(fwd|dq|dkv)_kernelI" + mangled
-                          + r"Li(\d+)E", entry.group(1))
-            cur = found.setdefault(k.group(1), {}).setdefault(
-                int(k.group(2)), {}) if k else None
+            k = _flash_entry(entry.group(1), sfx)
+            cur = found.setdefault(k[0], {}).setdefault(k[1], {
+                "kernel": k[2]}) if k else None
             continue
         if cur is None:
             continue
@@ -1361,6 +1380,33 @@ def flash_registers(sfx="f32", log=None):
             m = re.search(pat, ln)
             if m:
                 cur[key] = int(m.group(1))
+    return found
+
+
+def flash_hgmma(sfx):
+    """The ``HGMMA`` (wgmma) instructions of each flash kernel (``"fwd"``,
+    ``"dq"``, ``"dkv"``) on inputs of dtype ``sfx`` at each head width, in
+    the SASS of the built library (``cuobjdump --dump-sass``)."""
+    import re
+
+    from paddle_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           _build._target("flash_attention")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found, cur = {}, None
+    for ln in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", ln)
+        if fn:
+            k = _flash_entry(fn.group(1), sfx)
+            cur = None
+            if k:
+                found.setdefault(k[0], {})[k[1]] = 0
+                cur = (k[0], k[1])
+        elif cur and "HGMMA" in ln:
+            found[cur[0]][cur[1]] += 1
     return found
 
 
@@ -1487,10 +1533,37 @@ def _check_flash_case(q, k, v, do, bias, scale, causal, what):
     return errs, {n: float(w.abs().max()) for n, _, w in pairs}, lse, delta
 
 
+def graph_time_ms(fn, calls=20):
+    """Device time of one ``fn()`` call: ``calls`` calls captured as one
+    CUDA graph and replayed, so that no host work sits between launches
+    (a wrapper's host time can pass a short kernel's device time, and
+    back-to-back eager calls then time the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(graph.replay, 10) / calls
+
+
 def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
     """Kernel, plain, bound and library times of the three kernels on one
     case, and of a forward + backward pair under autograd; the library
-    call (SDPA) on the same inputs, its mask the bias in q's dtype."""
+    call (SDPA) on the same inputs, its mask the bias in q's dtype, and
+    SDPA's backward alone beside the dQ and dK/dV kernels' sum.  A
+    kernel's ``*_ms``, SDPA's ``fwd_library_ms`` and its backward's
+    ``library_bwd_ms`` are device times from CUDA graph replays
+    (``graph_time_ms``, ``backward_graph_time_ms``); ``*_eager_ms`` and
+    ``fwd_library_eager_ms`` back-to-back eager calls between CUDA events,
+    through the Python wrapper and SDPA's own call; the plain versions and
+    the two pairs (each well past its host time) eager."""
     import torch
     import torch.nn.functional as F
 
@@ -1509,7 +1582,8 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
                                          scale, causal),
              lambda: fa.flash_dkv_ref(q, k, v, bias, do, lse, delta, scale,
                                       causal), 50)):
-        times[f"{kind}_ms"] = cuda_time_ms(kern, iters)
+        times[f"{kind}_ms"] = graph_time_ms(kern)
+        times[f"{kind}_eager_ms"] = cuda_time_ms(kern, iters)
         times[f"{kind}_plain_ms"] = cuda_time_ms(plain, 10)
         for key, val in flash_bound_ms(t_q, t_k, lens, causal, kind,
                                        q.element_size()).items():
@@ -1525,7 +1599,8 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
         return F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
                                               scale=scale)
 
-    times["fwd_library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v), 50)
+    times["fwd_library_ms"] = graph_time_ms(lambda: sdpa(q, k, v))
+    times["fwd_library_eager_ms"] = cuda_time_ms(lambda: sdpa(q, k, v), 50)
     times["library_max_abs_err"] = float(
         (sdpa(q, k, v).float()
          - fa.flash_forward(q, k, v, bias, scale, causal)[0].float())
@@ -1541,7 +1616,118 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
 
     times["fwd_bwd_pair_ms"] = cuda_time_ms(kernel_pair, 20)
     times["library_fwd_bwd_pair_ms"] = cuda_time_ms(library_pair, 20)
+    # SDPA's backward alone (dq, dk and dv in one call) beside the dQ and
+    # dK/dV kernels' sum, both from graph replays: the yardstick of the two
+    # backward kernels
+    times["library_bwd_ms"] = backward_graph_time_ms(sdpa, leaves, do)
+    times["dq_plus_dkv_ms"] = times["dq_ms"] + times["dkv_ms"]
     return times
+
+
+def backward_graph_time_ms(fwd, leaves, grad_out, calls=20):
+    """Device time of ``fwd(*leaves)``'s backward alone: the forward run
+    once on a side stream, then ``calls`` ``torch.autograd.grad`` passes
+    over its retained graph captured on that stream (autograd runs each
+    backward op on its forward op's stream) as one CUDA graph, replayed as
+    in ``graph_time_ms``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fwd(*leaves)
+        for _ in range(2):
+            torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    return cuda_time_ms(graph.replay, 10) / calls
+
+
+def _check_fp16_large_ds():
+    """The fp16 dK/dV kernel where dS passes fp16's range, built as
+    ``tests/test_torch_flash_amp_split.py`` builds its case (numpy seed 7;
+    B 2, H 2, Tq 80, Tk 72, D 64, no mask; dO at 4000 x normal, as under
+    the loss scaler, and v at 8 x): the fp32 max |dS| must pass 65504, and
+    the kernel's dk and dv must be finite exactly where the plain versions'
+    are (on the kernel forward's lse and delta) and within
+    ``FLASH_LOW_TOL`` there.  Without the per-key-row exponent dk would
+    overflow (the CPU test's negative control)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+
+    def rnd(t, mag):
+        return torch.from_numpy((mag * rng.standard_normal((2, 2, t, 64)))
+                                .astype(np.float32)).to(device,
+                                                        torch.float16)
+
+    q, k, v, do = rnd(80, 1.0), rnd(72, 1.0), rnd(72, 8.0), rnd(80, 4000.0)
+    scale = 64 ** -0.5
+    out, lse = fa.flash_forward(q, k, v, None, scale, False)
+    delta = fa._delta(out, do)
+    dk, dv = fa.flash_dkv(q, k, v, None, do, lse, delta, scale, False)
+    dk2, dv2 = fa.flash_dkv(q, k, v, None, do, lse, delta, scale, False)
+    r_dk, r_dv = fa.flash_dkv_ref(q, k, v, None, do, lse, delta, scale,
+                                  False)
+    p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                  * scale - lse)
+    ds_max = float((p * (torch.matmul(do.float(), v.float().transpose(-1, -2))
+                         - delta)).abs().max())
+    if ds_max <= float(torch.finfo(torch.float16).max):
+        raise AssertionError(f"flash f16 large-dS case: max |dS| {ds_max} "
+                             f"stays within fp16's range")
+    result = {"max_abs_ds": ds_max, "bitwise_repeat": True}
+    for name, got, again, want in (("dk", dk, dk2, r_dk),
+                                   ("dv", dv, dv2, r_dv)):
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash f16 large-dS case: two launches "
+                                 f"give different {name}")
+        finite = want.isfinite()
+        if not bool(finite.any()) \
+                or not torch.equal(got.isfinite(), finite):
+            raise AssertionError(
+                f"flash f16 large-dS case: {name} finite at "
+                f"{int(got.isfinite().sum())} places, the plain version's "
+                f"at {int(finite.sum())} of {finite.numel()}")
+        excess = low_excess(got[finite], want[finite])
+        if excess > 0:
+            raise AssertionError(
+                f"flash f16 large-dS case: {name} exceeds FLASH_LOW_TOL by "
+                f"{excess}")
+        result[name] = {"finite": int(finite.sum()), "of": finite.numel(),
+                        "excess": excess,
+                        "max_abs_err": float((got[finite].float()
+                                              - want[finite].float())
+                                             .abs().max())}
+    return result
+
+
+def check_wgmma_kernels(sfx, registers, hgmma):
+    """The bf16 / fp16 forward and dK/dV are the wgmma kernels at every head
+    width: HGMMA instructions in their SASS and, where this process built
+    the library (``registers`` from its ptxas report), no spill stores."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for kind in ("fwd", "dkv"):
+        for d in fa.HEAD_DIMS:
+            if not hgmma.get(kind, {}).get(d):
+                raise AssertionError(f"flash {kind} ({sfx}, D = {d}): no "
+                                     f"HGMMA instruction in its SASS")
+            reg = registers.get(kind, {}).get(d)
+            if reg is None:
+                continue
+            if reg["kernel"] != f"flash_{kind}_wgmma_kernel" \
+                    or reg.get("spill_stores", 0):
+                raise AssertionError(f"flash {kind} ({sfx}, D = {d}): "
+                                     f"{reg} (want the wgmma kernel, no "
+                                     f"spill stores)")
 
 
 def phase_kernel_flash_amp():
@@ -1549,12 +1735,14 @@ def phase_kernel_flash_amp():
     dO (AMP with kept activations) against their plain versions on the same
     inputs: ``phase_kernel_flash``'s three cases at the training path's
     shape, each padded case with its bias in fp32 and in the inputs' dtype,
-    then the ragged case at the other head widths; within
+    then the ragged case at the other head widths, and in fp16 a case
+    past fp16's range in dS (``_check_fp16_large_ds``); within
     ``FLASH_LOW_TOL``, two launches bitwise equal; kernel, plain, bound and
-    SDPA times (SDPA on the same low inputs, forward and forward + backward
-    under autograd) for the padding and causal cases; registers, spills and
-    blocks per SM.  Returns the kernels-line entries, one a dtype and
-    kernel."""
+    SDPA times (SDPA on the same low inputs, forward, forward + backward
+    under autograd, and its backward alone) for the padding and causal
+    cases; each kernel's name, registers, spills, blocks per SM and HGMMA
+    count (``check_wgmma_kernels``).  Returns the kernels-line entries, one
+    a dtype and kernel."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1612,6 +1800,10 @@ def phase_kernel_flash_amp():
         out["blocks_per_sm"] = {kind: {d: flash_blocks_per_sm(kind, d, sfx)
                                        for d in fa.HEAD_DIMS}
                                 for kind in ("fwd", "dq", "dkv")}
+        if dtype == torch.float16:
+            out["large_ds"] = _check_fp16_large_ds()
+        out["hgmma"] = flash_hgmma(sfx)
+        check_wgmma_kernels(sfx, out["registers"], out["hgmma"])
         report[sfx] = out
         main = out["padding"]
         for kind, line in (("fwd", 280), ("dq", 328), ("dkv", 349)):
@@ -1851,6 +2043,7 @@ def phase_train(progs, profile_run=False, flash=False, beside=None,
              device_busy_share=busy_s / wall, device_events=n_events,
              optimizer_kernels=optimizer_kernels(spans),
              gemm_kernels=kernel_family(spans, GEMM_KEYS, busy_s),
+             flash_kernels=kernel_family(spans, ("flash_",), busy_s),
              top_kernels=top,
              host=host_profile(lambda: exe.run(main, feed=feed,
                                                fetch_list=[cost],

@@ -2,9 +2,11 @@
 // the training path, for float32, bfloat16 and float16 inputs.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_flash.py:
-//   flash_fwd_kernel  <- _flash_kernel (via _flash_forward)
-//   flash_dq_kernel   <- _dq_kernel    (via _flash_backward)
-//   flash_dkv_kernel  <- _dkv_kernel   (via _flash_backward)
+//   flash_fwd_kernel (fp32), flash_fwd_wgmma_kernel (bf16, fp16)
+//                     <- _flash_kernel (via _flash_forward, :280)
+//   flash_dq_kernel   <- _dq_kernel    (via _flash_backward, :328)
+//   flash_dkv_kernel (fp32), flash_dkv_wgmma_kernel (bf16, fp16)
+//                     <- _dkv_kernel   (via _flash_backward, :349)
 //
 // q [B*H, Tq, D], k/v [B*H, Tk, D], an optional key-padding bias [B, Tk]
 // (row b serves the H heads of batch b), lse/delta [B*H, Tq]:
@@ -75,38 +77,71 @@
 // thread at D = 64) allow no more without spills.
 //
 // bf16 and fp16 (the reference's other two input dtypes, _FUSABLE_DTYPES of
-// pallas_fused.py:60): the same three kernels, templated on the element
-// type T, with the same blocks, tiles, stages, tile order and causal
-// skipping.  As in the reference (:84-86, :135-138, :184-187) every value
-// is widened to fp32, every sum is fp32, P and dS stay fp32 (:97-103,
-// :146-153, :199-209), out, dq, dk and dv are rounded once to T, and lse is
-// fp32:
-//   - products of two input tensors (q k^T, dO v^T; k q^T, v dO^T in dK/dV)
-//     are one mma.sync.m16n8k16 in T a 16-wide k step (dot_rows): the
-//     products of two 8-bit (bf16) or 11-bit (fp16) mantissas are exact in
-//     fp32, so only the order of the sums differs from the reference.
-//     scale multiplies the fp32 scores after the product (the reference's
-//     forward scales q in fp32 first: one fp32 rounding apart);
-//   - products with P or dS (P v, P^T dO, dS k, dS^T q) take the TF32
-//     route: P (dS) is split into big + small TF32 parts as in 3xTF32, and
-//     the other operand, a bf16 or fp16 value, is exact in TF32 (8 or 11 of
-//     TF32's 11 mantissa bits, fp32's exponents), so two TF32 products
-//     (mma2) keep ~21 bits of P.  Rounding P to T, FlashAttention-2's usual
-//     move, would put up to 2^-9 max|v| of error into out where the
-//     reference has none.  A hi + lo split of P in T would keep 16 bits
-//     at the bf16 rate, but in fp16 a dS under the loss scaler (up to 2^24)
-//     can pass fp16's 65504 where the reference's fp32 does not; TF32 has
-//     fp32's range, and the fp32 kernels' fragment code (acc_rows, the
-//     split, the fresh accumulator a k step) serves as it is.  An overflow
-//     that the reference does produce (dq past fp16's range) still rounds
-//     to inf when dq is written;
-//   - tiles lie in shared memory as T at a stride of D + 8 elements, where
-//     a row's 32-bit words fall 4 banks apart, so the fragment reads along
-//     d (dot_rows) and the row reads of acc_rows are free of conflicts;
-//   - the bias is fp32 or T, widened as it is read.
-// What bounds them in bf16: bytes.  At the main shape the reference's
-// products at the bf16 tensor-core rate take 0.009 ms (forward), 0.013 (dQ)
-// and 0.017 (dK/dV) against 0.020, 0.025 and 0.030 ms of bytes.
+// pallas_fused.py:60).  As in the reference (:84-86, :135-138, :184-187)
+// every value is widened to fp32, every sum is fp32, P and dS are fp32
+// values (:97-103, :146-153, :199-209), out, dq, dk and dv are rounded
+// once to T, and lse is fp32.  Products of two input tensors (q k^T, dO
+// v^T; k q^T, v dO^T in dK/dV) are exact in fp32, so only the order of the
+// sums differs from the reference; scale multiplies the fp32 scores after
+// the product.  What bounds them on the card: bytes.  At the main shape
+// (B 64, H 8, T 256, D 64, a padding bias) the reference's products at the
+// bf16 tensor-core rate take 0.009 ms (forward), 0.013 (dQ) and 0.017
+// (dK/dV) against 0.020, 0.025 and 0.030 ms of bytes.
+//
+//   - dQ (flash_dq_kernel<T>): the fp32 kernel's blocks, templated on T: q
+//     k^T and dO v^T by mma.sync.m16n8k16 in T (dot_rows), dS kept fp32 and
+//     split into two TF32 parts against the bf16 / fp16 value of k, which
+//     TF32 holds exactly (mma2: ~21 bits of dS), tiles at a stride of D + 8
+//     elements.
+//   - forward and dK/dV (flash_fwd_wgmma_kernel, flash_dkv_wgmma_kernel, on
+//     flash_sm90.cuh): warpgroup products (wgmma) on tiles that TMA brings
+//     into shared memory.  A block is two consumer warpgroups of 64 rows
+//     each and a producer warpgroup; setmaxnreg gives the consumers the
+//     producer's registers.  The producer's first warp fills a ring of
+//     stages (full and empty mbarriers a stage): K and V tiles of 64 keys
+//     (forward) or q and dO tiles of 64 queries (dK/dV) by TMA, each row a
+//     swizzled line of 32, 64 or 128 bytes (two 128-byte panels at D =
+//     128), and the small rows (the bias in the forward, lse and delta in
+//     dK/dV) by its own loads.  P (in dK/dV also dS) goes into its product
+//     as hi + lo in T: hi = T(P), lo = T(P - hi), two wgmma into the same
+//     fp32 accumulator, lo first, with A in registers straight from the
+//     score accumulator (an accumulator's 16 columns packed pairwise are an
+//     A fragment) and B read MN-major through the descriptor (the
+//     16-bit types allow it; TF32 does not, which keeps fp32 on mma.sync).
+//     hi + lo keeps ~16 bits of P, within FLASH_LOW_TOL where rounding P
+//     once to T (FlashAttention-2's move, 2^-9 max|v| into out) is not
+//     (tests/test_torch_flash_amp_split.py), at the 16-bit rate: half the
+//     instructions of the TF32 split, and wgmma's operand shape.
+//     - forward: persistent, two blocks an SM (D <= 64; one at D = 128),
+//       each walking the work items (b*h, 128 query rows) head by head;
+//       per item q (two buffers: the next item's loads while this one's
+//       out leaves through the other), then its K/V tiles through 4 stages
+//       (2 at D = 128).  Per 64-key tile a warpgroup forms S = q k^T by
+//       wgmma (both operands K-major in shared memory), the online softmax
+//       in base 2 in registers (a row's max and sum over the 4 lanes of a
+//       quad; masks only in a tile at Tk's edge or across the causal
+//       diagonal), then o += P V.  out is rounded to T in the q tile and
+//       written by one TMA store; lse by the threads.
+//     - dK/dV: a block per (b*h, 128 keys), one block an SM; each
+//       warpgroup holds its 64 keys' K and V tiles (TMA, once) and dK, dV
+//       in registers; per 64-query tile S^T = K q^T and dP^T = V dO^T, P^T
+//       = 2^(S^T scale log2 e + bias log2 e - lse log2 e) as soon as S^T is
+//       in, dV += P^T dO while dS^T = P^T (dP^T - delta) is formed, then
+//       dK += dS^T q (three wgmma batches, so that the tensor cores work
+//       while the threads do).  In fp16 a dS under the loss scaler can pass
+//       65504 where the reference's fp32 does not: each key row of dS^T is
+//       multiplied by 2^-ex before the split, ex the least exponent that
+//       keeps the row's largest |dS| under 2^15 so far (it only grows; the
+//       row of dK, kept in units of 2^ex, is rescaled exactly when it
+//       does), and dK takes scale 2^ex once at the end.  bf16 has fp32's
+//       range and needs none.  At D = 128 dV and then dK take a sweep each
+//       over the queries (S^T computed twice), so that one accumulator of
+//       64 registers is live at a time.  dK and dV leave through the K and
+//       V tiles by TMA stores (at D = 128 dV by the threads, as sweep 2
+//       still reads V).
+//   - the bias is fp32 or T, widened as it is read.  An overflow that the
+//     reference does produce (dq past fp16's range) still rounds to inf
+//     when the output is written.
 //
 // Dead causal tiles are skipped (the reference's `live`, :80, :131, :180),
 // and in dQ also a warp's tiles that lie wholly above its rows.  The
@@ -115,6 +150,7 @@
 // power-of-two block halving.  Every sum has a fixed order and there are no
 // atomics, so two launches are bitwise equal.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -122,6 +158,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -515,31 +553,30 @@ struct BiasRow {
 // Forward: one block per (b*h, 64 query rows), 4 warps of 16 rows each.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct FwdCfg {
   static constexpr int kWarps = 4, kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;         // query rows a block
   static constexpr int kKeys = D == 128 ? 16 : 32;  // keys a tile
-  // fp32: float2 reads along d of 16 lanes (rows g, columns 2t): no
-  // conflict; a low T: dot_rows' word reads
+  // float2 reads along d of 16 lanes (rows g, columns 2t): no conflict
   static constexpr int kLdQ = D + 8, kLdK = D + 8;
-  static constexpr int kLdV = kIsF32<T> ? D + 4 : D + 8;  // acc_rows' reads
+  static constexpr int kLdV = D + 4;  // acc_rows' reads
   // smem bytes: q [kRows, kLdQ] once; two stages of K [kKeys, kLdK], V
-  // [kKeys, kLdV] and the fp32 bias [kKeys]
-  static constexpr int kQBytes = kRows * kLdQ * sizeof(T);
+  // [kKeys, kLdV] and the bias [kKeys]
+  static constexpr int kQBytes = kRows * kLdQ * sizeof(float);
   static constexpr int kStageBytes =
-      kKeys * (kLdK + kLdV) * sizeof(T) + kKeys * sizeof(float);
+      kKeys * (kLdK + kLdV) * sizeof(float) + kKeys * sizeof(float);
   static constexpr size_t kSmem = kQBytes + 2 * kStageBytes;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(FwdCfg<T, D>::kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 const T* __restrict__ bias_low, T* __restrict__ out,
-                 float* __restrict__ lse, int H, int Tq, int Tk, float scale,
-                 int causal, int n_qt) {
-  using C = FwdCfg<T, D>;
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::kThreads, 2)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ out, float* __restrict__ lse, int H,
+                 int Tq, int Tk, float scale, int causal, int n_qt) {
+  using T = float;
+  using C = FwdCfg<D>;
   constexpr int kN = C::kKeys / 8, kDn = D / 8, NT = C::kThreads;
   constexpr int LQ = C::kLdQ, LK = C::kLdK, LV = C::kLdV;
   extern __shared__ __align__(16) unsigned char smem[];  // carved by bytes
@@ -551,7 +588,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = q0 + w0 + g;              // this lane's rows r0, r0 + 8
   const T* kb = k + (size_t)bh * Tk * D;
   const T* vb = v + (size_t)bh * Tk * D;
-  const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+  const BiasRow<T> br(bias, nullptr, (size_t)(bh / H) * Tk);
   const bool has_bias = br.any();
   T* Qs = reinterpret_cast<T*>(smem);
   unsigned char* stages = smem + C::kQBytes;
@@ -590,35 +627,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vs = Ks + C::kKeys * LK;
     const float* Bs = reinterpret_cast<const float*>(Vs + C::kKeys * LV);
 
-    // S = q k^T, 16 rows x kKeys keys a warp; key 8j + g is B column g of
-    // n-tile j.  fp32: (scale q) k^T by 3xTF32, k position t standing for
-    // d = 8 ks + 2t, t + 4 for 8 ks + 2t + 1 (float2 reads); A rows r0 (a0,
-    // a2) and r0 + 8 (a1, a3).  A low T: dot_rows, scale after
+    // S = (scale q) k^T, 16 rows x kKeys keys a warp, by 3xTF32; key 8j + g
+    // is B column g of n-tile j, k position t standing for d = 8 ks + 2t,
+    // t + 4 for 8 ks + 2t + 1 (float2 reads); A rows r0 (a0, a2) and r0 + 8
+    // (a1, a3)
     float s[kN][4];
-    if constexpr (kIsF32<T>) {
 #pragma unroll
-      for (int j = 0; j < kN; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kDn; ++ks) {
-        const float* qa = Qs + (w0 + g) * LQ + 8 * ks + 2 * t;
-        const float2 x0 = *reinterpret_cast<const float2*>(qa);
-        const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * LQ);
-        const float a[4] = {x0.x * scale, x1.x * scale, x0.y * scale,
-                            x1.y * scale};
-        uint32_t a_big[4], a_small[4];
-        split4(a, a_big, a_small);
+    for (int ks = 0; ks < kDn; ++ks) {
+      const float* qa = Qs + (w0 + g) * LQ + 8 * ks + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(qa);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * LQ);
+      const float a[4] = {x0.x * scale, x1.x * scale, x0.y * scale,
+                          x1.y * scale};
+      uint32_t a_big[4], a_small[4];
+      split4(a, a_big, a_small);
 #pragma unroll
-        for (int j = 0; j < kN; ++j) {
-          const float2 kv = *reinterpret_cast<const float2*>(
-              Ks + (8 * j + g) * LK + 8 * ks + 2 * t);
-          mma3(s[j], a_big, a_small, kv.x, kv.y);
-        }
+      for (int j = 0; j < kN; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * LK + 8 * ks + 2 * t);
+        mma3(s[j], a_big, a_small, kv.x, kv.y);
       }
-    } else {
-      static_assert(LQ == LK, "dot_rows reads q and k at one stride");
-      dot_rows<D, kN>(s, Qs + w0 * LQ, Ks, LQ, g, t);
     }
 
     // bias, masks and the online softmax; c_e holds row r0 + 8 (e >> 1),
@@ -632,7 +664,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = -INFINITY;  // keys past Tk: weight exactly 0
         if (k0 + kc < Tk) {
           x = s[j][e];
-          if constexpr (!kIsF32<T>) x *= scale;
           if (has_bias) x += Bs[kc];
           if (causal && row < k0 + kc) x = kNegInf;
         }
@@ -811,33 +842,32 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dK/dV: one block per (b*h, 64 keys), 4 warps of 16 keys each.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DkvCfg {
   static constexpr int kWarps = 4, kThreads = 32 * kWarps;
   static constexpr int kKeys = 16 * kWarps;      // keys a block
   static constexpr int kQ = D == 128 ? 16 : 32;  // queries a tile
   // reads along d and acc_rows'
-  static constexpr int kLd = kIsF32<T> ? D + 4 : D + 8;
+  static constexpr int kLd = D + 4;
   // D = 128: dV, then dK, in two sweeps over the queries, so that one set
   // of accumulators (64 registers) is live at a time
   static constexpr bool kTwoSweeps = D == 128;
   // smem bytes: K, V [kKeys, kLd] once; two stages of q, dO [kQ, kLd], fp32
   // lse, delta [kQ]
-  static constexpr int kKVBytes = 2 * kKeys * kLd * sizeof(T);
+  static constexpr int kKVBytes = 2 * kKeys * kLd * sizeof(float);
   static constexpr int kStageBytes =
-      2 * kQ * kLd * sizeof(T) + 2 * kQ * sizeof(float);
+      2 * kQ * kLd * sizeof(float) + 2 * kQ * sizeof(float);
   static constexpr size_t kSmem = kKVBytes + 2 * kStageBytes;
 };
 
 // What one sweep over a block's query tiles needs.
-template <typename T>
 struct DkvSweep {
-  const T* qb;          // q [Tq, D] of this head
-  const T* ob;          // dO [Tq, D]
+  const float* qb;      // q [Tq, D] of this head
+  const float* ob;      // dO [Tq, D]
   const float* lb;      // lse [Tq]
   const float* db;      // delta [Tq]
-  const T* Ks;          // this warp's K rows (raw, shared memory)
-  const T* Vs;          // its V rows
+  const float* Ks;      // this warp's K rows (raw, shared memory)
+  const float* Vs;      // its V rows
   unsigned char* stages;  // two stages of q, dO, lse, delta
   int Tq, Tk, key, q_begin, n_qt, causal;
   float scale, bias_k[2];
@@ -845,12 +875,13 @@ struct DkvSweep {
 
 // One sweep: dV (kDv) and/or dK (kDk) of this lane's keys key + 8h into
 // dv_acc / dk_acc (dK unscaled).
-template <typename T, int D, bool kDv, bool kDk>
-__device__ __forceinline__ void dkv_sweep(const DkvSweep<T>& w,
+template <int D, bool kDv, bool kDk>
+__device__ __forceinline__ void dkv_sweep(const DkvSweep& w,
                                           float dv_acc[D / 8][4],
                                           float dk_acc[D / 8][4], int g,
                                           int t) {
-  using C = DkvCfg<T, D>;
+  using T = float;
+  using C = DkvCfg<D>;
   constexpr int kN = C::kQ / 8, NT = C::kThreads, LD = C::kLd;
   auto load_stage = [&](int buf, int q0) {
     T* Qs = reinterpret_cast<T*>(w.stages + buf * C::kStageBytes);
@@ -910,16 +941,17 @@ __device__ __forceinline__ void dkv_sweep(const DkvSweep<T>& w,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(DkvCfg<T, D>::kThreads, 2)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 const T* __restrict__ bias_low, const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads, 2)
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int H, int Tq, int Tk, float scale,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int H, int Tq, int Tk, float scale,
                  int causal, int n_kt) {
-  using C = DkvCfg<T, D>;
+  using T = float;
+  using C = DkvCfg<D>;
   constexpr int kDn = D / 8, NT = C::kThreads, LD = C::kLd;
   extern __shared__ __align__(16) unsigned char smem[];  // carved by bytes
   const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * C::kKeys;
@@ -927,9 +959,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kr = 16 * (threadIdx.x >> 5);  // this warp's first key (local)
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + C::kKeys * LD;
-  const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+  const BiasRow<T> br(bias, nullptr, (size_t)(bh / H) * Tk);
 
-  DkvSweep<T> w;
+  DkvSweep w;
   w.qb = q + (size_t)bh * Tq * D;
   w.ob = dout + (size_t)bh * Tq * D;
   w.lb = lse + (size_t)bh * Tq;
@@ -966,11 +998,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dk_out = dk + (size_t)bh * Tk * D;
   T* dv_out = dv + (size_t)bh * Tk * D;
   if constexpr (C::kTwoSweeps) {
-    dkv_sweep<T, D, true, false>(w, dv_acc, dk_acc, g, t);
+    dkv_sweep<D, true, false>(w, dv_acc, dk_acc, g, t);
     store_acc<D>(dv_out, dv_acc, w.key, Tk, t);
-    dkv_sweep<T, D, false, true>(w, dv_acc, dk_acc, g, t);
+    dkv_sweep<D, false, true>(w, dv_acc, dk_acc, g, t);
   } else {
-    dkv_sweep<T, D, true, true>(w, dv_acc, dk_acc, g, t);
+    dkv_sweep<D, true, true>(w, dv_acc, dk_acc, g, t);
     store_acc<D>(dv_out, dv_acc, w.key, Tk, t);
   }
 #pragma unroll
@@ -978,6 +1010,802 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] *= scale;
   store_acc<D>(dk_out, dk_acc, w.key, Tk, t);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16 forward and dK/dV: wgmma and TMA (flash_sm90.cuh).  A block is
+// two consumer warpgroups of 64 rows each and a producer warpgroup whose
+// first warp fills a ring of kStages stages (TMA, and its own loads of the
+// small rows), full and empty mbarriers guarding each stage.
+// ---------------------------------------------------------------------------
+
+// A head's width D as panels of kP elements, one swizzled row of kSpan bytes
+// each (two panels at D = 128, where a row of 256 bytes passes the widest
+// swizzle), kSteps k steps of 16 a panel.
+template <int D>
+struct Panels {
+  static constexpr int kP = D < 64 ? D : 64;
+  static constexpr int kSpan = 2 * kP;
+  static constexpr int kN = D / kP;
+  static constexpr int kSteps = kP / 16;
+};
+
+// 2^x in one MUFU instruction (results below fp32's normal range flush to
+// 0, as P's smallest weights may).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x0, x1 as hi = T(x) and lo = T(x - hi), each a packed pair: hi + lo keeps
+// ~16 bits of x (bf16; 22 in fp16 while lo is normal).
+template <typename T>
+__device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = Low<T>::pack(x0, x1);
+  const float2 h = Low<T>::unpack(hi);
+  lo = Low<T>::pack(x0 - h.x, x1 - h.y);
+}
+
+// The m64n64 accumulator d (S, or S^T / dP^T in dK/dV) as the A fragments
+// of its four 16-column steps, hi and lo (flash_sm90.cuh: a[e] = the pair
+// d[8 kk + 2 e], d[8 kk + 2 e + 1]).
+template <typename T>
+__device__ __forceinline__ void a_hi_lo(const float (&d)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_hi_lo<T>(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1], hi[kk][e],
+                     lo[kk][e]);
+}
+
+// acc [kN][kP / 2] (64 rows x D, panel by panel) += A B over 64 k: A the
+// four 16-wide steps as hi and lo fragments, lo first, B [64, D] MN-major
+// at B (panels of 64 rows x kSpan bytes).
+template <typename T, int D>
+__device__ __forceinline__ void acc_hi_lo(
+    float (&acc)[Panels<D>::kN][Panels<D>::kP / 2], const uint32_t (&hi)[4][4],
+    const uint32_t (&lo)[4][4], const unsigned char* B) {
+  using Pn = Panels<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < Pn::kN; ++pn) {
+      const uint64_t b = sm90::desc_mn<Pn::kSpan>(
+          B + pn * 64 * Pn::kSpan + kk * 16 * Pn::kSpan);
+      sm90::Wgmma<T, Pn::kP>::rs(acc[pn], lo[kk], b);
+      sm90::Wgmma<T, Pn::kP>::rs(acc[pn], hi[kk], b);
+    }
+}
+
+// d [64 rows, 64 cols] = A B^T over D: A [64, D] and B [64, D] K-major in
+// shared memory (panels of 64 rows x kSpan bytes).
+template <typename T, int D>
+__device__ __forceinline__ void dot_wg(float (&d)[32], const unsigned char* A,
+                                       const unsigned char* B) {
+  using Pn = Panels<D>;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int off = (ks / Pn::kSteps) * 64 * Pn::kSpan + (ks % Pn::kSteps) * 32;
+    sm90::Wgmma<T, 64>::ss(d, sm90::desc_k<Pn::kSpan>(A + off),
+                           sm90::desc_k<Pn::kSpan>(B + off), ks > 0);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void fence_acc(
+    float (&acc)[Panels<D>::kN][Panels<D>::kP / 2]) {
+#pragma unroll
+  for (int pn = 0; pn < Panels<D>::kN; ++pn) sm90::fence_regs(acc[pn]);
+}
+
+// rows r and r + 8 of out [rows, D] <- acc (a warpgroup accumulator as
+// acc_hi_lo leaves it), rows < n_rows only.
+template <typename T, int D>
+__device__ __forceinline__ void store_wg(
+    T* __restrict__ out, const float (&acc)[Panels<D>::kN][Panels<D>::kP / 2],
+    int r, int n_rows, int t) {
+  using Pn = Panels<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+      for (int j = 0; j < Pn::kP / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * D + pn * Pn::kP +
+                                     8 * j + 2 * t) =
+            Low<T>::pack(acc[pn][4 * j + 2 * h], acc[pn][4 * j + 2 * h + 1]);
+  }
+}
+
+// A warpgroup's accumulator (64 rows x D, as acc_hi_lo leaves it) rounded
+// to T into `tile` in the layout TMA gives a [64, D] box (panels of 64 rows
+// x kSpan bytes, swizzled: the 16-byte chunk c of row r at c ^ ((r kSpan
+// >> 7) % (kSpan / 16)), where a warp's 4-byte writes fall into 32
+// distinct banks), then stored by one TMA store through `map` at
+// (row0, bh): whole rows, coalesced, and nothing past the tensor's end.
+// `tile` must be free (no wgmma still reading it); grp names the group's
+// barrier.
+template <typename T, int D>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[Panels<D>::kN][Panels<D>::kP / 2], unsigned char* tile,
+    const CUtensorMap* map, int row0, int bh, int grp, int wq, int g,
+    int t) {
+  using Pn = Panels<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * wq + g + 8 * h;
+    const int swz = ((row * Pn::kSpan) >> 7) % (Pn::kSpan / 16);
+#pragma unroll
+    for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+      for (int j = 0; j < Pn::kP / 8; ++j)
+        *reinterpret_cast<uint32_t*>(tile + pn * 64 * Pn::kSpan +
+                                     row * Pn::kSpan + ((j ^ swz) << 4) +
+                                     4 * t) =
+            Low<T>::pack(acc[pn][4 * j + 2 * h], acc[pn][4 * j + 2 * h + 1]);
+  }
+  sm90::fence_async_smem();
+  sm90::bar_sync(1 + grp, 128);
+  if (wq == 0 && g == 0 && t == 0) {
+#pragma unroll
+    for (int pn = 0; pn < Pn::kN; ++pn)
+      sm90::tma_store_3d(map, tile + pn * 64 * Pn::kSpan, pn * Pn::kP, row0,
+                         bh);
+    sm90::tma_store_commit();
+    sm90::tma_store_wait();
+  }
+}
+
+// The online softmax of one tile's scores s (rows r0, r0 + 8; keys k0
+// ..): in base 2, x = S scale log2(e) + bias log2(e) (Bs, the tile's bias x
+// log2(e)), the running max m and row-sum share l, o rescaled, and P as hi
+// + lo in T.  Masks (kEdge) only in a tile at Tk's edge or across the
+// causal diagonal; both are template flags, so that a tile without them
+// carries no per-element selects.
+template <typename T, int D, bool kEdge, bool kBias>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float (&m)[2], float (&l)[2],
+    float (&o)[Panels<D>::kN][Panels<D>::kP / 2], uint32_t (&hi)[4][4],
+    uint32_t (&lo)[4][4], const unsigned char* bias_tile, int causal,
+    float scale_log2, int r0, int k0, int Tk, int t) {
+  using Pn = Panels<D>;
+  const float* Bs = reinterpret_cast<const float*>(bias_tile);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    const int kc = 8 * (i >> 2) + 2 * t + (i & 1);
+    float x = s[i] * scale_log2;
+    if constexpr (kBias) x += Bs[kc];
+    if constexpr (kEdge) {
+      if (causal && r0 + 8 * h < k0 + kc) x = kNegInf * kLog2e;
+      if (k0 + kc >= Tk) x = -INFINITY;  // keys past Tk: weight exactly 0
+    }
+    s[i] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    const float corr = exp2_ftz(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= corr;  // this lane's share of the row sum
+#pragma unroll
+    for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+      for (int j = 0; j < Pn::kP / 8; ++j) {
+        o[pn][4 * j + 2 * h] *= corr;
+        o[pn][4 * j + 2 * h + 1] *= corr;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = exp2_ftz(s[i] - m[(i >> 1) & 1]);
+    s[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+  a_hi_lo<T>(s, hi, lo);
+}
+
+// Registers a thread: the producer warpgroup drops to its config's
+// kProducerRegs, the two consumer warpgroups rise to kConsumerRegs with
+// what it frees.  Each quarter of an SM holds 16384 registers and one warp
+// of each warpgroup of a block: one block an SM starts its three
+// warpgroups at 168, two blocks at 80.  launch_* check the sum on the
+// kernel's actual count before a launch.
+template <int D>
+struct FwdWg {
+  using Pn = Panels<D>;
+  static constexpr int kGroups = 2;   // consumer warpgroups
+  static constexpr int kRows = 64;    // query rows a group
+  static constexpr int kKeys = 64;    // keys a tile
+  // D <= 64: two blocks an SM, each with every K/V tile of a 256-key row
+  // in flight at once; D = 128: one block, a double buffer
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  static constexpr int kBlocksPerSm = D <= 64 ? 2 : 1;
+  static constexpr int kProducerRegs = 32;
+  static constexpr int kConsumerRegs = kBlocksPerSm == 2 ? 104 : 232;
+  static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer
+  static constexpr int kQBytes = kRows * 2 * D;  // a group's q tile
+  static constexpr int kQBufBytes = kGroups * kQBytes;  // a block's
+  static constexpr int kKBytes = kKeys * 2 * D;  // a K (V) tile
+  static constexpr int kBiasBytes = 1024;        // kKeys fp32, padded
+  static constexpr int kStageBytes = 2 * kKBytes + kBiasBytes;
+  // two q buffers (the next work item's q loads while this one's out
+  // leaves through the other), then the ring
+  static constexpr int kBarOffset = 2 * kQBufBytes + kStages * kStageBytes;
+  // + the slack to align the tiles to 1024 bytes; full, empty, q full, q
+  // empty barriers
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 4);
+};
+
+// Work item w of the forward: query tile n_qt - 1 - w % n_qt (the last
+// first) of head bh = w / n_qt, from row q0, over n_kt key tiles.
+template <typename C>
+__device__ __forceinline__ void fwd_item(int w, int n_qt, int causal, int Tk,
+                                         int& bh, int& q0, int& n_kt) {
+  bh = w / n_qt;
+  q0 = (n_qt - 1 - w % n_qt) * (C::kGroups * C::kRows);
+  const int k_end = causal ? min(Tk, q0 + C::kGroups * C::kRows) : Tk;
+  n_kt = (k_end + C::kKeys - 1) / C::kKeys;
+}
+
+// Persistent: a grid of about kBlocksPerSm blocks an SM walks the work
+// items (b*h, 128 query rows), block x taking items x, x + gridDim.x, ...;
+// the producer runs ahead into the next item while the consumers finish
+// this one.  Items go head by head, the last (causally heaviest) rows of a
+// head first, so that a head's q tiles run side by side and share its K
+// and V in L2; the grid is odd, so that a block's items alternate between
+// heavy and light causal tiles.  On an H100 SXM (700 W) at B 64, H 8, T 256,
+// D 64 this takes 0.043 ms a bf16 call against 0.047 for the same code run
+// as a block per item (padding case; causal 0.034 against 0.035), from CUDA
+// graph replays in turns (tools/flash_ab.py).
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdWg<D>::kThreads, FwdWg<D>::kBlocksPerSm)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap out_map,
+                       const float* __restrict__ bias,
+                       const T* __restrict__ bias_low,
+                       float* __restrict__ lse, int BH, int H, int Tq, int Tk,
+                       float scale, int causal, int n_qt) {
+  using C = FwdWg<D>;
+  using Pn = Panels<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* q_full = empty + C::kStages;
+  uint64_t* q_empty = q_full + 2;
+  unsigned char* stages = smem + 2 * C::kQBufBytes;
+  const int n_items = BH * n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool has_bias = bias != nullptr || bias_low != nullptr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      // the TMA bytes' arrival, and the bias's (the producer's loads)
+      sm90::mbar_init(&full[s], has_bias ? 2 : 1);
+      sm90::mbar_init(&empty[s], 4 * C::kGroups);  // a consumer warp each
+    }
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(&q_full[b], 1);
+      sm90::mbar_init(&q_empty[b], C::kGroups);  // a thread of each group
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kGroups) {
+    // producer: its first warp brings each item's q, then K and V by TMA
+    // and the bias (widened to fp32 by the warp's loads) tile by tile
+    sm90::regs_dec<C::kProducerRegs>();
+    if (warp == 4 * C::kGroups) {
+      int tile = 0;  // the ring's count of tiles over all items
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int bh, q0, n_kt;
+        fwd_item<C>(w, n_qt, causal, Tk, bh, q0, n_kt);
+        const int qb = n & 1;
+        if (lane == 0) {
+          if (n >= 2) sm90::mbar_wait(&q_empty[qb], ((n >> 1) - 1) & 1);
+          sm90::mbar_expect_tx(&q_full[qb], C::kQBufBytes);
+          for (int grp = 0; grp < C::kGroups; ++grp)
+            for (int pn = 0; pn < Pn::kN; ++pn)
+              sm90::tma_load_3d(smem + qb * C::kQBufBytes + grp * C::kQBytes +
+                                    pn * C::kRows * Pn::kSpan,
+                                &q_map, &q_full[qb], pn * Pn::kP,
+                                q0 + grp * C::kRows, bh);
+        }
+        // the bias x log2(e) of tile kt's keys, two a lane, read one tile
+        // ahead so that its latency hides behind the ring
+        const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+        float b0 = 0.f, b1 = 0.f;
+        if (has_bias) {
+          b0 = lane < Tk ? br.at(lane) * kLog2e : 0.f;
+          b1 = lane + 32 < Tk ? br.at(lane + 32) * kLog2e : 0.f;
+        }
+        for (int kt = 0; kt < n_kt; ++kt, ++tile) {
+          const int s = tile % C::kStages, round = tile / C::kStages;
+          if (round > 0) sm90::mbar_wait(&empty[s], (round - 1) & 1);
+          unsigned char* st = stages + s * C::kStageBytes;
+          if (lane == 0) {
+            sm90::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+            for (int pn = 0; pn < Pn::kN; ++pn) {
+              sm90::tma_load_3d(st + pn * C::kKeys * Pn::kSpan, &k_map,
+                                &full[s], pn * Pn::kP, kt * C::kKeys, bh);
+              sm90::tma_load_3d(st + C::kKBytes + pn * C::kKeys * Pn::kSpan,
+                                &v_map, &full[s], pn * Pn::kP, kt * C::kKeys,
+                                bh);
+            }
+          }
+          if (has_bias) {
+            float* Bs = reinterpret_cast<float*>(st + 2 * C::kKBytes);
+            Bs[lane] = b0;
+            Bs[lane + 32] = b1;
+            const int key = (kt + 1) * C::kKeys + lane;
+            b0 = kt + 1 < n_kt && key < Tk ? br.at(key) * kLog2e : 0.f;
+            b1 = kt + 1 < n_kt && key + 32 < Tk ? br.at(key + 32) * kLog2e
+                                                 : 0.f;
+            __syncwarp();  // the warp's stores before lane 0's arrival
+            if (lane == 0) sm90::mbar_arrive(&full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    sm90::regs_inc<C::kConsumerRegs>();
+    const int grp = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    const float scale_log2 = scale * kLog2e;
+
+    int tile = 0;
+    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+      int bh, q0, n_kt;
+      fwd_item<C>(w, n_qt, causal, Tk, bh, q0, n_kt);
+      const int qb = n & 1;
+      const int row0 = q0 + grp * C::kRows;  // the group's first row
+      const int r0 = row0 + 16 * wq + g;     // this thread's rows r0, r0 + 8
+      unsigned char* Qs = smem + qb * C::kQBufBytes + grp * C::kQBytes;
+      // tiles at or past k_live hold no key the group's rows see (causal)
+      const int k_live = row0 >= Tq ? 0 : causal ? row0 + C::kRows : Tk;
+      // the row max in base 2 (m), this lane's share of the row sum (l)
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      float o[Pn::kN][Pn::kP / 2], s[32];
+#pragma unroll
+      for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+        for (int i = 0; i < Pn::kP / 2; ++i) o[pn][i] = 0.f;
+      sm90::mbar_wait(&q_full[qb], (n >> 1) & 1);
+
+      uint32_t hi[4][4], lo[4][4];
+      for (int kt = 0; kt < n_kt; ++kt, ++tile) {
+        const int si = tile % C::kStages, k0 = kt * C::kKeys;
+        const unsigned char* st = stages + si * C::kStageBytes;
+        sm90::mbar_wait(&full[si], (tile / C::kStages) & 1);
+        if (k0 < k_live) {
+          // S = q k^T: c_i holds row r0 + 8 ((i >> 1) & 1), key k0 + 8 (i
+          // >> 2) + 2t + (i & 1)
+          sm90::fence_regs(s);
+          sm90::wg_fence();
+          dot_wg<T, D>(s, Qs, st);
+          sm90::wg_commit();
+          sm90::wg_wait<0>();
+          sm90::fence_regs(s);
+          const unsigned char* Bs = st + 2 * C::kKBytes;
+          if (k0 + C::kKeys > Tk || (causal && k0 + C::kKeys - 1 > row0)) {
+            if (has_bias)
+              softmax_tile<T, D, true, true>(s, m, l, o, hi, lo, Bs, causal,
+                                             scale_log2, r0, k0, Tk, t);
+            else
+              softmax_tile<T, D, true, false>(s, m, l, o, hi, lo, Bs, causal,
+                                              scale_log2, r0, k0, Tk, t);
+          } else if (has_bias) {
+            softmax_tile<T, D, false, true>(s, m, l, o, hi, lo, Bs, causal,
+                                            scale_log2, r0, k0, Tk, t);
+          } else {
+            softmax_tile<T, D, false, false>(s, m, l, o, hi, lo, Bs, causal,
+                                             scale_log2, r0, k0, Tk, t);
+          }
+          // o += P V
+          fence_acc<D>(o);
+          sm90::fence_regs(hi);
+          sm90::fence_regs(lo);
+          sm90::wg_fence();
+          acc_hi_lo<T, D>(o, hi, lo, st + C::kKBytes);
+          sm90::wg_commit();
+          sm90::wg_wait<0>();
+          fence_acc<D>(o);
+          sm90::fence_regs(hi);
+          sm90::fence_regs(lo);
+        }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[si]);  // the stage is free
+      }
+
+      if (row0 < Tq) {
+        float inv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float lf = fmaxf(quad_sum(l[h]), 1e-30f);
+          inv[h] = 1.f / lf;
+          if (t == 0 && r0 + 8 * h < Tq)
+            lse[(size_t)bh * Tq + r0 + 8 * h] = m[h] / kLog2e + logf(lf);
+        }
+#pragma unroll
+        for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+          for (int i = 0; i < Pn::kP / 2; ++i) o[pn][i] *= inv[(i >> 1) & 1];
+        // out through the group's q tile, which no wgmma reads any more;
+        // then the q buffer is free for the item after next
+        store_tile<T, D>(o, Qs, &out_map, row0, bh, grp, wq, g, t);
+      }
+      if (wq == 0 && lane == 0) sm90::mbar_arrive(&q_empty[qb]);
+    }
+  }
+}
+
+template <int D>
+struct DkvWg {
+  using Pn = Panels<D>;
+  static constexpr int kGroups = 2;  // consumer warpgroups
+  static constexpr int kKeys = 64;   // keys a group
+  static constexpr int kQ = 64;      // queries a tile
+  // D <= 64: every q tile of a 256-query head in flight at once
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  static constexpr int kBlocksPerSm = 1;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer
+  // D = 128: dV, then dK, in two sweeps over the queries, so that one
+  // accumulator (64 registers) is live at a time
+  static constexpr bool kTwoSweeps = D == 128;
+  static constexpr int kKBytes = kKeys * 2 * D;  // a group's K (V) rows
+  static constexpr int kQBytes = kQ * 2 * D;     // a q (dO) tile
+  static constexpr int kRowBytes = 1024;         // lse, delta: kQ fp32 each
+  static constexpr int kStageBytes = 2 * kQBytes + kRowBytes;
+  static constexpr int kBarOffset =
+      2 * kGroups * kKBytes + kStages * kStageBytes;
+  // + the alignment slack; full, empty, K/V barriers
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+
+// What a consumer warpgroup's sweep over the query tiles needs.
+struct DkvWgCtx {
+  unsigned char* stages;
+  uint64_t* full;
+  uint64_t* empty;
+  const unsigned char* Ks;  // the group's K rows, V rows
+  const unsigned char* Vs;
+  int Tq, Tk, q_begin, n_qt, causal;
+  int key0;  // the group's first key
+  int kr;    // this thread's keys kr, kr + 8
+  bool live;
+  float scale_log2, bias_log2[2];  // scale and the keys' bias, x log2(e)
+};
+
+// P^T = 2^(S^T scale log2(e) + bias log2(e) - lse log2(e)) in place (Ls:
+// the tile's lse x log2(e)); masks (kEdge) only at Tq's or Tk's edge or
+// across the causal diagonal, a template flag, so that the other tiles
+// carry no per-element branches.
+template <bool kEdge>
+__device__ __forceinline__ void dkv_probs(float (&sT)[32], const DkvWgCtx& c,
+                                          const float* Ls, int q0, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lq = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, h = e >> 1;
+      float pe = exp2_ftz(sT[i] * c.scale_log2 + c.bias_log2[h] -
+                          ((e & 1) ? lq.y : lq.x));
+      if constexpr (kEdge) {
+        const int key = c.kr + 8 * h, query = q0 + 8 * j + 2 * t + (e & 1);
+        if (query >= c.Tq || key >= c.Tk || (c.causal && query < key))
+          pe = 0.f;
+      }
+      sT[i] = pe;
+    }
+  }
+}
+
+// fp16: dS^T row by row times 2^-ex, ex the least exponent that keeps the
+// row's largest |dS| under 2^15 so far (it only grows); dK's row, kept in
+// units of 2^ex, is rescaled exactly when it grows.
+template <int D>
+__device__ __forceinline__ void scale_ds_rows(
+    float (&ds)[32], float (&dk)[Panels<D>::kN][Panels<D>::kP / 2],
+    int (&ex)[2]) {
+  using Pn = Panels<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(fabsf(ds[4 * j + 2 * h]),
+                           fabsf(ds[4 * j + 2 * h + 1])));
+    mx = quad_max(mx);
+    const int need = (int)((__float_as_uint(mx) >> 23) & 0xff) - 141;
+    if (need > ex[h]) {
+      const float f =
+          __uint_as_float((uint32_t)max(127 + ex[h] - need, 0) << 23);
+#pragma unroll
+      for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+        for (int j = 0; j < Pn::kP / 8; ++j) {
+          dk[pn][4 * j + 2 * h] *= f;
+          dk[pn][4 * j + 2 * h + 1] *= f;
+        }
+      ex[h] = need;
+    }
+    const float inv = __uint_as_float((uint32_t)(127 - ex[h]) << 23);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[4 * j + 2 * h] *= inv;
+      ds[4 * j + 2 * h + 1] *= inv;
+    }
+  }
+}
+
+// One sweep: dV (kDv) and/or dK (kDk) of this thread's keys; `it` counts
+// the ring's tiles across sweeps; ex is dK's per-row power-of-two exponent
+// (fp16).  A tile's products go in three batches so that the tensor cores
+// work while the threads do: S^T and dP^T (P^T computed as soon as S^T is
+// in), dV (dS^T computed meanwhile), dK.
+template <typename T, int D, bool kDv, bool kDk>
+__device__ __forceinline__ void dkv_wg_sweep(
+    const DkvWgCtx& c, int& it, float (&dv)[Panels<D>::kN][Panels<D>::kP / 2],
+    float (&dk)[Panels<D>::kN][Panels<D>::kP / 2], int (&ex)[2], int t,
+    int lane) {
+  using C = DkvWg<D>;
+  float sT[32], dpT[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sT[i] = dpT[i] = 0.f;
+  for (int qt = 0; qt < c.n_qt; ++qt, ++it) {
+    const int si = it % C::kStages, q0 = c.q_begin + qt * C::kQ;
+    const unsigned char* st = c.stages + si * C::kStageBytes;
+    sm90::mbar_wait(&c.full[si], (it / C::kStages) & 1);
+    // dead for the group: its keys past Tk, or (causal) every query of the
+    // tile before its first key
+    if (c.live && !(c.causal && q0 + C::kQ <= c.key0)) {
+      const unsigned char* Qs = st;
+      const unsigned char* Os = st + C::kQBytes;
+      // lse log2(e) and delta of the tile's queries
+      const float* Ls = reinterpret_cast<const float*>(st + 2 * C::kQBytes);
+      const float* Ds = Ls + C::kQ;
+      // masks only at Tq's or Tk's edge or across the causal diagonal
+      const bool edge = q0 + C::kQ > c.Tq || c.key0 + C::kKeys > c.Tk ||
+                        (c.causal && q0 < c.key0 + C::kKeys);
+      // S^T = K q^T, then dP^T = V dO^T: c_i holds key kr + 8 ((i >> 1) &
+      // 1), query q0 + 8 (i >> 2) + 2t + (i & 1)
+      sm90::fence_regs(sT);
+      if constexpr (kDk) sm90::fence_regs(dpT);
+      sm90::wg_fence();
+      dot_wg<T, D>(sT, c.Ks, Qs);
+      sm90::wg_commit();
+      if constexpr (kDk) {
+        dot_wg<T, D>(dpT, c.Vs, Os);
+        sm90::wg_commit();
+        sm90::wg_wait<1>();
+      } else {
+        sm90::wg_wait<0>();
+      }
+      sm90::fence_regs(sT);
+      // P^T = 2^(S^T scale log2(e) + bias log2(e) - lse log2(e))
+      if (edge)
+        dkv_probs<true>(sT, c, Ls, q0, t);
+      else
+        dkv_probs<false>(sT, c, Ls, q0, t);
+      uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+      if constexpr (kDk) {
+        sm90::wg_wait<0>();
+        sm90::fence_regs(dpT);
+      }
+      if constexpr (kDv) {
+        // dV += P^T dO: A hi + lo in T, B read MN-major
+        a_hi_lo<T>(sT, p_hi, p_lo);
+        fence_acc<D>(dv);
+        sm90::fence_regs(p_hi);
+        sm90::fence_regs(p_lo);
+        sm90::wg_fence();
+        acc_hi_lo<T, D>(dv, p_hi, p_lo, Os);
+        sm90::wg_commit();
+      }
+      if constexpr (kDk) {
+        // dS^T = P^T (dP^T - delta); dK += dS^T q
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dq =
+              *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            dpT[i] = sT[i] * (dpT[i] - ((e & 1) ? dq.y : dq.x));
+          }
+        }
+        if constexpr (std::is_same_v<T, __half>) scale_ds_rows<D>(dpT, dk, ex);
+        a_hi_lo<T>(dpT, d_hi, d_lo);
+        fence_acc<D>(dk);
+        sm90::fence_regs(d_hi);
+        sm90::fence_regs(d_lo);
+        sm90::wg_fence();
+        acc_hi_lo<T, D>(dk, d_hi, d_lo, Qs);
+        sm90::wg_commit();
+      }
+      sm90::wg_wait<0>();
+      // (the A registers too: read by the batches until here)
+      if constexpr (kDv) {
+        fence_acc<D>(dv);
+        sm90::fence_regs(p_hi);
+        sm90::fence_regs(p_lo);
+      }
+      if constexpr (kDk) {
+        fence_acc<D>(dk);
+        sm90::fence_regs(d_hi);
+        sm90::fence_regs(d_lo);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&c.empty[si]);  // the stage is free
+  }
+}
+
+// dK = scale dS^T q from its accumulator, whose rows are in units of 2^ex
+// in fp16.
+template <typename T, int D>
+__device__ __forceinline__ void scale_dk(
+    float (&acc)[Panels<D>::kN][Panels<D>::kP / 2], const int (&ex)[2],
+    float scale) {
+  using Pn = Panels<D>;
+  float f[2] = {scale, scale};
+  if constexpr (std::is_same_v<T, __half>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f[h] *= __uint_as_float((uint32_t)(127 + ex[h]) << 23);
+  }
+#pragma unroll
+  for (int pn = 0; pn < Pn::kN; ++pn)
+#pragma unroll
+    for (int i = 0; i < Pn::kP / 2; ++i) acc[pn][i] *= f[(i >> 1) & 1];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvWg<D>::kThreads, DkvWg<D>::kBlocksPerSm)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap dk_map,
+                       const __grid_constant__ CUtensorMap dv_map,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ bias,
+                       const T* __restrict__ bias_low, T* __restrict__ dv,
+                       int H, int Tq, int Tk, float scale, int causal,
+                       int n_kt) {
+  using C = DkvWg<D>;
+  using Pn = Panels<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* kv_bar = empty + C::kStages;
+  unsigned char* stages = smem + 2 * C::kGroups * C::kKBytes;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * (C::kGroups * C::kKeys);
+  // causal: query tiles whose last row is above this block's first key
+  // are dead (k0 is a multiple of kQ)
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < Tq ? (Tq - q_begin + C::kQ - 1) / C::kQ : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * C::kGroups);  // a consumer warp each
+    }
+    sm90::mbar_init(kv_bar, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kGroups) {
+    // producer: its first warp brings K and V once by TMA, then q and dO
+    // by TMA and lse and delta (the warp's loads) tile by tile
+    sm90::regs_dec<C::kProducerRegs>();
+    if (warp == 4 * C::kGroups && n_qt > 0) {
+      if (lane == 0) {
+        sm90::mbar_expect_tx(kv_bar, 2 * C::kGroups * C::kKBytes);
+        for (int w = 0; w < C::kGroups; ++w)
+          for (int pn = 0; pn < Pn::kN; ++pn) {
+            const int off = w * C::kKBytes + pn * C::kKeys * Pn::kSpan;
+            sm90::tma_load_3d(smem + off, &k_map, kv_bar, pn * Pn::kP,
+                              k0 + w * C::kKeys, bh);
+            sm90::tma_load_3d(smem + C::kGroups * C::kKBytes + off, &v_map,
+                              kv_bar, pn * Pn::kP, k0 + w * C::kKeys, bh);
+          }
+      }
+      const float* lb = lse + (size_t)bh * Tq;
+      const float* db = delta + (size_t)bh * Tq;
+      const int n_it = (C::kTwoSweeps ? 2 : 1) * n_qt;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % C::kStages, round = it / C::kStages;
+        const int q0 = q_begin + (it % n_qt) * C::kQ;
+        if (round > 0) sm90::mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* st = stages + s * C::kStageBytes;
+        float* Ls = reinterpret_cast<float*>(st + 2 * C::kQBytes);
+        for (int i = lane; i < C::kQ; i += 32) {
+          const bool ok = q0 + i < Tq;
+          Ls[i] = ok ? lb[q0 + i] * kLog2e : 0.f;
+          Ls[C::kQ + i] = ok ? db[q0 + i] : 0.f;
+        }
+        __syncwarp();  // the warp's stores before lane 0's arrival
+        if (lane == 0) {
+          sm90::mbar_expect_tx(&full[s], 2 * C::kQBytes);
+          for (int pn = 0; pn < Pn::kN; ++pn) {
+            sm90::tma_load_3d(st + pn * C::kQ * Pn::kSpan, &q_map, &full[s],
+                              pn * Pn::kP, q0, bh);
+            sm90::tma_load_3d(st + C::kQBytes + pn * C::kQ * Pn::kSpan,
+                              &do_map, &full[s], pn * Pn::kP, q0, bh);
+          }
+        }
+      }
+    }
+  } else {
+    sm90::regs_inc<C::kConsumerRegs>();
+    const int grp = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    DkvWgCtx c;
+    c.stages = stages;
+    c.full = full;
+    c.empty = empty;
+    c.Ks = smem + grp * C::kKBytes;
+    c.Vs = smem + (C::kGroups + grp) * C::kKBytes;
+    c.Tq = Tq;
+    c.Tk = Tk;
+    c.q_begin = q_begin;
+    c.n_qt = n_qt;
+    c.causal = causal;
+    c.key0 = k0 + grp * C::kKeys;
+    c.kr = c.key0 + 16 * wq + g;
+    c.live = c.key0 < Tk;
+    c.scale_log2 = scale * kLog2e;
+    const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      c.bias_log2[h] = c.kr + 8 * h < Tk ? br.at(c.kr + 8 * h) * kLog2e : 0.f;
+    if (n_qt > 0) sm90::mbar_wait(kv_bar, 0);
+
+    // dK and dV through the group's K and V tiles once no wgmma reads them
+    unsigned char* k_tile = smem + grp * C::kKBytes;
+    unsigned char* v_tile = smem + (C::kGroups + grp) * C::kKBytes;
+    int it = 0, ex[2] = {-64, -64};
+    if constexpr (C::kTwoSweeps) {
+      {
+        // (sweep 2 still reads V: dV by the threads' own stores)
+        float acc[Pn::kN][Pn::kP / 2] = {};
+        dkv_wg_sweep<T, D, true, false>(c, it, acc, acc, ex, t, lane);
+        store_wg<T, D>(dv + (size_t)bh * Tk * D, acc, c.kr, Tk, t);
+      }
+      float acc[Pn::kN][Pn::kP / 2] = {};
+      dkv_wg_sweep<T, D, false, true>(c, it, acc, acc, ex, t, lane);
+      scale_dk<T, D>(acc, ex, scale);
+      if (c.live)
+        store_tile<T, D>(acc, k_tile, &dk_map, c.key0, bh, grp, wq, g, t);
+    } else {
+      float dv_acc[Pn::kN][Pn::kP / 2] = {}, dk_acc[Pn::kN][Pn::kP / 2] = {};
+      dkv_wg_sweep<T, D, true, true>(c, it, dv_acc, dk_acc, ex, t, lane);
+      scale_dk<T, D>(dk_acc, ex, scale);
+      if (c.live) {
+        store_tile<T, D>(dv_acc, v_tile, &dv_map, c.key0, bh, grp, wq, g, t);
+        store_tile<T, D>(dk_acc, k_tile, &dk_map, c.key0, bh, grp, wq, g, t);
+      }
+    }
+  }
 }
 
 template <typename Kernel>
@@ -1006,18 +1834,18 @@ const T* bias_t(const void* bias, const Dims& d) {
   return d.bias_low ? static_cast<const T*>(bias) : nullptr;
 }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* out, void* lse, const Dims& d) {
-  using C = FwdCfg<T, D>;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, C::kSmem);
+  using C = FwdCfg<D>;
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (d.Tq + C::kRows - 1) / C::kRows;
-  flash_fwd_kernel<T, D><<<(unsigned)((long long)d.B * d.H * n_qt),
-                           C::kThreads, C::kSmem, d.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias_f32(bias, d), bias_t<T>(bias, d),
-      static_cast<T*>(out), static_cast<float*>(lse), d.H, d.Tq, d.Tk,
+  flash_fwd_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), C::kThreads,
+                        C::kSmem, d.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(out), static_cast<float*>(lse), d.H, d.Tq, d.Tk,
       d.scale, d.causal, n_qt);
   return (int)cudaGetLastError();
 }
@@ -1040,50 +1868,205 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
                const void* dout, const void* lse, const void* delta, void* dk,
                void* dv, const Dims& d) {
-  using C = DkvCfg<T, D>;
-  cudaError_t e = allow_smem(flash_dkv_kernel<T, D>, C::kSmem);
+  using C = DkvCfg<D>;
+  cudaError_t e = allow_smem(flash_dkv_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
   const int n_kt = (d.Tk + C::kKeys - 1) / C::kKeys;
-  flash_dkv_kernel<T, D><<<(unsigned)((long long)d.B * d.H * n_kt),
-                           C::kThreads, C::kSmem, d.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias_f32(bias, d), bias_t<T>(bias, d),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), d.H, d.Tq, d.Tk, d.scale, d.causal, n_kt);
+  flash_dkv_kernel<D><<<(unsigned)((long long)d.B * d.H * n_kt), C::kThreads,
+                        C::kSmem, d.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), d.H, d.Tq, d.Tk, d.scale, d.causal, n_kt);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Host side of the wgmma kernels: tensor maps, built at each launch inside
+// the C entry, and the register check.
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver API, found at run time, so
+// that the library links against the runtime alone.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T>
+struct MapType;
+
+template <>
+struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kValue =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <>
+struct MapType<__half> {
+  static constexpr CUtensorMapDataType kValue = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// [n_heads, rows, D] of T (q, k, v, dO) in boxes of one panel x 64 rows,
+// swizzled by the panel's span.  Rows past `rows` load as zeros, so a tile
+// at a head's ragged end never reads the next head.
+template <typename T, int D>
+cudaError_t head_map(CUtensorMap* map, const void* p, int n_heads, int rows) {
+  using Pn = Panels<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)n_heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
+                                 (cuuint64_t)rows * D * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)Pn::kP, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      Pn::kSpan == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Pn::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, MapType<T>::kValue, 3, const_cast<void*>(p), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// setmaxnreg moves registers between the warpgroups of a block: the two
+// consumer warpgroups' rise to consumer_regs must fit in what the producer
+// warpgroup's drop to producer_regs frees, from the count the kernel
+// starts with; else the rise would wait forever, so the launch is refused.
+template <typename Kernel>
+cudaError_t check_regs(Kernel kernel, int producer_regs, int consumer_regs,
+                       int groups) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, (const void*)kernel);
+  if (e != cudaSuccess) return e;
+  return a.numRegs - producer_regs >= groups * (consumer_regs - a.numRegs)
+             ? cudaSuccess
+             : cudaErrorInvalidConfiguration;
+}
+
+template <typename T, int D>
+int launch_fwd_wg(const void* q, const void* k, const void* v,
+                  const void* bias, void* out, void* lse, const Dims& d) {
+  using C = FwdWg<D>;
+  const auto kernel = flash_fwd_wgmma_kernel<T, D>;
+  const int n_heads = d.B * d.H;
+  CUtensorMap q_map, k_map, v_map, out_map;
+  cudaError_t e = allow_smem(kernel, C::kSmem);
+  static const cudaError_t regs =
+      check_regs(kernel, C::kProducerRegs, C::kConsumerRegs, C::kGroups);
+  if (e == cudaSuccess) e = regs;
+  if (e == cudaSuccess) e = head_map<T, D>(&q_map, q, n_heads, d.Tq);
+  if (e == cudaSuccess) e = head_map<T, D>(&k_map, k, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&v_map, v, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&out_map, out, n_heads, d.Tq);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = C::kGroups * C::kRows;
+  const int n_qt = (d.Tq + rows - 1) / rows;
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_items = (long long)n_heads * n_qt;
+  const long long slots = (long long)C::kBlocksPerSm * sms - 1 +
+                          (C::kBlocksPerSm * sms) % 2;  // odd
+  const int grid = (int)(n_items < slots ? n_items : slots);
+  kernel<<<grid, C::kThreads, C::kSmem, d.stream>>>(
+      q_map, k_map, v_map, out_map, bias_f32(bias, d), bias_t<T>(bias, d),
+      static_cast<float*>(lse), n_heads, d.H, d.Tq, d.Tk, d.scale, d.causal,
+      n_qt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv_wg(const void* q, const void* k, const void* v,
+                  const void* bias, const void* dout, const void* lse,
+                  const void* delta, void* dk, void* dv, const Dims& d) {
+  using C = DkvWg<D>;
+  const auto kernel = flash_dkv_wgmma_kernel<T, D>;
+  const int n_heads = d.B * d.H;
+  CUtensorMap q_map, do_map, k_map, v_map, dk_map, dv_map;
+  cudaError_t e = allow_smem(kernel, C::kSmem);
+  static const cudaError_t regs =
+      check_regs(kernel, C::kProducerRegs, C::kConsumerRegs, C::kGroups);
+  if (e == cudaSuccess) e = regs;
+  if (e == cudaSuccess) e = head_map<T, D>(&q_map, q, n_heads, d.Tq);
+  if (e == cudaSuccess) e = head_map<T, D>(&do_map, dout, n_heads, d.Tq);
+  if (e == cudaSuccess) e = head_map<T, D>(&k_map, k, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&v_map, v, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&dk_map, dk, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&dv_map, dv, n_heads, d.Tk);
+  if (e != cudaSuccess) return (int)e;
+  const int keys = C::kGroups * C::kKeys;
+  const int n_kt = (d.Tk + keys - 1) / keys;
+  kernel<<<(unsigned)((long long)n_heads * n_kt), C::kThreads, C::kSmem,
+           d.stream>>>(q_map, do_map, k_map, v_map, dk_map, dv_map,
+                       static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), bias_f32(bias, d),
+                       bias_t<T>(bias, d), static_cast<T*>(dv), d.H, d.Tq,
+                       d.Tk, d.scale, d.causal, n_kt);
   return (int)cudaGetLastError();
 }
 
 // Blocks of one kernel that fit an SM at once (kind 0 forward, 1 dQ, 2
 // dK/dV), from its threads, registers and shared memory.
-template <typename T, int D>
-int blocks_per_sm(int kind, int* blocks) {
-  const void* kernel;
-  int threads;
-  size_t smem_bytes;
-  if (kind == 0) {
-    kernel = (const void*)flash_fwd_kernel<T, D>;
-    threads = FwdCfg<T, D>::kThreads;
-    smem_bytes = FwdCfg<T, D>::kSmem;
-  } else if (kind == 1) {
-    kernel = (const void*)flash_dq_kernel<T, D>;
-    threads = DqCfg<T, D>::kThreads;
-    smem_bytes = DqCfg<T, D>::kSmem;
-  } else if (kind == 2) {
-    kernel = (const void*)flash_dkv_kernel<T, D>;
-    threads = DkvCfg<T, D>::kThreads;
-    smem_bytes = DkvCfg<T, D>::kSmem;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem_bytes, int* blocks) {
   cudaError_t e = allow_smem(kernel, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, threads, smem_bytes);
+}
+
+template <typename T, int D>
+int blocks_per_sm(int kind, int* blocks) {
+  if (kind == 1)
+    return occupancy(flash_dq_kernel<T, D>, DqCfg<T, D>::kThreads,
+                     DqCfg<T, D>::kSmem, blocks);
+  if constexpr (kIsF32<T>) {
+    if (kind == 0)
+      return occupancy(flash_fwd_kernel<D>, FwdCfg<D>::kThreads,
+                       FwdCfg<D>::kSmem, blocks);
+    if (kind == 2)
+      return occupancy(flash_dkv_kernel<D>, DkvCfg<D>::kThreads,
+                       DkvCfg<D>::kSmem, blocks);
+  } else {
+    if (kind == 0)
+      return occupancy(flash_fwd_wgmma_kernel<T, D>, FwdWg<D>::kThreads,
+                       FwdWg<D>::kSmem, blocks);
+    if (kind == 2)
+      return occupancy(flash_dkv_wgmma_kernel<T, D>, DkvWg<D>::kThreads,
+                       DkvWg<D>::kSmem, blocks);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // f(std::integral_constant<int, D>) for a head width the kernels are built
@@ -1106,7 +2089,12 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   if ((long long)B * H * Tq == 0) return 0;
   const Dims d{B, H, Tq, Tk, scale, causal, bias_low, (cudaStream_t)stream};
   return with_head_dim(D, [&](auto n) {
-    return launch_fwd<T, decltype(n)::value>(q, k, v, bias, out, lse, d);
+    constexpr int kD = decltype(n)::value;
+    if constexpr (kIsF32<T>) {
+      return launch_fwd<kD>(q, k, v, bias, out, lse, d);
+    } else {
+      return launch_fwd_wg<T, kD>(q, k, v, bias, out, lse, d);
+    }
   });
 }
 
@@ -1131,8 +2119,12 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* bias,
   if ((long long)B * H * Tk == 0) return 0;
   const Dims d{B, H, Tq, Tk, scale, causal, bias_low, (cudaStream_t)stream};
   return with_head_dim(D, [&](auto n) {
-    return launch_dkv<T, decltype(n)::value>(q, k, v, bias, dout, lse, delta,
-                                             dk, dv, d);
+    constexpr int kD = decltype(n)::value;
+    if constexpr (kIsF32<T>) {
+      return launch_dkv<kD>(q, k, v, bias, dout, lse, delta, dk, dv, d);
+    } else {
+      return launch_dkv_wg<T, kD>(q, k, v, bias, dout, lse, delta, dk, dv, d);
+    }
   });
 }
 

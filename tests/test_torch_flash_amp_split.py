@@ -1,38 +1,55 @@
-"""The numerical scheme of the flash forward, dQ and dK/dV kernels on bf16
+"""The numerical schemes of the flash forward, dQ and dK/dV kernels on bf16
 and fp16 inputs, on the CPU.
 
 On the card (``csrc/flash_attention.cu``) the kernels widen every value to
 fp32 and:
 
- - multiply two input tensors (q kᵀ, dO vᵀ) by ``mma.sync.m16n8k16`` in
-   the input type: each product exact in fp32, a 16-wide k step's products
-   summed by the tensor core into the running fp32 accumulator, the sum
+ - multiply two input tensors (q kᵀ, dO vᵀ; k qᵀ, v dOᵀ in dK/dV) in the
+   input type on the tensor cores (``wgmma`` in the forward and dK/dV,
+   ``mma.sync.m16n8k16`` in dQ): each product exact in fp32, a 16-wide k
+   step's products summed into the running fp32 accumulator, the sum
    rounded toward zero; ``scale`` multiplies the fp32 scores after;
- - multiply P or dS (kept fp32) by an input tensor (P v, Pᵀ dO, dS k,
-   dSᵀ q) by the TF32 route: ``big = tf32(P)`` rounded to nearest, ``small
-   = P - big`` of which the tensor core reads the top 19 bits, the other
-   operand exact in TF32; per 8-wide k step ``small · x`` then ``big · x``
-   into a fresh accumulator (sums rounded toward zero), the step's partial
-   added to the running sum rounded to nearest;
+ - in the forward and dK/dV, multiply P or dS (P v, Pᵀ dO, dSᵀ q) split
+   into ``hi = T(P)`` and ``lo = T(P - hi)`` in the input type T: per
+   16-wide k step ``lo · x`` then ``hi · x``, each summed into the running
+   accumulator toward zero (two ``wgmma``).  In fp16, dSᵀ first takes a
+   power-of-two exponent per key row that keeps the row's largest |dS|
+   under 2^15 (it only grows over the query tiles; dK's row is rescaled
+   exactly when it does, and takes the power back at the end): under the
+   loss scaler dS can pass fp16's 65504 where the reference's fp32 does
+   not;
+ - in dQ, multiply dS by k by the TF32 route: ``big = tf32(dS)`` rounded
+   to nearest, ``small = dS - big`` of which the tensor core reads the top
+   19 bits, the other operand exact in TF32; per 8-wide k step ``small ·
+   x`` then ``big · x`` into a fresh accumulator (sums rounded toward
+   zero), the step's partial added to the running sum rounded to nearest
+   (the forward and dK/dV took this route too before the hi + lo scheme);
  - round out, dq, dk and dv once to the input type.
 
-The kernels cannot run here, so this file holds the scheme itself:
+The kernels cannot run here, so this file holds the schemes themselves:
 
- - a plain emulation of it (exact products and sums in float64, rounded
+ - a plain emulation of each (exact products and sums in float64, rounded
    toward zero to float32 where the tensor core's sums are) at each head
    width the kernels take, with the key-padding bias of -1e9 past ragged
    lengths and with the causal mask, in bf16 and fp16, stays within
    ``chip_smoke.FLASH_LOW_TOL`` of the plain versions on the same inputs
-   (the tolerance the card holds the kernels to);
+   (the tolerance the card holds the kernels to): the TF32 route
+   everywhere, and the kernels' mix (hi + lo in the forward and dK/dV,
+   TF32 in dQ);
  - rounding P and dS to bf16 once before their products
    (FlashAttention-2's usual move) does not: the tolerance tells the two
-   apart.
+   apart;
+ - in fp16 with max |dS| past 65504, the per-row exponent keeps dk finite
+   and within the tolerance where the plain version's is finite, and the
+   same split without it does not.
 
 These tests guard the scheme, not the kernels: a change to the kernels'
 fragment code cannot make them fail.  ``chip_smoke.py``'s
 ``kernel_flash_amp`` phase holds the kernels to the same tolerance on the
 card.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -97,17 +114,61 @@ def mm_split(p, x):
     return out
 
 
+def mm_hi_lo(p, x, dtype, acc=None):
+    """``acc + p @ x`` for fp32 P or dS and an input tensor ``x`` (the hi +
+    lo route): ``hi = T(p)``, ``lo = T(p - hi)`` rounded to nearest in the
+    input type T; per 16-wide step ``lo · x`` then ``hi · x``, each summed
+    into the running accumulator toward zero."""
+    hi = p.to(dtype).float()
+    lo = (p - hi).to(dtype).float()
+    for (lo_s, x_s), (hi_s, _) in zip(_steps(lo, x, 16), _steps(hi, x, 16)):
+        for part in (lo_s, hi_s):
+            prod = torch.matmul(part.double(), x_s.double())
+            acc = to_float32_toward_zero(prod if acc is None
+                                         else acc.double() + prod)
+    return acc
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e in float32 for integer e, built from its bits as the kernel does
+    (0 below the normal range)."""
+    return ((e + 127).clamp_min(0) << 23).to(torch.int32).view(torch.float32)
+
+
+def mm_dk_rows(ds_t, q, scale, dtype, tile=64):
+    """``scale · dSᵀ q`` as the dK/dV kernel forms it: by ``mm_hi_lo``'s
+    route, query tile by query tile; in fp16 each key row of dSᵀ first
+    times ``2^-ex``, ex = max(ex, E - 141) over the tiles so far (E the
+    biased exponent of the row's largest |dS| in the tile: the scaled row
+    stays under 2^15; ex starts at -64), dK's row rescaled by the change,
+    and ``scale · 2^ex`` applied at the end."""
+    if dtype != torch.float16:
+        return scale * mm_hi_lo(ds_t, q, dtype)
+    ex = torch.full(ds_t.shape[:-1] + (1,), -64, dtype=torch.int32)
+    acc = torch.zeros(ds_t.shape[:-1] + (q.shape[-1],))
+    for q0 in range(0, ds_t.shape[-1], tile):
+        part = ds_t[..., q0:q0 + tile]
+        mx = part.abs().amax(dim=-1, keepdim=True)
+        need = ((mx.view(torch.int32) >> 23) & 0xFF) - 141
+        grown = torch.maximum(ex, need)
+        acc = acc * pow2(ex - grown)
+        ex = grown
+        acc = mm_hi_lo(part * pow2(-ex), q[..., q0:q0 + tile, :], dtype, acc)
+    return acc * (scale * pow2(ex))
+
+
 def mm_round_bf16(p, x):
     """``p @ x`` with P or dS rounded to bf16 once (the usual FlashAttention
     move), summed in fp32."""
     return torch.matmul(p.to(torch.bfloat16).float(), x)
 
 
-def emulated(q, k, v, do, bias, causal, mm_p):
+def emulated(q, k, v, do, bias, causal, mm_p, mm_dq=None, mm_dk=None):
     """out, lse, dq, dk, dv by the kernels' formulas: scores by
-    ``mm_inputs`` and scaled after, products with P or dS by ``mm_p``.
-    The backward takes the plain forward's lse and delta, as the kernels
-    are handed them."""
+    ``mm_inputs`` and scaled after, products with P or dS by ``mm_p``, or
+    dS k by ``mm_dq`` and ``scale · dSᵀ q`` by ``mm_dk(dsᵀ, q, scale)``
+    where given.  The backward takes the plain forward's lse and delta, as
+    the kernels are handed them."""
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     bias2 = fa._bias_2d(bias, q.shape[0], q.shape[1], k.shape[2])
@@ -122,8 +183,10 @@ def emulated(q, k, v, do, bias, causal, mm_p):
     delta = fa._delta(ref_out, do)
     p = torch.exp(s - ref_lse)
     ds = p * (mm_inputs(dof, vf.transpose(-1, -2)) - delta)
-    dq = (scale * mm_p(ds, kf)).to(q.dtype)
-    dk = (scale * mm_p(ds.transpose(-1, -2), qf)).to(q.dtype)
+    dq = (scale * (mm_dq or mm_p)(ds, kf)).to(q.dtype)
+    ds_t = ds.transpose(-1, -2)
+    dk = (mm_dk(ds_t, qf, scale) if mm_dk else scale * mm_p(ds_t, qf)).to(
+        q.dtype)
     dv = mm_p(p.transpose(-1, -2), dof).to(q.dtype)
     return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
 
@@ -192,3 +255,64 @@ def test_bf16_rounded_p_exceeds_low_tolerance():
     got = emulated(*inputs, False, mm_round_bf16)
     want = plain(*inputs, False)
     assert max(_excess(got[n], want[n], n) for n in got) > 0
+
+
+def kernel_scheme(dtype):
+    """``emulated``'s products as the kernels now form them: hi + lo in
+    the forward and dK/dV (dK with the fp16 exponent), TF32 in dQ."""
+    return {"mm_p": functools.partial(mm_hi_lo, dtype=dtype),
+            "mm_dq": mm_split,
+            "mm_dk": functools.partial(mm_dk_rows, dtype=dtype)}
+
+
+@pytest.mark.parametrize("dtype,d,causal", CASES, ids=IDS)
+def test_hi_lo_holds_low_tolerance(dtype, d, causal):
+    inputs = _inputs(dtype, d, causal, seed=d)
+    got = emulated(*inputs, causal, **kernel_scheme(dtype))
+    want = plain(*inputs, causal)
+    for name in got:
+        assert got[name].dtype == want[name].dtype, name
+        assert bool(got[name].isfinite().all()), name
+        assert _excess(got[name], want[name], name) <= 0, (
+            name, float((got[name].float() - want[name].float()).abs()
+                        .max()))
+
+
+def _fp16_large_ds():
+    """fp16 inputs under a loss-scaler-like dO (4000 x normal) with v at 8 x
+    normal, at D = 64 and no mask: the fp32 dS passes fp16's 65504 while
+    the plain version's dk stays finite.  Returns the inputs and max
+    |dS|."""
+    rng = np.random.default_rng(7)
+
+    def rnd(t, scale):
+        return torch.from_numpy((scale * rng.standard_normal((B, H, t, 64)))
+                                .astype(np.float32)).to(torch.float16)
+
+    q, k, v, do = rnd(T_Q, 1.0), rnd(T_K, 1.0), rnd(T_K, 8.0), rnd(T_Q, 4000.0)
+    scale = 64 ** -0.5
+    out, lse = fa.flash_forward_ref(q, k, v, None, scale, False)
+    p = torch.exp(mm_inputs(q.float(), k.float().transpose(-1, -2)) * scale
+                  - lse)
+    ds = p * (mm_inputs(do.float(), v.float().transpose(-1, -2))
+              - fa._delta(out, do))
+    return (q, k, v, do, None), float(ds.abs().max())
+
+
+def test_fp16_exponent_keeps_dk_past_fp16_range():
+    inputs, ds_max = _fp16_large_ds()
+    assert ds_max > float(torch.finfo(torch.float16).max)
+    got = emulated(*inputs, False, **kernel_scheme(torch.float16))["dk"]
+    want = plain(*inputs, False)["dk"]
+    finite = want.isfinite()
+    assert bool(finite.any())
+    assert torch.equal(got.isfinite(), finite)
+    assert _excess(got[finite], want[finite], "dk") <= 0
+
+
+def test_fp16_split_without_exponent_overflows():
+    inputs, _ = _fp16_large_ds()
+    scheme = kernel_scheme(torch.float16)
+    del scheme["mm_dk"]  # dSᵀ q by the bare hi + lo split
+    assert bool(plain(*inputs, False)["dk"].isfinite().all())
+    assert not bool(emulated(*inputs, False, **scheme)["dk"].isfinite().all())
