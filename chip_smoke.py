@@ -134,17 +134,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    within ``FLASH_LOW_TOL`` (1 ulp of the dtype plus 2^-14
                    of the largest magnitude), lse within (1e-5, 1e-5),
                    bitwise repeatability; in fp16 a case whose dS passes
-                   65504 (dO at 4000 x normal): dk and dv finite exactly
-                   where the plain versions' are, and within the tolerance
-                   there; kernel, plain and SDPA times (SDPA
+                   65504 (dO at 4000 x normal): dq, dk and dv finite
+                   exactly where the plain versions' are, within the
+                   tolerance there, two launches bitwise equal; kernel,
+                   plain and SDPA times (SDPA
                    on the same low inputs: forward, forward + backward, and
                    its backward alone beside dQ + dK/dV), each kernel's
                    bound (bytes at 2 bytes a value; products once at the
                    bf16 tensor-core rate), each kernel's name, registers,
                    spills and blocks per SM, and the HGMMA (wgmma)
-                   instructions in its SASS: the forward and dK/dV must be
-                   the wgmma kernels, with HGMMA and no spill, at every
-                   head width
+                   instructions in its SASS: the forward, dQ and dK/dV
+                   must be the wgmma kernels, with HGMMA and no spill, at
+                   every head width; dQ's kernels-line entry carries
+                   SDPA's backward alone as its library time
 22. train_flash_amp - phase 11's model under bf16 with kept activations:
                    finite, falling loss, exactly 36 / 18 / 18 bf16 flash
                    launches a step and no fp32 one, 2 / 1 bf16 xent and 1
@@ -223,8 +225,8 @@ FLASH_TOL = {name: (1e-5, 1e-5) for name in ("out", "lse", "dq", "dk", "dv")}
 # at most one ulp of it; plus a floor of 2^-14 of the tensor's largest
 # magnitude for what the fp32 values do differ by where a sum cancels
 # (dS sums to ~0 over a row, so a dk or dq element can be small beside its
-# terms): the split P and dS (two TF32 parts, ~2^-21 of each term) and the
-# tensor core's truncated sums over up to 256 keys.  A single bf16
+# terms): the split P and dS (hi + lo in the input type, ~16 bits of each
+# term) and the tensor core's truncated sums over up to 256 keys.  A single bf16
 # rounding of P or dS (2^-9 of each term) does not fit it
 # (tests/test_torch_flash_amp_split.py).  lse is fp32 on both sides, as in
 # FLASH_TOL
@@ -1341,10 +1343,10 @@ def flash_blocks_per_sm(kind, d, sfx="f32"):
 
 def _flash_entry(mangled_name, sfx):
     """``(kind, D, kernel name)`` of a flash kernel's mangled name on inputs
-    of dtype ``sfx``, or None: the forward and dK/dV on bf16 / fp16 are the
-    ``flash_{fwd,dkv}_wgmma_kernel``s (an older source's, held against this
-    one by ``tools/flash_ab.py``, the ``flash_{fwd,dkv}_kernel``s), fp32 and
-    dQ the ``flash_*_kernel``s."""
+    of dtype ``sfx``, or None: on bf16 / fp16 the three kernels are the
+    ``flash_{fwd,dq,dkv}_wgmma_kernel``s (an older source's, held against
+    this one by ``tools/flash_ab.py``, may name ``flash_*_kernel``s there),
+    on fp32 the ``flash_*_kernel``s."""
     import re
 
     # (the fp32 forward and dK/dV carry no element type)
@@ -1647,14 +1649,15 @@ def backward_graph_time_ms(fwd, leaves, grad_out, calls=20):
 
 
 def _check_fp16_large_ds():
-    """The fp16 dK/dV kernel where dS passes fp16's range, built as
+    """The fp16 dQ and dK/dV kernels where dS passes fp16's range, built as
     ``tests/test_torch_flash_amp_split.py`` builds its case (numpy seed 7;
     B 2, H 2, Tq 80, Tk 72, D 64, no mask; dO at 4000 x normal, as under
     the loss scaler, and v at 8 x): the fp32 max |dS| must pass 65504, and
-    the kernel's dk and dv must be finite exactly where the plain versions'
-    are (on the kernel forward's lse and delta) and within
-    ``FLASH_LOW_TOL`` there.  Without the per-key-row exponent dk would
-    overflow (the CPU test's negative control)."""
+    the kernels' dq, dk and dv must be finite exactly where the plain
+    versions' are (on the kernel forward's lse and delta), within
+    ``FLASH_LOW_TOL`` there, and two launches bitwise equal.  Without the
+    per-row exponent (query rows of dS in dQ, key rows of dSᵀ in dK) dq and
+    dk would overflow (the CPU tests' negative controls)."""
     import numpy as np
     import torch
 
@@ -1672,6 +1675,9 @@ def _check_fp16_large_ds():
     scale = 64 ** -0.5
     out, lse = fa.flash_forward(q, k, v, None, scale, False)
     delta = fa._delta(out, do)
+    dq = fa.flash_dq(q, k, v, None, do, lse, delta, scale, False)
+    dq2 = fa.flash_dq(q, k, v, None, do, lse, delta, scale, False)
+    r_dq = fa.flash_dq_ref(q, k, v, None, do, lse, delta, scale, False)
     dk, dv = fa.flash_dkv(q, k, v, None, do, lse, delta, scale, False)
     dk2, dv2 = fa.flash_dkv(q, k, v, None, do, lse, delta, scale, False)
     r_dk, r_dv = fa.flash_dkv_ref(q, k, v, None, do, lse, delta, scale,
@@ -1684,7 +1690,8 @@ def _check_fp16_large_ds():
         raise AssertionError(f"flash f16 large-dS case: max |dS| {ds_max} "
                              f"stays within fp16's range")
     result = {"max_abs_ds": ds_max, "bitwise_repeat": True}
-    for name, got, again, want in (("dk", dk, dk2, r_dk),
+    for name, got, again, want in (("dq", dq, dq2, r_dq),
+                                   ("dk", dk, dk2, r_dk),
                                    ("dv", dv, dv2, r_dv)):
         if not torch.equal(got, again):
             raise AssertionError(f"flash f16 large-dS case: two launches "
@@ -1710,12 +1717,13 @@ def _check_fp16_large_ds():
 
 
 def check_wgmma_kernels(sfx, registers, hgmma):
-    """The bf16 / fp16 forward and dK/dV are the wgmma kernels at every head
-    width: HGMMA instructions in their SASS and, where this process built
-    the library (``registers`` from its ptxas report), no spill stores."""
+    """The bf16 / fp16 forward, dQ and dK/dV are the wgmma kernels at every
+    head width: HGMMA instructions in their SASS and, where this process
+    built the library (``registers`` from its ptxas report), no spill
+    stores."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    for kind in ("fwd", "dkv"):
+    for kind in ("fwd", "dq", "dkv"):
         for d in fa.HEAD_DIMS:
             if not hgmma.get(kind, {}).get(d):
                 raise AssertionError(f"flash {kind} ({sfx}, D = {d}): no "
@@ -1815,11 +1823,25 @@ def phase_kernel_flash_amp():
                 "plain_ms": main[f"{kind}_plain_ms"],
                 "bound_ms": main[f"{kind}_bound_ms"],
                 "bound_by": main[f"{kind}_bound_by"],
-                "library_ms": main["fwd_library_ms"] if kind == "fwd"
-                else None})
+                **_flash_library(main, kind)})
     emit("kernel_flash_amp", batch=TRAIN_BATCH, heads=FLASH_HEADS, d=FLASH_D,
          tolerance=FLASH_LOW_TOL, **report)
     return entries
+
+
+def _flash_library(times, kind):
+    """The kernels-line library time of a bf16 / fp16 flash kernel: SDPA's
+    forward for the forward; for dQ SDPA's backward alone
+    (``library_bwd_ms``: no one PyTorch call computes dq by itself; its
+    backward computes dq, dk and dv), beside ``dq_plus_dkv_ms``, the sum it
+    is to be held against; none for dK/dV (the same backward, held against
+    the same sum on dQ's entry)."""
+    if kind == "fwd":
+        return {"library_ms": times["fwd_library_ms"]}
+    if kind == "dq":
+        return {"library_ms": times["library_bwd_ms"],
+                "dq_plus_dkv_ms": times["dq_plus_dkv_ms"]}
+    return {"library_ms": None}
 
 
 def build_training(batch_len, dropout=None, flash=False):

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_flash.py:
 //   flash_fwd_kernel (fp32), flash_fwd_wgmma_kernel (bf16, fp16)
 //                     <- _flash_kernel (via _flash_forward, :280)
-//   flash_dq_kernel   <- _dq_kernel    (via _flash_backward, :328)
+//   flash_dq_kernel (fp32), flash_dq_wgmma_kernel (bf16, fp16)
+//                     <- _dq_kernel    (via _flash_backward, :328)
 //   flash_dkv_kernel (fp32), flash_dkv_wgmma_kernel (bf16, fp16)
 //                     <- _dkv_kernel   (via _flash_backward, :349)
 //
@@ -55,7 +56,8 @@
 //     lanes of a quad, and the accumulators are, unchanged, the A fragment
 //     of P V (the k positions stand for keys 8j + 2t and 8j + 2t + 1); out
 //     and lse are written once;
-//   - dQ: the forward's blocks, tile order and K/V stages (bias with them);
+//   - dQ (fp32): the forward's blocks, tile order and K/V stages (bias with
+//     them);
 //     q and dO stay in shared memory, each lane holds its two rows' lse and
 //     delta; per tile S = q k^T and dP = dO v^T in registers, P and dS =
 //     P (dP - delta) formed there, and dS, unchanged, the A fragment of
@@ -86,23 +88,24 @@
 // the product.  What bounds them on the card: bytes.  At the main shape
 // (B 64, H 8, T 256, D 64, a padding bias) the reference's products at the
 // bf16 tensor-core rate take 0.009 ms (forward), 0.013 (dQ) and 0.017
-// (dK/dV) against 0.020, 0.025 and 0.030 ms of bytes.
+// (dK/dV) against 0.020, 0.025 and 0.030 ms of bytes.  The kernels'
+// split of P and dS (below) doubles their third and fourth products: at the
+// bf16 rate dQ's four then take 0.017 ms and dK/dV's six 0.026, still
+// under their bytes.  What holds them above that bound is latency: a
+// block's first tiles arrive before anything overlaps them, and a
+// warpgroup waits on each of its own products.
 //
-//   - dQ (flash_dq_kernel<T>): the fp32 kernel's blocks, templated on T: q
-//     k^T and dO v^T by mma.sync.m16n8k16 in T (dot_rows), dS kept fp32 and
-//     split into two TF32 parts against the bf16 / fp16 value of k, which
-//     TF32 holds exactly (mma2: ~21 bits of dS), tiles at a stride of D + 8
-//     elements.
-//   - forward and dK/dV (flash_fwd_wgmma_kernel, flash_dkv_wgmma_kernel, on
-//     flash_sm90.cuh): warpgroup products (wgmma) on tiles that TMA brings
-//     into shared memory.  A block is two consumer warpgroups of 64 rows
-//     each and a producer warpgroup; setmaxnreg gives the consumers the
-//     producer's registers.  The producer's first warp fills a ring of
-//     stages (full and empty mbarriers a stage): K and V tiles of 64 keys
-//     (forward) or q and dO tiles of 64 queries (dK/dV) by TMA, each row a
-//     swizzled line of 32, 64 or 128 bytes (two 128-byte panels at D =
-//     128), and the small rows (the bias in the forward, lse and delta in
-//     dK/dV) by its own loads.  P (in dK/dV also dS) goes into its product
+//   All three (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
+//     flash_dkv_wgmma_kernel, on flash_sm90.cuh): warpgroup products
+//     (wgmma) on tiles that TMA brings into shared memory.  A block is two
+//     consumer warpgroups of 64 rows each and a producer warpgroup;
+//     setmaxnreg gives the consumers the producer's registers.  The
+//     producer's first warp fills a ring of stages (full and empty
+//     mbarriers a stage): K and V tiles of 64 keys (forward, dQ) or q and
+//     dO tiles of 64 queries (dK/dV) by TMA, each row a swizzled line of
+//     32, 64 or 128 bytes (two 128-byte panels at D = 128), and the small
+//     rows (the bias in the forward and dQ, lse and delta in dK/dV) by its
+//     own loads.  P (in dQ and dK/dV also dS) goes into its product
 //     as hi + lo in T: hi = T(P), lo = T(P - hi), two wgmma into the same
 //     fp32 accumulator, lo first, with A in registers straight from the
 //     score accumulator (an accumulator's 16 columns packed pairwise are an
@@ -139,15 +142,32 @@
 //       64 registers is live at a time.  dK and dV leave through the K and
 //       V tiles by TMA stores (at D = 128 dV by the threads, as sweep 2
 //       still reads V).
+//     - dQ: dK/dV with rows and columns swapped.  Persistent as the
+//       forward, one block an SM walking the work items (b*h, 128 query
+//       rows), the rows with the most causal work first; per item each
+//       warpgroup holds its 64 rows' q and dO tiles (TMA, two buffers, as
+//       the forward's q), their lse and delta in registers, and dQ in
+//       registers; K and V tiles of 64 keys stream through 4 stages (2 at
+//       D = 128) with the keys' bias.  Per tile S = q k^T and dP = dO v^T
+//       (two wgmma batches), P = 2^(S scale log2 e + bias log2 e - lse
+//       log2 e) as soon as S is in, dS = P (dP - delta), then dQ += dS k
+//       with k read MN-major from the same tile that S read (no
+//       transposing copy).  In fp16 each query row of dS takes the
+//       exponent of dK's key rows, and dQ the factor 2^ex at the end.  A
+//       group skips the tiles wholly above its rows (causal) but arrives
+//       on every stage's empty barrier.  S, dP, the hi / lo words and dQ
+//       (D / 2 a thread) fit the consumers' 232 registers at every D, so
+//       there is one sweep.  dQ leaves through the group's q tile by one
+//       TMA store.
 //   - the bias is fp32 or T, widened as it is read.  An overflow that the
 //     reference does produce (dq past fp16's range) still rounds to inf
 //     when the output is written.
 //
 // Dead causal tiles are skipped (the reference's `live`, :80, :131, :180),
-// and in dQ also a warp's tiles that lie wholly above its rows.  The
-// ragged edge of Tq and Tk is masked here (rows past the end load as
-// zeros, keys past the end get weight 0), so any Tq, Tk >= 1 works, with no
-// power-of-two block halving.  Every sum has a fixed order and there are no
+// and in dQ also a warp's (warpgroup's) tiles that lie wholly above its
+// rows.  The ragged edge of Tq and Tk is masked here (rows past the end
+// load as zeros, keys past the end get weight 0), so any Tq, Tk >= 1
+// works, with no power-of-two block halving.  Every sum has a fixed order and there are no
 // atomics, so two launches are bitwise equal.
 
 #include <cuda.h>
@@ -169,11 +189,8 @@ template <typename T>
 constexpr bool kIsF32 = std::is_same_v<T, float>;
 
 // The low-precision element types, two to a 32-bit word: widened to fp32
-// exactly, rounded from it to nearest, and their m16n8k16 product (fp32
-// sums).  In an m16n8k16 fragment lane = 4 g + t: A (16 x 16, row) a0 (g,
-// 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B
-// (16 x 8, col) b0 (2t..2t+1, g), b1 (2t + 8.., g); the accumulator as in
-// m16n8k8 (below).  The lower k of a pair is the lower half of the word.
+// exactly and rounded from it to nearest (the lower element of a pair in
+// the lower half of the word).
 template <typename T>
 struct Low;
 
@@ -189,13 +206,6 @@ struct Low<__nv_bfloat16> {
     const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
     return *reinterpret_cast<const uint32_t*>(&h);
   }
-  static __device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 };
 
 template <>
@@ -210,40 +220,23 @@ struct Low<__half> {
     const __half2 h = __floats2half2_rn(a, b);
     return *reinterpret_cast<const uint32_t*>(&h);
   }
-  static __device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 };
 
-// VW consecutive values of a row, widened to fp32.
-template <int VW, typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  if constexpr (kIsF32<T>) {
-    if constexpr (VW == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p);
-      out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(p);
-      out[0] = t.x; out[1] = t.y;
-    }
-  } else if constexpr (VW == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    const float2 a = Low<T>::unpack(w.x), b = Low<T>::unpack(w.y);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+// VW consecutive fp32 values of a row.
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
   } else {
-    const float2 a = Low<T>::unpack(*reinterpret_cast<const uint32_t*>(p));
-    out[0] = a.x; out[1] = a.y;
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    out[0] = t.x; out[1] = t.y;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core machinery: fp32 products as three TF32 mma.sync.m16n8k8
-// (3xTF32), products with P or dS in the low types as two, tiles copied by
-// cp.async.
+// Tensor-core machinery of the fp32 kernels: products as three TF32
+// mma.sync.m16n8k8 (3xTF32), tiles copied by cp.async.
 //
 // In an m16n8k8 fragment lane = 4 g + t.  A (16 x 8, row) holds a0 (g, t),
 // a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, col) b0 (t, g),
@@ -306,18 +299,6 @@ __device__ __forceinline__ void mma3(float d[4], const uint32_t a_big[4],
   for (int e = 0; e < 4; ++e) d[e] += part[e];
 }
 
-// mma3 for a b0/b1 that TF32 holds exactly (a bf16 or fp16 value widened):
-// small_a b + big_a b into a fresh accumulator, then one add into d.
-__device__ __forceinline__ void mma2(float d[4], const uint32_t a_big[4],
-                                     const uint32_t a_small[4], float b0,
-                                     float b1) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(part, a_small, __float_as_uint(b0), __float_as_uint(b1));
-  mma_tf32(part, a_big, __float_as_uint(b0), __float_as_uint(b1));
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += part[e];
-}
-
 // 16-byte copy global -> shared that does not hold the thread; zeros when
 // !valid (the source is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -369,16 +350,6 @@ __device__ __forceinline__ void async_vec(float* dst, const float* src, int n,
     cp_async4(dst + i, src + (i < n_valid ? i : 0), i < n_valid);
 }
 
-// async_vec of a bias in a low type, widened: plain loads and stores (a
-// 2-byte value is under cp.async's least copy), ordered for the readers by
-// the same barriers as the stage's copies.
-template <int NT, typename T>
-__device__ __forceinline__ void widen_vec(float* dst, const T* src, int n,
-                                          int n_valid) {
-  for (int i = threadIdx.x; i < n; i += NT)
-    dst[i] = i < n_valid ? Low<T>::widen(src[i]) : 0.f;
-}
-
 // The columns of a [*, D] tile as the B operand of a product over rows
 // (P V, P^T dO, dS^T q): n-tile i = VW c + u and B column n stand for
 // column CHUNK c + VW n + u, so that a lane reads its VW columns of a row
@@ -390,33 +361,25 @@ struct ColMap {
   static constexpr int kChunks = D / kChunk;
 };
 
-// VW fp32 values stored as VW values of T (rounded to nearest).
-template <int VW, typename T>
-__device__ __forceinline__ void store_vec(T* dst, const float* x) {
-  if constexpr (kIsF32<T>) {
-    if constexpr (VW == 4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-    } else {
-      *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
-    }
-  } else if constexpr (VW == 4) {
-    *reinterpret_cast<uint2*>(dst) =
-        make_uint2(Low<T>::pack(x[0], x[1]), Low<T>::pack(x[2], x[3]));
+// VW fp32 values stored.
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* x) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
   } else {
-    *reinterpret_cast<uint32_t*>(dst) = Low<T>::pack(x[0], x[1]);
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
   }
 }
 
 // acc [D/8][4] (16 rows x D) += P X over the 8 NK rows of X [8 NK, ld]:
 // P [NK][4] is a 16 x 8 NK score accumulator, taken as A with k position
 // t <-> row 8j + 2t and t + 4 <-> row 8j + 2t + 1 (so a0..a3 = p0, p2, p1,
-// p3); X is read by ColMap.  fp32 X: ld = 4 (mod 32), the VW-wide reads of
-// 8 (or 16) lanes fall into distinct banks, and each product is mma3; X in
-// a low type: ld = 8 (mod 64) values, the same, and mma2.
-template <int D, int NK, typename TX>
+// p3); X is read by ColMap at ld = 4 (mod 32), where the VW-wide reads of
+// 8 (or 16) lanes fall into distinct banks; each product is mma3.
+template <int D, int NK>
 __device__ __forceinline__ void acc_rows(float acc[D / 8][4],
                                          const float P[NK][4],
-                                         const TX* X, int ld, int g,
+                                         const float* X, int ld, int g,
                                          int t) {
   using CM = ColMap<D>;
 #pragma unroll
@@ -424,7 +387,7 @@ __device__ __forceinline__ void acc_rows(float acc[D / 8][4],
     const float pa[4] = {P[j][0], P[j][2], P[j][1], P[j][3]};
     uint32_t p_big[4], p_small[4];
     split4(pa, p_big, p_small);
-    const TX* x0 = X + (8 * j + 2 * t) * ld + CM::kVw * g;
+    const float* x0 = X + (8 * j + 2 * t) * ld + CM::kVw * g;
     float v0[D / 8], v1[D / 8];
 #pragma unroll
     for (int c = 0; c < CM::kChunks; ++c) {
@@ -432,20 +395,15 @@ __device__ __forceinline__ void acc_rows(float acc[D / 8][4],
       load_vec<CM::kVw>(x0 + ld + CM::kChunk * c, v1 + CM::kVw * c);
     }
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      if constexpr (kIsF32<TX>) {
-        mma3(acc[i], p_big, p_small, v0[i], v1[i]);
-      } else {
-        mma2(acc[i], p_big, p_small, v0[i], v1[i]);
-      }
-    }
+    for (int i = 0; i < D / 8; ++i)
+      mma3(acc[i], p_big, p_small, v0[i], v1[i]);
   }
 }
 
 // rows r and r + 8 of out [rows, D] <- acc (as acc_rows leaves it), rows
 // < n_rows only.
-template <int D, typename T>
-__device__ __forceinline__ void store_acc(T* __restrict__ out,
+template <int D>
+__device__ __forceinline__ void store_acc(float* __restrict__ out,
                                           const float acc[D / 8][4], int r,
                                           int n_rows, int t) {
   using CM = ColMap<D>;
@@ -461,53 +419,34 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out,
         x[u] = acc[CM::kVw * c + u][2 * h];
         x[CM::kVw + u] = acc[CM::kVw * c + u][2 * h + 1];
       }
-      T* dst = out + (size_t)row * D + CM::kChunk * c + 2 * CM::kVw * t;
+      float* dst = out + (size_t)row * D + CM::kChunk * c + 2 * CM::kVw * t;
       store_vec<CM::kVw>(dst, x);
       store_vec<CM::kVw>(dst + CM::kVw, x + CM::kVw);
     }
   }
 }
 
-__device__ __forceinline__ uint32_t word(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc [NQ][4] = A B^T over d: A rows g and g + 8 of [*, ld], B [8 NQ, ld].
-// fp32: 3xTF32, k position t <-> d = 8s + t, t + 4 <-> 8s + t + 4 (ld = 4
-// mod 32: the scalar reads of a warp fall into distinct banks).  A low
-// type: one m16n8k16 a 16-wide step s, k positions as d = 16s + k (a lane's
-// pairs are 32-bit words; ld = 8 mod 64 values: distinct banks).
-template <int D, int NQ, typename T>
-__device__ __forceinline__ void dot_rows(float acc[NQ][4], const T* A,
-                                         const T* B, int ld, int g, int t) {
+// acc [NQ][4] = A B^T over d by 3xTF32: A rows g and g + 8 of [*, ld], B
+// [8 NQ, ld]; k position t <-> d = 8s + t, t + 4 <-> 8s + t + 4 (ld = 4
+// mod 32: the scalar reads of a warp fall into distinct banks).
+template <int D, int NQ>
+__device__ __forceinline__ void dot_rows(float acc[NQ][4], const float* A,
+                                         const float* B, int ld, int g,
+                                         int t) {
 #pragma unroll
   for (int j = 0; j < NQ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  if constexpr (kIsF32<T>) {
 #pragma unroll 2
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const float* a = A + g * ld + 8 * ks + t;
-      const float af[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
-      uint32_t a_big[4], a_small[4];
-      split4(af, a_big, a_small);
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const float* a = A + g * ld + 8 * ks + t;
+    const float af[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
+    uint32_t a_big[4], a_small[4];
+    split4(af, a_big, a_small);
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const float* b = B + (8 * j + g) * ld + 8 * ks + t;
-        mma3(acc[j], a_big, a_small, b[0], b[4]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const T* a = A + g * ld + 16 * ks + 2 * t;
-      const uint32_t af[4] = {word(a), word(a + 8 * ld), word(a + 8),
-                              word(a + 8 * ld + 8)};
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const T* b = B + (8 * j + g) * ld + 16 * ks + 2 * t;
-        Low<T>::mma(acc[j], af, word(b), word(b + 8));
-      }
+    for (int j = 0; j < NQ; ++j) {
+      const float* b = B + (8 * j + g) * ld + 8 * ks + t;
+      mma3(acc[j], a_big, a_small, b[0], b[4]);
     }
   }
 }
@@ -533,13 +472,11 @@ struct BiasRow {
       : f(bias ? bias + offset : nullptr),
         low(!kIsF32<T> && bias_low ? bias_low + offset : nullptr) {}
   __device__ bool any() const { return f != nullptr || low != nullptr; }
-  // its [k0, k0 + n_valid) into fp32 dst [n], zeros past n_valid
+  // its [k0, k0 + n_valid) into dst [n], zeros past n_valid (the fp32
+  // kernels' cp.async stages)
   template <int NT>
   __device__ void stage(float* dst, int k0, int n, int n_valid) const {
     if (f) async_vec<NT>(dst, f + k0, n, n_valid);
-    if constexpr (!kIsF32<T>) {
-      if (low) widen_vec<NT>(dst, low + k0, n, n_valid);
-    }
   }
   __device__ float at(int key) const {
     if constexpr (!kIsF32<T>) {
@@ -712,34 +649,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (b*h, 64 query rows), 4 warps of 16 rows each.
+// dQ (fp32): one block per (b*h, 64 query rows), 4 warps of 16 rows each.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DqCfg {
   static constexpr int kWarps = 4, kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;         // query rows a block
   static constexpr int kKeys = D == 128 ? 16 : 32;  // keys a tile
   // one stride for every tile: dot_rows' reads along d (q, dO as A, k, v
   // as B) and acc_rows' reads of k (the X of dS k) are conflict-free
-  static constexpr int kLd = kIsF32<T> ? D + 4 : D + 8;
+  static constexpr int kLd = D + 4;
   // smem bytes: q, dO [kRows, kLd] once; two stages of K, V [kKeys, kLd]
-  // and the fp32 bias [kKeys]
-  static constexpr int kQOBytes = 2 * kRows * kLd * sizeof(T);
+  // and the bias [kKeys]
+  static constexpr int kQOBytes = 2 * kRows * kLd * sizeof(float);
   static constexpr int kStageBytes =
-      2 * kKeys * kLd * sizeof(T) + kKeys * sizeof(float);
+      2 * kKeys * kLd * sizeof(float) + kKeys * sizeof(float);
   static constexpr size_t kSmem = kQOBytes + 2 * kStageBytes;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(DqCfg<T, D>::kThreads, 2)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
-                const T* __restrict__ bias_low, const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
+                const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
-                int Tq, int Tk, float scale, int causal, int n_qt) {
-  using C = DqCfg<T, D>;
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int H, int Tq, int Tk, float scale, int causal, int n_qt) {
+  using T = float;
+  using C = DqCfg<D>;
   constexpr int kN = C::kKeys / 8, kDn = D / 8, NT = C::kThreads;
   constexpr int LD = C::kLd;
   extern __shared__ __align__(16) unsigned char smem[];  // carved by bytes
@@ -751,7 +689,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = q0 + w0 + g;              // this lane's rows r0, r0 + 8
   const T* kb = k + (size_t)bh * Tk * D;
   const T* vb = v + (size_t)bh * Tk * D;
-  const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+  const BiasRow<T> br(bias, nullptr, (size_t)(bh / H) * Tk);
   const bool has_bias = br.any();
   T* Qs = reinterpret_cast<T*>(smem);
   T* Os = Qs + C::kRows * LD;
@@ -1246,8 +1184,8 @@ struct FwdWg {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 4);
 };
 
-// Work item w of the forward: query tile n_qt - 1 - w % n_qt (the last
-// first) of head bh = w / n_qt, from row q0, over n_kt key tiles.
+// Work item w of the forward and dQ: query tile n_qt - 1 - w % n_qt (the
+// last first) of head bh = w / n_qt, from row q0, over n_kt key tiles.
 template <typename C>
 __device__ __forceinline__ void fwd_item(int w, int n_qt, int causal, int Tk,
                                          int& bh, int& q0, int& n_kt) {
@@ -1514,9 +1452,10 @@ __device__ __forceinline__ void dkv_probs(float (&sT)[32], const DkvWgCtx& c,
   }
 }
 
-// fp16: dS^T row by row times 2^-ex, ex the least exponent that keeps the
-// row's largest |dS| under 2^15 so far (it only grows); dK's row, kept in
-// units of 2^ex, is rescaled exactly when it grows.
+// fp16: dS^T (dK/dV) or dS (dQ) row by row times 2^-ex, ex the least
+// exponent that keeps the row's largest |dS| under 2^15 so far (it only
+// grows); the accumulator's row (dK's or dQ's), kept in units of 2^ex, is
+// rescaled exactly when it grows.
 template <int D>
 __device__ __forceinline__ void scale_ds_rows(
     float (&ds)[32], float (&dk)[Panels<D>::kN][Panels<D>::kP / 2],
@@ -1655,10 +1594,10 @@ __device__ __forceinline__ void dkv_wg_sweep(
   }
 }
 
-// dK = scale dS^T q from its accumulator, whose rows are in units of 2^ex
-// in fp16.
+// dK = scale dS^T q (dQ = scale dS k) from its accumulator, whose rows are
+// in units of 2^ex in fp16.
 template <typename T, int D>
-__device__ __forceinline__ void scale_dk(
+__device__ __forceinline__ void scale_acc(
     float (&acc)[Panels<D>::kN][Panels<D>::kP / 2], const int (&ex)[2],
     float scale) {
   using Pn = Panels<D>;
@@ -1793,17 +1732,289 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       float acc[Pn::kN][Pn::kP / 2] = {};
       dkv_wg_sweep<T, D, false, true>(c, it, acc, acc, ex, t, lane);
-      scale_dk<T, D>(acc, ex, scale);
+      scale_acc<T, D>(acc, ex, scale);
       if (c.live)
         store_tile<T, D>(acc, k_tile, &dk_map, c.key0, bh, grp, wq, g, t);
     } else {
       float dv_acc[Pn::kN][Pn::kP / 2] = {}, dk_acc[Pn::kN][Pn::kP / 2] = {};
       dkv_wg_sweep<T, D, true, true>(c, it, dv_acc, dk_acc, ex, t, lane);
-      scale_dk<T, D>(dk_acc, ex, scale);
+      scale_acc<T, D>(dk_acc, ex, scale);
       if (c.live) {
         store_tile<T, D>(dv_acc, v_tile, &dv_map, c.key0, bh, grp, wq, g, t);
         store_tile<T, D>(dk_acc, k_tile, &dk_map, c.key0, bh, grp, wq, g, t);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ (bf16 / fp16): a block per (b*h, 128 query rows), the forward's blocks
+// with the roles of the dK/dV kernel's tiles.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqWg {
+  using Pn = Panels<D>;
+  static constexpr int kGroups = 2;  // consumer warpgroups
+  static constexpr int kRows = 64;   // query rows a group
+  static constexpr int kKeys = 64;   // keys a tile
+  // D <= 64: every K/V tile of a 256-key head in flight at once
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  static constexpr int kBlocksPerSm = 1;
+  // (a producer at 24 spills once it walks the items)
+  static constexpr int kProducerRegs = 32, kConsumerRegs = 232;
+  static constexpr int kThreads = 128 * (kGroups + 1);  // + the producer
+  static constexpr int kQBytes = kRows * 2 * D;  // a group's q (dO) tile
+  // a buffer: both groups' q tiles, then their dO tiles
+  static constexpr int kQOBytes = 2 * kGroups * kQBytes;
+  static constexpr int kKBytes = kKeys * 2 * D;  // a K (V) tile
+  static constexpr int kBiasBytes = 1024;        // kKeys fp32, padded
+  static constexpr int kStageBytes = 2 * kKBytes + kBiasBytes;
+  // two q / dO buffers (the next item's loads while this one's dQ leaves
+  // through the other), then the ring
+  static constexpr int kBarOffset = 2 * kQOBytes + kStages * kStageBytes;
+  // + the alignment slack; full, empty, q full, q empty barriers
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 4);
+};
+
+// P = 2^(S scale log2(e) + bias log2(e) - lse log2(e)) in place: s holds
+// rows r0 + 8 ((i >> 1) & 1), keys k0 + 8 (i >> 2) + 2t + (i & 1); Bs the
+// tile's bias x log2(e) by key (kBias), lse2 the two rows' lse x log2(e).
+// Masks (kEdge) only at Tq's or Tk's edge or across the causal diagonal,
+// template flags, so that the other tiles carry no per-element selects.
+template <bool kEdge, bool kBias>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float* Bs,
+                                         const float (&lse2)[2],
+                                         float scale_log2, int causal, int r0,
+                                         int k0, int Tq, int Tk, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float2 b = make_float2(0.f, 0.f);
+    if constexpr (kBias) b = *reinterpret_cast<const float2*>(Bs + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, h = e >> 1;
+      float x = s[i] * scale_log2;
+      if constexpr (kBias) x += (e & 1) ? b.y : b.x;
+      float pe = exp2_ftz(x - lse2[h]);
+      if constexpr (kEdge) {
+        const int row = r0 + 8 * h, key = k0 + 8 * j + 2 * t + (e & 1);
+        if (row >= Tq || key >= Tk || (causal && row < key)) pe = 0.f;
+      }
+      s[i] = pe;
+    }
+  }
+}
+
+// Persistent, as the forward: a grid of about one block an SM walks the
+// work items (b*h, 128 query rows) head by head, block x taking items x, x
+// + gridDim.x, ...; the producer loads the next item's q and dO into the
+// other buffer and runs ahead into its K/V tiles while the consumers
+// finish this one.  Each consumer warpgroup holds its 64 rows' q and dO
+// tiles, lse and delta, and dQ in registers.  Per 64-key tile S = q k^T
+// and dP = dO v^T (two wgmma batches, both operands K-major), P as soon as
+// S is in while dP is still in flight, dS = P (dP - delta), then dQ += dS
+// k with dS as hi + lo in T from the registers and k read MN-major from
+// the same tile that S read.  In fp16 each query row of dS takes the
+// power-of-two exponent of scale_ds_rows first.  dQ leaves through the
+// group's q tile by one TMA store.  On an H100 SXM (700 W) at B 64, H 8,
+// T 256, D 64 this takes 0.057 ms a bf16 call against 0.075 for the same
+// code launched as a block per item (padding case; causal 0.042 against
+// 0.050), from CUDA graph replays in turns (tools/flash_ab.py): one block
+// an SM leaves it idle while a new block's first tiles arrive.
+template <typename T, int D>
+__global__ void __launch_bounds__(DqWg<D>::kThreads, DqWg<D>::kBlocksPerSm)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap dq_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ bias,
+                      const T* __restrict__ bias_low, int BH, int H, int Tq,
+                      int Tk, float scale, int causal, int n_qt) {
+  using C = DqWg<D>;
+  using Pn = Panels<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* q_full = empty + C::kStages;
+  uint64_t* q_empty = q_full + 2;
+  unsigned char* stages = smem + 2 * C::kQOBytes;
+  const int n_items = BH * n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool has_bias = bias != nullptr || bias_low != nullptr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      // the TMA bytes' arrival, and the bias's (the producer's loads)
+      sm90::mbar_init(&full[s], has_bias ? 2 : 1);
+      sm90::mbar_init(&empty[s], 4 * C::kGroups);  // a consumer warp each
+    }
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(&q_full[b], 1);
+      sm90::mbar_init(&q_empty[b], C::kGroups);  // a thread of each group
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kGroups) {
+    // producer: its first warp brings each item's q and dO by TMA, then K
+    // and V by TMA and the bias (widened to fp32 by the warp's loads) tile
+    // by tile
+    sm90::regs_dec<C::kProducerRegs>();
+    if (warp == 4 * C::kGroups) {
+      int tile = 0;  // the ring's count of tiles over all items
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int bh, q0, n_kt;
+        fwd_item<C>(w, n_qt, causal, Tk, bh, q0, n_kt);
+        const int qb = n & 1;
+        unsigned char* qo = smem + qb * C::kQOBytes;
+        if (lane == 0) {
+          if (n >= 2) sm90::mbar_wait(&q_empty[qb], ((n >> 1) - 1) & 1);
+          sm90::mbar_expect_tx(&q_full[qb], C::kQOBytes);
+          for (int grp = 0; grp < C::kGroups; ++grp)
+            for (int pn = 0; pn < Pn::kN; ++pn) {
+              const int off = grp * C::kQBytes + pn * C::kRows * Pn::kSpan;
+              const int row = q0 + grp * C::kRows;
+              sm90::tma_load_3d(qo + off, &q_map, &q_full[qb], pn * Pn::kP,
+                                row, bh);
+              sm90::tma_load_3d(qo + C::kGroups * C::kQBytes + off, &do_map,
+                                &q_full[qb], pn * Pn::kP, row, bh);
+            }
+        }
+        // the bias x log2(e) of tile kt's keys, two a lane, read one tile
+        // ahead so that its latency hides behind the ring
+        const BiasRow<T> br(bias, bias_low, (size_t)(bh / H) * Tk);
+        float b0 = 0.f, b1 = 0.f;
+        if (has_bias) {
+          b0 = lane < Tk ? br.at(lane) * kLog2e : 0.f;
+          b1 = lane + 32 < Tk ? br.at(lane + 32) * kLog2e : 0.f;
+        }
+        for (int kt = 0; kt < n_kt; ++kt, ++tile) {
+          const int s = tile % C::kStages, round = tile / C::kStages;
+          if (round > 0) sm90::mbar_wait(&empty[s], (round - 1) & 1);
+          unsigned char* st = stages + s * C::kStageBytes;
+          if (lane == 0) {
+            sm90::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+            for (int pn = 0; pn < Pn::kN; ++pn) {
+              sm90::tma_load_3d(st + pn * C::kKeys * Pn::kSpan, &k_map,
+                                &full[s], pn * Pn::kP, kt * C::kKeys, bh);
+              sm90::tma_load_3d(st + C::kKBytes + pn * C::kKeys * Pn::kSpan,
+                                &v_map, &full[s], pn * Pn::kP, kt * C::kKeys,
+                                bh);
+            }
+          }
+          if (has_bias) {
+            float* Bs = reinterpret_cast<float*>(st + 2 * C::kKBytes);
+            Bs[lane] = b0;
+            Bs[lane + 32] = b1;
+            const int key = (kt + 1) * C::kKeys + lane;
+            b0 = kt + 1 < n_kt && key < Tk ? br.at(key) * kLog2e : 0.f;
+            b1 = kt + 1 < n_kt && key + 32 < Tk ? br.at(key + 32) * kLog2e
+                                                 : 0.f;
+            __syncwarp();  // the warp's stores before lane 0's arrival
+            if (lane == 0) sm90::mbar_arrive(&full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    sm90::regs_inc<C::kConsumerRegs>();
+    const int grp = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    const float scale_log2 = scale * kLog2e;
+    int tile = 0;
+    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+      int bh, q0, n_kt;
+      fwd_item<C>(w, n_qt, causal, Tk, bh, q0, n_kt);
+      const int qb = n & 1;
+      const int row0 = q0 + grp * C::kRows;  // the group's first row
+      const int r0 = row0 + 16 * wq + g;     // this thread's rows r0, r0 + 8
+      unsigned char* Qs = smem + qb * C::kQOBytes + grp * C::kQBytes;
+      const unsigned char* Os = Qs + C::kGroups * C::kQBytes;
+      // tiles at or past k_live hold no key the group's rows see (causal)
+      const int k_live = row0 >= Tq ? 0 : causal ? row0 + C::kRows : Tk;
+      // the rows' lse x log2(e) and delta
+      float lse2[2], dlt[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        lse2[h] = row < Tq ? lse[(size_t)bh * Tq + row] * kLog2e : 0.f;
+        dlt[h] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+      }
+      float acc[Pn::kN][Pn::kP / 2] = {}, s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      int ex[2] = {-64, -64};  // fp16: dQ's rows in units of 2^ex
+      sm90::mbar_wait(&q_full[qb], (n >> 1) & 1);
+
+      for (int kt = 0; kt < n_kt; ++kt, ++tile) {
+        const int si = tile % C::kStages, k0 = kt * C::kKeys;
+        const unsigned char* st = stages + si * C::kStageBytes;
+        sm90::mbar_wait(&full[si], (tile / C::kStages) & 1);
+        if (k0 < k_live) {
+          // S = q k^T, then dP = dO v^T: c_i holds row r0 + 8 ((i >> 1) &
+          // 1), key k0 + 8 (i >> 2) + 2t + (i & 1)
+          sm90::fence_regs(s);
+          sm90::fence_regs(dp);
+          sm90::wg_fence();
+          dot_wg<T, D>(s, Qs, st);
+          sm90::wg_commit();
+          dot_wg<T, D>(dp, Os, st + C::kKBytes);
+          sm90::wg_commit();
+          sm90::wg_wait<1>();
+          sm90::fence_regs(s);
+          const float* Bs =
+              reinterpret_cast<const float*>(st + 2 * C::kKBytes);
+          if (k0 + C::kKeys > Tk || row0 + C::kRows > Tq ||
+              (causal && k0 + C::kKeys - 1 > row0)) {
+            if (has_bias)
+              dq_probs<true, true>(s, Bs, lse2, scale_log2, causal, r0, k0,
+                                   Tq, Tk, t);
+            else
+              dq_probs<true, false>(s, Bs, lse2, scale_log2, causal, r0, k0,
+                                    Tq, Tk, t);
+          } else if (has_bias) {
+            dq_probs<false, true>(s, Bs, lse2, scale_log2, causal, r0, k0,
+                                  Tq, Tk, t);
+          } else {
+            dq_probs<false, false>(s, Bs, lse2, scale_log2, causal, r0, k0,
+                                   Tq, Tk, t);
+          }
+          sm90::wg_wait<0>();
+          sm90::fence_regs(dp);
+          // dS = P (dP - delta); dQ += dS k
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            dp[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]);
+          if constexpr (std::is_same_v<T, __half>)
+            scale_ds_rows<D>(dp, acc, ex);
+          uint32_t hi[4][4], lo[4][4];
+          a_hi_lo<T>(dp, hi, lo);
+          fence_acc<D>(acc);
+          sm90::fence_regs(hi);
+          sm90::fence_regs(lo);
+          sm90::wg_fence();
+          acc_hi_lo<T, D>(acc, hi, lo, st);
+          sm90::wg_commit();
+          sm90::wg_wait<0>();
+          fence_acc<D>(acc);
+          sm90::fence_regs(hi);
+          sm90::fence_regs(lo);
+        }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[si]);  // the stage is free
+      }
+
+      scale_acc<T, D>(acc, ex, scale);
+      // dQ through the group's q tile, which no wgmma reads any more; then
+      // the buffer is free for the item after next
+      if (row0 < Tq)
+        store_tile<T, D>(acc, Qs, &dq_map, row0, bh, grp, wq, g, t);
+      if (wq == 0 && lane == 0) sm90::mbar_arrive(&q_empty[qb]);
     }
   }
 }
@@ -1850,20 +2061,20 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* bias,
               const void* dout, const void* lse, const void* delta, void* dq,
               const Dims& d) {
-  using C = DqCfg<T, D>;
-  cudaError_t e = allow_smem(flash_dq_kernel<T, D>, C::kSmem);
+  using C = DqCfg<D>;
+  cudaError_t e = allow_smem(flash_dq_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (d.Tq + C::kRows - 1) / C::kRows;
-  flash_dq_kernel<T, D><<<(unsigned)((long long)d.B * d.H * n_qt),
-                          C::kThreads, C::kSmem, d.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias_f32(bias, d), bias_t<T>(bias, d),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), d.H, d.Tq,
+  flash_dq_kernel<D><<<(unsigned)((long long)d.B * d.H * n_qt), C::kThreads,
+                       C::kSmem, d.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), d.H, d.Tq,
       d.Tk, d.scale, d.causal, n_qt);
   return (int)cudaGetLastError();
 }
@@ -2007,6 +2218,42 @@ int launch_fwd_wg(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int D>
+int launch_dq_wg(const void* q, const void* k, const void* v,
+                 const void* bias, const void* dout, const void* lse,
+                 const void* delta, void* dq, const Dims& d) {
+  using C = DqWg<D>;
+  const auto kernel = flash_dq_wgmma_kernel<T, D>;
+  const int n_heads = d.B * d.H;
+  CUtensorMap q_map, do_map, k_map, v_map, dq_map;
+  cudaError_t e = allow_smem(kernel, C::kSmem);
+  static const cudaError_t regs =
+      check_regs(kernel, C::kProducerRegs, C::kConsumerRegs, C::kGroups);
+  if (e == cudaSuccess) e = regs;
+  if (e == cudaSuccess) e = head_map<T, D>(&q_map, q, n_heads, d.Tq);
+  if (e == cudaSuccess) e = head_map<T, D>(&do_map, dout, n_heads, d.Tq);
+  if (e == cudaSuccess) e = head_map<T, D>(&k_map, k, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&v_map, v, n_heads, d.Tk);
+  if (e == cudaSuccess) e = head_map<T, D>(&dq_map, dq, n_heads, d.Tq);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = C::kGroups * C::kRows;
+  const int n_qt = (d.Tq + rows - 1) / rows;
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_items = (long long)n_heads * n_qt;
+  const long long slots = (long long)C::kBlocksPerSm * sms - 1 +
+                          (C::kBlocksPerSm * sms) % 2;  // odd
+  const int grid = (int)(n_items < slots ? n_items : slots);
+  kernel<<<grid, C::kThreads, C::kSmem, d.stream>>>(
+      q_map, do_map, k_map, v_map, dq_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bias_f32(bias, d), bias_t<T>(bias, d),
+      n_heads, d.H, d.Tq, d.Tk, d.scale, d.causal, n_qt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
 int launch_dkv_wg(const void* q, const void* k, const void* v,
                   const void* bias, const void* dout, const void* lse,
                   const void* delta, void* dk, void* dv, const Dims& d) {
@@ -2048,13 +2295,13 @@ int occupancy(Kernel kernel, int threads, size_t smem_bytes, int* blocks) {
 
 template <typename T, int D>
 int blocks_per_sm(int kind, int* blocks) {
-  if (kind == 1)
-    return occupancy(flash_dq_kernel<T, D>, DqCfg<T, D>::kThreads,
-                     DqCfg<T, D>::kSmem, blocks);
   if constexpr (kIsF32<T>) {
     if (kind == 0)
       return occupancy(flash_fwd_kernel<D>, FwdCfg<D>::kThreads,
                        FwdCfg<D>::kSmem, blocks);
+    if (kind == 1)
+      return occupancy(flash_dq_kernel<D>, DqCfg<D>::kThreads,
+                       DqCfg<D>::kSmem, blocks);
     if (kind == 2)
       return occupancy(flash_dkv_kernel<D>, DkvCfg<D>::kThreads,
                        DkvCfg<D>::kSmem, blocks);
@@ -2062,6 +2309,9 @@ int blocks_per_sm(int kind, int* blocks) {
     if (kind == 0)
       return occupancy(flash_fwd_wgmma_kernel<T, D>, FwdWg<D>::kThreads,
                        FwdWg<D>::kSmem, blocks);
+    if (kind == 1)
+      return occupancy(flash_dq_wgmma_kernel<T, D>, DqWg<D>::kThreads,
+                       DqWg<D>::kSmem, blocks);
     if (kind == 2)
       return occupancy(flash_dkv_wgmma_kernel<T, D>, DkvWg<D>::kThreads,
                        DkvWg<D>::kSmem, blocks);
@@ -2106,8 +2356,12 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias,
   if ((long long)B * H * Tq == 0) return 0;
   const Dims d{B, H, Tq, Tk, scale, causal, bias_low, (cudaStream_t)stream};
   return with_head_dim(D, [&](auto n) {
-    return launch_dq<T, decltype(n)::value>(q, k, v, bias, dout, lse, delta,
-                                            dq, d);
+    constexpr int kD = decltype(n)::value;
+    if constexpr (kIsF32<T>) {
+      return launch_dq<kD>(q, k, v, bias, dout, lse, delta, dq, d);
+    } else {
+      return launch_dq_wg<T, kD>(q, k, v, bias, dout, lse, delta, dq, d);
+    }
   });
 }
 

@@ -38,11 +38,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
             outputs={"Out": [tmp]},
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs needs the sum op, "
-                                  "not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        pre_bias.shape = mul_results[0].shape
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 

@@ -4,9 +4,12 @@ clip + regularization + one update op per parameter, with
 ``OpRole.Optimize``.  The port's Executor runs the update ops eagerly and
 updates the parameters and moments in place.
 
-Only ``adam`` has an op in the port so far; the other optimizers build,
-and their ops raise ``NotImplementedError`` when run.  Not ported yet:
-``ModelAverage``, LARS weight decay and AMP loss scaling.
+``sgd``, ``momentum`` and ``adam`` have ops in the port
+(``ops/optimizer_ops.py``; on the card a run of ``momentum`` or ``adam``
+ops is one kernel launch); the other optimizers build, and their ops
+raise ``NotImplementedError`` when run.  Under fp16 AMP ``minimize``
+adds the dynamic loss scaler (``fluid/amp.py``).  Not ported yet:
+``ModelAverage`` and LARS weight decay.
 """
 
 from __future__ import annotations

@@ -5,26 +5,27 @@ On the card (``csrc/flash_attention.cu``) the kernels widen every value to
 fp32 and:
 
  - multiply two input tensors (q kᵀ, dO vᵀ; k qᵀ, v dOᵀ in dK/dV) in the
-   input type on the tensor cores (``wgmma`` in the forward and dK/dV,
-   ``mma.sync.m16n8k16`` in dQ): each product exact in fp32, a 16-wide k
-   step's products summed into the running fp32 accumulator, the sum
-   rounded toward zero; ``scale`` multiplies the fp32 scores after;
- - in the forward and dK/dV, multiply P or dS (P v, Pᵀ dO, dSᵀ q) split
-   into ``hi = T(P)`` and ``lo = T(P - hi)`` in the input type T: per
-   16-wide k step ``lo · x`` then ``hi · x``, each summed into the running
-   accumulator toward zero (two ``wgmma``).  In fp16, dSᵀ first takes a
-   power-of-two exponent per key row that keeps the row's largest |dS|
-   under 2^15 (it only grows over the query tiles; dK's row is rescaled
-   exactly when it does, and takes the power back at the end): under the
-   loss scaler dS can pass fp16's 65504 where the reference's fp32 does
-   not;
- - in dQ, multiply dS by k by the TF32 route: ``big = tf32(dS)`` rounded
-   to nearest, ``small = dS - big`` of which the tensor core reads the top
-   19 bits, the other operand exact in TF32; per 8-wide k step ``small ·
-   x`` then ``big · x`` into a fresh accumulator (sums rounded toward
-   zero), the step's partial added to the running sum rounded to nearest
-   (the forward and dK/dV took this route too before the hi + lo scheme);
+   input type on the tensor cores (``wgmma``): each product exact in fp32,
+   a 16-wide k step's products summed into the running fp32 accumulator,
+   the sum rounded toward zero; ``scale`` multiplies the fp32 scores after;
+ - multiply P or dS (P v, dS k, Pᵀ dO, dSᵀ q) split into ``hi = T(P)``
+   and ``lo = T(P - hi)`` in the input type T: per 16-wide k step ``lo ·
+   x`` then ``hi · x``, each summed into the running accumulator toward
+   zero (two ``wgmma``).  In fp16, dS (dQ) and dSᵀ (dK) first take a
+   power-of-two exponent per row (a query row of dS, a key row of dSᵀ)
+   that keeps the row's largest |dS| under 2^15 (it only grows over the
+   64-wide tiles; the accumulator's row is rescaled exactly when it does,
+   and takes the power back at the end): under the loss scaler dS can
+   pass fp16's 65504 where the reference's fp32 does not;
  - round out, dq, dk and dv once to the input type.
+
+Before the hi + lo scheme the kernels multiplied P and dS by the TF32
+route: ``big = tf32(dS)`` rounded to nearest, ``small = dS - big`` of
+which the tensor core reads the top 19 bits, the other operand exact in
+TF32; per 8-wide k step ``small · x`` then ``big · x`` into a fresh
+accumulator (sums rounded toward zero), the step's partial added to the
+running sum rounded to nearest.  The fp32 kernels still use it with three
+products (``tests/test_torch_flash_tf32.py``).
 
 The kernels cannot run here, so this file holds the schemes themselves:
 
@@ -34,14 +35,14 @@ The kernels cannot run here, so this file holds the schemes themselves:
    lengths and with the causal mask, in bf16 and fp16, stays within
    ``chip_smoke.FLASH_LOW_TOL`` of the plain versions on the same inputs
    (the tolerance the card holds the kernels to): the TF32 route
-   everywhere, and the kernels' mix (hi + lo in the forward and dK/dV,
-   TF32 in dQ);
+   everywhere, and the kernels' hi + lo scheme (with the fp16 exponent in
+   dQ and dK);
  - rounding P and dS to bf16 once before their products
    (FlashAttention-2's usual move) does not: the tolerance tells the two
    apart;
- - in fp16 with max |dS| past 65504, the per-row exponent keeps dk finite
-   and within the tolerance where the plain version's is finite, and the
-   same split without it does not.
+ - in fp16 with max |dS| past 65504, the per-row exponent keeps dq and dk
+   finite and within the tolerance where the plain versions' are finite,
+   and the same split without it does not.
 
 These tests guard the scheme, not the kernels: a change to the kernels'
 fragment code cannot make them fail.  ``chip_smoke.py``'s
@@ -135,25 +136,26 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
     return ((e + 127).clamp_min(0) << 23).to(torch.int32).view(torch.float32)
 
 
-def mm_dk_rows(ds_t, q, scale, dtype, tile=64):
-    """``scale · dSᵀ q`` as the dK/dV kernel forms it: by ``mm_hi_lo``'s
-    route, query tile by query tile; in fp16 each key row of dSᵀ first
-    times ``2^-ex``, ex = max(ex, E - 141) over the tiles so far (E the
-    biased exponent of the row's largest |dS| in the tile: the scaled row
-    stays under 2^15; ex starts at -64), dK's row rescaled by the change,
-    and ``scale · 2^ex`` applied at the end."""
+def mm_ds_rows(ds, x, scale, dtype, tile=64):
+    """``scale · dS x`` as the dQ and dK/dV kernels form it (dS k in dQ,
+    its rows queries; dSᵀ q in dK/dV, its rows keys): by ``mm_hi_lo``'s
+    route, 64-wide tile by tile; in fp16 each row of ``ds`` first times
+    ``2^-ex``, ex = max(ex, E - 141) over the tiles so far (E the biased
+    exponent of the row's largest |dS| in the tile: the scaled row stays
+    under 2^15; ex starts at -64), the accumulator's row rescaled by the
+    change, and ``scale · 2^ex`` applied at the end."""
     if dtype != torch.float16:
-        return scale * mm_hi_lo(ds_t, q, dtype)
-    ex = torch.full(ds_t.shape[:-1] + (1,), -64, dtype=torch.int32)
-    acc = torch.zeros(ds_t.shape[:-1] + (q.shape[-1],))
-    for q0 in range(0, ds_t.shape[-1], tile):
-        part = ds_t[..., q0:q0 + tile]
+        return scale * mm_hi_lo(ds, x, dtype)
+    ex = torch.full(ds.shape[:-1] + (1,), -64, dtype=torch.int32)
+    acc = torch.zeros(ds.shape[:-1] + (x.shape[-1],))
+    for k0 in range(0, ds.shape[-1], tile):
+        part = ds[..., k0:k0 + tile]
         mx = part.abs().amax(dim=-1, keepdim=True)
         need = ((mx.view(torch.int32) >> 23) & 0xFF) - 141
         grown = torch.maximum(ex, need)
         acc = acc * pow2(ex - grown)
         ex = grown
-        acc = mm_hi_lo(part * pow2(-ex), q[..., q0:q0 + tile, :], dtype, acc)
+        acc = mm_hi_lo(part * pow2(-ex), x[..., k0:k0 + tile, :], dtype, acc)
     return acc * (scale * pow2(ex))
 
 
@@ -166,8 +168,8 @@ def mm_round_bf16(p, x):
 def emulated(q, k, v, do, bias, causal, mm_p, mm_dq=None, mm_dk=None):
     """out, lse, dq, dk, dv by the kernels' formulas: scores by
     ``mm_inputs`` and scaled after, products with P or dS by ``mm_p``, or
-    dS k by ``mm_dq`` and ``scale · dSᵀ q`` by ``mm_dk(dsᵀ, q, scale)``
-    where given.  The backward takes the plain forward's lse and delta, as
+    ``scale · dS k`` by ``mm_dq(ds, k, scale)`` and ``scale · dSᵀ q`` by
+    ``mm_dk(dsᵀ, q, scale)`` where given.  The backward takes the plain forward's lse and delta, as
     the kernels are handed them."""
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -183,7 +185,8 @@ def emulated(q, k, v, do, bias, causal, mm_p, mm_dq=None, mm_dk=None):
     delta = fa._delta(ref_out, do)
     p = torch.exp(s - ref_lse)
     ds = p * (mm_inputs(dof, vf.transpose(-1, -2)) - delta)
-    dq = (scale * (mm_dq or mm_p)(ds, kf)).to(q.dtype)
+    dq = (mm_dq(ds, kf, scale) if mm_dq else scale * mm_p(ds, kf)).to(
+        q.dtype)
     ds_t = ds.transpose(-1, -2)
     dk = (mm_dk(ds_t, qf, scale) if mm_dk else scale * mm_p(ds_t, qf)).to(
         q.dtype)
@@ -258,11 +261,11 @@ def test_bf16_rounded_p_exceeds_low_tolerance():
 
 
 def kernel_scheme(dtype):
-    """``emulated``'s products as the kernels now form them: hi + lo in
-    the forward and dK/dV (dK with the fp16 exponent), TF32 in dQ."""
+    """``emulated``'s products as the kernels form them: hi + lo in all
+    three, dQ and dK with the fp16 per-row exponent over 64-wide tiles."""
+    rows = functools.partial(mm_ds_rows, dtype=dtype)
     return {"mm_p": functools.partial(mm_hi_lo, dtype=dtype),
-            "mm_dq": mm_split,
-            "mm_dk": functools.partial(mm_dk_rows, dtype=dtype)}
+            "mm_dq": rows, "mm_dk": rows}
 
 
 @pytest.mark.parametrize("dtype,d,causal", CASES, ids=IDS)
@@ -316,3 +319,22 @@ def test_fp16_split_without_exponent_overflows():
     del scheme["mm_dk"]  # dSᵀ q by the bare hi + lo split
     assert bool(plain(*inputs, False)["dk"].isfinite().all())
     assert not bool(emulated(*inputs, False, **scheme)["dk"].isfinite().all())
+
+
+def test_fp16_exponent_keeps_dq_past_fp16_range():
+    inputs, ds_max = _fp16_large_ds()
+    assert ds_max > float(torch.finfo(torch.float16).max)
+    got = emulated(*inputs, False, **kernel_scheme(torch.float16))["dq"]
+    want = plain(*inputs, False)["dq"]
+    finite = want.isfinite()
+    assert bool(finite.any())
+    assert torch.equal(got.isfinite(), finite)
+    assert _excess(got[finite], want[finite], "dq") <= 0
+
+
+def test_fp16_dq_split_without_exponent_overflows():
+    inputs, _ = _fp16_large_ds()
+    scheme = kernel_scheme(torch.float16)
+    del scheme["mm_dq"]  # dS k by the bare hi + lo split
+    assert bool(plain(*inputs, False)["dq"].isfinite().all())
+    assert not bool(emulated(*inputs, False, **scheme)["dq"].isfinite().all())
