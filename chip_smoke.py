@@ -7,7 +7,9 @@ continuous-batching ``DecodeEngine``, trains Transformer-base through
 ``fluid.Executor`` with unfused attention and through the flash kernels,
 and trains ResNet-50 with momentum, in fp32 and then under bf16 / fp16
 mixed precision (``fluid.amp``; Transformer-base also through the bf16
-flash kernels), and checks them all.
+flash kernels), then trains Transformer-base and ResNet-50 under AMP as
+``Executor.run_steps`` windows (one CUDA graph a step) and the fp16 loss
+scaler's window, and checks them all.
 
     python3 chip_smoke.py
 
@@ -158,10 +160,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 24. train_flash_amp_fp16_scaler - phase 20 with the tiny model's attention
                    through the fp16 flash kernels (D = 16): the same scaler
                    contract, 12 / 6 / 6 fp16 flash launches every step
+25. train_window_flash_amp - phase 22's model and feed through
+                   ``Executor.run_steps``: two windows of 5 steps on one
+                   executor (the first runs a step eagerly, captures the
+                   next as a CUDA graph, and replays it; the second
+                   replays 5 times) against 10 ``Executor.run`` steps from
+                   a copy of the same state (generator included): every
+                   state tensor and the fetched loss bitwise, or else the
+                   loss within ``FLASH_AMP_UNFUSED_RTOL``, the worst
+                   difference printed; the windows' launches equal the
+                   per-step constants x 10 (the wrappers count a replay's
+                   share); the graphed and eager step's device ms (CUDA
+                   events around 5 steps), the capture's time and the
+                   graph pool's bytes; with ``--profile`` a third window
+                   under the profiler: busy share, graph launches and
+                   host kernel launches a step
+26. train_window_resnet_amp - phase 19's model and feed the same way (1
+                   momentum launch a step, loss within 2^-8); then
+                   train_window_resnet_prefetch: ``feed_per_step`` windows
+                   fed by ``DevicePrefetcher`` (pinned memory, a side
+                   stream) at depth 2, and staged in the loop at depth 0:
+                   each loop's host-clocked ms a step
+27. train_window_fp16_scaler - the tiny Transformer in fp16 (flash, dynamic
+                   scale from twice the largest a probe run found to fit,
+                   noam with ``warmup_steps=8``): an 8-step window bitwise
+                   equal to 8 guarded ``Executor.run`` steps from a copy of
+                   the same state (parameters, moments, scale, good-step
+                   counter, ``@STEP_COUNTER@``, generator, last loss and
+                   learning rate), the first step skipped on the card's
+                   flag, Adam launched every step (the window runs the
+                   update and commits it only where the flag says)
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
-busy) and one after each full-size training phase (one more step),
-each under ``torch.profiler``; each prints the device's busy share of the
+busy) and one after each full-size training phase (one more step, or
+one more window), each under ``torch.profiler``; each prints the device's busy share of the
 wall time and the kernels that take the most device time.
 
 The last three lines are the kernels table, the card's name and power
@@ -260,6 +292,10 @@ FLASH_AMP_UNFUSED_RTOL = 2.0 ** -8
 # 65504, so step 1 overflows and the scale halves until the products fit
 FP16_BATCH, FP16_LEN, FP16_STEPS = 4, 16, 24
 FP16_INIT_SCALE, FP16_GROWTH = 2.0 ** 24, 3
+# Executor.run_steps windows: two windows of WINDOW_STEPS steps against
+# 2 x WINDOW_STEPS Executor.run steps; the ResNet prefetch loops run
+# PREFETCH_WINDOWS windows; the fp16 scaler's window is FP16_WINDOW steps
+WINDOW_STEPS, PREFETCH_WINDOWS, FP16_WINDOW = 5, 3, 8
 RESNET_PARITY_LOSS_RTOL = 1e-4
 RESNET_PARITY_STATS_TOL = (1e-3, 1e-4)  # (rtol, atol)
 RESNET_PARITY_VELOCITY_COSINE = 0.999
@@ -574,6 +610,9 @@ def device_spans(prof):
                   and "spin_kernel" not in e["name"])
 
 
+PAD_SPINS = 8
+
+
 def pad_trace():
     """Spin kernels and a sync around the profiled work, inside the
     profiler: it may miss a few device events at either end of a trace
@@ -583,7 +622,7 @@ def pad_trace():
     import torch
 
     torch.cuda.synchronize()
-    for _ in range(8):
+    for _ in range(PAD_SPINS):
         torch.cuda._sleep(100_000)
     torch.cuda.synchronize()
 
@@ -1098,13 +1137,17 @@ def offset_view(gen, device, n, scale=1.0):
     return (torch.randn(n + 1, generator=gen, device=device) * scale)[1:]
 
 
-def time_group(call, plain, library, kernel_name, launches, iters=20):
-    """The group call's ms between CUDA events, its kernel's device ms
-    under the profiler (the mean captured launch times ``launches()``'s
-    count a call), the plain version's and the library call's ms, the
-    host ms to issue one group call (the card idle before it; median of
-    20) and the library's device ms under the profiler (its captured
-    kernels over the calls); with the launches each trace captured."""
+def time_group(call, plain, library, kernel_name, launches, iters=20,
+               graph_library=None):
+    """The group call's and the library call's device ms from CUDA-graph
+    replays (``graph_library``: the library call in a form a graph can
+    capture, else ``library``); the group call's ms between CUDA events,
+    its kernel's device ms under the profiler (the mean captured launch
+    times ``launches()``'s count a call), the plain version's and the
+    library call's ms, the host ms to issue one group call (the card idle
+    before it; median of 20) and the library's device ms under the
+    profiler (its captured kernels over the calls); with the launches each
+    trace captured."""
     import statistics
 
     import torch
@@ -1140,6 +1183,8 @@ def time_group(call, plain, library, kernel_name, launches, iters=20):
                                        if spans else None)
         else:
             out["library_device_ms"] = sum(spans) / calls / 1e3
+    out["graph_ms"] = graph_time_ms(call)
+    out["library_graph_ms"] = graph_time_ms(graph_library or library)
     return out
 
 
@@ -1207,9 +1252,16 @@ def phase_kernel_adam(shapes):
         p.grad = g
     opt = torch.optim.Adam(params, lr=1e-3, betas=(b1, b2), eps=eps,
                            fused=True)
+    # a graph captures Adam's step count only on the device
+    cap_params = [torch.nn.Parameter(p.detach().clone()) for p in main[0]]
+    for p, g in zip(cap_params, main[1]):
+        p.grad = g
+    cap = torch.optim.Adam(cap_params, lr=1e-3, betas=(b1, b2), eps=eps,
+                           fused=True, capturable=True)
     times = time_group(lambda: fused.adam_group(*main, b1, b2, eps),
                        lambda: fused.adam_group_ref(*main, b1, b2, eps),
-                       opt.step, "adam_group", lambda: fused.adam_launches)
+                       opt.step, "adam_group", lambda: fused.adam_launches,
+                       graph_library=cap.step)
     # p, g, m1, m2 read and p, m1, m2 written; the shared lr read and each
     # entry's two beta pows read and written once
     n_t = len(main[0])
@@ -1224,9 +1276,9 @@ def phase_kernel_adam(shapes):
             "source": "paddle_tpu_torch/csrc/adam.cu",
             "replaces": "paddle_tpu/ops/pallas_fused.py:496",
             "max_abs_err": max(r["max_abs_err"] for r in report.values()),
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "ms": times["graph_ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": times["library_ms"]}
+            "library_ms": times["library_graph_ms"]}
 
 
 def flash_case_inputs(gen, device, t_q, t_k, padded, b=TRAIN_BATCH,
@@ -1953,7 +2005,7 @@ def op_dispatches(exe, program, *fetches):
     """The calls a run of ``program`` fetching ``fetches`` makes after its
     first: one per op, one per group of ops the Executor runs at once, none
     for the constant ops it ran the first time."""
-    names = tuple(f.name for f in fetches)
+    names = tuple(getattr(f, "name", f) for f in fetches)
     plan = next(p for key, p in exe._plans.items()
                 if key[0] == program._cache_token and key[3] == names)
     return sum(1 for k, op in enumerate(plan.ops)
@@ -1961,21 +2013,9 @@ def op_dispatches(exe, program, *fetches):
 
 
 def reset_launch_counts():
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.ops import launch_counts as lc
 
-    fused.xent_fwd_launches = fused.xent_bwd_launches = 0
-    for by in (fused.xent_fwd_launches_by_dtype,
-               fused.xent_bwd_launches_by_dtype):
-        for k in by:
-            by[k] = 0
-    fused.adam_launches = fused.momentum_launches = 0
-    fused.adam_tensors = fused.momentum_tensors = 0
-    fa.flash_fwd_launches = fa.flash_dq_launches = fa.flash_dkv_launches = 0
-    for by in (fa.flash_fwd_launches_by_dtype, fa.flash_dq_launches_by_dtype,
-               fa.flash_dkv_launches_by_dtype):
-        for k in by:
-            by[k] = 0
+    lc.add(lc.snapshot(), -1)
 
 
 def phase_train(progs, profile_run=False, flash=False, beside=None,
@@ -2436,9 +2476,9 @@ def phase_kernel_momentum(shapes):
             "source": "paddle_tpu_torch/csrc/momentum.cu",
             "replaces": "paddle_tpu/ops/pallas_fused.py:481",
             "max_abs_err": max(r["max_abs_err"] for r in report.values()),
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "ms": times["graph_ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": times["library_ms"]}
+            "library_ms": times["library_graph_ms"]}
 
 
 def conv_tflop_per_step(main, batch):
@@ -2674,6 +2714,374 @@ def phase_train_resnet_parity():
          values_carried=len(names), launches=counts)
 
 
+def clone_scope(scope):
+    """A scope holding copies of ``scope``'s tensors and of its generators
+    (each in the state it has now): the same training state, apart."""
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.framework import RNG_STATE_VAR
+
+    out = fluid.Scope()
+    for k, v in scope._values.items():
+        if isinstance(v, torch.Tensor):
+            out.set(k, v.clone())
+        elif k == RNG_STATE_VAR:
+            gens = {}
+            for d, g in v.items():
+                gens[d] = torch.Generator(device=g.device)
+                gens[d].set_state(g.get_state())
+            out.set(k, gens)
+    return out
+
+
+def state_diff(a, b):
+    """Whether two scopes hold bitwise the same tensors and generator
+    states, and the tensor that differs most (largest difference relative
+    to its largest magnitude)."""
+    import torch
+
+    from paddle_tpu_torch.fluid.framework import RNG_STATE_VAR
+
+    names = sorted(k for k, v in a._values.items()
+                   if isinstance(v, torch.Tensor))
+    if names != sorted(k for k, v in b._values.items()
+                       if isinstance(v, torch.Tensor)):
+        raise AssertionError("the two runs hold different state names")
+    worst, equal = {"name": None, "max_abs": 0.0, "rel": 0.0}, True
+    for k in names:
+        x, y = a.get(k), b.get(k)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{k}: {x.dtype} {tuple(x.shape)} against "
+                                 f"{y.dtype} {tuple(y.shape)}")
+        if torch.equal(x, y):
+            continue
+        equal = False
+        d = float((x.double() - y.double()).abs().max())
+        rel = d / max(float(y.double().abs().max()), 1e-30)
+        if rel > worst["rel"]:
+            worst = {"name": k, "max_abs": d, "rel": rel}
+    ga, gb = a.get(RNG_STATE_VAR) or {}, b.get(RNG_STATE_VAR) or {}
+    rng_equal = sorted(ga) == sorted(gb) and all(
+        torch.equal(ga[d].get_state(), gb[d].get_state()) for d in ga)
+    return {"bitwise": equal, "generators_equal": rng_equal,
+            "tensors": len(names), "worst": worst}
+
+
+def window_profile(exe, main, feed, fetches, scope, steps):
+    """One more window of ``steps`` replays under ``torch.profiler``: the
+    device's busy share of the wall time, the CUDA graph launches and the
+    kernel launches the host made a step, and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        t0 = time.perf_counter()
+        exe.run_steps(main, feed=feed, fetch_list=fetches, n_steps=steps,
+                      scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pad_trace()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaGraphLaunch", "cudaLaunchKernel",
+                          "cuLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernelEx")}
+    launched = sum(v for k, v in calls.items() if k != "cudaGraphLaunch")
+    spans = device_spans(prof)
+    busy_s, n_events, top = trace_summary(spans)
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall, "device_events": n_events,
+            "graph_launches_per_step": calls.get("cudaGraphLaunch", 0)
+            / steps,
+            # pad_trace's spin kernels left out; what remains is the
+            # graph's registered generators: each replay fills their seed
+            # and offset
+            "host_kernel_launches_per_step": (launched - 2 * PAD_SPINS)
+            / steps,
+            "top_kernels": top[:6]}
+
+
+def window_against_steps(phase, progs, fetches, feed, per_step, items,
+                         profile_run, loss_rtol):
+    """``WINDOW_STEPS`` x 2 Executor.run steps on the card against two
+    ``run_steps(n_steps=WINDOW_STEPS)`` windows of one executor from the
+    same state (a copy of the scope, generators included; the first
+    window runs a step, captures the next and replays): the last step's
+    fetches and every state tensor bitwise, or else the fetched loss
+    (``fetches[0]``) within ``loss_rtol`` relative at each window's end,
+    the worst difference printed; the other fetches (dropout masks, drawn
+    from the generators alone) bitwise.  The windows' launches must be ``per_step`` x
+    steps.  Prints the graphed and the eager step's device ms (CUDA
+    events around 5 steps), the capture's time and the graph pool's
+    bytes; with ``profile_run`` a profiled third window.  Returns
+    (executor, window scope, numbers)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    main, startup = progs
+    n = WINDOW_STEPS
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    win_scope = clone_scope(scope)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    eager = []
+    for k in range(2 * n):
+        if k == n:
+            start.record()
+        eager.append(exe.run(main, feed=feed, fetch_list=fetches,
+                             scope=scope))
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / n
+    reset_launch_counts()
+    windows, window_ms, host_ms = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        start.record()
+        windows.append(exe.run_steps(main, feed=feed, fetch_list=fetches,
+                                     n_steps=n, scope=win_scope))
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / n)
+        window_ms.append(start.elapsed_time(end) / n)
+    counts = launch_counts()
+    want = {k: per_step.get(k, 0) * 2 * n for k in counts}
+    if counts != want:
+        raise AssertionError(f"{phase}: kernel launches over {2 * n} "
+                             f"windowed steps: {counts}, expected {want}")
+    graph = next(w.graph for w in exe._windows.values())
+    if (graph.eager_steps, graph.replays) != (1, 2 * n - 1):
+        raise AssertionError(f"{phase}: {graph.eager_steps} eager steps "
+                             f"and {graph.replays} replays, expected 1 and "
+                             f"{2 * n - 1}")
+    diff = state_diff(win_scope, scope)
+    equal = [[np.array_equal(w, e) for w, e in zip(win, step)]
+             for win, step in ((windows[0], eager[n - 1]),
+                               (windows[1], eager[-1]))]
+    fetched_equal = all(all(e) for e in equal)
+    if not all(e[1:] == [True] * (len(fetches) - 1) for e in equal):
+        raise AssertionError(f"{phase}: the windows' last {fetches[1:]} "
+                             f"differ from the per-step path's: {equal}")
+    losses = np.array([[float(w[0].reshape(-1)[0]) for w in windows],
+                       [float(eager[n - 1][0].reshape(-1)[0]),
+                        float(eager[-1][0].reshape(-1)[0])]])
+    rel = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    bitwise = diff["bitwise"] and fetched_equal
+    if not (np.isfinite(losses).all()
+            and (bitwise or (rel <= loss_rtol).all())):
+        raise AssertionError(f"{phase}: windowed losses {losses[0]} against "
+                             f"per-step {losses[1]} (rel {rel}, tolerance "
+                             f"{loss_rtol}); state {diff}")
+    stats = {"graph_step_ms": window_ms[1], "first_window_step_ms":
+             window_ms[0], "eager_step_ms": eager_ms,
+             "window_host_step_ms": host_ms,
+             "items_per_s_graphed": items * 1e3 / window_ms[1],
+             "items_per_s_eager": items * 1e3 / eager_ms,
+             "capture_s": graph.capture_s, "graph_pool_bytes":
+             graph.pool_bytes, "replays": graph.replays}
+    extra = {}
+    if profile_run:
+        extra["profile"] = window_profile(exe, main, feed, fetches,
+                                          win_scope, n)
+    emit(phase, steps=2 * n, window_steps=n, windows=2,
+         window_losses=losses[0].tolist(), per_step_losses=losses[1].tolist(),
+         loss_rel_err=rel.tolist(), loss_rtol=loss_rtol, bitwise=bitwise,
+         fetches_bitwise=equal, state=diff, launches=counts,
+         op_dispatches_per_step_eager=op_dispatches(exe, main, *fetches),
+         **stats, **extra)
+    return exe, win_scope, stats
+
+
+def phase_train_window_flash_amp(profile_run=False):
+    """Transformer-base in bf16 with kept activations through the flash
+    kernels, ``bench.py``'s feed at 64 x 256, constant learning rate:
+    windows against per-step runs (``window_against_steps``), every flash
+    and xent launch the bf16 kernels'."""
+    from paddle_tpu_torch import fluid
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, cost = build_training(TRAIN_LEN, flash=True)
+        # the first dropout's mask: the window's must be the per-step
+        # path's, drawn from a generator the graph replays
+        mask = next(op.output("Mask")[0] for op in main.global_block().ops
+                    if op.type == "dropout")
+        per_step = {"softmax_xent_fwd": XENT_FWD_PER_STEP,
+                    "softmax_xent_bwd": XENT_BWD_PER_STEP,
+                    "softmax_xent_fwd_bf16": XENT_FWD_PER_STEP,
+                    "softmax_xent_bwd_bf16": XENT_BWD_PER_STEP,
+                    "adam": ADAM_PER_STEP,
+                    "adam_tensors": ADAM_TENSORS_PER_STEP,
+                    "flash_fwd": FLASH_FWD_PER_STEP,
+                    "flash_dq": FLASH_DQ_PER_STEP,
+                    "flash_dkv": FLASH_DKV_PER_STEP,
+                    "flash_fwd_bf16": FLASH_FWD_PER_STEP,
+                    "flash_dq_bf16": FLASH_DQ_PER_STEP,
+                    "flash_dkv_bf16": FLASH_DKV_PER_STEP}
+        exe, _, stats = window_against_steps(
+            "train_window_flash_amp", (main, startup), [cost, mask],
+            train_feed(TRAIN_BATCH, TRAIN_LEN), per_step,
+            TRAIN_BATCH * TRAIN_LEN, profile_run, FLASH_AMP_UNFUSED_RTOL)
+    exe.close()
+    return stats
+
+
+def phase_train_window_resnet_amp(profile_run=False):
+    """ResNet-50 in bf16 with kept activations at batch 256: windows
+    against per-step runs with one momentum launch a step; then
+    ``feed_per_step`` windows fed by ``DevicePrefetcher`` (pinned memory,
+    a side stream) at depth 2 and, for comparison, staged in the loop
+    (depth 0): each loop's host-clocked ms a step."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.prefetch import DevicePrefetcher
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, loss, _ = build_resnet()
+        feed = resnet_feed(RESNET_BATCH, 224, 1000)
+        per_step = {"momentum": MOMENTUM_PER_STEP,
+                    "momentum_tensors": MOMENTUM_TENSORS_PER_STEP}
+        exe, scope, stats = window_against_steps(
+            "train_window_resnet_amp", (main, startup), [loss], feed,
+            per_step, RESNET_BATCH, profile_run, AMP_PARITY_RTOL)
+        loops = {}
+        for depth in (2, 0, 2):
+            def source(n):
+                for _ in range(n):
+                    yield feed  # bench.py's synthetic feed: one batch
+            losses = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with DevicePrefetcher(source(PREFETCH_WINDOWS * WINDOW_STEPS),
+                                  n_steps=WINDOW_STEPS,
+                                  place=fluid.CUDAPlace(0),
+                                  depth=depth) as pf:
+                for fd, count in pf:
+                    losses.append(float(exe.run_steps(
+                        main, feed=fd, fetch_list=[loss], n_steps=count,
+                        scope=scope, feed_per_step=True)[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (
+                PREFETCH_WINDOWS * WINDOW_STEPS)
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"prefetched ResNet losses {losses}")
+            loops.setdefault(f"depth_{depth}_step_ms", []).append(ms)
+        if len(exe._windows) != 1:
+            raise AssertionError("the prefetched windows built another step")
+    emit("train_window_resnet_prefetch", windows=PREFETCH_WINDOWS,
+         window_steps=WINDOW_STEPS, pinned=True,
+         graph_step_ms=stats["graph_step_ms"], **loops)
+    exe.close()
+    return stats
+
+
+def phase_train_window_fp16_scaler():
+    """The tiny Transformer in fp16 with kept activations, the dynamic loss
+    scaler (growth every ``FP16_GROWTH`` good steps) and the noam schedule
+    (``warmup_steps=8``): one window of ``FP16_WINDOW`` steps against as
+    many guarded ``Executor.run`` steps from the same state, bitwise —
+    parameters, moments, beta pows, scale, good-step counter,
+    ``@STEP_COUNTER@``, the generator and the last step's loss and
+    learning rate.  The initial scale is twice the largest a probe run
+    found to fit, so the first step overflows (the gate then runs on the
+    card: Adam runs, its result is not committed)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import transformer
+
+    def build(init_scale):
+        framework.fresh_session()
+        fluid.amp.enable("float16", keep_activations=True,
+                         init_loss_scale=init_scale,
+                         growth_interval=FP16_GROWTH)
+        cfg = transformer.tiny_config()
+        cfg.flash_attention = True  # its attention through the fp16 kernels
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 1
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, cost = transformer.build(cfg, src_len=FP16_LEN,
+                                              tgt_len=FP16_LEN,
+                                              warmup_steps=8)
+        lr = next(op.input("LearningRate")[0]
+                  for op in main.global_block().ops if op.type == "adam")
+        return main, startup, cost, lr, cfg
+
+    feed = {k: v % 1000 for k, v in train_feed(FP16_BATCH, FP16_LEN,
+                                               seed=3).items()}
+    with fluid.amp.amp_guard("float16", keep_activations=True):
+        main, startup, cost, lr, _ = build(FP16_INIT_SCALE)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        for _ in range(FP16_STEPS):  # the probe: halve until a step fits
+            before = float(scope.get("@LOSS_SCALE@")[0])
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            if int(scope.get("@LOSS_SCALE_GOOD@")[0]) == 1:
+                break
+        else:
+            raise AssertionError("fp16 scaler probe: no step fit")
+        init_scale = 2.0 * before
+        main, startup, cost, lr, _ = build(init_scale)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        win_scope = clone_scope(scope)
+        steps = []
+        for _ in range(FP16_WINDOW):
+            out = exe.run(main, feed=feed, fetch_list=[cost, lr],
+                          scope=scope)
+            steps.append({"loss": float(out[0].reshape(-1)[0]),
+                          "lr": float(out[1].reshape(-1)[0]),
+                          "scale": float(scope.get("@LOSS_SCALE@")[0]),
+                          "good": int(scope.get("@LOSS_SCALE_GOOD@")[0])})
+        reset_launch_counts()
+        win = exe.run_steps(main, feed=feed, fetch_list=[cost, lr],
+                            n_steps=FP16_WINDOW, scope=win_scope)
+        counts = launch_counts()
+    skipped = [k + 1 for k, st in enumerate(steps)
+               if k == 0 and st["scale"] < init_scale
+               or k > 0 and st["scale"] < steps[k - 1]["scale"]]
+    diff = state_diff(win_scope, scope)
+    fetched = all(np.array_equal(w, e) for w, e in zip(win, out))
+    n_adam = len([p for p in main.global_block().all_parameters()
+                  if p.trainable])
+    want = {k: 0 for k in counts}
+    want.update(softmax_xent_fwd=XENT_FWD_PER_STEP * FP16_WINDOW,
+                softmax_xent_bwd=XENT_BWD_PER_STEP * FP16_WINDOW,
+                softmax_xent_fwd_f16=XENT_FWD_PER_STEP * FP16_WINDOW,
+                softmax_xent_bwd_f16=XENT_BWD_PER_STEP * FP16_WINDOW,
+                adam=FP16_WINDOW, adam_tensors=n_adam * FP16_WINDOW)
+    n_ring = sum(op.type == "ring_attention"
+                 for op in main.global_block().ops)
+    for kind, per_op in (("fwd", 2), ("dq", 1), ("dkv", 1)):
+        want[f"flash_{kind}"] = want[f"flash_{kind}_f16"] = \
+            per_op * n_ring * FP16_WINDOW
+    if not (diff["bitwise"] and diff["generators_equal"] and fetched
+            and skipped and skipped[0] == 1 and counts == want
+            and int(scope.get("@STEP_COUNTER@")[0]) ==
+            FP16_WINDOW - len(skipped)):
+        raise AssertionError(f"fp16 scaler window against per-step: state "
+                             f"{diff}, fetches equal {fetched}, skipped "
+                             f"steps {skipped}, steps {steps}, launches "
+                             f"{counts} (expected {want})")
+    emit("train_window_fp16_scaler", model="transformer_tiny",
+         batch=FP16_BATCH, seq_len=FP16_LEN, window_steps=FP16_WINDOW,
+         init_loss_scale=init_scale, growth_interval=FP16_GROWTH,
+         warmup_steps=8, skipped=skipped, steps=steps, state=diff,
+         fetches_bitwise=fetched, launches=counts,
+         step_counter=int(scope.get("@STEP_COUNTER@")[0]),
+         window_loss=float(win[0].reshape(-1)[0]),
+         window_lr=float(win[1].reshape(-1)[0]))
+    exe.close()
+
+
 def main():
     import argparse
 
@@ -2765,6 +3173,14 @@ def main():
     for k in flash_amp:
         if k["name"].endswith("_f16"):
             k["launches"] = counts[k["name"]]
+    torch.cuda.empty_cache()
+    phase_train_window_flash_amp(args.profile)
+    torch.cuda.empty_cache()
+    phase_train_window_resnet_amp(args.profile)
+    torch.cuda.empty_cache()
+    with fluid.amp.amp_guard("float16", keep_activations=True):
+        phase_train_window_fp16_scaler()
+    torch.cuda.empty_cache()
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
                                   momentum, *xent_amp, *flash_amp]}))
     print(smi)

@@ -21,6 +21,9 @@ from . import backward
 from . import clip
 from . import optimizer
 from . import regularizer
+from . import guardian
+from . import prefetch
+from .prefetch import DevicePrefetcher
 from .backward import append_backward
 from .param_attr import ParamAttr
 
@@ -30,5 +33,5 @@ __all__ = [
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
-    "ParamAttr",
+    "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
 ]

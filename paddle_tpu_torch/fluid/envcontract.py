@@ -1,7 +1,8 @@
 """Env-knob contract (counterpart of ``paddle_tpu/fluid/envcontract.py``):
-the ``PADDLE_SERVE_*`` knobs the serving slice reads and the
-``PADDLE_TPU_AMP*`` knobs of ``fluid.amp``, with the reference's names,
-types and defaults.  Values are read live through :func:`get`."""
+the ``PADDLE_SERVE_*`` knobs the serving slice reads, the
+``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the prefetcher's
+``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names, types and
+defaults.  Values are read live through :func:`get`."""
 
 from __future__ import annotations
 
@@ -103,6 +104,10 @@ declare("PADDLE_SERVE_PREFIX_SHARE", "bool", True, "serving",
 declare("PADDLE_SERVE_SPEC", "int", 0, "serving",
         "Speculative decoding depth k; the port does not carry "
         "speculative decoding yet and refuses k > 0")
+
+# -- trainer --
+declare("PADDLE_TPU_PREFETCH_DEPTH", "int", 2, "trainer",
+        "Device prefetch depth for windowed training (0 = synchronous)")
 
 # -- AMP (read by fluid.amp at import and by amp.enable) --
 declare("PADDLE_TPU_AMP", "enum", None, "amp",

@@ -45,23 +45,33 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    step started from (the ops before them only rebind names), and the
    scale vars are updated either way.
 
+``run_steps`` runs ``n`` steps as one window (the reference's ``lax.scan``
+over its traced step): ``_Window`` keeps a static buffer per state name
+and per feed, and ``fluid/cuda_graph.py``'s ``StepGraph`` runs the step
+over them: on the card the first step eagerly, the next captured as one
+CUDA graph, then one replay a step, with no host read inside (a guarded
+step gates its update on the device); on the CPU every step eagerly.
+The scope holds the buffers between windows.
+
 Fetches of bfloat16 vars come back as float32 numpy arrays (exact): numpy
 has no bfloat16, and the reference's ``ml_dtypes`` arrays are not available
 on every host.
 
-No jit, windows, compile cache or verifier in this slice, and of the
-guardian only the loss scaler's part.
+No jit, compile cache or verifier in this slice, and of the guardian only
+the loss scaler's part.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from . import core
+from .cuda_graph import StepGraph
 from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
                         default_main_program)
 from ..ops import registry as _reg
@@ -171,6 +181,25 @@ def _find_groups(ops, const_ops) -> List[List[int]]:
     return runs
 
 
+def _live_ops(block, fetch_names) -> list:
+    """The ops a run needs: those feeding a fetch or writing a
+    persistable, in program order."""
+    def _is_persistable(name: str) -> bool:
+        return block._has_var_recursive(name) and \
+            block._var_recursive(name).persistable
+
+    needed = set(fetch_names)
+    kept = []
+    for op in reversed(block.ops):
+        outs = [n for n in op.output_arg_names if n]
+        if not (any(n in needed for n in outs)
+                or any(_is_persistable(n) for n in outs)):
+            continue
+        kept.append(op)
+        needed.update(n for n in op.input_arg_names if n)
+    return list(reversed(kept))
+
+
 class BlockPlan:
     """Static analysis of a block for one (feeds, fetches) signature: the
     live ops, the names read from the scope (state_in), the persistables
@@ -186,16 +215,7 @@ class BlockPlan:
             return block._has_var_recursive(name) and \
                 block._var_recursive(name).persistable
 
-        needed = set(fetch_names)
-        kept = []
-        for op in reversed(block.ops):
-            outs = [n for n in op.output_arg_names if n]
-            if not (any(n in needed for n in outs)
-                    or any(_is_persistable(n) for n in outs)):
-                continue
-            kept.append(op)
-            needed.update(n for n in op.input_arg_names if n)
-        self.ops = list(reversed(kept))
+        self.ops = _live_ops(block, fetch_names)
         resolved = [_resolve(op.type) for op in self.ops]
         self.needs_rng = any(d.stateful and not g for d, g in resolved)
         # constant ops whose outputs no one persists: run once, reuse
@@ -267,6 +287,11 @@ class BlockPlan:
                          for op in self.ops]
         self.first_optimize = next(
             (k for k, o in enumerate(self.optimize) if o), len(self.ops))
+        # what a guarded window snapshots before that op: the names the
+        # optimizer ops update in place
+        self.optimize_in_place = sorted(
+            {n for k, names in enumerate(self.in_place) if self.optimize[k]
+             for n in names})
 
 
 def _context(op, env, device, generator, outputs_spec):
@@ -332,6 +357,198 @@ def _check_no_alias(reader, names, env, updated):
                 f"earlier op of this run updated in place")
 
 
+def _execute(plan, env, device, generator, fetch_names, guard=None,
+             seed_mul=None, device_flag=False):
+    """Run ``plan``'s ops against ``env``.  Guarded (``guard``): before the
+    first ``Optimize`` op, either read the finite flag on the host and skip
+    the ``Optimize`` ops on overflow, or (``device_flag``) take the flag as
+    a device tensor, snapshot what those ops update in place and run them
+    all.  Returns ``(finite, snapshot)``: the flag (None if no
+    ``Optimize`` op came: the caller takes it at the end) and the
+    snapshot."""
+    from . import guardian as _guardian
+
+    updated = None if plan.checked else {}
+    finite, snapshot, skip = None, {}, False
+    for k, op in enumerate(plan.ops):
+        if guard is not None and k == plan.first_optimize:
+            loss = env[guard.loss_name]
+            grads = [env[n] for n in guard.grad_names]
+            if device_flag:
+                finite = _guardian.finite_flag(loss, grads)
+                snapshot = {n: env[n].clone()
+                            for n in plan.optimize_in_place
+                            if isinstance(env.get(n), torch.Tensor)}
+            else:
+                finite = _guardian.step_finite(loss, grads)
+                skip = not finite
+        if skip and plan.optimize[k]:
+            # overflow: the update is skipped (its group with it)
+            for n in plan.release[k]:
+                env.pop(n, None)
+            continue
+        if id(op) in plan.const_ops:
+            if op.output_arg_names[0] not in plan.consts:
+                run_op(op, env, device, generator)
+                for n in op.output_arg_names:
+                    plan.consts[n] = env[n]
+        elif k not in plan.grouped:
+            members = plan.groups.get(k, [k])
+            before = {}
+            if updated is not None:
+                # each member as if the earlier ones had run before it
+                seen = dict(updated)
+                for j in members:
+                    _check_no_alias(plan.ops[j].type, plan.reads[j], env,
+                                    seen)
+                    for n in plan.in_place[j]:
+                        t = env.get(n)
+                        if isinstance(t, torch.Tensor):
+                            ptr = before[n] = _storage(t)
+                            seen[ptr] = n
+            if len(members) > 1:
+                run_group([plan.ops[j] for j in members], env, device,
+                          generator, [plan.live_outputs[j] for j in members])
+            else:
+                run_op(op, env, device, generator, plan.live_outputs[k])
+            for n, ptr in before.items():
+                if ptr and _storage(env[n]) == ptr:
+                    updated[ptr] = n
+            if seed_mul is not None and "__loss_seed__" in op.attrs:
+                for n in op.output_arg_names:
+                    env[n] = env[n] * seed_mul.to(env[n].dtype)
+        for n in plan.release[k]:
+            env.pop(n, None)
+    if updated is not None:
+        _check_no_alias("the fetch list", fetch_names, env, updated)
+        plan.checked = True
+    return finite, snapshot
+
+
+def _has_lod(value) -> bool:
+    lod = getattr(value, "lod", None)
+    return bool(lod() if callable(lod) else lod)
+
+
+class _Window:
+    """One training step of ``plan`` over static buffers, run ``n`` times a
+    window by a :class:`~.cuda_graph.StepGraph`: a buffer per state name
+    (``state_in``, ``state_out`` and the guard's scale vars), a buffer per
+    feed (one step's slice), and the tensors the last step fetched.  The
+    scope holds the state buffers between windows."""
+
+    def __init__(self, plan, guard, fetch_names, feed_specs, scope, device,
+                 generator):
+        self.plan, self.guard, self.device = plan, guard, device
+        self.fetch_names = fetch_names
+        self.scope = weakref.ref(scope)
+        self.generator = generator
+        scale_vars = list(guard.scale_vars) if guard is not None else []
+        self.read = [n for n in dict.fromkeys(plan.state_in + scale_vars)
+                     if n not in feed_specs]
+        self.bufs: Dict[str, torch.Tensor] = {}
+        self.feed_bufs = {n: torch.empty(shape, dtype=dtype, device=device)
+                          for n, (shape, dtype) in feed_specs.items()}
+        self.fetched: List[torch.Tensor] = []
+        self.graph = StepGraph(self._step, device,
+                               [generator] if generator is not None else [])
+
+    def load(self, scope) -> bool:
+        """Bring the scope's values into the buffers (a value that is its
+        buffer is left alone, one of the buffer's shape and dtype is copied
+        in); False when one no longer fits its buffer."""
+        for n in dict.fromkeys(self.read + list(self.bufs)):
+            v, b = scope.get(n), self.bufs.get(n)
+            if v is None:
+                if n in self.read:
+                    raise RuntimeError(
+                        f"var {n!r} is neither fed nor in the scope (run the "
+                        f"startup program first?)")
+            elif b is None:
+                self.bufs[n] = torch.empty(v.shape, dtype=v.dtype,
+                                           device=self.device).copy_(v)
+            elif v is not b:
+                if tuple(v.shape) != tuple(b.shape) or v.dtype != b.dtype:
+                    return False
+                b.copy_(v)
+        return True
+
+    def _step(self):
+        from . import guardian as _guardian
+
+        plan, guard, bufs = self.plan, self.guard, self.bufs
+        env: Dict[str, object] = {n: bufs[n] for n in plan.state_in
+                                  if n in bufs}
+        env.update(self.feed_bufs)
+        env.update(plan.consts)
+        start = dict(env)
+        seed_mul = (_guardian.seed_multiplier(guard, bufs)
+                    if guard is not None else None)
+        finite, snapshot = _execute(plan, env, self.device, self.generator,
+                                    self.fetch_names, guard, seed_mul,
+                                    device_flag=True)
+        new_state = {n: env[n] for n in plan.state_out}
+        if guard is not None:
+            if finite is None:
+                finite = _guardian.finite_flag(
+                    env[guard.loss_name], [env[n] for n in guard.grad_names])
+            new_state = _guardian.fold_health(
+                guard, finite, new_state,
+                {n: snapshot.get(n, start[n]) for n in plan.state_out
+                 if n in start}, bufs)
+        self._commit(new_state)
+        self.fetched = [env[n] for n in self.fetch_names]
+
+    def _commit(self, new_state):
+        """Copy each new value into its buffer, unless it is the buffer
+        (updated in place).  A value that lies in another buffer is read
+        before any copy writes.  The first step makes the buffers of the
+        names nothing read before it (write-only state)."""
+        owners = {_storage(b) for b in self.bufs.values()}
+        pending = []
+        for n, v in new_state.items():
+            b = self.bufs.get(n)
+            if b is None:
+                self.bufs[n] = v.detach().clone(
+                    memory_format=torch.contiguous_format)
+                continue
+            if tuple(v.shape) != tuple(b.shape) or v.dtype != b.dtype:
+                raise RuntimeError(
+                    f"run_steps: {n!r} turns from {b.dtype} "
+                    f"{tuple(b.shape)} into {v.dtype} {tuple(v.shape)} in a "
+                    f"step; a window keeps every state var's shape and "
+                    f"dtype")
+            if _storage(v) == _storage(b):
+                continue
+            pending.append((b, v.clone() if _storage(v) in owners else v))
+        for b, v in pending:
+            b.copy_(v)
+
+    def run(self, scope, feed_vals, n_steps, feed_per_step):
+        if feed_per_step:
+            def before(i):
+                for k, v in feed_vals.items():
+                    self.feed_bufs[k].copy_(v[i])
+        else:
+            for k, v in feed_vals.items():
+                self.feed_bufs[k].copy_(v)
+            # a feed that an op updates in place starts each step afresh
+            again = [k for k in feed_vals if k in self.plan.in_place_names]
+
+            def before(i):
+                for k in again:
+                    self.feed_bufs[k].copy_(feed_vals[k])
+        self.graph.run(n_steps, before)
+        for n, b in self.bufs.items():
+            scope.set(n, b)
+        return [_snapshot(t) for t in self.fetched]
+
+    def close(self):
+        self.graph.close()
+        self.bufs, self.feed_bufs, self.fetched = {}, {}, []
+        self.plan.consts.clear()
+
+
 class Executor:
     """Runs Programs on ``place`` — the card (``CUDAPlace(0)``) unless the
     caller passes another place.  Raises at construction when the place is
@@ -341,6 +558,15 @@ class Executor:
         self.place = place if place is not None else core.CUDAPlace(0)
         self.device = core.torch_device(self.place)
         self._plans: Dict[tuple, BlockPlan] = {}
+        self._windows: Dict[tuple, _Window] = {}
+
+    def close(self):
+        """Drop the cached plans and the windows: their graphs, buffers
+        and memory pools (the scope keeps the state's last values)."""
+        for win in self._windows.values():
+            win.close()
+        self._windows.clear()
+        self._plans.clear()
 
     def _coerce_feed(self, program, name, value) -> torch.Tensor:
         gb = program.global_block()
@@ -422,61 +648,16 @@ class Executor:
         env.update(plan.consts)
         generator = self._generator(scope, program) if plan.needs_rng \
             else None
-        updated = None if plan.checked else {}
-        started, seed_mul, finite = None, None, True
+        started, seed_mul = None, None
         if guard is not None:
             started = dict(env)
             seed_mul = _guardian.seed_multiplier(
                 guard, {n: scope.get(n) for n in guard.scale_vars})
-        for k, op in enumerate(plan.ops):
-            if guard is not None and k == plan.first_optimize:
-                finite = _guardian.step_finite(
-                    env[guard.loss_name], [env[n] for n in guard.grad_names])
-            if not finite and plan.optimize[k]:
-                # overflow: the update is skipped (its group with it)
-                for n in plan.release[k]:
-                    env.pop(n, None)
-                continue
-            if id(op) in plan.const_ops:
-                if op.output_arg_names[0] not in plan.consts:
-                    run_op(op, env, self.device, generator)
-                    for n in op.output_arg_names:
-                        plan.consts[n] = env[n]
-            elif k not in plan.grouped:
-                members = plan.groups.get(k, [k])
-                before = {}
-                if updated is not None:
-                    # each member as if the earlier ones had run before it
-                    seen = dict(updated)
-                    for j in members:
-                        _check_no_alias(plan.ops[j].type, plan.reads[j], env,
-                                        seen)
-                        for n in plan.in_place[j]:
-                            t = env.get(n)
-                            if isinstance(t, torch.Tensor):
-                                ptr = before[n] = _storage(t)
-                                seen[ptr] = n
-                if len(members) > 1:
-                    run_group([plan.ops[j] for j in members], env,
-                              self.device, generator,
-                              [plan.live_outputs[j] for j in members])
-                else:
-                    run_op(op, env, self.device, generator,
-                           plan.live_outputs[k])
-                for n, ptr in before.items():
-                    if ptr and _storage(env[n]) == ptr:
-                        updated[ptr] = n
-                if seed_mul is not None and "__loss_seed__" in op.attrs:
-                    for n in op.output_arg_names:
-                        env[n] = env[n] * seed_mul.to(env[n].dtype)
-            for n in plan.release[k]:
-                env.pop(n, None)
-        if updated is not None:
-            _check_no_alias("the fetch list", fetch_names, env, updated)
-            plan.checked = True
+        finite, _ = _execute(plan, env, self.device, generator, fetch_names,
+                             guard, seed_mul)
         new_state = {name: env[name] for name in plan.state_out}
         if guard is not None:
-            if plan.first_optimize == len(plan.ops):
+            if finite is None:
                 finite = _guardian.step_finite(
                     env[guard.loss_name], [env[n] for n in guard.grad_names])
             scale_state = {n: scope.get(n) for n in guard.scale_vars}
@@ -489,3 +670,84 @@ class Executor:
         if not return_numpy:
             return [env[n].detach().clone() for n in fetch_names]
         return [_snapshot(env[n]) for n in fetch_names]
+
+    def run_steps(self, program, feed, fetch_list, n_steps, scope=None,
+                  feed_per_step=False):
+        """Run ``n_steps`` training steps of ``program`` as one window and
+        return the LAST step's fetches as numpy arrays.
+
+        ``feed_per_step=False``: every step takes the same ``feed``.
+        ``feed_per_step=True``: each feed carries a leading ``n_steps`` dim
+        and step ``i`` takes slice ``i``.
+
+        The step runs over static buffers (``_Window``), built once per
+        (program, version, fetches, one step's feed shapes and dtypes, AMP
+        mode, guard): on the card its first step runs eagerly, the next is
+        captured as one CUDA graph and every later step replays it
+        (``fluid/cuda_graph.py``); on the CPU every step runs eagerly.
+        There is no eager loop on the card: a step that cannot be captured
+        raises.  A guarded (fp16 loss-scaled) program gates its update on
+        the device (``fluid/guardian.py``), bitwise as ``run`` does.  A
+        value ``scope.set`` between windows is copied into its buffer, or
+        the step is built anew if its shape or dtype changed.  Programs
+        with data-dependent ops and LoD feeds raise, as in the
+        reference."""
+        from . import amp as _amp
+        from . import guardian as _guardian
+
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f"run_steps: n_steps must be >= 1; got "
+                             f"{n_steps}")
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in fetch_list or []]
+        feed = dict(feed or {})
+        if any(_has_lod(v) for v in feed.values()):
+            raise RuntimeError("run_steps: LoD feeds are not supported in "
+                               "the scanned loop; use Executor.run per step")
+        feed_vals = {k: self._coerce_feed(program, k, v)
+                     for k, v in feed.items()}
+        if feed_per_step:
+            bad = {k: tuple(v.shape) for k, v in feed_vals.items()
+                   if v.dim() == 0 or v.shape[0] != n_steps}
+            if bad:
+                raise ValueError(f"run_steps: feed_per_step feeds must "
+                                 f"lead with n_steps = {n_steps}; got {bad}")
+        specs = {k: (tuple(v.shape[1:] if feed_per_step else v.shape),
+                     v.dtype) for k, v in feed_vals.items()}
+        guard = _guardian.for_program(program)
+        key = (program._cache_token, program._version, tuple(fetch_names),
+               tuple(sorted((k, shape, str(dt))
+                            for k, (shape, dt) in specs.items())),
+               _amp.compute_dtype(), _amp.keep_low_activations(),
+               guard is not None)
+        win = self._windows.get(key)
+        if win is None:
+            extra = guard.extra_fetch_names() if guard is not None else []
+            fetches = list(dict.fromkeys(fetch_names + extra))
+            if any((op.type[:-5] if op.type.endswith("_grad") else op.type)
+                   in _reg.EAGER_OPS
+                   for op in _live_ops(program.global_block(), fetches)):
+                # data-dependent ops: the reference runs them outside jit,
+                # and a window cannot capture them
+                raise RuntimeError(
+                    "run_steps: program contains data-dependent eager ops; "
+                    "use Executor.run per step")
+            plan = BlockPlan(program, list(feed_vals), fetches)
+        else:
+            plan = win.plan
+        generator = self._generator(scope, program) if plan.needs_rng \
+            else None
+        if win is not None and (win.scope() is not scope
+                                or win.generator is not generator
+                                or not win.load(scope)):
+            win.close()  # another scope, or a value that no longer fits
+            win = None
+        if win is None:
+            win = _Window(plan, guard, fetch_names, specs, scope,
+                          self.device, generator)
+            win.load(scope)
+            self._windows[key] = win
+        return win.run(scope, feed_vals, n_steps, feed_per_step)

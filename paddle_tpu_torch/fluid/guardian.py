@@ -1,7 +1,7 @@
 """The dynamic loss scaler's part of the training guardian (counterpart of
 ``paddle_tpu/fluid/guardian.py``): the per-program guard spec, the
-backward-seed multiplier, and the commit gate with the loss-scale update of
-``fold_health``.
+backward-seed multiplier, the finite flag, and the commit gate with the
+loss-scale update of ``fold_health``.
 
 A program built by ``Optimizer.minimize`` while ``fluid.amp`` dynamic loss
 scaling is active (fp16 by default) carries the scale vars
@@ -11,19 +11,29 @@ such a program guarded:
  - the ``__loss_seed__`` op's output is multiplied by the scale
    (:func:`seed_multiplier`), so the fp16 grads of the backward sit in
    range; the unscale ops divide the raw grads back before the update;
- - after the backward, before the first ``Optimize``-role op, it checks
-   that the loss and every raw grad are finite (:func:`step_finite`, one
-   host read a step);
- - on overflow it skips the ``Optimize`` ops and :func:`fold_health`
-   commits the state the step started from for every read-write
-   persistable (parameters, moments, beta pows, batch-norm running stats),
-   bitwise; the RNG and the scale vars still advance.  The scale halves
-   (never below 1) and the good-step counter resets; otherwise the counter
-   counts and the scale doubles every ``growth_interval`` good steps.
+ - after the backward, before the first ``Optimize``-role op, it takes
+   the flag "the loss and every raw grad are finite" (:func:`finite_flag`,
+   a device tensor);
+ - on overflow :func:`fold_health` commits the state the step started
+   from for every read-write persistable (parameters, moments, beta pows,
+   batch-norm running stats, the step counter), bitwise; the RNG and the
+   scale vars still advance.  The scale halves (never below 1) and the
+   good-step counter resets; otherwise the counter counts and the scale
+   doubles every ``growth_interval`` good steps.
 
-The reference folds the check and the commit into its jitted step and
-reads the health one step late, so it costs no host round trip; the eager
-port reads the flag before the update, a device synchronization a step.
+Two ways to gate, with bitwise the same result:
+
+ - ``Executor.run`` reads the flag on the host (:func:`step_finite`, one
+   device synchronization a step) and on overflow skips the ``Optimize``
+   ops;
+ - an ``Executor.run_steps`` window reads nothing on the host: the
+   ``Optimize`` ops always run, the read-write persistables they update in
+   place are snapshot before the first of them, and :func:`fold_health`,
+   given the device flag, commits ``torch.where(finite, new, old)`` and
+   updates the scale on the device.
+
+The reference folds the check and the commit into its jitted step, as the
+window does.
 
 The ``Guardian`` itself (policies, the loss-spike cap, the flight recorder,
 ``replay``) and the fault injection the reference folds into the seed are
@@ -36,8 +46,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["GuardSpec", "for_program", "seed_multiplier", "step_finite",
-           "fold_health", "enable"]
+__all__ = ["GuardSpec", "for_program", "seed_multiplier", "finite_flag",
+           "step_finite", "fold_health", "enable"]
 
 
 class GuardSpec:
@@ -88,44 +98,59 @@ def seed_multiplier(spec: GuardSpec, state: Dict):
     return state[spec.scale_vars[0]].reshape(()).float()
 
 
-def step_finite(loss, grads) -> bool:
-    """True when the loss and every raw grad are finite: one host read."""
+def finite_flag(loss, grads) -> torch.Tensor:
+    """A 0-d bool device tensor: the loss and every raw grad are finite."""
     flags = [torch.isfinite(loss).all()]
     flags += [torch.isfinite(g).all() for g in grads if g.numel()]
-    return bool(torch.stack(flags).all())
+    return torch.stack(flags).all()
 
 
-def fold_health(spec: GuardSpec, finite: bool, new_state: Dict,
-                mut_state: Dict, state: Dict):
-    """The commit gate and the loss-scale update.  ``new_state``: the
-    step's persistable outputs; ``mut_state``: the values the step started
-    from for the read-write ones; ``state``: everything the step read
-    (the scale vars among it).  Returns the state to commit: on a
+def step_finite(loss, grads) -> bool:
+    """:func:`finite_flag` read on the host: one device synchronization."""
+    return bool(finite_flag(loss, grads))
+
+
+def fold_health(spec: GuardSpec, finite, new_state: Dict, mut_state: Dict,
+                state: Dict):
+    """The commit gate and the loss-scale update.  ``finite``: a bool, or
+    the device flag of :func:`finite_flag` (then every choice is a
+    ``torch.where`` on the device, with the same values).  ``new_state``:
+    the step's persistable outputs; ``mut_state``: the values the step
+    started from for the read-write ones; ``state``: everything the step
+    read (the scale vars among it).  Returns the state to commit: on a
     non-finite step every read-write var but the RNG state and the scale
     vars keeps its old value; the scale vars are updated.  (The reference
     also returns the step's health for its Guardian.)"""
     from .framework import RNG_STATE_VAR
 
+    on_device = isinstance(finite, torch.Tensor)
     skip_revert = {RNG_STATE_VAR, *spec.scale_vars}
     committed = {}
     for name, val in new_state.items():
         old = mut_state.get(name)
-        if finite or old is None or name in skip_revert:
+        if old is None or name in skip_revert:
             committed[name] = val
+        elif on_device:
+            committed[name] = torch.where(finite, val, old)
         else:
-            committed[name] = old
+            committed[name] = val if finite else old
     scale_name, good_name = spec.scale_vars
     s_old, g_old = state[scale_name], state[good_name]
     scale = s_old.reshape(()).float()
     good = g_old.reshape(()).to(torch.int32)
-    if finite:
-        new_good = good + 1
-        grow = new_good >= spec.growth_interval
-        new_scale = torch.where(grow, scale * 2.0, scale)
-        new_good = torch.where(grow, torch.zeros_like(new_good), new_good)
+    up_good = good + 1
+    grow = up_good >= spec.growth_interval
+    up_scale = torch.where(grow, scale * 2.0, scale)
+    up_good = torch.where(grow, torch.zeros_like(up_good), up_good)
+    down_good = torch.zeros_like(good)
+    down_scale = torch.clamp_min(scale * 0.5, 1.0)
+    if on_device:
+        new_scale = torch.where(finite, up_scale, down_scale)
+        new_good = torch.where(finite, up_good, down_good)
+    elif finite:
+        new_scale, new_good = up_scale, up_good
     else:
-        new_good = torch.zeros_like(good)
-        new_scale = torch.clamp_min(scale * 0.5, 1.0)
+        new_scale, new_good = down_scale, down_good
     committed[scale_name] = new_scale.reshape(s_old.shape).to(s_old.dtype)
     committed[good_name] = new_good.reshape(g_old.shape).to(g_old.dtype)
     return committed

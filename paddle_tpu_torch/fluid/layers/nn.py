@@ -13,10 +13,11 @@ from ..layer_helper import LayerHelper
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "cross_entropy", "softmax_with_cross_entropy",
-    "mean", "mul", "matmul", "elementwise_add", "elementwise_mul",
-    "elementwise_div", "scale", "reduce_sum", "reshape", "transpose",
+    "mean", "mul", "matmul", "elementwise_add", "elementwise_sub",
+    "elementwise_mul", "elementwise_div", "elementwise_max",
+    "elementwise_min", "elementwise_pow", "scale", "reduce_sum", "reshape", "transpose",
     "topk", "one_hot", "label_smooth", "ring_attention", "kv_cache_update",
-    "paged_attention", "token_select",
+    "paged_attention", "token_select", "autoincreased_step_counter",
 ]
 
 
@@ -337,8 +338,12 @@ def _binary_layer(op_type):
 
 
 elementwise_add = _binary_layer("elementwise_add")
+elementwise_sub = _binary_layer("elementwise_sub")
 elementwise_mul = _binary_layer("elementwise_mul")
 elementwise_div = _binary_layer("elementwise_div")
+elementwise_max = _binary_layer("elementwise_max")
+elementwise_min = _binary_layer("elementwise_min")
+elementwise_pow = _binary_layer("elementwise_pow")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -518,3 +523,20 @@ def token_select(logits, mask=None, end_id=0, name=None):
     helper.append_op(type="token_select", inputs=inputs,
                      outputs={"Out": [out]}, attrs={"end_id": int(end_id)})
     return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 ``[1]`` counter (``@STEP_COUNTER@`` unless
+    named) that starts at ``begin - 1`` and that an ``increment`` op in the
+    main program advances by ``step`` every run, before its readers."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_global_variable(
+        name=counter_name, dtype="int64", shape=[1], persistable=True)
+    helper.set_variable_initializer(counter,
+                                    ConstantInitializer(begin - 1))
+    helper.main_program.global_block().append_op(
+        type="increment", inputs={"X": [counter]}, outputs={"Out": [counter]},
+        attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter

@@ -273,14 +273,14 @@ def forward(cfg, src_len, tgt_len):
 
 
 def build(cfg=None, src_len=64, tgt_len=64, lr=1e-3, warmup_steps=None):
-    """Full training graph with Adam.  Returns (src_word, tgt_word,
-    lbl_word, avg_cost).  The noam schedule (``warmup_steps``) is not
-    ported yet."""
-    if warmup_steps:
-        raise NotImplementedError("the noam learning-rate schedule "
-                                  "(warmup_steps) is not ported yet")
+    """Full training graph with Adam, at the constant ``lr`` or, with
+    ``warmup_steps``, on the noam schedule.  Returns (src_word, tgt_word,
+    lbl_word, avg_cost)."""
     cfg = cfg or tiny_config()
     src_word, tgt_word, lbl_word, avg_cost, _ = forward(cfg, src_len, tgt_len)
+    if warmup_steps:
+        lr = layers.learning_rate_scheduler.noam_decay(cfg.d_model,
+                                                       warmup_steps)
     opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
                                epsilon=1e-9)
     opt.minimize(avg_cost)

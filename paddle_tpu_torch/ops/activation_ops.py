@@ -1,5 +1,6 @@
 """Activation ops (counterpart of ``paddle_tpu/ops/activation_ops.py``):
-relu and softmax."""
+relu, softmax, and the unary ops the learning-rate schedules emit (exp,
+floor, ceil, cos; their grads from the generic grad)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,18 @@ import torch
 from .registry import register_op
 
 
-@register_op("relu")
-def relu(ctx):
-    return {"Out": torch.relu(ctx.input("X"))}
+def _unary(name, fn):
+    @register_op(name)
+    def _impl(ctx, _fn=fn):
+        return {"Out": _fn(ctx.input("X"))}
+    return _impl
+
+
+_unary("relu", torch.relu)
+_unary("exp", torch.exp)
+_unary("floor", torch.floor)
+_unary("ceil", torch.ceil)
+_unary("cos", torch.cos)
 
 
 @register_op("softmax")

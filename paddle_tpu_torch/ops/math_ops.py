@@ -1,6 +1,7 @@
 """Dense math ops (counterpart of ``paddle_tpu/ops/math_ops.py``): mul,
-matmul, the elementwise family, scale, sum, mean, cast, equal and
-logical_not.
+matmul, the elementwise family (add, sub, mul, div, max, min, pow), scale,
+sum, mean, cast, the comparisons (equal, less_than, less_equal,
+greater_than, greater_equal), logical_not and increment.
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
 float32 stays float32 (the port never turns TF32 on).  Under ``fluid.amp``
 ``mul`` and ``matmul`` multiply in the compute dtype (``amp.cast_operands``
@@ -87,8 +88,13 @@ def _elementwise(name, fn):
 
 
 _elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_sub", torch.sub)
 _elementwise("elementwise_mul", torch.mul)
 _elementwise("elementwise_div", torch.div)
+# ties split the grad evenly between x and y, as jnp.maximum / minimum's
+_elementwise("elementwise_max", torch.maximum)
+_elementwise("elementwise_min", torch.minimum)
+_elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("scale")
@@ -125,12 +131,33 @@ def cast(ctx):
         ctx.attr("out_dtype", ctx.attr("dtype", "float32"))))}
 
 
-@register_op("equal", no_grad_inputs=("X", "Y"))
-def equal(ctx):
-    x, y = ctx.input("X"), ctx.input("Y")
-    return {"Out": torch.eq(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
+def _compare(name, fn):
+    @register_op(name, no_grad_inputs=("X", "Y"))
+    def _impl(ctx, _fn=fn):
+        x, y = ctx.input("X"), ctx.input("Y")
+        return {"Out": _fn(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
+    return _impl
+
+
+_compare("equal", torch.eq)
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
 
 
 @register_op("logical_not", no_grad_inputs=("X",))
 def logical_not(ctx):
     return {"Out": torch.logical_not(ctx.input("X"))}
+
+
+@register_op("increment")
+def increment(ctx):
+    """``X + step`` in X's dtype.  An integer counter adds an integral step
+    as an integer: torch would add a python float in float32, which loses
+    counts past 2^24 (the reference adds it in float64 under x64)."""
+    x = ctx.input("X")
+    step = ctx.attr("step", 1.0)
+    if not x.is_floating_point() and float(step).is_integer():
+        step = int(step)
+    return {"Out": (x + step).to(x.dtype)}

@@ -17,8 +17,9 @@ def accuracy(ctx):
         label = label.reshape(-1)
     hit = (indices == label[:, None].to(indices.dtype)).any(dim=1)
     correct = hit.sum(dtype=torch.int32)
-    total = torch.tensor(indices.shape[0], dtype=torch.int32,
-                         device=indices.device)
+    # a fill, not a copy from the host: a CUDA graph can capture it
+    total = torch.full((), indices.shape[0], dtype=torch.int32,
+                       device=indices.device)
     acc = correct.to(torch.float32) / total.to(torch.float32)
     return {"Accuracy": acc.reshape(1), "Correct": correct.reshape(1),
             "Total": total.reshape(1)}

@@ -81,6 +81,18 @@ class OpDef:
 
 REGISTRY: Dict[str, OpDef] = {}
 
+# data-dependent op types (output sizes or host effects that depend on the
+# values; the reference's ``ops/array_ops.py`` EAGER_OPS): a program that
+# holds one cannot run as a captured window (``Executor.run_steps``).  None
+# of them is ported yet.
+EAGER_OPS = frozenset([
+    "split_lod_tensor", "merge_lod_tensor", "beam_search",
+    "beam_search_decode", "beam_search_pack", "is_empty", "multiclass_nms",
+    "sequence_erase", "sub_nested_seq", "save", "load", "save_combine",
+    "load_combine", "delete_var", "generate_proposals", "rpn_target_assign",
+    "generate_proposal_labels", "detection_map",
+])
+
 
 def register_op(op_type: str, *, no_grad_inputs: Sequence[str] = (),
                 stateful: bool = False) -> Callable:
