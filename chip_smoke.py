@@ -64,7 +64,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    decode model with random weights from a seed: every
                    stream equals ``decode_static`` of it alone bitwise, the
                    kernel ran n_layer times per decode tick, prefix pages
-                   were shared and every page came back
+                   were shared and every page came back; every dispatch
+                   one CUDA-graph replay (``warmup()`` captured the step
+                   and the 3 prefill buckets, no capture and no eager run
+                   after it), the graph pools' bytes, and an all-idle
+                   tick's host-clocked ms graphed against ``Executor.run``
+                   of the same step (eager) in turns
+ 8b. serving_spec - the same model and requests through speculative
+                   engines, k = 4, with a 1-layer and a full-depth
+                   self-draft (9 graphs each), then the 1-layer engine
+                   under the draft-poison drill: every stream bitwise the
+                   plain engine's (and the spec engine's own
+                   ``decode_static``), paged attention launched n_layer x
+                   (plain + tail + 5 x verify ticks) times, one replay a
+                   dispatch, no page leaked, the full-depth draft accepts
+                   everything, the drill trips the controller;
+                   acceptance, tokens a spec tick, draft and verify ms a
+                   spec tick, tokens/s
  9. train        - Transformer-base (6+6 layers, d_model 512, vocab 30000,
                    dropout and label smoothing 0.1, Adam, fp32, unfused
                    attention) through ``fluid.Executor()`` on the card, 5
@@ -192,7 +208,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    update and commits it only where the flag says)
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
-busy) and one after each full-size training phase (one more step, or
+busy; with the graph launches a dispatch and the host's kernel launches a
+tick) and one after each full-size training phase (one more step, or
 one more window), each under ``torch.profiler``; each prints the device's busy share of the
 wall time and the kernels that take the most device time.
 
@@ -218,6 +235,9 @@ PEAK_BF16_FLOPS = 989.4e12
 
 # serving shape of the smoke model (Transformer-base widths, paged decode)
 SLOTS, MAX_LEN, PAGE_SIZE, BUCKETS = 8, 512, 16, [32, 64, 128]
+# the serving_spec phase: speculation depth, and the self-draft depths it
+# runs (1: the reference's default; 0: full depth, acceptance 1.0)
+SPEC_K, SPEC_DRAFT_LAYERS = 4, (1, 0)
 ATOL = RTOL = 1e-5
 # training shape (bench.py's Transformer-base feed on an accelerator)
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, VOCAB = 64, 256, 5, 30000
@@ -594,6 +614,17 @@ def smoke_jobs(rng, vocab):
     return jobs
 
 
+def spec_tail_jobs(rng, vocab):
+    """Two requests that run into max_len, admitted together: prompts of
+    125 and 116 tokens (the 128 bucket), nine positions apart.  The first
+    comes too close to max_len to score SPEC_K + 1 positions (past
+    MAX_LEN - 1 - SPEC_K = 507) while the second still speculates, both
+    at one token a tick and at SPEC_K + 1 (124 + 5 x 77 = 509, 115 + 5 x
+    77 = 500): the spec ticks then carry a tail step."""
+    return [(rng.integers(2, vocab, n).tolist(), MAX_LEN - n)
+            for n in (125, 116)]
+
+
 def device_spans(prof):
     """(start us, end us, name) of every kernel, copy and memset a
     ``torch.profiler`` trace recorded on the device, in time order."""
@@ -707,6 +738,7 @@ def phase_profile(eng, jobs):
     from torch.profiler import ProfilerActivity, profile
 
     ticks0 = eng.metrics.counter("decode_ticks")
+    dispatches0 = eng.metrics.counter("dispatches")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pad_trace()
@@ -718,10 +750,21 @@ def phase_profile(eng, jobs):
         wall = time.perf_counter() - t0
         pad_trace()
     ticks = eng.metrics.counter("decode_ticks") - ticks0
+    dispatches = eng.metrics.counter("dispatches") - dispatches0
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaGraphLaunch", "cudaLaunchKernel",
+                          "cuLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernelEx")}
+    launched = sum(v for k, v in calls.items() if k != "cudaGraphLaunch")
     spans = device_spans(prof)
     busy_s, n_events, top = trace_summary(spans)
     paged = [b - a for a, b, name in spans if "paged_" in name]
     emit("profile", requests=len(jobs), decode_ticks=ticks, wall_s=wall,
+         dispatches=dispatches,
+         graph_launches_per_dispatch=calls.get("cudaGraphLaunch", 0)
+         / dispatches,
+         # pad_trace's spin kernels left out
+         host_kernel_launches_per_tick=(launched - 2 * PAD_SPINS) / ticks,
          device_busy_s=busy_s, device_busy_share=busy_s / wall,
          device_events=n_events, ms_per_tick=wall / ticks * 1e3,
          device_ms_per_tick=busy_s * 1e3 / ticks,
@@ -750,12 +793,13 @@ def phase_serving(profile_run=False):
     t0 = time.perf_counter()
     eng = DecodeEngine(model)  # the default place: the card
     try:
-        eng.warmup()
+        executables = eng.warmup()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        check_closed_set(eng, 1 + len(BUCKETS))
         pages_free0 = eng.metrics.gauge("kvpool_pages_free")
         jobs = smoke_jobs(np.random.default_rng(0), model.vocab_size)
-        ticks0 = eng.metrics.counter("decode_ticks")
+        before = graph_counts(eng)
 
         pa.launches = 0
         t0 = time.perf_counter()
@@ -767,7 +811,8 @@ def phase_serving(profile_run=False):
         launches = pa.launches
 
         snap = eng.metrics.snapshot()
-        ticks = snap["decode_ticks"] - ticks0
+        graphed = check_graphed(eng, before)
+        ticks = graphed["decode_ticks"]
         tokens = sum(len(o) for o in outs)
         expect = cfg.n_layer * ticks
         if launches != expect or launches == 0:
@@ -791,12 +836,20 @@ def phase_serving(profile_run=False):
             raise AssertionError(
                 f"continuous decode differs from decode_static for "
                 f"requests {mismatched}")
+        tail_jobs = spec_tail_jobs(np.random.default_rng(1),
+                                   model.vocab_size)
+        tail_outs = [eng.decode_static([j])[0][0] for j in tail_jobs]
+        if [len(o) for o in tail_outs] != [n for _, n in tail_jobs]:
+            raise AssertionError("a max_len request ended before max_len")
         if eng.metrics.gauge("kvpool_pages_free") != pages_free0:
             raise AssertionError("decode_static leaked pages")
+        ticks_ms = tick_times(eng)
         if profile_run:
             phase_profile(eng, [(p, 64) for p, _ in jobs[2:2 + SLOTS]])
-        emit("serving", requests=len(jobs), tokens_generated=tokens,
-             decode_ticks=ticks, paged_attention_launches=launches,
+        emit("serving", requests=len(jobs),
+             paged_attention_launches=launches, executables=executables,
+             **graphed,
+             graph_pool_bytes=eng.graph_pool_bytes(), **ticks_ms,
              n_layer=cfg.n_layer, prefills=snap["prefills"],
              prefill_skips=snap["prefill_skips"],
              prefix_hits=snap["prefix_hits"],
@@ -809,6 +862,213 @@ def phase_serving(profile_run=False):
              max_memory_allocated=torch.cuda.max_memory_allocated())
     finally:
         eng.shutdown()
+    return {"launches": launches, "model": model, "jobs": jobs,
+            "outs": outs, "tail_jobs": tail_jobs, "tail_outs": tail_outs,
+            "tokens_per_s": tokens / wall}
+
+
+def graph_counts(eng):
+    """The engine's counters and its graphs' replays and eager runs."""
+    runners = list(eng._runners.values())
+    out = {name: eng.metrics.counter(name) for name in (
+        "decode_ticks", "dispatches", "bucket_compiles", "spec_ticks",
+        "spec_draft_tokens", "spec_accepted_tokens", "spec_fallbacks",
+        "tokens_generated")}
+    out["replays"] = sum(r.graph.replays for r in runners)
+    out["eager_runs"] = sum(r.graph.eager_steps for r in runners)
+    out["executables"] = eng.executables()
+    return out
+
+
+def check_closed_set(eng, want):
+    """After ``warmup()``: ``want`` graphs, each captured once."""
+    if eng.executables() != want:
+        raise AssertionError(f"{eng.executables()} graph runners after "
+                             f"warmup; expected {want}")
+    if eng.metrics.counter("bucket_compiles") != want or not all(
+            r.graph.graph is not None for r in eng._runners.values()):
+        raise AssertionError("warmup did not capture every program")
+
+
+def check_graphed(eng, before):
+    """Since ``before`` (a ``graph_counts``): no capture and no new graph,
+    no eager run, one graph replay a dispatch.  Returns the counters'
+    changes."""
+    after = graph_counts(eng)
+    d = {k: after[k] - before[k] for k in after}
+    if d["bucket_compiles"] or d["executables"] or d["eager_runs"]:
+        raise AssertionError(f"the closed graph set moved under traffic: {d}")
+    if d["replays"] != d["dispatches"] or d["dispatches"] <= 0:
+        raise AssertionError(f"{d['dispatches']} dispatches made "
+                             f"{d['replays']} graph replays")
+    return {"decode_ticks": d["decode_ticks"], "dispatches": d["dispatches"],
+            "graph_launches_per_dispatch": d["replays"] / d["dispatches"],
+            "bucket_compiles_after_warmup": d["bucket_compiles"],
+            **{k: d[k] for k in ("spec_ticks", "spec_draft_tokens",
+                                 "spec_accepted_tokens", "spec_fallbacks",
+                                 "tokens_generated")}}
+
+
+def tick_times(eng, rounds=20):
+    """Host-clocked ms of one all-idle decode tick (feeds built, dispatched,
+    fetches on the host), medians over ``rounds`` turns of graphed (the
+    engine's dispatch: one replay), eager, eager, graphed.  Eager is
+    ``Executor.run`` of the same step program over the engine's own scope
+    (it writes the trash page only)."""
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    exe = fluid.Executor()
+    model = eng.model
+    idle = [None] * model.max_slots
+
+    def graphed():
+        eng._step_dispatch(idle, count_tick=False)
+
+    def eager():
+        feeds, _ = eng._tick_feeds(idle)
+        exe.run(model.step_program, feed=feeds,
+                fetch_list=[model.step_fetch, model.logits_fetch],
+                scope=eng.scope)
+
+    times = {graphed: [], eager: []}
+    with eng._dispatch_lock:
+        eager()
+        for _ in range(rounds):
+            for fn in (graphed, eager, eager, graphed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[fn].append((time.perf_counter() - t0) * 1e3)
+    return {"idle_tick_graphed_ms": statistics.median(times[graphed]),
+            "idle_tick_eager_ms": statistics.median(times[eager])}
+
+
+def drive_spec(eng, jobs, want, what):
+    """Serve ``jobs`` on a warmed spec engine: every stream bitwise
+    ``want`` (the plain engine's), paged attention launched n_layer x
+    (plain ticks + tail ticks + (k + 1) x verify ticks) times, one graph
+    replay a dispatch and no capture, no page leaked.  Returns the run's
+    numbers."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    spec, pool = eng._spec, eng._pool
+    free0, tail0, tok0 = pool.pages_free, spec.tail_ticks, spec.tokens
+    draft0, verify0 = spec.draft_s, spec.verify_s
+    before = graph_counts(eng)
+    pa.launches = 0
+    t0 = time.perf_counter()
+    with eng._dispatch_lock:  # the first admission pass takes them all
+        futs = [eng.submit(p, n) for p, n in jobs]
+    outs = [f.result(timeout=600) for f in futs]
+    if not eng.wait_idle(timeout_s=60):
+        raise AssertionError(f"{what}: engine did not go idle")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pa.launches
+    d = check_graphed(eng, before)
+    verify = d["spec_ticks"]
+    plain = d["decode_ticks"] - verify
+    tail = spec.tail_ticks - tail0
+    expect = eng.model.cfg.n_layer * (plain + tail + (spec.k + 1) * verify)
+    if launches != expect or not verify:
+        raise AssertionError(
+            f"{what}: paged_attention launched {launches} times over "
+            f"{plain} plain, {tail} tail and {verify} verify ticks; "
+            f"expected {expect}")
+    bad = [j for j, (g, w) in enumerate(zip(outs, want)) if g != w]
+    if bad:
+        raise AssertionError(f"{what}: streams {bad} differ from the plain "
+                             f"engine's")
+    if pool.pages_free != free0 or pool.pages_leaked:
+        raise AssertionError(f"{what}: pages leaked ({free0} free before, "
+                             f"{pool.pages_free} after, "
+                             f"{pool.pages_leaked} leaked)")
+    tokens = sum(len(o) for o in outs)
+    return {"streams_equal_plain": True, "paged_attention_launches": launches,
+            "plain_ticks": plain, "tail_ticks": tail, "verify_ticks": verify,
+            **d, "acceptance": d["spec_accepted_tokens"]
+            / max(1, d["spec_draft_tokens"]),
+            "tokens_per_spec_tick": (spec.tokens - tok0) / verify,
+            "draft_ms_per_spec_tick": (spec.draft_s - draft0) / verify * 1e3,
+            "verify_ms_per_spec_tick": (spec.verify_s - verify0) / verify
+            * 1e3, "wall_s": wall, "tokens_per_s": tokens / wall}
+
+
+def phase_serving_spec(serving):
+    """The serving phase's model and requests through speculative engines
+    (k = SPEC_K) with a 1-layer and a full-depth self-draft, then the two
+    requests that run into max_len, then (1-layer) the requests again
+    under the draft-poison drill.  Returns the paged attention launches of
+    these runs."""
+    import torch
+
+    from paddle_tpu_torch.fluid import fault
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    model, jobs, want = serving["model"], serving["jobs"], serving["outs"]
+    tail_jobs, tail_want = serving["tail_jobs"], serving["tail_outs"]
+    launches = tail_ticks = 0
+    for draft_layers in SPEC_DRAFT_LAYERS:
+        t0 = time.perf_counter()
+        eng = DecodeEngine(model, DecodeConfig(
+            spec=SPEC_K, spec_draft_layers=draft_layers))
+        try:
+            executables = eng.warmup()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            check_closed_set(eng, 2 * (1 + len(BUCKETS)) + 1)
+            run = drive_spec(eng, jobs, want, f"draft {draft_layers}")
+            snap = eng.metrics.snapshot()
+            tail = drive_spec(eng, tail_jobs, tail_want,
+                              f"draft {draft_layers}, max_len requests")
+            launches += (run["paged_attention_launches"]
+                         + tail["paged_attention_launches"])
+            tail_ticks += tail["tail_ticks"]
+            for r in (run, tail):
+                if draft_layers == 0 and r["acceptance"] != 1.0:
+                    raise AssertionError(f"the full-depth draft accepted "
+                                         f"{r['acceptance']} of its tokens")
+            static = [eng.decode_static([j])[0][0]
+                      for j in jobs + tail_jobs]
+            if static != want + tail_want:
+                raise AssertionError("the spec engine's decode_static "
+                                     "differs from the plain engine's")
+            drill = None
+            if draft_layers:
+                fault.install(fault.FaultPlan(spec_draft_poison=0))
+                try:
+                    drill = drive_spec(eng, jobs, want, "poison drill")
+                finally:
+                    fault.clear()
+                launches += drill["paged_attention_launches"]
+                if drill["spec_fallbacks"] < 1:
+                    raise AssertionError("the poisoned draft did not trip "
+                                         "the spec controller")
+            emit("serving_spec", k=SPEC_K,
+                 draft_layers=eng._spec.draft.depth,
+                 executables=executables, setup_s=setup_s, **run,
+                 ttft_p50_ms=snap["ttft_p50_ms"],
+                 plain_engine_tokens_per_s=serving["tokens_per_s"],
+                 static_equals_plain=True,
+                 graph_pool_bytes=eng.graph_pool_bytes(),
+                 max_len_requests={k: tail[k] for k in (
+                     "plain_ticks", "tail_ticks", "verify_ticks",
+                     "paged_attention_launches", "acceptance",
+                     "tokens_per_spec_tick", "tokens_per_s")},
+                 poison_drill=drill)
+        finally:
+            eng.shutdown()
+    if not tail_ticks:
+        raise AssertionError("no spec tick carried a tail step: the max_len "
+                             "requests never reached max_len - k beside a "
+                             "speculating one")
     return launches
 
 
@@ -3112,7 +3372,11 @@ def main():
     torch.cuda.empty_cache()
     flash = phase_kernel_flash()
     torch.cuda.empty_cache()
-    paged["launches"] = phase_serving(args.profile)
+    serving = phase_serving(args.profile)
+    # row 8 runs on two paths: the plain step and the verify
+    paged["launches"] = serving["launches"] + phase_serving_spec(serving)
+    del serving
+    torch.cuda.empty_cache()
     counts, unfused = phase_train(progs, args.profile)
     for k in (xent_fwd, xent_bwd, adam):
         k["launches"] = counts[k["name"]]

@@ -1,8 +1,8 @@
 """Env-knob contract (counterpart of ``paddle_tpu/fluid/envcontract.py``):
-the ``PADDLE_SERVE_*`` knobs the serving slice reads, the
-``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the prefetcher's
-``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names, types and
-defaults.  Values are read live through :func:`get`."""
+the ``PADDLE_SERVE_*`` knobs the serving slice reads, the fault knob of
+``fluid.fault``, the ``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the
+prefetcher's ``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names,
+types and defaults.  Values are read live through :func:`get`."""
 
 from __future__ import annotations
 
@@ -102,8 +102,31 @@ declare("PADDLE_SERVE_PREFIX_SHARE", "bool", True, "serving",
         "Share read-only full-prompt-page K/V across concurrently resident "
         "slots (refcounted; full-prefix hits skip the prefill dispatch)")
 declare("PADDLE_SERVE_SPEC", "int", 0, "serving",
-        "Speculative decoding depth k; the port does not carry "
-        "speculative decoding yet and refuses k > 0")
+        "Speculative decoding depth k (serving/specdec): each engine tick "
+        "runs k cheap draft steps then ONE verify step scoring k+1 "
+        "positions per slot; greedy acceptance keeps output bitwise "
+        "identical to sequential decode. 0 (default) = the plain one-token "
+        "tick, and no draft model is built")
+declare("PADDLE_SERVE_SPEC_DRAFT_LAYERS", "int", 1, "serving",
+        "Self-draft depth: the draft model reuses the target's first n "
+        "decoder layers (+ embeddings/head, shared by name) with its own "
+        "dense KV cache; 0 = full-depth self-draft (every draft token "
+        "accepted: a throughput ceiling probe, not a speedup)")
+declare("PADDLE_SERVE_SPEC_MIN_ACCEPT", "float", 0.3, "serving",
+        "Adaptive-fallback floor: a rolling draft-acceptance rate below "
+        "this over a full PADDLE_SERVE_SPEC_WINDOW of spec ticks drops the "
+        "engine to plain one-token ticks, re-arming after a cooldown of "
+        "the same length")
+declare("PADDLE_SERVE_SPEC_WINDOW", "int", 32, "serving",
+        "Spec-tick window of the rolling acceptance rate and the adaptive "
+        "controller (also the fallback cooldown, in plain ticks)")
+
+# -- fault injection (fluid/fault.py) --
+declare("PADDLE_FAULT_SPEC_DRAFT_POISON", "int", None, "fault",
+        "Speculative-draft poison: from engine tick n on, every drafted "
+        "token is replaced with deterministic garbage, so acceptance "
+        "collapses and the spec controller must fall back, while the "
+        "emitted streams stay bitwise correct")
 
 # -- trainer --
 declare("PADDLE_TPU_PREFETCH_DEPTH", "int", 2, "trainer",

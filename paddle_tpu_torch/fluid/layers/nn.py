@@ -17,7 +17,8 @@ __all__ = [
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "scale", "reduce_sum", "reshape", "transpose",
     "topk", "one_hot", "label_smooth", "ring_attention", "kv_cache_update",
-    "paged_attention", "token_select", "autoincreased_step_counter",
+    "kv_cache_scatter", "spec_accept", "paged_attention", "token_select",
+    "autoincreased_step_counter",
 ]
 
 
@@ -507,6 +508,44 @@ def kv_cache_update(cache, new, slots, pos, name=None):
                 "Pos": [pos]},
         outputs={"Out": [cache]})
     return cache
+
+
+def kv_cache_scatter(cache, new, rows, offs, name=None):
+    """Scatter per-token K/V rows ``new`` [n, ...] into the persistable
+    cache ``cache`` [rows, width, ...]: token j lands at ``cache[rows[j],
+    offs[j]]`` (the speculative verify step).  Dense caches pass (slot,
+    absolute position), paged caches (page, in-page offset); a row outside
+    the cache writes nothing (the dense trash slot).  The op's output IS
+    ``cache``, updated in place.  Returns ``cache``."""
+    helper = LayerHelper("kv_cache_scatter", **locals())
+    helper.append_op(
+        type="kv_cache_scatter",
+        inputs={"Cache": [cache], "New": [new], "Rows": [rows],
+                "Offs": [offs]},
+        outputs={"Out": [cache]})
+    return cache
+
+
+def spec_accept(logits, draft, mask=None, end_id=0, name=None):
+    """Greedy speculative acceptance: given verify logits [slots, k+1,
+    vocab] and the k drafted tokens [slots, k], return ``(tokens,
+    num_accept)``: tokens [slots, k+1] int64, the argmax at every scored
+    position; num_accept [slots] int64, the longest draft == argmax prefix.
+    Inactive slots (mask == 0) emit ``end_id`` and accept 0."""
+    helper = LayerHelper("spec_accept", **locals())
+    toks = helper.create_variable_for_type_inference(
+        core.convert_dtype("int64"), stop_gradient=True)
+    toks.shape = tuple(logits.shape[:-1])
+    nacc = helper.create_variable_for_type_inference(
+        core.convert_dtype("int64"), stop_gradient=True)
+    nacc.shape = (logits.shape[0],)
+    inputs = {"Logits": [logits], "Draft": [draft]}
+    if mask is not None:
+        inputs["Mask"] = [mask]
+    helper.append_op(type="spec_accept", inputs=inputs,
+                     outputs={"Tokens": [toks], "NumAccept": [nacc]},
+                     attrs={"end_id": int(end_id)})
+    return toks, nacc
 
 
 def token_select(logits, mask=None, end_id=0, name=None):

@@ -9,8 +9,8 @@ import numpy as np
 from .. import core
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "assign",
-           "fill_constant", "fill_constant_batch_size_like"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat",
+           "assign", "fill_constant", "fill_constant_batch_size_like"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -42,6 +42,24 @@ def cast(x, dtype):
     out.shape = x.shape
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", input=input, name=name)
+    out = helper.create_variable_for_type_inference(dtype=helper.input_dtype())
+    xs = helper.multiple_input()
+    if all(v.shape is not None for v in xs):
+        shape = list(xs[0].shape)
+        ax = axis % len(shape)
+        tot = 0
+        for v in xs:
+            d = v.shape[ax]
+            tot = -1 if (d in (-1, None) or tot == -1) else tot + d
+        shape[ax] = tot
+        out.shape = tuple(shape)
+    helper.append_op(type="concat", inputs={"X": xs},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 

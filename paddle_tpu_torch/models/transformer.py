@@ -305,19 +305,28 @@ class DecodeModel:
      - ``prefill_program(plen)``: one program per prompt-length bucket:
        causal attention over the prompt window and a ``kv_cache_update``
        scatter of the whole K/V prefix.  No logits — the first decode tick
-       re-derives position ``len-1`` and emits the first token.
+       re-derives position ``len-1`` and emits the first token;
+     - ``spec_program(k)``: the speculative verify, k + 1 shape-clones of
+       the step's body over the shared caches and ``spec_accept``.
 
     Bitwise sequential-equivalence: every op is row-independent over the
     slot dim and masked cache positions contribute exactly zero, so a
     stream's tokens are a function of its own prompt alone.  The executor
-    updates the caches in place in the scope.  Speculative verify
-    (``spec_program``) is not ported yet."""
+    updates the caches in place in the scope."""
 
     DC_TOKENS, DC_POSENC, DC_BIAS, DC_POS, DC_ACTIVE = (
         "dc_tokens", "dc_posenc", "dc_bias", "dc_pos", "dc_active")
     DC_PTABLE, DC_WPAGE, DC_WOFF = "dc_ptable", "dc_wpage", "dc_woff"
     PF_TOKENS, PF_SLOT = "pf_tokens", "pf_slot"
     PF_PAGES = "pf_pages"
+    # speculative verify feeds; the per-position ones are indexed
+    # (``SP_TOK.format(j)``, j in 0..k) as the program is k + 1 clones
+    SP_TOK, SP_PE, SP_BIAS_J = "sp_tok{}", "sp_pe{}", "sp_bias{}"
+    # per-position K/V destinations [S]: dense = (slot, or max_slots for a
+    # lane that writes nothing; absolute position), paged = (page, or the
+    # trash page; in-page offset)
+    SP_WROW, SP_WOFF = "sp_wrow{}", "sp_woff{}"
+    SP_DRAFT, SP_ACTIVE, SP_PTABLE = "sp_draft", "sp_active", "sp_ptable"
 
     def __init__(self, cfg=None, max_slots=None, max_len=None,
                  prefill_buckets=None, end_id=1, seed=7, paged=None,
@@ -373,6 +382,7 @@ class DecodeModel:
         self.pos_table = _position_encoding(self.max_len, self.cfg.d_model)
         self.startup = fluid.Program()
         self._prefill = {}
+        self._spec = {}
         self.step_program, self.step_fetch, self.logits_fetch = \
             self._build_step()
 
@@ -552,6 +562,104 @@ class DecodeModel:
                                 lambda q, k, v_, i=i: window_attn(q, k, v_, i))
         self._prefill[plen] = prog
         return prog
+
+    # -- speculative verify --
+
+    def spec_program(self, k):
+        """The (lazily built, cached) verify program for speculation depth
+        ``k``: ONE fixed-shape dispatch scoring k + 1 positions per slot.
+        Position j's sub-graph is a shape-clone of the step's body — embed
+        [S, 1] tokens, project q/k/v, write this position's K/V, attend
+        under a [S, 1, L] validity bias, project [S, V] logits — repeated
+        k + 1 times over the shared caches, so position j attends over
+        positions <= pos + j exactly as sequential decode would.  The
+        logits rows stack into [S, k+1, V] and ``spec_accept`` takes the
+        longest draft == argmax prefix plus the correction token.
+
+        Same-shaped clones, not one wide [S, k+1, ·] step: the same ops at
+        the same shapes run the same cuBLAS and paged-attention kernels
+        as the step, so verify logits at position j are bitwise the
+        step's, and greedy acceptance is bitwise sequential by
+        construction.  K/V lands through ``kv_cache_scatter`` at fed (row,
+        offset) pairs, so non-participating lanes aim at the dense trash
+        row (``max_slots``: written nowhere) or the paged trash page.
+
+        Returns ``(prog, tokens_fetch, naccept_fetch, logits_fetch)``; the
+        logits fetch is position 0's [S, V], the plain step's logits."""
+        if k < 1:
+            raise ValueError(f"speculation depth must be >= 1, got {k}")
+        cached = self._spec.get(k)
+        if cached is not None:
+            return cached
+        s, l, w = self.max_slots, self.max_len, k + 1
+        d, v = self.cfg.d_model, self.vocab_size
+        prog, scratch_startup = fluid.Program(), fluid.Program()
+        prog.random_seed = scratch_startup.random_seed = self.seed
+        with fluid.program_guard(prog, scratch_startup), \
+                fluid.unique_name.guard():
+            draft = layers.data(self.SP_DRAFT, shape=[s, k],
+                                dtype="int64", append_batch_size=False)
+            active = layers.data(self.SP_ACTIVE, shape=[s],
+                                 dtype="float32", append_batch_size=False)
+            if self.paged:
+                ptable = layers.data(
+                    self.SP_PTABLE, shape=[s, self.pages_per_slot],
+                    dtype="int64", append_batch_size=False)
+            logit_rows = []
+            for j in range(w):
+                tokens = layers.data(self.SP_TOK.format(j), shape=[s, 1],
+                                     dtype="int64", append_batch_size=False)
+                posenc = layers.data(self.SP_PE.format(j), shape=[s, d],
+                                     dtype="float32",
+                                     append_batch_size=False)
+                bias = layers.data(self.SP_BIAS_J.format(j),
+                                   shape=[s, 1, l], dtype="float32",
+                                   append_batch_size=False)
+                wrow = layers.data(self.SP_WROW.format(j), shape=[s],
+                                   dtype="int64", append_batch_size=False)
+                woff = layers.data(self.SP_WOFF.format(j), shape=[s],
+                                   dtype="int64", append_batch_size=False)
+
+                x = layers.reshape(self._embed(tokens, posenc), [s, 1, d])
+
+                def sub_attn(q, kk, v_, i, bias=bias, wrow=wrow, woff=woff):
+                    ck = self._cache_var(f"dlm{i}_cache_k")
+                    cv = self._cache_var(f"dlm{i}_cache_v")
+                    ck = layers.kv_cache_scatter(
+                        ck, layers.reshape(kk, [s, d]), wrow, woff)
+                    cv = layers.kv_cache_scatter(
+                        cv, layers.reshape(v_, [s, d]), wrow, woff)
+                    if self.paged:
+                        return layers.paged_attention(
+                            layers.scale(q, scale=d ** -0.5), ck, cv,
+                            ptable, bias, scale=1.0)         # [S, 1, D]
+                    scores = layers.matmul(
+                        layers.scale(q, scale=d ** -0.5), ck,
+                        transpose_y=True)                    # [S, 1, L]
+                    probs = layers.softmax(
+                        layers.elementwise_add(scores, bias))
+                    return layers.matmul(probs, cv)          # [S, 1, D]
+
+                for i in range(self.cfg.n_layer):
+                    x = self._layer(
+                        x, i, lambda q, kk, v_, i=i: sub_attn(q, kk, v_, i))
+                logit_rows.append(layers.fc(
+                    layers.reshape(x, [s, d]), v, bias_attr=False,
+                    param_attr=ParamAttr(name="dlm_out_w")))
+            logits = layers.concat(
+                [layers.reshape(r, [s, 1, v]) for r in logit_rows],
+                axis=1)                                      # [S, w, V]
+            toks, nacc = layers.spec_accept(logits, draft, mask=active,
+                                            end_id=self.end_id)
+        out = (prog, toks.name, nacc.name, logit_rows[0].name)
+        self._spec[k] = out
+        return out
+
+    def weight_names(self):
+        """Every learned weight shared by name across the program family;
+        the ``dlm{i}_cache_k/v`` caches are not weights."""
+        return sorted(v.name for v in self.startup.list_vars()
+                      if v.persistable and "_cache_" not in v.name)
 
     # -- host-side helpers the engine uses to build tick feeds --
 

@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``paddle_tpu/ops/shape_ops.py``): reshape,
-transpose and one_hot."""
+transpose, concat and one_hot."""
 
 from __future__ import annotations
 
@@ -32,6 +32,11 @@ def reshape(ctx):
 @register_op("transpose")
 def transpose(ctx):
     return {"Out": ctx.input("X").permute(*ctx.attr("axis"))}
+
+
+@register_op("concat")
+def concat(ctx):
+    return {"Out": torch.cat(ctx.inputs_list("X"), dim=ctx.attr("axis", 0))}
 
 
 @register_op("one_hot", no_grad_inputs=("X",))

@@ -28,11 +28,29 @@ are shared across requests with a common prefix (full hits skip the
 prefill dispatch).  Each decode tick runs the paged-attention kernel once
 per layer.
 
+Speculative decoding (``DecodeConfig(spec=k)`` or ``PADDLE_SERVE_SPEC=k``,
+k > 0; ``serving/specdec``): a tick drafts k tokens a slot with a cheap
+self-draft, verifies them in one (k+1)-position dispatch and commits the
+accepted prefix plus the correction, bitwise what the plain tick would
+emit.  k = 0 runs the plain tick and builds no draft.
+
+Every dispatch replays a CUDA graph (the counterpart of the reference's
+closed jit cache): each program the engine dispatches — the step, each
+prefill bucket, and with speculation the draft's step and prefill buckets
+and the verify — has a ``fluid/program_graph.py`` ``ProgramGraph`` over the
+scope's own weight and cache tensors, made ready (captured) in
+``warmup()``.  A dispatch copies the feeds into static buffers, replays
+and copies the fetches back; ``bucket_compiles`` counts graphs made ready
+and stays flat after ``warmup()``.  On the CPU the same runners run each
+dispatch eagerly over the same static buffers.
+
 Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
 another place; with no place and no CUDA device the engine raises.
 
-Not in this slice: speculative decoding (``spec > 0`` raises), hot model
-swap, the tick monitor, the compile-cache manifest and trace spans.
+Not in this slice: a draft loaded from a registry serial
+(``spec_draft_serial`` raises), the hot-swap machinery around
+:meth:`DecodeEngine.swap_weights` (canary, rollback, cache scrub), the
+tick monitor, the compile-cache manifest and trace spans.
 """
 
 from __future__ import annotations
@@ -43,10 +61,11 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..fluid.program_graph import ProgramGraph
 from .engine import (DrainTimeout, EngineClosed, EngineOverloaded,
                      RequestTimeout, _Request)
 from .metrics import ServingMetrics
@@ -64,13 +83,21 @@ class DecodeConfig:
     ``default_timeout_ms`` per-request deadline when submit() gets none,
                            checked per token;
     ``idle_wait_s``        worker-condition wait while fully idle;
-    ``spec``               speculation depth; None reads
-                           ``PADDLE_SERVE_SPEC``.  Only 0 is carried.
+    ``spec``               speculation depth k (draft + verify ticks);
+                           None reads ``PADDLE_SERVE_SPEC``; 0 = plain;
+    ``spec_draft_layers``  self-draft depth; None reads
+                           ``PADDLE_SERVE_SPEC_DRAFT_LAYERS`` (0 = full
+                           depth);
+    ``spec_draft_serial``  a registry serial to load the draft's weights
+                           from: needs ``serving/registry.py``, not
+                           ported yet (raises NotImplementedError).
     """
     max_queue_depth: int = 256
     default_timeout_ms: Optional[float] = None
     idle_wait_s: float = 0.05
     spec: Optional[int] = None
+    spec_draft_layers: Optional[int] = None
+    spec_draft_serial: Optional[str] = None
 
 
 class DecodeEngine:
@@ -92,12 +119,11 @@ class DecodeEngine:
             raise EngineClosed("continuous-batching decode is disabled "
                                "(PADDLE_SERVE_DECODE=0)")
         self.config = config or DecodeConfig()
-        spec_k = (self.config.spec if self.config.spec is not None
-                  else int(_ec.get("PADDLE_SERVE_SPEC") or 0))
-        if spec_k > 0:
+        if self.config.spec_draft_serial is not None:
             raise NotImplementedError(
-                "speculative decoding is not ported to paddle_tpu_torch "
-                "yet; use spec=0")
+                "spec_draft_serial needs serving/registry.py, which is not "
+                "ported to paddle_tpu_torch yet (ROADMAP queue 1 item 10); "
+                "use the self-draft (spec_draft_layers)")
         # the executor resolves the place first: with no place and no
         # CUDA device this raises before anything else is built
         self._exe = Executor(place if place is not None
@@ -121,6 +147,25 @@ class DecodeEngine:
                 model.max_slots, page_bytes=page_bytes,
                 prefix_share=bool(_ec.get("PADDLE_SERVE_PREFIX_SHARE")),
                 metrics=self.metrics)
+        # one graph runner per (program, scope, fetches): the closed set
+        self._runners: Dict[tuple, ProgramGraph] = {}
+        self._ticks = 0
+        # speculative decoding: DecodeConfig fields beat the env knobs;
+        # k = 0 runs the plain tick and builds no draft
+        self._spec = None
+        spec_k = (self.config.spec if self.config.spec is not None
+                  else int(_ec.get("PADDLE_SERVE_SPEC") or 0))
+        if spec_k > 0:
+            from .specdec import SpecDecoder
+
+            draft_layers = (
+                self.config.spec_draft_layers
+                if self.config.spec_draft_layers is not None
+                else int(_ec.get("PADDLE_SERVE_SPEC_DRAFT_LAYERS")))
+            self._spec = SpecDecoder(
+                self, spec_k, draft_layers,
+                min_accept=float(_ec.get("PADDLE_SERVE_SPEC_MIN_ACCEPT")),
+                window=int(_ec.get("PADDLE_SERVE_SPEC_WINDOW")))
         self._cond = threading.Condition(threading.Lock())
         self._queue: collections.deque = collections.deque()
         self._slots: List[Optional[_Request]] = [None] * model.max_slots
@@ -296,6 +341,13 @@ class DecodeEngine:
                 req.grant = grant
             self._prefill(req, free)
 
+    def _prompt_tokens(self, prompt):
+        """The prompt padded to its bucket: ``([1, bucket] int64, bucket)``."""
+        bucket = self.model.bucket_for(len(prompt))
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :len(prompt)] = prompt
+        return tokens, bucket
+
     def _run_prefill(self, prompt, slot, grant) -> bool:
         """One admitted request's bucketed prefill dispatch (after its
         pages were granted).  Skipped on a full prefix hit, where every
@@ -305,9 +357,7 @@ class DecodeEngine:
         if grant is not None and grant.full_hit:
             return False
         model = self.model
-        bucket = model.bucket_for(len(prompt))
-        tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :len(prompt)] = prompt
+        tokens, bucket = self._prompt_tokens(prompt)
         feeds = {model.PF_TOKENS: tokens}
         if self._pool is not None:
             feeds[model.PF_PAGES] = self._pool.prefill_pages(slot, bucket)
@@ -321,6 +371,10 @@ class DecodeEngine:
             self.metrics.inc("prefills")
         else:
             self.metrics.inc("prefill_skips")
+        if self._spec is not None:
+            # the draft's cache is private: its prefill runs even when the
+            # target's was a full-hit skip
+            self._spec.prefill(slot, *self._prompt_tokens(req.prompt))
         # the first decode tick re-derives position plen-1 (same token,
         # same weights => bit-identical K/V) and emits the first token
         req.pos = len(req.prompt) - 1
@@ -363,15 +417,18 @@ class DecodeEngine:
             feeds[model.DC_WOFF] = woff
         return feeds, stalled
 
-    def _step_dispatch(self, slots):
+    def _step_dispatch(self, slots, count_tick=True):
         """ONE decode step over all slots; returns the [S] next tokens,
         the set of paged slots that stalled this tick, and the [S, V]
-        logits."""
+        logits.  ``count_tick=False`` leaves the engine tick alone (the
+        spec tick's tail dispatch: one scheduling iteration counts once)."""
         feeds, stalled = self._tick_feeds(slots)
         nxt, logits = self._run(self.model.step_program, feeds,
                                 [self.model.step_fetch,
                                  self.model.logits_fetch])
-        self.metrics.inc("decode_ticks")
+        if count_tick:
+            self._ticks += 1
+            self.metrics.inc("decode_ticks")
         return nxt.reshape(-1), stalled, logits
 
     def _consume(self, i: int, req: _Request, tok: int, t1: float) -> bool:
@@ -398,19 +455,26 @@ class DecodeEngine:
             return True
         return False
 
+    def _stall_expire(self, i: int, req: _Request, t1: float) -> None:
+        """Pool-dry stall: the row ran masked (trash write, active 0), its
+        token is discarded, pos keeps, and it retries next tick.  An
+        expired staller must still retire and return its pages, or mutual
+        stalls could live-lock the pool."""
+        if req.deadline is not None and t1 > req.deadline:
+            self._retire(i, error=RequestTimeout(
+                f"deadline expired after {len(req.out_tokens)} "
+                f"generated tokens (pool-stalled)"))
+
     def _tick(self):
+        if self._spec is not None and self._spec.run_tick():
+            return  # a draft + verify tick ran
         nxt, stalled, _ = self._step_dispatch(self._slots)
         t1 = time.perf_counter()
         for i, req in enumerate(list(self._slots)):
             if req is None:
                 continue
             if i in stalled:
-                # pool-dry stall: the token is discarded and pos keeps; an
-                # expired staller must still retire and return its pages
-                if req.deadline is not None and t1 > req.deadline:
-                    self._retire(i, error=RequestTimeout(
-                        f"deadline expired after {len(req.out_tokens)} "
-                        f"generated tokens (pool-stalled)"))
+                self._stall_expire(i, req, t1)
                 continue
             self._consume(i, req, int(nxt[i]), t1)
 
@@ -422,6 +486,9 @@ class DecodeEngine:
             # pages return on EVERY retirement path; shared prefix pages
             # survive until their last holder
             self._pool.release(slot)
+        if self._spec is not None:
+            # the slot's next resident starts with a fresh acceptance rate
+            self._spec.controller.retire_slot(slot)
         self.metrics.note_slots(self._n_active,
                                 self.model.max_slots - self._n_active)
         if req.future.done():
@@ -435,19 +502,77 @@ class DecodeEngine:
         self.metrics.observe_latency(time.perf_counter() - req.t_submit)
         req.future.set_result(list(req.out_tokens))
 
+    def swap_weights(self, weights: Dict[str, np.ndarray]) -> None:
+        """Write the named weights into the engine's scope between ticks
+        (the reference's ``swap_weights``).  Each is copied into the
+        scope's tensor in place, so every graph runs on over it; the
+        self-draft re-copies the weights it shares by name, and the page
+        pool forgets its prefix index (resident pages hold the old
+        weights' K/V).  An unknown name or a shape or dtype mismatch
+        raises before anything is written."""
+        from ..models.params import load_reference_params
+
+        with self._dispatch_lock:
+            load_reference_params(self._scope, weights, self._exe.place)
+            if self._pool is not None:
+                self._pool.flush_index()
+            if self._spec is not None:
+                self._spec.draft.sync(self._scope)
+
     # ------------------------------------------------------------------
     # dispatch plumbing + warmup
     # ------------------------------------------------------------------
 
-    def _run(self, program, feed, fetch_list):
-        return self._exe.run(program, feed=feed, fetch_list=fetch_list,
-                             scope=self._scope)
+    def _run(self, program, feed, fetch_list, scope=None):
+        """One dispatch of ``program`` through its graph runner, against
+        the engine's scope or ``scope`` (the spec draft's).  A runner is
+        built at a program's first dispatch; ``bucket_compiles`` counts
+        the runners made ready (on the card: captured), which ``warmup()``
+        does for the whole set."""
+        scope = scope if scope is not None else self._scope
+        key = (program._cache_token, program._version, id(scope),
+               tuple(fetch_list))
+        runner = self._runners.get(key)
+        if runner is None:
+            runner = self._runners[key] = ProgramGraph(
+                program, feed, fetch_list, scope, self._exe.device)
+        was_ready = runner.ready
+        outs = runner.run(feed)
+        self.metrics.inc("dispatches")
+        if not was_ready and runner.ready:
+            self.metrics.inc("bucket_compiles")
+        return outs
 
-    def warmup(self) -> None:
-        """Run every program once — each prefill bucket against the trash
-        page (or slot 0 when dense) and one all-idle decode step — so the
-        first request pays no first-call costs (kernel build and load,
-        allocator growth).  The writes land nowhere a stream reads."""
+    def executables(self) -> int:
+        """Graph runners resident in the engine: one step and one per
+        prefill bucket, and with speculation one draft step, one per draft
+        prefill bucket and the verify."""
+        return len(self._runners)
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory the caching allocator reserved for the engine's
+        CUDA graph pools (0 on the CPU)."""
+        return sum(r.graph.pool_bytes or 0 for r in self._runners.values())
+
+    def _ready(self, dispatch) -> None:
+        """Repeat a warmup dispatch until its program is one replay: once
+        on the CPU, twice on the card (an eager run, then the capture and
+        its first replay)."""
+        for _ in range(2 if self._exe.device.type == "cuda" else 1):
+            dispatch()
+        self.metrics.inc("warmup_dispatches")
+
+    def warmup(self) -> int:
+        """Make every program of the closed set ready before traffic — each
+        prefill bucket against the trash page (or slot 0 when dense), one
+        all-idle decode step, and with speculation the draft's prefills and
+        step and an all-idle verify — so traffic only replays graphs.  The
+        writes land nowhere a stream reads.  Safe to call again; returns
+        :meth:`executables`.
+
+        The captures run on the caller's thread while the worker waits on
+        its condition (no CUDA call) for the dispatch lock held here, and
+        in ``thread_local`` capture mode (``StepGraph``)."""
         model = self.model
         with self._dispatch_lock:
             for b in model.prefill_buckets:
@@ -458,10 +583,13 @@ class DecodeEngine:
                         np.int64)
                 else:
                     feeds[model.PF_SLOT] = np.zeros((1,), np.int64)
-                self._run(model.prefill_program(b), feeds, [])
-                self.metrics.inc("warmup_dispatches")
-            self._step_dispatch([None] * model.max_slots)
-            self.metrics.inc("warmup_dispatches")
+                self._ready(lambda b=b, feeds=feeds: self._run(
+                    model.prefill_program(b), feeds, []))
+            self._ready(lambda: self._step_dispatch([None] * model.max_slots,
+                                                    count_tick=False))
+            if self._spec is not None:
+                self._spec.warmup(self._ready)
+        return self.executables()
 
     # ------------------------------------------------------------------
     # static-batching baseline (the sequential-equivalence comparator)
@@ -588,11 +716,18 @@ class DecodeEngine:
                 r.future.set_exception(exc)
 
     def shutdown(self, timeout_s: float = 60.0) -> bool:
+        """Drain, stop the worker, and drop the graphs and their memory
+        pools (the scope keeps the weights and caches)."""
         ok = self.drain(timeout_s=timeout_s)
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
         self._worker.join(timeout=timeout_s)
+        if not self._worker.is_alive():
+            with self._dispatch_lock:
+                for runner in self._runners.values():
+                    runner.close()
+                self._runners.clear()
         return ok
 
     def __enter__(self):

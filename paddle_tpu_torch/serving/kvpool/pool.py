@@ -92,6 +92,20 @@ class PagePool:
         with self._lock:
             return self.num_pages - len(self._free)
 
+    @property
+    def pages_leaked(self) -> int:
+        """Pages neither free nor held by any slot: 0 unless a release path
+        lost one.  (The reference counts the frees its page-leak fault
+        oracle skipped; the port has no such oracle, so it counts what the
+        free list and the slots' page lists miss.)"""
+        with self._lock:
+            held = {p for pages in self._slot_pages.values() for p in pages}
+            return self.num_pages - len(self._free) - len(held)
+
+    def slot_pages(self, slot: int) -> List[int]:
+        with self._lock:
+            return list(self._slot_pages.get(slot, ()))
+
     def table(self) -> np.ndarray:
         """The per-tick ``[max_slots, pages_per_slot]`` page-table feed:
         each slot's owned pages in position order, trash elsewhere."""
@@ -215,6 +229,33 @@ class PagePool:
                 freed += self._drop_page_locked(page)
             self._publish_locked()
         return freed
+
+    def rewind(self, slot: int, keep_pos: int) -> int:
+        """Shrink the slot's page list to exactly cover positions
+        ``<= keep_pos`` (speculative rollback): pages grown for rejected
+        draft positions return through the single release path.  The page
+        holding ``keep_pos`` is always kept.  Returns the number of pages
+        actually freed."""
+        freed = 0
+        with self._lock:
+            pages = self._slot_pages.get(slot)
+            if pages is None:
+                return 0
+            keep = int(keep_pos) // self.page_size + 1
+            while len(pages) > keep:
+                freed += self._drop_page_locked(pages.pop())
+            if freed:
+                self._publish_locked()
+        return freed
+
+    def flush_index(self) -> None:
+        """Drop every prefix entry (a weight swap: resident page content no
+        longer matches what a NEW admission's prefill would write).
+        Holders keep their refcounts; pages just stop being
+        discoverable."""
+        with self._lock:
+            self._index.clear()
+            self._page_key.clear()
 
     # -- accounting --------------------------------------------------------
 

@@ -22,9 +22,18 @@ class ServingMetrics:
 
     #: counters every snapshot reports even when still zero
     COUNTERS = ("submitted", "completed", "failed", "shed", "expired",
-                "warmup_dispatches", "prefills", "decode_ticks",
-                "tokens_generated", "prefix_hits", "prefill_skips",
-                "page_requeues")
+                # every program dispatch, and the programs made ready to
+                # dispatch (on the card: a CUDA graph captured); the
+                # latter stays flat once warmup() has run
+                "dispatches", "bucket_compiles", "warmup_dispatches",
+                "prefills", "decode_ticks", "tokens_generated",
+                "prefix_hits", "prefill_skips", "page_requeues",
+                # speculative decoding: spec ticks taken, draft tokens
+                # proposed and accepted (their ratio over the controller's
+                # window is the spec_accept_rate gauge), and the
+                # controller's fallbacks to plain ticks
+                "spec_ticks", "spec_draft_tokens", "spec_accepted_tokens",
+                "spec_fallbacks")
 
     def __init__(self, latency_window: int = 4096):
         self._lock = threading.Lock()

@@ -29,8 +29,7 @@ from paddle_tpu_torch import fluid
 from paddle_tpu_torch.fluid import framework as port_framework
 from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.ops import paged_attention as port_pa
-from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
-                                      RequestTimeout)
+from paddle_tpu_torch.serving import DecodeEngine, RequestTimeout
 from paddle_tpu_torch.serving.kvpool import PagePool
 
 SLOTS, MAX_LEN, BUCKETS, PS = 3, 24, [4, 8], 4
@@ -242,12 +241,6 @@ def test_submit_rejects_bad_requests(engines, prompt, max_new):
     _, paged, _ = engines
     with pytest.raises(ValueError):
         paged.submit(prompt, max_new)
-
-
-def test_speculative_decoding_not_carried():
-    model = port_tf.DecodeModel(port_tf.decode_lm_config(), **_shape(True))
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(model, DecodeConfig(spec=2), place=fluid.CPUPlace())
 
 
 def test_load_reference_params_checks(engines):
