@@ -9,7 +9,9 @@ and trains ResNet-50 with momentum, in fp32 and then under bf16 / fp16
 mixed precision (``fluid.amp``; Transformer-base also through the bf16
 flash kernels), then trains Transformer-base and ResNet-50 under AMP as
 ``Executor.run_steps`` windows (one CUDA graph a step) and the fp16 loss
-scaler's window, and checks them all.
+scaler's window, then evaluates, saves, resumes and deploys Transformer-base
+and ResNet-50 (``Program.clone(for_test=True)``, ``fluid.io``, the
+inference predictor), and checks them all.
 
     python3 chip_smoke.py
 
@@ -206,6 +208,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    learning rate), the first step skipped on the card's
                    flag, Adam launched every step (the window runs the
                    update and commits it only where the flag says)
+28. persist_flash_amp - Transformer-base (batch 64 x 256, dropout 0) in
+                   bf16 with kept activations through the flash kernels:
+                   2 steps, then ``main.clone(for_test=True)`` on the next
+                   batch: exactly 18 bf16 flash forwards and 1 bf16 xent
+                   forward, no backward or Adam launch, every persistable
+                   bitwise unchanged, the loss within 2^-8 of the next
+                   training step's; ``save_persistables`` (bytes, seconds),
+                   2 more steps (run A), a fresh scope's startup and
+                   ``load_persistables`` (bitwise the saved state), the
+                   same 2 steps (run B) within 2^-8 of A; then
+                   ``save_inference_model`` of the logits and a predictor
+                   on the card in a fresh scope: its logits the eval
+                   clone's (bitwise, or within 2^-8 of the largest), 18
+                   bf16 flash forwards and no xent a batch, its ms a batch
+                   (CUDA events, 10 runs) and its op count
+29. persist_resnet_amp - ResNet-50 (batch 256, 224 px) in bf16: 2 steps,
+                   ``save_persistables``, 2 more ``Executor.run`` steps
+                   (run A); a fresh scope, ``load_persistables``, one
+                   ``run_steps`` window of 2 (run B): loss and every state
+                   tensor bitwise A's; 6 momentum launches in all
+30. infer_resnet - phase 29's trained scope as an fp32 inference model:
+                   a native predictor and an ``AnalysisConfig`` one (the
+                   conv + batch_norm fold) on the card at batch 256: no
+                   ``batch_norm`` op after the fold, outputs within rtol
+                   1e-4 / atol 1e-5 (the reference's bound), images/s of
+                   each (CUDA events)
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
@@ -3342,6 +3370,317 @@ def phase_train_window_fp16_scaler():
     exe.close()
 
 
+def add_counts(total, counts):
+    """``total`` += ``counts``, key by key."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def persist_state(scope, program):
+    """Copies of the persistables of ``program`` that ``scope`` holds."""
+    return {v.name: scope.get(v.name).clone() for v in program.list_vars()
+            if v.persistable and scope.get(v.name) is not None}
+
+
+def state_equal(scope, snapshot):
+    """The names of ``snapshot`` whose tensor in ``scope`` is not bitwise
+    the snapshot's."""
+    import torch
+
+    return sorted(n for n, t in snapshot.items()
+                  if not torch.equal(scope.get(n), t))
+
+
+def save_timed(exe, scope, dirname, program):
+    """``fluid.io.save_persistables`` of ``scope``: (bytes, seconds)."""
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, dirname, program)
+    secs = time.perf_counter() - t0
+    return sum(os.path.getsize(os.path.join(dirname, n))
+               for n in os.listdir(dirname)), secs
+
+
+def load_timed(exe, scope, dirname, program):
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    fluid.io.load_persistables(exe, dirname, program, scope=scope)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def first_loss(fetched):
+    return float(fetched[0].reshape(-1)[0])
+
+
+def phase_persist_flash_amp(tmp, card):
+    """Transformer-base at full width through the bf16 flash kernels,
+    dropout 0: evaluate, save, resume and deploy.  Two training steps;
+    ``main.clone(for_test=True)`` on the next batch launches exactly
+    ``FLASH_OPS`` bf16 flash forwards and one bf16 xent forward and nothing
+    else, leaves every persistable bitwise, and its loss is the next
+    training step's (from the same parameters) within 2^-8 (its ms a batch
+    fetching the loss, CUDA events over 5 runs); then
+    ``save_persistables``, 2 more steps (run A), a fresh scope's startup
+    and ``load_persistables`` (every persistable bitwise the saved one),
+    the same 2 steps (run B, within 2^-8 of A: the embedding grad's
+    atomics); then ``save_inference_model`` of the logits and a predictor
+    on the card in a fresh scope: its logits the eval clone's (bitwise, or
+    within 2^-8), ``FLASH_OPS`` bf16 flash forwards and no xent a batch.
+    Returns the phase's launch counts."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import (NativeConfig, PaddleTensor,
+                                            create_paddle_predictor)
+
+    tol = AMP_PARITY_RTOL
+    total = {}
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, cost = build_training(TRAIN_LEN, dropout=0.0,
+                                             flash=True)
+        xent = next(op for op in main.global_block().ops
+                    if op.type == "softmax_with_cross_entropy")
+        logits = xent.input("Logits")[0]
+        feeds = [train_feed(TRAIN_BATCH, TRAIN_LEN, seed=k)
+                 for k in range(5)]
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        reset_launch_counts()
+        for k in range(2):
+            exe.run(main, feed=feeds[k], fetch_list=[cost], scope=scope)
+        add_counts(total, launch_counts())
+
+        # evaluate
+        test = main.clone(for_test=True)
+        before = persist_state(scope, main)
+        reset_launch_counts()
+        eval_loss = first_loss(exe.run(test, feed=feeds[2],
+                                       fetch_list=[cost], scope=scope))
+        eval_counts = launch_counts()
+        add_counts(total, eval_counts)
+        want = {k: 0 for k in eval_counts}
+        want.update(flash_fwd=FLASH_OPS, flash_fwd_bf16=FLASH_OPS,
+                    softmax_xent_fwd=1, softmax_xent_fwd_bf16=1)
+        if eval_counts != want:
+            raise AssertionError(f"persist_flash_amp: eval launches "
+                                 f"{eval_counts}, expected {want}")
+        moved = state_equal(scope, before)
+        if moved:
+            raise AssertionError(f"persist_flash_amp: eval moved {moved}")
+        reset_launch_counts()
+        eval_ms = cuda_time_ms(lambda: exe.run(test, feed=feeds[2],
+                                               fetch_list=[cost],
+                                               scope=scope), 5, warmup=0)
+        add_counts(total, launch_counts())
+        reset_launch_counts()
+        train_loss = first_loss(exe.run(main, feed=feeds[2],
+                                        fetch_list=[cost], scope=scope))
+        eval_rel = abs(eval_loss - train_loss) / abs(train_loss)
+        if not eval_rel <= tol:
+            raise AssertionError(f"persist_flash_amp: eval loss "
+                                 f"{eval_loss} against the training step's "
+                                 f"{train_loss}")
+
+        # save, then resume in a fresh scope
+        ckpt = os.path.join(tmp, "transformer_ckpt")
+        saved_bytes, save_s = save_timed(exe, scope, ckpt, main)
+        saved = persist_state(scope, main)
+        run_a = [first_loss(exe.run(main, feed=feeds[k], fetch_list=[cost],
+                                    scope=scope)) for k in (3, 4)]
+        fresh = fluid.Scope()
+        exe.run(startup, scope=fresh)
+        load_s = load_timed(exe, fresh, ckpt, main)
+        differ = state_equal(fresh, saved)
+        if differ:
+            raise AssertionError(f"persist_flash_amp: loaded {differ} "
+                                 f"differ from the saved state")
+        run_b = [first_loss(exe.run(main, feed=feeds[k], fetch_list=[cost],
+                                    scope=fresh)) for k in (3, 4)]
+        gaps = [abs(b - a) / abs(a) for a, b in zip(run_a, run_b)]
+        if not (all(np.isfinite(run_a + run_b)) and max(gaps) <= tol):
+            raise AssertionError(f"persist_flash_amp: resumed losses "
+                                 f"{run_b} against {run_a}")
+        add_counts(total, launch_counts())
+        del fresh, saved, before
+
+        # deploy: the eval clone's logits from the state now in the scope
+        reset_launch_counts()
+        (want_logits,) = exe.run(test, feed=feeds[2], fetch_list=[logits],
+                                 scope=scope)
+        add_counts(total, launch_counts())
+        infer_dir = os.path.join(tmp, "transformer_infer")
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(
+                infer_dir, ["src_word", "tgt_word"],
+                [main.global_block().var(logits)], exe, main_program=main)
+        del scope
+        exe.close()
+        torch.cuda.empty_cache()
+        pred = create_paddle_predictor(NativeConfig(model_dir=infer_dir))
+        inputs = [PaddleTensor(name=n, data=feeds[2][n])
+                  for n in ("src_word", "tgt_word")]
+        reset_launch_counts()
+        (out,) = pred.run(inputs)
+        pred_counts = launch_counts()
+        add_counts(total, pred_counts)
+        want = {k: 0 for k in pred_counts}
+        want.update(flash_fwd=FLASH_OPS, flash_fwd_bf16=FLASH_OPS)
+        if pred_counts != want:
+            raise AssertionError(f"persist_flash_amp: predictor launches "
+                                 f"{pred_counts}, expected {want}")
+        got = out.data
+        pred_bitwise = bool(np.array_equal(got, want_logits))
+        scale = float(np.abs(want_logits).max())
+        pred_err = float(np.abs(got - want_logits).max()) / scale
+        if not (got.shape == want_logits.shape and np.isfinite(got).all()
+                and (pred_bitwise or pred_err <= tol)):
+            raise AssertionError(f"persist_flash_amp: predictor logits "
+                                 f"{got.shape} differ from the eval clone's "
+                                 f"by {pred_err} of the largest")
+        del got, out, want_logits
+        reset_launch_counts()
+        pred_ms = cuda_time_ms(lambda: pred.run(inputs), 10, warmup=1)
+        add_counts(total, launch_counts())
+        pred_ops = len(pred._program.global_block().ops)
+        pred.close()
+        del pred
+    emit("persist_flash_amp", card=card, model="transformer_base",
+         batch=TRAIN_BATCH, seq_len=TRAIN_LEN, dropout=0.0,
+         amp={"dtype": "bfloat16", "keep_activations": True},
+         eval_launches=eval_counts, eval_loss=eval_loss,
+         next_step_loss=train_loss, eval_loss_bitwise=eval_loss == train_loss,
+         eval_loss_rel=eval_rel, eval_state_bitwise=True,
+         eval_ms_per_batch=eval_ms,
+         saved_bytes=saved_bytes, save_s=save_s, load_s=load_s,
+         loaded_state_bitwise=True, run_a_losses=run_a, run_b_losses=run_b,
+         resume_bitwise=run_a == run_b, resume_max_rel=max(gaps),
+         rtol=tol, predictor_launches=pred_counts,
+         predictor_logits_bitwise=pred_bitwise,
+         predictor_logits_max_rel=pred_err, predictor_ms_per_batch=pred_ms,
+         predictor_ops=pred_ops, training_ops=len(main.global_block().ops),
+         phase_launches=total)
+    return total
+
+
+def phase_persist_resnet_amp(tmp, card):
+    """ResNet-50 (batch 256, 224 px) in bf16 with kept activations: 2
+    steps, ``save_persistables``, 2 more ``Executor.run`` steps (run A);
+    a fresh scope's startup and ``load_persistables`` (bitwise the saved
+    state), then one ``run_steps`` window of 2 (run B): B bitwise A, loss
+    and every state tensor.  Returns (scope after A, the prediction's
+    name, the phase's launch counts)."""
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, loss, _ = build_resnet()
+        prediction = next(op for op in main.global_block().ops
+                          if op.type == "cross_entropy").input("X")[0]
+        feed = resnet_feed(RESNET_BATCH, 224, 1000)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        reset_launch_counts()
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ckpt = os.path.join(tmp, "resnet_ckpt")
+        saved_bytes, save_s = save_timed(exe, scope, ckpt, main)
+        saved = persist_state(scope, main)
+        run_a = [first_loss(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)) for _ in range(2)]
+        fresh = fluid.Scope()
+        exe.run(startup, scope=fresh)
+        load_s = load_timed(exe, fresh, ckpt, main)
+        differ = state_equal(fresh, saved)
+        if differ:
+            raise AssertionError(f"persist_resnet_amp: loaded {differ} "
+                                 f"differ from the saved state")
+        del saved
+        run_b = first_loss(exe.run_steps(main, feed=feed, fetch_list=[loss],
+                                         n_steps=2, scope=fresh))
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(momentum=6 * MOMENTUM_PER_STEP,
+                    momentum_tensors=6 * MOMENTUM_TENSORS_PER_STEP)
+        if counts != want:
+            raise AssertionError(f"persist_resnet_amp: launches {counts}, "
+                                 f"expected {want}")
+        diff = state_diff(fresh, scope)
+        if not (diff["bitwise"] and run_b == run_a[-1]):
+            raise AssertionError(f"persist_resnet_amp: the resumed window "
+                                 f"(loss {run_b}) against the uninterrupted "
+                                 f"steps ({run_a[-1]}): {diff}")
+        exe.close()
+        del fresh
+        torch.cuda.empty_cache()
+    emit("persist_resnet_amp", card=card, model="resnet50",
+         batch=RESNET_BATCH, image_hw=224,
+         amp={"dtype": "bfloat16", "keep_activations": True},
+         saved_bytes=saved_bytes, save_s=save_s, load_s=load_s,
+         loaded_state_bitwise=True, run_a_losses=run_a, run_b_loss=run_b,
+         window_state=diff, resume_bitwise=True, launches=counts)
+    return scope, main, prediction, counts
+
+
+def phase_infer_resnet(tmp, card, scope, main, prediction):
+    """ResNet-50 in fp32 (IEEE convs) from ``persist_resnet_amp``'s trained
+    scope: ``save_inference_model`` of the prediction, then a native and an
+    ``AnalysisConfig`` (``enable_ir_optim``) predictor on the card at
+    batch 256: the folded program keeps no ``batch_norm``, the outputs
+    agree within rtol 1e-4 / atol 1e-5; images/s of each (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            PaddleTensor,
+                                            create_paddle_predictor)
+
+    infer_dir = os.path.join(tmp, "resnet_infer")
+    exe = fluid.Executor()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(
+            infer_dir, ["img"], [main.global_block().var(prediction)], exe,
+            main_program=main)
+    del scope
+    torch.cuda.empty_cache()
+    img = resnet_feed(RESNET_BATCH, 224, 1000)["img"]
+    inputs = [PaddleTensor(name="img", data=img)]
+    outs, stats = {}, {}
+    for kind, cfg in (("native", NativeConfig(model_dir=infer_dir)),
+                      ("analysis", AnalysisConfig(model_dir=infer_dir,
+                                                  enable_ir_optim=True))):
+        pred = create_paddle_predictor(cfg)
+        ops = [op.type for op in pred._program.global_block().ops]
+        (out,) = pred.run(inputs)
+        outs[kind] = out.data
+        ms = cuda_time_ms(lambda: pred.run(inputs), 5, warmup=1)
+        stats[kind] = {"ops": len(ops), "batch_norm_ops": ops.count(
+            "batch_norm"), "ms_per_batch": ms,
+            "images_per_s": RESNET_BATCH * 1e3 / ms}
+        pred.close()
+        del pred
+        torch.cuda.empty_cache()
+    folded = stats["native"]["batch_norm_ops"]
+    if stats["analysis"]["batch_norm_ops"] != 0 or folded == 0:
+        raise AssertionError(f"infer_resnet: batch_norm ops {stats}")
+    nat, ana = outs["native"], outs["analysis"]
+    if not (nat.shape == (RESNET_BATCH, 1000) and np.isfinite(nat).all()):
+        raise AssertionError(f"infer_resnet: output {nat.shape}")
+    np.testing.assert_allclose(ana, nat, rtol=1e-4, atol=1e-5)
+    emit("infer_resnet", card=card, model="resnet50", batch=RESNET_BATCH,
+         dtype="float32", folded_batch_norms=folded,
+         max_abs_diff=float(np.abs(ana - nat).max()), rtol=1e-4, atol=1e-5,
+         **stats)
+
+
 def main():
     import argparse
 
@@ -3445,6 +3784,20 @@ def main():
     with fluid.amp.amp_guard("float16", keep_activations=True):
         phase_train_window_fp16_scaler()
     torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        total = phase_persist_flash_amp(tmp, smi)
+        torch.cuda.empty_cache()
+        scope, resnet_main, prediction, counts = phase_persist_resnet_amp(
+            tmp, smi)
+        add_counts(total, counts)
+        torch.cuda.empty_cache()
+        phase_infer_resnet(tmp, smi, scope, resnet_main, prediction)
+        del scope
+        torch.cuda.empty_cache()
+    for k in (*flash_amp, *xent_amp, adam, momentum):
+        k["launches"] += total.get(k["name"], 0)
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
                                   momentum, *xent_amp, *flash_amp]}))
     print(smi)

@@ -6,9 +6,13 @@ calls, executed eagerly op by op with PyTorch on an NVIDIA card (Hopper,
 hand-written CUDA kernel here (``csrc/``), with a plain PyTorch version of
 the same function beside it for CPU tensors.
 
-This first slice carries the serving path: the paged continuous-batching
-``DecodeEngine`` over the step-form ``DecodeModel``.  Entry points run on the
-card (``CUDAPlace(0)``) unless the caller passes ``CPUPlace()``.
+It carries serving (the paged continuous-batching ``DecodeEngine``, with
+speculative decoding), training (Transformer and ResNet through
+``fluid.Executor``, in fp32 and mixed precision, step by step or as CUDA
+graphs), evaluation, checkpoints in the JAX package's format
+(``fluid.io``) and the inference predictor (``paddle_tpu_torch.inference``).
+Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
+``CPUPlace()``.
 """
 
 from . import fluid  # noqa: F401

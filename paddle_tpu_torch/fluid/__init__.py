@@ -7,7 +7,7 @@ from .. import ops as _ops  # noqa: F401
 
 from . import amp
 from . import core
-from .core import CPUPlace, CUDAPlace, TPUPlace
+from .core import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace
 from . import framework
 from .framework import (Program, Operator, Parameter, Variable,
                         default_main_program, default_startup_program,
@@ -26,6 +26,17 @@ from . import prefetch
 from .prefetch import DevicePrefetcher
 from .backward import append_backward
 from .param_attr import ParamAttr
+from . import lod_tensor
+from .lod_tensor import (LoDTensor, create_lod_tensor,
+                         create_random_int_lodtensor)
+from .data_feeder import DataFeeder
+from . import io
+from .io import (save_vars, save_params, save_persistables, load_vars,
+                 load_params, load_persistables, save_inference_model,
+                 load_inference_model, get_inference_program)
+from . import ir
+from . import transpiler
+from .transpiler import InferenceTranspiler
 
 __all__ = [
     "amp", "core", "framework", "executor", "initializer", "layers", "unique_name",
@@ -34,4 +45,9 @@ __all__ = [
     "default_startup_program", "program_guard", "Executor", "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
     "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
+    "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
+    "DataFeeder", "lod_tensor", "LoDTensor", "create_lod_tensor",
+    "create_random_int_lodtensor", "save_vars", "save_params",
+    "save_persistables", "load_vars", "load_params", "load_persistables",
+    "save_inference_model", "load_inference_model", "get_inference_program",
 ]

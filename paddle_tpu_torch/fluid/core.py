@@ -3,11 +3,17 @@
 A Place names a ``torch.device``.  ``CUDAPlace`` is the card and the
 default of every entry point; ``CPUPlace`` runs each op's plain PyTorch
 version and is what the CPU tests pass; ``TPUPlace`` is accepted so code
-written against the reference keeps working, and maps to the card.
+written against the reference keeps working, and maps to the card;
+``CUDAPinnedPlace`` is host memory, as in the reference.
+
+``GLOBAL_FLAGS`` holds the gflags-style runtime flags (``FLAGS_*`` from
+the environment at import, or ``init_gflags``): ``check_nan_inf`` makes
+the Executor raise on the first variable that is not finite.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -117,6 +123,13 @@ class CUDAPlace(Place):
         super().__init__("gpu", device_id)
 
 
+class CUDAPinnedPlace(Place):
+    """Page-locked host memory: a CPU place to the ops."""
+
+    def __init__(self):
+        super().__init__("cpu", 0)
+
+
 class TPUPlace(Place):
     """Accepted for API parity with the reference; runs on the card."""
 
@@ -136,3 +149,54 @@ def torch_device(place: Place) -> torch.device:
             f"CPUPlace() to run the plain PyTorch path on the CPU")
     return torch.device("cuda", place.device_id)
 
+
+
+# gflags-style runtime flags (ref: platform/init.cc InitGflags).  A plain
+# dict; init_gflags takes the reference's two arg forms:
+# "--tryfromenv=a,b,c" (import FLAGS_<name> from the environment) and
+# direct "--name=value".
+def _flag_value(raw):
+    """A flag's textual value with its type kept: numerics stay numeric
+    ('1' -> 1), true/false-style literals become bools, anything else
+    stays a string."""
+    if isinstance(raw, bool):
+        return raw
+    s = str(raw).strip()
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    if s.lower() in ("true", "yes", "on"):
+        return True
+    if s.lower() in ("false", "no", "off", ""):
+        return False
+    return s
+
+
+GLOBAL_FLAGS = {
+    "check_nan_inf": _flag_value(os.environ.get("FLAGS_check_nan_inf", "0")),
+    "benchmark": _flag_value(os.environ.get("FLAGS_benchmark", "0")),
+}
+
+
+def init_gflags(args=None):
+    for arg in (args or []):
+        if not isinstance(arg, str) or not arg.startswith("--"):
+            continue
+        body = arg[2:]
+        if body.startswith("tryfromenv="):
+            for name in body[len("tryfromenv="):].split(","):
+                name = name.strip()
+                if not name:
+                    continue
+                env = os.environ.get(f"FLAGS_{name}")
+                if env is not None:
+                    GLOBAL_FLAGS[name] = _flag_value(env)
+        elif "=" in body:
+            name, _, val = body.partition("=")
+            GLOBAL_FLAGS[name.strip()] = _flag_value(val)
+    return True

@@ -1,8 +1,9 @@
 """Env-knob contract (counterpart of ``paddle_tpu/fluid/envcontract.py``):
-the ``PADDLE_SERVE_*`` knobs the serving slice reads, the fault knob of
-``fluid.fault``, the ``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the
-prefetcher's ``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names,
-types and defaults.  Values are read live through :func:`get`."""
+the ``PADDLE_SERVE_*`` knobs the serving slice reads, the fault knobs of
+``fluid.fault``, the I/O retry knobs of ``fluid.retry``, the
+``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the prefetcher's
+``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names, types and
+defaults.  Values are read live through :func:`get`."""
 
 from __future__ import annotations
 
@@ -127,6 +128,22 @@ declare("PADDLE_FAULT_SPEC_DRAFT_POISON", "int", None, "fault",
         "token is replaced with deterministic garbage, so acceptance "
         "collapses and the spec controller must fall back, while the "
         "emitted streams stay bitwise correct")
+declare("PADDLE_FAULT_IO_DELAY_MS", "float", 0.0, "fault",
+        "Inject IO delay into checkpoint read/write paths (ms)")
+declare("PADDLE_FAULT_IO_ERROR_RATE", "float", 0.0, "fault",
+        "Transient-storage oracle: fraction of (path, op) keys whose "
+        "FIRST read/write attempt raises OSError (seeded per-path hash; "
+        "the retry always succeeds)")
+declare("PADDLE_FAULT_IO_ERROR_SEED", "int", 0, "fault",
+        "Seed for the transient-I/O oracle's per-path failure hash")
+
+# -- transient-I/O retry (fluid.retry, wraps checkpoint read/write) --
+declare("PADDLE_IO_RETRIES", "int", 3, "io",
+        "Bounded attempts for transient OSErrors on checkpoint I/O (1 = no "
+        "retry; corruption is never retried)")
+declare("PADDLE_IO_RETRY_BASE_S", "float", 0.05, "io",
+        "Base backoff delay between transient-I/O retries (seconds, "
+        "doubling per attempt, capped at 2 s)")
 
 # -- trainer --
 declare("PADDLE_TPU_PREFETCH_DEPTH", "int", 2, "trainer",

@@ -57,6 +57,14 @@ Fetches of bfloat16 vars come back as float32 numpy arrays (exact): numpy
 has no bfloat16, and the reference's ``ml_dtypes`` arrays are not available
 on every host.
 
+As in the reference: a ``LoDTensor`` (or ``(array, lengths)``) feeds its
+data (no op of the port reads a LoD yet, so the LoD goes no further); a
+program whose declared data var is neither fed nor in the scope is pruned
+to the fetch targets when that drops the var (``_prune_for_unfed``); and
+with ``core.GLOBAL_FLAGS["check_nan_inf"]`` every run reads its new state
+and fetches on the host and raises ``FloatingPointError`` naming the first
+that is not finite (a sync a run: for debugging).
+
 No jit, compile cache or verifier in this slice, and of the guardian only
 the loss scaler's part.
 """
@@ -74,6 +82,8 @@ from . import core
 from .cuda_graph import StepGraph
 from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
                         default_main_program)
+from .lod_tensor import LoDTensor
+from .lod_tensor import _to_numpy as _snapshot
 from ..ops import registry as _reg
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
@@ -137,16 +147,6 @@ def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
 
 def _storage(t) -> int:
     return t.untyped_storage().data_ptr()
-
-
-def _snapshot(t) -> np.ndarray:
-    """A numpy copy of ``t``: ``numpy()`` of a CPU tensor shares its
-    memory, ``cpu()`` of a device tensor already copies.  bfloat16 comes
-    back as float32 (exact; numpy has no bfloat16)."""
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        return t.float().cpu().numpy()
-    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def _find_groups(ops, const_ops) -> List[List[int]]:
@@ -425,6 +425,79 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
     return finite, snapshot
 
 
+def _check_nan_inf(named_vals):
+    """Under ``FLAGS_check_nan_inf``: raise naming the first floating value
+    that holds a NaN or an Inf (one host read each)."""
+    if not core.GLOBAL_FLAGS.get("check_nan_inf"):
+        return
+    for name, val in named_vals:
+        if isinstance(val, torch.Tensor):
+            bad = val.is_floating_point() and \
+                not bool(torch.isfinite(val).all())
+        else:
+            arr = np.asarray(val)
+            bad = np.issubdtype(arr.dtype, np.floating) and \
+                not np.isfinite(arr).all()
+        if bad:
+            raise FloatingPointError(
+                f"check_nan_inf: variable '{name}' contains NaN/Inf after "
+                f"op block execution")
+
+
+def _prune_for_unfed(program, feeds, fetch_names, scope):
+    """A program with a declared data var that is neither fed nor in the
+    scope, read by some op (a mixed program whose other branch the caller
+    does not fetch), runs pruned to the fetch targets: first keeping the
+    ops that write persistables, else without Backward and Optimize ops,
+    whichever drops every such var and still yields every fetch.  If none
+    does, the program stays as it is and the run raises on the var.  The
+    pruned program is cached on the program, per version."""
+    if not fetch_names:
+        return program
+    gb = program.global_block()
+    candidates = [v.name for v in gb.vars.values()
+                  if getattr(v, "is_data", False) and v.name not in feeds
+                  and scope.get(v.name, None) is None]
+    if not candidates:
+        return program
+    consumed = {n for op in gb.ops for n in op.input_arg_names}
+    unfed = sorted(n for n in candidates if n in consumed)
+    if not unfed:
+        return program
+    cache_ver, cache = getattr(program, "_unfed_prune_cache", (None, None))
+    if cache_ver != program._version:
+        cache = {}
+        program._unfed_prune_cache = (program._version, cache)
+    key = (tuple(fetch_names), tuple(unfed))
+    if key not in cache:
+        cache[key] = _try_prunes(program, fetch_names, unfed, scope, feeds)
+    return cache[key]
+
+
+def _try_prunes(program, fetch_names, unfed, scope, feeds):
+    def _viable(p):
+        produced, consumed = set(), set()
+        for op in p.global_block().ops:
+            produced.update(op.output_arg_names)
+            consumed.update(op.input_arg_names)
+        if any(n in consumed for n in unfed):
+            return False
+        return all(f in produced or f in feeds
+                   or scope.get(f, None) is not None for f in fetch_names)
+
+    # A: the live-op slice (a training fetch keeps its optimizer)
+    a = program.clone()
+    gb = a.global_block()
+    gb.ops = _live_ops(gb, fetch_names)
+    if _viable(a):
+        return a
+    # B: without backward and optimize ops (a decode fetch sheds the
+    # training branch that shares its parameters)
+    b = program._prune(fetch_names,
+                       drop_roles=(OpRole.Backward, OpRole.Optimize))
+    return b if _viable(b) else program
+
+
 def _has_lod(value) -> bool:
     lod = getattr(value, "lod", None)
     return bool(lod() if callable(lod) else lod)
@@ -569,6 +642,11 @@ class Executor:
         self._plans.clear()
 
     def _coerce_feed(self, program, name, value) -> torch.Tensor:
+        if isinstance(value, LoDTensor):
+            value = value._data
+        elif isinstance(value, tuple) and len(value) == 2 \
+                and isinstance(value[1], (list, tuple)):
+            value = value[0]  # the (array, recursive lengths) form
         gb = program.global_block()
         want = (core.torch_dtype(gb._var_recursive(name).dtype)
                 if gb._has_var_recursive(name) else None)
@@ -619,6 +697,7 @@ class Executor:
         feed = feed or {}
         feed_vals = {k: self._coerce_feed(program, k, v)
                      for k, v in feed.items()}
+        program = _prune_for_unfed(program, feed_vals, fetch_names, scope)
         guard = _guardian.for_program(program)
         key = (program._cache_token, program._version,
                tuple(sorted(feed_vals)), tuple(fetch_names))
@@ -667,6 +746,8 @@ class Executor:
                 scale_state)
         for name, val in new_state.items():
             scope.set(name, val)
+        _check_nan_inf(list(new_state.items())
+                       + [(n, env[n]) for n in fetch_names])
         if not return_numpy:
             return [env[n].detach().clone() for n in fetch_names]
         return [_snapshot(env[n]) for n in fetch_names]
@@ -709,6 +790,7 @@ class Executor:
                                "the scanned loop; use Executor.run per step")
         feed_vals = {k: self._coerce_feed(program, k, v)
                      for k, v in feed.items()}
+        program = _prune_for_unfed(program, feed_vals, fetch_names, scope)
         if feed_per_step:
             bad = {k: tuple(v.shape) for k, v in feed_vals.items()
                    if v.dim() == 0 or v.shape[0] != n_steps}
@@ -750,4 +832,7 @@ class Executor:
                           self.device, generator)
             win.load(scope)
             self._windows[key] = win
-        return win.run(scope, feed_vals, n_steps, feed_per_step)
+        fetched = win.run(scope, feed_vals, n_steps, feed_per_step)
+        _check_nan_inf([(n, scope.get(n)) for n in win.plan.state_out]
+                       + list(zip(fetch_names, fetched)))
+        return fetched

@@ -5,11 +5,21 @@ The IR is backend-neutral: the same builder calls produce the same ops,
 names, attrs, shapes and dtypes in both packages.  Only execution differs —
 the port's Executor runs a block eagerly op by op with PyTorch instead of
 tracing it into one XLA program.
+
+``Program.clone(for_test=True)``, ``_prune`` and ``inference_optimize``
+follow the reference's rules exactly, so a test or inference program is the
+same in both packages.  ``serialize_to_string`` pickles the program as the
+reference does, but ``parse_from_string`` unpickles only this package's
+classes: a program the JAX package wrote names ``paddle_tpu`` classes, and
+loading them would import JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import io
+import pickle
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
@@ -71,6 +81,11 @@ class Variable:
                 f"persistable={self.persistable} stop_gradient={self.stop_gradient}")
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+    def _clone_into(self, block):
+        v = copy.copy(self)
+        v.block = block
+        return v
 
 
 class Parameter(Variable):
@@ -158,6 +173,8 @@ class Block:
         self.parent_idx = parent_idx
         self.vars: Dict[str, Variable] = OrderedDict()
         self.ops: List[Operator] = []
+        # forward-block link used by grad ops of sub-blocks
+        self.forward_block_idx = -1
 
     @property
     def parent_block(self) -> Optional["Block"]:
@@ -239,6 +256,7 @@ class Program:
         self._version = 0
         Program._token_counter += 1
         self._cache_token = Program._token_counter
+        self._is_test = False
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -249,6 +267,17 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None) -> Block:
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def _bump_version(self):
         self._version += 1
 
@@ -256,10 +285,124 @@ class Program:
         for b in self.blocks:
             yield from b.vars.values()
 
+    # ---- clone / prune ----
+    def clone(self, for_test=False) -> "Program":
+        """A copy with its own identity (plan cache token).  ``for_test``:
+        ``dropout`` and ``batch_norm`` get ``is_test``, and the
+        Backward-role and Optimize-role ops go (ops of every other role,
+        a learning-rate schedule's included, stay)."""
+        p = Program()
+        p.random_seed = self.random_seed
+        p.blocks = []
+        for b in self.blocks:
+            nb = Block(p, b.idx, b.parent_idx)
+            nb.forward_block_idx = b.forward_block_idx
+            for v in b.vars.values():
+                nb.vars[v.name] = v._clone_into(nb)
+            for op in b.ops:
+                nop = Operator(nb, op.type, copy.deepcopy(op.inputs),
+                               copy.deepcopy(op.outputs),
+                               copy.deepcopy(op.attrs))
+                if for_test and "is_test" in _TEST_MODE_OPS.get(op.type, ()):
+                    nop.attrs["is_test"] = True
+                nb.ops.append(nop)
+            p.blocks.append(nb)
+        p.current_block_idx = 0
+        p._is_test = for_test
+        if for_test:
+            for b in p.blocks:
+                b.ops = [op for op in b.ops
+                         if op.attr(OpRole.KEY, OpRole.Forward)
+                         & OpRole.Backward == 0
+                         and op.attr(OpRole.KEY, OpRole.Forward)
+                         != OpRole.Optimize]
+        return p
+
+    def _prune(self, targets, drop_roles=()) -> "Program":
+        """A clone keeping only the global block's ops needed to produce
+        ``targets`` (Variables or names); ops whose role has a bit of
+        ``drop_roles`` go first."""
+        target_names = {t.name if isinstance(t, Variable) else str(t)
+                        for t in targets}
+        drop = 0
+        for r in drop_roles:
+            drop |= int(r)
+        p = self.clone()
+        gb = p.global_block()
+        needed = set(target_names)
+        kept = []
+        for op in reversed(gb.ops):
+            role = int(op.attrs.get(OpRole.KEY, OpRole.Forward))
+            if drop and (role & drop):
+                continue
+            if any(n in needed for n in op.output_arg_names):
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        gb.ops = list(reversed(kept))
+        return p
+
+    def inference_optimize(self) -> "Program":
+        return self.clone(for_test=True)
+
+    # ---- serialization: a versioned pickle, as the reference writes ----
+    SERIAL_VERSION = 1
+
+    def serialize_to_string(self) -> bytes:
+        return pickle.dumps({"version": self.SERIAL_VERSION,
+                             "program": self})
+
+    @staticmethod
+    def parse_from_string(data: bytes) -> "Program":
+        payload = safe_loads(data)
+        if isinstance(payload, Program):  # pre-versioned blobs
+            return payload
+        if payload.get("version") != Program.SERIAL_VERSION:
+            raise ValueError(
+                f"program blob version {payload.get('version')} != "
+                f"{Program.SERIAL_VERSION}")
+        return payload["program"]
+
     def to_string(self, throw_on_error=False, with_details=False):
         return "\n".join(b.to_string() for b in self.blocks)
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+
+# Ops that behave differently under test mode.
+_TEST_MODE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+}
+
+# what an unpickled program may name besides this package's classes: the
+# containers the IR holds, and numpy (arrays and scalars in op attrs)
+_SAFE_BUILTINS = frozenset([
+    "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
+    "int", "list", "object", "range", "set", "slice", "str", "tuple"])
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Resolves only ``paddle_tpu_torch`` classes, numpy, ``OrderedDict``
+    and the plain builtin types; anything else raises ``ValueError``
+    before its module is imported."""
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if (root in ("paddle_tpu_torch", "numpy")
+                or (module == "builtins" and name in _SAFE_BUILTINS)
+                or (module == "collections" and name == "OrderedDict")):
+            return super().find_class(module, name)
+        if root == "paddle_tpu":
+            raise ValueError(
+                f"this program was written by another package ({module}."
+                f"{name}): rebuild it with paddle_tpu_torch's builders; its "
+                f"per-variable files load as they are (fluid.io.load_vars)")
+        raise ValueError(f"a pickled program may not name {module}.{name}")
+
+
+def safe_loads(data: bytes):
+    """``pickle.loads`` through :class:`_PortUnpickler`."""
+    return _PortUnpickler(io.BytesIO(data)).load()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,302 @@
+"""IR graph and pass infrastructure (counterpart of
+``paddle_tpu/fluid/ir.py``): a dataflow view of one block of a Program
+(``Graph`` of op and var ``Node``s), a pass registry, and two passes —
+``dead_op_elimination`` and ``conv_bn_fuse``, the inference fold of a
+test-mode batch_norm into the conv2d before it.
+
+The fold reads the scope's tensors where they live (on the card for a
+predictor on the card) and computes in float32, as the reference does in
+numpy: the folded filter and the new bias are float32 tensors on the
+filter's device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Set
+
+import torch
+
+from .framework import Operator, Program
+
+__all__ = ["Node", "Graph", "Pass", "PassRegistry", "register_pass",
+           "get_pass", "apply_pass"]
+
+
+class Node:
+    """Op node or var node (ref node.h:27: a node is exactly one of the
+    two; edges are def-use)."""
+
+    def __init__(self, kind, name, op=None, var=None):
+        self.kind = kind          # "op" | "var"
+        self.name = name
+        self.op = op              # framework.Operator for op nodes
+        self.var = var            # framework.Variable for var nodes
+        self.inputs: List[Node] = []
+        self.outputs: List[Node] = []
+
+    def is_op(self, type=None):
+        return self.kind == "op" and (type is None or self.op.type == type)
+
+    def is_var(self):
+        return self.kind == "var"
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return f"Node({self.kind}:{self.name})"
+
+
+class Graph:
+    """Dataflow view over ONE block of a Program (ref graph.h:63 builds the
+    same structure from a ProgramDesc).  Mutations happen on the node set;
+    ``to_program`` writes the surviving/modified op list back in a valid
+    topological order (graph_to_program_pass)."""
+
+    def __init__(self, program: Program, block_idx: int = 0):
+        self.program = program
+        self.block_idx = block_idx
+        block = program.block(block_idx)
+        self.op_nodes: List[Node] = []
+        self.var_nodes: Dict[str, Node] = {}
+        for op in block.ops:
+            self._add_op(op, block)
+
+    def _var_node(self, name, block):
+        if name not in self.var_nodes:
+            var = block._var_recursive(name) \
+                if block._has_var_recursive(name) else None
+            self.var_nodes[name] = Node("var", name, var=var)
+        return self.var_nodes[name]
+
+    def _add_op(self, op, block):
+        node = Node("op", op.type, op=op)
+        for name in op.input_arg_names:
+            if not name:
+                continue
+            vn = self._var_node(name, block)
+            node.inputs.append(vn)
+            vn.outputs.append(node)
+        for name in op.output_arg_names:
+            if not name:
+                continue
+            vn = self._var_node(name, block)
+            node.outputs.append(vn)
+            vn.inputs.append(node)
+        self.op_nodes.append(node)
+        return node
+
+    # -- queries --
+    def ops(self, type: Optional[str] = None) -> List[Node]:
+        return [n for n in self.op_nodes
+                if type is None or n.op.type == type]
+
+    def var(self, name: str) -> Optional[Node]:
+        return self.var_nodes.get(name)
+
+    def sole_consumer(self, var_node: Node) -> Optional[Node]:
+        """The single op reading this var, or None (pattern-matching
+        helper, the PDNode 'single out-link' constraint)."""
+        return var_node.outputs[0] if len(var_node.outputs) == 1 else None
+
+    # -- mutations --
+    def remove_op(self, node: Node):
+        self.op_nodes.remove(node)
+        for vn in node.inputs:
+            vn.outputs = [o for o in vn.outputs if o is not node]
+        for vn in node.outputs:
+            vn.inputs = [i for i in vn.inputs if i is not node]
+
+    def to_program(self) -> Program:
+        """Write the surviving op list back into the block (ops keep their
+        relative order, which the Graph preserves — ref
+        graph_to_program_pass.cc)."""
+        block = self.program.block(self.block_idx)
+        block.ops = [n.op for n in self.op_nodes]
+        self.program._bump_version()
+        return self.program
+
+
+class Pass:
+    """Subclass and implement apply(graph) -> graph (ref pass.h:32)."""
+
+    name = "pass"
+
+    def apply(self, graph: Graph) -> Graph:
+        raise NotImplementedError
+
+    def __call__(self, program: Program, block_idx: int = 0) -> Program:
+        return self.apply(Graph(program, block_idx)).to_program()
+
+
+class PassRegistry:
+    _passes: Dict[str, Callable[[], Pass]] = {}
+
+    @classmethod
+    def register(cls, name, factory):
+        cls._passes[name] = factory
+
+    @classmethod
+    def get(cls, name, **kwargs) -> Pass:
+        if name not in cls._passes:
+            raise KeyError(f"no pass named {name!r}; have "
+                           f"{sorted(cls._passes)}")
+        return cls._passes[name](**kwargs)
+
+
+def register_pass(name):
+    def deco(klass):
+        klass.name = name
+        PassRegistry.register(name, klass)
+        return klass
+
+    return deco
+
+
+def get_pass(name, **kwargs) -> Pass:
+    return PassRegistry.get(name, **kwargs)
+
+
+def apply_pass(program: Program, name: str, block_idx: int = 0,
+               **kwargs) -> Program:
+    return get_pass(name, **kwargs)(program, block_idx)
+
+
+# ---------------------------------------------------------------------------
+# Built-in passes
+# ---------------------------------------------------------------------------
+
+
+@register_pass("dead_op_elimination")
+class DeadOpElimination(Pass):
+    """Drop ops none of whose outputs are read, target, persistable, or
+    side-effecting — the graph-level twin of the executor's live-op slice
+    (ref: framework/prune.cc for the desc-level version).  ``targets``
+    names the program outputs the caller intends to fetch."""
+
+    SIDE_EFFECTS = {"print", "save", "save_combine", "feed", "fetch"}
+
+    def __init__(self, targets=()):
+        self.targets: Set[str] = {
+            t if isinstance(t, str) else t.name for t in targets}
+        if not self.targets:
+            # fetch targets live OUTSIDE the program in this executor model
+            # (BlockPlan fetch_names, no fetch ops) — an empty target set
+            # would cascade-delete the whole forward graph
+            raise ValueError(
+                "dead_op_elimination requires explicit targets (the vars "
+                "you intend to fetch); ref prune.cc takes targets too")
+
+    def _subblock_live(self, program, op) -> bool:
+        """True when a control-flow op's sub-block (recursively) contains
+        a side-effecting op or writes persistable/checkpoint-visible
+        state — invisible to outer-block def-use liveness, so such ops
+        must never be eliminated on output-deadness alone."""
+        sub = op.attr("sub_block") if hasattr(op, "attr") else None
+        if not isinstance(sub, int) or sub >= len(program.blocks):
+            return False
+        block = program.block(sub)
+        for bop in block.ops:
+            if bop.type in self.SIDE_EFFECTS:
+                return True
+            for n in bop.output_arg_names:
+                if n and block._has_var_recursive(n) \
+                        and block._var_recursive(n).persistable:
+                    return True
+            if self._subblock_live(program, bop):
+                return True
+        return False
+
+    def apply(self, graph: Graph) -> Graph:
+        changed = True
+        while changed:
+            changed = False
+            for node in list(graph.op_nodes):
+                if node.op.type in self.SIDE_EFFECTS:
+                    continue
+                if self._subblock_live(graph.program, node.op):
+                    continue
+                live = False
+                for vn in node.outputs:
+                    if vn.outputs or vn.name in self.targets:
+                        live = True
+                        break
+                    if vn.var is not None and vn.var.persistable:
+                        live = True
+                        break
+                if not live:
+                    graph.remove_op(node)
+                    changed = True
+        return graph
+
+
+@register_pass("conv_bn_fuse")
+class ConvBNFuse(Pass):
+    """Fold an inference-mode batch_norm into the preceding conv2d's
+    weights (ref: the InferenceTranspiler's BN fold and
+    conv_bn_fuse_pass): W' = W * gamma/std per out-channel, and the op pair
+    collapses to conv2d + elementwise_add of a precomputed bias.
+
+    Only legal when the BN is is_test=True and the conv output feeds ONLY
+    the BN.  Works on the numeric values in the given scope, so it runs at
+    inference-load time (like the reference transpiler, which edits both
+    program and weights)."""
+
+    def __init__(self, scope=None):
+        from .executor import global_scope
+
+        self.scope = scope or global_scope()
+
+    def apply(self, graph: Graph) -> Graph:
+        block = graph.program.block(graph.block_idx)
+        folded_filters: Set[str] = set()
+        for conv in list(graph.ops("conv2d")):
+            out_vn = next((vn for vn in conv.outputs), None)
+            if out_vn is None:
+                continue
+            bn = graph.sole_consumer(out_vn)
+            if bn is None or not bn.is_op("batch_norm") \
+                    or not bn.op.attr("is_test", False):
+                continue
+            names = {s: bn.op.inputs[s][0] for s in
+                     ("Scale", "Bias", "Mean", "Variance")}
+            w_name = conv.op.inputs["Filter"][0]
+            w_vn = graph.var(w_name)
+            shared = w_vn is not None and \
+                sum(1 for c in w_vn.outputs if c.is_op("conv2d")) > 1
+            if shared or w_name in folded_filters:
+                # a filter consumed by several convs cannot absorb one BN's
+                # statistics without corrupting the others — skip
+                continue
+            folded_filters.add(w_name)
+            vals = {k: self.scope.get(n) for k, n in names.items()}
+            w = self.scope.get(w_name)
+            if w is None or any(v is None for v in vals.values()):
+                continue
+            eps = bn.op.attr("epsilon", 1e-5)
+            gamma, beta, mean, var = (
+                vals[k].to(w.device, torch.float32)
+                for k in ("Scale", "Bias", "Mean", "Variance"))
+            std = torch.sqrt(var + eps)
+            w = w.float() * (gamma / std)[:, None, None, None]
+            bias = beta - gamma * mean / std
+            self.scope.set(w_name, w)
+            bias_name = w_name + "@bn_fold_bias"
+            self.scope.set(bias_name, bias)
+            block.create_var(name=bias_name, shape=tuple(bias.shape),
+                             dtype="float32", persistable=True)
+            # rewrite: conv_out -> add(conv_out, bias) replaces the BN
+            bn_out = bn.op.outputs["Y"][0]
+            add_op = Operator(
+                block, "elementwise_add",
+                inputs={"X": [out_vn.name], "Y": [bias_name]},
+                outputs={"Out": [bn_out]}, attrs={"axis": 1})
+            idx = graph.op_nodes.index(bn)
+            graph.remove_op(bn)
+            new_node = Node("op", "elementwise_add", op=add_op)
+            bias_vn = graph._var_node(bias_name, block)
+            new_node.inputs = [out_vn, bias_vn]
+            out_vn.outputs.append(new_node)
+            bias_vn.outputs.append(new_node)  # keep def-use symmetric
+            bn_out_vn = graph._var_node(bn_out, block)
+            new_node.outputs = [bn_out_vn]
+            bn_out_vn.inputs = [new_node]
+            graph.op_nodes.insert(idx, new_node)
+        return graph

@@ -1,0 +1,150 @@
+"""Host-side LoDTensor and helpers (counterpart of
+``paddle_tpu/fluid/lod_tensor.py``).
+
+A LoDTensor is packed variable-length sequence data: sequences are
+concatenated along dim 0 and a Level-of-Detail table of nested offsets
+records the boundaries.
+
+LoD forms:
+ - "offsets" (the wire form): ((0, 2, 5),) means two sequences, rows
+   [0:2) and [2:5).
+ - "recursive sequence lengths" (user-facing): [[2, 3]].
+
+The data is a numpy array, or a ``torch.Tensor`` kept as it is (on its
+device) until numpy asks for it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "LoDTensor", "create_lod_tensor", "create_random_int_lodtensor",
+]
+
+
+def _lengths_to_offsets(lengths: Sequence[int]) -> Tuple[int, ...]:
+    off = [0]
+    for n in lengths:
+        off.append(off[-1] + int(n))
+    return tuple(off)
+
+
+def _offsets_to_lengths(offsets: Sequence[int]) -> List[int]:
+    return [int(offsets[i + 1]) - int(offsets[i])
+            for i in range(len(offsets) - 1)]
+
+
+def _normalize_lod(lod) -> Tuple[Tuple[int, ...], ...]:
+    if not lod:
+        return ()
+    return tuple(tuple(int(x) for x in level) for level in lod)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``: ``numpy()`` of a CPU tensor shares its
+    memory, ``cpu()`` of a device tensor already copies.  bfloat16 comes
+    back as float32 (exact; numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+class LoDTensor:
+    """Packed data + offset-form LoD, with the pybind LoDTensor surface
+    (set / lod / set_lod / recursive_sequence_lengths)."""
+
+    def __init__(self, data=None, lod=None):
+        if data is None or isinstance(data, torch.Tensor):
+            self._data = data
+        else:
+            self._data = np.asarray(data)
+        self._lod = _normalize_lod(lod)
+
+    def __array__(self, dtype=None, copy=None):
+        a = self._data
+        if a is None:
+            raise ValueError("LoDTensor holds no data")
+        if isinstance(a, torch.Tensor):
+            a = self._data = _to_numpy(a)
+        return a.astype(dtype) if dtype is not None else a
+
+    def set(self, array, place=None):
+        self._data = np.asarray(array)
+
+    @property
+    def shape(self):
+        return () if self._data is None else tuple(self._data.shape)
+
+    def lod(self) -> Tuple[Tuple[int, ...], ...]:
+        return self._lod
+
+    def set_lod(self, lod):
+        self._lod = _normalize_lod(lod)
+
+    def recursive_sequence_lengths(self) -> List[List[int]]:
+        return [_offsets_to_lengths(level) for level in self._lod]
+
+    def set_recursive_sequence_lengths(self, lengths):
+        self._lod = tuple(_lengths_to_offsets(n) for n in lengths)
+
+    def has_valid_recursive_sequence_lengths(self) -> bool:
+        if self._data is None:
+            return False
+        n = self._data.shape[0] if len(self._data.shape) else 0
+        prev_count = None
+        for level in self._lod:
+            if not level or level[0] != 0 or list(level) != sorted(level):
+                return False
+            if prev_count is not None and len(level) - 1 != prev_count:
+                return False
+            prev_count = level[-1]
+        if self._lod and self._lod[-1][-1] != n:
+            return False
+        return True
+
+    def __repr__(self):
+        return f"LoDTensor(shape={self.shape}, lod={self._lod})"
+
+
+def create_lod_tensor(data, recursive_seq_lens, place=None) -> LoDTensor:
+    """``data``: a numpy array (rows already packed), a list of lists
+    (ragged; packed, trailing dim 1) or another LoDTensor (re-lod)."""
+    if isinstance(data, LoDTensor):
+        t = LoDTensor(np.asarray(data))
+        t.set_recursive_sequence_lengths(recursive_seq_lens)
+        return t
+    if isinstance(data, list):
+        flat = []
+
+        def _walk(x):
+            if isinstance(x, (list, tuple)) and x \
+                    and isinstance(x[0], (list, tuple)):
+                for e in x:
+                    _walk(e)
+            else:
+                flat.extend(x if isinstance(x, (list, tuple)) else [x])
+
+        _walk(data)
+        arr = np.asarray(flat).reshape(-1, 1)
+    else:
+        arr = np.asarray(data)
+    t = LoDTensor(arr)
+    t.set_recursive_sequence_lengths(recursive_seq_lens)
+    if not t.has_valid_recursive_sequence_lengths():
+        raise ValueError(
+            f"invalid lod {recursive_seq_lens} for data with "
+            f"{arr.shape[0]} rows")
+    return t
+
+
+def create_random_int_lodtensor(recursive_seq_lens, base_shape, place,
+                                low, high) -> LoDTensor:
+    total = sum(recursive_seq_lens[-1])
+    shape = [total] + list(base_shape)
+    data = np.random.randint(low, high + 1, size=shape).astype("int64")
+    return create_lod_tensor(data, recursive_seq_lens, place)
