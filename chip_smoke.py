@@ -11,7 +11,10 @@ flash kernels), then trains Transformer-base and ResNet-50 under AMP as
 ``Executor.run_steps`` windows (one CUDA graph a step) and the fp16 loss
 scaler's window, then evaluates, saves, resumes and deploys Transformer-base
 and ResNet-50 (``Program.clone(for_test=True)``, ``fluid.io``, the
-inference predictor), and checks them all.
+inference predictor), then trains BERT-base through the bf16 flash kernels,
+DeepFM with SelectedRows sparse SGD (per step and as a graphed window),
+SE-ResNeXt-50, VGG-16 and the MNIST CNN of ``benchmark/fluid/mnist.py``,
+and checks them all.
 
     python3 chip_smoke.py
 
@@ -235,14 +238,65 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    1e-4 / atol 1e-5 (the reference's bound), images/s of
                    each (CUDA events)
 
+31. kernel_flash_bert - the bf16 flash forward, dQ and dK/dV kernels at
+                   BERT-base's shape (B = 32, H = 12, T = 128, D = 64: one
+                   key tile, 384 items), with a ragged fp32 key-padding
+                   bias and without: within ``FLASH_LOW_TOL``, bitwise
+                   repeatability; kernel (graph replays), plain, bound and
+                   SDPA times
+32. kernel_adam_bert_base, kernel_adam_vgg16, kernel_adam_mnist_cnn,
+    kernel_momentum_se_resnext50 - phases 6 and 13 over tensors of
+                   BERT-base's 159, VGG-16's 60, the MNIST CNN's 6 and
+                   SE-ResNeXt-50's 225 parameter shapes (the kernels
+                   line's adam and momentum entries carry them,
+                   ``by_model``)
+33. train_bert_amp - BERT-base pretraining (``bert.build(base_config(),
+                   seq_len=128, n_mask=16, lr=1e-4)``, ``fluid_benchmark.py``'s
+                   bert) in bf16 with kept activations through the flash
+                   kernels, batch 32 of ``synthetic_batch`` from
+                   ``RandomState(0)``, 5 steps: finite losses, exactly 24 /
+                   12 / 12 bf16 flash launches and 1 Adam launch for 159
+                   tensors a step; step ms (host and CUDA events),
+                   tokens/s, peak allocated; the same 5 steps from the same
+                   state with the plain Adam on the card: losses within
+                   2^-8
+34. train_bert_parity - ``tiny_config`` through the flash kernels at batch 2
+                   x 32 (padded keys), 3 steps from one state, card against
+                   CPU: fp32 rtol 1e-5 at step 0 and 1e-4 after, bf16 2^-8
+35. train_deepfm - DeepFM (26 fields, 100,000 ids, k = 16, sparse tables,
+                   SGD 1e-3, batch 32): 5 ``Executor.run`` steps, each
+                   table grad a SelectedRows of 832 rows, every row no id
+                   looked up bitwise unchanged, the looked-up rows the dense
+                   update within 1e-6 of the table; then
+                   train_window_deepfm: two ``run_steps`` windows of 5
+                   fed per step on 10 fresh batches against 10
+                   ``Executor.run`` steps on the same batches from one
+                   state (losses within 1e-5, 1 eager step and then one
+                   graph replay a step; train_window_deepfm_rows: the rows
+                   no batch looked up bitwise the startup's); examples/s of
+                   both paths
+36. train_deepfm_parity - the same model, 3 steps from one state, card
+                   against CPU: rtol 1e-5 at step 0 and 1e-4 after
+37. train_bench_vision - SE-ResNeXt-50 (224 px, 1000 classes, Momentum
+                   0.9), VGG-16 (32 px, 10 classes, Adam) and the MNIST CNN
+                   (Adam), batch 32, lr 1e-3, bf16 with kept activations, 3
+                   steps each: finite losses, 1 momentum launch (225
+                   tensors) or 1 Adam launch (60, 6) a step; step ms,
+                   images/s, peak allocated
+38. train_se_resnext_parity - SE-ResNeXt-50 at 64 px, 10 classes, batch
+                   4, fp32, one step card against CPU as
+                   train_resnet_parity compares
+
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
 tick) and one after each full-size training phase (one more step, or
 one more window), each under ``torch.profiler``; each prints the device's busy share of the
 wall time and the kernels that take the most device time.
 
-The last three lines are the kernels table, the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+Before the last three lines, ``total`` prints the run's seconds.  The last
+three lines are the kernels table (the bf16 flash entries also carry
+their times at BERT-base's shape, ``bert_shape``), the card's name and
+power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -347,6 +401,36 @@ WINDOW_STEPS, PREFETCH_WINDOWS, FP16_WINDOW = 5, 3, 8
 RESNET_PARITY_LOSS_RTOL = 1e-4
 RESNET_PARITY_STATS_TOL = (1e-3, 1e-4)  # (rtol, atol)
 RESNET_PARITY_VELOCITY_COSINE = 0.999
+# BERT-base pretraining (fluid_benchmark.py's bert on an accelerator: batch
+# 32 x 128, n_mask = 128 // 8): 12 heads of width 64 in 12 layers; each
+# ring_attention op launches the forward in the op and again in its
+# generic grad, and dQ and dK/dV once; one Adam launch for the group of
+# the 159 adam ops (3 tables, 2 x 2 embedding / MLM layer-norm tensors,
+# 12 a layer, 6 head weights and biases)
+BERT_BATCH, BERT_LEN, BERT_MASK, BERT_STEPS = 32, 128, 16, 5
+BERT_HEADS, BERT_D, BERT_LAYERS = 12, 64, 12
+BERT_FLASH_FWD_PER_STEP = 2 * BERT_LAYERS
+BERT_FLASH_BWD_PER_STEP = BERT_LAYERS
+BERT_ADAM_TENSORS = 159
+# DeepFM (fluid_benchmark.py's deepfm on an accelerator: 26 fields, a
+# 100,000-id hashed vocabulary, k = 16, the (64, 32) deep tower, SGD,
+# batch 32): no kernel of the port on its path (the sparse SGD is
+# index_add_, as the reference's .at[].add); the looked-up rows against
+# the dense update within 1e-6 of the table's largest magnitude (the
+# duplicate ids' updates add in another order), the graphed window
+# against the per-step path within 1e-5 relative (index_add_ adds
+# repeated rows with atomics in no fixed order)
+DEEPFM_FIELDS, DEEPFM_VOCAB, DEEPFM_DIM, DEEPFM_BATCH = 26, 100000, 16, 32
+DEEPFM_LR, DEEPFM_STEPS = 1e-3, 5
+DEEPFM_DENSE_RTOL, DEEPFM_WINDOW_RTOL = 1e-6, 1e-5
+# fluid_benchmark.py's se_resnext and vgg and benchmark/fluid/mnist.py's
+# CNN at fluid_benchmark.py's default batch and learning rate: the momentum
+# tensors of SE-ResNeXt-50 (53 conv filters, 53 BN
+# scales and 53 biases, the 16 SE gates' two fc weights and biases, the
+# classifier's weight and bias: 225), the Adam tensors of VGG-16 (60) and
+# of the MNIST CNN (6)
+VISION_BATCH, VISION_STEPS, VISION_LR = 32, 3, 1e-3
+SE_MOMENTUM_TENSORS, VGG_ADAM_TENSORS, CNN_ADAM_TENSORS = 225, 60, 6
 
 
 def emit(phase, **fields):
@@ -756,6 +840,32 @@ def trace_summary(spans):
     return busy / 1e6, len(spans), [
         {"name": k[:90], "count": n, "ms": us / 1e3, "share_of_busy": us / busy}
         for k, (n, us) in top]
+
+
+def profile_step(phase, run, families):
+    """One more step ``run()`` under ``torch.profiler``: the device's busy
+    share of the wall time, the optimizer kernels, the kernel families
+    ``families`` (name -> name fragments) and the kernels that take the
+    most device time; then the host's Python profile of another step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pad_trace()
+    spans = device_spans(prof)
+    busy_s, n_events, top = trace_summary(spans)
+    emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
+         device_busy_share=busy_s / wall, device_events=n_events,
+         optimizer_kernels=optimizer_kernels(spans),
+         **{f"{name}_kernels": kernel_family(spans, keys, busy_s)
+            for name, keys in families.items()},
+         top_kernels=top, host=host_profile(run))
 
 
 def phase_profile(eng, jobs):
@@ -1476,9 +1586,9 @@ def time_group(call, plain, library, kernel_name, launches, iters=20,
     return out
 
 
-def phase_kernel_adam(shapes):
-    """The Adam group kernel over one tensor set per parameter shape of the
-    training slice (one shared learning rate, as the path has it) and over
+def phase_kernel_adam(shapes, phase="kernel_adam"):
+    """The Adam group kernel over one tensor set per parameter shape of a
+    model's path (one shared learning rate, as the path has it) and over
     a ragged set (own learning rates, a view off 16-byte alignment), each
     entry with beta pows of its own step count: one call against the plain
     version, then the call's kernel, device, plain, library, host and
@@ -1554,7 +1664,7 @@ def phase_kernel_adam(shapes):
     # entry's two beta pows read and written once
     n_t = len(main[0])
     bound, bound_by = bound_ms(28 * n + 4 + 16 * n_t, 12 * n + 7 * n_t)
-    emit("kernel_adam", tensors=n_t, values=n, ragged_tensors=len(ragged[0]),
+    emit(phase, tensors=n_t, values=n, ragged_tensors=len(ragged[0]),
          ragged_sizes=[p.numel() for p in ragged[0]], atol=ADAM_TOL,
          rtol=ADAM_TOL, **report, **times, bound_ms=bound, bound_by=bound_by,
          library="torch.optim.Adam(fused=True)",
@@ -1567,6 +1677,35 @@ def phase_kernel_adam(shapes):
             "ms": times["graph_ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": times["library_graph_ms"]}
+
+
+def trainable_shapes(main, want):
+    """The shapes of ``main``'s trainable parameters: one optimizer tensor
+    each; raises unless there are ``want``."""
+    shapes = [tuple(p.shape) for p in main.global_block().all_parameters()
+              if p.trainable]
+    if len(shapes) != want:
+        raise AssertionError(f"{len(shapes)} trainable parameters, the path "
+                             f"updates {want}")
+    return shapes
+
+
+def optimizer_at_model_shapes(kernel_phase, kernel, models):
+    """``kernel_phase`` (:func:`phase_kernel_adam` or
+    :func:`phase_kernel_momentum`) at each of ``models``' parameter shapes
+    ``(name, main program, tensors its path updates)``, a line each
+    (``kernel_<kernel>_<name>``): the kernels-line numbers by model."""
+    import torch
+
+    out = {}
+    for name, main, want in models:
+        entry = kernel_phase(trainable_shapes(main, want),
+                             f"kernel_{kernel}_{name}")
+        out[name] = {"tensors": want, **{
+            k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_case_inputs(gen, device, t_q, t_k, padded, b=TRAIN_BATCH,
@@ -1606,7 +1745,8 @@ def flash_live_pairs(t_q, lens, causal):
     return total
 
 
-def flash_bound_ms(t_q, t_k, lens, causal, kind, elem=4):
+def flash_bound_ms(t_q, t_k, lens, causal, kind, elem=4, b=TRAIN_BATCH,
+                   h=FLASH_HEADS, d=FLASH_D):
     """The least time of one flash kernel call: each input read once and
     each output written once over the memory rate, or the operations over
     their rate, whichever is larger; on the better of two routes.  ``elem``
@@ -1619,8 +1759,8 @@ def flash_bound_ms(t_q, t_k, lens, causal, kind, elem=4):
     TF32 rate, in bf16 / fp16 each of the reference's products once at the
     bf16 rate (the kernels' split of P and dS is their own cost).  Returns
     ``{"bound_ms", "bound_by", "fp32_core_bound_ms",
-    "tensor_core_bound_ms"}``."""
-    b, h, d = TRAIN_BATCH, FLASH_HEADS, FLASH_D
+    "tensor_core_bound_ms"}``; ``b``, ``h``, ``d`` are the batch, heads and
+    head width (the training path's by default)."""
     pairs = h * flash_live_pairs(t_q, lens, causal)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     product_flops, softmax_flops = pairs * 2 * products * d, pairs * 4
@@ -1928,7 +2068,8 @@ def _time_flash(q, k, v, do, bias, lse, delta, scale, causal, lens):
         times[f"{kind}_eager_ms"] = cuda_time_ms(kern, iters)
         times[f"{kind}_plain_ms"] = cuda_time_ms(plain, 10)
         for key, val in flash_bound_ms(t_q, t_k, lens, causal, kind,
-                                       q.element_size()).items():
+                                       q.element_size(), b=q.shape[0],
+                                       h=q.shape[1], d=q.shape[3]).items():
             times[f"{kind}_{key}"] = val
 
     # the library yardstick, timed only: SDPA on the same inputs
@@ -2377,27 +2518,9 @@ def phase_train(progs, profile_run=False, flash=False, beside=None,
          op_dispatches_per_step=op_dispatches(exe, main, cost),
          startup_s=startup_s, step_ms=step_ms, **stats, **extra)
     if profile_run:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            pad_trace()
-            t0 = time.perf_counter()
-            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            pad_trace()
-        spans = device_spans(prof)
-        busy_s, n_events, top = trace_summary(spans)
-        emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
-             device_busy_share=busy_s / wall, device_events=n_events,
-             optimizer_kernels=optimizer_kernels(spans),
-             gemm_kernels=kernel_family(spans, GEMM_KEYS, busy_s),
-             flash_kernels=kernel_family(spans, ("flash_",), busy_s),
-             top_kernels=top,
-             host=host_profile(lambda: exe.run(main, feed=feed,
-                                               fetch_list=[cost],
-                                               scope=scope)))
+        profile_step(phase, lambda: exe.run(main, feed=feed,
+                                            fetch_list=[cost], scope=scope),
+                     {"gemm": GEMM_KEYS, "flash": ("flash_",)})
     return counts, stats
 
 
@@ -2408,35 +2531,21 @@ def phase_train_parity():
     import torch
 
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.models.transformer import load_reference_params
 
     batch, seq_len = 2, 32
     main, startup, cost = build_training(seq_len, dropout=0.0)
-    feed = train_feed(batch, seq_len, seed=1)
-    runs = []
-    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
-        exe, scope = fluid.Executor(place), fluid.Scope()
-        exe.run(startup, scope=scope)
-        runs.append((exe, scope))
-    init = {v.name: runs[0][1].get(v.name).numpy()
-            for v in startup.list_vars() if v.persistable}
-    load_reference_params(runs[1][1], init, fluid.CUDAPlace(0))
-    losses = [[float(exe.run(main, feed=feed, fetch_list=[cost],
-                             scope=scope)[0].reshape(-1)[0])
-               for _ in range(3)] for exe, scope in runs]
-    cpu, gpu = np.array(losses[0]), np.array(losses[1])
-    param_diff = max(float((runs[1][1].get(p.name).cpu()
-                            - runs[0][1].get(p.name)).abs().max())
+    (cpu, gpu), _, (cpu_scope, card_scope) = parity_runs(
+        (main, startup, cost), train_feed(batch, seq_len, seed=1), 3,
+        (fluid.CPUPlace(), fluid.CUDAPlace(0)))
+    param_diff = max(float((card_scope.get(p.name).cpu()
+                            - cpu_scope.get(p.name)).abs().max())
                      for p in main.global_block().all_parameters())
-    rel = np.abs(gpu - cpu) / np.abs(cpu)
     tol = np.array([1e-5, 1e-4, 1e-4])
-    if not (np.isfinite(gpu).all() and (rel <= tol).all()):
-        raise AssertionError(f"card and CPU training losses disagree: card "
-                             f"{gpu.tolist()}, CPU {cpu.tolist()} (rel "
-                             f"{rel.tolist()}, tolerance {tol.tolist()})")
+    rel = check_parity("train_parity", cpu, gpu, tol)
     emit("train_parity", batch=batch, seq_len=seq_len, card_losses=gpu.tolist(),
-         cpu_losses=cpu.tolist(), rel_err=rel.tolist(), rtol=tol.tolist(),
-         params_max_abs_diff_after=param_diff, values_carried=len(init),
+         cpu_losses=cpu.tolist(), rel_err=rel, rtol=tol.tolist(),
+         params_max_abs_diff_after=param_diff,
+         values_carried=sum(v.persistable for v in startup.list_vars()),
          torch_threads=torch.get_num_threads())
 
 
@@ -2686,9 +2795,9 @@ def resnet_feed(batch, image_hw, class_dim):
         "label": rng.randint(0, class_dim, size=(batch, 1)).astype(np.int64)}
 
 
-def phase_kernel_momentum(shapes):
+def phase_kernel_momentum(shapes, phase="kernel_momentum"):
     """The momentum group kernel over one tensor set per parameter shape of
-    ResNet-50 (one shared learning rate, as the path has it) and over a
+    a model's path (one shared learning rate, as the path has it) and over a
     ragged set (own learning rates, a view off 16-byte alignment),
     Nesterov off and on, against the plain version; then the call's
     kernel, device, plain, library, host and bound times (Nesterov off, as
@@ -2752,7 +2861,7 @@ def phase_kernel_momentum(shapes):
                        lambda: fused.momentum_launches)
     # p, g, v read and p, v written; the shared lr read once
     bound, bound_by = bound_ms(20 * n + 4, 4 * n)
-    emit("kernel_momentum", tensors=len(main[0]), values=n, mu=mu, lr=0.1,
+    emit(phase, tensors=len(main[0]), values=n, mu=mu, lr=0.1,
          ragged_tensors=len(ragged[0]),
          ragged_sizes=[p.numel() for p in ragged[0]], atol=MOMENTUM_TOL,
          rtol=MOMENTUM_TOL, **report, **times, bound_ms=bound,
@@ -2847,26 +2956,9 @@ def phase_train_resnet(progs, profile_run=False, amp=False):
          **({"amp": {"dtype": "bfloat16", "keep_activations": True}}
             if amp else {}))
     if profile_run:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            pad_trace()
-            t0 = time.perf_counter()
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            pad_trace()
-        spans = device_spans(prof)
-        busy_s, n_events, top = trace_summary(spans)
-        emit(f"{phase}_profile", wall_s=wall, device_busy_s=busy_s,
-             device_busy_share=busy_s / wall, device_events=n_events,
-             optimizer_kernels=optimizer_kernels(spans),
-             conv_kernels=kernel_family(spans, CONV_KEYS, busy_s),
-             top_kernels=top,
-             host=host_profile(lambda: exe.run(main, feed=feed,
-                                               fetch_list=[loss],
-                                               scope=scope)))
+        profile_step(phase, lambda: exe.run(main, feed=feed,
+                                            fetch_list=[loss], scope=scope),
+                     {"conv": CONV_KEYS})
     return counts
 
 
@@ -2941,19 +3033,19 @@ def phase_conv_fp32():
          plain_conv_under_tf32_rel_err=plain_err)
 
 
-def phase_train_resnet_parity():
-    """ResNet-50 at 64 px from one initial state on the CPU (the plain
-    versions) and on the card, the card given the CPU's state again
-    before each of 3 steps: each step's loss, the running stats after it,
-    and the velocities after it as one vector agree."""
+def phase_train_resnet_parity(phase, progs, feed, steps, tensors, **facts):
+    """A conv net (``progs``: main, startup, loss; momentum over
+    ``tensors`` tensors a step) from one initial state on the CPU (the
+    plain versions) and on the card, the card given the CPU's state again
+    before each of ``steps`` steps: each step's loss, the running stats
+    after it, and the velocities after it as one vector agree; one
+    momentum launch a step.  ``facts`` go into the line."""
     import numpy as np
 
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models.params import load_reference_params
 
-    batch, steps = 4, 3
-    main, startup, loss, _ = build_resnet(image_hw=64, class_dim=10, lr=0.01)
-    feed = resnet_feed(batch, 64, 10)
+    main, startup, loss = progs
     names = sorted(v.name for v in startup.list_vars() if v.persistable)
     stats = [n for n in names if ".w_mean" in n or ".w_variance" in n]
     vel = [n for n in names if "velocity" in n]
@@ -2989,14 +3081,13 @@ def phase_train_resnet_parity():
                 and rel <= RESNET_PARITY_LOSS_RTOL
                 and stats_err <= atol_s
                 and cosine >= RESNET_PARITY_VELOCITY_COSINE):
-            raise AssertionError(f"ResNet card and CPU steps disagree at "
+            raise AssertionError(f"{phase}: card and CPU steps disagree at "
                                  f"step {step}: {per_step[-1]}")
     counts = launch_counts()
     if (counts["momentum"], counts["momentum_tensors"]) != (
-            steps * MOMENTUM_PER_STEP, steps * MOMENTUM_TENSORS_PER_STEP):
-        raise AssertionError(f"the card's ResNet steps launched {counts}")
-    emit("train_resnet_parity", batch=batch, image_hw=64, classes=10,
-         lr=0.01, steps=per_step, loss_rtol=RESNET_PARITY_LOSS_RTOL,
+            steps * MOMENTUM_PER_STEP, steps * tensors):
+        raise AssertionError(f"{phase}: the card's steps launched {counts}")
+    emit(phase, **facts, steps=per_step, loss_rtol=RESNET_PARITY_LOSS_RTOL,
          stats_rtol=rtol_s, stats_atol=atol_s,
          velocity_cosine_min=RESNET_PARITY_VELOCITY_COSINE,
          values_carried=len(names), launches=counts)
@@ -3056,7 +3147,8 @@ def state_diff(a, b):
             "tensors": len(names), "worst": worst}
 
 
-def window_profile(exe, main, feed, fetches, scope, steps):
+def window_profile(exe, main, feed, fetches, scope, steps,
+                   feed_per_step=False):
     """One more window of ``steps`` replays under ``torch.profiler``: the
     device's busy share of the wall time, the CUDA graph launches and the
     kernel launches the host made a step, and the largest kernels."""
@@ -3068,7 +3160,7 @@ def window_profile(exe, main, feed, fetches, scope, steps):
         pad_trace()
         t0 = time.perf_counter()
         exe.run_steps(main, feed=feed, fetch_list=fetches, n_steps=steps,
-                      scope=scope)
+                      scope=scope, feed_per_step=feed_per_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pad_trace()
@@ -3096,7 +3188,9 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
     """``WINDOW_STEPS`` x 2 Executor.run steps on the card against two
     ``run_steps(n_steps=WINDOW_STEPS)`` windows of one executor from the
     same state (a copy of the scope, generators included; the first
-    window runs a step, captures the next and replays): the last step's
+    window runs a step, captures the next and replays).  ``feed`` is one
+    feed for every step, or a list of one a step (the windows take theirs
+    stacked, with ``feed_per_step``).  The last step's
     fetches and every state tensor bitwise, or else the fetched loss
     (``fetches[0]``) within ``loss_rtol`` relative at each window's end,
     the worst difference printed; the other fetches (dropout masks, drawn
@@ -3112,6 +3206,11 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
 
     main, startup = progs
     n = WINDOW_STEPS
+    per_step_feed = isinstance(feed, list)
+    steps = feed if per_step_feed else [feed] * (2 * n)
+    window_feeds = ([{k: np.stack([f[k] for f in steps[w * n:(w + 1) * n]])
+                      for k in steps[0]} for w in range(2)]
+                    if per_step_feed else [feed] * 2)
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
     win_scope = clone_scope(scope)
@@ -3120,18 +3219,19 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
     for k in range(2 * n):
         if k == n:
             start.record()
-        eager.append(exe.run(main, feed=feed, fetch_list=fetches,
+        eager.append(exe.run(main, feed=steps[k], fetch_list=fetches,
                              scope=scope))
     end.record()
     torch.cuda.synchronize()
     eager_ms = start.elapsed_time(end) / n
     reset_launch_counts()
     windows, window_ms, host_ms = [], [], []
-    for _ in range(2):
+    for fd in window_feeds:
         t0 = time.perf_counter()
         start.record()
-        windows.append(exe.run_steps(main, feed=feed, fetch_list=fetches,
-                                     n_steps=n, scope=win_scope))
+        windows.append(exe.run_steps(main, feed=fd, fetch_list=fetches,
+                                     n_steps=n, scope=win_scope,
+                                     feed_per_step=per_step_feed))
         end.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3 / n)
@@ -3173,9 +3273,11 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
              graph.pool_bytes, "replays": graph.replays}
     extra = {}
     if profile_run:
-        extra["profile"] = window_profile(exe, main, feed, fetches,
-                                          win_scope, n)
+        extra["profile"] = window_profile(exe, main, window_feeds[-1],
+                                          fetches, win_scope, n,
+                                          per_step_feed)
     emit(phase, steps=2 * n, window_steps=n, windows=2,
+         feed_per_step=per_step_feed,
          window_losses=losses[0].tolist(), per_step_losses=losses[1].tolist(),
          loss_rel_err=rel.tolist(), loss_rtol=loss_rtol, bitwise=bitwise,
          fetches_bitwise=equal, state=diff, launches=counts,
@@ -3681,6 +3783,545 @@ def phase_infer_resnet(tmp, card, scope, main, prediction):
          **stats)
 
 
+# -- BERT-base, DeepFM and fluid_benchmark.py's image models ---------------
+
+def timed_steps(exe, main, feed, fetches, scope, steps):
+    """``steps`` ``Executor.run`` steps with the launch counters zeroed
+    first: each step's fetches, its host-clocked ms (to a synchronize) and
+    its device ms (CUDA events around it), and the launches over them."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, host_ms, device_ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        start.record()
+        out.append(exe.run(main, feed=feed, fetch_list=fetches, scope=scope))
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    return out, host_ms, device_ms, launch_counts()
+
+
+def check_launches(phase, counts, per_step, steps):
+    """Every kernel's launches over ``steps`` steps are ``per_step`` x
+    steps (0 for a kernel ``per_step`` does not name)."""
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"{phase}: kernel launches over {steps} steps: "
+                             f"{counts}, expected {want}")
+
+
+def phase_kernel_flash_bert():
+    """The bf16 flash forward, dQ and dK/dV kernels at BERT-base's shape
+    ([32, 12, 128, 64]: one 128-key tile, 384 (batch, head) items) with a
+    ragged key-padding bias in fp32 (the model's ``_padding_bias``), and
+    the same unpadded: within ``FLASH_LOW_TOL`` of their plain versions,
+    two launches bitwise equal; kernel (CUDA-graph replays), plain, bound
+    and SDPA times of the padded case.  Returns the times by kernel."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(15)
+    scale = BERT_D ** -0.5
+    out, worst = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, padded in (("padding", True), ("unpadded", False)):
+        q, k, v, do, bias, lens = flash_case_inputs(
+            gen, device, BERT_LEN, BERT_LEN, padded, b=BERT_BATCH,
+            h=BERT_HEADS, d=BERT_D)
+        q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+        errs, ref_max, lse, delta = _check_flash_case(
+            q, k, v, do, bias, scale, False, f"bf16 BERT {name} case")
+        worst["fwd"] = max(worst["fwd"], errs["out"][0], errs["lse"][0])
+        worst["dq"] = max(worst["dq"], errs["dq"][0])
+        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        entry = {"max_abs_err_ulps": errs, "plain_max_abs": ref_max,
+                 "padded_keys": int(BERT_LEN * BERT_BATCH - lens.sum()),
+                 "bitwise_repeat": True}
+        if padded:
+            entry.update(_time_flash(q, k, v, do, bias, lse, delta, scale,
+                                     False, lens))
+        out[name] = entry
+        del q, k, v, do, lse, delta
+        torch.cuda.empty_cache()
+    emit("kernel_flash_bert", batch=BERT_BATCH, heads=BERT_HEADS, d=BERT_D,
+         t=BERT_LEN, dtype="bfloat16", bias="float32",
+         tolerance=FLASH_LOW_TOL, **out)
+    main = out["padding"]
+    return {kind: {"ms": main[f"{kind}_ms"],
+                   "plain_ms": main[f"{kind}_plain_ms"],
+                   "bound_ms": main[f"{kind}_bound_ms"],
+                   "bound_by": main[f"{kind}_bound_by"],
+                   "max_abs_err": worst[kind], **_flash_library(main, kind)}
+            for kind in ("fwd", "dq", "dkv")}
+
+
+def build_bert(cfg, seq_len, n_mask, lr):
+    """``bert.build`` with the flash kernels: (main, startup, total loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import bert
+
+    framework.fresh_session()
+    cfg.flash_attention = True
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        outs = bert.build(cfg, seq_len=seq_len, n_mask=n_mask, lr=lr)
+    return main, startup, outs[5]
+
+
+def phase_train_bert_amp(profile_run=False):
+    """BERT-base pretraining (``fluid_benchmark.py``'s ``bert``: batch 32 x
+    128, 16 masked positions a row, Adam 1e-4) in bf16 with kept
+    activations through the flash kernels: ``BERT_STEPS`` ``Executor.run``
+    steps on ``synthetic_batch`` from ``RandomState(0)``: finite losses,
+    exactly ``BERT_FLASH_FWD_PER_STEP`` / ``BERT_FLASH_BWD_PER_STEP`` /
+    ``BERT_FLASH_BWD_PER_STEP`` bf16 flash launches and one Adam launch
+    for ``BERT_ADAM_TENSORS`` tensors a step, no other kernel's; step ms
+    (host clock and CUDA events), tokens/s, peak allocated.  Then the same
+    steps from the same state with the adam ops' group call on the plain
+    version (:func:`plain_adam_steps`): each loss within
+    ``AMP_PARITY_RTOL``.  Returns the launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.base_config()
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, loss = build_bert(cfg, BERT_LEN, BERT_MASK, 1e-4)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = clone_scope(scope)
+        feed = bert.synthetic_batch(cfg, BERT_BATCH, BERT_LEN, BERT_MASK,
+                                    np.random.RandomState(0))
+        torch.cuda.reset_peak_memory_stats()
+        # the total's two terms: the MLM and the NSP loss
+        add = next(op for op in main.global_block().ops
+                   if loss.name in op.output_arg_names)
+        heads = [add.input("X")[0], add.input("Y")[0]]
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feed, [loss] + heads, scope, BERT_STEPS)
+        losses, mlm, nsp = ([float(o[i].reshape(-1)[0]) for o in out]
+                            for i in range(3))
+        check_launches("train_bert_amp", counts, {
+            "flash_fwd": BERT_FLASH_FWD_PER_STEP,
+            "flash_fwd_bf16": BERT_FLASH_FWD_PER_STEP,
+            "flash_dq": BERT_FLASH_BWD_PER_STEP,
+            "flash_dq_bf16": BERT_FLASH_BWD_PER_STEP,
+            "flash_dkv": BERT_FLASH_BWD_PER_STEP,
+            "flash_dkv_bf16": BERT_FLASH_BWD_PER_STEP,
+            "adam": ADAM_PER_STEP, "adam_tensors": BERT_ADAM_TENSORS},
+            BERT_STEPS)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite BERT loss: {losses}")
+        # the same steps from the same state with the plain Adam: the
+        # trajectory (the NSP head's jump at step 1 included) is the
+        # update's, not the kernel's
+        plain = plain_adam_steps(main, feed, [loss] + heads, init,
+                                 BERT_STEPS)
+        plain_losses = [float(o[0].reshape(-1)[0]) for o in plain]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        if not max(rel) <= AMP_PARITY_RTOL:
+            raise AssertionError(f"BERT-base losses with the Adam kernel "
+                                 f"{losses} against the plain Adam "
+                                 f"{plain_losses} (rel {rel})")
+        del init
+        steady = device_ms[1:]
+        step_ms = sum(steady) / len(steady)
+        emit("train_bert_amp", model="bert_base", batch=BERT_BATCH,
+             seq_len=BERT_LEN, n_mask=BERT_MASK, steps=BERT_STEPS,
+             amp={"dtype": "bfloat16", "keep_activations": True},
+             losses=losses, mlm_losses=mlm, nsp_losses=nsp,
+             loss_fell=losses[-1] < losses[0],
+             plain_adam={"losses": plain_losses,
+                         "nsp_losses": [float(o[2].reshape(-1)[0])
+                                        for o in plain],
+                         "loss_rel_err": rel, "rtol": AMP_PARITY_RTOL},
+             launches=counts, ops_per_step=len(main.global_block().ops),
+             op_dispatches_per_step=op_dispatches(exe, main, loss, *heads),
+             host_step_ms=host_ms, device_step_ms=device_ms,
+             steady_step_ms=step_ms,
+             tokens_per_s=BERT_BATCH * BERT_LEN * 1e3 / step_ms,
+             masked_tokens_per_s=BERT_BATCH * BERT_MASK * 1e3 / step_ms,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        if profile_run:
+            profile_step("train_bert_amp", lambda: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope),
+                {"gemm": GEMM_KEYS, "flash": ("flash_",)})
+    return counts
+
+
+def plain_adam_steps(main, feed, fetches, scope, steps):
+    """``steps`` ``Executor.run`` steps of ``main`` on the card with the
+    adam ops' group call swapped for the plain version (``adam_group_ref``
+    written back in place, as the CPU path does): each step's fetches."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops import fused
+
+    kernel = fused.adam_group
+
+    def plain(ps, gs, m1s, m2s, lrs, b1ps, b2ps, b1, b2, eps):
+        new = fused.adam_group_ref(ps, gs, m1s, m2s, lrs, b1ps, b2ps, b1, b2,
+                                   eps)
+        for old, upd in zip(zip(ps, m1s, m2s, b1ps, b2ps), new):
+            for t, u in zip(old, upd):
+                t.copy_(u)
+        return b1ps, b2ps
+
+    fused.adam_group = plain
+    try:
+        exe = fluid.Executor()
+        return [exe.run(main, feed=feed, fetch_list=fetches, scope=scope)
+                for _ in range(steps)]
+    finally:
+        fused.adam_group = kernel
+
+
+def parity_runs(progs, feed, steps, places):
+    """``steps`` steps of ``progs`` (main, startup, loss) on each place from
+    the first place's initial state: the losses ``[places, steps]``, the
+    launches of the last place's steps, and each place's scope."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    main, startup, loss = progs
+    runs = []
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append((exe, scope, place))
+    init = {v.name: runs[0][1].get(v.name).detach().cpu().numpy()
+            for v in startup.list_vars() if v.persistable}
+    for _, scope, place in runs[1:]:
+        load_reference_params(scope, init, place)
+    losses = []
+    for i, (exe, scope, _) in enumerate(runs):
+        if i == len(runs) - 1:
+            reset_launch_counts()
+        losses.append([float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0].reshape(-1)[0])
+                       for _ in range(steps)])
+    return np.array(losses), launch_counts(), [r[1] for r in runs]
+
+
+def check_parity(phase, cpu, card, tol):
+    """Relative errors of the card's losses against the CPU's; raises
+    beyond ``tol`` (one value, or one a step)."""
+    import numpy as np
+
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    if not (np.isfinite(card).all() and (rel <= tol).all()):
+        raise AssertionError(f"{phase}: card {card.tolist()} against CPU "
+                             f"{cpu.tolist()} (rel {rel.tolist()}, "
+                             f"tolerance {np.asarray(tol).tolist()})")
+    return rel.tolist()
+
+
+def phase_train_bert_parity():
+    """``tiny_config`` BERT through the flash kernels at batch 2 x 32
+    (padded keys in one row), dropout 0, 3 steps from one state on the
+    CPU (the plain versions) and on the card: fp32 within rtol 1e-5 at
+    step 0 and 1e-4 after, then bf16 with kept activations within
+    ``AMP_PARITY_RTOL``; every attention launches the flash kernels on the
+    card."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.tiny_config()
+    feed = bert.synthetic_batch(cfg, 2, 32, 4, np.random.RandomState(3))
+    feed["src_ids"][1, -5:] = 0
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    result = {}
+    for amp in (False, True):
+        progs = build_bert(bert.tiny_config(), 32, 4, 1e-3)
+        if amp:
+            with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+                (cpu, card), counts, _ = parity_runs(progs, feed, 3, places)
+            tol = np.full(3, AMP_PARITY_RTOL)
+        else:
+            (cpu, card), counts, _ = parity_runs(progs, feed, 3, places)
+            tol = np.array([1e-5, 1e-4, 1e-4])
+        key = "flash_fwd_bf16" if amp else "flash_fwd"
+        if counts[key] != 3 * 2 * cfg.n_layer or counts["flash_dq"] != \
+                3 * cfg.n_layer:
+            raise AssertionError(f"train_bert_parity: the card's run "
+                                 f"launched {counts}")
+        result["bf16" if amp else "fp32"] = {
+            "cpu_losses": cpu.tolist(), "card_losses": card.tolist(),
+            "rel_err": check_parity("train_bert_parity", cpu, card, tol),
+            "rtol": tol.tolist(), "launches": counts}
+    emit("train_bert_parity", batch=2, seq_len=32, n_mask=4,
+         config="tiny", **result)
+
+
+def deepfm_feed(batch, vocab, seed):
+    """``fluid_benchmark.py``'s DeepFM feed: uniform hashed ids, labels 1
+    with probability 0.3."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"feats": rng.randint(0, vocab, size=(batch, DEEPFM_FIELDS))
+            .astype(np.int64),
+            "label": (rng.uniform(size=(batch, 1)) < 0.3).astype(
+                np.float32)}
+
+
+def build_deepfm(vocab=DEEPFM_VOCAB, embed_dim=DEEPFM_DIM):
+    """``deepfm.build`` at ``fluid_benchmark.py``'s accelerator widths with
+    SGD: (main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import deepfm
+
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss = deepfm.build(num_fields=DEEPFM_FIELDS,
+                                     vocab_size=vocab, embed_dim=embed_dim,
+                                     lr=DEEPFM_LR)
+    return main, startup, loss
+
+
+def phase_train_deepfm(profile_run=False):
+    """DeepFM CTR (26 fields, 100,000 ids, k = 16, sparse tables, SGD 1e-3)
+    at batch 32 through ``Executor.run`` on the card, ``DEEPFM_STEPS``
+    steps on fresh batches: each step's ``fm_v@GRAD`` and ``fm_w1@GRAD``
+    are SelectedRows of 832 rows; every table row the step did not look
+    up keeps its bits; the looked-up rows equal the dense update ``old −
+    lr · to_dense(grad)`` within 1e-6 of the table's largest magnitude
+    (duplicate ids fold in another order).  Then ``window_against_steps``
+    on 10 fresh batches: two ``run_steps`` windows of 5 fed per step (one
+    CUDA graph replay a step after the first) against 10 ``Executor.run``
+    steps on the same batches from one state, losses within
+    ``DEEPFM_WINDOW_RTOL``, and every table row none of the 10 batches
+    looked up bitwise the startup's; examples/s of both paths."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.selected_rows import SelectedRows
+
+    main, startup, loss = build_deepfm()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    tables = ("fm_v", "fm_w1")
+    grads = [t + "@GRAD" for t in tables]
+    worst, losses, step_ms = 0.0, [], []
+    reset_launch_counts()
+    for step in range(DEEPFM_STEPS):
+        feed = deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, step)
+        before = {t: scope.get(t).clone() for t in tables}
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                      scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        ids = torch.from_numpy(feed["feats"]).reshape(-1).to(
+            out[0].device)
+        for t, g in zip(tables, out[1:]):
+            if not isinstance(g, SelectedRows) or tuple(g.rows.shape) != (
+                    DEEPFM_BATCH * DEEPFM_FIELDS,):
+                raise AssertionError(f"{t}@GRAD is {g!r}, not a "
+                                     f"SelectedRows of "
+                                     f"{DEEPFM_BATCH * DEEPFM_FIELDS} rows")
+            old, new = before[t], scope.get(t)
+            hit = torch.zeros(DEEPFM_VOCAB, dtype=torch.bool,
+                              device=new.device)
+            hit[ids] = True
+            if not torch.equal(new[~hit], old[~hit]):
+                raise AssertionError(f"step {step}: the sparse update moved "
+                                     f"rows of {t} no id looked up")
+            want = old - DEEPFM_LR * g.to_dense(DEEPFM_VOCAB)
+            err = float((new[hit] - want[hit]).abs().max()
+                        / want.abs().max())
+            worst = max(worst, err)
+            if err > DEEPFM_DENSE_RTOL:
+                raise AssertionError(f"step {step}: {t}'s looked-up rows "
+                                     f"are {err} from the dense update")
+    counts = launch_counts()
+    check_launches("train_deepfm", counts, {}, DEEPFM_STEPS)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite DeepFM loss: {losses}")
+    emit("train_deepfm", model="deepfm", batch=DEEPFM_BATCH,
+         fields=DEEPFM_FIELDS, vocab=DEEPFM_VOCAB, embed_dim=DEEPFM_DIM,
+         lr=DEEPFM_LR, steps=DEEPFM_STEPS, losses=losses,
+         grad="SelectedRows", grad_rows=DEEPFM_BATCH * DEEPFM_FIELDS,
+         untouched_rows_bitwise=True, dense_update_max_rel_err=worst,
+         dense_update_rtol=DEEPFM_DENSE_RTOL, host_step_ms=step_ms,
+         examples_per_s_eager_host=DEEPFM_BATCH * 1e3
+         / (sum(step_ms[1:]) / len(step_ms[1:])), launches=counts)
+    # the windows on fresh batches, as CTR traffic brings new ids a step
+    feeds = [deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, 100 + k)
+             for k in range(2 * WINDOW_STEPS)]
+    exe, win_scope, stats = window_against_steps(
+        "train_window_deepfm", (main, startup), [loss], feeds, {},
+        DEEPFM_BATCH, profile_run, DEEPFM_WINDOW_RTOL)
+    exe.close()
+    # the rows no window step looked up hold the startup's bits
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    ids = torch.from_numpy(np.concatenate([f["feats"].ravel()
+                                           for f in feeds]))
+    hit = torch.zeros(DEEPFM_VOCAB, dtype=torch.bool)
+    hit[ids] = True
+    hit = hit.to(win_scope.get(tables[0]).device)
+    for t in tables:
+        if not torch.equal(win_scope.get(t)[~hit], init.get(t)[~hit]):
+            raise AssertionError(f"train_window_deepfm: the windows moved "
+                                 f"rows of {t} no id looked up")
+    emit("train_window_deepfm_rows", tables=list(tables),
+         rows_looked_up=int(hit.sum()), untouched_rows_bitwise=True)
+    return stats
+
+
+def phase_train_deepfm_parity():
+    """DeepFM at the same widths, fp32, 3 steps from one state on the CPU
+    and on the card, on one batch: losses within rtol 1e-5 at step 0 and
+    1e-4 after."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    progs = build_deepfm()
+    feed = deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, 7)
+    (cpu, card), counts, _ = parity_runs(progs, feed, 3,
+                                      (fluid.CPUPlace(), fluid.CUDAPlace(0)))
+    check_launches("train_deepfm_parity", counts, {}, 3)
+    tol = np.array([1e-5, 1e-4, 1e-4])
+    emit("train_deepfm_parity", batch=DEEPFM_BATCH, cpu_losses=cpu.tolist(),
+         card_losses=card.tolist(),
+         rel_err=check_parity("train_deepfm_parity", cpu, card, tol),
+         rtol=tol.tolist())
+
+
+def build_vision(name, hw=None, classes=None):
+    """An image model, lr 1e-3: SE-ResNeXt-50 (224 px, 1000 classes,
+    Momentum 0.9) or VGG-16 (32 px, 10 classes, Adam) as
+    ``fluid_benchmark.py``'s accelerator run builds them, or the MNIST CNN
+    of ``benchmark/fluid/mnist.py`` (Adam): (main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import mnist, se_resnext, vgg
+
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if name == "se_resnext50":
+            loss = se_resnext.build(
+                class_dim=classes or 1000, depth=50,
+                image_shape=(3, hw or 224, hw or 224), lr=VISION_LR)[3]
+        elif name == "vgg16":
+            loss = vgg.build(class_dim=10, image_shape=(3, 32, 32),
+                             lr=VISION_LR)[3]
+        else:
+            loss = mnist.cnn()[3]
+            fluid.optimizer.Adam(learning_rate=VISION_LR).minimize(loss)
+    return main, startup, loss
+
+
+def vision_feed(name, batch, hw=None, classes=None):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    shape, classes = {"se_resnext50": ((3, hw or 224, hw or 224),
+                                       classes or 1000),
+                      "vgg16": ((3, 32, 32), 10),
+                      "mnist_cnn": ((1, 28, 28), 10)}[name]
+    return {"img": rng.normal(size=(batch,) + shape).astype(np.float32),
+            "label": rng.randint(0, classes, size=(batch, 1)).astype(
+                np.int64)}
+
+
+def phase_train_bench_vision(profile_run=False):
+    """SE-ResNeXt-50, VGG-16 and the MNIST CNN, each ``VISION_STEPS``
+    ``Executor.run`` steps at batch 32 under bf16 with kept activations on
+    one batch of normal images: finite losses, one momentum launch a step
+    (SE-ResNeXt, ``SE_MOMENTUM_TENSORS`` tensors) or one Adam launch a
+    step (VGG-16 ``VGG_ADAM_TENSORS``, CNN ``CNN_ADAM_TENSORS``), no other
+    kernel's; step ms, images/s and peak allocated.  Returns the launches
+    by kernel."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    total, report = {}, {}
+    for name, per_step in (
+            ("se_resnext50", {"momentum": MOMENTUM_PER_STEP,
+                              "momentum_tensors": SE_MOMENTUM_TENSORS}),
+            ("vgg16", {"adam": ADAM_PER_STEP,
+                       "adam_tensors": VGG_ADAM_TENSORS}),
+            ("mnist_cnn", {"adam": ADAM_PER_STEP,
+                           "adam_tensors": CNN_ADAM_TENSORS})):
+        with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+            main, startup, loss = build_vision(name)
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            feed = vision_feed(name, VISION_BATCH)
+            torch.cuda.reset_peak_memory_stats()
+            out, host_ms, device_ms, counts = timed_steps(
+                exe, main, feed, [loss], scope, VISION_STEPS)
+            check_launches(f"train_bench_vision {name}", counts, per_step,
+                           VISION_STEPS)
+            losses = [float(o[0].reshape(-1)[0]) for o in out]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name}: non-finite losses {losses}")
+            steady = sum(device_ms[1:]) / len(device_ms[1:])
+            report[name] = {
+                "losses": losses, "launches": counts,
+                "host_step_ms": host_ms, "device_step_ms": device_ms,
+                "steady_step_ms": steady,
+                "images_per_s": VISION_BATCH * 1e3 / steady,
+                "ops_per_step": len(main.global_block().ops),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            add_counts(total, counts)
+            if profile_run and name == "se_resnext50":
+                profile_step("train_se_resnext_amp", lambda: exe.run(
+                    main, feed=feed, fetch_list=[loss], scope=scope),
+                    {"conv": CONV_KEYS})
+            del exe, scope
+            torch.cuda.empty_cache()
+
+    emit("train_bench_vision", batch=VISION_BATCH, steps=VISION_STEPS,
+         lr=VISION_LR, amp={"dtype": "bfloat16", "keep_activations": True},
+         **report)
+    return total
+
+
+def phase_train_se_resnext_parity():
+    """SE-ResNeXt-50 at 64 px, 10 classes, batch 4, fp32, dropout off (the
+    two devices draw other masks): one step from one state on the CPU and
+    on the card, as ``train_resnet_parity`` compares."""
+    main, startup, loss = build_vision("se_resnext50", hw=64, classes=10)
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    phase_train_resnet_parity(
+        "train_se_resnext_parity", (main, startup, loss),
+        vision_feed("se_resnext50", 4, hw=64, classes=10), 1,
+        SE_MOMENTUM_TENSORS, batch=4, image_hw=64, classes=10, lr=VISION_LR)
+
+
 def main():
     import argparse
 
@@ -3695,6 +4336,7 @@ def main():
         raise SystemExit("chip_smoke: run from a checkout of the repo "
                          "(paddle_tpu_torch/ not found beside this script)")
     sys.path.insert(0, here)
+    started = time.perf_counter()
     smi = phase_device()
     phase_build()
     import torch
@@ -3705,9 +4347,8 @@ def main():
     xent_amp = phase_kernel_xent_amp()
     torch.cuda.empty_cache()
     progs = build_training(TRAIN_LEN)
-    adam = phase_kernel_adam(
-        [tuple(p.shape) for p in progs[0].global_block().all_parameters()
-         if p.trainable])
+    adam = phase_kernel_adam(trainable_shapes(progs[0],
+                                              ADAM_TENSORS_PER_STEP))
     torch.cuda.empty_cache()
     flash = phase_kernel_flash()
     torch.cuda.empty_cache()
@@ -3732,14 +4373,17 @@ def main():
     torch.cuda.empty_cache()
     resnet_progs = build_resnet()
     momentum = phase_kernel_momentum(
-        [tuple(p.shape) for p in resnet_progs[0].global_block()
-         .all_parameters() if p.trainable])
+        trainable_shapes(resnet_progs[0], MOMENTUM_TENSORS_PER_STEP))
     torch.cuda.empty_cache()
     momentum["launches"] = phase_train_resnet(
         resnet_progs, args.profile)["momentum"]
     torch.cuda.empty_cache()
     phase_conv_fp32()
-    phase_train_resnet_parity()
+    phase_train_resnet_parity(
+        "train_resnet_parity",
+        build_resnet(image_hw=64, class_dim=10, lr=0.01)[:3],
+        resnet_feed(4, 64, 10), 3, MOMENTUM_TENSORS_PER_STEP, batch=4,
+        image_hw=64, classes=10, lr=0.01)
     torch.cuda.empty_cache()
     from paddle_tpu_torch import fluid
 
@@ -3796,8 +4440,39 @@ def main():
         phase_infer_resnet(tmp, smi, scope, resnet_main, prediction)
         del scope
         torch.cuda.empty_cache()
+    bert_shape = phase_kernel_flash_bert()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.models import bert
+
+    # the optimizer kernels at the new paths' parameter shapes
+    adam["by_model"] = optimizer_at_model_shapes(phase_kernel_adam, "adam", [
+        ("bert_base", build_bert(bert.base_config(), BERT_LEN, BERT_MASK,
+                                 1e-4)[0], BERT_ADAM_TENSORS),
+        ("vgg16", build_vision("vgg16")[0], VGG_ADAM_TENSORS),
+        ("mnist_cnn", build_vision("mnist_cnn")[0], CNN_ADAM_TENSORS)])
+    momentum["by_model"] = optimizer_at_model_shapes(
+        phase_kernel_momentum, "momentum",
+        [("se_resnext50", build_vision("se_resnext50")[0],
+          SE_MOMENTUM_TENSORS)])
+    add_counts(total, phase_train_bert_amp(args.profile))
+    torch.cuda.empty_cache()
+    phase_train_bert_parity()
+    torch.cuda.empty_cache()
+    phase_train_deepfm(args.profile)
+    torch.cuda.empty_cache()
+    phase_train_deepfm_parity()
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_bench_vision(args.profile))
+    torch.cuda.empty_cache()
+    phase_train_se_resnext_parity()
+    torch.cuda.empty_cache()
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)
+    for k in flash_amp:  # the bf16 kernels at BERT-base's shape
+        _, kind, sfx = k["name"].split("_")
+        if sfx == "bf16":
+            k["bert_shape"] = bert_shape[kind]
+    emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
                                   momentum, *xent_amp, *flash_amp]}))
     print(smi)

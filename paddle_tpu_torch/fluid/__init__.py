@@ -16,6 +16,7 @@ from . import executor
 from .executor import Executor, Scope, global_scope, scope_guard
 from . import initializer
 from . import layers
+from . import nets
 from . import unique_name
 from . import backward
 from . import clip
@@ -27,6 +28,7 @@ from .prefetch import DevicePrefetcher
 from .backward import append_backward
 from .param_attr import ParamAttr
 from . import lod_tensor
+from . import selected_rows
 from .lod_tensor import (LoDTensor, create_lod_tensor,
                          create_random_int_lodtensor)
 from .data_feeder import DataFeeder
@@ -39,14 +41,16 @@ from . import transpiler
 from .transpiler import InferenceTranspiler
 
 __all__ = [
-    "amp", "core", "framework", "executor", "initializer", "layers", "unique_name",
+    "amp", "core", "framework", "executor", "initializer", "layers", "nets",
+    "unique_name",
     "backward", "clip", "optimizer", "regularizer", "append_backward",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
     "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
     "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
-    "DataFeeder", "lod_tensor", "LoDTensor", "create_lod_tensor",
+    "DataFeeder", "selected_rows", "lod_tensor", "LoDTensor",
+    "create_lod_tensor",
     "create_random_int_lodtensor", "save_vars", "save_params",
     "save_persistables", "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model", "get_inference_program",

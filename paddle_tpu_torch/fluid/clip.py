@@ -2,7 +2,9 @@
 the hooks ``Optimizer.minimize`` calls, and the AMP loss scaler's
 ``append_unscale_ops``.  Error clipping (its ``clip`` op) and the
 gradient-clip attrs (``GradientClipByValue``, ``ByNorm``,
-``ByGlobalNorm``) are not ported yet."""
+``ByGlobalNorm``) are not ported yet.  The unscale op is an
+``elementwise_div``, which refuses a SelectedRows grad (a sparse table
+under the fp16 scaler), as the reference's does."""
 
 from __future__ import annotations
 

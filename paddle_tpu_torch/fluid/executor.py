@@ -33,7 +33,9 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    startup and main alike, advance it, as the reference's threaded key;
  - fetches come back as snapshots: numpy arrays (or, with
    ``return_numpy=False``, tensor copies) that the next run cannot change
-   and that write nothing back into the scope.  A fed ``torch.Tensor``
+   and that write nothing back into the scope (a SelectedRows grad of a
+   sparse table, as in the reference, comes back as a 0-d object array
+   holding it).  A fed ``torch.Tensor``
    that an op of the plan updates in place is cloned first, so the
    caller's tensor is never written; numpy feeds are always copied.
 
@@ -83,7 +85,8 @@ from .cuda_graph import StepGraph
 from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
                         default_main_program)
 from .lod_tensor import LoDTensor
-from .lod_tensor import _to_numpy as _snapshot
+from .lod_tensor import _to_numpy
+from .selected_rows import SelectedRows
 from ..ops import registry as _reg
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
@@ -143,6 +146,24 @@ def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
         return [n for slot, names in op.inputs.items() if slot not in skip
                 for n in names if n]
     return [n for n in op.input_arg_names if n]
+
+
+def _snapshot(v):
+    """A fetched value as numpy: a tensor's copy; a SelectedRows (a sparse
+    table grad), as the reference returns it, a 0-d object array holding
+    it, here with CPU copies of its rows and values."""
+    if isinstance(v, SelectedRows):
+        out = np.empty((), dtype=object)
+        out[()] = v.map(lambda t: t.detach().to("cpu", copy=True))
+        return out
+    return _to_numpy(v)
+
+
+def _copy(v):
+    """A fetched value for ``return_numpy=False``: a copy on its device."""
+    if isinstance(v, SelectedRows):
+        return v.map(lambda t: t.detach().clone())
+    return v.detach().clone()
 
 
 def _storage(t) -> int:
@@ -431,6 +452,8 @@ def _check_nan_inf(named_vals):
     if not core.GLOBAL_FLAGS.get("check_nan_inf"):
         return
     for name, val in named_vals:
+        if isinstance(val, SelectedRows):
+            val = val.values
         if isinstance(val, torch.Tensor):
             bad = val.is_floating_point() and \
                 not bool(torch.isfinite(val).all())
@@ -749,7 +772,7 @@ class Executor:
         _check_nan_inf(list(new_state.items())
                        + [(n, env[n]) for n in fetch_names])
         if not return_numpy:
-            return [env[n].detach().clone() for n in fetch_names]
+            return [_copy(env[n]) for n in fetch_names]
         return [_snapshot(env[n]) for n in fetch_names]
 
     def run_steps(self, program, feed, fetch_list, n_steps, scope=None,

@@ -1,6 +1,6 @@
 """NN layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``): the builders
-the decode and training programs (Transformer, ResNet) call, copied so the
-same calls emit the same IR."""
+the decode and training programs (Transformer, ResNet, BERT, DeepFM,
+SE-ResNeXt, VGG) call, copied so the same calls emit the same IR."""
 
 from __future__ import annotations
 
@@ -13,12 +13,13 @@ from ..layer_helper import LayerHelper
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "cross_entropy", "softmax_with_cross_entropy",
-    "mean", "mul", "matmul", "elementwise_add", "elementwise_sub",
-    "elementwise_mul", "elementwise_div", "elementwise_max",
-    "elementwise_min", "elementwise_pow", "scale", "reduce_sum", "reshape", "transpose",
-    "topk", "one_hot", "label_smooth", "ring_attention", "kv_cache_update",
-    "kv_cache_scatter", "spec_accept", "paged_attention", "token_select",
-    "autoincreased_step_counter",
+    "sigmoid_cross_entropy_with_logits", "mean", "mul", "matmul",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "scale", "reduce_sum", "reshape", "transpose",
+    "split", "gather", "slice", "topk", "one_hot", "label_smooth",
+    "ring_attention", "kv_cache_update", "kv_cache_scatter", "spec_accept",
+    "paged_attention", "token_select", "autoincreased_step_counter",
 ]
 
 
@@ -285,6 +286,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index})
+    return out
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", **locals())
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -403,6 +415,62 @@ def transpose(x, perm, name=None):
         out.shape = tuple(x.shape[p] for p in perm)
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", **locals())
+    input_shape = input.shape
+    dim_ = dim % len(input_shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        sizes = ([input_shape[dim_] // num] * num
+                 if input_shape[dim_] not in (-1, None) else [-1] * num)
+    else:
+        sections = list(num_or_sections)
+        num = 0
+        sizes = sections
+    outs = []
+    for sz in sizes:
+        o = helper.create_variable_for_type_inference(input.dtype)
+        s = list(input_shape)
+        s[dim_] = sz
+        o.shape = tuple(s)
+        outs.append(o)
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"num": num, "sections": sections, "axis": dim_})
+    return outs
+
+
+def gather(input, index):
+    helper = LayerHelper("gather", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None and index.shape is not None:
+        out.shape = (index.shape[0],) + tuple(input.shape[1:])
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        s = list(input.shape)
+        for a, st, e in zip(axes, starts, ends):
+            if s[a] in (-1, None):
+                continue
+            st_ = st + s[a] if st < 0 else min(st, s[a])
+            e_ = e + s[a] if e < 0 else min(e, s[a])
+            s[a] = max(e_ - st_, 0)
+        out.shape = tuple(s)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
     return out
 
 

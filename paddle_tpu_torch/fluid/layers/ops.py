@@ -1,13 +1,14 @@
 """Activation and logical layer wrappers (counterpart of
-``paddle_tpu/fluid/layers/ops.py``): ``relu``, the unary ops of the
-learning-rate schedules (``exp``, ``floor``, ``ceil``, ``cos``) and
-``logical_not``."""
+``paddle_tpu/fluid/layers/ops.py``): ``relu``, ``sigmoid``, ``tanh``,
+``square``, the unary ops of the learning-rate schedules (``exp``,
+``floor``, ``ceil``, ``cos``) and ``logical_not``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["relu", "exp", "floor", "ceil", "cos"]
+_UNARY_OPS = ["relu", "sigmoid", "tanh", "square", "exp", "floor", "ceil",
+              "cos"]
 
 __all__ = list(_UNARY_OPS) + ["logical_not"]
 

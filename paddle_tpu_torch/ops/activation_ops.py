@@ -1,6 +1,8 @@
 """Activation ops (counterpart of ``paddle_tpu/ops/activation_ops.py``):
-relu, softmax, and the unary ops the learning-rate schedules emit (exp,
-floor, ceil, cos; their grads from the generic grad)."""
+relu, sigmoid, tanh and square (the ``act`` of fc / conv2d layers, the
+SE gate, DeepFM's FM term), softmax, and the unary ops the learning-rate
+schedules emit (exp, floor, ceil, cos).  Their grads come from the generic
+grad; a bf16 / fp16 input stays in its dtype, as in the reference."""
 
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ def _unary(name, fn):
 
 
 _unary("relu", torch.relu)
+_unary("sigmoid", torch.sigmoid)
+_unary("tanh", torch.tanh)
+_unary("square", torch.square)
 _unary("exp", torch.exp)
 _unary("floor", torch.floor)
 _unary("ceil", torch.ceil)

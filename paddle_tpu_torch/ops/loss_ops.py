@@ -1,5 +1,5 @@
-"""Loss ops (counterpart of ``paddle_tpu/ops/loss_ops.py``): cross_entropy
-and softmax_with_cross_entropy."""
+"""Loss ops (counterpart of ``paddle_tpu/ops/loss_ops.py``): cross_entropy,
+softmax_with_cross_entropy and sigmoid_cross_entropy_with_logits."""
 
 from __future__ import annotations
 
@@ -65,3 +65,19 @@ def softmax_with_cross_entropy(ctx):
         out["Softmax"] = torch.exp(
             logits.float() - lse.reshape(lead + (1,))).to(logits.dtype)
     return out
+
+
+@register_op("sigmoid_cross_entropy_with_logits", no_grad_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx):
+    """Elementwise ``max(x, 0) − x·label + log(1 + exp(−|x|))``, 0 where
+    ``label == ignore_index`` (≥ 0): the reference's expression, with its
+    type promotion (a bf16 ``x`` against an fp32 label gives an fp32
+    loss).  ``torch.maximum`` against zeros splits the grad of a tie as
+    ``jnp.maximum`` does."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = ctx.attr("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label == ignore, 0.0, loss)
+    return {"Out": loss}

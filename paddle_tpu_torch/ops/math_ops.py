@@ -1,7 +1,8 @@
 """Dense math ops (counterpart of ``paddle_tpu/ops/math_ops.py``): mul,
 matmul, the elementwise family (add, sub, mul, div, max, min, pow), scale,
-sum, mean, cast, the comparisons (equal, less_than, less_equal,
-greater_than, greater_equal), logical_not and increment.
+sum (over dense and SelectedRows inputs), mean, cast, the comparisons
+(equal, less_than, less_equal, greater_than, greater_equal), logical_not
+and increment.
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
 float32 stays float32 (the port never turns TF32 on).  Under ``fluid.amp``
 ``mul`` and ``matmul`` multiply in the compute dtype (``amp.cast_operands``
@@ -60,6 +61,18 @@ def matmul(ctx):
     return {"Out": out}
 
 
+def _refuse_sparse(op_type, *xs):
+    """An elementwise op on a SelectedRows grad is refused, as in the
+    reference (its arithmetic is undefined on the sparse pair); ``sum``
+    densifies, and ``sgd`` applies it row by row."""
+    from ..fluid.selected_rows import SelectedRows
+
+    if any(isinstance(x, SelectedRows) for x in xs):
+        raise TypeError(f"{op_type} does not take a SelectedRows input "
+                        f"(a sparse table grad); build the table with "
+                        f"is_sparse=False")
+
+
 def _bcast_y(x, y, axis):
     """Fluid elementwise broadcast: y's dims align to x starting at `axis`
     (axis=-1 means trailing alignment, numpy broadcasting)."""
@@ -75,6 +88,7 @@ def _elementwise(name, fn):
     @register_op(name)
     def _impl(ctx, _fn=fn):
         x, y = ctx.input("X"), ctx.input("Y")
+        _refuse_sparse(name, x, y)
         y = _bcast_y(x, y, ctx.attr("axis", -1))
         from ..fluid import amp
 
@@ -110,7 +124,28 @@ def scale(ctx):
 
 @register_op("sum")
 def sum_op(ctx):
+    """Dense inputs add.  SelectedRows inputs (sparse table grads): all
+    sparse, their concatenation is the sum; mixed, the sparse ones are
+    scatter-added into the dense accumulator."""
+    from ..fluid.selected_rows import SelectedRows
+
     xs = [v for v in ctx.inputs_list("X") if v is not None]
+    sparse = [v for v in xs if isinstance(v, SelectedRows)]
+    if sparse:
+        if len(sparse) == len(xs):
+            out = sparse[0]
+            for v in sparse[1:]:
+                out = out.merge_with(v)
+            return {"Out": out}
+        dense = [v for v in xs if not isinstance(v, SelectedRows)]
+        out = dense[0]
+        for v in dense[1:]:
+            out = out + v
+        # out-of-place: the accumulator may be another op's output
+        out = out.clone() if len(dense) == 1 else out
+        for v in sparse:
+            out.index_add_(0, v.rows, v.values.to(out.dtype))
+        return {"Out": out}
     out = xs[0]
     for v in xs[1:]:
         out = out + v

@@ -1,6 +1,6 @@
 """NN ops (counterpart of ``paddle_tpu/ops/nn_ops.py``): conv2d (with an
 explicit grad), pool2d, batch_norm, layer_norm and lookup_table (with its
-dense grad).
+dense grad, or with ``is_sparse`` a SelectedRows one).
 
 Convolutions are no Pallas kernel in the reference (``lax.conv_general_
 dilated``, left to XLA), so here they go to cuDNN / ATen, float32 ones
@@ -203,20 +203,24 @@ def lookup_table(ctx):
 
 @register_grad("lookup_table")
 def lookup_table_grad(ctx):
-    """Dense: scatter-add the rows of dOut into zeros, like the reference's
-    dense kernel.  On CUDA ``index_add_`` adds repeated ids with atomics in
-    no fixed order, so this grad is not bitwise repeatable from run to run
-    there; no training result of the port is claimed bitwise.  The sparse
-    (``is_sparse``) SelectedRows grad is not ported."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table is_sparse=True (SelectedRows grad) is not ported")
+    """``is_sparse``: a :class:`~..fluid.selected_rows.SelectedRows` of
+    (the ids, one row of dOut per occurrence), padding rows zeroed, in the
+    table's dtype; no dense ``[V, D]`` grad is made.  Dense: scatter-add
+    the rows of dOut into zeros, like the reference's dense kernel.  On
+    CUDA ``index_add_`` adds repeated ids with atomics in no fixed order,
+    so the dense grad (and a sparse one once folded) is not bitwise
+    repeatable from run to run there; no training result of the port is
+    claimed bitwise."""
+    from ..fluid.selected_rows import SelectedRows
+
     w = ctx.input("W")
     ids = _lookup_ids(ctx)
     dout = ctx.input("Out@GRAD")
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         dout = dout * (ids != padding_idx)[..., None].to(dout.dtype)
+    rows = ids.reshape(-1)
     vals = dout.reshape(-1, dout.shape[-1]).to(w.dtype)
-    return {"W@GRAD": torch.zeros_like(w).index_add_(0, ids.reshape(-1),
-                                                     vals)}
+    if ctx.attr("is_sparse", False):
+        return {"W@GRAD": SelectedRows(rows, vals, height=w.shape[0])}
+    return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}

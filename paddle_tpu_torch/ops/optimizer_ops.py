@@ -1,12 +1,14 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``):
-sgd (dense grads), momentum and adam, each updating its state IN PLACE.
+sgd, momentum and adam, each updating its state IN PLACE.
 Momentum and adam also register a group hook: the Executor hands a run of
 consecutive such ops with equal attrs to it at once, and one kernel
 launch updates every parameter of the run.
-The other optimizers' ops (adagrad, adamax, decayed_adagrad, adadelta,
-rmsprop, ftrl, proximal_gd, proximal_adagrad) and sgd's SelectedRows grad
-are not registered yet: their programs build, and running them raises
-``NotImplementedError``."""
+A SelectedRows grad (``lookup_table(is_sparse=True)``) reaches sgd as it
+is: only the looked-up rows move.  Momentum and adam fold it into a dense
+grad first (:func:`_grad`), as the reference does.  The other optimizers'
+ops (adagrad, adamax, decayed_adagrad, adadelta, rmsprop, ftrl,
+proximal_gd, proximal_adagrad) are not registered yet: their programs
+build, and running them raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -18,12 +20,33 @@ def _lr(ctx):
     return ctx.input("LearningRate").reshape(1)
 
 
+def _grad(ctx):
+    """The Grad input as a dense contiguous tensor: a SelectedRows grad is
+    folded by scatter-add, so the moment-carrying updates run their dense
+    semantics (the reference's deliberate departure from a row-lazy
+    sparse adam)."""
+    from ..fluid.selected_rows import SelectedRows
+
+    g = ctx.input("Grad")
+    if isinstance(g, SelectedRows):
+        p = ctx.input("Param")
+        return g.to_dense(p.shape[0]).to(p.dtype)
+    return g.contiguous()
+
+
 @register_op("sgd", no_grad_inputs=("Param", "Grad", "LearningRate"))
 def sgd(ctx):
-    """``Param -= lr · Grad`` in place (dense grads only: the sparse
-    SelectedRows grad comes with ``lookup_table(is_sparse=True)``)."""
-    p = ctx.input("Param")
-    p.sub_(_lr(ctx) * ctx.input("Grad"))
+    """``Param -= lr · Grad`` in place.  A SelectedRows grad touches only
+    the looked-up rows (``lr · value`` subtracted at each occurrence, so
+    duplicate ids fold in the scatter-add); every other row keeps its
+    bits."""
+    from ..fluid.selected_rows import SelectedRows
+
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    if isinstance(g, SelectedRows):
+        g.scatter_sub_into(p, _lr(ctx))
+    else:
+        p.sub_(_lr(ctx) * g)
     return {"ParamOut": p}
 
 
@@ -43,7 +66,7 @@ def momentum_group(ctxs):
     version on the CPU); each op's ``LearningRate`` is its own."""
     ps = [c.input("Param") for c in ctxs]
     vs = [c.input("Velocity") for c in ctxs]
-    fused.momentum_group(ps, [c.input("Grad").contiguous() for c in ctxs],
+    fused.momentum_group(ps, [_grad(c) for c in ctxs],
                          vs, [c.input("LearningRate") for c in ctxs],
                          ctxs[0].attr("mu"),
                          ctxs[0].attr("use_nesterov", False))
@@ -73,7 +96,7 @@ def adam_group(ctxs):
     m1s = [c.input("Moment1") for c in ctxs]
     m2s = [c.input("Moment2") for c in ctxs]
     b1ps, b2ps = fused.adam_group(
-        ps, [c.input("Grad").contiguous() for c in ctxs], m1s, m2s,
+        ps, [_grad(c) for c in ctxs], m1s, m2s,
         [c.input("LearningRate") for c in ctxs],
         [c.input("Beta1Pow") for c in ctxs],
         [c.input("Beta2Pow") for c in ctxs], c0.attr("beta1", 0.9),

@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``paddle_tpu/ops/shape_ops.py``): reshape,
-transpose, concat and one_hot."""
+transpose, concat, split, slice, gather and one_hot."""
 
 from __future__ import annotations
 
@@ -52,3 +52,42 @@ def one_hot(ctx):
     out = torch.zeros(tuple(x.shape) + (depth,), dtype=torch.float32,
                       device=x.device)
     return {"Out": out.scatter_(-1, x.clamp(0, depth - 1)[..., None], valid)}
+
+
+@register_op("split")
+def split(ctx):
+    """Into ``sections`` along ``axis``, or ``num`` equal parts."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections", None)
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    return {"Out": list(torch.chunk(x, ctx.attr("num"), dim=axis))}
+
+
+def _clamp_bound(v, dim):
+    """A slice bound as the reference takes it: a negative one counts from
+    the end (and stops at 0), a positive one stops at the dim."""
+    return max(v + dim, 0) if v < 0 else min(v, dim)
+
+
+@register_op("slice")
+def slice_op(ctx):
+    """``Input[starts:ends]`` along ``axes``; a start past its end gives an
+    empty dim."""
+    x = ctx.input("Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(ctx.attr("axes"), ctx.attr("starts"),
+                       ctx.attr("ends")):
+        dim = x.shape[a]
+        idx[a] = slice(_clamp_bound(s, dim), _clamp_bound(e, dim))
+    return {"Out": x[tuple(idx)]}
+
+
+@register_op("gather", no_grad_inputs=("Index",))
+def gather(ctx):
+    """Rows ``Index`` (flattened) of ``X`` along dim 0, in X's dtype.  Its
+    grad (the generic one) scatter-adds into those rows: on CUDA with
+    atomics, so a repeated index sums in no fixed order."""
+    x = ctx.input("X")
+    return {"Out": x.index_select(0, ctx.input("Index").reshape(-1).long())}
