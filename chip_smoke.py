@@ -14,7 +14,8 @@ and ResNet-50 (``Program.clone(for_test=True)``, ``fluid.io``, the
 inference predictor), then trains BERT-base through the bf16 flash kernels,
 DeepFM with SelectedRows sparse SGD (per step and as a graphed window),
 SE-ResNeXt-50, VGG-16 and the MNIST CNN of ``benchmark/fluid/mnist.py``,
-and checks them all.
+then ``fluid_benchmark.py``'s stacked dynamic LSTM on LoD batches, and
+checks them all.
 
     python3 chip_smoke.py
 
@@ -245,11 +246,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    repeatability; kernel (graph replays), plain, bound and
                    SDPA times
 32. kernel_adam_bert_base, kernel_adam_vgg16, kernel_adam_mnist_cnn,
-    kernel_momentum_se_resnext50 - phases 6 and 13 over tensors of
-                   BERT-base's 159, VGG-16's 60, the MNIST CNN's 6 and
-                   SE-ResNeXt-50's 225 parameter shapes (the kernels
-                   line's adam and momentum entries carry them,
-                   ``by_model``)
+    kernel_adam_stacked_lstm, kernel_momentum_se_resnext50 - phases 6 and
+                   13 over tensors of BERT-base's 159, VGG-16's 60, the
+                   MNIST CNN's 6, the stacked LSTM's 18 and SE-ResNeXt-50's
+                   225 parameter shapes (the kernels line's adam and
+                   momentum entries carry them, ``by_model``)
 33. train_bert_amp - BERT-base pretraining (``bert.build(base_config(),
                    seq_len=128, n_mask=16, lr=1e-4)``, ``fluid_benchmark.py``'s
                    bert) in bf16 with kept activations through the flash
@@ -286,12 +287,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 38. train_se_resnext_parity - SE-ResNeXt-50 at 64 px, 10 classes, batch
                    4, fp32, one step card against CPU as
                    train_resnet_parity compares
+39. train_stacked_lstm - ``fluid_benchmark.py``'s stacked_dynamic_lstm
+                   (``stacked_lstm.build``: 5147 words, emb = hid = 512, 3
+                   LSTMs; 70 ops, 18 parameters, 3,754,882 values; Adam
+                   1e-3, fp32) through ``fluid.Executor()`` on LoDTensor
+                   feeds: 5 steps on fresh fixed-bucket batches (32 x 64
+                   words), then 5 on fresh ragged ones (32 sequences of
+                   16-64 words): finite losses, exactly 1 Adam launch for
+                   18 tensors a step and no other kernel's; words/s and step
+                   ms by CUDA events and by the host clock, op dispatches a
+                   step, peak allocated
+40. train_stacked_lstm_parity - the reference test's small config
+                   (dict 80, emb = hid = 24, 2 LSTMs, Adam 1e-2) on LoD
+                   [[6, 7]], 6 steps card against CPU (rtol 1e-5 at step 0,
+                   1e-4 after, 1 Adam launch a step); then a ragged batch
+                   (13 sequences, one of length 1) through every pool
+                   type, softmax, expand, concat, reverse, pad / unpad,
+                   conv, row_conv, enumerate, LSTMs and a GRU, card against
+                   CPU: every output, its LoD and the input's grad within
+                   ``SEQ_PARITY_TOL``
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
 tick) and one after each full-size training phase (one more step, or
 one more window), each under ``torch.profiler``; each prints the device's busy share of the
-wall time and the kernels that take the most device time.
+wall time and the kernels that take the most device time (the eager
+steps also the host's Python profile of a step).
 
 Before the last three lines, ``total`` prints the run's seconds.  The last
 three lines are the kernels table (the bf16 flash entries also carry
@@ -431,6 +452,23 @@ DEEPFM_DENSE_RTOL, DEEPFM_WINDOW_RTOL = 1e-6, 1e-5
 # of the MNIST CNN (6)
 VISION_BATCH, VISION_STEPS, VISION_LR = 32, 3, 1e-3
 SE_MOMENTUM_TENSORS, VGG_ADAM_TENSORS, CNN_ADAM_TENSORS = 225, 60, 6
+# fluid_benchmark.py's stacked_dynamic_lstm on an accelerator
+# (benchmark/fluid_benchmark.py:114-128, Adam at its default lr 1e-3):
+# 5147 words, emb = hid = 512 (LSTM hidden 128, gates 512 wide), 3
+# stacked LSTMs, batch 32 of 64 words a sequence (the fixed bucket), a
+# fresh batch a step; then ragged batches of 32 sequences of 16-64 words.
+# 70 ops, 18 parameters (3,754,882 values): one Adam launch a step for the
+# 18.  The parity run takes the reference test's small config
+# (tests/test_benchmark_models.py:31) on its LoD [[6, 7]], and a ragged
+# batch through the sequence and recurrent ops
+LSTM_DICT, LSTM_HID, LSTM_STACKED, LSTM_LR = 5147, 512, 3, 1e-3
+LSTM_BATCH, LSTM_LEN, LSTM_RAGGED, LSTM_STEPS = 32, 64, (16, 64), 5
+LSTM_OPS, LSTM_ADAM_TENSORS, LSTM_VALUES = 70, 18, 3754882
+LSTM_SMALL = dict(dict_dim=80, emb_dim=24, hid_dim=24, stacked_num=2)
+LSTM_SMALL_TENSORS, LSTM_SMALL_LR, LSTM_PARITY_STEPS = 13, 1e-2, 6
+# card against CPU through the sequence and recurrent ops on a ragged
+# batch (fp32; index_add's atomics and cuBLAS add in other orders)
+SEQ_PARITY_TOL = (1e-4, 1e-5)  # (rtol, atol)
 
 
 def emit(phase, **fields):
@@ -3787,18 +3825,21 @@ def phase_infer_resnet(tmp, card, scope, main, prediction):
 
 def timed_steps(exe, main, feed, fetches, scope, steps):
     """``steps`` ``Executor.run`` steps with the launch counters zeroed
-    first: each step's fetches, its host-clocked ms (to a synchronize) and
-    its device ms (CUDA events around it), and the launches over them."""
+    first (``feed`` one feed for every step, or a list of one a step):
+    each step's fetches, its host-clocked ms (to a synchronize) and its
+    device ms (CUDA events around it), and the launches over them."""
     import torch
 
+    feeds = feed if isinstance(feed, list) else [feed] * steps
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     reset_launch_counts()
     out, host_ms, device_ms = [], [], []
-    for _ in range(steps):
+    for step in range(steps):
         t0 = time.perf_counter()
         start.record()
-        out.append(exe.run(main, feed=feed, fetch_list=fetches, scope=scope))
+        out.append(exe.run(main, feed=feeds[step], fetch_list=fetches,
+                           scope=scope))
         end.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
@@ -4322,6 +4363,212 @@ def phase_train_se_resnext_parity():
         SE_MOMENTUM_TENSORS, batch=4, image_hw=64, classes=10, lr=VISION_LR)
 
 
+def build_stacked_lstm(cfg=None, lr=LSTM_LR):
+    """``stacked_lstm.build`` (``fluid_benchmark.py``'s
+    stacked_dynamic_lstm) with Adam: (main, startup, loss), at the
+    accelerator widths unless ``cfg`` names others."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import stacked_lstm
+
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    cfg = cfg or dict(dict_dim=LSTM_DICT, emb_dim=LSTM_HID,
+                      hid_dim=LSTM_HID, stacked_num=LSTM_STACKED)
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss = stacked_lstm.build(lr=lr, **cfg)[3]
+    return main, startup, loss
+
+
+def lstm_feed(rng, lens, dict_dim=None):
+    """``fluid_benchmark.py``'s stacked-LSTM feed: word ids (below
+    ``dict_dim``, default ``LSTM_DICT``) as a LoDTensor of ``lens``,
+    labels in {0, 1}."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    words = rng.randint(0, dict_dim or LSTM_DICT,
+                        size=(sum(lens), 1)).astype(np.int64)
+    return {"words": fluid.create_lod_tensor(words, [list(lens)]),
+            "label": rng.randint(0, 2, size=(len(lens), 1)).astype(
+                np.int64)}
+
+
+def phase_train_stacked_lstm(profile_run=False):
+    """The stacked dynamic LSTM at ``fluid_benchmark.py``'s accelerator
+    widths (70 ops, 18 parameters) through ``Executor.run`` on the card:
+    ``LSTM_STEPS`` steps on fresh fixed-bucket batches (32 x 64 words),
+    then as many on fresh ragged batches (32 sequences of 16-64 words):
+    finite losses, exactly one Adam launch for 18 tensors a step and no
+    other kernel's; words/s and step ms by CUDA events and by the host
+    clock, op dispatches a step, peak allocated; with ``--profile`` one
+    more step under the profiler (busy share, device events, GEMMs) and
+    the host's Python profile of a step.  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss = build_stacked_lstm()
+    params = trainable_shapes(main, LSTM_ADAM_TENSORS)
+    ops = len(main.global_block().ops)
+    values = sum(int(np.prod(s)) for s in params)
+    if (ops, values) != (LSTM_OPS, LSTM_VALUES):
+        raise AssertionError(f"train_stacked_lstm: {ops} ops and {values} "
+                             f"parameter values, the reference builds "
+                             f"{LSTM_OPS} and {LSTM_VALUES}")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    lo, hi = LSTM_RAGGED
+    runs = {"fixed": [lstm_feed(rng, [LSTM_LEN] * LSTM_BATCH)
+                      for _ in range(LSTM_STEPS)],
+            "ragged": [lstm_feed(rng, rng.randint(lo, hi + 1, LSTM_BATCH))
+                       for _ in range(LSTM_STEPS)]}
+    per_step = {"adam": ADAM_PER_STEP, "adam_tensors": LSTM_ADAM_TENSORS}
+    total, report = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, feeds in runs.items():
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feeds, [loss], scope, LSTM_STEPS)
+        check_launches(f"train_stacked_lstm {name}", counts, per_step,
+                       LSTM_STEPS)
+        losses = [float(o[0].reshape(-1)[0]) for o in out]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train_stacked_lstm {name}: non-finite "
+                                 f"losses {losses}")
+        words = [int(f["words"].shape[0]) for f in feeds]
+        report[name] = {
+            "losses": losses, "launches": counts, "words": words,
+            "host_step_ms": host_ms, "device_step_ms": device_ms,
+            "words_per_s_events": sum(words[1:]) * 1e3 / sum(device_ms[1:]),
+            "words_per_s_host": sum(words[1:]) * 1e3 / sum(host_ms[1:])}
+        add_counts(total, counts)
+    emit("train_stacked_lstm", model="stacked_dynamic_lstm",
+         dict_dim=LSTM_DICT, emb_dim=LSTM_HID, hid_dim=LSTM_HID,
+         lstm_hidden=LSTM_HID // 4, stacked_num=LSTM_STACKED,
+         batch=LSTM_BATCH, seq_len=LSTM_LEN, ragged_lengths=list(LSTM_RAGGED),
+         lr=LSTM_LR, steps=LSTM_STEPS, ops=ops, parameters=len(params),
+         parameter_values=values,
+         op_dispatches_per_step=op_dispatches(exe, main, loss),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **report)
+    if profile_run:
+        feed = lstm_feed(rng, [LSTM_LEN] * LSTM_BATCH)
+        profile_step("train_stacked_lstm", lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope),
+            {"gemm": GEMM_KEYS})
+    return total
+
+
+def _seq_program(fluid, x_dim):
+    """One Program over a LoD feed ``x`` through the sequence and
+    recurrent ops (every pool type, softmax, expand, concat, reverse, pad
+    and unpad, conv, row_conv, enumerate, a peephole LSTM forward and
+    reversed, a GRU), ``sum(out * 0.5)`` of each float output summed into
+    a loss, and its backward: (main, startup, outputs, loss)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data(name="x", shape=[x_dim], dtype="float32",
+                        lod_level=1, stop_gradient=False)
+        ids = layers.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+        outs = [layers.sequence_pool(x, t) for t in
+                ("sum", "average", "sqrt", "max", "last", "first")]
+        outs.append(layers.sequence_softmax(layers.reduce_sum(
+            x, dim=1, keep_dim=True)))
+        outs.append(layers.sequence_expand(x, x))
+        outs.append(layers.sequence_concat([x, layers.scale(x, 2.0)]))
+        outs.append(layers.sequence_reverse(x))
+        padded, length = layers.sequence_pad(
+            x, layers.fill_constant([1], "float32", 0.0))
+        outs += [padded, layers.sequence_unpad(padded, length)]
+        outs.append(layers.sequence_conv(x, num_filters=8, filter_size=3))
+        outs.append(layers.row_conv(x, future_context_size=2))
+        proj = layers.fc(x, size=4 * 16)
+        outs.append(layers.dynamic_lstm(proj, size=4 * 16)[0])
+        outs.append(layers.dynamic_lstm(proj, size=4 * 16,
+                                        is_reverse=True)[1])
+        outs.append(layers.dynamic_gru(layers.fc(x, size=3 * 16), size=16))
+        terms = [layers.reduce_sum(layers.scale(o, 0.5)) for o in outs]
+        loss = terms[0]
+        for t in terms[1:]:
+            loss = layers.elementwise_add(loss, t)
+        fluid.append_backward(loss)
+        outs.append(layers.sequence_enumerate(ids, win_size=3))
+    return main, startup, outs, loss
+
+
+def phase_train_stacked_lstm_parity():
+    """Card against CPU: the small stacked LSTM (the reference test's
+    config, LoD [[6, 7]], Adam 1e-2) over ``LSTM_PARITY_STEPS`` steps from
+    one state, fp32 rtol 1e-5 at step 0 and 1e-4 after, one Adam launch a
+    step on the card; then a ragged batch (lengths from a seed, one of
+    length 1) through the sequence and recurrent ops: every output, its
+    LoD and the input's grad within ``SEQ_PARITY_TOL``."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lod_tensor import LoDTensor
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    progs = build_stacked_lstm(LSTM_SMALL, lr=LSTM_SMALL_LR)
+    feed = lstm_feed(np.random.RandomState(0), [6, 7], LSTM_SMALL["dict_dim"])
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    (cpu, card), counts, _ = parity_runs(progs, feed, LSTM_PARITY_STEPS,
+                                         places)
+    check_launches("train_stacked_lstm_parity", counts,
+                   {"adam": ADAM_PER_STEP, "adam_tensors": LSTM_SMALL_TENSORS},
+                   LSTM_PARITY_STEPS)
+    tol = np.array([1e-5] + [1e-4] * (LSTM_PARITY_STEPS - 1))
+    rel = check_parity("train_stacked_lstm_parity", cpu, card, tol)
+
+    rng = np.random.RandomState(5)
+    lens = [int(v) for v in rng.randint(1, 40, 12)] + [1]
+    x = rng.standard_normal((sum(lens), 24)).astype(np.float32)
+    ids = rng.randint(0, 50, (sum(lens), 1)).astype(np.int64)
+    main, startup, outs, _ = _seq_program(fluid, 24)
+    fetches = [o.name for o in outs] + ["x@GRAD"]
+    results, init = [], None
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {v.name: scope.get(v.name).detach().cpu().numpy()
+                    for v in startup.list_vars() if v.persistable}
+        else:
+            load_reference_params(scope, init, place)
+        results.append(exe.run(
+            main, feed={"x": fluid.create_lod_tensor(x, [lens]),
+                        "ids": fluid.create_lod_tensor(ids, [lens])},
+            fetch_list=fetches, scope=scope, return_numpy=False))
+    worst = {}
+    rtol, atol = SEQ_PARITY_TOL
+    for name, c, g in zip(fetches, *results):
+        lods = [v.lod() if isinstance(v, LoDTensor) else () for v in (c, g)]
+        c, g = (np.asarray(v) if isinstance(v, LoDTensor)
+                else v.detach().cpu().numpy() for v in (c, g))
+        if lods[0] != lods[1] or c.shape != g.shape:
+            raise AssertionError(f"{name}: card {g.shape} {lods[1]} against "
+                                 f"CPU {c.shape} {lods[0]}")
+        err = np.abs(g.astype(np.float64) - c)
+        if not (err <= atol + rtol * np.abs(c)).all():
+            raise AssertionError(f"train_stacked_lstm_parity: {name} on the "
+                                 f"card is {float(err.max())} from the CPU's")
+        worst[name] = float(err.max())
+    emit("train_stacked_lstm_parity", config=LSTM_SMALL, lod=[[6, 7]],
+         lr=LSTM_SMALL_LR, cpu_losses=cpu.tolist(),
+         card_losses=card.tolist(), rel_err=rel, rtol=tol.tolist(),
+         launches=counts, ragged_lengths=lens, ragged_outputs=len(fetches),
+         ragged_max_abs_err=max(worst.values()),
+         ragged_worst=max(worst, key=worst.get),
+         ragged_tol={"rtol": rtol, "atol": atol})
+
+
 def main():
     import argparse
 
@@ -4449,7 +4696,8 @@ def main():
         ("bert_base", build_bert(bert.base_config(), BERT_LEN, BERT_MASK,
                                  1e-4)[0], BERT_ADAM_TENSORS),
         ("vgg16", build_vision("vgg16")[0], VGG_ADAM_TENSORS),
-        ("mnist_cnn", build_vision("mnist_cnn")[0], CNN_ADAM_TENSORS)])
+        ("mnist_cnn", build_vision("mnist_cnn")[0], CNN_ADAM_TENSORS),
+        ("stacked_lstm", build_stacked_lstm()[0], LSTM_ADAM_TENSORS)])
     momentum["by_model"] = optimizer_at_model_shapes(
         phase_kernel_momentum, "momentum",
         [("se_resnext50", build_vision("se_resnext50")[0],
@@ -4465,6 +4713,10 @@ def main():
     add_counts(total, phase_train_bench_vision(args.profile))
     torch.cuda.empty_cache()
     phase_train_se_resnext_parity()
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_stacked_lstm(args.profile))
+    torch.cuda.empty_cache()
+    phase_train_stacked_lstm_parity()
     torch.cuda.empty_cache()
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)

@@ -59,9 +59,18 @@ Fetches of bfloat16 vars come back as float32 numpy arrays (exact): numpy
 has no bfloat16, and the reference's ``ml_dtypes`` arrays are not available
 on every host.
 
-As in the reference: a ``LoDTensor`` (or ``(array, lengths)``) feeds its
-data (no op of the port reads a LoD yet, so the LoD goes no further); a
-program whose declared data var is neither fed nor in the scope is pruned
+LoD is host metadata of a run, as in the reference's trace: a
+``LoDTensor`` (or ``(array, lengths)``) feed puts its LoD, in offsets
+form, in the run's env under ``<name>@LOD``; ``run_op`` hands each op its
+inputs' LoDs (``ExecContext.in_lod``); an output takes the LoD the op
+returns (``<slot>@LOD``), or else the reference's ShareLoD rule: when the
+op's inputs carry exactly one distinct LoD, an output whose leading dim
+equals that LoD's packed row count takes it.  Rebinding a name drops its
+old LoD; a LoD entry is released with the last op that names its var; a
+persistable's LoD stays in the scope across runs; a fetch that carries a
+LoD comes back with ``return_numpy=False`` as a ``LoDTensor``.  The plan
+cache keys on no LoD (each batch brings its own).  A program whose
+declared data var is neither fed nor in the scope is pruned
 to the fetch targets when that drops the var (``_prune_for_unfed``); and
 with ``core.GLOBAL_FLAGS["check_nan_inf"]`` every run reads its new state
 and fetches on the host and raises ``FloatingPointError`` naming the first
@@ -84,10 +93,10 @@ from . import core
 from .cuda_graph import StepGraph
 from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
                         default_main_program)
-from .lod_tensor import LoDTensor
-from .lod_tensor import _to_numpy
+from .lod_tensor import LoDTensor, _lengths_to_offsets, _to_numpy
 from .selected_rows import SelectedRows
 from ..ops import registry as _reg
+from ..ops.registry import LOD_SUFFIX
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
 # attrs that name an op's own role and vars, not what it computes
@@ -95,10 +104,12 @@ _ROLE_ATTRS = frozenset([OpRole.KEY, OpRole.VAR_KEY])
 
 
 class Scope:
-    """name -> tensor table."""
+    """name -> tensor table; ``_lods``: name -> the LoD (offsets form) a
+    run left on a persistable."""
 
     def __init__(self):
         self._values: Dict[str, object] = {}
+        self._lods: Dict[str, tuple] = {}
 
     def get(self, name, default=None):
         return self._values.get(name, default)
@@ -292,6 +303,21 @@ class BlockPlan:
             for n in op.output_arg_names:
                 if n and n not in keep and last_read.get(n, -1) <= k:
                     self.release[k].append(n)
+        # a LoD entry lives to the last op that names its var among its
+        # inputs (a generic grad op is handed the forward's outputs' LoDs,
+        # as in the reference, though it reads none of their values)
+        last_named: Dict[str, int] = {}
+        for k, op in enumerate(self.ops):
+            for n in op.input_arg_names:
+                if n:
+                    last_named[n] = k
+        for n, k in last_named.items():
+            if n not in keep:
+                self.release[k].append(n + LOD_SUFFIX)
+        for k, op in enumerate(self.ops):
+            for n in op.output_arg_names:
+                if n and n not in keep and last_named.get(n, -1) <= k:
+                    self.release[k].append(n + LOD_SUFFIX)
         # names an op both reads and writes: updated in place when the
         # output is the input tensor itself (the first run checks)
         self.in_place = [sorted(set(op.output_arg_names)
@@ -316,8 +342,12 @@ class BlockPlan:
 
 
 def _context(op, env, device, generator, outputs_spec):
-    inputs = {slot: [env.get(n) if n else None for n in names]
-              for slot, names in op.inputs.items()}
+    inputs = {}
+    for slot, names in op.inputs.items():
+        inputs[slot] = [env.get(n) if n else None for n in names]
+        lods = [env.get(n + LOD_SUFFIX) if n else None for n in names]
+        if any(lod is not None for lod in lods):
+            inputs[slot + LOD_SUFFIX] = lods
     if outputs_spec is None:
         outputs_spec = {slot: list(names)
                         for slot, names in op.outputs.items() if names}
@@ -325,14 +355,38 @@ def _context(op, env, device, generator, outputs_spec):
                             generator)
 
 
-def _store(op, env, raw):
+def _store(op, env, raw, inputs):
+    """Bind ``raw``'s outputs in ``env`` with their LoDs: the one the op
+    returned under ``<slot>@LOD`` (a list parallel to the slot's names, or
+    one LoD), else the reference's ShareLoD (``paddle_tpu/fluid/
+    executor.py:498-525``): the op's inputs' LoD when they carry exactly
+    one distinct LoD and the output's leading dim equals its packed row
+    count.  Rebinding a name drops its old LoD."""
+    out_lods = {}
+    if raw:
+        for k in [k for k in raw if k.endswith(LOD_SUFFIX)]:
+            v = raw.pop(k)
+            out_lods[k[:-len(LOD_SUFFIX)]] = v if isinstance(v, list) else [v]
     outs = _reg.normalize_outputs(raw)
+    in_lods = {tuple(map(tuple, lod)) for k, lods in inputs.items()
+               if k.endswith(LOD_SUFFIX) for lod in lods if lod is not None}
+    share = next(iter(in_lods)) if len(in_lods) == 1 else None
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
+        lods = out_lods.get(slot)
         for i, name in enumerate(names):
-            if name and vals is not None and i < len(vals) \
-                    and vals[i] is not None:
+            if not name:
+                continue
+            if vals is not None and i < len(vals) and vals[i] is not None:
                 env[name] = vals[i]
+                env.pop(name + LOD_SUFFIX, None)
+                shape = getattr(vals[i], "shape", None)
+                if (lods is None or i >= len(lods)) and share is not None \
+                        and shape and shape[0] == share[-1][-1]:
+                    env[name + LOD_SUFFIX] = share
+            if lods is not None and i < len(lods) and lods[i] is not None:
+                env[name + LOD_SUFFIX] = tuple(tuple(int(o) for o in level)
+                                               for level in lods[i])
 
 
 def run_op(op, env: Dict[str, object], device, generator=None,
@@ -348,7 +402,7 @@ def run_op(op, env: Dict[str, object], device, generator=None,
         raw = opdef.grad_fn(ctx)
     else:
         raw = _reg.run_grad_generic(opdef, ctx)
-    _store(op, env, raw)
+    _store(op, env, raw, ctx.inputs)
 
 
 def run_group(ops, env: Dict[str, object], device, generator=None,
@@ -359,8 +413,9 @@ def run_group(ops, env: Dict[str, object], device, generator=None,
     specs = outputs_specs or [None] * len(ops)
     ctxs = [_context(op, env, device, generator, spec)
             for op, spec in zip(ops, specs)]
-    for op, raw in zip(ops, _reg.get_op_def(ops[0].type).group_fn(ctxs)):
-        _store(op, env, raw)
+    for op, ctx, raw in zip(ops, ctxs,
+                            _reg.get_op_def(ops[0].type).group_fn(ctxs)):
+        _store(op, env, raw, ctx.inputs)
 
 
 def _check_no_alias(reader, names, env, updated):
@@ -522,6 +577,8 @@ def _try_prunes(program, fetch_names, unfed, scope, feeds):
 
 
 def _has_lod(value) -> bool:
+    """Whether a feed value offers a non-empty ``lod`` (a method or an
+    attribute)."""
     lod = getattr(value, "lod", None)
     return bool(lod() if callable(lod) else lod)
 
@@ -664,12 +721,18 @@ class Executor:
         self._windows.clear()
         self._plans.clear()
 
-    def _coerce_feed(self, program, name, value) -> torch.Tensor:
+    def _coerce_feed(self, program, name, value):
+        """``(tensor on the place's device, LoD in offsets form or
+        None)``: a ``LoDTensor`` or ``(array, recursive lengths)`` feed
+        brings its LoD."""
+        lod = None
         if isinstance(value, LoDTensor):
+            lod = value.lod() or None
             value = value._data
         elif isinstance(value, tuple) and len(value) == 2 \
                 and isinstance(value[1], (list, tuple)):
-            value = value[0]  # the (array, recursive lengths) form
+            value, lengths = value
+            lod = tuple(_lengths_to_offsets(n) for n in lengths) or None
         gb = program.global_block()
         want = (core.torch_dtype(gb._var_recursive(name).dtype)
                 if gb._has_var_recursive(name) else None)
@@ -685,7 +748,7 @@ class Executor:
             t = torch.tensor(arr)
         if want is not None and t.dtype != want:
             t = t.to(want)
-        return t.to(self.device)
+        return t.to(self.device), lod
 
     def _generator(self, scope, program) -> torch.Generator:
         """The scope's generator for this device, seeded from the program
@@ -710,7 +773,9 @@ class Executor:
         tensor copies on the place's device with ``return_numpy=False``.
         ``use_program_cache=False`` analyses the block afresh and keeps
         nothing.  ``feed_var_name`` and ``fetch_var_name`` are accepted as
-        in the reference, which names no feed or fetch var either."""
+        in the reference, which names no feed or fetch var either.  With
+        ``return_numpy=False`` a fetch that carries a LoD comes back as a
+        ``LoDTensor`` over the copy."""
         from . import guardian as _guardian
 
         program = program or default_main_program()
@@ -718,8 +783,11 @@ class Executor:
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list or []]
         feed = feed or {}
-        feed_vals = {k: self._coerce_feed(program, k, v)
-                     for k, v in feed.items()}
+        feed_vals, feed_lods = {}, {}
+        for k, v in feed.items():
+            feed_vals[k], lod = self._coerce_feed(program, k, v)
+            if lod:
+                feed_lods[k + LOD_SUFFIX] = lod
         program = _prune_for_unfed(program, feed_vals, fetch_names, scope)
         guard = _guardian.for_program(program)
         key = (program._cache_token, program._version,
@@ -746,7 +814,10 @@ class Executor:
                     f"var {name!r} is neither fed nor in the scope (run the "
                     f"startup program first?)")
             env[name] = val
+            if name in scope._lods:
+                env[name + LOD_SUFFIX] = scope._lods[name]
         env.update(feed_vals)
+        env.update(feed_lods)
         env.update(plan.consts)
         generator = self._generator(scope, program) if plan.needs_rng \
             else None
@@ -769,10 +840,18 @@ class Executor:
                 scale_state)
         for name, val in new_state.items():
             scope.set(name, val)
+            lod = env.get(name + LOD_SUFFIX)
+            if lod is not None:
+                scope._lods[name] = lod
         _check_nan_inf(list(new_state.items())
                        + [(n, env[n]) for n in fetch_names])
         if not return_numpy:
-            return [_copy(env[n]) for n in fetch_names]
+            out = []
+            for n in fetch_names:
+                lod = env.get(n + LOD_SUFFIX)
+                out.append(_copy(env[n]) if lod is None
+                           else LoDTensor(_copy(env[n]), lod))
+            return out
         return [_snapshot(env[n]) for n in fetch_names]
 
     def run_steps(self, program, feed, fetch_list, n_steps, scope=None,
@@ -807,12 +886,13 @@ class Executor:
                              f"{n_steps}")
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list or []]
-        feed = dict(feed or {})
-        if any(_has_lod(v) for v in feed.values()):
-            raise RuntimeError("run_steps: LoD feeds are not supported in "
-                               "the scanned loop; use Executor.run per step")
-        feed_vals = {k: self._coerce_feed(program, k, v)
-                     for k, v in feed.items()}
+        feed_vals = {}
+        for k, v in dict(feed or {}).items():
+            feed_vals[k], lod = self._coerce_feed(program, k, v)
+            if lod or _has_lod(v):
+                raise RuntimeError(
+                    "run_steps: LoD feeds are not supported in the scanned "
+                    "loop; use Executor.run per step")
         program = _prune_for_unfed(program, feed_vals, fetch_names, scope)
         if feed_per_step:
             bad = {k: tuple(v.shape) for k, v in feed_vals.items()

@@ -67,7 +67,7 @@ class GuardSpec:
 def enable(policy: str = "skip", **kwargs):
     raise NotImplementedError(
         "the numerics guardian (policies, spike cap, flight recorder, "
-        "replay) is not ported yet: ROADMAP.md queue 1 item 6; the dynamic "
+        "replay) is not ported yet: ROADMAP.md queue 1 item 7; the dynamic "
         "loss scaler of fluid.amp runs without it")
 
 

@@ -1,6 +1,7 @@
 """NN layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``): the builders
 the decode and training programs (Transformer, ResNet, BERT, DeepFM,
-SE-ResNeXt, VGG) call, copied so the same calls emit the same IR."""
+SE-ResNeXt, VGG, the stacked LSTM) call, and ``lod_reset`` /
+``sequence_erase``, copied so the same calls emit the same IR."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ __all__ = [
     "split", "gather", "slice", "topk", "one_hot", "label_smooth",
     "ring_attention", "kv_cache_update", "kv_cache_scatter", "spec_accept",
     "paged_attention", "token_select", "autoincreased_step_counter",
+    "lod_reset", "sequence_erase",
 ]
 
 
@@ -629,6 +631,34 @@ def token_select(logits, mask=None, end_id=0, name=None):
         inputs["Mask"] = [mask]
     helper.append_op(type="token_select", inputs=inputs,
                      outputs={"Out": [out]}, attrs={"end_id": int(end_id)})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """x with its LoD replaced from y (its LoD, else its values as
+    offsets) or from ``target_lod``."""
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"target_lod": list(target_lod or [])})
+    return out
+
+
+def sequence_erase(input, tokens=None, name=None):
+    """Remove the listed token values from a LoD sequence tensor (the
+    output's rows depend on the data)."""
+    helper = LayerHelper("sequence_erase", **locals())
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype())
+    helper.append_op(
+        type="sequence_erase", inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"tokens": [int(t) for t in (tokens or [])]})
     return out
 
 

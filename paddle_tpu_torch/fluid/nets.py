@@ -1,8 +1,7 @@
 """Composite nets (counterpart of ``paddle_tpu/fluid/nets.py``):
-``simple_img_conv_pool``, ``img_conv_group``, ``glu`` and
-``scaled_dot_product_attention``, builders over ``fluid.layers`` that emit
-the reference's ops call for call.  ``sequence_conv_pool`` needs the
-sequence ops, which are not ported yet."""
+``simple_img_conv_pool``, ``img_conv_group``, ``glu``,
+``scaled_dot_product_attention`` and ``sequence_conv_pool``, builders over
+``fluid.layers`` that emit the reference's ops call for call."""
 
 from __future__ import annotations
 
@@ -114,6 +113,8 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
-    raise NotImplementedError(
-        "nets.sequence_conv_pool needs sequence_conv and sequence_pool over "
-        "LoD tensors, which are not ported yet: ROADMAP.md queue 1 item 8")
+    """sequence_conv + sequence_pool: the text-CNN block."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

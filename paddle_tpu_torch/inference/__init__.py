@@ -13,8 +13,8 @@ into the filter).  The engine-backed (``enable_serving``) and int8-weight
 transpiler are not ported yet.
 
 A predictor runs in the AMP mode (``fluid.amp``) active when it runs.
-Outputs come back as numpy arrays (bfloat16 as float32, exact) without a
-LoD: no op of the port makes one yet.
+Outputs come back as numpy arrays (bfloat16 as float32, exact) with the
+output's LoD (offsets form, ``()`` for none), as the reference's.
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ class PaddlePredictor:
         return self._run_direct(inputs)
 
     def _run_direct(self, inputs: List[PaddleTensor]) -> List[PaddleTensor]:
-        from ..fluid.lod_tensor import LoDTensor
+        from ..fluid.lod_tensor import LoDTensor, _to_numpy
 
         # unnamed tensors feed positionally, which is well-defined only
         # for the full feed list in declaration order
@@ -155,8 +155,10 @@ class PaddlePredictor:
                 feed[name] = t.data
         outs = self._exe.run(self._program, feed=feed,
                              fetch_list=[v.name for v in self._fetch_vars],
-                             scope=self._scope)
-        return [PaddleTensor(name=v.name, data=o, lod=())
+                             scope=self._scope, return_numpy=False)
+        return [PaddleTensor(name=v.name, data=_to_numpy(o._data), lod=o.lod())
+                if isinstance(o, LoDTensor) else
+                PaddleTensor(name=v.name, data=_to_numpy(o), lod=())
                 for v, o in zip(self._fetch_vars, outs)]
 
     def clone(self) -> "PaddlePredictor":

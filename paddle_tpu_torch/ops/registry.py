@@ -10,6 +10,14 @@ runs several ops of its type at once; the Executor hands it each run of
 consecutive such ops (the optimizer's per-parameter updates), so one
 kernel launch can serve them all.
 
+LoD: sequence metadata is host data.  The Executor hands an op the LoD
+of each input that has one (offsets form, a tuple of offset tuples) under
+``<slot>@LOD``, read through :meth:`ExecContext.in_lod` /
+:meth:`ExecContext.seq_offsets`; an op may return ``<slot>@LOD`` beside
+an output to set that output's LoD (else the Executor's ShareLoD rule
+applies, ``fluid/executor.py``).  No op reads a device tensor to find
+offsets.
+
 Gradients: ``append_backward`` emits ``<type>_grad`` ops into the Program.
 An op that registers a grad impl (:func:`register_grad`) runs it; every
 other grad op runs :func:`run_grad_generic`, which re-runs the forward impl
@@ -26,6 +34,7 @@ from typing import Any, Callable, Dict, List, Sequence
 import torch
 
 GRAD_SUFFIX = "@GRAD"
+LOD_SUFFIX = "@LOD"
 
 
 class ExecContext:
@@ -60,6 +69,25 @@ class ExecContext:
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
 
+    def in_lod(self, slot: str, idx: int = 0):
+        """The LoD (tuple of offset tuples) of the idx-th input of a slot,
+        or None."""
+        vals = self.inputs.get(slot + LOD_SUFFIX) or []
+        return vals[idx] if idx < len(vals) else None
+
+    def seq_offsets(self, slot: str, idx: int = 0, level: int = -1):
+        """The finest (or given) level of an input's LoD, as a tuple."""
+        lod = self.in_lod(slot, idx)
+        if not lod:
+            raise ValueError(
+                f"op {self.op_type}: input slot {slot} carries no LoD "
+                f"(feed it as a LoDTensor / set recursive_sequence_lengths)")
+        return lod[level]
+
+    def n_outputs(self, slot: str) -> int:
+        """How many outputs of ``slot`` someone reads."""
+        return len(self.outputs_spec.get(slot) or [])
+
 
 class OpDef:
     """``stateful``: the op draws random numbers (the executor hands it the
@@ -83,8 +111,8 @@ REGISTRY: Dict[str, OpDef] = {}
 
 # data-dependent op types (output sizes or host effects that depend on the
 # values; the reference's ``ops/array_ops.py`` EAGER_OPS): a program that
-# holds one cannot run as a captured window (``Executor.run_steps``).  None
-# of them is ported yet.
+# holds one cannot run as a captured window (``Executor.run_steps``).  Of
+# them the port has ``sequence_erase`` and ``sub_nested_seq``.
 EAGER_OPS = frozenset([
     "split_lod_tensor", "merge_lod_tensor", "beam_search",
     "beam_search_decode", "beam_search_pack", "is_empty", "multiclass_nms",
@@ -171,8 +199,10 @@ def run_grad_generic(fwd_def: OpDef, ctx: ExecContext) -> Dict[str, Any]:
     ``<out_slot>@GRAD`` slots; ``ctx.outputs_spec`` names the wanted
     ``<in_slot>@GRAD`` outputs.  The differentiable float inputs are
     detached and made leaves; integer inputs and ``no_grad_inputs`` stay
-    as they are.  A forward output whose grad is missing gets a zero
-    cotangent, as in the reference."""
+    as they are.  ``<slot>@LOD`` companions of the forward's inputs pass
+    through to the forward impl; those of the grads (``Out@GRAD@LOD``)
+    are dropped, and neither is ever a grad or a leaf.  A forward output
+    whose grad is missing gets a zero cotangent, as in the reference."""
     if fwd_def.stateful and fwd_def.grad_fn is None:
         raise NotImplementedError(
             f"stateful op {fwd_def.type} requires an explicit grad impl")
@@ -190,7 +220,11 @@ def run_grad_generic(fwd_def: OpDef, ctx: ExecContext) -> Dict[str, Any]:
 
     inputs, leaves = {}, []
     for slot, vals in ctx.inputs.items():
-        if slot.endswith(GRAD_SUFFIX):
+        if slot.endswith(GRAD_SUFFIX) or \
+                slot.endswith(GRAD_SUFFIX + LOD_SUFFIX):
+            continue
+        if slot.endswith(LOD_SUFFIX):
+            inputs[slot] = vals
             continue
         if slot in want:
             vals = [v.detach().requires_grad_() if _is_float(v) else v

@@ -280,7 +280,7 @@ def test_fp16_loss_scaler_matches_reference():
 def test_guardian_policies_are_not_ported():
     from paddle_tpu_torch.fluid import guardian
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         guardian.enable("skip")
 
 

@@ -275,8 +275,8 @@ def test_predictor_clone_shares_weights(tmp_path):
 
 def test_predictor_feeds_lod(tmp_path):
     """A LoD feed reaches the executor as a LoDTensor (offsets form is
-    checked in both packages); the output matches the reference's data.
-    The port returns no LoD: no op of it carries one yet."""
+    checked in both packages); the output matches the reference's data
+    and carries the reference's LoD."""
     ref_dir, port_dir, _ = _saved_pair(tmp_path, _lod_model, None)
     ref, port = _predictors(ref_dir, port_dir, "NativeConfig")
     ids = np.array([[1], [2], [3], [4], [5]], np.int64)
@@ -285,7 +285,7 @@ def test_predictor_feeds_lod(tmp_path):
     (rout,) = ref.run([ref_inf.PaddleTensor(name="words", data=ids,
                                             lod=[[0, 2, 5]])])
     np.testing.assert_allclose(out.data, rout.data, **NATIVE_TOL)
-    assert out.lod == ()
+    assert out.lod == rout.lod == ((0, 2, 5),)
     for pred, inf in ((ref, ref_inf), (port, port_inf)):
         with pytest.raises(ValueError, match="offsets"):
             pred.run([inf.PaddleTensor(name="words", data=ids,
