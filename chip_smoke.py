@@ -14,8 +14,11 @@ and ResNet-50 (``Program.clone(for_test=True)``, ``fluid.io``, the
 inference predictor), then trains BERT-base through the bf16 flash kernels,
 DeepFM with SelectedRows sparse SGD (per step and as a graphed window),
 SE-ResNeXt-50, VGG-16 and the MNIST CNN of ``benchmark/fluid/mnist.py``,
-then ``fluid_benchmark.py``'s stacked dynamic LSTM on LoD batches, and
-checks them all.
+then ``fluid_benchmark.py``'s stacked dynamic LSTM on LoD batches, then
+trains ``bench.py``'s decode cell under ``TrainingDecoder`` (control flow
+and tensor arrays) and generates with it through both beam-search
+engines (the ``While`` loop and the CUDA-graphed ``JitBeamSearchDecoder``),
+and checks them all.
 
     python3 chip_smoke.py
 
@@ -246,11 +249,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    repeatability; kernel (graph replays), plain, bound and
                    SDPA times
 32. kernel_adam_bert_base, kernel_adam_vgg16, kernel_adam_mnist_cnn,
-    kernel_adam_stacked_lstm, kernel_momentum_se_resnext50 - phases 6 and
+    kernel_adam_stacked_lstm, kernel_adam_decoder,
+    kernel_momentum_se_resnext50 - phases 6 and
                    13 over tensors of BERT-base's 159, VGG-16's 60, the
-                   MNIST CNN's 6, the stacked LSTM's 18 and SE-ResNeXt-50's
-                   225 parameter shapes (the kernels line's adam and
-                   momentum entries carry them, ``by_model``)
+                   MNIST CNN's 6, the stacked LSTM's 18, the decode cell's
+                   9 (phase 41) and SE-ResNeXt-50's 225 parameter shapes
+                   (the kernels line's adam and momentum entries carry
+                   them, ``by_model``)
 33. train_bert_amp - BERT-base pretraining (``bert.build(base_config(),
                    seq_len=128, n_mask=16, lr=1e-4)``, ``fluid_benchmark.py``'s
                    bert) in bf16 with kept activations through the flash
@@ -306,6 +311,50 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    conv, row_conv, enumerate, LSTMs and a GRU, card against
                    CPU: every output, its LoD and the input's grad within
                    ``SEQ_PARITY_TOL``
+41. train_decoder - ``bench.py``'s ``bench_decode`` cell (vocab 1000, d
+                   64, h' = tanh(fc([x, h])), h0 = fc(embedding(src)))
+                   trained under ``contrib.decoder.TrainingDecoder`` (a
+                   ``DynamicRNN``: ``while`` and ``while_grad``) with a
+                   softmax projection, Adam 8e-3, fp32, 8 sources a batch:
+                   5 fresh fixed batches of 8 x 16 target words, then 5
+                   fresh ragged ones of 8 x 4-16 (permutation chains ended
+                   by end_id 1, from ``--seed``): finite losses, exactly 1
+                   Adam launch for the decoder's 9 tensors a step and no
+                   other kernel's (``kernel_adam_decoder`` holds the kernel
+                   at those shapes); step ms (CUDA events and host clock),
+                   words/s, op dispatches and ``while`` iterations a step,
+                   peak allocated
+42. decode_beam  - phase 41's weights through ``fluid.io.save_persistables``
+                   / ``load_persistables`` into a ``BeamSearchDecoder``
+                   program (names realigned by ``unique_name.guard``),
+                   ``bench_decode``'s feed and widths (batch 8, beam 4,
+                   max_len 16, topk 50, ``RandomState(0)`` sources): 1
+                   cold decode, then 3 warm; tokens/s as ``bench.py``
+                   counts them, ms a decode, op dispatches and host syncs
+                   a decode, the steps taken, the hypotheses' lengths
+43. decode_jit   - the same weights and feed through
+                   ``JitBeamSearchDecoder``: ids and both LoD levels equal
+                   phase 42's (a difference only at an exact fp32 tie,
+                   whose two scores are printed), scores within 1e-4; no
+                   graph capture after the first decode; graph replays and
+                   host flag reads a decode, ms a decode, tokens/s; then
+                   ``bench_decode``'s own seed-5 random weights, where no
+                   beam ends early, held to one ``BeamSearchDecoder``
+                   decode of them and timed the same way
+44. control_flow_parity - card against CPU: the decoder-DSL test of
+                   ``tests/test_beam_search_decoder_dsl.py`` (V 14, D 24, 80
+                   Adam steps: losses rtol 1e-5 at step 0, 1e-4 after; both
+                   engines' ids equal the CPU's, the top hypotheses follow
+                   the learned chain) and its early exit (a projection that
+                   ends every beam at step 1: 3 steps, hypotheses ending at
+                   end_id, both engines); the book's RNN encoder-decoder
+                   (``tests/test_book.py:445``: a bi-LSTM and a
+                   ``DynamicRNN`` with ``static_input`` and a
+                   ``need_reorder`` memory, 8 x 10 words, 5 Adam steps on
+                   a fixed and on a ragged batch); the While, IfElse,
+                   Switch and StaticRNN programs of
+                   ``tests/test_control_flow.py``: outputs and grads within
+                   rtol 1e-5
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
@@ -322,6 +371,7 @@ power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -469,6 +519,26 @@ LSTM_SMALL_TENSORS, LSTM_SMALL_LR, LSTM_PARITY_STEPS = 13, 1e-2, 6
 # card against CPU through the sequence and recurrent ops on a ragged
 # batch (fp32; index_add's atomics and cuBLAS add in other orders)
 SEQ_PARITY_TOL = (1e-4, 1e-5)  # (rtol, atol)
+# bench.py's bench_decode (bench.py:571-655): vocab 1000, d 64, batch 8,
+# beam 4, max_len 16, topk 50, end_id 1, seed-5 initial weights; its cell
+# trained under TrainingDecoder with a softmax projection
+# (tests/test_beam_search_decoder_dsl.py:67-92), Adam 8e-3, fp32: 9
+# parameters (two embeddings, the h0 fc's weight and bias, the cell fc's
+# two weights and bias, the projection's weight and bias), one Adam launch
+# a step.  Targets: permutation chains of 16 words, GO first, end_id last
+# (fixed), then ragged batches of 4-16.  Decode: 1 cold, 3 warm (bench.py
+# 629-646); the jit engine's scores within 1e-4 of the eager engine's (the
+# reference test's rounding to 4 decimals), ids only at a tie within 1e-6
+DEC_VOCAB, DEC_D, DEC_BATCH, DEC_BEAM = 1000, 64, 8, 4
+DEC_MAX_LEN, DEC_TOPK, DEC_END, DEC_GO = 16, 50, 1, 2
+DEC_LR, DEC_SEED, DEC_LEN, DEC_RAGGED, DEC_STEPS = 8e-3, 5, 16, (4, 16), 5
+DEC_ADAM_TENSORS, DEC_WARM = 9, 3
+DEC_SCORE_ATOL, DEC_TIE_RTOL = 1e-4, 1e-6
+# the decoder-DSL test (tests/test_beam_search_decoder_dsl.py) and the
+# book's encoder-decoder (tests/test_book.py:445) at their widths
+DSL_V, DSL_D, DSL_CHAIN, DSL_STEPS = 14, 24, 5, 80
+BOOK_DICT, BOOK_EMB, BOOK_HID = 33, 16, 32
+BOOK_LEN, BOOK_BATCH, BOOK_STEPS = 10, 8, 5
 
 
 def emit(phase, **fields):
@@ -4569,6 +4639,814 @@ def phase_train_stacked_lstm_parity():
          ragged_tol={"rtol": rtol, "atol": atol})
 
 
+def decoder_cell(fluid, h0, d):
+    """``bench.py``'s decode cell: h' = tanh(fc([x, h])), h0 reordered with
+    the rank table in training."""
+    from paddle_tpu_torch.fluid.contrib.decoder import InitState, StateCell
+
+    cell = StateCell(inputs={"x": None},
+                     states={"h": InitState(init=h0, need_reorder=True)},
+                     out_state="h")
+
+    @cell.state_updater
+    def updater(c):
+        c.set_state("h", fluid.layers.fc(
+            input=[c.get_input("x"), c.get_state("h")], size=d, act="tanh"))
+
+    return cell
+
+
+def build_train_decoder(vocab=DEC_VOCAB, d=DEC_D, lr=DEC_LR, seed=DEC_SEED):
+    """The decode cell under ``TrainingDecoder`` with a softmax projection
+    and Adam (``tests/test_beam_search_decoder_dsl.py:67-92``): (main,
+    startup, loss).  Its layers come in the decode programs' order, so
+    ``unique_name.guard`` gives both the same parameter names."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.decoder import TrainingDecoder
+
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = layers.data(name="src", shape=[1], dtype="int64")
+        h0 = layers.fc(input=layers.embedding(src, size=[vocab, d]), size=d,
+                       act="tanh")
+        trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+        lbl = layers.data(name="lbl", shape=[1], dtype="int64", lod_level=1)
+        cell = decoder_cell(fluid, h0, d)
+        trg_emb = layers.embedding(trg, size=[vocab, d])
+        dec = TrainingDecoder(cell)
+        with dec.block():
+            x = dec.step_input(trg_emb)
+            cell.compute_state(inputs={"x": x})
+            score = layers.fc(input=cell.out_state(), size=vocab,
+                              act="softmax")
+            cell.update_states()
+            dec.output(score)
+        loss = layers.mean(layers.cross_entropy(input=dec(), label=lbl))
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def build_decoder(cls_name, vocab=DEC_VOCAB, d=DEC_D, max_len=DEC_MAX_LEN,
+                  beam=DEC_BEAM, topk=DEC_TOPK, seed=DEC_SEED):
+    """``bench_decode``'s program (``bench.py:592-625``) with
+    ``BeamSearchDecoder`` or ``JitBeamSearchDecoder``: (main, startup,
+    ids, scores)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib import decoder
+
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = layers.data(name="src", shape=[1], dtype="int64")
+        h0 = layers.fc(input=layers.embedding(src, size=[vocab, d]), size=d,
+                       act="tanh")
+        cell = decoder_cell(fluid, h0, d)
+        init_ids = layers.data(name="init_ids", shape=[1], dtype="int64",
+                               lod_level=2)
+        init_scores = layers.data(name="init_scores", shape=[1],
+                                  dtype="float32", lod_level=2)
+        dec = getattr(decoder, cls_name)(
+            cell, init_ids, init_scores, target_dict_dim=vocab, word_dim=d,
+            topk_size=topk, sparse_emb=False, max_len=max_len,
+            beam_size=beam, end_id=DEC_END)
+        dec.decode()
+        ids, scores = dec()
+    return main, startup, ids, scores
+
+
+def chain_feed(rng, perm, lens, srcs=None, go=DEC_GO):
+    """A ``TrainingDecoder`` batch: for each source s (from ``rng`` unless
+    given) a target of ``len`` words, GO then the chain s -> perm[s] -> ...,
+    labelled with the chain ended by end_id."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    if srcs is None:
+        srcs = rng.choice(sorted(perm), size=len(lens))
+    trg, lbl = [], []
+    for s, n in zip(srcs, lens):
+        w, chain = int(s), []
+        for _ in range(n - 1):
+            w = perm[w]
+            chain.append(w)
+        trg += [go] + chain
+        lbl += chain + [DEC_END]
+    lod = [[int(n) for n in lens]]
+    return {"src": np.asarray(srcs, np.int64).reshape(-1, 1),
+            "trg": fluid.create_lod_tensor(
+                np.asarray(trg, np.int64).reshape(-1, 1), lod),
+            "lbl": fluid.create_lod_tensor(
+                np.asarray(lbl, np.int64).reshape(-1, 1), lod)}
+
+
+def chain_perm(rng, vocab):
+    """A permutation of the words 3..vocab-1 (0 pad, 1 end, 2 GO)."""
+    words = list(range(3, vocab))
+    return dict(zip(words, (int(w) for w in rng.permutation(words))))
+
+
+def decode_feed(srcs, init_id=0):
+    """``bench_decode``'s feed: one init hypothesis a source, score 0."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    b = len(srcs)
+    lod2 = [[1] * b, [1] * b]
+    return {"src": np.asarray(srcs, np.int64).reshape(b, 1),
+            "init_ids": fluid.create_lod_tensor(
+                np.full((b, 1), init_id, np.int64), lod2),
+            "init_scores": fluid.create_lod_tensor(
+                np.zeros((b, 1), np.float32), lod2)}
+
+
+def bench_decode_srcs(batch=DEC_BATCH, vocab=DEC_VOCAB):
+    """``bench_decode``'s sources: ``RandomState(0).randint(2, vocab)``."""
+    import numpy as np
+
+    return np.random.RandomState(0).randint(2, vocab, size=batch)
+
+
+@contextlib.contextmanager
+def counting_dispatches():
+    """Counts the Executor's op dispatches (``run_op`` calls, the ops of
+    control-flow sub-blocks included, and group calls) inside the block."""
+    from paddle_tpu_torch.fluid import executor
+
+    box = [0]
+    run_op, run_group = executor.run_op, executor.run_group
+
+    def counted_op(*args, **kwargs):
+        box[0] += 1
+        return run_op(*args, **kwargs)
+
+    def counted_group(*args, **kwargs):
+        box[0] += 1
+        return run_group(*args, **kwargs)
+
+    executor.run_op, executor.run_group = counted_op, counted_group
+    try:
+        yield box
+    finally:
+        executor.run_op, executor.run_group = run_op, run_group
+
+
+def control_stats():
+    """The control-flow counters: ``while`` iterations, host syncs (a
+    condition or index read off the card, a beam op's copies, the jit
+    engine's flag reads) and the jit engine's graph counts and steps."""
+    from paddle_tpu_torch.fluid import control_flow_exec as cfe
+    from paddle_tpu_torch.ops import array_ops
+    from paddle_tpu_torch.ops import beam_search_jit as bsj
+
+    return {"while_iterations": cfe.stats["while_iterations"],
+            "host_syncs": (cfe.stats["host_reads"]
+                           + array_ops.stats["host_copies"]
+                           + bsj.stats["flag_reads"]),
+            "captures": bsj.stats["captures"],
+            "replays": bsj.stats["replays"],
+            "flag_reads": bsj.stats["flag_reads"],
+            "jit_steps": bsj.stats["steps"]}
+
+
+def reset_control_stats():
+    from paddle_tpu_torch.fluid import control_flow_exec as cfe
+    from paddle_tpu_torch.ops import array_ops
+    from paddle_tpu_torch.ops import beam_search_jit as bsj
+
+    cfe.reset_stats()
+    array_ops.reset_stats()
+    bsj.reset_stats()
+
+
+def phase_train_decoder(seed, profile_run=False):
+    """``bench.py``'s decode cell trained under ``TrainingDecoder`` on the
+    card: ``DEC_STEPS`` steps on fresh fixed batches (8 x 16 target
+    words), then as many on fresh ragged ones (8 x 4-16): finite losses,
+    exactly one Adam launch for the 9 tensors a step and no other
+    kernel's; step ms (CUDA events and host clock), words/s, op dispatches
+    and ``while`` iterations a step, peak allocated; with ``--profile``
+    one more step under the profiler.  Returns (launches, exe, main,
+    scope)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss = build_train_decoder()
+    params = trainable_shapes(main, DEC_ADAM_TENSORS)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed)
+    perm = chain_perm(rng, DEC_VOCAB)
+    lo, hi = DEC_RAGGED
+    runs = {"fixed": [chain_feed(rng, perm, [DEC_LEN] * DEC_BATCH)
+                      for _ in range(DEC_STEPS)],
+            "ragged": [chain_feed(rng, perm,
+                                  rng.randint(lo, hi + 1, DEC_BATCH))
+                       for _ in range(DEC_STEPS)]}
+    per_step = {"adam": ADAM_PER_STEP, "adam_tensors": DEC_ADAM_TENSORS}
+    total, report = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, feeds in runs.items():
+        reset_control_stats()
+        with counting_dispatches() as box:
+            out, host_ms, device_ms, counts = timed_steps(
+                exe, main, feeds, [loss], scope, DEC_STEPS)
+        check_launches(f"train_decoder {name}", counts, per_step, DEC_STEPS)
+        losses = [float(o[0].reshape(-1)[0]) for o in out]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train_decoder {name}: non-finite losses "
+                                 f"{losses}")
+        words = [int(np.asarray(f["trg"]).shape[0]) for f in feeds]
+        stats = control_stats()
+        report[name] = {
+            "losses": losses, "launches": counts, "words": words,
+            "host_step_ms": host_ms, "device_step_ms": device_ms,
+            "words_per_s_events": sum(words[1:]) * 1e3 / sum(device_ms[1:]),
+            "words_per_s_host": sum(words[1:]) * 1e3 / sum(host_ms[1:]),
+            "op_dispatches_per_step": box[0] / DEC_STEPS,
+            "while_iterations_per_step":
+                stats["while_iterations"] / DEC_STEPS,
+            "host_syncs_per_step": stats["host_syncs"] / DEC_STEPS}
+        add_counts(total, counts)
+    emit("train_decoder", model="bench_decode cell + TrainingDecoder",
+         vocab=DEC_VOCAB, d=DEC_D, batch=DEC_BATCH, seq_len=DEC_LEN,
+         ragged_lengths=list(DEC_RAGGED), lr=DEC_LR, steps=DEC_STEPS,
+         seed=seed, ops=len(main.global_block().ops),
+         sub_block_ops=sum(len(b.ops) for b in main.blocks[1:]),
+         parameters=len(params),
+         parameter_values=sum(int(np.prod(s)) for s in params),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **report)
+    if profile_run:
+        feed = runs["fixed"][0]
+        profile_step("train_decoder", lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope),
+            {"gemm": GEMM_KEYS})
+    return total, exe, main, scope
+
+
+def timed_decodes(exe, main, feed, fetches, scope, n):
+    """``n`` decodes: each one's (ids LoDTensor, scores LoDTensor, host ms
+    to the ids on the host, device ms by CUDA events), with the dispatch
+    and control counters over them."""
+    import numpy as np
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = []
+    torch.cuda.synchronize()
+    reset_control_stats()
+    with counting_dispatches() as box:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            start.record()
+            ids, scores = exe.run(main, feed=feed, fetch_list=fetches,
+                                  scope=scope, return_numpy=False)
+            end.record()
+            ids_np = np.asarray(ids)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            out.append((ids, scores, ids_np, host_ms,
+                        start.elapsed_time(end)))
+    return out, box[0], control_stats()
+
+
+def load_decoder(cls_name, ckpt, **build):
+    """A decode program on the card with the checkpoint ``ckpt``'s
+    weights, or its startup's (seed ``DEC_SEED``) where ``ckpt`` is None:
+    (exe, main, scope, ids, scores)."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, ids, scores = build_decoder(cls_name, **build)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    if ckpt is not None:
+        fluid.io.load_persistables(exe, ckpt, main, scope=scope)
+    return exe, main, scope, ids, scores
+
+
+def decode_report(runs, dispatches, stats):
+    """The numbers of warm decodes ``runs`` (``timed_decodes``)."""
+    tokens = sum(int(r[2].size) for r in runs)
+    host_s = sum(r[3] for r in runs) / 1e3
+    n = len(runs)
+    return {"tokens": tokens, "tokens_per_s": tokens / host_s,
+            "host_ms": [r[3] for r in runs],
+            "device_ms": [r[4] for r in runs],
+            "ms_per_decode": host_s * 1e3 / n,
+            "op_dispatches_per_decode": dispatches / n,
+            "host_syncs_per_decode": stats["host_syncs"] / n,
+            # the While loop's iterations, or the jit engine's graph steps
+            "steps_per_decode": (stats["while_iterations"]
+                                 + stats["jit_steps"]) / n}
+
+
+def phase_decode_beam(tmp, exe, main, scope):
+    """Phase 41's weights, saved and loaded, through ``BeamSearchDecoder``
+    at ``bench_decode``'s widths and feed: a cold decode, then
+    ``DEC_WARM`` warm ones.  Returns (ids, lod, scores) of the last."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, tmp, main)
+    exe2, main2, scope2, ids, scores = load_decoder("BeamSearchDecoder", tmp)
+    feed = decode_feed(bench_decode_srcs())
+    cold, _, cold_stats = timed_decodes(exe2, main2, feed, [ids, scores],
+                                        scope2, 1)
+    warm, dispatches, stats = timed_decodes(exe2, main2, feed,
+                                            [ids, scores], scope2, DEC_WARM)
+    last_ids, last_scores, ids_np = warm[-1][:3]
+    lod = last_ids.lod()
+    for r in warm:
+        if r[0].lod() != lod or not np.array_equal(r[2], ids_np):
+            raise AssertionError("decode_beam: warm decodes differ")
+    emit("decode_beam", engine="BeamSearchDecoder (While loop)",
+         batch=DEC_BATCH, beam=DEC_BEAM, max_len=DEC_MAX_LEN,
+         topk=DEC_TOPK, vocab=DEC_VOCAB, d=DEC_D,
+         ops=len(main2.global_block().ops),
+         sub_block_ops=sum(len(b.ops) for b in main2.blocks[1:]),
+         cold_ms=cold[0][3], cold_host_syncs=cold_stats["host_syncs"],
+         hypotheses=len(lod[1]) - 1,
+         hypothesis_lengths=[int(b - a) for a, b in zip(lod[1], lod[1][1:])],
+         ended_at_end_id=int(sum(
+             1 for a, b in zip(lod[1], lod[1][1:])
+             if ids_np.reshape(-1)[b - 1] == DEC_END)),
+         **decode_report(warm, dispatches, stats))
+    return ids_np.reshape(-1), lod, np.asarray(last_scores).reshape(-1)
+
+
+def first_difference(got, want):
+    """The first hypothesis (by index) whose ids or length differ, or
+    None."""
+    (g_ids, g_lod, _), (w_ids, w_lod, _) = got, want
+    n = min(len(g_lod[1]), len(w_lod[1])) - 1
+    for j in range(n):
+        g = g_ids[g_lod[1][j]:g_lod[1][j + 1]]
+        w = w_ids[w_lod[1][j]:w_lod[1][j + 1]]
+        if g.shape != w.shape or (g != w).any():
+            return j
+    return None if g_lod == w_lod else n
+
+
+def check_same_hypotheses(phase, got, want, atol=DEC_SCORE_ATOL):
+    """Ids and both LoD levels equal and scores within ``atol``; ids may
+    differ only from a hypothesis whose final scores tie in fp32 (within
+    ``DEC_TIE_RTOL``): then the two scores are returned."""
+    import numpy as np
+
+    (g_ids, g_lod, g_sc), (w_ids, w_lod, w_sc) = got, want
+    j = first_difference(got, want)
+    if j is None:
+        err = float(np.abs(g_sc - w_sc).max())
+        if err > atol:
+            raise AssertionError(f"{phase}: scores {err} from the eager "
+                                 f"engine's (atol {atol})")
+        return {"equal": True, "max_abs_score_err": err}
+    a = float(g_sc[g_lod[1][j + 1] - 1])
+    b = float(w_sc[w_lod[1][j + 1] - 1])
+    if abs(a - b) > DEC_TIE_RTOL * abs(b):
+        raise AssertionError(f"{phase}: hypothesis {j} differs and its "
+                             f"scores {a} / {b} do not tie")
+    return {"equal": False, "tie_at": j, "tie_scores": [a, b]}
+
+
+def time_jit_decodes(exe, main, scope, ids, scores, feed, want, tag):
+    """A cold decode and ``DEC_WARM`` warm ones through a
+    ``JitBeamSearchDecoder`` program: one capture in the first decode and
+    none after, the last decode's hypotheses held to ``want``."""
+    import numpy as np
+
+    cold, _, cold_stats = timed_decodes(exe, main, feed, [ids, scores],
+                                        scope, 1)
+    warm, dispatches, stats = timed_decodes(exe, main, feed, [ids, scores],
+                                            scope, DEC_WARM)
+    if cold_stats["captures"] != 1 or stats["captures"] != 0:
+        raise AssertionError(
+            f"{tag}: {cold_stats['captures']} captures in the first "
+            f"decode, {stats['captures']} after it")
+    last_ids, last_scores, ids_np = warm[-1][:3]
+    got = (ids_np.reshape(-1), last_ids.lod(),
+           np.asarray(last_scores).reshape(-1))
+    return {"cold_ms": cold[0][3],
+            "graph_replays_per_decode": stats["replays"] / DEC_WARM,
+            "flag_reads_per_decode": stats["flag_reads"] / DEC_WARM,
+            **decode_report(warm, dispatches, stats),
+            **check_same_hypotheses(tag, got, want)}
+
+
+def phase_decode_jit(tmp, want):
+    """The same weights and feed through ``JitBeamSearchDecoder``: the
+    same hypotheses as phase 42 and no capture after the first decode,
+    timed over ``DEC_WARM`` warm decodes.  Then ``bench_decode``'s own
+    traffic: its seed-5 initial weights, whose beams do not end early,
+    held to one decode of ``BeamSearchDecoder`` on the same weights and
+    timed the same way."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    feed = decode_feed(bench_decode_srcs())
+    # bench_decode's random weights: the jit program's startup, saved and
+    # loaded into the While program
+    exe, main, scope, ids, scores = load_decoder("JitBeamSearchDecoder", None)
+    rand = tmp + "_random"
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, rand, main)
+    exe2, main2, scope2, ids2, scores2 = load_decoder("BeamSearchDecoder",
+                                                      rand)
+    (ids_t, sc_t, ids_np) = timed_decodes(exe2, main2, feed, [ids2, scores2],
+                                          scope2, 1)[0][0][:3]
+    want_r = (ids_np.reshape(-1), ids_t.lod(), np.asarray(sc_t).reshape(-1))
+    report = {}
+    for name, ckpt, w in (("trained", tmp, want), ("random", rand, want_r)):
+        exe, main, scope, ids, scores = load_decoder("JitBeamSearchDecoder",
+                                                     ckpt)
+        report[name] = time_jit_decodes(exe, main, scope, ids, scores, feed,
+                                        w, f"decode_jit {name}")
+    lod = want_r[1]
+    report["random"]["hypothesis_lengths"] = [
+        int(b - a) for a, b in zip(lod[1], lod[1][1:])]
+    emit("decode_jit", engine="JitBeamSearchDecoder (CUDA graph)",
+         batch=DEC_BATCH, beam=DEC_BEAM, max_len=DEC_MAX_LEN,
+         vocab=DEC_VOCAB, d=DEC_D, **report)
+
+
+def small_control_programs():
+    """While, IfElse, Switch and StaticRNN programs after
+    ``tests/test_control_flow.py``: a While over a tensor array (a tanh in
+    the body) with its input's grad, IfElse with its input's grad, the
+    Switch, and one Adam step of the StaticRNN with each parameter's grad:
+    name -> (main, startup, fetch names, feeds)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    layers = fluid.layers
+    progs = {}
+
+    def new():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 1
+        return main, startup
+
+    main, startup = new()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data("x", shape=[10], dtype="float32",
+                        append_batch_size=False)
+        x.stop_gradient = False
+        i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        n = layers.fill_constant(shape=[1], dtype="int64", value=3)
+        arr = layers.array_write(x=x, i=i)
+        cond = layers.less_than(x=i, y=n)
+        loop = layers.While(cond=cond)
+        with loop.block():
+            prev = layers.array_read(array=arr, i=i)
+            nxt = layers.sums(input=[layers.tanh(layers.scale(prev, 2.0)),
+                                     prev])
+            layers.increment(x=i, in_place=True)
+            layers.array_write(nxt, i=i, array=arr)
+            layers.less_than(x=i, y=n, cond=cond)
+        final = layers.array_read(array=arr, i=i)
+        loss = layers.reduce_sum(final)
+        grad = fluid.calc_gradient(loss, x)[0]
+    progs["while"] = (main, startup, [final.name, loss.name, grad.name],
+                      [{"x": np.random.RandomState(0).randn(10).astype(
+                          np.float32) * 0.5}])
+
+    main, startup = new()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data("x", shape=[5, 2], dtype="float32",
+                        append_batch_size=False)
+        x.stop_gradient = False
+        zero = layers.fill_constant(shape=[5, 1], dtype="float32", value=0.0)
+        ie = layers.IfElse(layers.less_than(zero, layers.slice(
+            x, axes=[1], starts=[0], ends=[1])))
+        with ie.true_block():
+            ie.output(layers.tanh(ie.input(x)))
+        with ie.false_block():
+            ie.output(layers.scale(ie.input(x), scale=-1.0))
+        out = ie()
+        loss = layers.reduce_sum(layers.elementwise_mul(out, out))
+        grad = fluid.calc_gradient(loss, x)[0]
+    progs["ifelse"] = (main, startup, [out.name, grad.name],
+                       [{"x": np.random.RandomState(1).randn(5, 2).astype(
+                           np.float32)}])
+
+    main, startup = new()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        lr = layers.create_global_var(shape=[1], value=0.0, dtype="float32",
+                                      persistable=True, name="lr")
+        one = layers.fill_constant(shape=[1], dtype="float32", value=1.0,
+                                   force_cpu=True)
+        two = layers.fill_constant(shape=[1], dtype="float32", value=2.0,
+                                   force_cpu=True)
+        with layers.Switch() as switch:
+            with switch.case(layers.less_than(one, two)):
+                layers.assign(input=one, output=lr)
+            with switch.default():
+                layers.assign(input=two, output=lr)
+    progs["switch"] = (main, startup, ["lr"], [{}])
+
+    t_len, batch, dim = 4, 5, 8
+    main, startup = new()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data("x", shape=[t_len, batch, dim], dtype="float32",
+                        append_batch_size=False)
+        label = layers.data("label", shape=[batch, 1], dtype="float32",
+                            append_batch_size=False)
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(shape=[-1, dim], batch_ref=xt,
+                             ref_batch_dim_idx=0)
+            hidden = layers.fc([xt, mem], size=dim, act="tanh")
+            rnn.update_memory(mem, hidden)
+            rnn.step_output(hidden)
+        last = layers.reshape(layers.slice(rnn(), axes=[0],
+                                           starts=[t_len - 1], ends=[t_len]),
+                              shape=[batch, dim])
+        loss = layers.reduce_mean(layers.square_error_cost(
+            layers.fc(last, size=1), label))
+        fluid.optimizer.Adam(learning_rate=0.05).minimize(loss)
+    xv = np.random.RandomState(1).randn(t_len, batch, dim).astype(np.float32)
+    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()]
+    progs["static_rnn"] = (main, startup, [loss.name] + grads,
+                           [{"x": xv, "label": xv[0, :, :1].copy()}])
+    return progs
+
+
+def build_book_seq2seq(dict_size=BOOK_DICT, emb=BOOK_EMB, hid=BOOK_HID):
+    """``tests/test_book.py:445``'s encoder-decoder: a bi-LSTM encoder and
+    a ``DynamicRNN`` LSTM-step decoder with a ``static_input`` context and
+    a ``need_reorder`` memory, Adam 8e-3: (main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 8
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = layers.data(name="src_word", shape=[1], dtype="int64",
+                          lod_level=1)
+        src_emb = layers.embedding(input=src, size=[dict_size, emb])
+        fwd, _ = layers.dynamic_lstm(input=layers.fc(
+            input=src_emb, size=hid * 4, bias_attr=False), size=hid * 4)
+        bwd, _ = layers.dynamic_lstm(input=layers.fc(
+            input=src_emb, size=hid * 4, bias_attr=False), size=hid * 4,
+            is_reverse=True)
+        context = layers.concat([layers.sequence_last_step(fwd),
+                                 layers.sequence_first_step(bwd)], axis=1)
+        boot = layers.fc(input=context, size=hid, act="tanh")
+        trg = layers.data(name="trg_word", shape=[1], dtype="int64",
+                          lod_level=1)
+        trg_emb = layers.embedding(input=trg, size=[dict_size, emb])
+        rnn = layers.DynamicRNN()
+        with rnn.block():
+            x = rnn.step_input(trg_emb)
+            ctx = rnn.static_input(context)
+            h_mem = rnn.memory(init=boot, need_reorder=True)
+            c_mem = rnn.memory(shape=[hid], value=0.0)
+            gates = layers.fc(input=[x, ctx, h_mem], size=hid * 4)
+            i, f, o, ch = layers.split(gates, num_or_sections=4, dim=1)
+            c_new = layers.elementwise_add(
+                layers.elementwise_mul(layers.sigmoid(f), c_mem),
+                layers.elementwise_mul(layers.sigmoid(i), layers.tanh(ch)))
+            h_new = layers.elementwise_mul(layers.sigmoid(o),
+                                           layers.tanh(c_new))
+            rnn.update_memory(h_mem, h_new)
+            rnn.update_memory(c_mem, c_new)
+            rnn.output(layers.fc(input=h_new, size=dict_size,
+                                 act="softmax"))
+        lbl = layers.data(name="lbl_word", shape=[1], dtype="int64",
+                          lod_level=1)
+        loss = layers.mean(layers.cross_entropy(input=rnn(), label=lbl))
+        fluid.optimizer.Adam(learning_rate=8e-3).minimize(loss)
+    return main, startup, loss
+
+
+def book_feed(rng, src_lens, trg_lens, dict_size=BOOK_DICT):
+    """Word ids in [2, dict_size) as LoD batches; the label is the target
+    shifted by one."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    def lod(lens, words):
+        return fluid.create_lod_tensor(
+            np.asarray(words, np.int64).reshape(-1, 1), [list(lens)])
+
+    src = rng.randint(2, dict_size, sum(src_lens))
+    trg = rng.randint(2, dict_size, sum(trg_lens))
+    lbl = np.concatenate([np.append(trg[a + 1:b], 1) for a, b in zip(
+        np.cumsum([0] + list(trg_lens[:-1])), np.cumsum(trg_lens))])
+    return {"src_word": lod(src_lens, src), "trg_word": lod(trg_lens, trg),
+            "lbl_word": lod(trg_lens, lbl)}
+
+
+def parity_fetches(progs, places):
+    """Each place's fetches of every step of ``progs`` (main, startup,
+    fetch names, feeds) from the first place's initial state."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lod_tensor import LoDTensor
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    main, startup, names, feeds = progs
+    out, init = [], None
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            # copies: the first place's steps update its tensors in place
+            init = {v.name: scope.get(v.name).detach().cpu().numpy().copy()
+                    for v in startup.list_vars() if v.persistable}
+        else:
+            load_reference_params(scope, init, place)
+        steps = []
+        for feed in feeds:
+            vals = exe.run(main, feed=feed, fetch_list=names, scope=scope,
+                           return_numpy=False)
+            steps.append([(np.asarray(v), v.lod()) if isinstance(
+                v, LoDTensor) else (v.detach().cpu().numpy(), ())
+                for v in vals])
+        out.append(steps)
+    return out
+
+
+def dsl_decode(place, ckpt, cls_name, srcs, **build):
+    """A decode of the DSL model on ``place`` from the checkpoint
+    ``ckpt``: (ids, lod, scores, steps of its loop)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    main, startup, ids, scores = build_decoder(cls_name, **build)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.io.load_persistables(exe, ckpt, main, scope=scope)
+    reset_control_stats()
+    fetches = [ids, scores] + [n for n in main.global_block().vars
+                               if n.startswith("jbs_nsteps")]
+    got = exe.run(main, feed=decode_feed(srcs, DEC_GO), fetch_list=fetches,
+                  scope=scope, return_numpy=False)
+    nsteps = (int(got[2].reshape(-1)[0]) if len(got) > 2
+              else control_stats()["while_iterations"])
+    return (np.asarray(got[0]).reshape(-1), got[0].lod(),
+            np.asarray(got[1]).reshape(-1), nsteps)
+
+
+def phase_control_flow_parity(tmp):
+    """Card against CPU through control flow: the decoder-DSL test (80
+    Adam steps, both engines from the trained checkpoint), its early exit,
+    the book's encoder-decoder on a fixed and a ragged batch, and the
+    small While / IfElse / Switch / StaticRNN programs.  Returns the Adam
+    launches on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    total, report = {}, {}
+    tol = np.array([1e-5] + [1e-4] * (DSL_STEPS - 1))
+
+    # (a) the decoder-DSL test at its widths
+    progs = build_train_decoder(vocab=DSL_V, d=DSL_D, seed=9)
+    rng = np.random.RandomState(77)
+    perm = dict(zip(range(3, DSL_V), (int(w) for w in rng.permutation(
+        np.arange(3, DSL_V)))))
+    # the test's feed: GO and the chain's first 4 words, labelled with
+    # its 5 (no end_id)
+    trg, lbl = [], []
+    for start in (3, 4, 5, 6):
+        chain, w = [], start
+        for _ in range(DSL_CHAIN):
+            w = perm[w]
+            chain.append(w)
+        trg += [DEC_GO] + chain[:-1]
+        lbl += chain
+    lens = [[DSL_CHAIN] * 4]
+    feed = {"src": np.array([[3], [4], [5], [6]], np.int64),
+            "trg": fluid.create_lod_tensor(
+                np.array(trg, np.int64).reshape(-1, 1), lens),
+            "lbl": fluid.create_lod_tensor(
+                np.array(lbl, np.int64).reshape(-1, 1), lens)}
+    (cpu, card), counts, scopes = parity_runs(progs, feed, DSL_STEPS, places)
+    add_counts(total, counts)
+    rel = check_parity("control_flow_parity dsl", cpu, card, tol)
+    ckpt = os.path.join(tmp, "dsl")
+    with fluid.scope_guard(scopes[0]):
+        fluid.io.save_persistables(fluid.Executor(fluid.CPUPlace()), ckpt,
+                                   progs[0])
+    build = dict(vocab=DSL_V, d=DSL_D, max_len=DSL_CHAIN + 2, beam=2,
+                 topk=DSL_V)
+    decodes = {(p, c): dsl_decode(place, ckpt, c, [3, 5], **build)
+               for p, place in (("cpu", places[0]), ("card", places[1]))
+               for c in ("BeamSearchDecoder", "JitBeamSearchDecoder")}
+    want = decodes[("cpu", "BeamSearchDecoder")]
+    for key, got in decodes.items():
+        check_same_hypotheses(f"control_flow_parity dsl {key}", got[:3],
+                              want[:3])
+    ids, lod, _, _ = decodes[("card", "JitBeamSearchDecoder")]
+    for k, start in enumerate((3, 5)):
+        top = ids[lod[1][lod[0][k]]:lod[1][lod[0][k] + 1]].tolist()
+        chain, w = [], start
+        for _ in range(3):
+            w = perm[w]
+            chain.append(w)
+        got = [t for t in top if t not in (DEC_GO, DEC_END)]
+        if got[:3] != chain:
+            raise AssertionError(f"control_flow_parity: source {start}'s top "
+                                 f"hypothesis {top} does not follow the "
+                                 f"chain {chain}")
+    report["dsl"] = {"steps": DSL_STEPS, "cpu_losses_first_last":
+                     [cpu[0], cpu[-1]], "card_losses_first_last":
+                     [card[0], card[-1]], "max_rel_err": max(rel),
+                     "top_hypotheses_follow_chain": True,
+                     "hypothesis_lengths": [int(b - a) for a, b in zip(
+                         lod[1], lod[1][1:])]}
+
+    # (a') the early exit: a projection that puts all mass on end_id
+    build = dict(vocab=DSL_V, d=DSL_D, max_len=6, beam=4, topk=DSL_V,
+                 seed=3)
+    with fluid.scope_guard(fluid.Scope()):
+        main, startup, _, _ = build_decoder("BeamSearchDecoder", **build)
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        params = main.global_block().all_parameters()
+        scope = fluid.global_scope()
+        scope.get(params[-2].name).zero_()
+        bias = scope.get(params[-1].name)
+        bias.fill_(-30.0)
+        bias[DEC_END] = 30.0
+        ckpt = os.path.join(tmp, "early_exit")
+        fluid.io.save_persistables(exe, ckpt, main)
+    early = {(p, c): dsl_decode(place, ckpt, c, [2, 3, 4], **build)
+             for p, place in (("cpu", places[0]), ("card", places[1]))
+             for c in ("BeamSearchDecoder", "JitBeamSearchDecoder")}
+    want = early[("cpu", "BeamSearchDecoder")]
+    for key, got in early.items():
+        check_same_hypotheses(f"control_flow_parity early exit {key}",
+                              got[:3], want[:3])
+    ids, lod = want[0], want[1]
+    ends = [int(ids[b - 1]) for b in lod[1][1:]]
+    jit_steps = [v[3] for (p, c), v in early.items()
+                 if c == "JitBeamSearchDecoder"]
+    if set(ends) != {DEC_END} or max(int(b - a) for a, b in zip(
+            lod[1], lod[1][1:])) > 3 or set(jit_steps) != {3}:
+        raise AssertionError(f"control_flow_parity: the early-exit "
+                             f"hypotheses {ids.tolist()} {lod}, jit steps "
+                             f"{jit_steps}")
+    report["early_exit"] = {
+        "steps": {f"{p}_{c}": v[3] for (p, c), v in early.items()},
+        "hypotheses": len(lod[1]) - 1, "all_end_at_end_id": True}
+
+    # (b) the book's encoder-decoder, a fixed and a ragged batch
+    rng = np.random.RandomState(8)
+    batches = {"fixed": book_feed(rng, [BOOK_LEN] * BOOK_BATCH,
+                                  [BOOK_LEN] * BOOK_BATCH),
+               "ragged": book_feed(rng, rng.randint(1, BOOK_LEN + 1,
+                                                    BOOK_BATCH),
+                                   rng.randint(1, BOOK_LEN + 1, BOOK_BATCH))}
+    tol = np.array([1e-5] + [1e-4] * (BOOK_STEPS - 1))
+    for name, feed in batches.items():
+        (cpu, card), counts, _ = parity_runs(build_book_seq2seq(), feed,
+                                             BOOK_STEPS, places)
+        add_counts(total, counts)
+        report[f"book_{name}"] = {
+            "cpu_losses": cpu.tolist(), "card_losses": card.tolist(),
+            "rel_err": check_parity(f"control_flow_parity book {name}",
+                                    cpu, card, tol)}
+
+    # (c) the small While / IfElse / Switch / StaticRNN programs
+    for name, progs in small_control_programs().items():
+        reset_launch_counts()
+        cpu, card = parity_fetches(progs, places)
+        add_counts(total, launch_counts())
+        worst = 0.0
+        for step, (c_step, g_step) in enumerate(zip(cpu, card)):
+            for (c, c_lod), (g, g_lod) in zip(c_step, g_step):
+                err = np.abs(g.astype(np.float64) - c)
+                if c_lod != g_lod or not (err <= 1e-5 * np.abs(c)
+                                          + 1e-7).all():
+                    raise AssertionError(f"control_flow_parity {name}: card "
+                                         f"{g} against CPU {c}")
+                worst = max(worst, float(err.max()) if err.size else 0.0)
+        report[name] = {"fetches": len(progs[2]), "steps": len(progs[3]),
+                        "max_abs_err": worst}
+    emit("control_flow_parity", rtol={"step_0": 1e-5, "after": 1e-4,
+                                      "outputs": 1e-5}, **report)
+    return total
+
+
 def main():
     import argparse
 
@@ -4577,6 +5455,8 @@ def main():
                     help="after the serving and training checks, profile a "
                          "full-slot decode run and a training step and "
                          "print where their time goes")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the decoder's training data (phase 41)")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -4697,7 +5577,8 @@ def main():
                                  1e-4)[0], BERT_ADAM_TENSORS),
         ("vgg16", build_vision("vgg16")[0], VGG_ADAM_TENSORS),
         ("mnist_cnn", build_vision("mnist_cnn")[0], CNN_ADAM_TENSORS),
-        ("stacked_lstm", build_stacked_lstm()[0], LSTM_ADAM_TENSORS)])
+        ("stacked_lstm", build_stacked_lstm()[0], LSTM_ADAM_TENSORS),
+        ("decoder", build_train_decoder()[0], DEC_ADAM_TENSORS)])
     momentum["by_model"] = optimizer_at_model_shapes(
         phase_kernel_momentum, "momentum",
         [("se_resnext50", build_vision("se_resnext50")[0],
@@ -4717,6 +5598,16 @@ def main():
     add_counts(total, phase_train_stacked_lstm(args.profile))
     torch.cuda.empty_cache()
     phase_train_stacked_lstm_parity()
+    torch.cuda.empty_cache()
+    counts, dec_exe, dec_main, dec_scope = phase_train_decoder(
+        args.seed, args.profile)
+    add_counts(total, counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "decoder")
+        want = phase_decode_beam(ckpt, dec_exe, dec_main, dec_scope)
+        del dec_scope
+        phase_decode_jit(ckpt, want)
+        add_counts(total, phase_control_flow_parity(tmp))
     torch.cuda.empty_cache()
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)

@@ -25,7 +25,7 @@ from . import regularizer
 from . import guardian
 from . import prefetch
 from .prefetch import DevicePrefetcher
-from .backward import append_backward
+from .backward import append_backward, calc_gradient
 from .param_attr import ParamAttr
 from . import lod_tensor
 from . import selected_rows
@@ -38,18 +38,20 @@ from .io import (save_vars, save_params, save_persistables, load_vars,
                  load_inference_model, get_inference_program)
 from . import ir
 from . import transpiler
+from . import contrib
 from .transpiler import InferenceTranspiler
 
 __all__ = [
     "amp", "core", "framework", "executor", "initializer", "layers", "nets",
     "unique_name",
     "backward", "clip", "optimizer", "regularizer", "append_backward",
+    "calc_gradient",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
     "default_startup_program", "program_guard", "Executor", "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
     "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
     "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
-    "DataFeeder", "selected_rows", "lod_tensor", "LoDTensor",
+    "DataFeeder", "contrib", "selected_rows", "lod_tensor", "LoDTensor",
     "create_lod_tensor",
     "create_random_int_lodtensor", "save_vars", "save_params",
     "save_persistables", "load_vars", "load_params", "load_persistables",

@@ -35,6 +35,10 @@ class VarType:
     INT8 = 8
     BF16 = 9
     LOD_TENSOR = 20
+    SELECTED_ROWS = 21
+    STEP_SCOPES = 24
+    LOD_RANK_TABLE = 25
+    LOD_TENSOR_ARRAY = 26
 
 
 _STR_TO_VARTYPE = {

@@ -76,6 +76,26 @@ with ``core.GLOBAL_FLAGS["check_nan_inf"]`` every run reads its new state
 and fetches on the host and raises ``FloatingPointError`` naming the first
 that is not finite (a sync a run: for debugging).
 
+Control flow (``fluid/control_flow_exec.py``): ``run_op`` hands
+``while``, ``conditional_block``, their grads and ``jit_beam_search`` to
+their handlers, which run the sub-block's ops through ``run_op`` against
+the same env.  A ``while`` op lists what its body reads as its ``X``
+inputs, so ``BlockPlan``'s liveness keeps those names to the loop (and to
+``while_grad``, which reads them too); the stash of pre-loop values and of
+host inputs (``@WHILE_STASH@``, ``@FWD_HOST@``) are no IR names and live to
+the end of the run.  Host values (numpy: counters, indices, conditions;
+``ops/registry.py``) are kept as they are in the env, fetched as numpy, and
+stashed by the ops whose grad reads them (``write_to_array``,
+``read_from_array``, ``shrink_rnn_memory``), so the grad op replays the
+index its forward saw, as the reference does
+(``paddle_tpu/fluid/executor.py:448-471``).  ``write_to_array`` sees the
+array its output already holds (``Out@CURRENT``) and appends to it.
+ShareLoD never gives a LoD to a parameter or to the grad of a
+persistable: a parameter whose row count equals a batch's packed rows
+would otherwise keep that batch's LoD (through its grad and the optimizer
+op) and refuse the next batch (a repair of the rule the reference still
+has).
+
 No jit, compile cache or verifier in this slice, and of the guardian only
 the loss scaler's part.
 """
@@ -90,15 +110,21 @@ import numpy as np
 import torch
 
 from . import core
+from .control_flow_exec import HANDLERS, host_names
 from .cuda_graph import StepGraph
-from .framework import (RNG_STATE_VAR, OpRole, Program, Variable,
-                        default_main_program)
+from .framework import (RNG_STATE_VAR, OpRole, Parameter, Program,
+                        Variable, default_main_program)
 from .lod_tensor import LoDTensor, _lengths_to_offsets, _to_numpy
 from .selected_rows import SelectedRows
 from ..ops import registry as _reg
+from ..ops.array_ops import TensorArray
 from ..ops.registry import LOD_SUFFIX
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
+# ops whose grad op reads a host index the loop may since have moved
+_HOST_STASH_OPS = frozenset(["write_to_array", "read_from_array",
+                             "shrink_rnn_memory"])
+FWD_HOST = "@FWD_HOST@"
 # attrs that name an op's own role and vars, not what it computes
 _ROLE_ATTRS = frozenset([OpRole.KEY, OpRole.VAR_KEY])
 
@@ -140,7 +166,10 @@ def scope_guard(scope):
 
 def _resolve(op_type: str):
     """(op def, is_grad): a ``<type>_grad`` op resolves to its forward
-    op's def unless registered on its own."""
+    op's def unless registered on its own; a control-flow op, which a
+    handler runs, to (None, False)."""
+    if op_type in HANDLERS:
+        return None, False
     is_grad = (not _reg.is_registered(op_type) and op_type.endswith("_grad")
                and _reg.is_registered(op_type[:-5]))
     return _reg.get_op_def(op_type[:-5] if is_grad else op_type), is_grad
@@ -149,7 +178,9 @@ def _resolve(op_type: str):
 def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
     """The names ``op`` really reads.  A generic grad op re-runs the
     forward from its inputs, so the forward op's outputs it is handed are
-    not read."""
+    not read.  ``write_to_array`` reads the array its output holds."""
+    if op.type == "write_to_array":
+        return [n for n in op.input_arg_names + op.output_arg_names if n]
     if is_grad and opdef.grad_fn is None:
         fwd_idx = op.attr("__fwd_op_idx__")
         fwd = block.ops[fwd_idx] if fwd_idx is not None else None
@@ -160,20 +191,32 @@ def _needed_inputs(op, block, opdef, is_grad) -> List[str]:
 
 
 def _snapshot(v):
-    """A fetched value as numpy: a tensor's copy; a SelectedRows (a sparse
-    table grad), as the reference returns it, a 0-d object array holding
-    it, here with CPU copies of its rows and values."""
+    """A fetched value as numpy: a tensor's copy, a host value's copy; a
+    SelectedRows (a sparse table grad), as the reference returns it, a 0-d
+    object array holding it, here with CPU copies of its rows and values;
+    a tensor array, an array of numpy copies."""
     if isinstance(v, SelectedRows):
         out = np.empty((), dtype=object)
         out[()] = v.map(lambda t: t.detach().to("cpu", copy=True))
         return out
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, TensorArray):
+        return TensorArray([None if t is None else _snapshot(t)
+                            for t in v.vals], list(v.lods))
     return _to_numpy(v)
 
 
-def _copy(v):
-    """A fetched value for ``return_numpy=False``: a copy on its device."""
+def _copy(v, device):
+    """A fetched value for ``return_numpy=False``: a copy on its device (a
+    host value's on ``device``)."""
     if isinstance(v, SelectedRows):
         return v.map(lambda t: t.detach().clone())
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(v.copy()).to(device)
+    if isinstance(v, TensorArray):
+        return TensorArray([None if t is None else _copy(t, device)
+                            for t in v.vals], list(v.lods))
     return v.detach().clone()
 
 
@@ -232,6 +275,30 @@ def _live_ops(block, fetch_names) -> list:
     return list(reversed(kept))
 
 
+def op_is_eager(op) -> bool:
+    """Whether ``op`` is a data-dependent op (``registry.EAGER_OPS``) or a
+    control-flow op whose sub-block holds one (the reference's
+    ``_op_is_eager``, ``paddle_tpu/fluid/executor.py:232-243``)."""
+    base = op.type[:-5] if op.type.endswith("_grad") else op.type
+    if base in _reg.EAGER_OPS:
+        return True
+    sub = op.attr("sub_block")
+    if isinstance(sub, int):
+        return any(op_is_eager(b) for b in op.block.program.block(sub).ops)
+    return False
+
+
+def _draws_random(op) -> bool:
+    """Whether ``op``, or an op of its sub-block, draws random numbers."""
+    d, is_grad = _resolve(op.type)
+    if d is not None and d.stateful and not is_grad:
+        return True
+    sub = op.attr("sub_block")
+    if isinstance(sub, int) and not op.type.endswith("_grad"):
+        return any(_draws_random(b) for b in op.block.program.block(sub).ops)
+    return False
+
+
 class BlockPlan:
     """Static analysis of a block for one (feeds, fetches) signature: the
     live ops, the names read from the scope (state_in), the persistables
@@ -249,7 +316,7 @@ class BlockPlan:
 
         self.ops = _live_ops(block, fetch_names)
         resolved = [_resolve(op.type) for op in self.ops]
-        self.needs_rng = any(d.stateful and not g for d, g in resolved)
+        self.needs_rng = any(_draws_random(op) for op in self.ops)
         # constant ops whose outputs no one persists: run once, reuse
         self.const_ops = {
             id(op) for op in self.ops
@@ -348,11 +415,40 @@ def _context(op, env, device, generator, outputs_spec):
         lods = [env.get(n + LOD_SUFFIX) if n else None for n in names]
         if any(lod is not None for lod in lods):
             inputs[slot + LOD_SUFFIX] = lods
+    host = False
+    if op.type == "write_to_array":
+        inputs["Out" + _reg.CURRENT_SUFFIX] = [
+            env.get(n) if n else None for n in op.outputs.get("Out", [])]
+    elif op.type == "fill_constant":
+        hosts = host_names(op.block.program)
+        host = all(n in hosts for n in op.output_arg_names if n)
+    if op.type in _HOST_STASH_OPS:
+        # the host inputs this op saw, for its grad op to replay
+        env.setdefault(FWD_HOST, {})[id(op)] = {
+            slot: list(vals) for slot, vals in inputs.items()
+            if any(isinstance(v, np.ndarray) for v in vals)}
+    elif op.type[:-5] in _HOST_STASH_OPS and op.type.endswith("_grad"):
+        fwd_idx = op.attr("__fwd_op_idx__")
+        if fwd_idx is not None and fwd_idx < len(op.block.ops):
+            inputs.update(env.get(FWD_HOST, {}).get(
+                id(op.block.ops[fwd_idx]), {}))
     if outputs_spec is None:
         outputs_spec = {slot: list(names)
                         for slot, names in op.outputs.items() if names}
     return _reg.ExecContext(op.type, inputs, outputs_spec, op.attrs, device,
-                            generator)
+                            generator, host)
+
+
+def _takes_no_lod(op, name) -> bool:
+    """A parameter, or the grad (or a partial grad) of a persistable:
+    ShareLoD never gives it a batch's LoD, so no LoD reaches the
+    optimizer's state."""
+    block = op.block
+    base, is_grad = name.split("@GRAD", 1)[0], "@GRAD" in name
+    if not block._has_var_recursive(base):
+        return False
+    var = block._var_recursive(base)
+    return var.persistable if is_grad else isinstance(var, Parameter)
 
 
 def _store(op, env, raw, inputs):
@@ -361,7 +457,8 @@ def _store(op, env, raw, inputs):
     one LoD), else the reference's ShareLoD (``paddle_tpu/fluid/
     executor.py:498-525``): the op's inputs' LoD when they carry exactly
     one distinct LoD and the output's leading dim equals its packed row
-    count.  Rebinding a name drops its old LoD."""
+    count, unless the output is a parameter or the grad of a persistable.
+    Rebinding a name drops its old LoD."""
     out_lods = {}
     if raw:
         for k in [k for k in raw if k.endswith(LOD_SUFFIX)]:
@@ -382,7 +479,8 @@ def _store(op, env, raw, inputs):
                 env.pop(name + LOD_SUFFIX, None)
                 shape = getattr(vals[i], "shape", None)
                 if (lods is None or i >= len(lods)) and share is not None \
-                        and shape and shape[0] == share[-1][-1]:
+                        and shape and shape[0] == share[-1][-1] \
+                        and not _takes_no_lod(op, name):
                     env[name + LOD_SUFFIX] = share
             if lods is not None and i < len(lods) and lods[i] is not None:
                 env[name + LOD_SUFFIX] = tuple(tuple(int(o) for o in level)
@@ -393,7 +491,11 @@ def run_op(op, env: Dict[str, object], device, generator=None,
            outputs_spec=None):
     """Execute one IR op eagerly against ``env`` (name -> tensor).
     ``outputs_spec`` (default: every output) names the outputs someone
-    reads."""
+    reads.  A control-flow op goes to its handler."""
+    handler = HANDLERS.get(op.type)
+    if handler is not None:
+        handler(op, env, device, generator, run_op)
+        return
     opdef, is_grad = _resolve(op.type)
     ctx = _context(op, env, device, generator, outputs_spec)
     if not is_grad:
@@ -509,6 +611,8 @@ def _check_nan_inf(named_vals):
     for name, val in named_vals:
         if isinstance(val, SelectedRows):
             val = val.values
+        if isinstance(val, TensorArray):
+            continue
         if isinstance(val, torch.Tensor):
             bad = val.is_floating_point() and \
                 not bool(torch.isfinite(val).all())
@@ -849,8 +953,8 @@ class Executor:
             out = []
             for n in fetch_names:
                 lod = env.get(n + LOD_SUFFIX)
-                out.append(_copy(env[n]) if lod is None
-                           else LoDTensor(_copy(env[n]), lod))
+                out.append(_copy(env[n], self.device) if lod is None
+                           else LoDTensor(_copy(env[n], self.device), lod))
             return out
         return [_snapshot(env[n]) for n in fetch_names]
 
@@ -912,8 +1016,7 @@ class Executor:
         if win is None:
             extra = guard.extra_fetch_names() if guard is not None else []
             fetches = list(dict.fromkeys(fetch_names + extra))
-            if any((op.type[:-5] if op.type.endswith("_grad") else op.type)
-                   in _reg.EAGER_OPS
+            if any(op_is_eager(op)
                    for op in _live_ops(program.global_block(), fetches)):
                 # data-dependent ops: the reference runs them outside jit,
                 # and a window cannot capture them

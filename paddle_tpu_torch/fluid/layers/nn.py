@@ -17,7 +17,8 @@ __all__ = [
     "sigmoid_cross_entropy_with_logits", "mean", "mul", "matmul",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_pow", "scale", "reduce_sum", "reshape", "transpose",
+    "elementwise_pow", "scale", "reduce_sum", "reduce_mean",
+    "square_error_cost", "reshape", "transpose",
     "split", "gather", "slice", "topk", "one_hot", "label_smooth",
     "ring_attention", "kv_cache_update", "kv_cache_scatter", "spec_accept",
     "paged_attention", "token_select", "autoincreased_step_counter",
@@ -371,26 +372,47 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if input.shape is not None:
-        s = list(input.shape)
-        dims = dim if dim is not None else list(range(len(s)))
-        if isinstance(dims, int):
-            dims = [dims]
-        dims = [d % len(s) for d in dims]
-        if keep_dim:
-            ns = [1 if i in dims else v for i, v in enumerate(s)]
-        else:
-            ns = [v for i, v in enumerate(s) if i not in dims]
-        out.shape = tuple(ns) if ns else (1,)
-    helper.append_op(
-        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
-        attrs={"dim": dim if isinstance(dim, (list, tuple)) or dim is None
-               else [dim],
-               "keep_dim": keep_dim, "reduce_all": dim is None})
-    return out
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if input.shape is not None:
+            s = list(input.shape)
+            dims = dim if dim is not None else list(range(len(s)))
+            if isinstance(dims, int):
+                dims = [dims]
+            dims = [d % len(s) for d in dims]
+            if keep_dim:
+                ns = [1 if i in dims else v for i, v in enumerate(s)]
+            else:
+                ns = [v for i, v in enumerate(s) if i not in dims]
+            out.shape = tuple(ns) if ns else (1,)
+        helper.append_op(
+            type=op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+            attrs={"dim": dim if isinstance(dim, (list, tuple)) or dim is None
+                   else [dim],
+                   "keep_dim": keep_dim, "reduce_all": dim is None})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost", **locals())
+    minus_out = helper.create_variable_for_type_inference(input.dtype)
+    minus_out.shape = input.shape
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]})
+    square_out = helper.create_variable_for_type_inference(input.dtype)
+    square_out.shape = input.shape
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [square_out]})
+    return square_out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

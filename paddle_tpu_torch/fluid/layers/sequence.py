@@ -1,9 +1,7 @@
 """Sequence and recurrent layers (counterpart of
 ``paddle_tpu/fluid/layers/sequence.py``): the builders of the sequence
-(LoD) ops and of the recurrent ops, emitting the reference's ops call for
-call.  ``beam_search`` and ``beam_search_decode`` raise: they need the
-tensor arrays and control flow of ROADMAP.md queue 1 item 8's next
-tranche.
+(LoD) ops, of the recurrent ops and of the beam ops, emitting the
+reference's ops call for call.
 """
 
 from __future__ import annotations
@@ -314,17 +312,39 @@ def sequence_reverse(x, name=None):
 
 def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
                 level=0, name=None):
-    raise NotImplementedError(
-        "layers.beam_search needs the tensor arrays and control flow "
-        "(array_ops, control_flow_exec), which are not ported yet: "
-        "ROADMAP.md queue 1 item 8")
+    """ref: layers/nn.py:2780 — one beam-search step (fixed-width beams,
+    run on the host: see ops/array_ops.py beam_search)."""
+    helper = LayerHelper("beam_search", **locals())
+    selected_ids = helper.create_variable_for_type_inference(dtype="int64")
+    selected_scores = helper.create_variable_for_type_inference(
+        dtype=scores.dtype)
+    inputs = {"pre_ids": [pre_ids], "scores": [scores]}
+    if pre_scores is not None:
+        inputs["pre_scores"] = [pre_scores]
+    if ids is not None:
+        inputs["ids"] = [ids]
+    helper.append_op(
+        type="beam_search", inputs=inputs,
+        outputs={"selected_ids": [selected_ids],
+                 "selected_scores": [selected_scores]},
+        attrs={"level": level, "beam_size": beam_size, "end_id": end_id})
+    return selected_ids, selected_scores
 
 
 def beam_search_decode(ids, scores, beam_size=None, end_id=None, name=None):
-    raise NotImplementedError(
-        "layers.beam_search_decode needs the tensor arrays and control "
-        "flow (array_ops, control_flow_exec), which are not ported yet: "
-        "ROADMAP.md queue 1 item 8")
+    """ref: layers/nn.py:2892 — backtrack hypotheses from step arrays."""
+    helper = LayerHelper("beam_search_decode", **locals())
+    sentence_ids = helper.create_variable_for_type_inference(dtype="int64")
+    sentence_scores = helper.create_variable_for_type_inference(
+        dtype="float32")
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids], "Scores": [scores]},
+        outputs={"SentenceIds": [sentence_ids],
+                 "SentenceScores": [sentence_scores]},
+        attrs={"beam_size": beam_size or 0, "end_id": -1 if end_id is None
+               else end_id})
+    return sentence_ids, sentence_scores
 
 
 def row_conv(input, future_context_size, param_attr=None, act=None):

@@ -7,10 +7,12 @@ from __future__ import annotations
 import numpy as np
 
 from .. import core
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "assign", "fill_constant", "fill_constant_batch_size_like"]
+           "sums", "assign", "fill_constant", "fill_constant_batch_size_like",
+           "zeros"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -63,21 +65,40 @@ def concat(input, axis=0, name=None):
     return out
 
 
+def sums(input, out=None):
+    helper = LayerHelper("sum", input=input)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype())
+        out.shape = helper.multiple_input()[0].shape
+    helper.append_op(type="sum", inputs={"X": helper.multiple_input()},
+                     outputs={"Out": [out]})
+    return out
+
+
 def assign(input, output=None):
-    """A numpy constant as an ``assign_value`` op (the Variable-copy form
-    of the reference emits the ``assign`` op, not ported yet)."""
+    """A Variable's copy (the ``assign`` op) or a numpy constant (an
+    ``assign_value`` op)."""
     helper = LayerHelper("assign")
-    if not isinstance(input, np.ndarray):
-        raise TypeError("assign expects a numpy array in this port")
-    if output is None:
-        output = helper.create_variable_for_type_inference(
-            dtype=core.convert_dtype(input.dtype))
-        output.shape = tuple(input.shape)
-    helper.append_op(
-        type="assign_value", outputs={"Out": [output]},
-        attrs={"shape": list(input.shape),
-               "dtype": core.convert_dtype(input.dtype),
-               "fp32_values": [float(v) for v in input.flat]})
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+            output.shape = input.shape
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=core.convert_dtype(input.dtype))
+            output.shape = tuple(input.shape)
+        helper.append_op(
+            type="assign_value", outputs={"Out": [output]},
+            attrs={"shape": list(input.shape),
+                   "dtype": core.convert_dtype(input.dtype),
+                   "fp32_values": [float(v) for v in input.flat]})
+    else:
+        raise TypeError("assign expects a Variable or numpy array")
     return output
 
 
@@ -113,3 +134,7 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
                             "input_dim_idx": input_dim_idx,
                             "output_dim_idx": output_dim_idx})
     return out
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)

@@ -34,8 +34,8 @@ import torch
 
 from . import core
 from .cuda_graph import StepGraph
-from .executor import BlockPlan, _execute, _live_ops, _snapshot, _storage
-from ..ops import registry as _reg
+from .executor import (BlockPlan, _execute, _live_ops, _snapshot, _storage,
+                       op_is_eager)
 
 __all__ = ["ProgramGraph"]
 
@@ -50,8 +50,7 @@ class ProgramGraph:
         self.fetch_names = list(fetch_names)
         self.scope = scope
         block = program.global_block()
-        if any(op.type in _reg.EAGER_OPS
-               for op in _live_ops(block, self.fetch_names)):
+        if any(op_is_eager(op) for op in _live_ops(block, self.fetch_names)):
             raise RuntimeError("ProgramGraph: the program holds data-"
                                "dependent eager ops, which a graph cannot "
                                "capture")

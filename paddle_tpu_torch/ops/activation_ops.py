@@ -1,7 +1,8 @@
 """Activation ops (counterpart of ``paddle_tpu/ops/activation_ops.py``):
 relu, sigmoid, tanh and square (the ``act`` of fc / conv2d layers, the
 SE gate, DeepFM's FM term), softmax, and the unary ops the learning-rate
-schedules emit (exp, floor, ceil, cos).  Their grads come from the generic
+schedules emit (exp, floor, ceil, cos), and log (the beam-search
+decoder's step scores).  Their grads come from the generic
 grad; a bf16 / fp16 input stays in its dtype, as in the reference."""
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _unary("exp", torch.exp)
 _unary("floor", torch.floor)
 _unary("ceil", torch.ceil)
 _unary("cos", torch.cos)
+_unary("log", torch.log)
 
 
 @register_op("softmax")

@@ -1,8 +1,9 @@
 """Dense math ops (counterpart of ``paddle_tpu/ops/math_ops.py``): mul,
 matmul, the elementwise family (add, sub, mul, div, max, min, pow), scale,
 sum (over dense and SelectedRows inputs), mean, cast, the comparisons
-(equal, less_than, less_equal, greater_than, greater_equal), logical_not
-and increment.
+(equal, not_equal, less_than, less_equal, greater_than, greater_equal),
+the logical ops and increment: those two families keep host (numpy)
+inputs on the host, as the reference's counter path does.
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
 float32 stays float32 (the port never turns TF32 on).  Under ``fluid.amp``
 ``mul`` and ``matmul`` multiply in the compute dtype (``amp.cast_operands``
@@ -13,6 +14,7 @@ operand's dtype.  Their grads come from the generic grad
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import register_op
@@ -166,33 +168,58 @@ def cast(ctx):
         ctx.attr("out_dtype", ctx.attr("dtype", "float32"))))}
 
 
-def _compare(name, fn):
+def _host(*vals):
+    """Whether every value is a host (numpy) value: the counter path, kept
+    on the host (``paddle_tpu/ops/math_ops.py:173-187``)."""
+    return all(isinstance(v, np.ndarray) for v in vals)
+
+
+def _compare(name, fn, npfn):
     @register_op(name, no_grad_inputs=("X", "Y"))
-    def _impl(ctx, _fn=fn):
+    def _impl(ctx, _fn=fn, _npfn=npfn):
+        x, y = ctx.raw("X"), ctx.raw("Y")
+        if _host(x, y):
+            return {"Out": _npfn(x, y)}
         x, y = ctx.input("X"), ctx.input("Y")
         return {"Out": _fn(x, _bcast_y(x, y, ctx.attr("axis", -1)))}
     return _impl
 
 
-_compare("equal", torch.eq)
-_compare("less_than", torch.lt)
-_compare("less_equal", torch.le)
-_compare("greater_than", torch.gt)
-_compare("greater_equal", torch.ge)
+_compare("equal", torch.eq, np.equal)
+_compare("not_equal", torch.ne, np.not_equal)
+_compare("less_than", torch.lt, np.less)
+_compare("less_equal", torch.le, np.less_equal)
+_compare("greater_than", torch.gt, np.greater)
+_compare("greater_equal", torch.ge, np.greater_equal)
 
 
-@register_op("logical_not", no_grad_inputs=("X",))
-def logical_not(ctx):
-    return {"Out": torch.logical_not(ctx.input("X"))}
+def _logical(name, fn, npfn, slots=("X", "Y")):
+    @register_op(name, no_grad_inputs=slots)
+    def _impl(ctx, _fn=fn, _npfn=npfn):
+        raw = [ctx.raw(s) for s in slots]
+        if _host(*raw):
+            return {"Out": _npfn(*raw)}
+        return {"Out": _fn(*[ctx.input(s) for s in slots])}
+    return _impl
+
+
+_logical("logical_and", torch.logical_and, np.logical_and)
+_logical("logical_or", torch.logical_or, np.logical_or)
+_logical("logical_xor", torch.logical_xor, np.logical_xor)
+_logical("logical_not", torch.logical_not, np.logical_not, slots=("X",))
 
 
 @register_op("increment")
 def increment(ctx):
-    """``X + step`` in X's dtype.  An integer counter adds an integral step
-    as an integer: torch would add a python float in float32, which loses
-    counts past 2^24 (the reference adds it in float64 under x64)."""
-    x = ctx.input("X")
+    """``X + step`` in X's dtype; a host counter stays on the host.  An
+    integer counter adds an integral step as an integer: torch would add a
+    python float in float32, which loses counts past 2^24 (the reference
+    adds it in float64 under x64)."""
+    x = ctx.raw("X")
     step = ctx.attr("step", 1.0)
+    if _host(x):
+        return {"Out": np.asarray(x + step).astype(x.dtype)}
+    x = ctx.input("X")
     if not x.is_floating_point() and float(step).is_integer():
         step = int(step)
     return {"Out": (x + step).to(x.dtype)}

@@ -1,6 +1,7 @@
 """Fill / assign / random ops (counterpart of
-``paddle_tpu/ops/random_ops.py``): the startup ops, constants, the
-backward seed (``fill_any_like``) and dropout.
+``paddle_tpu/ops/random_ops.py``): the startup ops, constants (host
+values where every reader takes one), ``assign``, the backward seed
+(``fill_any_like``) and dropout.
 
 RNG: the reference threads a JAX threefry key through the program; here
 the Executor hands random ops the scope's ``torch.Generator`` for the
@@ -26,9 +27,25 @@ def _dtype(ctx):
 
 @register_op("fill_constant")
 def fill_constant(ctx):
+    """On the device, or a host (numpy) value when every reader of the
+    output takes one (``ctx.host``: a loop counter, a bound, a condition),
+    as the reference's ``fill_constant`` always makes one."""
+    if ctx.host:
+        from ..fluid import core as _core
+
+        return {"Out": np.full(tuple(ctx.attr("shape", [])),
+                               ctx.attr("value", 0.0),
+                               _core.np_dtype(ctx.attr("dtype", "float32")))}
     return {"Out": torch.full(tuple(ctx.attr("shape", [])),
                               ctx.attr("value", 0.0), dtype=_dtype(ctx),
                               device=ctx.device)}
+
+
+@register_op("assign")
+def assign(ctx):
+    """A copy of X (never X itself: the output may be a persistable that
+    an optimizer later updates in place)."""
+    return {"Out": ctx.input("X").clone()}
 
 
 @register_op("assign_value")

@@ -1,5 +1,5 @@
 """Reduction ops (counterpart of ``paddle_tpu/ops/reduce_ops.py``):
-reduce_sum and top_k."""
+reduce_sum, reduce_mean and top_k."""
 
 from __future__ import annotations
 
@@ -8,18 +8,24 @@ import torch
 from .registry import register_op
 
 
-@register_op("reduce_sum")
-def reduce_sum(ctx):
+def _reduce(name, fn):
     """Over ``dim`` (``keep_dim`` keeps them as 1s); with ``reduce_all``
     or no ``dim``, over everything to a 0-d tensor, as the reference's
-    ``jnp.sum`` gives."""
-    x = ctx.input("X")
-    dim = ctx.attr("dim", None)
-    if ctx.attr("reduce_all", False) or dim is None:
-        return {"Out": torch.sum(x)}
-    dims = [dim] if isinstance(dim, int) else list(dim)
-    return {"Out": torch.sum(x, dim=tuple(d % x.dim() for d in dims),
-                             keepdim=bool(ctx.attr("keep_dim", False)))}
+    ``jnp`` reductions give."""
+    @register_op(name)
+    def _impl(ctx, _fn=fn):
+        x = ctx.input("X")
+        dim = ctx.attr("dim", None)
+        if ctx.attr("reduce_all", False) or dim is None:
+            return {"Out": _fn(x)}
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        return {"Out": _fn(x, dim=tuple(d % x.dim() for d in dims),
+                           keepdim=bool(ctx.attr("keep_dim", False)))}
+    return _impl
+
+
+_reduce("reduce_sum", torch.sum)
+_reduce("reduce_mean", torch.mean)
 
 
 @register_op("top_k", no_grad_inputs=("X",))

@@ -18,6 +18,17 @@ an output to set that output's LoD (else the Executor's ShareLoD rule
 applies, ``fluid/executor.py``).  No op reads a device tensor to find
 offsets.
 
+Host values: loop counters, array indices and loop conditions are numpy
+arrays, as in the reference (``paddle_tpu/ops/random_ops.py:32-45``,
+``math_ops.py:173-187``), so a ``while`` condition or an array index is
+read with no device sync.  A ``fill_constant`` whose every reader takes a
+host value makes one (the Executor sets :attr:`ExecContext.host`); the
+comparisons, the logical ops and ``increment`` keep host inputs on the
+host; ``max_sequence_len``, ``lod_array_length`` and ``is_empty`` always
+answer on the host.  :meth:`ExecContext.input` hands any other op a host
+value as a tensor on its device (a copy), so an op impl sees tensors
+unless it reads :meth:`ExecContext.raw`.
+
 Gradients: ``append_backward`` emits ``<type>_grad`` ops into the Program.
 An op that registers a grad impl (:func:`register_grad`) runs it; every
 other grad op runs :func:`run_grad_generic`, which re-runs the forward impl
@@ -31,10 +42,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Sequence
 
+import numpy as np
 import torch
 
 GRAD_SUFFIX = "@GRAD"
 LOD_SUFFIX = "@LOD"
+# the value an output already holds (``write_to_array`` appends to it)
+CURRENT_SUFFIX = "@CURRENT"
 
 
 class ExecContext:
@@ -42,26 +56,45 @@ class ExecContext:
     it must produce, the device ops that create tensors put them on, and
     the generator random ops draw from.  ``outputs_spec`` lists only the
     outputs some later op or the caller reads, so an op may skip an output
-    that is not listed."""
+    that is not listed.  ``host``: every reader of the op's outputs takes a
+    host value (``fill_constant`` then makes a numpy array)."""
 
     __slots__ = ("op_type", "inputs", "outputs_spec", "attrs", "device",
-                 "generator")
+                 "generator", "host")
 
     def __init__(self, op_type, inputs, outputs_spec, attrs, device,
-                 generator=None):
+                 generator=None, host=False):
         self.op_type = op_type
         self.inputs: Dict[str, List[Any]] = inputs
         self.outputs_spec: Dict[str, List[str]] = outputs_spec
         self.attrs: Dict[str, Any] = attrs
         self.device = device
         self.generator = generator
+        self.host = host
+
+    def _tensor(self, v):
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(np.array(v)).to(self.device)
+        return v
 
     def input(self, slot: str, idx: int = 0):
+        """The idx-th input of a slot; a host value as a tensor on the
+        op's device."""
+        return self._tensor(self.raw(slot, idx))
+
+    def raw(self, slot: str, idx: int = 0):
+        """The idx-th input of a slot as the Executor holds it: a host
+        (numpy) value stays one."""
         vals = self.inputs.get(slot) or []
         return vals[idx] if idx < len(vals) else None
 
+    def cur_out(self, slot: str, idx: int = 0):
+        """The value the idx-th output of a slot holds before the op runs
+        (None if it holds none)."""
+        return self.raw(slot + CURRENT_SUFFIX, idx)
+
     def inputs_list(self, slot: str):
-        return self.inputs.get(slot) or []
+        return [self._tensor(v) for v in self.inputs.get(slot) or []]
 
     def has_input(self, slot: str) -> bool:
         return bool(self.inputs.get(slot))
@@ -111,8 +144,10 @@ REGISTRY: Dict[str, OpDef] = {}
 
 # data-dependent op types (output sizes or host effects that depend on the
 # values; the reference's ``ops/array_ops.py`` EAGER_OPS): a program that
-# holds one cannot run as a captured window (``Executor.run_steps``).  Of
-# them the port has ``sequence_erase`` and ``sub_nested_seq``.
+# holds one, in any block, cannot run as a captured window
+# (``Executor.run_steps``).  Of them the port has ``sequence_erase``,
+# ``sub_nested_seq``, ``split_lod_tensor``, ``merge_lod_tensor``,
+# ``is_empty`` and the beam ops.
 EAGER_OPS = frozenset([
     "split_lod_tensor", "merge_lod_tensor", "beam_search",
     "beam_search_decode", "beam_search_pack", "is_empty", "multiclass_nms",

@@ -310,6 +310,35 @@ def test_data_dependent_program_raises_and_lod_feed_raises():
                       scope=scope)
 
 
+def test_while_body_with_beam_search_raises():
+    """A data-dependent op inside a ``while`` body is found too (the
+    reference's ``_op_is_eager`` looks into sub-blocks); ``Executor.run``
+    runs the same program."""
+    layers = tf.layers
+    main, startup = tf.Program(), tf.Program()
+    with tf.program_guard(main, startup), tf.unique_name.guard():
+        pre_ids = layers.data("pre_ids", shape=[4, 1], dtype="int64",
+                              append_batch_size=False)
+        scores = layers.data("scores", shape=[4, 3], dtype="float32",
+                             append_batch_size=False)
+        i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        n = layers.fill_constant(shape=[1], dtype="int64", value=2)
+        cond = layers.less_than(x=i, y=n)
+        loop = layers.While(cond=cond)
+        with loop.block():
+            layers.beam_search(pre_ids, None, None, scores, beam_size=2,
+                               end_id=0)
+            layers.increment(x=i, in_place=True)
+            layers.less_than(x=i, y=n, cond=cond)
+    feed = {"pre_ids": np.arange(4, dtype=np.int64).reshape(4, 1),
+            "scores": np.random.RandomState(0).rand(4, 3).astype(
+                np.float32)}
+    exe = tf.Executor(tf.CPUPlace())
+    assert exe.run(main, feed=feed, fetch_list=[i])[0].tolist() == [2]
+    with pytest.raises(RuntimeError, match="data-dependent"):
+        exe.run_steps(main, feed=feed, fetch_list=[i], n_steps=2)
+
+
 def test_close_empties_the_caches():
     main, startup, loss = _mlp(tf)
     exe, scope = tf.Executor(tf.CPUPlace()), tf.Scope()
