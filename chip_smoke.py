@@ -18,6 +18,8 @@ then ``fluid_benchmark.py``'s stacked dynamic LSTM on LoD batches, then
 trains ``bench.py``'s decode cell under ``TrainingDecoder`` (control flow
 and tensor arrays) and generates with it through both beam-search
 engines (the ``While`` loop and the CUDA-graphed ``JitBeamSearchDecoder``),
+then trains the book's label-semantic-roles tagger through the linear-chain
+CRF and a CTC recognizer through ``warpctc``, decodes and scores them,
 and checks them all.
 
     python3 chip_smoke.py
@@ -249,11 +251,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    repeatability; kernel (graph replays), plain, bound and
                    SDPA times
 32. kernel_adam_bert_base, kernel_adam_vgg16, kernel_adam_mnist_cnn,
-    kernel_adam_stacked_lstm, kernel_adam_decoder,
+    kernel_adam_stacked_lstm, kernel_adam_decoder, kernel_adam_ctc,
     kernel_momentum_se_resnext50 - phases 6 and
                    13 over tensors of BERT-base's 159, VGG-16's 60, the
                    MNIST CNN's 6, the stacked LSTM's 18, the decode cell's
-                   9 (phase 41) and SE-ResNeXt-50's 225 parameter shapes
+                   9 (phase 41), the CTC recognizer's 13 (phase 47) and
+                   SE-ResNeXt-50's 225 parameter shapes
                    (the kernels line's adam and momentum entries carry
                    them, ``by_model``)
 33. train_bert_amp - BERT-base pretraining (``bert.build(base_config(),
@@ -355,6 +358,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    Switch and StaticRNN programs of
                    ``tests/test_control_flow.py``: outputs and grads within
                    rtol 1e-5
+45. train_srl    - the book's label-semantic-roles ``db_lstm`` (upstream
+                   ``test_label_semantic_roles.py``: 8 inputs, word_dim
+                   32, hidden 512, depth 8, ``linear_chain_crf``, SGD on an
+                   exponential decay) on the synthetic conll05, its
+                   embedding file loaded through ``scope.find_var('emb')
+                   .get_tensor().set(...)``: 10 steps of 10 sentences
+                   (finite losses, no optimizer kernel launched, ``emb``
+                   bitwise unchanged, the ``vemb`` rows no id hit bitwise
+                   unchanged), then 4 batches through ``crf_decoding`` and
+                   ``chunk_eval`` into ``fluid.metrics.ChunkEvaluator``;
+                   words/s and step ms (CUDA events and host clock), op
+                   dispatches and host syncs a step and a decode batch,
+                   precision / recall / F1, peak allocated
+46. train_srl_parity - card against CPU: the db_lstm at hidden 32, depth
+                   3, 5 SGD steps (rtol 1e-5 at step 0, 1e-4 after), then
+                   its Viterbi paths and chunk counts from one state
+                   (equal); then one program through every op of the
+                   slice (CRF, Viterbi, CTC, the greedy decoder, edit
+                   distance, chunk_eval, NCE, the hierarchical sigmoid,
+                   im2sequence and ten other losses) on a ragged LoD batch
+                   with a length-1 sequence: outputs, LoDs and grads
+                   within ``SEQ_PARITY_TOL``, integer outputs equal
+47. train_ctc    - a CTC recognizer: ``im2sequence`` over 8 images of 1 x
+                   32 x 256 (kernel [32, 4], stride [1, 4]: 64 frames of
+                   128), ``lod_reset``, fc, a GRU of 128 each way, fc to
+                   96 classes + blank, ``warpctc``, Adam 1e-3: 10 steps
+                   (finite losses, exactly 1 Adam launch for 13 tensors a
+                   step and no other kernel's); then 4 batches through
+                   ``ctc_greedy_decoder`` and ``fluid.evaluator.
+                   EditDistance`` (held to ``fluid.metrics.EditDistance``);
+                   examples/s, step ms, op dispatches and host syncs a step
+                   and a decode batch, peak allocated
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
@@ -539,6 +574,28 @@ DEC_SCORE_ATOL, DEC_TIE_RTOL = 1e-4, 1e-6
 DSL_V, DSL_D, DSL_CHAIN, DSL_STEPS = 14, 24, 5, 80
 BOOK_DICT, BOOK_EMB, BOOK_HID = 33, 16, 32
 BOOK_LEN, BOOK_BATCH, BOOK_STEPS = 10, 8, 5
+# the book's label-semantic-roles tagger (upstream book test
+# test_label_semantic_roles.py: db_lstm with word_dim 32, mark_dim 5,
+# hidden_dim 512, depth 8; the CRF's transition at mix_hidden_lr 1e-3; SGD
+# on exponential_decay(0.01, 100000, 0.5, staircase); BATCH_SIZE 10) on
+# the synthetic conll05 (300 words, 30 verbs, 5 IOB labels, sentences of
+# 5-11 words): 10 steps, then 4 batches decoded by crf_decoding and scored
+# by chunk_eval (IOB, 2 chunk types).  The parity run: hidden 32, depth 3,
+# 5 steps card against CPU
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_MIX_LR, SRL_BATCH, SRL_STEPS, SRL_DECODE = 1e-3, 10, 10, 4
+SRL_FEEDS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
+             "target")
+SRL_SMALL, SRL_PARITY_STEPS = dict(hidden_dim=32, depth=3), 5
+# a CTC recognizer: 8 images of 1 x 32 x 256 cut by im2sequence (kernel
+# [32, 4], stride [1, 4]) into 64 frames of 128, one sequence an image;
+# fc 128 relu, a GRU of 128 each way, fc to 96 classes + the blank (96);
+# warpctc on labels of 5-20 ids, Adam 1e-3, 10 steps (13 Adam tensors);
+# then 4 batches through ctc_greedy_decoder and edit_distance
+CTC_BATCH, CTC_IMAGE, CTC_KERNEL, CTC_HIDDEN = 8, (1, 32, 256), (32, 4), 128
+CTC_CLASSES, CTC_LABEL_LENS, CTC_LR, CTC_STEPS = 96, (5, 20), 1e-3, 10
+CTC_ADAM_TENSORS, CTC_DECODE = 13, 4
 
 
 def emit(phase, **fields):
@@ -4573,6 +4630,53 @@ def _seq_program(fluid, x_dim):
     return main, startup, outs, loss
 
 
+def compare_places(phase, main, startup, feed, fetches, places, init=None,
+                   tol=SEQ_PARITY_TOL):
+    """``main`` run once on each place from one initial state (the first
+    place's startup, or ``init``): every fetch, its LoD and dtype equal
+    across places, floats within ``tol`` (rtol, atol), integers exactly.
+    Returns each float fetch's largest difference, by name."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lod_tensor import LoDTensor
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    results = []
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {v.name: scope.get(v.name).detach().cpu().numpy().copy()
+                    for v in startup.list_vars() if v.persistable}
+        else:
+            load_reference_params(scope, init, place)
+        results.append(exe.run(main, feed=feed, fetch_list=fetches,
+                               scope=scope, return_numpy=False))
+    rtol, atol = tol
+    worst = {}
+    for name, c, g in zip(fetches, *results):
+        lods = [v.lod() if isinstance(v, LoDTensor) else () for v in (c, g)]
+        c, g = (np.asarray(v) if isinstance(v, LoDTensor)
+                else v.detach().cpu().numpy() for v in (c, g))
+        if lods[0] != lods[1] or c.shape != g.shape or c.dtype != g.dtype:
+            raise AssertionError(f"{phase}: {name} on the card is {g.dtype} "
+                                 f"{g.shape} {lods[1]}, on the CPU {c.dtype} "
+                                 f"{c.shape} {lods[0]}")
+        if not np.issubdtype(c.dtype, np.floating):
+            if not np.array_equal(c, g):
+                raise AssertionError(f"{phase}: {name} differs: card "
+                                     f"{g.ravel().tolist()}, CPU "
+                                     f"{c.ravel().tolist()}")
+            continue
+        err = np.abs(g.astype(np.float64) - c)
+        if not (err <= atol + rtol * np.abs(c)).all():
+            raise AssertionError(f"{phase}: {name} on the card is "
+                                 f"{float(err.max())} from the CPU's")
+        worst[name] = float(err.max()) if err.size else 0.0
+    return worst
+
+
 def phase_train_stacked_lstm_parity():
     """Card against CPU: the small stacked LSTM (the reference test's
     config, LoD [[6, 7]], Adam 1e-2) over ``LSTM_PARITY_STEPS`` steps from
@@ -4583,8 +4687,6 @@ def phase_train_stacked_lstm_parity():
     import numpy as np
 
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.fluid.lod_tensor import LoDTensor
-    from paddle_tpu_torch.models.params import load_reference_params
 
     progs = build_stacked_lstm(LSTM_SMALL, lr=LSTM_SMALL_LR)
     feed = lstm_feed(np.random.RandomState(0), [6, 7], LSTM_SMALL["dict_dim"])
@@ -4603,33 +4705,11 @@ def phase_train_stacked_lstm_parity():
     ids = rng.randint(0, 50, (sum(lens), 1)).astype(np.int64)
     main, startup, outs, _ = _seq_program(fluid, 24)
     fetches = [o.name for o in outs] + ["x@GRAD"]
-    results, init = [], None
-    for place in places:
-        exe, scope = fluid.Executor(place), fluid.Scope()
-        exe.run(startup, scope=scope)
-        if init is None:
-            init = {v.name: scope.get(v.name).detach().cpu().numpy()
-                    for v in startup.list_vars() if v.persistable}
-        else:
-            load_reference_params(scope, init, place)
-        results.append(exe.run(
-            main, feed={"x": fluid.create_lod_tensor(x, [lens]),
-                        "ids": fluid.create_lod_tensor(ids, [lens])},
-            fetch_list=fetches, scope=scope, return_numpy=False))
-    worst = {}
+    worst = compare_places(
+        "train_stacked_lstm_parity", main, startup,
+        {"x": fluid.create_lod_tensor(x, [lens]),
+         "ids": fluid.create_lod_tensor(ids, [lens])}, fetches, places)
     rtol, atol = SEQ_PARITY_TOL
-    for name, c, g in zip(fetches, *results):
-        lods = [v.lod() if isinstance(v, LoDTensor) else () for v in (c, g)]
-        c, g = (np.asarray(v) if isinstance(v, LoDTensor)
-                else v.detach().cpu().numpy() for v in (c, g))
-        if lods[0] != lods[1] or c.shape != g.shape:
-            raise AssertionError(f"{name}: card {g.shape} {lods[1]} against "
-                                 f"CPU {c.shape} {lods[0]}")
-        err = np.abs(g.astype(np.float64) - c)
-        if not (err <= atol + rtol * np.abs(c)).all():
-            raise AssertionError(f"train_stacked_lstm_parity: {name} on the "
-                                 f"card is {float(err.max())} from the CPU's")
-        worst[name] = float(err.max())
     emit("train_stacked_lstm_parity", config=LSTM_SMALL, lod=[[6, 7]],
          lr=LSTM_SMALL_LR, cpu_losses=cpu.tolist(),
          card_losses=card.tolist(), rel_err=rel, rtol=tol.tolist(),
@@ -5447,6 +5527,515 @@ def phase_control_flow_parity(tmp):
     return total
 
 
+def db_lstm(fluid, word_dict_len, pred_dict_len, label_dict_len,
+            hidden_dim=SRL_HIDDEN, depth=SRL_DEPTH):
+    """The book's label-semantic-roles program (upstream
+    ``test_label_semantic_roles.py``: ``db_lstm``, the CRF's loss, SGD on
+    an exponential decay, then ``crf_decoding`` and ``chunk_eval``) built
+    with ``fluid`` (either package's).  Returns a dict: ``main``,
+    ``startup``, ``test`` (``main`` cloned for test), ``cost``,
+    ``decode`` (the Viterbi path) and ``chunk`` (the six ``chunk_eval``
+    outputs)."""
+    import math
+
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        def data(name):
+            return layers.data(name=name, shape=[1], dtype="int64",
+                               lod_level=1)
+
+        word, predicate = data("word_data"), data("verb_data")
+        ctx = [data(f"ctx_{n}_data") for n in ("n2", "n1", "0", "p1", "p2")]
+        mark = data("mark_data")
+        pred_emb = layers.embedding(
+            input=predicate, size=[pred_dict_len, SRL_WORD_DIM],
+            dtype="float32", is_sparse=True, param_attr="vemb")
+        mark_emb = layers.embedding(input=mark, size=[2, SRL_MARK_DIM],
+                                    dtype="float32", is_sparse=True)
+        embs = [layers.embedding(
+            size=[word_dict_len, SRL_WORD_DIM], input=x,
+            param_attr=fluid.ParamAttr(name="emb", trainable=False))
+            for x in [word] + ctx] + [pred_emb, mark_emb]
+        lstm_args = dict(candidate_activation="relu",
+                         gate_activation="sigmoid",
+                         cell_activation="sigmoid")
+        mix = layers.sums(input=[layers.fc(input=e, size=hidden_dim,
+                                           act="tanh") for e in embs])
+        lstm = layers.dynamic_lstm(input=mix, size=hidden_dim, **lstm_args)
+        for i in range(1, depth):
+            mix = layers.sums(input=[
+                layers.fc(input=mix, size=hidden_dim, act="tanh"),
+                layers.fc(input=lstm, size=hidden_dim, act="tanh")])
+            lstm = layers.dynamic_lstm(input=mix, size=hidden_dim,
+                                       is_reverse=(i % 2) == 1, **lstm_args)
+        feature_out = layers.sums(input=[
+            layers.fc(input=mix, size=label_dict_len, act="tanh"),
+            layers.fc(input=lstm, size=label_dict_len, act="tanh")])
+        target = data("target")
+        crf_cost = layers.linear_chain_crf(
+            input=feature_out, label=target,
+            param_attr=fluid.ParamAttr(name="crfw",
+                                       learning_rate=SRL_MIX_LR))
+        cost = layers.mean(crf_cost)
+        fluid.optimizer.SGD(learning_rate=layers.exponential_decay(
+            learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+            staircase=True)).minimize(cost)
+        decode = layers.crf_decoding(
+            input=feature_out, param_attr=fluid.ParamAttr(name="crfw"))
+        chunk = layers.chunk_eval(
+            input=decode, label=target, chunk_scheme="IOB",
+            num_chunk_types=int(math.ceil((label_dict_len - 1) / 2.0)))
+    return {"main": main, "startup": startup,
+            "test": main.clone(for_test=True), "cost": cost,
+            "decode": decode, "chunk": chunk}
+
+
+def srl_batches(n, batch=SRL_BATCH):
+    """The first ``n`` batches of ``batch`` sentences of the synthetic
+    conll05's ``test()`` reader."""
+    from paddle_tpu_torch.dataset import conll05
+
+    out, cur = [], []
+    for sample in conll05.test()():
+        cur.append(sample)
+        if len(cur) == batch:
+            out.append(cur)
+            cur = []
+            if len(out) == n:
+                break
+    return out
+
+
+def srl_feed(samples):
+    """A batch of conll05 samples as the db_lstm's nine LoD feeds
+    (``(ids, [lengths])``, one per sample slot)."""
+    import numpy as np
+
+    lens = [len(s[0]) for s in samples]
+    return {name: (np.concatenate([np.asarray(s[i], np.int64)
+                                   for s in samples]).reshape(-1, 1), [lens])
+            for i, name in enumerate(SRL_FEEDS)}
+
+
+def load_parameter(file_name, h, w):
+    """The book's ``load_parameter``: skip the file's 16-byte header, then
+    ``h`` x ``w`` float32 rows."""
+    import numpy as np
+
+    with open(file_name, "rb") as f:
+        f.read(16)
+        return np.fromfile(f, dtype=np.float32).reshape(h, w)
+
+
+def host_syncs():
+    """The host reads of device data the structured-loss host ops and the
+    control flow made."""
+    from paddle_tpu_torch.ops import struct_loss_ops as sl
+
+    return sl.stats["host_reads"] + control_stats()["host_syncs"]
+
+
+def reset_host_syncs():
+    from paddle_tpu_torch.ops import struct_loss_ops as sl
+
+    sl.reset_stats()
+    reset_control_stats()
+
+
+def phase_train_srl(profile_run=False):
+    """The book's db_lstm tagger at its widths on the card: the synthetic
+    embedding file loaded through ``scope.find_var('emb').get_tensor()
+    .set(...)``, ``SRL_STEPS`` SGD steps on batches of 10 sentences
+    (finite losses, no optimizer kernel launched: the book trains with
+    SGD, plain PyTorch), ``emb`` bitwise unchanged (not trainable), the
+    rows of ``vemb`` that no verb id hit bitwise unchanged (the sparse
+    update); then ``SRL_DECODE`` batches through the test program's
+    ``crf_decoding`` and ``chunk_eval`` into ``fluid.metrics.
+    ChunkEvaluator``.  Words/s and step ms (CUDA events and host clock),
+    op dispatches and host syncs a step, peak allocated; with
+    ``--profile`` one more step under the profiler.  Returns the
+    launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dataset import conll05
+
+    word_dict, verb_dict, label_dict = conll05.get_dict()
+    progs = db_lstm(fluid, len(word_dict), len(verb_dict), len(label_dict))
+    main, test, cost = progs["main"], progs["test"], progs["cost"]
+    params = main.global_block().all_parameters()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    emb = load_parameter(conll05.get_embedding(), len(word_dict),
+                         SRL_WORD_DIM)
+    emb_tensor = scope.get("emb")
+    scope.find_var("emb").get_tensor().set(emb, fluid.CUDAPlace(0))
+    if scope.get("emb") is not emb_tensor:
+        raise AssertionError("train_srl: set() replaced emb's tensor")
+    vemb_before = scope.get("vemb").clone()
+    batches = srl_batches(SRL_STEPS + SRL_DECODE)
+    feeds = [srl_feed(b) for b in batches[:SRL_STEPS]]
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_syncs()
+    with counting_dispatches() as box:
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feeds, [cost], scope, SRL_STEPS)
+    syncs = host_syncs()
+    check_launches("train_srl", counts, {}, SRL_STEPS)
+    losses = [float(o[0].reshape(-1)[0]) for o in out]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_srl: non-finite losses {losses}")
+    if not torch.equal(scope.get("emb").cpu(), torch.from_numpy(emb)):
+        raise AssertionError("train_srl: emb (trainable=False) moved")
+    hit = sorted({int(v) for f in feeds for v in f["verb_data"][0].ravel()})
+    missed = [r for r in range(len(verb_dict)) if r not in hit]
+    vemb = scope.get("vemb")
+    if not torch.equal(vemb[missed], vemb_before[missed]) or \
+            torch.equal(vemb[hit], vemb_before[hit]):
+        raise AssertionError("train_srl: the sparse update of vemb moved "
+                             "rows no id hit, or none it hit")
+    words = [int(f["word_data"][0].shape[0]) for f in feeds]
+
+    metric = fluid.metrics.ChunkEvaluator()
+    decode_feeds = [srl_feed(b) for b in batches[SRL_STEPS:]]
+    chunk = progs["chunk"]
+    reset_host_syncs()
+    with counting_dispatches() as dbox:
+        dec, dec_host_ms, dec_device_ms, dec_counts = timed_steps(
+            exe, test, decode_feeds, [progs["decode"], *chunk[3:]], scope,
+            SRL_DECODE)
+    dec_syncs = host_syncs()
+    check_launches("train_srl decode", dec_counts, {}, SRL_DECODE)
+    for path, *chunk_counts in dec:
+        if not ((path >= 0) & (path < len(label_dict))).all():
+            raise AssertionError(f"train_srl: Viterbi tags out of range "
+                                 f"{path.ravel().tolist()}")
+        metric.update(*chunk_counts)
+    precision, recall, f1 = metric.eval()
+    emit("train_srl", model="db_lstm (book chapter 7)",
+         data="synthetic conll05", word_dict=len(word_dict),
+         verb_dict=len(verb_dict), labels=len(label_dict),
+         word_dim=SRL_WORD_DIM, mark_dim=SRL_MARK_DIM,
+         hidden_dim=SRL_HIDDEN, depth=SRL_DEPTH, batch=SRL_BATCH,
+         steps=SRL_STEPS, ops=len(main.global_block().ops),
+         parameters=len(params),
+         parameter_values=sum(int(np.prod(p.shape)) for p in params),
+         losses=losses, launches=counts, words=words,
+         host_step_ms=host_ms, device_step_ms=device_ms,
+         words_per_s_events=sum(words[1:]) * 1e3 / sum(device_ms[1:]),
+         words_per_s_host=sum(words[1:]) * 1e3 / sum(host_ms[1:]),
+         op_dispatches_per_step=box[0] / SRL_STEPS,
+         host_syncs_per_step=syncs / SRL_STEPS,
+         verb_rows_hit=len(hit), verb_rows_unchanged=len(missed),
+         decode_batches=SRL_DECODE, decode_host_ms=dec_host_ms,
+         decode_device_ms=dec_device_ms,
+         decode_op_dispatches_per_batch=dbox[0] / SRL_DECODE,
+         decode_host_syncs_per_batch=dec_syncs / SRL_DECODE,
+         chunks={"infer": metric.num_infer_chunks,
+                 "label": metric.num_label_chunks,
+                 "correct": metric.num_correct_chunks},
+         precision=precision, recall=recall, f1=f1,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if profile_run:
+        profile_step("train_srl", lambda: exe.run(
+            main, feed=feeds[0], fetch_list=[cost], scope=scope),
+            {"gemm": GEMM_KEYS})
+    return counts
+
+
+def _struct_program(fluid, k=5):
+    """One Program through every op this slice ports (the CRF and its
+    decoding with and without a label, the CTC loss, the greedy decoder
+    and edit distance, chunk_eval, NCE with a fixed seeded draw, the
+    hierarchical sigmoid, im2sequence and the ten other losses) on LoD
+    inputs ``x`` (``[N, k]``), ``tags`` and ``ctc_label`` and dense ones
+    (``y`` ``[S, k]``, ``cls``, ``lab01``, ``img``), ``sum(out * 0.5)`` of
+    each differentiable output summed into a loss, and its backward:
+    (main, startup, outputs, the grads to fetch)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        block = main.global_block()
+
+        def data(name, shape, dtype="float32", lod=0, grad=False):
+            return layers.data(name=name, shape=shape, dtype=dtype,
+                               lod_level=lod, stop_gradient=not grad)
+
+        def op(op_type, inputs, out, attrs=None):
+            v = block.create_var(
+                name=fluid.unique_name.generate(op_type + ".out"),
+                dtype="float32")
+            block.append_op(type=op_type,
+                            inputs={s: [t] for s, t in inputs.items()},
+                            outputs={out: [v]}, attrs=attrs or {})
+            return v
+
+        x = data("x", [k], lod=1, grad=True)
+        tags = data("tags", [1], "int64", 1)
+        ctc_label = data("ctc_label", [1], "int64", 1)
+        y = data("y", [k], grad=True)
+        cls = data("cls", [1], "int64")
+        lab01 = data("lab01", [1])
+        img = data("img", [2, 6, 8], grad=True)
+        pooled = layers.sequence_pool(x, "sum")
+        left = layers.slice(pooled, axes=[1], starts=[0], ends=[1])
+        right = layers.slice(pooled, axes=[1], starts=[1], ends=[2])
+        crfw = fluid.ParamAttr(name="crfw")
+        floats = [layers.linear_chain_crf(x, tags, crfw)]
+        path = layers.crf_decoding(x, crfw)
+        greedy = layers.ctc_greedy_decoder(x, blank=k - 1)
+        dist, seq_num = layers.edit_distance(greedy, ctc_label)
+        chunk = layers.chunk_eval(path, tags, "IOB",
+                                  num_chunk_types=(k - 1) // 2)
+        others = [path, layers.crf_decoding(x, crfw, label=tags), greedy,
+                  dist, seq_num, *chunk]
+        floats += [
+            layers.warpctc(x, ctc_label, blank=k - 1),
+            layers.nce(pooled, cls, num_total_classes=2 * k,
+                       num_neg_samples=3, seed=7),
+            layers.hsigmoid(pooled, cls, num_classes=6),
+            layers.im2sequence(img, filter_size=[3, 2], stride=[2, 2],
+                               padding=[1, 0]),
+            layers.huber_loss(pooled, y, 0.5),
+            layers.smooth_l1(pooled, y, sigma=1.5),
+            layers.log_loss(layers.sigmoid(left), lab01),
+            op("hinge_loss", {"Logits": left, "Labels": lab01}, "Loss"),
+            layers.rank_loss(lab01, left, right),
+            op("margin_rank_loss", {"Label": layers.scale(lab01, 2.0, -1.0),
+                                    "X1": left, "X2": right}, "Out",
+               {"margin": 0.1}),
+            op("squared_l2_norm", {"X": y}, "Out"),
+            op("squared_l2_distance", {"X": pooled, "Y": y}, "Out"),
+            op("bpr_loss", {"X": pooled, "Label": cls}, "Y"),
+            op("kldiv_loss", {"X": layers.log(layers.softmax(pooled)),
+                              "Target": layers.softmax(y)}, "Loss",
+               {"reduction": "batchmean"})]
+        terms = [layers.reduce_sum(layers.scale(o, 0.5)) for o in floats]
+        loss = terms[0]
+        for t in terms[1:]:
+            loss = layers.elementwise_add(loss, t)
+        fluid.append_backward(loss)
+    grads = ["x@GRAD", "y@GRAD", "img@GRAD"] + [
+        p.name + "@GRAD" for p in main.global_block().all_parameters()]
+    return main, startup, floats + others, grads
+
+
+def struct_feed(rng, lens, k=5):
+    """The ragged feed of :func:`_struct_program`: ``x`` and ``tags`` of
+    ``lens``, CTC labels of at most a third of each length (ids below
+    ``k - 1``, the blank), a dense row per sequence and two images."""
+    import numpy as np
+
+    n, s = sum(lens), len(lens)
+    ctc_lens = [int(rng.randint(0, t // 3 + 1)) for t in lens]
+    return {"x": (rng.standard_normal((n, k)).astype(np.float32), [lens]),
+            "tags": (rng.randint(0, k, (n, 1)).astype(np.int64), [lens]),
+            "ctc_label": (rng.randint(0, k - 1, (sum(ctc_lens), 1)).astype(
+                np.int64), [ctc_lens]),
+            "y": rng.standard_normal((s, k)).astype(np.float32),
+            "cls": rng.randint(0, k, (s, 1)).astype(np.int64),
+            "lab01": (rng.rand(s, 1) > 0.5).astype(np.float32),
+            "img": rng.standard_normal((2, 2, 6, 8)).astype(np.float32)}
+
+
+def phase_train_srl_parity():
+    """Card against CPU: the db_lstm at hidden 32, depth 3 from one
+    initial state, ``SRL_PARITY_STEPS`` SGD steps on one batch (losses
+    rtol 1e-5 at step 0, 1e-4 after, no optimizer kernel launched); the
+    test program's Viterbi paths and chunk counts equal from one state;
+    then every op this slice ports on a ragged LoD batch (lengths with a
+    1): outputs, LoDs and input and parameter grads within
+    ``SEQ_PARITY_TOL``, integer outputs equal."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dataset import conll05
+
+    word_dict, verb_dict, label_dict = conll05.get_dict()
+    progs = db_lstm(fluid, len(word_dict), len(verb_dict), len(label_dict),
+                    **SRL_SMALL)
+    batches = srl_batches(2)
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    (cpu, card), counts, scopes = parity_runs(
+        (progs["main"], progs["startup"], progs["cost"]),
+        srl_feed(batches[0]), SRL_PARITY_STEPS, places)
+    check_launches("train_srl_parity", counts, {}, SRL_PARITY_STEPS)
+    tol = np.array([1e-5] + [1e-4] * (SRL_PARITY_STEPS - 1))
+    rel = check_parity("train_srl_parity", cpu, card, tol)
+    state = {v.name: scopes[0].get(v.name).detach().cpu().numpy().copy()
+             for v in progs["startup"].list_vars() if v.persistable}
+    decode = [progs["decode"].name] + [v.name for v in progs["chunk"][3:]]
+    compare_places("train_srl_parity decode", progs["test"],
+                   progs["startup"], srl_feed(batches[1]), decode, places,
+                   init=state, tol=(0.0, 0.0))
+
+    rng = np.random.RandomState(5)
+    lens = [int(v) for v in rng.randint(1, 30, 9)] + [1]
+    main, startup, outs, grads = _struct_program(fluid)
+    fetches = [o.name for o in outs] + grads
+    worst = compare_places("train_srl_parity ops", main, startup,
+                           struct_feed(rng, lens), fetches, places)
+    rtol, atol = SEQ_PARITY_TOL
+    emit("train_srl_parity", config=SRL_SMALL, steps=SRL_PARITY_STEPS,
+         cpu_losses=cpu.tolist(), card_losses=card.tolist(), rel_err=rel,
+         rtol=tol.tolist(), launches=counts, decode_equal=decode,
+         ragged_lengths=lens, op_types=sorted(
+             {op.type for op in main.global_block().ops}),
+         ragged_fetches=len(fetches),
+         ragged_max_abs_err=max(worst.values()),
+         ragged_worst=max(worst, key=worst.get),
+         ragged_tol={"rtol": rtol, "atol": atol})
+
+
+def ctc_programs(fluid, batch=CTC_BATCH, image=CTC_IMAGE, kernel=CTC_KERNEL,
+                 hidden=CTC_HIDDEN, classes=CTC_CLASSES, lr=CTC_LR):
+    """The CTC recognizer built with ``fluid`` (either package's):
+    ``im2sequence`` over ``batch`` images, ``lod_reset`` to one sequence
+    an image, fc + relu, a GRU each way, fc to ``classes`` + the blank,
+    ``warpctc``, ``mean``, Adam.  The test program (``main`` cloned for
+    test) adds ``ctc_greedy_decoder`` and ``fluid.evaluator.
+    EditDistance``, whose states ``eval_startup`` makes.  Returns a dict:
+    main, startup, test, eval_startup, cost, decoded, evaluator."""
+    layers = fluid.layers
+    main, startup, eval_startup = (fluid.Program() for _ in range(3))
+    main.random_seed = startup.random_seed = 1
+    frames = (image[2] - kernel[1]) // kernel[1] + 1
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            pixel = layers.data(name="pixel", shape=list(image),
+                                dtype="float32")
+            label = layers.data(name="label", shape=[1], dtype="int64",
+                                lod_level=1)
+            seq = layers.im2sequence(pixel, filter_size=list(kernel),
+                                     stride=[1, kernel[1]])
+            # neither package's builder gives the patches a static shape,
+            # which fc needs (ROADMAP queue 3)
+            seq.shape = (-1, image[0] * kernel[0] * kernel[1])
+            seq = layers.lod_reset(seq, target_lod=list(
+                range(0, batch * frames + 1, frames)))
+            fc1 = layers.fc(input=seq, size=hidden, act="relu")
+            fwd = layers.dynamic_gru(layers.fc(input=fc1, size=3 * hidden),
+                                     size=hidden)
+            bwd = layers.dynamic_gru(layers.fc(input=fc1, size=3 * hidden),
+                                     size=hidden, is_reverse=True)
+            logits = layers.fc(input=[fwd, bwd], size=classes + 1)
+            cost = layers.mean(layers.warpctc(logits, label, blank=classes))
+            fluid.optimizer.Adam(learning_rate=lr).minimize(cost)
+        test = main.clone(for_test=True)
+        with fluid.program_guard(test, eval_startup):
+            block = test.global_block()
+            decoded = layers.ctc_greedy_decoder(block.var(logits.name),
+                                                blank=classes)
+            evaluator = fluid.evaluator.EditDistance(
+                input=decoded, label=block.var(label.name))
+    return {"main": main, "startup": startup, "test": test,
+            "eval_startup": eval_startup, "cost": cost, "decoded": decoded,
+            "evaluator": evaluator}
+
+
+def ctc_feed(rng, batch=CTC_BATCH, image=CTC_IMAGE, classes=CTC_CLASSES,
+             label_lens=CTC_LABEL_LENS):
+    """Images from a normal draw and label sequences of ``label_lens``
+    ids below ``classes``."""
+    import numpy as np
+
+    lens = [int(v) for v in rng.randint(label_lens[0], label_lens[1] + 1,
+                                        batch)]
+    return {"pixel": rng.standard_normal((batch,) + tuple(image)).astype(
+                np.float32),
+            "label": (rng.randint(0, classes, (sum(lens), 1)).astype(
+                np.int64), [lens])}
+
+
+def phase_train_ctc(profile_run=False):
+    """The CTC recognizer on the card: ``CTC_STEPS`` Adam steps on fresh
+    batches (finite losses, exactly one Adam launch for its 13 tensors a
+    step and no other kernel's); examples/s and step ms (CUDA events and
+    host clock), op dispatches and host syncs a step, peak allocated;
+    then ``CTC_DECODE`` fresh batches through the test program's greedy
+    decoder and ``fluid.evaluator.EditDistance`` (reset, then eval), held
+    to ``fluid.metrics.EditDistance`` over the fetched distances.  With
+    ``--profile`` one more step under the profiler.  Returns the
+    launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    progs = ctc_programs(fluid)
+    main, test, cost = progs["main"], progs["test"], progs["cost"]
+    params = trainable_shapes(main, CTC_ADAM_TENSORS)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    exe.run(progs["eval_startup"], scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [ctc_feed(rng) for _ in range(CTC_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_syncs()
+    with counting_dispatches() as box:
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feeds, [cost], scope, CTC_STEPS)
+    syncs = host_syncs()
+    check_launches("train_ctc", counts,
+                   {"adam": ADAM_PER_STEP, "adam_tensors": CTC_ADAM_TENSORS},
+                   CTC_STEPS)
+    losses = [float(o[0].reshape(-1)[0]) for o in out]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_ctc: non-finite losses {losses}")
+
+    evaluator, metric = progs["evaluator"], fluid.metrics.EditDistance()
+    distances = evaluator.metrics[0]
+    decode_feeds = [ctc_feed(rng) for _ in range(CTC_DECODE)]
+    with fluid.scope_guard(scope):
+        evaluator.reset(exe)
+        reset_host_syncs()
+        with counting_dispatches() as dbox:
+            dec, dec_host_ms, dec_device_ms, dec_counts = timed_steps(
+                exe, test, decode_feeds, [distances], scope, CTC_DECODE)
+        dec_syncs = host_syncs()
+        avg, err = evaluator.eval(exe)
+    check_launches("train_ctc decode", dec_counts, {}, CTC_DECODE)
+    for (d,) in dec:
+        metric.update(d, d.shape[0])
+    want = metric.eval()
+    if not np.allclose([float(avg[0]), float(err[0])], want, rtol=1e-5):
+        raise AssertionError(f"train_ctc: the evaluator's ({avg}, {err}) "
+                             f"against fluid.metrics' {want}")
+    emit("train_ctc", model="im2sequence + bi-GRU + warpctc",
+         batch=CTC_BATCH, image=list(CTC_IMAGE), kernel=list(CTC_KERNEL),
+         frames=(CTC_IMAGE[2] - CTC_KERNEL[1]) // CTC_KERNEL[1] + 1,
+         hidden=CTC_HIDDEN, classes=CTC_CLASSES,
+         label_lengths=list(CTC_LABEL_LENS), lr=CTC_LR, steps=CTC_STEPS,
+         ops=len(main.global_block().ops), parameters=len(params),
+         parameter_values=sum(int(np.prod(s)) for s in params),
+         losses=losses, launches=counts, host_step_ms=host_ms,
+         device_step_ms=device_ms,
+         examples_per_s_events=CTC_BATCH * (CTC_STEPS - 1) * 1e3
+         / sum(device_ms[1:]),
+         examples_per_s_host=CTC_BATCH * (CTC_STEPS - 1) * 1e3
+         / sum(host_ms[1:]),
+         op_dispatches_per_step=box[0] / CTC_STEPS,
+         host_syncs_per_step=syncs / CTC_STEPS, decode_batches=CTC_DECODE,
+         decode_host_ms=dec_host_ms, decode_device_ms=dec_device_ms,
+         decode_op_dispatches_per_batch=dbox[0] / CTC_DECODE,
+         decode_host_syncs_per_batch=dec_syncs / CTC_DECODE,
+         avg_edit_distance=float(avg[0]), instance_error=float(err[0]),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if profile_run:
+        profile_step("train_ctc", lambda: exe.run(
+            main, feed=feeds[0], fetch_list=[cost], scope=scope),
+            {"gemm": GEMM_KEYS})
+    return counts
+
+
 def main():
     import argparse
 
@@ -5578,7 +6167,8 @@ def main():
         ("vgg16", build_vision("vgg16")[0], VGG_ADAM_TENSORS),
         ("mnist_cnn", build_vision("mnist_cnn")[0], CNN_ADAM_TENSORS),
         ("stacked_lstm", build_stacked_lstm()[0], LSTM_ADAM_TENSORS),
-        ("decoder", build_train_decoder()[0], DEC_ADAM_TENSORS)])
+        ("decoder", build_train_decoder()[0], DEC_ADAM_TENSORS),
+        ("ctc", ctc_programs(fluid)["main"], CTC_ADAM_TENSORS)])
     momentum["by_model"] = optimizer_at_model_shapes(
         phase_kernel_momentum, "momentum",
         [("se_resnext50", build_vision("se_resnext50")[0],
@@ -5608,6 +6198,12 @@ def main():
         del dec_scope
         phase_decode_jit(ckpt, want)
         add_counts(total, phase_control_flow_parity(tmp))
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_srl(args.profile))
+    torch.cuda.empty_cache()
+    phase_train_srl_parity()
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_ctc(args.profile))
     torch.cuda.empty_cache()
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)

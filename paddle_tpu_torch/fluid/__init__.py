@@ -39,6 +39,8 @@ from .io import (save_vars, save_params, save_persistables, load_vars,
 from . import ir
 from . import transpiler
 from . import contrib
+from . import metrics
+from . import evaluator
 from .transpiler import InferenceTranspiler
 
 __all__ = [
@@ -51,7 +53,8 @@ __all__ = [
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
     "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
     "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
-    "DataFeeder", "contrib", "selected_rows", "lod_tensor", "LoDTensor",
+    "DataFeeder", "contrib", "metrics", "evaluator", "selected_rows",
+    "lod_tensor", "LoDTensor",
     "create_lod_tensor",
     "create_random_int_lodtensor", "save_vars", "save_params",
     "save_persistables", "load_vars", "load_params", "load_persistables",

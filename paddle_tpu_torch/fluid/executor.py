@@ -129,6 +129,81 @@ FWD_HOST = "@FWD_HOST@"
 _ROLE_ATTRS = frozenset([OpRole.KEY, OpRole.VAR_KEY])
 
 
+# the value of a var that ``Scope.var`` made and nothing set yet
+_UNINIT = object()
+
+
+class _ScopeTensor:
+    """The tensor view of a scope var (the reference's ``_ScopeTensor``):
+    ``np.array(t)``, ``t.set(array, place)``, ``t.shape``, the LoD.
+    Reading a var that ``Scope.var`` made and nothing set raises."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def _value(self):
+        v = self._scope._values[self._name]
+        if v is _UNINIT:
+            raise ValueError(
+                f"Variable '{self._name}' exists in the scope but holds no "
+                f"tensor yet (made by Scope.var and never set)")
+        return v
+
+    def __array__(self, dtype=None, copy=None):
+        a = _to_numpy(self._value())
+        return a.astype(dtype) if dtype is not None else a
+
+    def set(self, array, place=None):
+        """Write ``array`` into the var: in place where the var holds a
+        tensor of its shape and dtype (so a captured graph that holds the
+        tensor stays valid), else as a new tensor on ``place``'s device
+        (the held tensor's device, or the CPU, when no place is given)."""
+        arr = np.asarray(array)
+        cur = self._scope._values.get(self._name)
+        src = torch.from_numpy(np.array(arr))
+        if isinstance(cur, torch.Tensor) and tuple(cur.shape) == arr.shape \
+                and cur.dtype == src.dtype and (
+                    place is None or cur.device == core.torch_device(place)):
+            cur.copy_(src)
+            return
+        if place is not None:
+            device = core.torch_device(place)
+        else:
+            device = cur.device if isinstance(cur, torch.Tensor) else "cpu"
+        self._scope._values[self._name] = src.to(device)
+
+    @property
+    def shape(self):
+        return tuple(self._value().shape)
+
+    def recursive_sequence_lengths(self):
+        from .lod_tensor import _offsets_to_lengths
+
+        return [_offsets_to_lengths(level)
+                for level in self._scope._lods.get(self._name) or ()]
+
+    def set_recursive_sequence_lengths(self, lengths):
+        self._scope._lods[self._name] = tuple(
+            _lengths_to_offsets(n) for n in lengths)
+
+    def lod(self):
+        return self._scope._lods.get(self._name) or ()
+
+    def set_lod(self, lod):
+        self._scope._lods[self._name] = tuple(
+            tuple(int(x) for x in level) for level in lod)
+
+
+class _ScopeVar:
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self):
+        return _ScopeTensor(self._scope, self._name)
+
+
 class Scope:
     """name -> tensor table; ``_lods``: name -> the LoD (offsets form) a
     run left on a persistable."""
@@ -137,8 +212,20 @@ class Scope:
         self._values: Dict[str, object] = {}
         self._lods: Dict[str, tuple] = {}
 
+    def var(self, name) -> _ScopeVar:
+        """The var ``name``, made (holding no tensor) if the scope has
+        none: reading it faults until it is set, so a misspelt name never
+        reads zeros."""
+        self._values.setdefault(name, _UNINIT)
+        return _ScopeVar(self, name)
+
+    def find_var(self, name):
+        """The var ``name``, or None."""
+        return _ScopeVar(self, name) if name in self._values else None
+
     def get(self, name, default=None):
-        return self._values.get(name, default)
+        v = self._values.get(name, default)
+        return default if v is _UNINIT else v
 
     def set(self, name, value):
         self._values[name] = value

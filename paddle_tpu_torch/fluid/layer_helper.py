@@ -4,7 +4,8 @@
 from __future__ import annotations
 
 from . import core, unique_name
-from .framework import Variable, default_main_program, default_startup_program
+from .framework import (Parameter, Variable, default_main_program,
+                        default_startup_program)
 from .param_attr import ParamAttr
 
 
@@ -30,6 +31,13 @@ class LayerHelper:
 
     def append_op(self, *args, **kwargs):
         return self.main_program.current_block().append_op(*args, **kwargs)
+
+    def get_parameter(self, name):
+        """An existing parameter of the main program, by name."""
+        v = self.main_program.global_block()._var_recursive(name)
+        if not isinstance(v, Parameter):
+            raise ValueError(f"var {name} is not a Parameter")
+        return v
 
     def multiple_input(self, input_param_name="input"):
         inputs = self.kwargs.get(input_param_name, [])

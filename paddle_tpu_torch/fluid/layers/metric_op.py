@@ -1,11 +1,11 @@
 """Metric layers (counterpart of ``paddle_tpu/fluid/layers/metric_op.py``):
-accuracy."""
+accuracy and chunk_eval."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["accuracy"]
+__all__ = ["accuracy", "chunk_eval"]
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -31,3 +31,27 @@ def accuracy(input, label, k=1, correct=None, total=None):
         outputs={"Accuracy": [acc_out], "Correct": [correct],
                  "Total": [total]})
     return acc_out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """A batch's chunk precision, recall and F1, and its int64 counts of
+    inferred, labelled and correct chunks (for a running evaluator)."""
+    helper = LayerHelper("chunk_eval", **locals())
+    precision, recall, f1 = (
+        helper.create_variable_for_type_inference("float32")
+        for _ in range(3))
+    num_infer, num_label, num_correct = (
+        helper.create_variable_for_type_inference("int64")
+        for _ in range(3))
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1], "NumInferChunks": [num_infer],
+                 "NumLabelChunks": [num_label],
+                 "NumCorrectChunks": [num_correct]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, num_infer, num_label, num_correct

@@ -1,7 +1,10 @@
 """NN layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``): the builders
 the decode and training programs (Transformer, ResNet, BERT, DeepFM,
-SE-ResNeXt, VGG, the stacked LSTM) call, and ``lod_reset`` /
-``sequence_erase``, copied so the same calls emit the same IR."""
+SE-ResNeXt, VGG, the stacked LSTM) call, ``lod_reset`` /
+``sequence_erase``, the losses (smooth L1, log, Huber, rank) and the
+structured losses (linear-chain CRF and its decoding, NCE, hierarchical
+sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
+copied so the same calls emit the same IR."""
 
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ __all__ = [
     "split", "gather", "slice", "topk", "one_hot", "label_smooth",
     "ring_attention", "kv_cache_update", "kv_cache_scatter", "spec_accept",
     "paged_attention", "token_select", "autoincreased_step_counter",
-    "lod_reset", "sequence_erase",
+    "lod_reset", "sequence_erase", "im2sequence", "smooth_l1", "log_loss",
+    "huber_loss", "rank_loss", "linear_chain_crf", "crf_decoding", "nce",
+    "hsigmoid", "warpctc", "edit_distance", "ctc_greedy_decoder",
 ]
 
 
@@ -699,3 +704,200 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
         attrs={"step": float(step)})
     counter.stop_gradient = True
     return counter
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """An NCHW image's patches as rows (no LoD: ``lod_reset`` gives one)."""
+    helper = LayerHelper("im2sequence", **locals())
+    filter_size = _to_list(filter_size, 2)
+    stride = _to_list(stride, 2)
+    padding = _to_list(padding, 2)
+    if len(padding) == 2:
+        padding = padding * 2
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": filter_size, "strides": stride,
+                            "paddings": padding})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1", **locals())
+    diff = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    diff.shape = x.shape
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        loss.shape = (x.shape[0], 1)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", **locals())
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    loss.shape = input.shape
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [loss]}, attrs={"epsilon": epsilon})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss", **locals())
+    residual = helper.create_variable_for_type_inference(input.dtype,
+                                                         stop_gradient=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual.shape = input.shape
+    out.shape = input.shape
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's pairwise loss."""
+    helper = LayerHelper("rank_loss", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    out.shape = tuple(label.shape)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF's negative log-likelihood of each sequence, with a learned
+    transition ``[size + 2, size]`` (rows: start, end, then A)."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    size = input.shape[1]
+    transition = helper.create_parameter(attr=helper.param_attr,
+                                         shape=[size + 2, size],
+                                         dtype=input.dtype)
+    alpha, emission_exps, transition_exps, log_likelihood = (
+        helper.create_variable_for_type_inference(dtype=input.dtype)
+        for _ in range(4))
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label]},
+        outputs={"Alpha": [alpha], "EmissionExps": [emission_exps],
+                 "TransitionExps": [transition_exps],
+                 "LogLikelihood": [log_likelihood]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """The Viterbi path under the transition named by ``param_attr``."""
+    helper = LayerHelper("crf_decoding", **locals())
+    transition = helper.get_parameter(param_attr.name)
+    viterbi_path = helper.create_variable_for_type_inference(dtype="int64")
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    return viterbi_path
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None,
+        seed=0):
+    helper = LayerHelper("nce", **locals())
+    if sample_weight is not None:
+        raise NotImplementedError("nce: sample_weight is not supported")
+    dim = input.shape[1]
+    num_neg_samples = int(num_neg_samples or 10)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes, 1],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(dtype=input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(
+        dtype=input.dtype)
+    sample_labels = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="nce",
+        inputs={"Input": [input], "Label": [label], "Weight": [w],
+                "Bias": [b]},
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples, "seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over a complete binary tree of classes."""
+    helper = LayerHelper("hierarchical_sigmoid", **locals())
+    dim = input.shape[1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[1, num_classes - 1],
+                                dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    pre_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="hierarchical_sigmoid",
+        inputs={"X": [input], "W": [w], "Label": [label], "Bias": [b]},
+        outputs={"Out": [out], "PreOut": [pre_out]},
+        attrs={"num_classes": num_classes})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss of LoD logits against LoD labels."""
+    helper = LayerHelper("warpctc", **locals())
+    loss_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    grad_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="warpctc", inputs={"Logits": [input], "Label": [label]},
+        outputs={"WarpCTCGrad": [grad_out], "Loss": [loss_out]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss_out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None):
+    """Edit distances of hypotheses against references, ``ignored_tokens``
+    erased from both first."""
+    helper = LayerHelper("edit_distance", **locals())
+    if ignored_tokens:
+        input = sequence_erase(input, tokens=ignored_tokens)
+        label = sequence_erase(label, tokens=ignored_tokens)
+    edit_distance_out = helper.create_variable_for_type_inference(
+        dtype="float32")
+    sequence_num = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="edit_distance", inputs={"Hyps": [input], "Refs": [label]},
+        outputs={"Out": [edit_distance_out], "SequenceNum": [sequence_num]},
+        attrs={"normalized": normalized})
+    return edit_distance_out, sequence_num
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """The best id of each frame (``top_k``), then ``ctc_align``."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    _, topk_indices = topk(input, k=1)
+    ctc_out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="ctc_align", inputs={"Input": [topk_indices]},
+        outputs={"Output": [ctc_out]},
+        attrs={"merge_repeated": True, "blank": blank})
+    return ctc_out

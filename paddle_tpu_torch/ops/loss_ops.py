@@ -1,9 +1,13 @@
 """Loss ops (counterpart of ``paddle_tpu/ops/loss_ops.py``): cross_entropy,
-softmax_with_cross_entropy and sigmoid_cross_entropy_with_logits."""
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits, and the
+elementwise and pairwise losses huber, smooth-L1, log, hinge, rank,
+margin-rank, squared L2 norm and distance, BPR and KL divergence (their
+grads come from the generic grad)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import fused
 from .registry import register_op
@@ -81,3 +85,110 @@ def sigmoid_cross_entropy_with_logits(ctx):
     if ignore >= 0:
         loss = torch.where(label == ignore, 0.0, loss)
     return {"Out": loss}
+
+
+@register_op("huber_loss", no_grad_inputs=("Y",))
+def huber_loss(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    d = ctx.attr("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    loss = torch.where(ar <= d, 0.5 * r * r, d * (ar - 0.5 * d))
+    return {"Out": loss, "Residual": r}
+
+
+@register_op("smooth_l1_loss", no_grad_inputs=("Y",))
+def smooth_l1_loss(ctx):
+    """Per-row sum ``[N, 1]`` of ``0.5 (σ d)^2`` below ``1 / σ^2``, else
+    ``|d| - 0.5 / σ^2``, with ``d = (x - y) · InsideWeight`` and the
+    terms scaled by ``OutsideWeight``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    sigma = ctx.attr("sigma", 1.0)
+    s2 = sigma * sigma
+    iw, ow = ctx.input("InsideWeight"), ctx.input("OutsideWeight")
+    d = x - y
+    if iw is not None:
+        d = d * iw
+    ad = torch.abs(d)
+    val = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    if ow is not None:
+        val = val * ow
+    return {"Out": val.reshape(val.shape[0], -1).sum(1, keepdim=True),
+            "Diff": d}
+
+
+@register_op("log_loss", no_grad_inputs=("Labels",))
+def log_loss(ctx):
+    p, y = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    return {"Loss": -y * torch.log(p + eps)
+            - (1.0 - y) * torch.log(1.0 - p + eps)}
+
+
+@register_op("hinge_loss", no_grad_inputs=("Labels",))
+def hinge_loss(ctx):
+    logits, y = ctx.input("Logits"), ctx.input("Labels")
+    return {"Loss": torch.clamp_min(1.0 - (2.0 * y - 1.0) * logits, 0.0)}
+
+
+@register_op("rank_loss", no_grad_inputs=("Label",))
+def rank_loss(ctx):
+    """RankNet: ``log(1 + exp(left - right)) - label · (left - right)``."""
+    label = ctx.input("Label")
+    d = ctx.input("Left") - ctx.input("Right")
+    return {"Out": torch.log1p(torch.exp(d)) - label * d}
+
+
+@register_op("margin_rank_loss", no_grad_inputs=("Label",))
+def margin_rank_loss(ctx):
+    label = ctx.input("Label")
+    x1, x2 = ctx.input("X1"), ctx.input("X2")
+    out = torch.clamp_min(-label * (x1 - x2) + ctx.attr("margin", 0.0), 0.0)
+    return {"Out": out, "Activated": (out > 0).to(x1.dtype)}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx):
+    x = ctx.input("X")
+    return {"Out": torch.sum(x * x).reshape(1)}
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance(ctx):
+    """Per-row ``sum((x - y)^2)`` ``[N, 1]`` (``y`` broadcasts) and the
+    difference."""
+    d = ctx.input("X") - ctx.input("Y")
+    sq = d * d
+    if d.dim() > 1:
+        sq = sq.sum(tuple(range(1, d.dim())))
+    return {"Out": sq.reshape(-1, 1), "sub_result": d}
+
+
+@register_op("bpr_loss", no_grad_inputs=("Label",))
+def bpr_loss(ctx):
+    """Bayesian personalized ranking: the mean of ``-log σ(x_label -
+    x_j)`` over the C - 1 classes j other than the label."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    if label.dim() == x.dim() and label.shape[-1] == 1:
+        label = label.reshape(label.shape[:-1])
+    li = label.long()
+    pos = x.gather(-1, li[..., None])
+    others = 1.0 - F.one_hot(li, x.shape[-1]).to(x.dtype)
+    lls = F.logsigmoid(pos - x)
+    return {"Y": -(lls * others).sum(-1, keepdim=True) / (x.shape[-1] - 1)}
+
+
+@register_op("kldiv_loss", no_grad_inputs=("Target",))
+def kldiv_loss(ctx):
+    """``target · (log(target) - x)`` of log-probabilities ``x``, reduced
+    by ``reduction`` (mean, sum, batchmean or none)."""
+    x, t = ctx.input("X"), ctx.input("Target")
+    loss = t * (torch.log(t.clamp_min(1e-20)) - x)
+    red = ctx.attr("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    return {"Loss": loss}

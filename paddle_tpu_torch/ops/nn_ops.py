@@ -1,6 +1,6 @@
 """NN ops (counterpart of ``paddle_tpu/ops/nn_ops.py``): conv2d (with an
-explicit grad), pool2d, batch_norm, layer_norm and lookup_table (with its
-dense grad, or with ``is_sparse`` a SelectedRows one).
+explicit grad), pool2d, batch_norm, layer_norm, lookup_table (with its
+dense grad, or with ``is_sparse`` a SelectedRows one) and im2sequence.
 
 Convolutions are no Pallas kernel in the reference (``lax.conv_general_
 dilated``, left to XLA), so here they go to cuDNN / ATen, float32 ones
@@ -224,3 +224,19 @@ def lookup_table_grad(ctx):
     if ctx.attr("is_sparse", False):
         return {"W@GRAD": SelectedRows(rows, vals, height=w.shape[0])}
     return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}
+
+
+@register_op("im2sequence")
+def im2sequence(ctx):
+    """The ``kernels`` patches of an NCHW image at ``strides`` after the
+    ``paddings`` (up, left, down, right), one row per patch: ``[N·oh·ow,
+    C·kh·kw]``, each row in (channel, kernel row, kernel column) order.
+    The output carries no LoD, as in the reference."""
+    x = ctx.input("X")
+    kh, kw = ctx.attr("kernels")
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    up, left, down, right = ctx.attr("paddings", [0, 0, 0, 0])
+    n, c = x.shape[0], x.shape[1]
+    cols = F.unfold(F.pad(x, (left, right, up, down)), (kh, kw),
+                    stride=tuple(strides))                # [N, C·kh·kw, L]
+    return {"Out": cols.transpose(1, 2).reshape(-1, c * kh * kw)}

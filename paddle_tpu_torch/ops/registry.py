@@ -147,13 +147,15 @@ REGISTRY: Dict[str, OpDef] = {}
 # holds one, in any block, cannot run as a captured window
 # (``Executor.run_steps``).  Of them the port has ``sequence_erase``,
 # ``sub_nested_seq``, ``split_lod_tensor``, ``merge_lod_tensor``,
-# ``is_empty`` and the beam ops.
+# ``is_empty``, the beam ops and the host metric ops ``chunk_eval``,
+# ``ctc_align`` and ``edit_distance``.
 EAGER_OPS = frozenset([
     "split_lod_tensor", "merge_lod_tensor", "beam_search",
     "beam_search_decode", "beam_search_pack", "is_empty", "multiclass_nms",
     "sequence_erase", "sub_nested_seq", "save", "load", "save_combine",
     "load_combine", "delete_var", "generate_proposals", "rpn_target_assign",
-    "generate_proposal_labels", "detection_map",
+    "generate_proposal_labels", "detection_map", "chunk_eval", "ctc_align",
+    "edit_distance",
 ])
 
 
