@@ -20,7 +20,10 @@ and tensor arrays) and generates with it through both beam-search
 engines (the ``While`` loop and the CUDA-graphed ``JitBeamSearchDecoder``),
 then trains the book's label-semantic-roles tagger through the linear-chain
 CRF and a CTC recognizer through ``warpctc``, decodes and scores them,
-and checks them all.
+then trains MobileNet-SSD through ``ssd_loss`` and decodes it by
+``detection_output`` and ``detection_map``, and trains a Faster R-CNN RPN
+and RoI head through the proposal, sampling and RoI-pooling ops, and
+checks them all.
 
     python3 chip_smoke.py
 
@@ -44,7 +47,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    (R = 64 x 256 rows, V = 30000): soft labels from
                    one_hot + label_smooth, and hard labels with
                    ignore_index rows; bitwise repeatability; kernel, plain,
-                   library and bound times
+                   library and bound times.  Then ``kernel_xent_ssd`` and
+                   ``kernel_xent_rcnn_heads``: the same checks and times
+                   with hard labels at the detection paths' shapes
+                   (122,688 x 21 and 1,024 x 81, the kernels' scalar
+                   loads; the kernels line's xent entries carry them,
+                   ``by_model``)
  5. kernel_xent_amp - the same with bf16 and fp16 logits (soft labels
                    fp32): loss and lse at the fp32 tolerance, dx within 1
                    ulp of its dtype, bitwise repeatability; kernel, plain,
@@ -252,11 +260,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    SDPA times
 32. kernel_adam_bert_base, kernel_adam_vgg16, kernel_adam_mnist_cnn,
     kernel_adam_stacked_lstm, kernel_adam_decoder, kernel_adam_ctc,
-    kernel_momentum_se_resnext50 - phases 6 and
-                   13 over tensors of BERT-base's 159, VGG-16's 60, the
+    kernel_momentum_se_resnext50, kernel_momentum_rcnn_heads - phases 6
+                   and 13 over tensors of BERT-base's 159, VGG-16's 60, the
                    MNIST CNN's 6, the stacked LSTM's 18, the decode cell's
-                   9 (phase 41), the CTC recognizer's 13 (phase 47) and
-                   SE-ResNeXt-50's 225 parameter shapes
+                   9 (phase 41), the CTC recognizer's 13 (phase 47),
+                   SE-ResNeXt-50's 225 and the R-CNN head's 14 (phase 51)
+                   parameter shapes
                    (the kernels line's adam and momentum entries carry
                    them, ``by_model``)
 33. train_bert_amp - BERT-base pretraining (``bert.build(base_config(),
@@ -390,11 +399,55 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    EditDistance`` (held to ``fluid.metrics.EditDistance``);
                    examples/s, step ms, op dispatches and host syncs a step
                    and a decode batch, peak allocated
+48. train_ssd    - MobileNet-SSD (upstream object_detection's
+                   ``mobilenet_ssd.py`` and ``train.py``: 3 x 300 x 300, 21
+                   classes, batch 64, 1,917 priors, ``ssd_loss`` summed,
+                   RMSProp on ``piecewise_decay`` with L2 decay, fp32) on
+                   synthetic VOC-shaped batches, 5 fresh steps: finite
+                   losses, no host sync, exactly 3 xent-forward and 1
+                   xent-backward launches a step and no other kernel's;
+                   images/s, step ms (CUDA events and host clock), op
+                   dispatches and ``bipartite_match`` steps a step, peak
+                   allocated
+49. detect_ssd   - the trained weights through the test clone (softmax,
+                   transpose, ``detection_output`` NMS 0.45,
+                   ``detection_map`` 11-point), 2 fresh batches: ms, op
+                   dispatches and host syncs a batch, detections kept, mAP;
+                   the same decode on a CPU scope with the same weights
+                   (boxes and scores within 1e-5; the rows per image as
+                   tolerance-matched multisets, each unpaired row a
+                   near-tie, counted by cause) and the CPU's NMS and mAP
+                   over the card's boxes and scores (rows, LoD and mAP
+                   equal), each timed
+50. train_ssd_parity - the small SSD of ``tests/test_ssd.py``'s shape under
+                   the same loss and optimizer, 5 steps card against CPU
+                   (rtol 1e-5 at step 0, 1e-4 after); then every detection
+                   op on fed inputs over a ragged ground-truth batch:
+                   outputs, LoDs and grads within ``SEQ_PARITY_TOL``,
+                   integer outputs equal
+51. train_rcnn   - an RPN and RoI head with Faster R-CNN's settings on a
+                   fed 1024 x 50 x 84 C4 map of 2 images (63,000 anchors an
+                   image, 12,000 / 2,000 proposals, 512 RoIs an image, 81
+                   classes), Momentum 0.9, 3 seeded steps: finite losses,
+                   exactly 1 momentum launch for 14 tensors and 2 / 1 xent
+                   launches a step; RoIs and foreground RoIs, step ms, op
+                   dispatches and host syncs a step (the host ops' reads),
+                   peak allocated; ``kernel_momentum_rcnn_heads`` holds row
+                   6 at its 14 shapes
+52. rcnn_parity  - the head at 8 channels on a 12 x 16 map, the RPN's score
+                   and delta convs held at zero, ``use_random`` False, card
+                   against CPU: 3 steps' losses (rtol 1e-5 at step 0, 1e-4
+                   after), then every op's outputs and the map's grad within
+                   ``SEQ_PARITY_TOL``, integers and LoDs equal; then the
+                   RPN alone with its convs drawn and trained: 3 steps'
+                   RPN losses, ``rpn_target_assign``'s outputs and every
+                   grad (``check_rpn_step``), 1 momentum launch a step
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
 tick) and one after each full-size training phase (one more step, or
-one more window), each under ``torch.profiler``; each prints the device's busy share of the
+one more window) and after ``detect_ssd`` (one more decode batch), each
+under ``torch.profiler``; each prints the device's busy share of the
 wall time and the kernels that take the most device time (the eager
 steps also the host's Python profile of a step).
 
@@ -407,6 +460,7 @@ power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -596,6 +650,60 @@ SRL_SMALL, SRL_PARITY_STEPS = dict(hidden_dim=32, depth=3), 5
 CTC_BATCH, CTC_IMAGE, CTC_KERNEL, CTC_HIDDEN = 8, (1, 32, 256), (32, 4), 128
 CTC_CLASSES, CTC_LABEL_LENS, CTC_LR, CTC_STEPS = 96, (5, 20), 1e-3, 10
 CTC_ADAM_TENSORS, CTC_DECODE = 13, 4
+
+# MobileNet-SSD (upstream models/fluid/object_detection: mobilenet_ssd.py
+# and train.py on PASCAL VOC): 3 x 300 x 300, 21 classes, batch 64, 1,917
+# priors over six maps (19, 10, 5, 3, 2, 1); ssd_loss summed, RMSProp
+# (rho 0.95) on piecewise_decay (lr 0.001; 4 boundaries for the 5 values)
+# with L2Decay(5e-5), fp32.  Cut: synthetic VOC-shaped batches (1-6 boxes
+# an image, 10 % difficult), 5 steps.  Decode: 2 batches through
+# detection_output (NMS 0.45, its defaults otherwise) and detection_map
+# (11-point).  ssd_loss runs two softmax cross-entropies: the mining one
+# forward only, the loss one forward, again in its generic grad, and
+# backward
+SSD_CLASSES, SSD_IMAGE, SSD_BATCH, SSD_STEPS = 21, (3, 300, 300), 64, 5
+SSD_LR, SSD_L2, SSD_NMS, SSD_PRIORS, SSD_DECODE = 1e-3, 5e-5, 0.45, 1917, 2
+SSD_BOUNDARIES = [40000, 60000, 80000, 100000]
+SSD_DECAY = [1.0, 0.5, 0.25, 0.1, 0.01]
+SSD_BOXES, SSD_DIFFICULT = (1, 6), 0.1
+SSD_XENT_PER_STEP = {"softmax_xent_fwd": 3, "softmax_xent_bwd": 1}
+# the card's decoded boxes and softmax scores against the CPU's
+SSD_DECODE_ATOL = 1e-5
+# the small SSD of tests/test_ssd.py (3 x 16 x 16, 3 classes, 32 priors)
+# under the same loss and optimizer, its lr stepping down after steps 2, 4
+SSD_SMALL_CLASSES, SSD_SMALL_IMAGE, SSD_SMALL_BATCH = 3, (3, 16, 16), 4
+SSD_SMALL_LR, SSD_PARITY_STEPS = 5e-3, 5
+# Faster R-CNN's RPN and RoI head (upstream models/fluid/faster_rcnn's RPN
+# and RoI settings) on a fed C4 map standing in for the ResNet-50 trunk:
+# 2 images of 800 x 1344 (a 1024 x 50 x 84 map, 63,000 anchors an image),
+# 1-10 boxes an image, 81 classes, 12,000 / 2,000 proposals, 512 RoIs an
+# image, two fc of 1024; Momentum 0.9 at 0.01 (one launch a step for its
+# 14 tensors); the head's softmax cross-entropy runs the xent forward twice
+# (the op and its generic grad) and the backward once.  3 steps
+RCNN_FEAT, RCNN_IMAGES, RCNN_IM = (1024, 50, 84), 2, (800, 1344)
+RCNN_CLASSES, RCNN_FC = 81, 1024
+RCNN_ANCHOR_SIZES = (32.0, 64.0, 128.0, 256.0, 512.0)
+RCNN_RPN_BATCH, RCNN_PRE_NMS, RCNN_POST_NMS, RCNN_ROIS = 256, 12000, 2000, 512
+RCNN_BOXES, RCNN_SEED, RCNN_STEPS, RCNN_MOMENTUM_TENSORS = (1, 10), 7, 3, 14
+RCNN_XENT_PER_STEP = {"softmax_xent_fwd": 2, "softmax_xent_bwd": 1}
+# the parity run's heads: 8 channels on a 12 x 16 map (192 x 256 images),
+# the RPN's score and delta convs held at zero (not trainable: 10 momentum
+# tensors), use_random False
+RCNN_SMALL = dict(feat=(8, 12, 16), im_hw=(192, 256), num_classes=5,
+                  fc_dim=16, anchor_sizes=(32.0, 64.0), rpn_batch=64,
+                  pre_nms=300, post_nms=60, rois_per_im=32, use_random=False,
+                  rpn_std=0.0, rpn_trainable=False)
+RCNN_SMALL_FEED = dict(feat=(8, 12, 16), im_hw=(192, 256), num_classes=5,
+                       boxes=(1, 4))
+RCNN_PARITY_STEPS, RCNN_SMALL_MOMENTUM_TENSORS = 3, 10
+# the RPN alone at the same size with its convs drawn (Normal(0, 0.01)) and
+# trained: its losses, rpn_target_assign's outputs and every parameter's
+# and the feature map's grad, compared step by step (rtol 1e-5 at step 0,
+# 1e-4 after, of each value plus, for a tensor, of its largest magnitude)
+RPN_SMALL = dict(RCNN_SMALL, rpn_std=0.01, rpn_trainable=True, rpn_only=True)
+RPN_SMALL_MOMENTUM_TENSORS = 6
+# the detection ops' parity program: classes of its fed scores
+DETECTION_CLASSES = 4
 
 
 def emit(phase, **fields):
@@ -1506,6 +1614,91 @@ def phase_kernel_xent():
                             out["hard"]["dx_max_abs_err"]),
          "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound,
          "bound_by": bwd_by, "library_ms": None})
+
+
+def phase_kernel_xent_by_model():
+    """The fp32 xent kernels at the detection paths' shapes, hard labels
+    (``ssd_loss`` on 64 x 1,917 priors x 21 classes, the R-CNN head on 2 x
+    512 RoIs x 81 classes; neither width is a multiple of 4, so both run
+    the kernels' scalar loads): loss and lse within ``ATOL`` / ``RTOL``,
+    dx within ``DX_ATOL`` of the plain versions, two launches bitwise
+    equal; kernel, plain, bound and (forward) ``F.cross_entropy`` times, a
+    line each (``kernel_xent_<model>``).  Returns the forward's and the
+    backward's numbers by model."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(19)
+    fwd_out, bwd_out = {}, {}
+    for name, r, v in (("ssd", SSD_BATCH * SSD_PRIORS, SSD_CLASSES),
+                       ("rcnn_heads", RCNN_IMAGES * RCNN_ROIS,
+                        RCNN_CLASSES)):
+        x = torch.randn(r, v, generator=gen, device=device) * 2
+        ids = torch.randint(0, v, (r,), generator=gen, device=device)
+        loss, lse, _ = fused.softmax_xent_fwd(x, ids, False)
+        loss2, lse2, _ = fused.softmax_xent_fwd(x, ids, False)
+        torch.cuda.synchronize()
+        rloss, rlse, _ = fused.softmax_xent_fwd_ref(x, ids, False)
+        if not (torch.equal(loss, loss2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"xent forward at {name}'s shape is not "
+                                 f"bitwise repeatable")
+        for what, got, want in (("loss", loss, rloss), ("lse", lse, rlse)):
+            if not bool((got - want).abs().le(ATOL + RTOL * want.abs())
+                        .all()):
+                raise AssertionError(
+                    f"xent forward at {name}'s shape: {what} disagrees with "
+                    f"the plain version: max abs/rel err "
+                    f"{_max_errs(got, want)}")
+        g1, g2 = fused.xent_bwd_coeffs(ids, None, torch.ones_like(rlse),
+                                       None, False)
+        dx = fused.softmax_xent_bwd(x, ids, rlse, g1, g2, False)
+        dx2 = fused.softmax_xent_bwd(x, ids, rlse, g1, g2, False)
+        torch.cuda.synchronize()
+        rdx = fused.softmax_xent_bwd_ref(x, ids, rlse, g1, g2, False)
+        if not torch.equal(dx, dx2):
+            raise AssertionError(f"xent backward at {name}'s shape is not "
+                                 f"bitwise repeatable")
+        dx_err = float((dx - rdx).abs().max())
+        if not dx_err <= DX_ATOL:
+            raise AssertionError(f"xent backward at {name}'s shape disagrees "
+                                 f"with the plain version: max abs err "
+                                 f"{dx_err}")
+        fwd_ms = cuda_time_ms(lambda: fused.softmax_xent_fwd(x, ids, False),
+                              20)
+        fwd_plain = cuda_time_ms(
+            lambda: fused.softmax_xent_fwd_ref(x, ids, False), 20)
+        fwd_lib = cuda_time_ms(
+            lambda: F.cross_entropy(x, ids, reduction="none"), 20)
+        bwd_ms = cuda_time_ms(
+            lambda: fused.softmax_xent_bwd(x, ids, lse, g1, g2, False), 20)
+        bwd_plain = cuda_time_ms(
+            lambda: fused.softmax_xent_bwd_ref(x, ids, lse, g1, g2, False),
+            20)
+        fwd_bound, fwd_by = xent_bound_ms(r, v, False, backward=False)
+        bwd_bound, bwd_by = xent_bound_ms(r, v, False, backward=True)
+        errs = {"loss_err": _max_errs(loss, rloss),
+                "lse_err": _max_errs(lse, rlse), "dx_max_abs_err": dx_err}
+        emit(f"kernel_xent_{name}", rows=r, classes=v, labels="hard",
+             vectorized=v % 4 == 0, atol=ATOL, rtol=RTOL, dx_atol=DX_ATOL,
+             bitwise_repeat=True, **errs, fwd_ms=fwd_ms,
+             fwd_plain_ms=fwd_plain, fwd_library_ms=fwd_lib,
+             fwd_bound_ms=fwd_bound, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
+             bwd_bound_ms=bwd_bound)
+        fwd_out[name] = {"shape": [r, v],
+                         "max_abs_err": max(errs["loss_err"][0],
+                                            errs["lse_err"][0]),
+                         "ms": fwd_ms, "plain_ms": fwd_plain,
+                         "bound_ms": fwd_bound, "bound_by": fwd_by,
+                         "library_ms": fwd_lib}
+        bwd_out[name] = {"shape": [r, v], "max_abs_err": dx_err,
+                         "ms": bwd_ms, "plain_ms": bwd_plain,
+                         "bound_ms": bwd_bound, "bound_by": bwd_by,
+                         "library_ms": None}
+        del x, ids, loss, loss2, lse, lse2, dx, dx2, rdx, g1, g2
+    return fwd_out, bwd_out
 
 
 def _ulp(got, want):
@@ -5630,17 +5823,21 @@ def load_parameter(file_name, h, w):
 
 
 def host_syncs():
-    """The host reads of device data the structured-loss host ops and the
-    control flow made."""
+    """The host reads of device data the structured-loss and detection
+    host ops and the control flow made."""
+    from paddle_tpu_torch.ops import detection_ops
     from paddle_tpu_torch.ops import struct_loss_ops as sl
 
-    return sl.stats["host_reads"] + control_stats()["host_syncs"]
+    return (sl.stats["host_reads"] + detection_ops.stats["host_reads"]
+            + control_stats()["host_syncs"])
 
 
 def reset_host_syncs():
+    from paddle_tpu_torch.ops import detection_ops
     from paddle_tpu_torch.ops import struct_loss_ops as sl
 
     sl.reset_stats()
+    detection_ops.reset_stats()
     reset_control_stats()
 
 
@@ -6036,6 +6233,1052 @@ def phase_train_ctc(profile_run=False):
     return counts
 
 
+def _conv_bn(fluid, x, filter_size, num_filters, stride, padding, groups=1,
+             act="relu"):
+    """``mobilenet_ssd.py``'s ``conv_bn``: a bias-free convolution (MSRA
+    init, learning-rate multiplier 0.1), then batch norm with ``act``."""
+    conv = fluid.layers.conv2d(
+        input=x, num_filters=num_filters, filter_size=filter_size,
+        stride=stride, padding=padding, groups=groups, act=None,
+        param_attr=fluid.ParamAttr(learning_rate=0.1,
+                                   initializer=fluid.initializer.MSRA()),
+        bias_attr=False)
+    return fluid.layers.batch_norm(input=conv, act=act)
+
+
+def _depthwise_separable(fluid, x, filters1, filters2, groups, stride, scale):
+    depthwise = _conv_bn(fluid, x, 3, int(filters1 * scale), stride, 1,
+                         groups=int(groups * scale))
+    return _conv_bn(fluid, depthwise, 1, int(filters2 * scale), 1, 0)
+
+
+def _extra_block(fluid, x, filters1, filters2, groups, stride, scale):
+    pointwise = _conv_bn(fluid, x, 1, int(filters1 * scale), 1, 0,
+                         groups=int(groups * scale))
+    return _conv_bn(fluid, pointwise, 3, int(filters2 * scale), stride, 1,
+                    groups=int(groups * scale))
+
+
+def _mobile_net(fluid, num_classes, image, image_shape, scale):
+    """``mobilenet_ssd.py``'s ``mobile_net``: MobileNet v1 at ``scale``
+    (300 -> 19 x 19 at module 11, 10 x 10 at 13), four extra blocks (5, 3,
+    2, 1) and ``multi_box_head`` over the six maps."""
+    sep = functools.partial(_depthwise_separable, fluid, scale=scale)
+    tmp = _conv_bn(fluid, image, 3, int(32 * scale), 2, 1)
+    for args in ((32, 64, 32, 1), (64, 128, 64, 2), (128, 128, 128, 1),
+                 (128, 256, 128, 2), (256, 256, 256, 1), (256, 512, 256, 2)):
+        tmp = sep(tmp, *args)
+    for _ in range(5):
+        tmp = sep(tmp, 512, 512, 512, 1)
+    module11 = tmp
+    module13 = sep(sep(tmp, 512, 1024, 512, 2), 1024, 1024, 1024, 1)
+    extra = functools.partial(_extra_block, fluid, scale=scale)
+    module14 = extra(module13, 256, 512, 1, 2)
+    module15 = extra(module14, 128, 256, 1, 2)
+    module16 = extra(module15, 128, 256, 1, 2)
+    module17 = extra(module16, 64, 128, 1, 2)
+    return fluid.layers.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16, module17],
+        image=image, num_classes=num_classes, min_ratio=20, max_ratio=90,
+        min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+        max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+        aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                       [2.0, 3.0]],
+        base_size=image_shape[2], offset=0.5, flip=True, clip=True)
+
+
+def _small_net(fluid, num_classes, image, image_shape, scale):
+    """``tests/test_ssd.py``'s SSD: one 3 x 3 conv of stride 4 (a 4 x 4
+    map) and ``multi_box_head`` with 2 priors a cell."""
+    feat = fluid.layers.conv2d(image, num_filters=4, filter_size=3,
+                               padding=1, stride=4)
+    return fluid.layers.multi_box_head(
+        inputs=[feat], image=image, base_size=image_shape[2],
+        num_classes=num_classes, aspect_ratios=[[1.0]], min_sizes=[[6.0]],
+        max_sizes=[[10.0]], flip=False)
+
+
+def _ssd_program(fluid, net, num_classes, image_shape, scale, lr, boundaries,
+                 decay):
+    """An SSD trainer as upstream's ``object_detection/train.py`` builds it
+    (``ssd_loss`` summed by ``reduce_sum``; RMSProp on ``piecewise_decay``
+    with L2 decay) and its decode: the test clone's confidences through
+    ``softmax`` and a transpose to ``[N, C, M]``, ``detection_output``
+    (NMS 0.45), and ``detection_map`` (11-point, overlap 0.5, difficult
+    boxes not evaluated) against the labels ``[label, difficult, box]``.
+    Returns a dict of the programs and vars."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            image = layers.data(name="image", shape=list(image_shape),
+                                dtype="float32")
+            gt_box = layers.data(name="gt_box", shape=[4], dtype="float32",
+                                 lod_level=1)
+            gt_label = layers.data(name="gt_label", shape=[1], dtype="int32",
+                                   lod_level=1)
+            difficult = layers.data(name="gt_difficult", shape=[1],
+                                    dtype="int32", lod_level=1)
+            locs, confs, box, box_var = net(fluid, num_classes, image,
+                                            image_shape, scale)
+            loss = layers.reduce_sum(layers.ssd_loss(
+                locs, confs, gt_box, gt_label, box, box_var))
+            fluid.optimizer.RMSProp(
+                learning_rate=layers.piecewise_decay(
+                    boundaries, [lr * d for d in decay]),
+                regularization=fluid.regularizer.L2Decay(SSD_L2)
+            ).minimize(loss)
+        test = main.clone(for_test=True)
+        with fluid.program_guard(test, fluid.Program()):
+            block = test.global_block()
+            scores = layers.transpose(layers.softmax(block.var(confs.name)),
+                                      perm=[0, 2, 1])
+            nmsed = layers.detection_output(
+                block.var(locs.name), scores, block.var(box.name),
+                block.var(box_var.name), nms_threshold=SSD_NMS)
+            labels = layers.concat([
+                layers.cast(block.var(gt_label.name), "float32"),
+                layers.cast(block.var(difficult.name), "float32"),
+                block.var(gt_box.name)], axis=1)
+            m_ap = layers.detection_map(
+                nmsed, labels, num_classes, background_label=0,
+                overlap_threshold=0.5, evaluate_difficult=False,
+                ap_version="11point")
+    decoded = next(op.output("OutputBox")[0] for op in block.ops
+                   if op.type == "box_coder"
+                   and op.attr("code_type") == "decode_center_size")
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "priors": int(locs.shape[1]), "nmsed": nmsed, "map": m_ap,
+            "decoded": decoded, "scores": scores.name}
+
+
+def mobilenet_ssd(fluid, num_classes=SSD_CLASSES, image_shape=SSD_IMAGE,
+                  scale=1.0):
+    """Upstream ``models/fluid/object_detection``'s MobileNet-SSD
+    (``mobilenet_ssd.py``) with ``train.py``'s loss and optimizer, built
+    with ``fluid`` (either package's): see :func:`_ssd_program`."""
+    return _ssd_program(fluid, _mobile_net, num_classes, image_shape, scale,
+                        SSD_LR, SSD_BOUNDARIES, SSD_DECAY)
+
+
+def small_ssd(fluid):
+    """``tests/test_ssd.py``'s small SSD (3 x 16 x 16, 3 classes, 32
+    priors) with the MobileNet-SSD's loss, optimizer and decode, its
+    learning rate stepping down after steps 2 and 4."""
+    return _ssd_program(fluid, _small_net, SSD_SMALL_CLASSES,
+                        SSD_SMALL_IMAGE, 1.0, SSD_SMALL_LR, [2, 4],
+                        SSD_DECAY[:3])
+
+
+def ssd_batch(rng, batch=SSD_BATCH, image_shape=SSD_IMAGE,
+              num_classes=SSD_CLASSES, boxes=SSD_BOXES):
+    """A synthetic VOC-shaped batch: ``boxes`` (low, high) ground-truth
+    boxes an image (normalized corners, sides 0.1-0.6), classes 1 to
+    ``num_classes - 1``, 10 % marked difficult; images of uniform noise
+    with each box filled by its class's colour (fixed across batches), so
+    the loss can fall.  The feed dict of :func:`_ssd_program`."""
+    import numpy as np
+
+    c, h, w = image_shape
+    img = (rng.random_sample((batch, c, h, w)) - 0.5).astype(np.float32)
+    colors = np.random.RandomState(1234).uniform(-1.5, 1.5,
+                                                 (num_classes, c))
+    lens = rng.randint(boxes[0], boxes[1] + 1, batch)
+    n = int(lens.sum())
+    side = rng.uniform(0.1, 0.6, (n, 2))
+    lo = rng.uniform(0.0, 1.0, (n, 2)) * (1.0 - side)
+    box = np.concatenate([lo, lo + side], 1).astype(np.float32)
+    label = rng.randint(1, num_classes, n)
+    difficult = rng.uniform(size=n) < SSD_DIFFICULT
+    pix = (box * [w - 1, h - 1, w - 1, h - 1]).astype(int)
+    for k, i in enumerate(np.repeat(np.arange(batch), lens)):
+        x0, y0, x1, y1 = pix[k]
+        img[i, :, y0:y1 + 1, x0:x1 + 1] += colors[label[k]][:, None, None]
+    lod = [lens.tolist()]
+    return {"image": img, "gt_box": (box, lod),
+            "gt_label": (label.reshape(-1, 1).astype(np.int32), lod),
+            "gt_difficult": (difficult.reshape(-1, 1).astype(np.int32), lod)}
+
+
+def rcnn_heads(fluid, feat=RCNN_FEAT, im_hw=RCNN_IM, num_classes=RCNN_CLASSES,
+                fc_dim=RCNN_FC,
+               anchor_sizes=RCNN_ANCHOR_SIZES, rpn_batch=RCNN_RPN_BATCH,
+               pre_nms=RCNN_PRE_NMS, post_nms=RCNN_POST_NMS,
+               rois_per_im=RCNN_ROIS, use_random=True, rpn_std=0.01,
+               rpn_trainable=True, rpn_only=False):
+    """An RPN and an RoI head on a fed C4-shaped feature map (the
+    stride-16 map of ``RCNN_IMAGES`` images of ``im_hw``), with upstream
+    Faster R-CNN's RPN and RoI settings (``models/fluid/faster_rcnn``):
+    ``anchor_generator`` (ratios 0.5, 1, 2, variances 1, stride 16), a 3 x
+    3 conv with relu and 1 x 1 convs to the anchors' scores and deltas
+    (``Normal(0, rpn_std)``), ``rpn_target_assign`` (fg 0.5, overlaps 0.7
+    and 0.3) with sigmoid cross-entropy and ``smooth_l1`` (sigma 3),
+    ``generate_proposals`` (NMS 0.7, min size 0),
+    ``generate_proposal_labels`` (fg 0.25 at 0.5, bg [0, 0.5), weights
+    0.1, 0.1, 0.2, 0.2), ``roi_pool`` 7 x 7 at 1/16, two fc of ``fc_dim``
+    with relu, fc to the classes with softmax cross-entropy and to 4 x the
+    classes with ``smooth_l1`` under the inside and outside weights;
+    Momentum 0.9 at lr 0.01.  The samplers draw from ``RCNN_SEED``.  The
+    feature map takes a grad (a trunk would sit below it).  ``rpn_std`` 0
+    with ``rpn_trainable`` False holds the RPN's score and delta convs at
+    zero (equal scores, proposals on the anchors): the parity runs'
+    setting, where the proposals must not hang on an fp32 rounding.
+    ``rpn_only`` leaves out ``generate_proposals`` and the RoI head: the
+    RPN and its two losses alone, whose targets hang on the anchors and the
+    ground truth only, so they compare exactly at any ``rpn_std``.  Built
+    with ``fluid`` (either package's); returns a dict."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    c = feat[0]
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feature = layers.data(name="feature", shape=list(feat),
+                              dtype="float32", stop_gradient=False)
+        im_info = layers.data(name="im_info", shape=[3], dtype="float32")
+        gt_box = layers.data(name="gt_box", shape=[4], dtype="float32",
+                             lod_level=1)
+        gt_label = layers.data(name="gt_label", shape=[1], dtype="int32",
+                               lod_level=1)
+        is_crowd = layers.data(name="is_crowd", shape=[1], dtype="int32",
+                               lod_level=1)
+
+        def normal(std, trainable=True):
+            return fluid.ParamAttr(trainable=trainable,
+                                   initializer=fluid.initializer.Normal(
+                                       0.0, std))
+
+        def zero(trainable=True):
+            return fluid.ParamAttr(trainable=trainable,
+                                   initializer=fluid.initializer.Constant(0.0))
+
+        rpn_conv = layers.conv2d(feature, num_filters=c, filter_size=3,
+                                 padding=1, act="relu", param_attr=normal(
+                                     0.01), bias_attr=zero())
+        anchor, var = layers.anchor_generator(
+            rpn_conv, anchor_sizes=list(anchor_sizes),
+            aspect_ratios=[0.5, 1.0, 2.0], variance=[1.0, 1.0, 1.0, 1.0],
+            stride=[16.0, 16.0])
+        n_anchor = 3 * len(anchor_sizes)
+        rpn_cls = layers.conv2d(rpn_conv, num_filters=n_anchor,
+                                filter_size=1,
+                                param_attr=normal(rpn_std, rpn_trainable),
+                                bias_attr=zero(rpn_trainable))
+        rpn_bbox = layers.conv2d(rpn_conv, num_filters=4 * n_anchor,
+                                 filter_size=1,
+                                 param_attr=normal(rpn_std, rpn_trainable),
+                                 bias_attr=zero(rpn_trainable))
+        sampled = labels = None
+        head_losses = []
+        if not rpn_only:
+            rois, _ = layers.generate_proposals(
+                layers.sigmoid(rpn_cls), rpn_bbox, im_info, anchor, var,
+                pre_nms_top_n=pre_nms, post_nms_top_n=post_nms,
+                nms_thresh=0.7, min_size=0.0, eta=1.0)
+            (sampled, labels, targets, inside,
+             outside) = layers.generate_proposal_labels(
+                rois, gt_label, is_crowd, gt_box, im_info,
+                batch_size_per_im=rois_per_im, fg_fraction=0.25,
+                fg_thresh=0.5, bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                bbox_reg_weights=[0.1, 0.1, 0.2, 0.2],
+                class_nums=num_classes, use_random=use_random)
+            pool = layers.roi_pool(feature, sampled, 7, 7, 1.0 / 16.0)
+            # neither package's builder gives the pooled RoIs a static
+            # shape, which fc needs
+            pool.shape = (-1, c, 7, 7)
+            head = layers.fc(layers.fc(pool, fc_dim, act="relu"), fc_dim,
+                             act="relu")
+            cls_score = layers.fc(head, num_classes)
+            bbox_pred = layers.fc(head, 4 * num_classes)
+            labels64 = layers.cast(labels, "int64")
+            labels64.stop_gradient = True
+            loss_cls = layers.reduce_mean(layers.softmax_with_cross_entropy(
+                cls_score, labels64))
+            loss_bbox = layers.reduce_mean(layers.smooth_l1(
+                bbox_pred, targets, inside, outside, sigma=1.0))
+            head_losses = [loss_cls, loss_bbox]
+        score_pred, loc_pred, score_tgt, loc_tgt = layers.rpn_target_assign(
+            layers.reshape(layers.transpose(rpn_bbox, [0, 2, 3, 1]),
+                           [0, -1, 4]),
+            layers.reshape(layers.transpose(rpn_cls, [0, 2, 3, 1]),
+                           [0, -1, 1]),
+            layers.reshape(anchor, [-1, 4]), layers.reshape(var, [-1, 4]),
+            gt_box, is_crowd, im_info, rpn_batch_size_per_im=rpn_batch,
+            rpn_straddle_thresh=0.0, rpn_fg_fraction=0.5,
+            rpn_positive_overlap=0.7, rpn_negative_overlap=0.3,
+            use_random=use_random)
+        score_tgt = layers.cast(score_tgt, "float32")
+        score_tgt.stop_gradient = True
+        loss_rpn_cls = layers.reduce_mean(
+            layers.sigmoid_cross_entropy_with_logits(score_pred, score_tgt))
+        # upstream divides by the sampled count, images x rpn_batch here
+        loss_rpn_bbox = layers.scale(layers.reduce_sum(layers.smooth_l1(
+            loc_pred, loc_tgt, sigma=3.0)), 1.0 / (RCNN_IMAGES * rpn_batch))
+        losses = head_losses + [loss_rpn_cls, loss_rpn_bbox]
+        loss = layers.sums(losses)
+        fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    for op in main.global_block().ops:
+        if op.type in ("rpn_target_assign", "generate_proposal_labels"):
+            op.attrs["seed"] = RCNN_SEED
+    return {"main": main, "startup": startup, "loss": loss,
+            "losses": losses, "rois": sampled, "labels": labels,
+            "params": [p.name for p in main.global_block().all_parameters()]}
+
+
+def rpn_fetches(progs):
+    """What the RPN parity compares, by name: the two RPN losses,
+    ``rpn_target_assign``'s outputs, each parameter's grad and the feature
+    map's grad."""
+    ops = progs["main"].global_block().ops
+    return ([v.name for v in progs["losses"]]
+            + [n for op in ops if op.type == "rpn_target_assign"
+               for n in op.output_arg_names]
+            + [p + "@GRAD" for p in progs["params"]] + ["feature@GRAD"])
+
+
+def check_rpn_step(phase, names, want, got, rtol):
+    """One step's :func:`rpn_fetches` against the reference's: shapes and
+    dtypes equal, integers exactly, floats within ``rtol`` of each value
+    plus, for a tensor, ``rtol`` of its largest magnitude (a grad's
+    near-zero entries are sums that cancel).  Returns each float's largest
+    error over that scale, by name."""
+    import numpy as np
+
+    worst = {}
+    for name, w, g in zip(names, want, got):
+        w, g = np.asarray(w), np.asarray(g)
+        if w.shape != g.shape or w.dtype != g.dtype:
+            raise AssertionError(f"{phase}: {name} is {g.dtype} {g.shape}, "
+                                 f"the reference's {w.dtype} {w.shape}")
+        if not np.issubdtype(w.dtype, np.floating):
+            if not np.array_equal(w, g):
+                raise AssertionError(f"{phase}: {name} differs")
+            continue
+        scale = np.abs(w) + (np.abs(w).max() if w.size > 1 else 0.0)
+        err = np.abs(g.astype(np.float64) - w)
+        if not (err <= rtol * scale).all():
+            raise AssertionError(
+                f"{phase}: {name} is {float(err.max())} from the "
+                f"reference's (largest magnitude {float(np.abs(w).max())}, "
+                f"rtol {rtol})")
+        worst[name] = float((err / np.maximum(scale, 1e-30)).max())
+    return worst
+
+
+def rcnn_feed(rng, feat=RCNN_FEAT, im_hw=RCNN_IM, num_classes=RCNN_CLASSES,
+              boxes=RCNN_BOXES):
+    """For ``RCNN_IMAGES`` images: a feature map of uniform noise,
+    ``im_info`` and ``boxes`` (low, high) ground-truth boxes an image (sides 32-400 pixels within the
+    image), classes 1 to ``num_classes - 1``, every fifth box crowd."""
+    import numpy as np
+
+    h, w = im_hw
+    lens = rng.randint(boxes[0], boxes[1] + 1, RCNN_IMAGES)
+    n = int(lens.sum())
+    side = rng.uniform(32.0, min(400.0, h / 2), (n, 2))
+    lo = rng.uniform(0.0, 1.0, (n, 2)) * ([w - 1, h - 1] - side)
+    box = np.concatenate([lo, lo + side], 1).astype(np.float32)
+    lod = [lens.tolist()]
+    return {"feature": (rng.random_sample((RCNN_IMAGES,) + tuple(feat))
+                        - 0.5)
+            .astype(np.float32),
+            "im_info": np.tile(np.array([[h, w, 1.0]], np.float32),
+                               (RCNN_IMAGES, 1)),
+            "gt_box": (box, lod),
+            "gt_label": (rng.randint(1, num_classes, (n, 1)).astype(
+                np.int32), lod),
+            "is_crowd": ((np.arange(n) % 5 == 4).reshape(-1, 1).astype(
+                np.int32), lod)}
+
+
+def _detection_program(fluid):
+    """One Program through every detection op on fed inputs (the
+    detection ops' parity check): ``prior_box`` (flip, clip) and
+    ``anchor_generator`` over a fed map, ``iou_similarity`` of a ragged
+    ground-truth batch against the priors, ``bipartite_match`` (both
+    kinds), ``box_coder`` both ways, ``target_assign`` (boxes; labels with
+    mined negatives), ``mine_hard_examples`` (``sample_size``),
+    ``multiclass_nms`` (defaults; ``nms_eta`` < 1 in pixels;
+    ``keep_top_k``), ``detection_map`` over the NMS rows, ``roi_pool`` and
+    its grad, ``polygon_box_transform`` and ``flatten``.  Returns (main,
+    startup, fetch names)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        block = main.global_block()
+
+        def data(name, shape, dtype="float32", lod=0, grad=False):
+            return layers.data(name=name, shape=shape, dtype=dtype,
+                               lod_level=lod, stop_gradient=not grad)
+
+        img = data("img", [3, 32, 48])
+        fmap = data("fmap", [4, 4, 6], grad=True)
+        gt_box = data("gt_box", [4], lod=1)
+        gt_label = data("gt_label", [1], "int32", 1)
+        boxes, var = layers.prior_box(fmap, img, [8.0, 16.0], [16.0, 24.0],
+                                      [2.0, 3.0], flip=True, clip=True)
+        n_prior = 4 * 6 * 12          # 2 sizes x (5 ratios + max) a cell
+        boxes, var = (layers.reshape(t, [-1, 4]) for t in (boxes, var))
+        anchors, _ = layers.anchor_generator(fmap, [16.0, 32.0],
+                                             [0.5, 1.0, 2.0])
+        iou = layers.iou_similarity(gt_box, boxes)
+        match, dist = layers.bipartite_match(iou, "per_prediction", 0.3)
+        strict, _ = layers.bipartite_match(iou)
+        encoded = layers.box_coder(boxes, var, gt_box)
+        tgt_box, tgt_w = layers.target_assign(encoded, match)
+        cls_loss = data("cls_loss", [n_prior])
+        loc_loss = data("loc_loss", [n_prior])
+        neg = block.create_var(name="neg", dtype="int32")
+        updated = block.create_var(name="updated", dtype="int32")
+        block.append_op(
+            type="mine_hard_examples",
+            inputs={"ClsLoss": [cls_loss], "LocLoss": [loc_loss],
+                    "MatchIndices": [match], "MatchDist": [dist]},
+            outputs={"NegIndices": [neg], "UpdatedMatchIndices": [updated]},
+            attrs={"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+                   "mining_type": "max_negative", "sample_size": 8})
+        tgt_label, label_w = layers.target_assign(
+            layers.reshape(gt_label, [-1, 1, 1]), updated,
+            negative_indices=neg)
+        loc = data("loc", [n_prior, 4])
+        scores = data("scores", [DETECTION_CLASSES, n_prior])
+        decoded = layers.box_coder(boxes, var, loc, "decode_center_size")
+        nmsed = layers.multiclass_nms(decoded, scores, 0.05, 40, 30, 0.45)
+        pixels = layers.scale(decoded, 48.0)
+        nmsed_eta = layers.multiclass_nms(pixels, scores, 0.05, -1, 12, 0.7,
+                                          normalized=False, nms_eta=0.8)
+        labels = layers.concat([layers.cast(gt_label, "float32"),
+                                layers.cast(gt_label, "float32"), gt_box],
+                               axis=1)
+        m_ap = layers.detection_map(nmsed, labels, DETECTION_CLASSES,
+                                    overlap_threshold=0.5,
+                                    ap_version="11point")
+        rois = data("rois", [4], lod=1)
+        pooled = layers.roi_pool(fmap, rois, 2, 3, 0.25)
+        poly = layers.polygon_box_transform(data("quad", [8, 3, 4]))
+        flat = layers.flatten(fmap, axis=2)
+        fluid.append_backward(layers.reduce_sum(layers.elementwise_mul(
+            pooled, data("pool_w", [4, 2, 3]))))
+    outs = [boxes, var, anchors, iou, match, dist, strict, encoded, tgt_box,
+            tgt_w, neg, updated, tgt_label, label_w, decoded, nmsed,
+            nmsed_eta, m_ap, pooled, poly, flat]
+    return main, startup, [o.name for o in outs] + ["fmap@GRAD"]
+
+
+def detection_feed(rng):
+    """The ragged feed of :func:`_detection_program`: 3, 1 and 4
+    ground-truth boxes in three images, tie-free scores and losses, RoIs
+    past the map."""
+    import numpy as np
+
+    lens, n_rois, classes = (3, 1, 4), (2, 3, 1), DETECTION_CLASSES
+    n, b = sum(lens), len(lens)
+    side = rng.uniform(0.15, 0.5, (n, 2))
+    lo = rng.uniform(0, 1, (n, 2)) * (1 - side)
+    n_prior = 4 * 6 * 12
+    order = rng.permutation(b * classes * n_prior).astype(np.float32)
+    rois = rng.uniform(0, 40, (sum(n_rois), 4)).astype(np.float32)
+    rois[:, 2:] = rois[:, :2] + rng.uniform(2, 30, (len(rois), 2))
+    return {"img": rng.standard_normal((b, 3, 32, 48)).astype(np.float32),
+            "fmap": rng.standard_normal((b, 4, 4, 6)).astype(np.float32),
+            "gt_box": (np.concatenate([lo, lo + side], 1).astype(np.float32),
+                       [list(lens)]),
+            "gt_label": (rng.randint(1, classes, (n, 1)).astype(np.int32),
+                         [list(lens)]),
+            "cls_loss": rng.permutation(b * n_prior).reshape(b, n_prior)
+            .astype(np.float32) / 50.0,
+            "loc_loss": rng.uniform(0, 1, (b, n_prior)).astype(np.float32),
+            "loc": (rng.standard_normal((b, n_prior, 4)) * 0.5).astype(
+                np.float32),
+            "scores": ((order + 1) / (len(order) + 1)).reshape(
+                b, classes, n_prior),
+            "rois": (rois, [list(n_rois)]),
+            "quad": rng.standard_normal((b, 8, 3, 4)).astype(np.float32),
+            "pool_w": rng.standard_normal((sum(n_rois), 4, 2, 3)).astype(
+                np.float32)}
+
+
+def detection_host_ops(program):
+    """The detection host ops of ``program``, by type."""
+    from paddle_tpu_torch.ops import registry
+
+    return sorted({op.type for op in program.global_block().ops
+                   if op.type in registry.EAGER_OPS})
+
+
+def phase_train_ssd(profile_run=False):
+    """MobileNet-SSD at upstream's widths on the card (3 x 300 x 300, 21
+    classes, batch 64, ``ssd_loss`` summed, RMSProp on ``piecewise_decay``
+    with L2 decay, fp32, eager): ``SSD_STEPS`` steps, each on a fresh
+    synthetic batch: the prior count (1,917), finite losses, no host sync,
+    exactly ``SSD_XENT_PER_STEP`` xent launches a step (``ssd_loss``'s two
+    softmax cross-entropies: the mining one forward only, the loss one
+    forward, again in its generic grad, and backward) and no other
+    kernel's (RMSProp is plain PyTorch); images/s and step ms (CUDA events
+    and host clock), op dispatches and ``bipartite_match`` loop iterations
+    a step, peak allocated; with ``--profile`` one more step under the
+    profiler.  Returns (launches, programs, executor, scope)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops import detection_ops
+
+    progs = mobilenet_ssd(fluid)
+    if progs["priors"] != SSD_PRIORS:
+        raise AssertionError(f"train_ssd: {progs['priors']} priors, "
+                             f"expected {SSD_PRIORS}")
+    main, loss = progs["main"], progs["loss"]
+    params = main.global_block().all_parameters()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [ssd_batch(rng) for _ in range(SSD_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_syncs()
+    with counting_dispatches() as box:
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feeds, [loss], scope, SSD_STEPS)
+    syncs = host_syncs()
+    iterations = detection_ops.stats["match_iterations"]
+    check_launches("train_ssd", counts, SSD_XENT_PER_STEP, SSD_STEPS)
+    losses = [float(o[0].reshape(-1)[0]) for o in out]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_ssd: non-finite losses {losses}")
+    if syncs:
+        raise AssertionError(f"train_ssd: {syncs} host syncs in "
+                             f"{SSD_STEPS} training steps")
+    emit("train_ssd", model="MobileNet-SSD (object_detection/"
+         "mobilenet_ssd.py, train.py)", data="synthetic VOC-shaped",
+         image=list(SSD_IMAGE), classes=SSD_CLASSES, batch=SSD_BATCH,
+         steps=SSD_STEPS, priors=progs["priors"],
+         ops=len(main.global_block().ops), parameters=len(params),
+         parameter_values=sum(int(np.prod(p.shape)) for p in params),
+         gt_boxes=[int(f["gt_box"][0].shape[0]) for f in feeds],
+         losses=losses, launches=counts, host_step_ms=host_ms,
+         device_step_ms=device_ms,
+         images_per_s_events=SSD_BATCH * (SSD_STEPS - 1) * 1e3
+         / sum(device_ms[1:]),
+         images_per_s_host=SSD_BATCH * (SSD_STEPS - 1) * 1e3
+         / sum(host_ms[1:]),
+         op_dispatches_per_step=box[0] / SSD_STEPS,
+         host_syncs_per_step=syncs / SSD_STEPS,
+         match_iterations_per_step=iterations / SSD_STEPS,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if profile_run:
+        profile_step("train_ssd", lambda: exe.run(
+            main, feed=feeds[0], fetch_list=[loss], scope=scope),
+            {"conv": CONV_KEYS, "gemm": GEMM_KEYS})
+    return counts, progs, exe, scope
+
+
+def nms_program(fluid, test):
+    """The ``multiclass_nms`` and ``detection_map`` ops of ``test`` (their
+    attrs) over fed boxes ``[N, M, 4]``, scores ``[N, C, M]`` and labels:
+    (program, output names)."""
+    layers = fluid.layers
+    ops = {op.type: op for op in test.global_block().ops}
+    nms, dmap = ops["multiclass_nms"], ops["detection_map"]
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), \
+            fluid.unique_name.guard():
+        block = main.global_block()
+        names = {}
+        for slot, var in (("BBoxes", "nms_boxes"), ("Scores", "nms_scores"),
+                          ("Label", "map_labels")):
+            names[slot] = layers.data(name=var, shape=[1], dtype="float32",
+                                      lod_level=int(slot == "Label"))
+        out = block.create_var(name="nms_out", dtype="float32")
+        block.append_op(type="multiclass_nms",
+                        inputs={"BBoxes": [names["BBoxes"]],
+                                "Scores": [names["Scores"]]},
+                        outputs={"Out": [out]}, attrs=dict(nms.attrs))
+        m_ap = block.create_var(name="nms_map", dtype="float32")
+        block.append_op(
+            type="detection_map",
+            inputs={"DetectRes": [out], "Label": [names["Label"]]},
+            outputs={"MAP": [m_ap], **{
+                s: [block.create_var(name=f"nms_{s}", dtype="float32")]
+                for s in ("AccumPosCount", "AccumTruePos",
+                          "AccumFalsePos")}},
+            attrs=dict(dmap.attrs))
+    return main, [out.name, m_ap.name]
+
+
+def first_row_difference(got, want):
+    """The first row where two ``[rows, 6]`` NMS outputs differ (or their
+    counts), for the failure message."""
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.allclose(g, w, rtol=0.0, atol=SSD_DECODE_ATOL):
+            return {"row": i, "card": g.tolist(), "cpu": w.tolist()}
+    return {"rows": [len(got), len(want)]}
+
+
+def _iou_slack(a, b, delta):
+    """``IoU(a, b)`` of two normalized ``[x1, y1, x2, y2]`` boxes, and how
+    far it can move when each coordinate of ``a`` moves by up to
+    ``delta`` (first order, doubled)."""
+    iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    area_a = max(0.0, a[2] - a[0]) * max(0.0, a[3] - a[1])
+    union = area_a + max(0.0, b[2] - b[0]) * max(0.0, b[3] - b[1]) - inter
+    if union <= 0.0:
+        return 0.0, 0.0
+    iou = inter / union
+    d_inter = 2 * delta * (iw + ih) + 4 * delta ** 2
+    d_union = 2 * delta * (a[2] - a[0] + a[3] - a[1]) + 4 * delta ** 2 \
+        + d_inter
+    return iou, 2 * (d_inter + iou * d_union) / max(union - d_union, 1e-12)
+
+
+def compare_decodes(card, cpu, scores, attrs, atol):
+    """Two ``multiclass_nms`` outputs of one batch (``(rows [R, 6], LoD
+    offsets)`` each) whose inputs agree within ``atol``, held as
+    tolerance-matched multisets per image: rows of one label whose score
+    and box are within ``atol`` pair up.  A row left unpaired on one side
+    must be a near-tie on the other, from that side's rows and scores
+    (``scores``: ``[N, C, M]`` each, card then CPU): its score within
+    ``2·atol`` of that side's lowest kept score when ``keep_top_k`` rows
+    are kept, within ``atol`` of ``score_threshold``, or within ``atol`` of
+    its class's ``nms_top_k``-th score; or a kept row of its label there
+    overlaps it past the NMS threshold (allowing for the box error) with a
+    score within ``2·atol`` of its own, or with an IoU within the box
+    error of the threshold, or is itself unpaired with a higher score (a
+    chain that ends at one of the other causes).  Paired rows may come in
+    another order only where their scores are within ``2·atol``.  Raises
+    on anything else; returns the counts by cause."""
+    import numpy as np
+
+    thr, keep_k = attrs["nms_threshold"], attrs["keep_top_k"]
+    top_k, s_thr = attrs["nms_top_k"], attrs["score_threshold"]
+    sides = []
+    for rows, lod in (card, cpu):
+        rows = np.asarray(rows, np.float64)
+        if rows.shape[1] != 6:         # the [[-1]] row: nothing kept
+            rows = np.zeros((0, 6))
+            lod = (0,) * len(lod)
+        sides.append((rows, lod))
+    report = {"rows": [len(sides[0][0]), len(sides[1][0])], "paired": 0,
+              "reordered_pairs": 0, "unpaired": [0, 0],
+              "keep_top_k": 0, "score_threshold": 0, "nms_top_k": 0,
+              "nms_near_tie": 0, "nms_iou_near_threshold": 0,
+              "nms_chain": 0}
+    n = len(sides[0][1]) - 1
+    for i in range(n):
+        img = [rows[lod[i]:lod[i + 1]] for rows, lod in sides]
+        a, b = img
+        cost = np.full((len(a), len(b)), np.inf)
+        if len(a) and len(b):
+            same = a[:, None, 0] == b[None, :, 0]
+            diff = np.abs(a[:, None, 1:] - b[None, :, 1:]).max(-1)
+            cost = np.where(same, diff, np.inf)
+        pair_b = np.full(len(a), -1)
+        taken = np.zeros(len(b), bool)
+        for j in np.argsort(cost.min(1) if len(b) else np.zeros(len(a)),
+                            kind="stable"):
+            if not len(b):
+                break
+            k = int(np.argmin(np.where(taken, np.inf, cost[j])))
+            if cost[j, k] <= atol and not taken[k]:
+                pair_b[j], taken[k] = k, True
+        paired = np.flatnonzero(pair_b >= 0)
+        report["paired"] += len(paired)
+        # pairs that come in the other order must be near-ties
+        pb, sa = pair_b[paired], a[paired, 1]
+        inv = (pb[:, None] > pb[None, :]) & np.triu(
+            np.ones((len(pb), len(pb)), bool), 1)
+        far = inv & (np.abs(sa[:, None] - sa[None, :]) > 2 * atol)
+        if far.any():
+            j, k = np.argwhere(far)[0]
+            raise AssertionError(
+                f"decodes: image {i}: rows {a[paired[j]].tolist()} and "
+                f"{a[paired[k]].tolist()} come in the other order on the "
+                f"CPU, and their scores are more than {2 * atol} apart")
+        report["reordered_pairs"] += int(inv.sum())
+        unpaired = [np.flatnonzero(pair_b < 0), np.flatnonzero(~taken)]
+        for side in (0, 1):
+            mine, other = img[side], img[1 - side]
+            other_unpaired = set(unpaired[1 - side].tolist())
+            other_scores = np.asarray(scores[1 - side][i], np.float64)
+            report["unpaired"][side] += len(unpaired[side])
+            for j in unpaired[side]:
+                u = mine[j]
+                c, s = int(u[0]), u[1]
+                cause = None
+                if keep_k > -1 and len(other) >= keep_k and \
+                        s <= other[:, 1].min() + 2 * atol:
+                    cause = "keep_top_k"
+                elif s <= s_thr + atol:
+                    cause = "score_threshold"
+                elif -1 < top_k < other_scores.shape[1] and \
+                        s <= np.sort(other_scores[c])[-top_k] + atol:
+                    cause = "nms_top_k"
+                else:
+                    for k, v in enumerate(other):
+                        if v[0] != c or v[1] < s - 2 * atol:
+                            continue
+                        iou, slack = _iou_slack(u[2:], v[2:], atol)
+                        if iou + slack <= thr:
+                            continue
+                        if abs(v[1] - s) <= 2 * atol:
+                            cause = "nms_near_tie"
+                        elif iou - slack <= thr:
+                            cause = "nms_iou_near_threshold"
+                        elif k in other_unpaired:
+                            cause = "nms_chain"
+                        if cause:
+                            break
+                if cause is None:
+                    raise AssertionError(
+                        f"decodes: image {i}: row {u.tolist()} is kept on "
+                        f"the {('card', 'CPU')[side]} only, and no near-tie "
+                        f"on the {('CPU', 'card')[side]} explains it")
+                report[cause] += 1
+    return report
+
+
+def phase_detect_ssd(progs, exe, scope, profile_run=False):
+    """Decode ``SSD_DECODE`` fresh batches of 64 with phase 48's trained
+    weights through the test clone (softmax, transpose, ``detection_output``
+    with NMS 0.45, ``detection_map`` 11-point): ms a batch (CUDA events and
+    host clock), op dispatches and host syncs a batch (the host ops' reads:
+    ``multiclass_nms``' kept counts and ``detection_map``'s labels),
+    detections kept and mAP.  Then the same decode on a CPU scope holding
+    the same weights: its decoded boxes and softmax scores within
+    ``SSD_DECODE_ATOL`` of the card's; and the CPU's ``multiclass_nms`` and
+    ``detection_map`` over the card's boxes and scores: rows and LoD equal
+    to the card's, boxes and scores within ``SSD_DECODE_ATOL``, the same
+    mAP (the first differing row printed on a failure); that NMS and mAP
+    timed on each device (host clock, the feed's copy included).  The
+    whole CPU decode is held to the card's by :func:`compare_decodes`: fp32
+    convolutions and softmax on two devices part by ulps, which reorders
+    near-equal scores among the 1,917 x 20 candidates, so the rows are
+    held per image as multisets, every unpaired row shown to be a near-tie
+    and its cause counted; the rows equal in place and the CPU decode's
+    mAP are printed.  With ``--profile`` one more decode batch under the
+    profiler."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lod_tensor import LoDTensor
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    test = progs["test"]
+    labels = next(op.input("Label")[0] for op in test.global_block().ops
+                  if op.type == "detection_map")
+    fetches = [progs["decoded"], progs["scores"], progs["nmsed"].name,
+               progs["map"].name, labels]
+    rng = np.random.RandomState(1)
+    feeds = [ssd_batch(rng) for _ in range(SSD_DECODE)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    card, host_ms, device_ms = [], [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_host_syncs()
+    with counting_dispatches() as box:
+        for feed in feeds:
+            t0 = time.perf_counter()
+            start.record()
+            card.append(exe.run(test, feed=feed, fetch_list=fetches,
+                                scope=scope, return_numpy=False))
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(start.elapsed_time(end))
+    syncs = host_syncs()
+    counts = launch_counts()
+    check_launches("detect_ssd", counts, {}, SSD_DECODE)
+
+    def host(v):
+        return np.asarray(v) if isinstance(v, LoDTensor) \
+            else v.detach().cpu().numpy()
+
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu_exe.run(progs["startup"], scope=cpu_scope)
+    load_reference_params(cpu_scope, {
+        v.name: scope.get(v.name).detach().cpu().numpy()
+        for v in progs["startup"].list_vars() if v.persistable},
+        fluid.CPUPlace())
+    nms_main, nms_fetch = nms_program(fluid, test)
+    nms_attrs = {k: v for k, v in next(
+        op for op in test.global_block().ops
+        if op.type == "multiclass_nms").attrs.items()
+        if not k.startswith("op_")}
+    report = {"input_max_abs_err": 0.0, "cpu_decode_rows_equal": [],
+              "cpu_decode": [], "cpu_decode_map": []}
+    kept, maps, nms_ms = [], [], {"cpu": [], "card": []}
+    for feed, got in zip(feeds, card):
+        mine = cpu_exe.run(test, feed=feed, fetch_list=fetches,
+                           scope=cpu_scope, return_numpy=False)
+        for name, g, c in zip(fetches[:2], got, mine):
+            err = float(np.abs(host(g) - host(c)).max())
+            if err > SSD_DECODE_ATOL:
+                raise AssertionError(f"detect_ssd: {name} on the card is "
+                                     f"{err} from the CPU's")
+            report["input_max_abs_err"] = max(report["input_max_abs_err"],
+                                              err)
+        rows, lod = host(got[2]), got[2].lod()
+        both = rows.shape == host(mine[2]).shape and lod == mine[2].lod()
+        same = int(((np.abs(rows - host(mine[2])) <= SSD_DECODE_ATOL)
+                    .all(1)).sum()) if both else 0
+        report["cpu_decode_rows_equal"].append([same, len(rows)])
+        # the whole CPU decode: the same rows per image up to near-ties
+        report["cpu_decode"].append(compare_decodes(
+            (rows, lod[0]), (host(mine[2]), mine[2].lod()[0]),
+            (host(got[1]), host(mine[1])), nms_attrs, SSD_DECODE_ATOL))
+        report["cpu_decode_map"].append(float(host(mine[3])[0]))
+        # the CPU's NMS and mAP over the card's own boxes and scores, then
+        # the same two ops on the card, each timed
+        label = got[4]
+        nms_feed = {"nms_boxes": host(got[0]), "nms_scores": host(got[1]),
+                    "map_labels": LoDTensor(host(label), label.lod())}
+        t0 = time.perf_counter()
+        nms_rows, nms_map = cpu_exe.run(
+            nms_main, feed=nms_feed, fetch_list=nms_fetch,
+            scope=fluid.Scope(), return_numpy=False)
+        nms_ms["cpu"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(nms_main, feed=nms_feed, fetch_list=nms_fetch,
+                scope=fluid.Scope(), return_numpy=False)
+        torch.cuda.synchronize()
+        nms_ms["card"].append((time.perf_counter() - t0) * 1e3)
+        if nms_rows.lod() != lod or host(nms_rows).shape != rows.shape or \
+                not np.array_equal(host(nms_rows)[:, 0], rows[:, 0]) or \
+                not np.allclose(host(nms_rows), rows, rtol=0.0,
+                                atol=SSD_DECODE_ATOL):
+            raise AssertionError(
+                f"detect_ssd: the CPU's NMS over the card's inputs differs: "
+                f"{first_row_difference(rows, host(nms_rows))}, LoD "
+                f"{nms_rows.lod()} against {lod}")
+        if host(nms_map)[0] != host(got[3])[0]:
+            raise AssertionError(f"detect_ssd: mAP {host(got[3])} on the "
+                                 f"card, {host(nms_map)} on the CPU")
+        kept.append(int(rows.shape[0]) if rows.shape[1] == 6 else 0)
+        maps.append(float(host(got[3])[0]))
+    emit("detect_ssd", batches=SSD_DECODE, batch=SSD_BATCH, nms=nms_attrs,
+         host_ops=detection_host_ops(test), host_ms=host_ms,
+         device_ms=device_ms, op_dispatches_per_batch=box[0] / SSD_DECODE,
+         host_syncs_per_batch=syncs / SSD_DECODE, launches=counts,
+         detections_kept=kept, map_11point=maps,
+         cpu_nms_on_card_inputs="rows, LoD and mAP equal",
+         cpu_decode_held=("per image, the same rows as tolerance-matched "
+                          "multisets; each unpaired row a near-tie, "
+                          "counted by cause"),
+         nms_and_map_host_ms=nms_ms, atol=SSD_DECODE_ATOL, **report)
+    if profile_run:
+        profile_step("detect_ssd", lambda: exe.run(
+            test, feed=feeds[0], fetch_list=fetches[2:4], scope=scope),
+            {"conv": CONV_KEYS})
+
+
+def phase_train_ssd_parity():
+    """Card against CPU: the small SSD (``small_ssd``: ``tests/test_ssd.py``'s
+    shape under MobileNet-SSD's loss and optimizer) from one state,
+    ``SSD_PARITY_STEPS`` steps on a ragged batch (losses rtol 1e-5 at step
+    0, 1e-4 after; ``SSD_XENT_PER_STEP`` xent launches a step); then every
+    detection op on fed inputs over a ragged ground-truth batch
+    (:func:`_detection_program`): outputs, LoDs and the map's grad within
+    ``SEQ_PARITY_TOL``, integer outputs equal."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    progs = small_ssd(fluid)
+    feed = ssd_batch(np.random.RandomState(3), batch=SSD_SMALL_BATCH,
+                     image_shape=SSD_SMALL_IMAGE,
+                     num_classes=SSD_SMALL_CLASSES, boxes=(1, 3))
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    (cpu, card), counts, _ = parity_runs(
+        (progs["main"], progs["startup"], progs["loss"]), feed,
+        SSD_PARITY_STEPS, places)
+    check_launches("train_ssd_parity", counts, SSD_XENT_PER_STEP,
+                   SSD_PARITY_STEPS)
+    tol = np.array([1e-5] + [1e-4] * (SSD_PARITY_STEPS - 1))
+    rel = check_parity("train_ssd_parity", cpu, card, tol)
+    main, startup, fetches = _detection_program(fluid)
+    worst = compare_places("train_ssd_parity ops", main, startup,
+                           detection_feed(np.random.RandomState(5)), fetches,
+                           places)
+    rtol, atol = SEQ_PARITY_TOL
+    emit("train_ssd_parity", priors=progs["priors"], steps=SSD_PARITY_STEPS,
+         gt_lengths=feed["gt_box"][1][0], cpu_losses=cpu.tolist(),
+         card_losses=card.tolist(), rel_err=rel, rtol=tol.tolist(),
+         launches=counts, op_types=sorted(
+             {op.type for op in main.global_block().ops}),
+         op_fetches=len(fetches), op_max_abs_err=max(worst.values()),
+         op_worst=max(worst, key=worst.get),
+         op_tol={"rtol": rtol, "atol": atol})
+
+
+def phase_train_rcnn(profile_run=False):
+    """The RPN and RoI head of :func:`rcnn_heads` at Faster R-CNN's
+    widths on the card (2 images of 800 x 1344: a 1024 x 50 x 84 C4 map,
+    63,000 anchors an image, 12,000 / 2,000 proposals, 512 RoIs an image,
+    81 classes): ``RCNN_STEPS`` steps on fresh batches, samplers seeded:
+    finite losses, exactly 1 momentum launch for its 14 tensors and
+    ``RCNN_XENT_PER_STEP`` xent launches a step and no other kernel's;
+    RoIs and foreground RoIs a step, step ms (CUDA events and host clock),
+    op dispatches and host syncs a step (the host ops' reads of their
+    inputs), peak allocated; with ``--profile`` one more step under the
+    profiler.  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    progs = rcnn_heads(fluid)
+    main, loss = progs["main"], progs["loss"]
+    trainable_shapes(main, RCNN_MOMENTUM_TENSORS)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [rcnn_feed(rng) for _ in range(RCNN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_syncs()
+    with counting_dispatches() as box:
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feeds, [loss, progs["labels"]], scope, RCNN_STEPS)
+    syncs = host_syncs()
+    check_launches("train_rcnn", counts,
+                   {"momentum": MOMENTUM_PER_STEP,
+                    "momentum_tensors": RCNN_MOMENTUM_TENSORS,
+                    **RCNN_XENT_PER_STEP}, RCNN_STEPS)
+    losses = [float(o[0].reshape(-1)[0]) for o in out]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_rcnn: non-finite losses {losses}")
+    emit("train_rcnn", feature=[RCNN_IMAGES, *RCNN_FEAT],
+         image=list(RCNN_IM), classes=RCNN_CLASSES,
+         anchors_per_image=3 * len(RCNN_ANCHOR_SIZES) * RCNN_FEAT[1]
+         * RCNN_FEAT[2], pre_nms=RCNN_PRE_NMS, post_nms=RCNN_POST_NMS,
+         rois_per_image=RCNN_ROIS, steps=RCNN_STEPS,
+         gt_boxes=[int(f["gt_box"][0].shape[0]) for f in feeds],
+         losses=losses, launches=counts,
+         rois_per_step=[int(o[1].shape[0]) for o in out],
+         fg_rois_per_step=[int((o[1] > 0).sum()) for o in out],
+         host_step_ms=host_ms, device_step_ms=device_ms,
+         op_dispatches_per_step=box[0] / RCNN_STEPS,
+         host_syncs_per_step=syncs / RCNN_STEPS,
+         host_syncs_are=("one read each of generate_proposals', "
+                         "rpn_target_assign's, generate_proposal_labels' "
+                         "and roi_pool's inputs"),
+         host_ops=detection_host_ops(main),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if profile_run:
+        profile_step("train_rcnn", lambda: exe.run(
+            main, feed=feeds[0], fetch_list=[loss], scope=scope),
+            {"conv": CONV_KEYS, "gemm": GEMM_KEYS})
+    return counts
+
+
+def phase_rcnn_parity():
+    """Card against CPU: :func:`rcnn_heads` at ``RCNN_SMALL`` (8 channels,
+    a 12 x 16 map, the RPN's score and delta convs held at zero,
+    ``use_random`` False) from one state: ``RCNN_PARITY_STEPS`` steps'
+    losses (rtol 1e-5 at step 0, 1e-4 after; 1 momentum launch a step for
+    its 10 trainable tensors);
+    then one step's outputs of every op of the slice on it (anchors,
+    proposals, the RPN targets, the sampled RoIs and their targets, the
+    pooled features, the four losses and the feature map's grad) within
+    ``SEQ_PARITY_TOL``, integer outputs and LoDs equal; then the RPN alone
+    with its convs drawn and trained (:func:`phase_rpn_parity`)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    progs = rcnn_heads(fluid, **RCNN_SMALL)
+    feed = rcnn_feed(np.random.RandomState(7), **RCNN_SMALL_FEED)
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    (cpu, card), counts, _ = parity_runs(
+        (progs["main"], progs["startup"], progs["loss"]), feed,
+        RCNN_PARITY_STEPS, places)
+    check_launches("rcnn_parity", counts,
+                   {"momentum": MOMENTUM_PER_STEP,
+                    "momentum_tensors": RCNN_SMALL_MOMENTUM_TENSORS,
+                    **RCNN_XENT_PER_STEP}, RCNN_PARITY_STEPS)
+    tol = np.array([1e-5] + [1e-4] * (RCNN_PARITY_STEPS - 1))
+    rel = check_parity("rcnn_parity", cpu, card, tol)
+    main = progs["main"]
+    kinds = ("anchor_generator", "generate_proposals", "rpn_target_assign",
+             "generate_proposal_labels", "roi_pool")
+    fetches = [n for op in main.global_block().ops if op.type in kinds
+               for n in op.output_arg_names] + \
+        [v.name for v in progs["losses"]] + ["feature@GRAD"]
+    worst = compare_places("rcnn_parity ops", main, progs["startup"], feed,
+                           fetches, places)
+    rpn = phase_rpn_parity(feed, places)
+    rtol, atol = SEQ_PARITY_TOL
+    emit("rcnn_parity", config={k: v for k, v in RCNN_SMALL.items()},
+         steps=RCNN_PARITY_STEPS, cpu_losses=cpu.tolist(),
+         card_losses=card.tolist(), rel_err=rel, rtol=tol.tolist(),
+         launches=counts, op_fetches=len(fetches),
+         op_max_abs_err=max(worst.values()),
+         op_worst=max(worst, key=worst.get),
+         op_tol={"rtol": rtol, "atol": atol}, rpn=rpn)
+
+
+def phase_rpn_parity(feed, places):
+    """Card against CPU: the RPN alone (``RPN_SMALL``: its convs drawn and
+    trained) for ``RCNN_PARITY_STEPS`` steps from one state, every step's
+    :func:`rpn_fetches` held by :func:`check_rpn_step`; 1 momentum launch
+    a step for its 6 tensors.  Returns the numbers for ``rcnn_parity``'s
+    line."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    progs = rcnn_heads(fluid, **RPN_SMALL)
+    names = rpn_fetches(progs)
+    runs, init = [], None
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(progs["startup"], scope=scope)
+        if init is None:
+            init = {v.name: scope.get(v.name).detach().cpu().numpy().copy()
+                    for v in progs["startup"].list_vars() if v.persistable}
+        else:
+            load_reference_params(scope, init, place)
+        reset_launch_counts()
+        runs.append([exe.run(progs["main"], feed=feed, fetch_list=names,
+                             scope=scope)
+                     for _ in range(RCNN_PARITY_STEPS)])
+    counts = launch_counts()
+    check_launches("rcnn_parity rpn", counts,
+                   {"momentum": MOMENTUM_PER_STEP,
+                    "momentum_tensors": RPN_SMALL_MOMENTUM_TENSORS},
+                   RCNN_PARITY_STEPS)
+    worst = {}
+    for step, (want, got) in enumerate(zip(*runs)):
+        rtol = 1e-5 if step == 0 else 1e-4
+        for k, v in check_rpn_step(f"rcnn_parity rpn step {step}", names,
+                                   want, got, rtol).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    grads = [n for n in names if n.endswith("@GRAD")]
+    return {"config": {k: v for k, v in RPN_SMALL.items()},
+            "cpu_losses": [float(np.asarray(r[0]).reshape(-1)[0]
+                                 + np.asarray(r[1]).reshape(-1)[0])
+                           for r in runs[0]],
+            "card_losses": [float(np.asarray(r[0]).reshape(-1)[0]
+                                  + np.asarray(r[1]).reshape(-1)[0])
+                            for r in runs[1]],
+            "fetches": len(names), "grads": grads,
+            "grad_max_abs": [float(np.abs(np.asarray(v)).max())
+                             for n, v in zip(names, runs[1][0])
+                             if n.endswith("@GRAD")],
+            "worst_scaled_err": max(worst.values()),
+            "worst": max(worst, key=worst.get), "launches": counts}
+
+
 def main():
     import argparse
 
@@ -6059,6 +7302,8 @@ def main():
 
     paged = phase_kernel()
     xent_fwd, xent_bwd = phase_kernel_xent()
+    # the detection paths' shapes (their launches join the kernels line)
+    xent_fwd["by_model"], xent_bwd["by_model"] = phase_kernel_xent_by_model()
     torch.cuda.empty_cache()
     xent_amp = phase_kernel_xent_amp()
     torch.cuda.empty_cache()
@@ -6172,7 +7417,8 @@ def main():
     momentum["by_model"] = optimizer_at_model_shapes(
         phase_kernel_momentum, "momentum",
         [("se_resnext50", build_vision("se_resnext50")[0],
-          SE_MOMENTUM_TENSORS)])
+          SE_MOMENTUM_TENSORS),
+         ("rcnn_heads", rcnn_heads(fluid)["main"], RCNN_MOMENTUM_TENSORS)])
     add_counts(total, phase_train_bert_amp(args.profile))
     torch.cuda.empty_cache()
     phase_train_bert_parity()
@@ -6205,6 +7451,20 @@ def main():
     torch.cuda.empty_cache()
     add_counts(total, phase_train_ctc(args.profile))
     torch.cuda.empty_cache()
+    # the detection paths: rows 4-5 (ssd_loss, the R-CNN head's loss) and 6
+    detection = {}
+    counts, ssd, ssd_exe, ssd_scope = phase_train_ssd(args.profile)
+    add_counts(detection, counts)
+    phase_detect_ssd(ssd, ssd_exe, ssd_scope, args.profile)
+    del ssd, ssd_exe, ssd_scope
+    torch.cuda.empty_cache()
+    phase_train_ssd_parity()
+    add_counts(detection, phase_train_rcnn(args.profile))
+    torch.cuda.empty_cache()
+    phase_rcnn_parity()
+    add_counts(total, {"momentum": detection["momentum"]})
+    for k in (xent_fwd, xent_bwd):
+        k["launches"] += detection[k["name"]]
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)
     for k in flash_amp:  # the bf16 kernels at BERT-base's shape

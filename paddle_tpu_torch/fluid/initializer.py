@@ -82,6 +82,20 @@ class XavierInitializer(Initializer):
         return NormalInitializer(0.0, std, self._seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self._uniform, self._fan_in, self._seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fin, _ = _fan_in_out(var)
+        fin = self._fan_in if self._fan_in is not None else fin
+        if self._uniform:
+            limit = math.sqrt(6.0 / fin)
+            return UniformInitializer(-limit, limit, self._seed)(var, block)
+        std = math.sqrt(2.0 / fin)
+        return NormalInitializer(0.0, std, self._seed)(var, block)
+
+
 class NumpyArrayInitializer(Initializer):
     def __init__(self, value):
         self._value = np.asarray(value)
@@ -97,3 +111,4 @@ Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -4,7 +4,7 @@ SE-ResNeXt, VGG, the stacked LSTM) call, ``lod_reset`` /
 ``sequence_erase``, the losses (smooth L1, log, Huber, rank) and the
 structured losses (linear-chain CRF and its decoding, NCE, hierarchical
 sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
-copied so the same calls emit the same IR."""
+and ``flatten``, copied so the same calls emit the same IR."""
 
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ __all__ = [
     "paged_attention", "token_select", "autoincreased_step_counter",
     "lod_reset", "sequence_erase", "im2sequence", "smooth_l1", "log_loss",
     "huber_loss", "rank_loss", "linear_chain_crf", "crf_decoding", "nce",
-    "hsigmoid", "warpctc", "edit_distance", "ctc_greedy_decoder",
+    "hsigmoid", "warpctc", "edit_distance", "ctc_greedy_decoder", "flatten",
 ]
 
 
@@ -901,3 +901,18 @@ def ctc_greedy_decoder(input, blank, name=None):
         outputs={"Output": [ctc_out]},
         attrs={"merge_repeated": True, "blank": blank})
     return ctc_out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        lead, rest = x.shape[:axis], x.shape[axis:]
+        rows = -1 if any(d in (-1, None) for d in lead) else \
+            int(np.prod(lead)) if lead else 1
+        cols = -1 if any(d in (-1, None) for d in rest) else \
+            int(np.prod(rest)) if rest else 1
+        out.shape = (rows, cols)
+    helper.append_op(type="flatten", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out

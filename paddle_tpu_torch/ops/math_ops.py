@@ -148,6 +148,10 @@ def sum_op(ctx):
         for v in sparse:
             out.index_add_(0, v.rows, v.values.to(out.dtype))
         return {"Out": out}
+    if len(xs) == 1:
+        # one input left (a grad op gave no partial for the others): a copy,
+        # so the Executor never takes it for the input updated in place
+        return {"Out": xs[0].clone()}
     out = xs[0]
     for v in xs[1:]:
         out = out + v

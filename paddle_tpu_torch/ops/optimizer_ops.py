@@ -1,16 +1,18 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``):
-sgd, momentum and adam, each updating its state IN PLACE.
+sgd, momentum, adam and rmsprop, each updating its state IN PLACE.
 Momentum and adam also register a group hook: the Executor hands a run of
 consecutive such ops with equal attrs to it at once, and one kernel
 launch updates every parameter of the run.
 A SelectedRows grad (``lookup_table(is_sparse=True)``) reaches sgd as it
-is: only the looked-up rows move.  Momentum and adam fold it into a dense
-grad first (:func:`_grad`), as the reference does.  The other optimizers'
-ops (adagrad, adamax, decayed_adagrad, adadelta, rmsprop, ftrl,
+is: only the looked-up rows move.  Momentum, adam and rmsprop fold it into
+a dense grad first (:func:`_grad`), as the reference does.  The other
+optimizers' ops (adagrad, adamax, decayed_adagrad, adadelta, ftrl,
 proximal_gd, proximal_adagrad) are not registered yet: their programs
 build, and running them raises ``NotImplementedError``."""
 
 from __future__ import annotations
+
+import torch
 
 from . import fused
 from .registry import register_group, register_op
@@ -104,3 +106,21 @@ def adam_group(ctxs):
     return [{"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
              "Beta1PowOut": b1p, "Beta2PowOut": b2p}
             for p, m1, m2, b1p, b2p in zip(ps, m1s, m2s, b1ps, b2ps)]
+
+
+@register_op("rmsprop", no_grad_inputs=("Param", "Grad", "MeanSquare",
+                                        "Moment", "LearningRate"))
+def rmsprop(ctx):
+    """``MeanSquare = decay·MeanSquare + (1 − decay)·g²``, ``Moment =
+    momentum·Moment + lr·g / √(MeanSquare + ε)``, ``Param −= Moment``, in
+    place, in the reference's order of operations (plain PyTorch: the
+    reference's rmsprop is no Pallas kernel)."""
+    p, ms, mom = ctx.input("Param"), ctx.input("MeanSquare"), \
+        ctx.input("Moment")
+    g = _grad(ctx)
+    decay = ctx.attr("decay", 0.9)
+    ms.mul_(decay).add_((1.0 - decay) * g * g)
+    mom.mul_(ctx.attr("momentum", 0.0)).add_(
+        _lr(ctx) * g / torch.sqrt(ms + ctx.attr("epsilon", 1e-10)))
+    p.sub_(mom)
+    return {"ParamOut": p, "MeanSquareOut": ms, "MomentOut": mom}

@@ -147,8 +147,10 @@ REGISTRY: Dict[str, OpDef] = {}
 # holds one, in any block, cannot run as a captured window
 # (``Executor.run_steps``).  Of them the port has ``sequence_erase``,
 # ``sub_nested_seq``, ``split_lod_tensor``, ``merge_lod_tensor``,
-# ``is_empty``, the beam ops and the host metric ops ``chunk_eval``,
-# ``ctc_align`` and ``edit_distance``.
+# ``is_empty``, the beam ops, the host metric ops ``chunk_eval``,
+# ``ctc_align`` and ``edit_distance``, and the detection host ops
+# ``multiclass_nms``, ``generate_proposals``, ``rpn_target_assign``,
+# ``generate_proposal_labels`` and ``detection_map``.
 EAGER_OPS = frozenset([
     "split_lod_tensor", "merge_lod_tensor", "beam_search",
     "beam_search_decode", "beam_search_pack", "is_empty", "multiclass_nms",
@@ -236,7 +238,8 @@ def run_grad_generic(fwd_def: OpDef, ctx: ExecContext) -> Dict[str, Any]:
     ``<out_slot>@GRAD`` slots; ``ctx.outputs_spec`` names the wanted
     ``<in_slot>@GRAD`` outputs.  The differentiable float inputs are
     detached and made leaves; integer inputs and ``no_grad_inputs`` stay
-    as they are.  ``<slot>@LOD`` companions of the forward's inputs pass
+    as they are; with no input to differentiate, the forward is not re-run.
+    ``<slot>@LOD`` companions of the forward's inputs pass
     through to the forward impl; those of the grads (``Out@GRAD@LOD``)
     are dropped, and neither is ever a grad or a leaf.  A forward output
     whose grad is missing gets a zero cotangent, as in the reference."""
@@ -250,6 +253,10 @@ def run_grad_generic(fwd_def: OpDef, ctx: ExecContext) -> Dict[str, Any]:
         slot = out_slot[:-len(GRAD_SUFFIX)]
         if slot not in fwd_def.no_grad_inputs:
             want.append(slot)
+    if not want:
+        # no input takes a grad: nothing to re-run the forward for (a host
+        # op's forward, such as ``generate_proposals``' NMS, is costly)
+        return {}
     out_grads = {slot[:-len(GRAD_SUFFIX)]: vals
                  for slot, vals in ctx.inputs.items()
                  if slot.endswith(GRAD_SUFFIX)

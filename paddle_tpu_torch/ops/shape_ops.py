@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``paddle_tpu/ops/shape_ops.py``): reshape,
-transpose, concat, split, slice, gather and one_hot."""
+transpose, concat, split, slice, gather, one_hot and flatten."""
 
 from __future__ import annotations
 
@@ -27,6 +27,17 @@ def _infer_reshape(shape_attr, x):
 def reshape(ctx):
     x = ctx.input("X")
     return {"Out": x.reshape(_infer_reshape(ctx.attr("shape"), x))}
+
+
+@register_op("flatten")
+def flatten(ctx):
+    """To 2-D: the dims before ``axis`` make the rows (1 row at axis 0)."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 1)
+    lead = 1
+    for d in x.shape[:axis]:
+        lead *= int(d)
+    return {"Out": x.reshape(lead, -1)}
 
 
 @register_op("transpose")
