@@ -48,11 +48,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    one_hot + label_smooth, and hard labels with
                    ignore_index rows; bitwise repeatability; kernel, plain,
                    library and bound times.  Then ``kernel_xent_ssd`` and
-                   ``kernel_xent_rcnn_heads``: the same checks and times
-                   with hard labels at the detection paths' shapes
-                   (122,688 x 21 and 1,024 x 81, the kernels' scalar
-                   loads; the kernels line's xent entries carry them,
-                   ``by_model``)
+                   ``kernel_xent_rcnn_heads`` at the detection paths'
+                   shapes (122,688 x 21 and 1,024 x 81, the narrow
+                   layout): every kernel entry (fp32 / bf16 / fp16 logits;
+                   hard labels with ignored and out-of-range rows; soft
+                   labels) against its plain version, bitwise repeatable;
+                   kernel, plain, F.cross_entropy and fwd + bwd pair times
+                   as CUDA-graph replays over cold input sets (the kernels
+                   line's xent entries carry them, ``by_model``, and the
+                   main path's launches by layout)
  5. kernel_xent_amp - the same with bf16 and fp16 logits (soft labels
                    fp32): loss and lse at the fp32 tolerance, dx within 1
                    ulp of its dtype, bitwise repeatability; kernel, plain,
@@ -105,7 +109,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    attention) through ``fluid.Executor()`` on the card, 5
                    steps at batch 64 x length 256 on one batch: finite,
                    falling loss, and exactly 1 Adam launch for 184 tensors,
-                   2 xent-forward and 1 xent-backward launches a step; op
+                   2 xent-forward and 1 xent-backward launches a step,
+                   all on the wide layout; op
                    dispatches a step; step time, target
                    tokens/s and peak memory; then two more steps fetch the
                    first dropout's tensors: Out = X * Mask, X@GRAD =
@@ -405,7 +410,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    RMSProp on ``piecewise_decay`` with L2 decay, fp32) on
                    synthetic VOC-shaped batches, 5 fresh steps: finite
                    losses, no host sync, exactly 3 xent-forward and 1
-                   xent-backward launches a step and no other kernel's;
+                   xent-backward launches a step, all on the narrow
+                   layout, and no other kernel's;
                    images/s, step ms (CUDA events and host clock), op
                    dispatches and ``bipartite_match`` steps a step, peak
                    allocated
@@ -430,8 +436,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    image, 12,000 / 2,000 proposals, 512 RoIs an image, 81
                    classes), Momentum 0.9, 3 seeded steps: finite losses,
                    exactly 1 momentum launch for 14 tensors and 2 / 1 xent
-                   launches a step; RoIs and foreground RoIs, step ms, op
-                   dispatches and host syncs a step (the host ops' reads),
+                   launches a step (narrow layout); RoIs and foreground
+                   RoIs, step ms, op dispatches and host syncs a step (the
+                   host ops' reads),
                    peak allocated; ``kernel_momentum_rcnn_heads`` holds row
                    6 at its 14 shapes
 52. rcnn_parity  - the head at 8 channels on a 12 x 16 map, the RPN's score
@@ -1616,15 +1623,112 @@ def phase_kernel_xent():
          "bound_by": bwd_by, "library_ms": None})
 
 
+# the narrow shapes' timing graphs cycle through input sets of at least
+# twice the 50 MB L2 in all, so every call finds its inputs cold
+XENT_COLD_BYTES = 100e6
+
+
+def xent_layout_counts():
+    """The xent launches by the layout the kernel entry took, by name."""
+    from paddle_tpu_torch.ops import fused
+
+    return {f"softmax_xent_{d}_{layout}":
+            getattr(fused, f"xent_{d}_launches_by_layout")[layout]
+            for d in ("fwd", "bwd") for layout in ("narrow", "wide")}
+
+
+def check_xent_layout(phase, layout):
+    """Every xent launch since the counters were last zeroed took
+    ``layout`` (``narrow`` or ``wide``); returns the counts by layout."""
+    from paddle_tpu_torch.ops import fused
+
+    counts = xent_layout_counts()
+    for d, total in (("fwd", fused.xent_fwd_launches),
+                     ("bwd", fused.xent_bwd_launches)):
+        if counts[f"softmax_xent_{d}_{layout}"] != total:
+            raise AssertionError(f"{phase}: {total} xent {d} launches, "
+                                 f"by layout {counts}; expected all "
+                                 f"{layout}")
+    return counts
+
+
+def rotating_graph_ms(fn, sets):
+    """``graph_time_ms`` of ``fn(*set)`` with each captured call reading
+    the next of ``sets`` in turn (all of them at least once)."""
+    import itertools
+
+    turn = itertools.count()
+    return graph_time_ms(lambda: fn(*sets[next(turn) % len(sets)]),
+                         calls=max(20, len(sets)))
+
+
+def _check_narrow_entry(what, x, lab, soft, ignore):
+    """One kernel entry at a narrow shape against its plain version: loss,
+    lse (and sum y) within ``ATOL`` / ``RTOL``, dx within ``DX_ATOL`` (fp32
+    logits) or ``XENT_DX_ULPS`` ulp of its dtype, each output of two
+    launches bitwise equal, ignored rows' loss 0.  Returns the errors."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused
+
+    loss, lse, sum_y = fused.softmax_xent_fwd(x, lab, soft, ignore)
+    again = fused.softmax_xent_fwd(x, lab, soft, ignore)
+    torch.cuda.synchronize()
+    want = fused.softmax_xent_fwd_ref(x, lab, soft, ignore)
+    errs = {}
+    for name, got, second, ref in zip(("loss", "lse", "sum_y"),
+                                      (loss, lse, sum_y), again, want):
+        if got is None:
+            continue
+        if not torch.equal(got, second):
+            raise AssertionError(f"{what}: {name} is not bitwise repeatable")
+        if not bool((got - ref).abs().le(ATOL + RTOL * ref.abs()).all()):
+            raise AssertionError(f"{what}: {name} disagrees with the plain "
+                                 f"version: max abs/rel err "
+                                 f"{_max_errs(got, ref)}")
+        errs[f"{name}_err"] = _max_errs(got, ref)
+    if not soft and not bool((loss[lab == ignore] == 0).all()):
+        raise AssertionError(f"{what}: ignored rows have a nonzero loss")
+    g1, g2 = fused.xent_bwd_coeffs(lab, want[2], torch.ones_like(want[1]),
+                                   None, soft, ignore)
+    dx = fused.softmax_xent_bwd(x, lab, want[1], g1, g2, soft)
+    dx2 = fused.softmax_xent_bwd(x, lab, want[1], g1, g2, soft)
+    torch.cuda.synchronize()
+    rdx = fused.softmax_xent_bwd_ref(x, lab, want[1], g1, g2, soft)
+    if dx.dtype != x.dtype or not torch.equal(dx, dx2):
+        raise AssertionError(f"{what}: dx has dtype {dx.dtype}, or is not "
+                             f"bitwise repeatable")
+    errs["dx_max_abs_err"] = float((dx.float() - rdx.float()).abs().max())
+    if x.dtype == torch.float32:
+        if not errs["dx_max_abs_err"] <= DX_ATOL:
+            raise AssertionError(f"{what}: dx disagrees with the plain "
+                                 f"version: max abs err "
+                                 f"{errs['dx_max_abs_err']}")
+    else:
+        errs["dx_max_ulps"] = ulp_err(dx, rdx)
+        if not errs["dx_max_ulps"] <= XENT_DX_ULPS:
+            raise AssertionError(f"{what}: dx disagrees with the plain "
+                                 f"version by {errs['dx_max_ulps']} ulp")
+    return errs
+
+
 def phase_kernel_xent_by_model():
-    """The fp32 xent kernels at the detection paths' shapes, hard labels
-    (``ssd_loss`` on 64 x 1,917 priors x 21 classes, the R-CNN head on 2 x
-    512 RoIs x 81 classes; neither width is a multiple of 4, so both run
-    the kernels' scalar loads): loss and lse within ``ATOL`` / ``RTOL``,
-    dx within ``DX_ATOL`` of the plain versions, two launches bitwise
-    equal; kernel, plain, bound and (forward) ``F.cross_entropy`` times, a
-    line each (``kernel_xent_<model>``).  Returns the forward's and the
-    backward's numbers by model."""
+    """The xent kernels at the detection paths' shapes (``ssd_loss`` on 64
+    x 1,917 priors x 21 classes, the R-CNN head on 2 x 512 RoIs x 81
+    classes), which take the narrow layout.  Every kernel entry (fp32,
+    bf16 and fp16 logits; hard labels with ignored rows and two rows
+    outside ``[0, V)``, also from logits that are not 16-byte aligned;
+    soft labels in fp32 and in the logits' dtype) against its plain
+    version (``_check_narrow_entry``), two launches bitwise equal.  Then, fp32 with hard labels as the paths run them,
+    the times of kernel, plain version and ``F.cross_entropy``, and of the
+    forward + backward pair under autograd beside ``F.cross_entropy``'s:
+    CUDA-graph replays (a wrapper's host time passes these kernels'
+    device time) over input sets of ``XENT_COLD_BYTES`` in all, so every
+    call reads cold inputs as the bound assumes.  A line each
+    (``kernel_xent_<model>``).  Returns the forward's and the backward's
+    numbers by model."""
+    import math
+
     import torch
     import torch.nn.functional as F
 
@@ -1636,68 +1740,98 @@ def phase_kernel_xent_by_model():
     for name, r, v in (("ssd", SSD_BATCH * SSD_PRIORS, SSD_CLASSES),
                        ("rcnn_heads", RCNN_IMAGES * RCNN_ROIS,
                         RCNN_CLASSES)):
-        x = torch.randn(r, v, generator=gen, device=device) * 2
-        ids = torch.randint(0, v, (r,), generator=gen, device=device)
-        loss, lse, _ = fused.softmax_xent_fwd(x, ids, False)
-        loss2, lse2, _ = fused.softmax_xent_fwd(x, ids, False)
-        torch.cuda.synchronize()
-        rloss, rlse, _ = fused.softmax_xent_fwd_ref(x, ids, False)
-        if not (torch.equal(loss, loss2) and torch.equal(lse, lse2)):
-            raise AssertionError(f"xent forward at {name}'s shape is not "
-                                 f"bitwise repeatable")
-        for what, got, want in (("loss", loss, rloss), ("lse", lse, rlse)):
-            if not bool((got - want).abs().le(ATOL + RTOL * want.abs())
-                        .all()):
-                raise AssertionError(
-                    f"xent forward at {name}'s shape: {what} disagrees with "
-                    f"the plain version: max abs/rel err "
-                    f"{_max_errs(got, want)}")
-        g1, g2 = fused.xent_bwd_coeffs(ids, None, torch.ones_like(rlse),
-                                       None, False)
-        dx = fused.softmax_xent_bwd(x, ids, rlse, g1, g2, False)
-        dx2 = fused.softmax_xent_bwd(x, ids, rlse, g1, g2, False)
-        torch.cuda.synchronize()
-        rdx = fused.softmax_xent_bwd_ref(x, ids, rlse, g1, g2, False)
-        if not torch.equal(dx, dx2):
-            raise AssertionError(f"xent backward at {name}'s shape is not "
-                                 f"bitwise repeatable")
-        dx_err = float((dx - rdx).abs().max())
-        if not dx_err <= DX_ATOL:
-            raise AssertionError(f"xent backward at {name}'s shape disagrees "
-                                 f"with the plain version: max abs err "
-                                 f"{dx_err}")
-        fwd_ms = cuda_time_ms(lambda: fused.softmax_xent_fwd(x, ids, False),
-                              20)
-        fwd_plain = cuda_time_ms(
-            lambda: fused.softmax_xent_fwd_ref(x, ids, False), 20)
-        fwd_lib = cuda_time_ms(
-            lambda: F.cross_entropy(x, ids, reduction="none"), 20)
-        bwd_ms = cuda_time_ms(
-            lambda: fused.softmax_xent_bwd(x, ids, lse, g1, g2, False), 20)
-        bwd_plain = cuda_time_ms(
-            lambda: fused.softmax_xent_bwd_ref(x, ids, lse, g1, g2, False),
-            20)
+        wide_before = (fused.xent_fwd_launches_by_layout["wide"],
+                       fused.xent_bwd_launches_by_layout["wide"])
+        checks, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+        ids = torch.randint(1, v, (r,), generator=gen, device=device)
+        ids[::7] = XENT_IGNORE
+        ids[1], ids[2] = -5, v + 3  # outside [0, V): they pick nothing
+        y = torch.rand(r, v, generator=gen, device=device)
+        y /= y.sum(-1, keepdim=True)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                           (torch.float16, "f16")):
+            x = (torch.randn(r, v, generator=gen, device=device) * 2).to(
+                dtype)
+            # a view one row into its buffer: x not 16-byte aligned, so
+            # the tiles come by plain loads
+            shifted = torch.cat([x[:1], x])[1:]
+            cases = [("hard", x, ids, False, XENT_IGNORE),
+                     ("soft_f32", x, y, True, -100),
+                     ("hard_unaligned", shifted, ids, False, XENT_IGNORE)]
+            if dtype != torch.float32:
+                cases.append((f"soft_{tag}", x, y.to(dtype), True, -100))
+            for kind, xs, lab, soft, ignore in cases:
+                errs = _check_narrow_entry(
+                    f"xent at {name}'s shape ({tag}, {kind})", xs, lab, soft,
+                    ignore)
+                checks[f"{tag}_{kind}"] = errs
+                worst["fwd"] = max(worst["fwd"], *(
+                    errs[k][0] for k in ("loss_err", "lse_err")))
+                worst["bwd"] = max(worst["bwd"], errs["dx_max_abs_err"])
+        if wide_before != (fused.xent_fwd_launches_by_layout["wide"],
+                           fused.xent_bwd_launches_by_layout["wide"]):
+            raise AssertionError(f"xent at {name}'s shape took the wide "
+                                 f"layout")
+        # times: fp32 hard labels, all in [0, V) (F.cross_entropy asserts
+        # on others), every 7th row ignored
+        per_set = r * v * 4 + r * 8
+        n_sets = max(1, math.ceil(XENT_COLD_BYTES / per_set))
+        sets = []
+        for _ in range(n_sets):
+            x = torch.randn(r, v, generator=gen, device=device) * 2
+            lab = torch.randint(0, v, (r,), generator=gen, device=device)
+            lab[::7] = XENT_IGNORE
+            _, lse, _ = fused.softmax_xent_fwd(x, lab, False, XENT_IGNORE)
+            g1, g2 = fused.xent_bwd_coeffs(lab, None, torch.ones_like(lse),
+                                           None, False, XENT_IGNORE)
+            sets.append((x, lab, lse, g1, g2, x.detach().requires_grad_()))
+        ones = torch.ones(r, device=device)
+
+        def kernel_pair(x, lab, lse, g1, g2, xr):
+            loss, _ = fused.SoftmaxXent.apply(xr, lab, False, XENT_IGNORE)
+            return torch.autograd.grad(loss[:, 0], xr, ones)
+
+        def library_pair(x, lab, lse, g1, g2, xr):
+            loss = F.cross_entropy(xr, lab, reduction="none",
+                                   ignore_index=XENT_IGNORE)
+            return torch.autograd.grad(loss, xr, ones)
+
+        t = {"fwd_ms": lambda x, lab, *_: fused.softmax_xent_fwd(
+                 x, lab, False, XENT_IGNORE),
+             "fwd_plain_ms": lambda x, lab, *_: fused.softmax_xent_fwd_ref(
+                 x, lab, False, XENT_IGNORE),
+             "fwd_library_ms": lambda x, lab, *_: F.cross_entropy(
+                 x, lab, reduction="none", ignore_index=XENT_IGNORE),
+             "bwd_ms": lambda x, lab, lse, g1, g2, _: fused.softmax_xent_bwd(
+                 x, lab, lse, g1, g2, False),
+             "bwd_plain_ms": lambda x, lab, lse, g1, g2, _:
+                 fused.softmax_xent_bwd_ref(x, lab, lse, g1, g2, False),
+             "fwd_bwd_pair_ms": kernel_pair,
+             "library_fwd_bwd_pair_ms": library_pair}
+        times = {k: rotating_graph_ms(fn, sets) for k, fn in t.items()}
         fwd_bound, fwd_by = xent_bound_ms(r, v, False, backward=False)
         bwd_bound, bwd_by = xent_bound_ms(r, v, False, backward=True)
-        errs = {"loss_err": _max_errs(loss, rloss),
-                "lse_err": _max_errs(lse, rlse), "dx_max_abs_err": dx_err}
-        emit(f"kernel_xent_{name}", rows=r, classes=v, labels="hard",
-             vectorized=v % 4 == 0, atol=ATOL, rtol=RTOL, dx_atol=DX_ATOL,
-             bitwise_repeat=True, **errs, fwd_ms=fwd_ms,
-             fwd_plain_ms=fwd_plain, fwd_library_ms=fwd_lib,
-             fwd_bound_ms=fwd_bound, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
-             bwd_bound_ms=bwd_bound)
-        fwd_out[name] = {"shape": [r, v],
-                         "max_abs_err": max(errs["loss_err"][0],
-                                            errs["lse_err"][0]),
-                         "ms": fwd_ms, "plain_ms": fwd_plain,
+        emit(f"kernel_xent_{name}", rows=r, classes=v, layout="narrow",
+             atol=ATOL, rtol=RTOL, dx_atol=DX_ATOL, dx_ulps=XENT_DX_ULPS,
+             bitwise_repeat=True, checks=checks, timing={
+                 "method": "CUDA-graph replays", "input_sets": n_sets,
+                 "bytes_per_set": per_set, "labels": "hard, fp32 logits"},
+             **times, fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound)
+        fwd_out[name] = {"shape": [r, v], "layout": "narrow",
+                         "max_abs_err": worst["fwd"], "ms": times["fwd_ms"],
+                         "plain_ms": times["fwd_plain_ms"],
                          "bound_ms": fwd_bound, "bound_by": fwd_by,
-                         "library_ms": fwd_lib}
-        bwd_out[name] = {"shape": [r, v], "max_abs_err": dx_err,
-                         "ms": bwd_ms, "plain_ms": bwd_plain,
+                         "library_ms": times["fwd_library_ms"]}
+        bwd_out[name] = {"shape": [r, v], "layout": "narrow",
+                         "max_abs_err": worst["bwd"], "ms": times["bwd_ms"],
+                         "plain_ms": times["bwd_plain_ms"],
                          "bound_ms": bwd_bound, "bound_by": bwd_by,
-                         "library_ms": None}
-        del x, ids, loss, loss2, lse, lse2, dx, dx2, rdx, g1, g2
+                         "library_ms": None,
+                         "fwd_bwd_pair_ms": times["fwd_bwd_pair_ms"],
+                         "library_fwd_bwd_pair_ms":
+                             times["library_fwd_bwd_pair_ms"]}
+        del sets, x, ids, y
+        torch.cuda.empty_cache()
     return fwd_out, bwd_out
 
 
@@ -2856,6 +2990,8 @@ def phase_train(progs, profile_run=False, flash=False, beside=None,
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} training "
                              f"steps: {counts}, expected {want}")
+    # the Transformer's 30,000-wide rows take the block-a-row layout
+    counts.update(check_xent_layout(phase, "wide"))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -6745,6 +6881,7 @@ def phase_train_ssd(profile_run=False):
     syncs = host_syncs()
     iterations = detection_ops.stats["match_iterations"]
     check_launches("train_ssd", counts, SSD_XENT_PER_STEP, SSD_STEPS)
+    counts.update(check_xent_layout("train_ssd", "narrow"))
     losses = [float(o[0].reshape(-1)[0]) for o in out]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train_ssd: non-finite losses {losses}")
@@ -6771,7 +6908,7 @@ def phase_train_ssd(profile_run=False):
     if profile_run:
         profile_step("train_ssd", lambda: exe.run(
             main, feed=feeds[0], fetch_list=[loss], scope=scope),
-            {"conv": CONV_KEYS, "gemm": GEMM_KEYS})
+            {"conv": CONV_KEYS, "gemm": GEMM_KEYS, "xent": ("xent_",)})
     return counts, progs, exe, scope
 
 
@@ -7101,6 +7238,7 @@ def phase_train_ssd_parity():
         SSD_PARITY_STEPS, places)
     check_launches("train_ssd_parity", counts, SSD_XENT_PER_STEP,
                    SSD_PARITY_STEPS)
+    counts.update(check_xent_layout("train_ssd_parity", "narrow"))
     tol = np.array([1e-5] + [1e-4] * (SSD_PARITY_STEPS - 1))
     rel = check_parity("train_ssd_parity", cpu, card, tol)
     main, startup, fetches = _detection_program(fluid)
@@ -7153,6 +7291,7 @@ def phase_train_rcnn(profile_run=False):
                    {"momentum": MOMENTUM_PER_STEP,
                     "momentum_tensors": RCNN_MOMENTUM_TENSORS,
                     **RCNN_XENT_PER_STEP}, RCNN_STEPS)
+    counts.update(check_xent_layout("train_rcnn", "narrow"))
     losses = [float(o[0].reshape(-1)[0]) for o in out]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train_rcnn: non-finite losses {losses}")
@@ -7176,7 +7315,7 @@ def phase_train_rcnn(profile_run=False):
     if profile_run:
         profile_step("train_rcnn", lambda: exe.run(
             main, feed=feeds[0], fetch_list=[loss], scope=scope),
-            {"conv": CONV_KEYS, "gemm": GEMM_KEYS})
+            {"conv": CONV_KEYS, "gemm": GEMM_KEYS, "xent": ("xent_",)})
     return counts
 
 
@@ -7205,6 +7344,7 @@ def phase_rcnn_parity():
                    {"momentum": MOMENTUM_PER_STEP,
                     "momentum_tensors": RCNN_SMALL_MOMENTUM_TENSORS,
                     **RCNN_XENT_PER_STEP}, RCNN_PARITY_STEPS)
+    counts.update(check_xent_layout("rcnn_parity", "narrow"))
     tol = np.array([1e-5] + [1e-4] * (RCNN_PARITY_STEPS - 1))
     rel = check_parity("rcnn_parity", cpu, card, tol)
     main = progs["main"]
@@ -7321,6 +7461,10 @@ def main():
     counts, unfused = phase_train(progs, args.profile)
     for k in (xent_fwd, xent_bwd, adam):
         k["launches"] = counts[k["name"]]
+    for k in (xent_fwd, xent_bwd):
+        k["launches_by_layout"] = {
+            layout: counts[f"{k['name']}_{layout}"]
+            for layout in ("narrow", "wide")}
     torch.cuda.empty_cache()
     phase_train_parity()
     torch.cuda.empty_cache()
@@ -7465,6 +7609,9 @@ def main():
     add_counts(total, {"momentum": detection["momentum"]})
     for k in (xent_fwd, xent_bwd):
         k["launches"] += detection[k["name"]]
+        for layout in ("narrow", "wide"):
+            k["launches_by_layout"][layout] += detection[
+                f"{k['name']}_{layout}"]
     for k in (*flash_amp, *xent_amp, adam, momentum):
         k["launches"] += total.get(k["name"], 0)
     for k in flash_amp:  # the bf16 kernels at BERT-base's shape

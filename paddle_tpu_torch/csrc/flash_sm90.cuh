@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 / fp16 flash forward and
 // dK/dV kernels (flash_attention.cu): mbarriers, TMA tile loads through
 // tensor maps, shared-memory matrix descriptors and warpgroup matrix
-// multiplies (wgmma), all in inline PTX.
+// multiplies (wgmma), all in inline PTX.  The narrow-row softmax cross
+// entropy (softmax_xent.cu) takes the mbarriers and the plain bulk copy.
 //
 // Tiles are loaded by TMA with the tensor map's swizzle of span S = 32, 64
 // or 128 bytes, one row of S bytes per matrix row (a panel of S / 2
@@ -93,6 +94,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// global -> shared: `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned), no tensor map; completion reported to the
+// mbarrier as bytes, as tma_load_3d's
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -28,7 +28,10 @@ kernels take float32, bfloat16 or float16 logits (soft labels float32 or
 the logits' dtype), compute in fp32, and write ``dx`` in the logits'
 dtype; the optimizer kernels take float32.  ``xent_fwd_launches``,
 ``xent_bwd_launches`` (with ``xent_fwd_launches_by_dtype`` /
-``xent_bwd_launches_by_dtype`` splitting them by the logits' dtype),
+``xent_bwd_launches_by_dtype`` splitting them by the logits' dtype, and
+``xent_fwd_launches_by_layout`` / ``xent_bwd_launches_by_layout`` by the
+kernels' layout: ``narrow``, tiles of whole rows, for rows of up to 256
+logits forward and 128 backward, or ``wide``, a block a row),
 ``adam_launches`` and ``momentum_launches`` count kernel launches, so a
 run can show the main path went through them; ``adam_tensors`` and
 ``momentum_tensors`` count the parameters those launches updated.
@@ -53,6 +56,9 @@ xent_bwd_launches = 0
 #: the xent launches by the logits' dtype (their sums are the totals above)
 xent_fwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
 xent_bwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
+#: ... and by the layout the kernel entry chose (``pta_xent_layout``)
+xent_fwd_launches_by_layout = {"narrow": 0, "wide": 0}
+xent_bwd_launches_by_layout = {"narrow": 0, "wide": 0}
 adam_launches = 0
 momentum_launches = 0
 #: parameters the Adam and momentum launches updated since the last reset
@@ -82,6 +88,9 @@ def _lib(name):
                     + [ctypes.c_void_p] * 4
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
                 fwd.restype = bwd.restype = ctypes.c_int
+            lib.pta_xent_layout.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int]
+            lib.pta_xent_layout.restype = ctypes.c_int
             lib.pta_xent_error_string.argtypes = [ctypes.c_int]
             lib.pta_xent_error_string.restype = ctypes.c_char_p
         elif name == "momentum":
@@ -168,6 +177,14 @@ def _xent_entry(kind, x, label, soft):
     return f"pta_xent_{kind}_{sx}_{sy}"
 
 
+def _xent_layout(lib, x, backward):
+    """``"narrow"`` or ``"wide"``: the layout the forward or backward
+    kernel entry takes for logits ``x`` (the C library's own rule,
+    ``pta_xent_layout``)."""
+    r, v = x.shape
+    return ("wide", "narrow")[lib.pta_xent_layout(r, v, int(backward))]
+
+
 def _f32(t):
     """``t`` in fp32 if it is bf16 / fp16 (the kernels widen every value as
     they read it), else as it is."""
@@ -226,6 +243,7 @@ def softmax_xent_fwd(x, label, soft, ignore_index=-100):
         _raise(lib.pta_xent_error_string, rc, "softmax_xent forward")
     xent_fwd_launches += 1
     xent_fwd_launches_by_dtype[str(x.dtype)[6:]] += 1
+    xent_fwd_launches_by_layout[_xent_layout(lib, x, False)] += 1
     return loss, lse, sum_y
 
 
@@ -282,6 +300,7 @@ def softmax_xent_bwd(x, label, lse, g1, g2, soft):
         _raise(lib.pta_xent_error_string, rc, "softmax_xent backward")
     xent_bwd_launches += 1
     xent_bwd_launches_by_dtype[str(x.dtype)[6:]] += 1
+    xent_bwd_launches_by_layout[_xent_layout(lib, x, True)] += 1
     return dx
 
 

@@ -5,7 +5,10 @@ CPU as the JAX package's own tests run them.  Same seeded numpy inputs on
 both sides.
 
 Shapes include a vocab (600) that is not a multiple of the TPU kernel's
-512-column block, soft labels, and hard labels with ``ignore_index``.
+512-column block, soft labels, and hard labels with ``ignore_index``; and
+the narrow rows the CUDA kernels tile whole (V = 2, 21, 81 and the even
+128, at R = 333 and 1,000 rows: no whole number of tiles), hard labels
+with ``ignore_index`` and one label outside ``[0, V)``, or soft labels.
 
 Tolerances: loss and lse rtol 1e-5 / atol 1e-5 (both float32; the Pallas
 kernel carries an online max/sum across vocab tiles, the plain version
@@ -51,6 +54,29 @@ def _xent_inputs(r, v, soft, seed=0):
 CASES = [(24, 600, True, -100), (24, 600, False, 3), (16, 1024, False, -100),
          (8, 512, True, -100)]
 IDS = ["soft-v600", "hard-ignore-v600", "hard-v1024", "soft-v512"]
+# narrow rows: SSD's 21 classes, the R-CNN head's 81, a binary head and an
+# even width
+NARROW_CASES = [(333, 2, False, 1), (1000, 2, True, -100),
+                (1000, 21, False, 0), (333, 21, True, -100),
+                (333, 81, False, 0), (1000, 81, True, -100),
+                (1000, 128, False, 7), (333, 128, True, -100)]
+NARROW_IDS = [f"{'soft' if soft else 'hard-ignore'}-v{v}-r{r}"
+              for r, v, soft, _ in NARROW_CASES]
+
+
+def _narrow_inputs(r, v, soft, ignore, seed=2):
+    """Logits and labels: hard labels with every 5th row at ``ignore`` and
+    one label outside ``[0, V)`` (it picks nothing), or soft rows."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((r, v)) * 3).astype(np.float32)
+    if soft:
+        y = rng.random((r, v)).astype(np.float32)
+        y /= y.sum(-1, keepdims=True)
+        return x, y
+    lab = rng.integers(0, v, r).astype(np.int64)
+    lab[::5] = ignore
+    lab[3] = v + 2
+    return x, lab
 
 
 def _pallas_label(lab, soft):
@@ -58,9 +84,7 @@ def _pallas_label(lab, soft):
         jnp.asarray(lab.astype(np.int32).reshape(-1, 1))
 
 
-@pytest.mark.parametrize("r,v,soft,ignore", CASES, ids=IDS)
-def test_xent_forward_matches_pallas(r, v, soft, ignore):
-    x, lab = _xent_inputs(r, v, soft)
+def _check_forward(x, lab, soft, ignore):
     ref_loss, ref_lse = pf.softmax_xent(jnp.asarray(x), _pallas_label(lab, soft),
                                         soft, ignore, interpret=True)
     loss, lse, sum_y = fused.softmax_xent_fwd(
@@ -77,11 +101,20 @@ def test_xent_forward_matches_pallas(r, v, soft, ignore):
 
 
 @pytest.mark.parametrize("r,v,soft,ignore", CASES, ids=IDS)
-def test_xent_backward_matches_pallas_vjp(r, v, soft, ignore):
+def test_xent_forward_matches_pallas(r, v, soft, ignore):
+    _check_forward(*_xent_inputs(r, v, soft), soft, ignore)
+
+
+@pytest.mark.parametrize("r,v,soft,ignore", NARROW_CASES, ids=NARROW_IDS)
+def test_xent_narrow_forward_matches_pallas(r, v, soft, ignore):
+    _check_forward(*_narrow_inputs(r, v, soft, ignore), soft, ignore)
+
+
+def _check_backward(x, lab, soft, ignore):
     """dx from :class:`fused.SoftmaxXent` against ``jax.vjp`` of the Pallas
     op, with cotangents on both the loss and the lse (so ``g1`` folds a
     nonzero ``dlse``)."""
-    x, lab = _xent_inputs(r, v, soft)
+    r = x.shape[0]
     rng = np.random.default_rng(1)
     dloss = rng.standard_normal((r, 1)).astype(np.float32)
     dlse = rng.standard_normal((r, 1)).astype(np.float32)
@@ -99,6 +132,16 @@ def test_xent_backward_matches_pallas_vjp(r, v, soft, ignore):
     np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx), **DX_TOL)
 
 
+@pytest.mark.parametrize("r,v,soft,ignore", CASES, ids=IDS)
+def test_xent_backward_matches_pallas_vjp(r, v, soft, ignore):
+    _check_backward(*_xent_inputs(r, v, soft), soft, ignore)
+
+
+@pytest.mark.parametrize("r,v,soft,ignore", NARROW_CASES, ids=NARROW_IDS)
+def test_xent_narrow_backward_matches_pallas_vjp(r, v, soft, ignore):
+    _check_backward(*_narrow_inputs(r, v, soft, ignore), soft, ignore)
+
+
 def test_xent_wrappers_count_no_cpu_launch():
     x, lab = _xent_inputs(4, 40, True)
     before = (fused.xent_fwd_launches, fused.xent_bwd_launches)
@@ -106,6 +149,25 @@ def test_xent_wrappers_count_no_cpu_launch():
     loss, _ = fused.SoftmaxXent.apply(xt, torch.from_numpy(lab), True, -100)
     loss.sum().backward()
     assert (fused.xent_fwd_launches, fused.xent_bwd_launches) == before
+
+
+def test_xent_layout_counters_advance_with_the_graph_table():
+    """The xent launches by layout are counters a graph runner advances per
+    replay (``launch_counts``), and a CPU call counts none."""
+    from paddle_tpu_torch.ops import launch_counts
+
+    snap = launch_counts.snapshot()
+    for d in ("fwd", "bwd"):
+        for layout in ("narrow", "wide"):
+            assert ("fused", f"xent_{d}_launches_by_layout", layout) in snap
+    x, lab = _narrow_inputs(12, 21, False, 0)
+    before = (dict(fused.xent_fwd_launches_by_layout),
+              dict(fused.xent_bwd_launches_by_layout))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss, _ = fused.SoftmaxXent.apply(xt, torch.from_numpy(lab), False, 0)
+    loss.sum().backward()
+    assert (fused.xent_fwd_launches_by_layout,
+            fused.xent_bwd_launches_by_layout) == before
 
 
 def test_wrappers_refuse_tensors_off_the_cpu():
