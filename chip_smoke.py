@@ -22,8 +22,10 @@ then trains the book's label-semantic-roles tagger through the linear-chain
 CRF and a CTC recognizer through ``warpctc``, decodes and scores them,
 then trains MobileNet-SSD through ``ssd_loss`` and decodes it by
 ``detection_output`` and ``detection_map``, and trains a Faster R-CNN RPN
-and RoI head through the proposal, sampling and RoI-pooling ops, and
-checks them all.
+and RoI head through the proposal, sampling and RoI-pooling ops, trains
+BERT-base under global-norm gradient clipping and holds the clip kinds
+and the one-line activation, math, reduce and shape ops against the CPU,
+and checks them all.
 
     python3 chip_smoke.py
 
@@ -286,6 +288,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 34. train_bert_parity - ``tiny_config`` through the flash kernels at batch 2
                    x 32 (padded keys), 3 steps from one state, card against
                    CPU: fp32 rtol 1e-5 at step 0 and 1e-4 after, bf16 2^-8
+34b. train_bert_clip_amp - phase 33's steps with every gradient clipped to
+                   a global norm of 1.0 (Google BERT's recipe, in Fluid
+                   ``set_gradient_clip(GradientClipByGlobalNorm(1.0))``):
+                   finite losses, 24 / 12 / 12 bf16 flash launches and 1
+                   Adam launch for 159 tensors a step (the clip ops keep
+                   the adam ops one run), the group norm and scale a step
+                   and whether it clipped; one more step's group norm
+                   against ``torch.linalg.vector_norm`` of the 159 raw
+                   grads (rtol 1e-5), the clipped grads' norm against norm
+                   x scale; ops, dispatches, step ms, tokens/s and peak
+                   beside phase 33's
+34c. train_bert_clip_parity - card against CPU, fp32: ``tiny_config`` under
+                   global-norm clipping, 3 steps (losses, norms, scales:
+                   rtol 1e-5 at step 0, 1e-4 after; the clip acting), and a
+                   small MLP under each clip kind (global norm, norm,
+                   value, error clip) and ``SGD(regularization=L1Decay)``, 5
+                   steps (losses at the same tolerances; each clip acting
+                   on the card)
+34d. ops_tranche5_parity - the 63 one-line activation, math, reduce and
+                   shape op types at full-width shapes (BERT-base's [32,
+                   128, 3072] FFN activation and [32, 128, 768] hidden
+                   states, its [512, 30522] MLM logits, a [32, 30522]
+                   argsort, SSD's [64, 512, 19, 19] map resized to 38 x 38
+                   and 10 x 10, 4,096 unique ids scattered into [30522,
+                   768]), forward and grad, card against CPU: elementwise
+                   rtol 1e-5 / atol 1e-6, sums ``SEQ_PARITY_TOL``,
+                   integers, bools and argsort equal; exact bounds and ties
+                   among the inputs
 35. train_deepfm - DeepFM (26 fields, 100,000 ids, k = 16, sparse tables,
                    SGD 1e-3, batch 32): 5 ``Executor.run`` steps, each
                    table grad a SelectedRows of 832 rows, every row no id
@@ -579,6 +609,17 @@ BERT_HEADS, BERT_D, BERT_LAYERS = 12, 64, 12
 BERT_FLASH_FWD_PER_STEP = 2 * BERT_LAYERS
 BERT_FLASH_BWD_PER_STEP = BERT_LAYERS
 BERT_ADAM_TENSORS = 159
+# BERT-base under global-norm clipping: Google BERT's optimization.py
+# (tf.clip_by_global_norm(grads, clip_norm=1.0)), in Fluid
+# set_gradient_clip(GradientClipByGlobalNorm(1.0)); the clip ops come
+# between the backward and the 159 adam ops, which stay one group launch.
+# The group norm is held against torch.linalg.vector_norm over the
+# fetched grads within BERT_CLIP_NORM_RTOL
+BERT_CLIP_NORM, BERT_CLIP_NORM_RTOL = 1.0, 1e-5
+# the small clipped programs (clip_mlp_programs): each kind's bound, set
+# so that it clips on the first steps
+CLIP_BOUNDS = {"global_norm": 0.1, "norm": 0.05, "value": 0.02,
+               "error": 1e-3, "l1_decay": 1e-2}
 # DeepFM (fluid_benchmark.py's deepfm on an accelerator: 26 fields, a
 # 100,000-id hashed vocabulary, k = 16, the (64, 32) deep tower, SGD,
 # batch 32): no kernel of the port on its path (the sparse SGD is
@@ -4373,6 +4414,99 @@ def build_bert(cfg, seq_len, n_mask, lr):
     return main, startup, outs[5]
 
 
+def bert_clip_programs(fluid, bert, cfg, seq_len, n_mask, lr,
+                       clip_norm=BERT_CLIP_NORM, seed=1):
+    """``bert.forward`` in ``fluid`` (either package) with every gradient
+    clipped to a global norm of ``clip_norm`` and Adam(``lr``): (main,
+    startup, names) with ``names`` the total / MLM / NSP losses, the group
+    norm (the ``sqrt`` op's output), the group scale, the raw grads
+    (``grads``) and the clipped ones the adam ops read (``clipped``)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        outs = bert.forward(cfg, seq_len, n_mask)
+        clip = fluid.clip.GradientClipByGlobalNorm(clip_norm=clip_norm)
+        fluid.clip.set_gradient_clip(clip)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(outs[5])
+    ops = main.global_block().ops
+    names = {"loss": outs[5].name, "mlm": outs[6].name, "nsp": outs[7].name,
+             "norm": next(op for op in ops
+                          if op.type == "sqrt").output("Out")[0],
+             "scale": clip.context["default_group_scale"].name,
+             "grads": [op.input("Param")[0] + "@GRAD" for op in ops
+                       if op.type == "adam"],
+             "clipped": [op.input("Grad")[0] for op in ops
+                         if op.type == "adam"]}
+    return main, startup, names
+
+
+def clip_mlp_programs(fluid, kind, lr=0.1):
+    """A small MLP (16 -> fc 32 relu -> fc 4, mean squared error, SGD) in
+    ``fluid`` (either package) under one kind of clipping
+    (``CLIP_BOUNDS``): ``global_norm``, ``norm`` or ``value`` clip every
+    grad, ``error`` the hidden layer's grad (``ErrorClipByValue``),
+    ``l1_decay`` is ``SGD(regularization=L1Decay)``.  Returns (main,
+    startup, names): the loss, the grads the updates read, the hidden
+    grad, and for ``global_norm`` the group norm and scale."""
+    bound = CLIP_BOUNDS[kind]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[16], dtype="float32")
+        y = fluid.layers.data("y", shape=[4], dtype="float32")
+        h = fluid.layers.fc(x, 32, act="relu")
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(h, 4), y))
+        clip = {"global_norm": fluid.clip.GradientClipByGlobalNorm,
+                "norm": fluid.clip.GradientClipByNorm,
+                "value": fluid.clip.GradientClipByValue}.get(kind)
+        if clip is not None:
+            clip = clip(bound)
+            fluid.clip.set_gradient_clip(clip)
+        if kind == "error":
+            h.error_clip = fluid.clip.ErrorClipByValue(bound)
+        reg = fluid.regularizer.L1Decay(bound) if kind == "l1_decay" else None
+        _, params_grads = fluid.optimizer.SGD(
+            learning_rate=lr, regularization=reg).minimize(loss)
+    names = {"loss": loss.name, "grads": [g.name for _, g in params_grads],
+             "hidden_grad": h.name + "@GRAD"}
+    if kind == "global_norm":
+        names["norm"] = next(op for op in main.global_block().ops
+                             if op.type == "sqrt").output("Out")[0]
+        names["scale"] = clip.context["default_group_scale"].name
+    return main, startup, names
+
+
+def clip_mlp_feed(seed=6, batch=8):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"x": rng.standard_normal((batch, 16)).astype(np.float32),
+            "y": 3 * rng.standard_normal((batch, 4)).astype(np.float32)}
+
+
+def clip_active(kind, names, fetched):
+    """Whether the step's clip changed anything, from its fetches (a dict
+    by name): the group scale below 1; a grad at the norm bound; a grad
+    element at the value bound; the hidden grad at the error bound; L1
+    decay always acts."""
+    import numpy as np
+
+    bound = CLIP_BOUNDS[kind]
+    if kind == "global_norm":
+        return float(np.asarray(fetched[names["scale"]]).reshape(-1)[0]) < 1
+    if kind == "norm":
+        return any(abs(float(np.linalg.norm(fetched[g])) - bound)
+                   <= 1e-5 * bound for g in names["grads"])
+    if kind == "value":
+        return any(bool((np.abs(fetched[g]) == np.float32(bound)).any())
+                   for g in names["grads"])
+    if kind == "error":
+        return bool((np.abs(fetched[names["hidden_grad"]])
+                     == np.float32(bound)).any())
+    return True
+
+
 def phase_train_bert_amp(profile_run=False):
     """BERT-base pretraining (``fluid_benchmark.py``'s ``bert``: batch 32 x
     128, 16 masked positions a row, Adam 1e-4) in bf16 with kept
@@ -4384,7 +4518,8 @@ def phase_train_bert_amp(profile_run=False):
     (host clock and CUDA events), tokens/s, peak allocated.  Then the same
     steps from the same state with the adam ops' group call on the plain
     version (:func:`plain_adam_steps`): each loss within
-    ``AMP_PARITY_RTOL``.  Returns the launch counts."""
+    ``AMP_PARITY_RTOL``.  Returns the launch counts and the step's
+    numbers (for ``train_bert_clip_amp`` to print beside its own)."""
     import math
 
     import numpy as np
@@ -4399,6 +4534,11 @@ def phase_train_bert_amp(profile_run=False):
         exe, scope = fluid.Executor(), fluid.Scope()
         exe.run(startup, scope=scope)
         init = clone_scope(scope)
+        # the copy lives on the card through the steps (for the plain
+        # Adam's run below): its bytes are part of this phase's peak
+        init_bytes = sum(t.numel() * t.element_size()
+                         for t in init._values.values()
+                         if isinstance(t, torch.Tensor))
         feed = bert.synthetic_batch(cfg, BERT_BATCH, BERT_LEN, BERT_MASK,
                                     np.random.RandomState(0))
         torch.cuda.reset_peak_memory_stats()
@@ -4410,6 +4550,7 @@ def phase_train_bert_amp(profile_run=False):
             exe, main, feed, [loss] + heads, scope, BERT_STEPS)
         losses, mlm, nsp = ([float(o[i].reshape(-1)[0]) for o in out]
                             for i in range(3))
+        peak = torch.cuda.max_memory_allocated()
         check_launches("train_bert_amp", counts, {
             "flash_fwd": BERT_FLASH_FWD_PER_STEP,
             "flash_fwd_bf16": BERT_FLASH_FWD_PER_STEP,
@@ -4435,6 +4576,14 @@ def phase_train_bert_amp(profile_run=False):
         del init
         steady = device_ms[1:]
         step_ms = sum(steady) / len(steady)
+        stats = {"steady_step_ms": step_ms,
+                 "host_steady_step_ms": sum(host_ms[1:]) / len(host_ms[1:]),
+                 "tokens_per_s": BERT_BATCH * BERT_LEN * 1e3 / step_ms,
+                 "ops_per_step": len(main.global_block().ops),
+                 "op_dispatches_per_step": op_dispatches(exe, main, loss,
+                                                         *heads),
+                 "max_memory_allocated": peak,
+                 "init_copy_bytes": init_bytes}
         emit("train_bert_amp", model="bert_base", batch=BERT_BATCH,
              seq_len=BERT_LEN, n_mask=BERT_MASK, steps=BERT_STEPS,
              amp={"dtype": "bfloat16", "keep_activations": True},
@@ -4450,12 +4599,540 @@ def phase_train_bert_amp(profile_run=False):
              steady_step_ms=step_ms,
              tokens_per_s=BERT_BATCH * BERT_LEN * 1e3 / step_ms,
              masked_tokens_per_s=BERT_BATCH * BERT_MASK * 1e3 / step_ms,
-             max_memory_allocated=torch.cuda.max_memory_allocated())
+             max_memory_allocated=peak)
         if profile_run:
             profile_step("train_bert_amp", lambda: exe.run(
                 main, feed=feed, fetch_list=[loss], scope=scope),
                 {"gemm": GEMM_KEYS, "flash": ("flash_",)})
+    return counts, stats
+
+
+def phase_train_bert_clip_amp(beside, profile_run=False):
+    """BERT-base pretraining as ``train_bert_amp`` (bf16 with kept
+    activations, the flash kernels, batch 32 x 128, Adam 1e-4,
+    ``synthetic_batch`` from ``RandomState(0)``) with every gradient
+    clipped to a global norm of ``BERT_CLIP_NORM`` (Google BERT's
+    recipe): ``BERT_STEPS`` ``Executor.run`` steps fetching the losses,
+    the group norm and the group scale: finite losses, the same flash
+    launches as ``train_bert_amp`` and exactly one Adam launch for
+    ``BERT_ADAM_TENSORS`` tensors a step (the clip ops must not split the
+    run of adam ops), the scale ``clip / max(clip, norm)`` each step and
+    whether it clipped; then one more step fetching the 159 raw fp32
+    grads and the clipped ones: the group norm within
+    ``BERT_CLIP_NORM_RTOL`` of ``torch.linalg.vector_norm`` over the raw
+    grads, and the clipped grads' norm that times the scale.  Op
+    dispatches, step ms (events and host clock), tokens/s and peak
+    allocated, beside ``train_bert_amp``'s (``beside``); with
+    ``profile_run`` a profile of one more step.  Returns the launch
+    counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.base_config()
+    cfg.flash_attention = True
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        framework.fresh_session()
+        main, startup, names = bert_clip_programs(
+            fluid, bert, cfg, BERT_LEN, BERT_MASK, 1e-4)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = bert.synthetic_batch(cfg, BERT_BATCH, BERT_LEN, BERT_MASK,
+                                    np.random.RandomState(0))
+        torch.cuda.reset_peak_memory_stats()
+        fetches = [names[k] for k in ("loss", "mlm", "nsp", "norm", "scale")]
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feed, fetches, scope, BERT_STEPS)
+        losses, mlm, nsp, norms, scales = (
+            [float(o[i].reshape(-1)[0]) for o in out] for i in range(5))
+        check_launches("train_bert_clip_amp", counts, {
+            "flash_fwd": BERT_FLASH_FWD_PER_STEP,
+            "flash_fwd_bf16": BERT_FLASH_FWD_PER_STEP,
+            "flash_dq": BERT_FLASH_BWD_PER_STEP,
+            "flash_dq_bf16": BERT_FLASH_BWD_PER_STEP,
+            "flash_dkv": BERT_FLASH_BWD_PER_STEP,
+            "flash_dkv_bf16": BERT_FLASH_BWD_PER_STEP,
+            "adam": ADAM_PER_STEP, "adam_tensors": BERT_ADAM_TENSORS},
+            BERT_STEPS)
+        if len(names["grads"]) != BERT_ADAM_TENSORS:
+            raise AssertionError(f"train_bert_clip_amp: "
+                                 f"{len(names['grads'])} adam ops")
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"non-finite clipped BERT loss or norm: "
+                                 f"{losses}, {norms}")
+        want = [BERT_CLIP_NORM / max(BERT_CLIP_NORM, n) for n in norms]
+        if not np.allclose(scales, want, rtol=1e-6, atol=0):
+            raise AssertionError(f"train_bert_clip_amp: group scales "
+                                 f"{scales}, expected {want} from the "
+                                 f"norms {norms}")
+        steady = device_ms[1:]
+        step_ms = sum(steady) / len(steady)
+        stats = {"steady_step_ms": step_ms,
+                 "host_steady_step_ms": sum(host_ms[1:]) / len(host_ms[1:]),
+                 "tokens_per_s": BERT_BATCH * BERT_LEN * 1e3 / step_ms,
+                 "ops_per_step": len(main.global_block().ops),
+                 "op_dispatches_per_step": op_dispatches(exe, main,
+                                                         *fetches),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        # one more step with the raw and the clipped grads fetched: the
+        # group norm is the norm of the raw ones, the clipped ones' norm
+        # that times the scale
+        n = len(names["grads"])
+        grads = exe.run(main, feed=feed, fetch_list=fetches[3:]
+                        + names["grads"] + names["clipped"], scope=scope,
+                        return_numpy=False)
+        norm, scale = (float(v.reshape(-1)[0]) for v in grads[:2])
+        raw, clipped = grads[2:2 + n], grads[2 + n:]
+        if any(g.dtype != torch.float32 for g in raw + clipped):
+            raise AssertionError("train_bert_clip_amp: a grad is not fp32")
+        want_norm, clipped_norm = (float(torch.linalg.vector_norm(torch.cat(
+            [g.reshape(-1) for g in gs]))) for gs in (raw, clipped))
+        norm_rel = abs(norm - want_norm) / want_norm
+        clipped_rel = abs(clipped_norm - norm * scale) / (norm * scale)
+        if not max(norm_rel, clipped_rel) <= BERT_CLIP_NORM_RTOL:
+            raise AssertionError(
+                f"train_bert_clip_amp: group norm {norm} against "
+                f"torch.linalg.vector_norm's {want_norm} (rel {norm_rel}); "
+                f"clipped grads' norm {clipped_norm} against norm x scale "
+                f"{norm * scale} (rel {clipped_rel})")
+        del grads, raw, clipped
+    diff = {k: stats[k] - beside[k] for k in
+            ("steady_step_ms", "host_steady_step_ms", "ops_per_step",
+             "op_dispatches_per_step")}
+    # train_bert_amp's peak holds a copy of its initial state; this one's
+    # does not
+    diff["max_memory_allocated"] = stats["max_memory_allocated"] - (
+        beside["max_memory_allocated"] - beside["init_copy_bytes"])
+    emit("train_bert_clip_amp", model="bert_base", batch=BERT_BATCH,
+         seq_len=BERT_LEN, n_mask=BERT_MASK, steps=BERT_STEPS,
+         amp={"dtype": "bfloat16", "keep_activations": True},
+         clip={"kind": "GradientClipByGlobalNorm", "clip_norm":
+               BERT_CLIP_NORM}, losses=losses, mlm_losses=mlm,
+         nsp_losses=nsp, group_norms=norms, group_scales=scales,
+         clipped=[s < 1.0 for s in scales],
+         norm_check={"group_norm": norm, "vector_norm": want_norm,
+                     "rel_err": norm_rel, "group_scale": scale,
+                     "clipped_vector_norm": clipped_norm,
+                     "clipped_rel_err": clipped_rel,
+                     "rtol": BERT_CLIP_NORM_RTOL, "grads": n},
+         launches=counts, host_step_ms=host_ms, device_step_ms=device_ms,
+         **stats, masked_tokens_per_s=BERT_BATCH * BERT_MASK * 1e3 / step_ms,
+         train_bert_amp=beside, minus_train_bert_amp=diff)
+    if profile_run:
+        with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+            profile_step("train_bert_clip_amp", lambda: exe.run(
+                main, feed=feed, fetch_list=[names["loss"]], scope=scope),
+                {"gemm": GEMM_KEYS, "flash": ("flash_",)})
     return counts
+
+
+# ops_tranche5_parity: the one-line ops at full-width shapes (BERT-base's
+# FFN activation and hidden states, its MLM logits and vocabulary, SSD's
+# 19 x 19 map of 512 channels at batch 64), card against CPU.  fp32
+# elementwise within (rtol, atol) (1e-5, 1e-6); sums (reductions, cumsum,
+# dot, clip_by_norm, log_softmax, the resizes) within SEQ_PARITY_TOL, its
+# atol of the tensor's largest magnitude (a dot over 3,072 terms of ~4
+# that cancels to near 0 keeps their rounding: 1.2e-4 apart on one element
+# of ~700 at most); integer and bool outputs and argsort equal
+OPS_FFN, OPS_HIDDEN, OPS_LOGITS = (32, 128, 3072), (32, 128, 768), (512, 30522)
+OPS_VOCAB, OPS_SCATTER_IDS, OPS_MAP = 30522, 4096, (64, 512, 19, 19)
+ELEMENTWISE_TOL = (1e-5, 1e-6)  # (rtol, atol)
+# ops of the tranche with no grad (their inputs are no-grad in both
+# packages, or their outputs integer or bool)
+NO_GRAD_OPS = ("argsort", "arg_max", "arg_min", "shape", "isfinite",
+               "has_inf", "has_nan")
+
+
+def tranche5_inputs(rng):
+    """The full-width inputs of ``tranche5_groups`` from ``rng`` (a numpy
+    ``Generator``), by key: (array, whether its grad is checked).  Normal inputs carry exact bounds,
+    zeros and ties at their first elements."""
+    import numpy as np
+
+    def normal(shape, scale=2.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    ffn = normal(OPS_FFN)
+    # 0, a relu6 / brelu bound, clip's and the shrinks' bounds, hard
+    # sigmoid's exact bounds at slope 0.25, thresholded_relu's threshold,
+    # halves for round
+    ffn.reshape(-1)[:12] = [0.0, -0.0, 6.0, 4.0, 0.5, -0.5, 2.0, -2.0,
+                            1.0, 1.5, 2.5, -1.5]
+    tied = ffn.copy()
+    tied.reshape(-1)[1::2] = np.round(tied.reshape(-1)[1::2])
+    other = np.round(normal(OPS_FFN))  # ties with ``tied`` half the time
+    other.reshape(-1)[:12] = ffn.reshape(-1)[:12]
+    positive = np.abs(normal(OPS_FFN)) + 0.1
+    divisor = np.where(np.abs(other) < 1, 3.0, other).astype(np.float32)
+    with_inf, with_nan = ffn.copy(), ffn.copy()
+    with_inf.reshape(-1)[17] = np.inf
+    with_nan.reshape(-1)[17] = np.nan
+    hidden = normal(OPS_HIDDEN)
+    hidden.reshape(-1)[:4] = hidden.reshape(-1)[4:8]  # ties for max / min
+    near_one = 1 + normal(OPS_HIDDEN, 0.02)
+    logits = normal(OPS_LOGITS)
+    # ties for the stable sort: values to 2 decimals
+    sort_keys = np.round(normal((max(1, OPS_LOGITS[0] // 16), OPS_VOCAB)),
+                         2)
+    image = normal(OPS_MAP)
+    ids = rng.permutation(OPS_VOCAB)[:OPS_SCATTER_IDS].astype(np.int64)
+    b, t, d = OPS_HIDDEN
+    return {
+        "ffn": (ffn, True), "tied": (tied, True), "other": (other, True),
+        "positive": (positive, True), "divisor": (divisor, True),
+        "with_inf": (with_inf, False), "with_nan": (with_nan, False),
+        "alpha": (rng.uniform(0.05, 0.5, (OPS_FFN[1],)).astype(np.float32),
+                  True),
+        "hidden": (hidden, True), "near_one": (near_one, True),
+        "hidden_b": (normal(OPS_HIDDEN), True),
+        "hidden_c": (normal(OPS_HIDDEN), True),
+        "hidden_1": (normal(OPS_HIDDEN[:2] + (1,)), True),
+        "hidden_u": (normal(OPS_HIDDEN[:2] + (1, OPS_HIDDEN[2])), True),
+        "hidden_cut": (normal((b, t - 1, d - 8)), True),
+        "cond": (rng.random(OPS_HIDDEN) > 0.5, False),
+        "rows": (normal((OPS_SCATTER_IDS, d)), True),
+        "rows_b": (normal((OPS_SCATTER_IDS, d)), True),
+        "rows_c": (normal((OPS_SCATTER_IDS, d)), True),
+        "row_ids": (rng.integers(0, 3, (OPS_SCATTER_IDS, 1), dtype=np.int32),
+                    False),
+        "logits": (logits, True), "sort_keys": (sort_keys, False),
+        "image": (image, True), "table": (normal((OPS_VOCAB, d)), True),
+        "ids": (ids, False), "updates": (normal((OPS_SCATTER_IDS, d)), True),
+        "stackable": (normal((3, t, d)), True),
+    }
+
+
+def tranche5_groups():
+    """The ops of ``ops_tranche5_parity``: groups of (op type, {slot: [input
+    key, ...]}, attrs, {output slot: count}), a Program each, with the
+    group's tolerance (rtol, atol) and whether its atol is of each
+    tensor's largest magnitude (``compare_on_card``' ``of_largest``)."""
+    def u(op, key="ffn", **attrs):
+        return (op, {"X": [key]}, attrs, {"Out": 1})
+
+    unary = [u(op) for op in (
+        "abs", "round", "sin", "softplus", "softsign", "softshrink", "gelu",
+        "logsigmoid", "tanh_shrink", "sign", "swish", "elu", "leaky_relu",
+        "stanh")] + [
+        u("relu6", threshold=6.0), u("brelu", t_min=0.0, t_max=4.0),
+        u("hard_sigmoid", slope=0.25, offset=0.5),
+        u("hard_shrink", threshold=0.5), u("thresholded_relu", threshold=1.0),
+        u("soft_relu", threshold=2.0), u("clip", min=-0.5, max=0.5),
+        u("pow", factor=2.0), u("sqrt", "positive"), u("rsqrt", "positive"),
+        u("reciprocal", "positive"), u("pow", "positive", factor=2.5),
+        ("prelu", {"X": ["ffn"], "Alpha": ["alpha"]}, {"mode": "channel"},
+         {"Out": 1})]
+    binary = [
+        (op, {"X": ["tied"], "Y": [y]}, {}, {"Out": 1})
+        for op, y in (("maximum", "other"), ("minimum", "other"),
+                      ("elementwise_mod", "divisor"),
+                      ("elementwise_floordiv", "divisor"))] + [
+        (op, {"X": [x]}, {}, {"Out": 1})
+        for op in ("isfinite", "has_inf", "has_nan")
+        for x in ("ffn", "with_inf", "with_nan")]
+    sums = [
+        ("dot", {"X": ["ffn"], "Y": ["other"]}, {}, {"Out": 1}),
+        ("clip_by_norm", {"X": ["ffn"]}, {"max_norm": 1000.0}, {"Out": 1}),
+        ("log_softmax", {"X": ["logits"]}, {"axis": -1}, {"Out": 1}),
+        ("reduce_max", {"X": ["hidden"]}, {"dim": [-1]}, {"Out": 1}),
+        ("reduce_min", {"X": ["hidden"]}, {"reduce_all": True}, {"Out": 1}),
+        ("reduce_prod", {"X": ["near_one"]}, {"dim": [1]}, {"Out": 1}),
+        ("cumsum", {"X": ["hidden"]}, {"axis": -1}, {"Out": 1}),
+        ("cumsum", {"X": ["hidden_b"]}, {"axis": 1, "exclusive": True,
+                                          "reverse": True}, {"Out": 1}),
+        ("arg_max", {"X": ["hidden"]}, {"axis": -1}, {"Out": 1}),
+        ("arg_min", {"X": ["hidden"]}, {"axis": 1}, {"Out": 1}),
+        ("argsort", {"X": ["sort_keys"]}, {"axis": -1},
+         {"Out": 1, "Indices": 1})]
+    n, c, h, w = OPS_MAP
+    image = [
+        ("bilinear_interp", {"X": ["image"]}, {"out_h": 38, "out_w": 38},
+         {"Out": 1}),
+        ("bilinear_interp", {"X": ["image"]}, {"out_h": 10, "out_w": 10},
+         {"Out": 1}),
+        ("nearest_interp", {"X": ["image"]}, {"out_h": 38, "out_w": 38},
+         {"Out": 1}),
+        ("nearest_interp", {"X": ["image"]}, {"out_h": 10, "out_w": 10},
+         {"Out": 1})]
+    layout = [
+        ("pad2d", {"X": ["image"]}, {"paddings": [1, 2, 2, 1], "mode": mode,
+                                     "pad_value": 0.5}, {"Out": 1})
+        for mode in ("constant", "reflect", "edge")] + [
+        ("crop", {"X": ["image"]}, {"offsets": [0, 0, 1, 2],
+                                    "shape": [n, c, h - 2, w - 3]},
+         {"Out": 1}),
+        ("scatter", {"X": ["table"], "Ids": ["ids"], "Updates": ["updates"]},
+         {"overwrite": True}, {"Out": 1}),
+        ("scatter", {"X": ["table"], "Ids": ["ids"], "Updates": ["updates"]},
+         {"overwrite": False}, {"Out": 1}),
+        ("reshape2", {"X": ["hidden"]}, {"shape": [0, 0, 12, -1]},
+         {"Out": 1, "XShape": 1}),
+        ("transpose2", {"X": ["hidden"]}, {"axis": [0, 2, 1]},
+         {"Out": 1, "XShape": 1}),
+        ("squeeze", {"X": ["hidden_u"]}, {"axes": [2]}, {"Out": 1}),
+        ("unsqueeze", {"X": ["hidden"]}, {"axes": [2]}, {"Out": 1}),
+        ("stack", {"X": ["hidden", "hidden_b", "hidden_c"]}, {"axis": 1},
+         {"Y": 1}),
+        ("unstack", {"X": ["stackable"]}, {"axis": 0}, {"Y": 3}),
+        ("expand", {"X": ["hidden"]}, {"expand_times": [2, 1, 1]},
+         {"Out": 1}),
+        ("expand_as", {"X": ["hidden_1"], "Y": ["hidden_b"]}, {}, {"Out": 1}),
+        ("tile", {"X": ["hidden_1"]}, {"repeat_times": [1, 1,
+                                                        OPS_HIDDEN[2]]},
+         {"Out": 1}),
+        ("pad", {"X": ["hidden"]}, {"paddings": [0, 0, 1, 2, 3, 0],
+                                    "pad_value": -1.0}, {"Out": 1}),
+        ("pad_constant_like", {"X": ["hidden"], "Y": ["hidden_cut"]},
+         {"pad_value": 0.5}, {"Out": 1}),
+        ("reverse", {"X": ["hidden"]}, {"axis": [1, 2]}, {"Out": 1}),
+        ("shape", {"Input": ["hidden"]}, {}, {"Out": 1}),
+        ("multiplex", {"X": ["rows", "rows_b", "rows_c"], "Ids": ["row_ids"]},
+         {}, {"Out": 1}),
+        ("where", {"Condition": ["cond"], "X": ["hidden"],
+                   "Y": ["hidden_b"]}, {}, {"Out": 1})]
+    return [("unary", unary, ELEMENTWISE_TOL, False),
+            ("binary", binary, ELEMENTWISE_TOL, False),
+            ("sums", sums, SEQ_PARITY_TOL, True),
+            ("image", image, SEQ_PARITY_TOL, True),
+            ("layout", layout, ELEMENTWISE_TOL, False)]
+
+
+def op_group_program(fluid, specs, inputs):
+    """One Program running each op of ``specs`` on its own copies of its
+    inputs (fed as ``<op index>_<key>``), then ``append_backward`` of the
+    sum over every float output of ``reduce_sum(out * out)``: (main,
+    startup, feed keys by name, the outputs' names, the checked grads'
+    names)."""
+    main, startup = fluid.Program(), fluid.Program()
+    feeds, outs, grads, total = {}, [], [], None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        block = main.global_block()
+        for i, (op_type, slots, attrs, out_slots) in enumerate(specs):
+            names, diff = {}, False
+            for slot, keys in slots.items():
+                names[slot] = []
+                for key in keys:
+                    arr, wants = inputs[key]
+                    wants = wants and op_type not in NO_GRAD_OPS
+                    name = f"{i}_{key}"
+                    if name not in feeds:
+                        block.create_var(name=name, shape=arr.shape,
+                                         dtype=str(arr.dtype), is_data=True,
+                                         stop_gradient=not wants)
+                        feeds[name] = key
+                        if wants:
+                            grads.append(name + "@GRAD")
+                    names[slot].append(name)
+                    diff = diff or wants
+            onames = {slot: [f"{i}_{op_type}_{slot}_{j}" for j in range(n)]
+                      for slot, n in out_slots.items()}
+            for slot, ns in onames.items():
+                for n in ns:
+                    block.create_var(name=n, dtype="float32")
+            block.append_op(type=op_type, inputs=names, outputs=onames,
+                            attrs=dict(attrs))
+            for slot, ns in onames.items():
+                outs += ns
+                if not diff or slot == "XShape":
+                    continue
+                for n in ns:
+                    v = block.var(n)
+                    part = fluid.layers.reduce_sum(
+                        fluid.layers.elementwise_mul(v, v))
+                    total = part if total is None else \
+                        fluid.layers.elementwise_add(total, part)
+        if total is not None:
+            fluid.append_backward(total)
+    return main, startup, feeds, outs, grads
+
+
+def compare_on_card(phase, names, cpu, card, tol, of_largest):
+    """The CPU's fetches against the card's, compared on the card in
+    float64: dtypes and shapes equal, floats within ``tol`` (rtol, atol;
+    with ``of_largest`` the atol of each tensor's largest magnitude, at
+    least 1), integers and bools exactly.  Returns the largest
+    difference."""
+    import torch
+
+    rtol, atol = tol
+    worst = 0.0
+    for name, c, g in zip(names, cpu, card):
+        c = c.to(g.device)
+        if c.dtype != g.dtype or c.shape != g.shape:
+            raise AssertionError(f"{phase}: {name} on the card is {g.dtype} "
+                                 f"{tuple(g.shape)}, on the CPU {c.dtype} "
+                                 f"{tuple(c.shape)}")
+        if not c.is_floating_point():
+            if not torch.equal(c, g):
+                raise AssertionError(f"{phase}: {name} differs on the card")
+            continue
+        if not c.numel():
+            continue
+        c, g = c.double(), g.double()
+        err = (g - c).abs()
+        scale = max(1.0, float(c.abs().max())) if of_largest else 1.0
+        if not bool((err <= atol * scale + rtol * c.abs()).all()):
+            raise AssertionError(f"{phase}: {name} on the card is "
+                                 f"{float(err.max())} from the CPU's")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_ops_tranche5_parity():
+    """Every one of the 63 one-line activation, math, reduce and shape op
+    types at full-width shapes (``tranche5_groups``), forward and grad
+    (where it has one), on the card against the port's CPU path, one
+    Program a group run once on each place: every output and input grad
+    within the group's tolerance, integer and bool outputs equal
+    (``compare_on_card``).  The inputs hold exact bounds and ties, so the
+    tie rules (half the grad at a clip bound, a tied maximum's grad
+    split, abs' grad 1 at 0, stable argsort) hold on the card too."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+
+    t0 = time.perf_counter()
+    inputs = tranche5_inputs(np.random.default_rng(21))
+    inputs_s = time.perf_counter() - t0
+    covered, result = set(), {}
+    for group, specs, tol, of_largest in tranche5_groups():
+        framework.fresh_session()
+        main, startup, feeds, outs, grads = op_group_program(fluid, specs,
+                                                             inputs)
+        feed = {n: inputs[k][0] for n, k in feeds.items()}
+        runs, secs = [], {}
+        for tag, place in (("cpu", fluid.CPUPlace()),
+                           ("card", fluid.CUDAPlace(0))):
+            t1 = time.perf_counter()
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            runs.append(exe.run(main, feed=feed, fetch_list=outs + grads,
+                                scope=scope, return_numpy=False))
+            torch.cuda.synchronize()
+            secs[f"{tag}_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        worst = compare_on_card(f"ops_tranche5_parity {group}", outs + grads,
+                                *runs, tol, of_largest)
+        secs["compare_s"] = time.perf_counter() - t1
+        covered |= {spec[0] for spec in specs}
+        result[group] = {"ops": len(specs), "fetches": len(outs + grads),
+                         "tol": list(tol), "atol_of_largest": of_largest,
+                         "max_abs_err": worst, **secs}
+        del feed, runs
+    emit("ops_tranche5_parity", op_types=len(covered), groups=result,
+         torch_threads=torch.get_num_threads(), inputs_s=inputs_s,
+         seconds=time.perf_counter() - t0)
+    return covered
+
+
+def place_steps(progs, feed, fetches, steps, places):
+    """``steps`` steps of ``progs`` (main, startup) on each place from the
+    first place's initial state: each place's fetches ``[places][steps]
+    [fetches]`` as float64 arrays, the launches of the last place's steps,
+    and each place's scope."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    main, startup = progs[:2]
+    runs = []
+    for place in places:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append((exe, scope, place))
+    init = {v.name: runs[0][1].get(v.name).detach().cpu().numpy()
+            for v in startup.list_vars() if v.persistable}
+    for _, scope, place in runs[1:]:
+        load_reference_params(scope, init, place)
+    out = []
+    for i, (exe, scope, _) in enumerate(runs):
+        if i == len(runs) - 1:
+            reset_launch_counts()
+        out.append([[np.asarray(v, np.float64) for v in exe.run(
+            main, feed=feed, fetch_list=fetches, scope=scope)]
+            for _ in range(steps)])
+    return out, launch_counts(), [r[1] for r in runs]
+
+
+def phase_train_bert_clip_parity():
+    """Card against CPU (the plain versions) under clipping, fp32, from one
+    initial state: ``tiny_config`` BERT through the flash kernels at batch
+    2 x 32 (padded keys in one row) under global-norm clipping at
+    ``BERT_CLIP_NORM``, 3 steps: losses, group norms and scales within
+    rtol 1e-5 at step 0 and 1e-4 after, the scale below 1 (clipping) on
+    some step, one Adam launch a step; then ``clip_mlp_programs``' MLP
+    under each kind (global norm, norm, value, error clip, L1 decay), 5
+    SGD steps: losses (and the group norm and scale) at the same
+    tolerances, and the clip acting on the card on some step
+    (``clip_active``)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import bert
+
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    cfg = bert.tiny_config()
+    cfg.flash_attention = True
+    framework.fresh_session()
+    progs = bert_clip_programs(fluid, bert, cfg, 32, 4, 1e-3)
+    names = progs[2]
+    feed = bert.synthetic_batch(cfg, 2, 32, 4, np.random.RandomState(3))
+    feed["src_ids"][1, -5:] = 0
+    keys = ("loss", "norm", "scale")
+    (cpu, card), counts, _ = place_steps(progs, feed,
+                                         [names[k] for k in keys], 3, places)
+    cpu, card = (np.array([[v.reshape(-1)[0] for v in step] for step in run])
+                 for run in (cpu, card))
+    tol = np.array([1e-5, 1e-4, 1e-4])[:, None]
+    rel = check_parity("train_bert_clip_parity", cpu, card, tol)
+    if not (card[:, 2] < 1).any():
+        raise AssertionError(f"train_bert_clip_parity: the clip never "
+                             f"acted (scales {card[:, 2].tolist()})")
+    if counts["adam"] != 3 or counts["flash_fwd"] != 3 * 2 * cfg.n_layer:
+        raise AssertionError(f"train_bert_clip_parity: the card's run "
+                             f"launched {counts}")
+    result = {"bert_tiny": {
+        **{f"cpu_{k}es" if k == "loss" else f"cpu_{k}s": cpu[:, i].tolist()
+           for i, k in enumerate(keys)},
+        **{f"card_{k}es" if k == "loss" else f"card_{k}s":
+           card[:, i].tolist() for i, k in enumerate(keys)},
+        "rel_err": rel, "launches": counts}}
+    tol = np.array([1e-5] + [1e-4] * 4)[:, None]
+    for kind in sorted(CLIP_BOUNDS):
+        framework.fresh_session()
+        progs = clip_mlp_programs(fluid, kind)
+        names = progs[2]
+        keys = ["loss"] + [k for k in ("norm", "scale") if k in names]
+        fetches = [names[k] for k in keys] + [names["hidden_grad"]] + \
+            names["grads"]
+        (cpu, card), _, _ = place_steps(progs, clip_mlp_feed(), fetches, 5,
+                                        places)
+        active = [clip_active(kind, names, dict(zip(fetches, step)))
+                  for step in card]
+        if not any(active):
+            raise AssertionError(f"train_bert_clip_parity: {kind} clip "
+                                 f"never acted on the card")
+        cpu_l = np.array([[float(v.reshape(-1)[0]) for v in step[:len(keys)]]
+                          for step in cpu])
+        card_l = np.array([[float(v.reshape(-1)[0])
+                            for v in step[:len(keys)]] for step in card])
+        result[kind] = {"cpu_losses": cpu_l[:, 0].tolist(),
+                        "card_losses": card_l[:, 0].tolist(),
+                        "rel_err": check_parity(
+                            f"train_bert_clip_parity {kind}", cpu_l, card_l,
+                            tol),
+                        "clip_active": active, "bound": CLIP_BOUNDS[kind]}
+    emit("train_bert_clip_parity", rtol=[1e-5, 1e-4], **result)
 
 
 def plain_adam_steps(main, feed, fetches, scope, steps):
@@ -4490,27 +5167,9 @@ def parity_runs(progs, feed, steps, places):
     launches of the last place's steps, and each place's scope."""
     import numpy as np
 
-    from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.models.params import load_reference_params
-
-    main, startup, loss = progs
-    runs = []
-    for place in places:
-        exe, scope = fluid.Executor(place), fluid.Scope()
-        exe.run(startup, scope=scope)
-        runs.append((exe, scope, place))
-    init = {v.name: runs[0][1].get(v.name).detach().cpu().numpy()
-            for v in startup.list_vars() if v.persistable}
-    for _, scope, place in runs[1:]:
-        load_reference_params(scope, init, place)
-    losses = []
-    for i, (exe, scope, _) in enumerate(runs):
-        if i == len(runs) - 1:
-            reset_launch_counts()
-        losses.append([float(exe.run(main, feed=feed, fetch_list=[loss],
-                                     scope=scope)[0].reshape(-1)[0])
-                       for _ in range(steps)])
-    return np.array(losses), launch_counts(), [r[1] for r in runs]
+    runs, counts, scopes = place_steps(progs, feed, [progs[2]], steps, places)
+    return (np.array([[step[0].reshape(-1)[0] for step in run]
+                      for run in runs]), counts, scopes)
 
 
 def check_parity(phase, cpu, card, tol):
@@ -7563,9 +8222,18 @@ def main():
         [("se_resnext50", build_vision("se_resnext50")[0],
           SE_MOMENTUM_TENSORS),
          ("rcnn_heads", rcnn_heads(fluid)["main"], RCNN_MOMENTUM_TENSORS)])
-    add_counts(total, phase_train_bert_amp(args.profile))
+    counts, bert_stats = phase_train_bert_amp(args.profile)
+    add_counts(total, counts)
     torch.cuda.empty_cache()
     phase_train_bert_parity()
+    torch.cuda.empty_cache()
+    # BERT-base under global-norm clipping, the clip kinds card against
+    # CPU, and the one-line ops at full width
+    add_counts(total, phase_train_bert_clip_amp(bert_stats, args.profile))
+    torch.cuda.empty_cache()
+    phase_train_bert_clip_parity()
+    torch.cuda.empty_cache()
+    phase_ops_tranche5_parity()
     torch.cuda.empty_cache()
     phase_train_deepfm(args.profile)
     torch.cuda.empty_cache()

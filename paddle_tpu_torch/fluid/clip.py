@@ -1,17 +1,43 @@
 """Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``):
-the hooks ``Optimizer.minimize`` calls, and the AMP loss scaler's
-``append_unscale_ops``.  Error clipping (its ``clip`` op) and the
-gradient-clip attrs (``GradientClipByValue``, ``ByNorm``,
-``ByGlobalNorm``) are not ported yet.  The unscale op is an
-``elementwise_div``, which refuses a SelectedRows grad (a sparse table
-under the fp16 scaler), as the reference's does."""
+the hooks ``Optimizer.minimize`` calls, the AMP loss scaler's
+``append_unscale_ops``, error clipping (``ErrorClipByValue``: a ``clip``
+op over a grad, appended as the backward emits it) and the gradient
+clips (``GradientClipByValue``: ``clip``; ``GradientClipByNorm``:
+``clip_by_norm``; ``GradientClipByGlobalNorm``: every grad of a group
+scaled by ``clip_norm / max(clip_norm, global norm)``).  The clip ops
+come after the unscale ops and before the update ops, so a run of
+``adam`` / ``momentum`` ops stays one group launch.  The unscale op is
+an ``elementwise_div``, which refuses a SelectedRows grad (a sparse
+table under the fp16 scaler), as the reference's does."""
 
 from __future__ import annotations
 
 from .framework import OpRole, default_main_program
 
-__all__ = ["append_gradient_clip_ops", "append_unscale_ops",
-           "error_clip_callback", "set_gradient_clip"]
+__all__ = ["ErrorClipByValue", "GradientClipByValue", "GradientClipByNorm",
+           "GradientClipByGlobalNorm", "append_gradient_clip_ops",
+           "append_unscale_ops", "error_clip_callback", "set_gradient_clip"]
+
+
+class BaseErrorClipAttr:
+    def _append_clip_op(self, block, grad_name):
+        raise NotImplementedError
+
+
+class ErrorClipByValue(BaseErrorClipAttr):
+    """Clip a variable's grad to ``[min, max]`` (``min`` defaults to
+    ``-max``) where the backward writes it."""
+
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _append_clip_op(self, block, grad_name):
+        block.append_op(type="clip", inputs={"X": [grad_name]},
+                        outputs={"Out": [grad_name]},
+                        attrs={"min": self.min, "max": self.max,
+                               OpRole.KEY: OpRole.Backward})
 
 
 def error_clip_callback(block, context):
@@ -23,10 +49,9 @@ def error_clip_callback(block, context):
         if not block._has_var_recursive(fwd_var_name):
             continue
         fwd_var = block._var_recursive(fwd_var_name)
-        if getattr(fwd_var, "error_clip", None) is not None:
-            raise NotImplementedError(
-                f"{fwd_var_name}.error_clip: error clipping (the clip op) is "
-                f"not ported yet; see ROADMAP.md")
+        error_clip = getattr(fwd_var, "error_clip", None)
+        if error_clip is not None:
+            error_clip._append_clip_op(block, grad_n)
 
 
 class BaseGradientClipAttr:
@@ -43,6 +68,79 @@ class NullGradientClipAttr(BaseGradientClipAttr):
 
     def _create_operators(self, param, grad):
         return param, grad
+
+
+class GradientClipByValue(BaseGradientClipAttr):
+    """Each grad clipped to ``[min, max]`` (``min`` defaults to
+    ``-max``)."""
+
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _process_context(self, context, param, grad):
+        pass
+
+    def _create_operators(self, param, grad):
+        from .layers import nn as _nn
+
+        new_grad = _nn.clip(x=grad, min=self.min, max=self.max)
+        return param, new_grad
+
+
+class GradientClipByNorm(BaseGradientClipAttr):
+    """Each grad scaled down to an L2 norm of at most ``clip_norm``."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def _process_context(self, context, param, grad):
+        pass
+
+    def _create_operators(self, param, grad):
+        from .layers import nn as _nn
+
+        new_grad = _nn.clip_by_norm(x=grad, max_norm=self.clip_norm)
+        return param, new_grad
+
+
+class GradientClipByGlobalNorm(BaseGradientClipAttr):
+    """The grads of a group scaled by ``clip_norm / max(clip_norm, norm)``,
+    ``norm`` the L2 norm of all of them together: a ``reduce_sum`` of
+    each grad's squares, their ``sum``, its ``sqrt``, then one
+    ``elementwise_mul`` a grad."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
+        self.clip_norm = clip_norm
+        self.group_name = group_name
+
+    def _process_context(self, context, param, grad):
+        if self.group_name not in context:
+            context[self.group_name] = []
+            context[self.group_name + "_clip_value"] = self.clip_norm
+        elif context[self.group_name + "_clip_value"] != self.clip_norm:
+            raise ValueError("all parameters in a group should share clip_norm")
+        from .layers import nn as _nn
+
+        local_norm = _nn.reduce_sum(_nn.elementwise_mul(grad, grad))
+        context[self.group_name].append(local_norm)
+        self.context = context
+
+    def _create_operators(self, param, grad):
+        from .layers import nn as _nn, ops as _ops, tensor as _tensor
+
+        group_scale_name = self.group_name + "_scale"
+        if group_scale_name not in self.context:
+            group_norm = _tensor.sums(input=self.context[self.group_name])
+            group_norm = _ops.sqrt(group_norm)
+            clip_var = _tensor.fill_constant(shape=[1], dtype="float32",
+                                             value=self.clip_norm)
+            group_scale = _nn.elementwise_div(
+                clip_var, _nn.elementwise_max(clip_var, group_norm))
+            self.context[group_scale_name] = group_scale
+        new_grad = _nn.elementwise_mul(grad, self.context[group_scale_name])
+        return param, new_grad
 
 
 def set_gradient_clip(clip, param_list=None, program=None):

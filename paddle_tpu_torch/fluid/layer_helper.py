@@ -118,6 +118,9 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, persistable=False, stop_gradient=stop_gradient)
 
+    def create_variable(self, *args, **kwargs):
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, stop_gradient=True, **kwargs)

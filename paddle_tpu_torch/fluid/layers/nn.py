@@ -4,13 +4,19 @@ SE-ResNeXt, VGG, the stacked LSTM) call, ``lod_reset`` /
 ``sequence_erase``, the losses (smooth L1, log, Huber, rank) and the
 structured losses (linear-chain CRF and its decoding, NCE, hierarchical
 sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
-and ``flatten``, copied so the same calls emit the same IR."""
+``flatten``, and the builders of the one-line math, reduce and shape ops
+(``clip``, ``clip_by_norm``, ``l2_normalize``, ``dice_loss``,
+``prelu``, the pads, ``squeeze`` / ``unsqueeze``, ``stack`` /
+``unstack``, ``expand``, ``scatter``, ``shape``, ``crop``,
+``multiplex``, the image resizes), copied so the same calls emit the
+same IR."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .. import core
+from ..framework import Variable
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
@@ -28,6 +34,11 @@ __all__ = [
     "lod_reset", "sequence_erase", "im2sequence", "smooth_l1", "log_loss",
     "huber_loss", "rank_loss", "linear_chain_crf", "crf_decoding", "nce",
     "hsigmoid", "warpctc", "edit_distance", "ctc_greedy_decoder", "flatten",
+    "reduce_max", "reduce_min", "reduce_prod", "l2_normalize", "clip",
+    "clip_by_norm", "dice_loss", "scatter", "pad", "pad2d",
+    "pad_constant_like", "squeeze", "unsqueeze", "stack", "unstack",
+    "expand", "shape", "crop", "image_resize", "resize_bilinear", "prelu",
+    "multiplex", "image_resize_short",
 ]
 
 
@@ -404,6 +415,9 @@ def _reduce_layer(op_type):
 
 reduce_sum = _reduce_layer("reduce_sum")
 reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
 
 
 def square_error_cost(input, label):
@@ -915,4 +929,259 @@ def flatten(x, axis=1, name=None):
         out.shape = (rows, cols)
     helper.append_op(type="flatten", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"axis": axis})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(sum(x * x, axis) + epsilon)``, emitted as its ops."""
+    from . import ops as _ops
+
+    if axis < 0:
+        axis = len(x.shape) + axis
+    sq = elementwise_mul(x, x)
+    ssum = reduce_sum(sq, dim=axis, keep_dim=True)
+    norm = _ops.sqrt(scale(ssum, bias=epsilon))
+    return elementwise_div(x, norm)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """``1 - 2 |X . Y| / (|X| + |Y| + epsilon)`` over the one-hot label,
+    averaged over the batch, emitted as its ops."""
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(elementwise_mul(input, label), dim=reduce_dims)
+    dice_denominator = elementwise_add(reduce_sum(input, dim=reduce_dims),
+                                       reduce_sum(label, dim=reduce_dims))
+    dice_score = scale(elementwise_div(
+        scale(inse, scale=2.0),
+        scale(dice_denominator, bias=epsilon)), scale=-1.0, bias=1.0)
+    return reduce_mean(dice_score)
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(
+            -1 if d in (-1, None) else d + paddings[2 * i] + paddings[2 * i + 1]
+            for i, d in enumerate(x.shape))
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    """The output's static shape is set for NCHW only (as in the
+    reference)."""
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        n, c, h, w = input.shape
+        if data_format == "NCHW":
+            out.shape = (n, c,
+                         -1 if h in (-1, None) else h + paddings[0] + paddings[1],
+                         -1 if w in (-1, None) else w + paddings[2] + paddings[3])
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value),
+                            "data_format": data_format})
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", **locals())
+    out = helper.create_variable_for_type_inference(y.dtype)
+    out.shape = x.shape
+    helper.append_op(type="pad_constant_like",
+                     inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        s = [d for i, d in enumerate(input.shape)
+             if not (i in [a % len(input.shape) for a in axes] and d == 1)] \
+            if axes else [d for d in input.shape if d != 1]
+        out.shape = tuple(s)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": axes})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        s = list(input.shape)
+        for a in sorted(axes):
+            s.insert(a, 1)
+        out.shape = tuple(s)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": axes})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    if x[0].shape is not None:
+        s = list(x[0].shape)
+        s.insert(axis % (len(s) + 1), len(x))
+        out.shape = tuple(s)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = []
+    s = list(x.shape)
+    del s[axis % len(s)]
+    for _ in range(num):
+        o = helper.create_variable_for_type_inference(x.dtype)
+        o.shape = tuple(s)
+        outs.append(o)
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(-1 if d in (-1, None) else d * t
+                          for d, t in zip(x.shape, expand_times))
+    helper.append_op(type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    out.shape = (len(input.shape),)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """A static ``shape`` only: a Variable shape raises, as in the
+    reference."""
+    helper = LayerHelper("crop", **locals())
+    if isinstance(shape, Variable):
+        raise NotImplementedError("crop: a shape given as a Variable is not "
+                                  "supported (give a list)")
+    offsets = offsets or [0] * len(x.shape)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(shape)
+    helper.append_op(type="crop", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "offsets": list(offsets)})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR"):
+    helper = LayerHelper("image_resize", **locals())
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    op_type = "bilinear_interp" if resample == "BILINEAR" else "nearest_interp"
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0], input.shape[1], out_shape[0], out_shape[1])
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": out_shape[0], "out_w": out_shape[1]})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the short side is ``out_short_len``, the long side
+    rounded half up to keep the aspect."""
+    in_shape = input.shape
+    if len(in_shape) != 4:
+        raise ValueError("image_resize_short expects NCHW input")
+    h, w = in_shape[2], in_shape[3]
+    if h <= w:
+        out_shape = [out_short_len, int(w * out_short_len / h + 0.5)]
+    else:
+        out_shape = [int(h * out_short_len / w + 0.5), out_short_len]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """``Alpha`` a float32 parameter (0.25): one value, one a channel or
+    one an element of a row."""
+    helper = LayerHelper("prelu", **locals())
+    if mode not in ("all", "channel", "element"):
+        raise ValueError("mode must be all|channel|element")
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [x.shape[1]]
+    elif mode == "element":
+        alpha_shape = [int(np.prod(x.shape[1:]))]
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype="float32",
+        is_bias=False, default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def multiplex(inputs, index):
+    """Row i from ``inputs[index[i]]``."""
+    helper = LayerHelper("multiplex", **locals())
+    out = helper.create_variable_for_type_inference(
+        helper.input_dtype("inputs"))
+    out.shape = tuple(inputs[0].shape)
+    helper.append_op(type="multiplex",
+                     inputs={"X": list(inputs), "Ids": [index]},
+                     outputs={"Out": [out]})
     return out

@@ -1,6 +1,7 @@
 """Tensor-construction layers (counterpart of
 ``paddle_tpu/fluid/layers/tensor.py``): the builders the decode and
-training programs call."""
+training programs call, ``reverse``, ``argmin`` / ``argmax`` /
+``argsort`` and the finiteness checks."""
 
 from __future__ import annotations
 
@@ -10,9 +11,16 @@ from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "sums", "assign", "fill_constant", "fill_constant_batch_size_like",
-           "zeros"]
+__all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
+           "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "ones", "zeros", "reverse",
+           "argmin", "argmax", "argsort", "has_inf", "has_nan", "isfinite"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -138,3 +146,76 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    if isinstance(axis, int):
+        axis = [axis]
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def _arg_op(op_type, x, axis):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    if x.shape is not None:
+        s = list(x.shape)
+        del s[axis % len(s)]
+        out.shape = tuple(s)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    return _arg_op("arg_min", x, axis)
+
+
+def argmax(x, axis=0):
+    return _arg_op("arg_max", x, axis)
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    ids = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    out.shape = input.shape
+    ids.shape = input.shape
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def _bool_reduce(op_type, x):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype="bool",
+                                                    stop_gradient=True)
+    out.shape = (1,)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def isfinite(x):
+    """True iff every element is finite."""
+    return _bool_reduce("isfinite", x)
+
+
+def has_inf(x):
+    """True iff any element is +-inf."""
+    return _bool_reduce("has_inf", x)
+
+
+def has_nan(x):
+    """True iff any element is NaN."""
+    return _bool_reduce("has_nan", x)

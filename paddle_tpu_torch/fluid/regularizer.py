@@ -1,8 +1,8 @@
 """Weight-decay regularizers (counterpart of
-``paddle_tpu/fluid/regularizer.py``).  L2 decay emits ``scale`` + ``sum``,
-both ported (a sparse table's SelectedRows grad is scatter-added into the
-dense decay by ``sum``, as in the reference); L1 decay's ``sign`` op is not
-registered yet."""
+``paddle_tpu/fluid/regularizer.py``).  L2 decay emits ``scale`` + ``sum``
+(a sparse table's SelectedRows grad is scatter-added into the dense
+decay by ``sum``, as in the reference); L1 decay ``sign`` + ``scale`` +
+``sum``."""
 
 from __future__ import annotations
 

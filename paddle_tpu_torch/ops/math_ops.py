@@ -3,7 +3,12 @@ matmul, the elementwise family (add, sub, mul, div, max, min, pow), scale,
 sum (over dense and SelectedRows inputs), mean, cast, the comparisons
 (equal, not_equal, less_than, less_equal, greater_than, greater_equal),
 the logical ops and increment: those two families keep host (numpy)
-inputs on the host, as the reference's counter path does.
+inputs on the host, as the reference's counter path does.  Also
+elementwise mod and floordiv (Python's signs: ``torch.remainder`` /
+``floor_divide``, not ``fmod``), clip and clip_by_norm (the gradient
+clips' ops), isfinite / has_inf / has_nan (one bool of shape ``[1]``),
+sign (L1 decay's), maximum / minimum (a tie splits the grad in halves,
+as ``jnp.maximum``'s) and dot (over the last dim, kept).
 Large products go to ``torch.matmul``, as the reference leaves them to XLA;
 float32 stays float32 (the port never turns TF32 on).  Under ``fluid.amp``
 ``mul`` and ``matmul`` multiply in the compute dtype (``amp.cast_operands``
@@ -111,6 +116,16 @@ _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
 _elementwise("elementwise_min", torch.minimum)
 _elementwise("elementwise_pow", torch.pow)
+_elementwise("elementwise_mod", torch.remainder)
+
+
+def _floordiv(x, y):
+    """``torch.floor_divide``, which has no derivative in torch: its grad
+    is zero, as the reference's (``jnp.floor_divide`` ends in a round)."""
+    return torch.floor_divide(x.detach(), y.detach())
+
+
+_elementwise("elementwise_floordiv", _floordiv)
 
 
 @register_op("scale")
@@ -227,3 +242,65 @@ def increment(ctx):
     if not x.is_floating_point() and float(step).is_integer():
         step = int(step)
     return {"Out": (x + step).to(x.dtype)}
+
+
+@register_op("clip")
+def clip(ctx):
+    from .activation_ops import clip as _clip
+
+    return {"Out": _clip(ctx.input("X"), ctx.attr("min"), ctx.attr("max"))}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx):
+    """``X * max_norm / norm`` where X's L2 norm passes ``max_norm``, else
+    X: the reference's ``where`` over both branches, so the grad flows
+    through the norm where it clips."""
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    tiny = torch.full((), 1e-12, dtype=norm.dtype, device=norm.device)
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.maximum(norm, tiny),
+                        torch.ones_like(norm))
+    return {"Out": x * scale.to(x.dtype)}
+
+
+@register_op("isfinite", no_grad_inputs=("X",))
+def isfinite(ctx):
+    """Whether every element is finite, shape ``[1]``."""
+    return {"Out": torch.all(torch.isfinite(ctx.input("X"))).reshape(1)}
+
+
+@register_op("has_inf", no_grad_inputs=("X",))
+def has_inf(ctx):
+    """Whether any element is +-inf, shape ``[1]``."""
+    return {"Out": torch.any(torch.isinf(ctx.input("X"))).reshape(1)}
+
+
+@register_op("has_nan", no_grad_inputs=("X",))
+def has_nan(ctx):
+    """Whether any element is NaN, shape ``[1]``."""
+    return {"Out": torch.any(torch.isnan(ctx.input("X"))).reshape(1)}
+
+
+@register_op("sign")
+def sign(ctx):
+    return {"Out": torch.sign(ctx.input("X"))}
+
+
+@register_op("maximum")
+def maximum(ctx):
+    return {"Out": torch.maximum(ctx.input("X"), ctx.input("Y"))}
+
+
+@register_op("minimum")
+def minimum(ctx):
+    return {"Out": torch.minimum(ctx.input("X"), ctx.input("Y"))}
+
+
+@register_op("dot")
+def dot(ctx):
+    """Rowwise products summed over the last dim, which stays as 1."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    return {"Out": torch.sum(x * y, dim=-1, keepdim=True)}

@@ -1,5 +1,9 @@
-"""Reduction ops (counterpart of ``paddle_tpu/ops/reduce_ops.py``):
-reduce_sum, reduce_mean and top_k."""
+"""Reduction and sort ops (counterpart of
+``paddle_tpu/ops/reduce_ops.py``): reduce_sum, reduce_mean, reduce_max,
+reduce_min, reduce_prod, cumsum, arg_max, arg_min, argsort and top_k.
+reduce_max / reduce_min are ``torch.amax`` / ``amin``, whose grad splits
+evenly between tied extremes as ``jnp.max``'s does (``torch.max(dim)``
+gives it all to one); argsort is stable, as ``jnp.argsort``."""
 
 from __future__ import annotations
 
@@ -24,8 +28,60 @@ def _reduce(name, fn):
     return _impl
 
 
+def _prod(x, dim=None, keepdim=False):
+    """``torch.prod`` over several dims (it takes one at a time)."""
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_mean", torch.mean)
+_reduce("reduce_max", torch.amax)
+_reduce("reduce_min", torch.amin)
+_reduce("reduce_prod", _prod)
+
+
+@register_op("cumsum")
+def cumsum(ctx):
+    """Running sums along ``axis``; ``exclusive`` leaves each element out
+    of its own sum, ``reverse`` runs from the end."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    reverse = ctx.attr("reverse", False)
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if ctx.attr("exclusive", False):
+        out = out - x
+    if reverse:
+        out = torch.flip(out, (axis,))
+    return {"Out": out}
+
+
+@register_op("arg_max", no_grad_inputs=("X",))
+def arg_max(ctx):
+    """int64 index of the first largest value along ``axis``."""
+    return {"Out": torch.argmax(ctx.input("X"),
+                                dim=ctx.attr("axis", -1)).to(torch.int64)}
+
+
+@register_op("arg_min", no_grad_inputs=("X",))
+def arg_min(ctx):
+    """int64 index of the first smallest value along ``axis``."""
+    return {"Out": torch.argmin(ctx.input("X"),
+                                dim=ctx.attr("axis", -1)).to(torch.int64)}
+
+
+@register_op("argsort", no_grad_inputs=("X",))
+def argsort(ctx):
+    """The values sorted ascending along ``axis`` and their int64
+    indices, ties in their input order."""
+    vals, idx = torch.sort(ctx.input("X"), dim=ctx.attr("axis", -1),
+                           stable=True)
+    return {"Out": vals, "Indices": idx.to(torch.int64)}
 
 
 @register_op("top_k", no_grad_inputs=("X",))

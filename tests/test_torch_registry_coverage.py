@@ -1,0 +1,50 @@
+"""The port's op registry against the JAX package's, by name: the port has
+no op type the reference lacks, and holds every one of the one-line
+activation, math, reduce and shape ops (63).  The op types still to port
+are printed (``pytest -s``)."""
+
+from paddle_tpu.ops.registry import REGISTRY as REF
+from paddle_tpu_torch.ops.registry import REGISTRY as PORT
+
+ONE_LINE_OPS = {
+    "activation_ops": [
+        "abs", "sqrt", "rsqrt", "reciprocal", "round", "sin", "softplus",
+        "softsign", "softshrink", "gelu", "logsigmoid", "tanh_shrink",
+        "relu6", "leaky_relu", "elu", "pow", "stanh", "hard_sigmoid",
+        "hard_shrink", "thresholded_relu", "soft_relu", "brelu", "swish",
+        "prelu", "log_softmax"],
+    "math_ops": [
+        "clip", "clip_by_norm", "isfinite", "has_inf", "has_nan", "sign",
+        "maximum", "minimum", "dot", "elementwise_mod",
+        "elementwise_floordiv"],
+    "reduce_ops": [
+        "reduce_max", "reduce_min", "reduce_prod", "cumsum", "arg_max",
+        "arg_min", "argsort"],
+    "shape_ops": [
+        "reshape2", "transpose2", "squeeze", "unsqueeze", "stack", "unstack",
+        "expand", "expand_as", "scatter", "pad", "pad2d",
+        "pad_constant_like", "crop", "reverse", "shape", "multiplex",
+        "where", "tile", "bilinear_interp", "nearest_interp"],
+}
+
+
+def test_port_has_no_op_the_reference_lacks():
+    assert sorted(set(PORT) - set(REF)) == []
+
+
+def test_one_line_ops_are_ported_in_their_modules():
+    names = [n for ops in ONE_LINE_OPS.values() for n in ops]
+    assert len(names) == len(set(names)) == 63
+    for module, ops in ONE_LINE_OPS.items():
+        for name in ops:
+            assert name in PORT, name
+            assert PORT[name].fn.__module__ == \
+                f"paddle_tpu_torch.ops.{module}", (name, PORT[name].fn)
+            assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
+
+
+def test_missing_op_types_are_listed():
+    missing = sorted(set(REF) - set(PORT))
+    print(f"\n{len(PORT)} of {len(REF)} op types ported; {len(missing)} "
+          f"still to port: {', '.join(missing)}")
+    assert len(PORT) + len(missing) == len(REF)

@@ -243,10 +243,11 @@ def _run(pkg, main, feeds, fetches):
                    return_numpy=False)
 
 
-def compare_with_reference(case):
+def compare_with_reference(case, tol=None):
     """Run ``case`` (op type, inputs, attrs, output slots) in both
     packages: outputs and their LoDs, then the differentiable inputs'
-    grads, within ``TOL``."""
+    grads, within ``tol`` (default ``TOL``)."""
+    tol = tol or TOL
     rmain, rfeeds, routs, _ = _build(rf, case)
     ref = _run(rf, rmain, rfeeds, routs)
     pmain, pfeeds, pouts, _ = _build(tf, case)
@@ -255,7 +256,7 @@ def compare_with_reference(case):
         ra, pa = np.asarray(r), np.asarray(p)
         assert pa.shape == ra.shape, (slot, pa.shape, ra.shape)
         if np.issubdtype(ra.dtype, np.floating):
-            np.testing.assert_allclose(pa, ra, err_msg=slot, **TOL)
+            np.testing.assert_allclose(pa, ra, err_msg=slot, **tol)
         else:
             np.testing.assert_array_equal(pa, ra, err_msg=slot)
         assert _lod(p) == _lod(r), (slot, _lod(p), _lod(r))
@@ -276,7 +277,7 @@ def compare_with_reference(case):
     port_g = _run(tf, pmain, pfeeds, pgrads)
     for n, r, p in zip(rgrads, ref_g, port_g):
         np.testing.assert_allclose(np.asarray(p), np.asarray(r), err_msg=n,
-                                   **TOL)
+                                   **tol)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -115,13 +115,23 @@ def test_config_takes_no_unported_fields():
 
 
 def test_error_clip_raises_until_ported():
-    with tf.program_guard(tf.Program(), tf.Program()):
-        x = tf.layers.data("x", shape=[4], dtype="float32")
-        h = tf.layers.fc(x, 3)
-        h.error_clip = object()
-        loss = tf.layers.reduce_sum(h)
-        with pytest.raises(NotImplementedError, match="error_clip"):
-            tf.optimizer.Adam(1e-3).minimize(loss)
+    """Error clipping is ported (it raised until the ``clip`` op was): a
+    variable's ``ErrorClipByValue`` appends a ``clip`` of its grad, in
+    place, right after the grad op that writes it, as in the reference."""
+    ops = {}
+    for pkg in (rf, tf):
+        main = pkg.Program()
+        with pkg.program_guard(main, pkg.Program()), pkg.unique_name.guard():
+            x = pkg.layers.data("x", shape=[4], dtype="float32")
+            h = pkg.layers.fc(x, 3)
+            h.error_clip = pkg.clip.ErrorClipByValue(0.5)
+            loss = pkg.layers.reduce_sum(h)
+            pkg.optimizer.Adam(1e-3).minimize(loss)
+        ops[pkg] = [(op.type, dict(op.inputs), dict(op.outputs))
+                    for op in main.global_block().ops]
+    assert ops[tf] == ops[rf]
+    clip = next(op for op in ops[tf] if op[0] == "clip")
+    assert clip[1]["X"] == clip[2]["Out"] == [h.name + "@GRAD"]
 
 
 # -- per-op gradients ---------------------------------------------------------
