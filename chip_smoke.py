@@ -25,7 +25,9 @@ then trains MobileNet-SSD through ``ssd_loss`` and decodes it by
 and RoI head through the proposal, sampling and RoI-pooling ops, trains
 BERT-base under global-norm gradient clipping and holds the clip kinds
 and the one-line activation, math, reduce and shape ops against the CPU,
-and checks them all.
+trains DCGAN through the transposed convolutions and holds the
+convolution, norm, indexed-pool and random ops against the CPU, and
+checks them all.
 
     python3 chip_smoke.py
 
@@ -479,6 +481,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    RPN alone with its convs drawn and trained: 3 steps'
                    RPN losses, ``rpn_target_assign``'s outputs and every
                    grad (``check_rpn_step``), 1 momentum launch a step
+53. train_dcgan  - DCGAN at the paper's widths (Radford et al. 2016, the
+                   LSUN 64 x 64 model; 4 x 4 kernels, stride 2, padding 1
+                   as in dcgan.torch): G an fc to 4 x 4 x 1024 and four
+                   ``conv2d_transpose`` to 3 channels, D four stride-2
+                   convs from 128 to 1024 channels and an fc, batch norm,
+                   N(0, 0.02) weights, batch 128, fp32, two Programs
+                   sharing their parameters by name, Adam(2e-4, beta1 0.5)
+                   on each side; 5 iterations of a D and a G step on
+                   synthetic LSUN-shaped batches, the 100-d noise drawn on
+                   the card by ``uniform_random_batch_size_like``: finite
+                   losses, the noise within [-1, 1], exactly 1 Adam launch
+                   for D's 12 tensors a D step and for G's 13 a G step and
+                   no other kernel's, no host sync; images/s, D and G step
+                   ms (CUDA events and host clock), op dispatches a step,
+                   peak allocated; ``--profile`` adds the busy share and
+                   the transposed convolutions' share of it; then
+                   ``kernel_adam_dcgan_d`` / ``_g`` hold row 7 at D's and
+                   G's shapes
+54. train_dcgan_parity - 16 x 16 images, base width 16, batch 8, noise
+                   fed, 3 iterations card against CPU, each step from the
+                   CPU's state: the step's loss within rtol 1e-5 in the
+                   first iteration and 1e-4 after, and tensor by tensor
+                   in the 2-norm within the same rtol each gradient,
+                   the card's Adam update of its own gradients and
+                   every persistable (``adam_step_check``: the elements
+                   whose Adam step follows gradient rounding are left
+                   out of the last and listed); the same step in
+                   float64 on the CPU shows both places' gradient
+                   rounding; 1 Adam launch a step
+55. ops_tranche6_parity - the 22 op types of the conv-transpose, 3-D, norm,
+                   pooling-with-index and random tranche at the per-sample
+                   shapes of the public models that use them (AlexNet's
+                   LRN, group norm on ResNet-50's conv2, SPP-net's
+                   pyramid, SegNet's indexed pool and unpool, C3D's conv
+                   and pools, MobileNet v1's depthwise layers, ShuffleNet,
+                   maxout, DCGAN, 3D U-Net, FCN's bilinear upsampling,
+                   BERT-base's embedding draw; the batches cut for the
+                   CPU side), forward and input grads card against CPU
+                   (``Mask`` equal on tie-free inputs), ``print``'s text
+                   equal, and the draws held to their distributions
+                   (Kolmogorov-Smirnov, exact truncation bounds,
+                   chi-square, a seed repeating its draw)
+
+Every phase's line carries ``seconds``: the wall time since the previous
+line.
 
 ``--profile`` adds a phase after serving (8 requests that keep every slot
 busy; with the graph launches a dispatch and the host's kernel launches a
@@ -752,9 +799,33 @@ RPN_SMALL = dict(RCNN_SMALL, rpn_std=0.01, rpn_trainable=True, rpn_only=True)
 RPN_SMALL_MOMENTUM_TENSORS = 6
 # the detection ops' parity program: classes of its fed scores
 DETECTION_CLASSES = 4
+# DCGAN (Radford, Metz and Chintala 2016, the LSUN 64 x 64 model of its
+# Figure 1; 4 x 4 kernels, stride 2, padding 1 as in the authors' Torch
+# release dcgan.torch): 100-d noise uniform in [-1, 1], generator fc to
+# 4 x 4 x 1024 then transposed convs 1024 -> 512 -> 256 -> 128 -> 3,
+# discriminator convs 3 -> 128 -> 256 -> 512 -> 1024 then fc to a logit;
+# N(0, 0.02) weights, batch 128, fp32, Adam(2e-4, beta1 0.5) on each side
+# (one launch a step for D's 12 tensors, one for G's 13); 5 iterations of
+# one D step and one G step on synthetic LSUN-shaped images
+DCGAN_IMAGE, DCGAN_BASE, DCGAN_NZ, DCGAN_BATCH = 64, 128, 100, 128
+DCGAN_LR, DCGAN_BETA1, DCGAN_STD, DCGAN_ITERS = 2e-4, 0.5, 0.02, 5
+DCGAN_D_TENSORS, DCGAN_G_TENSORS = 12, 13
+# the parity run: 16 x 16 images, base width 16, batch 8, noise fed from
+# numpy, 3 iterations (rtol 1e-5 at the first step, 1e-4 after)
+DCGAN_SMALL = dict(image=16, base=16, feed_noise=True)
+DCGAN_SMALL_BATCH, DCGAN_PARITY_ITERS = 8, 3
+
+
+_LAST_LINE = [time.perf_counter()]
 
 
 def emit(phase, **fields):
+    """One phase's JSON line; ``seconds`` (unless the phase gives its own)
+    is the wall time since the previous line, the phase's own time as the
+    phases run one after another."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1058,19 +1129,26 @@ def spec_tail_jobs(rng, vocab):
             for n in (125, 116)]
 
 
-def device_spans(prof):
-    """(start us, end us, name) of every kernel, copy and memset a
-    ``torch.profiler`` trace recorded on the device, in time order."""
+def trace_events(prof):
+    """The complete events (``ph`` X) of a ``torch.profiler`` trace (which
+    can be exported once)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return [e for e in json.load(f)["traceEvents"]
+                    if e.get("ph") == "X"]
+
+
+def device_spans(prof, events=None):
+    """(start us, end us, name) of every kernel, copy and memset a
+    ``torch.profiler`` trace (or its ``events``) recorded on the device,
+    in time order."""
+    events = trace_events(prof) if events is None else events
     return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                  if e.get("ph") == "X" and e.get("cat") in (
-                      "kernel", "gpu_memcpy", "gpu_memset")
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                   and "spin_kernel" not in e["name"])
 
 
@@ -2212,11 +2290,12 @@ def phase_kernel_adam(shapes, phase="kernel_adam"):
             "library_ms": times["library_graph_ms"]}
 
 
-def trainable_shapes(main, want):
-    """The shapes of ``main``'s trainable parameters: one optimizer tensor
-    each; raises unless there are ``want``."""
+def trainable_shapes(main, want, names=None):
+    """The shapes of ``main``'s trainable parameters (of those ``names``
+    only, if given): one optimizer tensor each; raises unless there are
+    ``want``."""
     shapes = [tuple(p.shape) for p in main.global_block().all_parameters()
-              if p.trainable]
+              if p.trainable and (names is None or p.name in names)]
     if len(shapes) != want:
         raise AssertionError(f"{len(shapes)} trainable parameters, the path "
                              f"updates {want}")
@@ -2226,13 +2305,14 @@ def trainable_shapes(main, want):
 def optimizer_at_model_shapes(kernel_phase, kernel, models):
     """``kernel_phase`` (:func:`phase_kernel_adam` or
     :func:`phase_kernel_momentum`) at each of ``models``' parameter shapes
-    ``(name, main program, tensors its path updates)``, a line each
-    (``kernel_<kernel>_<name>``): the kernels-line numbers by model."""
+    ``(name, main program, tensors its path updates[, their parameter
+    names])``, a line each (``kernel_<kernel>_<name>``): the kernels-line
+    numbers by model."""
     import torch
 
     out = {}
-    for name, main, want in models:
-        entry = kernel_phase(trainable_shapes(main, want),
+    for name, main, want, *names in models:
+        entry = kernel_phase(trainable_shapes(main, want, *names),
                              f"kernel_{kernel}_{name}")
         out[name] = {"tensors": want, **{
             k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -4906,7 +4986,8 @@ def tranche5_groups():
 def op_group_program(fluid, specs, inputs):
     """One Program running each op of ``specs`` on its own copies of its
     inputs (fed as ``<op index>_<key>``), then ``append_backward`` of the
-    sum over every float output of ``reduce_sum(out * out)``: (main,
+    sum over every float output (not ``XShape``, nor the integer ``Mask``)
+    of ``reduce_sum(out * out)``: (main,
     startup, feed keys by name, the outputs' names, the checked grads'
     names)."""
     main, startup = fluid.Program(), fluid.Program()
@@ -4939,7 +5020,7 @@ def op_group_program(fluid, specs, inputs):
                             attrs=dict(attrs))
             for slot, ns in onames.items():
                 outs += ns
-                if not diff or slot == "XShape":
+                if not diff or slot in ("XShape", "Mask"):
                     continue
                 for n in ns:
                     v = block.var(n)
@@ -6619,20 +6700,21 @@ def load_parameter(file_name, h, w):
 
 def host_syncs():
     """The host reads of device data the structured-loss and detection
-    host ops and the control flow made."""
-    from paddle_tpu_torch.ops import detection_ops
+    host ops, the print ops and the control flow made."""
+    from paddle_tpu_torch.ops import detection_ops, nn_ops
     from paddle_tpu_torch.ops import struct_loss_ops as sl
 
     return (sl.stats["host_reads"] + detection_ops.stats["host_reads"]
-            + control_stats()["host_syncs"])
+            + nn_ops.stats["host_reads"] + control_stats()["host_syncs"])
 
 
 def reset_host_syncs():
-    from paddle_tpu_torch.ops import detection_ops
+    from paddle_tpu_torch.ops import detection_ops, nn_ops
     from paddle_tpu_torch.ops import struct_loss_ops as sl
 
     sl.reset_stats()
     detection_ops.reset_stats()
+    nn_ops.stats["host_reads"] = 0
     reset_control_stats()
 
 
@@ -7502,6 +7584,254 @@ def detection_host_ops(program):
                    if op.type in registry.EAGER_OPS})
 
 
+def dcgan_programs(fluid, image=DCGAN_IMAGE, base=DCGAN_BASE, feed_noise=False,
+                   dtype="float32"):
+    """DCGAN's two training Programs built with ``fluid`` (either
+    package's), sharing one startup and their parameters by ``ParamAttr``
+    name: ``d`` runs G (under ``stop_gradient``: no grad reaches G) and D
+    on the real batch and on G's images, its loss the two sigmoid
+    cross-entropies against ``fill_constant_batch_size_like`` labels 1 and
+    0, Adam over D's parameters; ``g`` runs G and D, its loss G's images
+    against label 1, Adam over G's parameters.  The noise is drawn in each
+    Program by ``uniform_random_batch_size_like`` from the real batch, or
+    fed (``feed_noise``).  ``dtype``: of the images, the noise, the labels
+    and so of every parameter.  Generator: fc to ``(image / 16)²·8·base``,
+    batch_norm and relu, three ``conv2d_transpose`` halving the width with
+    batch_norm and relu, one to 3 channels and tanh; discriminator: four
+    stride-2 convs doubling it from ``base`` (batch_norm on all but the
+    first) with leaky_relu 0.2, fc to one logit.  The convs and G's fc
+    carry no bias (a batch_norm follows, which would take out its grad;
+    as in dcgan.torch).  Returns a dict of the
+    programs and vars."""
+    layers = fluid.layers
+    s0 = image // 16
+    init = fluid.initializer.Normal(0.0, DCGAN_STD)
+
+    def attr(name):
+        return fluid.ParamAttr(name=name, initializer=init)
+
+    def bn(x, name, act):
+        return layers.batch_norm(
+            x, act=act, param_attr=fluid.ParamAttr(name=name + ".scale"),
+            bias_attr=fluid.ParamAttr(name=name + ".bias"),
+            moving_mean_name=name + ".mean",
+            moving_variance_name=name + ".var")
+
+    def generator(z):
+        h = layers.fc(z, s0 * s0 * 8 * base, param_attr=attr("g_fc.w"),
+                      bias_attr=False)
+        h = bn(layers.reshape(h, [-1, 8 * base, s0, s0]), "g_bn0", "relu")
+        for i, width in enumerate((4 * base, 2 * base, base, 3)):
+            h = layers.conv2d_transpose(h, width, filter_size=4, stride=2,
+                                        padding=1,
+                                        param_attr=attr(f"g_deconv{i}.w"),
+                                        bias_attr=False)
+            h = bn(h, f"g_bn{i + 1}", "relu") if width != 3 else \
+                layers.tanh(h)
+        return h
+
+    def discriminator(x):
+        h = x
+        for i, width in enumerate((base, 2 * base, 4 * base, 8 * base)):
+            h = layers.conv2d(h, width, 4, stride=2, padding=1,
+                              param_attr=attr(f"d_conv{i}.w"),
+                              bias_attr=False)
+            if i:
+                h = bn(h, f"d_bn{i}", None)
+            h = layers.leaky_relu(h, alpha=0.2)
+        return layers.fc(h, 1, param_attr=attr("d_fc.w"),
+                         bias_attr=fluid.ParamAttr(name="d_fc.b"))
+
+    def bce(logit, label):
+        target = layers.fill_constant_batch_size_like(logit, [-1, 1],
+                                                      dtype, label)
+        return layers.mean(
+            layers.sigmoid_cross_entropy_with_logits(logit, target))
+
+    def noise_of(img):
+        if feed_noise:
+            return layers.data(name="noise", shape=[DCGAN_NZ], dtype=dtype)
+        helper = fluid.layer_helper.LayerHelper("noise")
+        z = helper.create_variable_for_type_inference(dtype)
+        z.shape = (-1, DCGAN_NZ)
+        helper.append_op(
+            type="uniform_random_batch_size_like", inputs={"Input": [img]},
+            outputs={"Out": [z]},
+            attrs={"shape": [-1, DCGAN_NZ], "input_dim_idx": 0,
+                   "output_dim_idx": 0, "min": -1.0, "max": 1.0,
+                   "dtype": dtype, "seed": 0})
+        return z
+
+    d_main, g_main, startup = fluid.Program(), fluid.Program(), \
+        fluid.Program()
+    out = {"startup": startup, "d": d_main, "g": g_main}
+    with fluid.unique_name.guard():
+        with fluid.program_guard(d_main, startup):
+            img = layers.data(name="img", shape=[3, image, image],
+                              dtype=dtype)
+            z = noise_of(img)
+            fake = generator(z)
+            fake.stop_gradient = True
+            d_loss = layers.elementwise_add(bce(discriminator(img), 1.0),
+                                            bce(discriminator(fake), 0.0))
+            d_params = [p.name for p in d_main.global_block().all_parameters()
+                        if p.name.startswith("d_")]
+            fluid.optimizer.Adam(DCGAN_LR, beta1=DCGAN_BETA1).minimize(
+                d_loss, parameter_list=d_params)
+            out.update(d_loss=d_loss.name, d_noise=z.name, d_fake=fake.name,
+                       d_params=d_params)
+        with fluid.program_guard(g_main, startup):
+            img = layers.data(name="img", shape=[3, image, image],
+                              dtype=dtype)
+            z = noise_of(img)
+            fake = generator(z)
+            g_loss = bce(discriminator(fake), 1.0)
+            g_params = [p.name for p in g_main.global_block().all_parameters()
+                        if p.name.startswith("g_")]
+            fluid.optimizer.Adam(DCGAN_LR, beta1=DCGAN_BETA1).minimize(
+                g_loss, parameter_list=g_params)
+            out.update(g_loss=g_loss.name, g_noise=z.name, g_fake=fake.name,
+                       g_params=g_params)
+    return out
+
+
+def norm_rel_err(got, want):
+    """``‖got − want‖ / ‖want‖`` over a whole tensor (0 for two zero
+    tensors), in float64."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    den = float(np.linalg.norm(want))
+    num = float(np.linalg.norm(got - want))
+    return num / den if den else num
+
+
+ADAM_SLOTS = ("Param", "Moment1", "Moment2", "LearningRate", "Beta1Pow",
+              "Beta2Pow")
+ADAM_OUT = ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow")
+
+
+def adam_slots(program):
+    """Each adam op of ``program`` by its parameter's name: ``(vars, beta1,
+    beta2, epsilon)``, ``vars`` the op's input names by slot."""
+    out = {}
+    for op in program.global_block().ops:
+        if op.type == "adam":
+            names = {slot: op.inputs[slot][0] for slot in ADAM_SLOTS}
+            out[names["Param"]] = (names, op.attrs.get("beta1", 0.9),
+                                   op.attrs.get("beta2", 0.999),
+                                   op.attrs.get("epsilon", 1e-8))
+    return out
+
+
+def adam_step_check(slots, before, want, got, want_grads, got_grads, rtol):
+    """Hold one training step's state ``got`` against ``want``, both run
+    from the state ``before`` (``{name: ndarray}``, every persistable),
+    where an adam op (``slots``: :func:`adam_slots`) updated each
+    parameter of ``want_grads`` / ``got_grads`` (``{param: grad}``).  Each
+    check holds one tensor in the 2-norm (:func:`norm_rel_err`) within
+    ``rtol``:
+
+    - ``grad``: each updated parameter's gradient;
+    - ``adam``: ``got``'s parameter, moments and beta pows against the
+      plain Adam (``fused.adam_group_ref``, float32 on the CPU) run from
+      ``before`` on ``got``'s own gradient;
+    - ``state``: every persistable of ``want`` (parameters, moments, beta
+      pows, batch-norm statistics).  A second moment is held by its square
+      root, in the gradient's units: it is the gradient squared, which
+      doubles the gradient's relative error.  Of an updated parameter the
+      elements are left out whose grad in ``want`` is not exactly 0 and
+      where moving that grad by ``rtol`` of the tensor's largest |grad|
+      would move the element's Adam update ``lr_t·m/(√v + ε)`` by more
+      than the whole tensor's tolerance, ``rtol·‖p‖``.  Where √v is near
+      ε the update follows the gradient's own rounding (a grad of 3e-8
+      against ε/√(1 − β2) = 3.2e-7 at the first step), and a tensor that
+      starts at 0, a batch norm's bias, has only about lr·√n of norm to
+      absorb it.  These elements are still held by ``adam`` and
+      ``grad``.
+
+    Returns each check's worst tensor, the count of left-out elements by
+    tensor, and those of them that parted by more than an even share of
+    the tolerance, ``rtol·‖p‖/√n`` (``parted``), with both gradients and
+    parameters; raises AssertionError naming every failure (a NaN
+    fails)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import fused
+
+    fails, errs, masks, left_out, parted = [], {}, {}, {}, []
+
+    def held(check, name, err):
+        errs.setdefault(check, {})[name] = err
+        if not err <= rtol:
+            fails.append(f"{check} {name}: {err} (rtol {rtol})")
+
+    for p, g_want in want_grads.items():
+        names, b1, b2, eps = slots[p]
+        held("grad", p, norm_rel_err(got_grads[p], g_want))
+        t = [torch.from_numpy(np.array(before[names[s]])) for s in ADAM_SLOTS]
+        new = fused.adam_group_ref(
+            [t[0]], [torch.from_numpy(np.array(got_grads[p]))], *(
+                [x] for x in t[1:]), b1, b2, eps)[0]
+        for slot, v in zip(ADAM_OUT, new):
+            held("adam", names[slot], norm_rel_err(got[names[slot]],
+                                                   v.numpy()))
+        m1, m2, lr, b1p, b2p = (np.asarray(before[names[s]], np.float64)
+                                for s in ADAM_SLOTS[1:])
+        lr_t = lr * np.sqrt(1.0 - b2p) / (1.0 - b1p)
+
+        def update(g):
+            return lr_t * (b1 * m1 + (1.0 - b1) * g) / (
+                np.sqrt(b2 * m2 + (1.0 - b2) * g * g) + eps)
+
+        g = np.asarray(g_want, np.float64)
+        a = rtol * float(np.abs(g).max(initial=0.0))
+        u = update(g)
+        moved = np.maximum(np.abs(update(g + a) - u),
+                           np.abs(update(g - a) - u))
+        w = np.asarray(want[p], np.float64)
+        limit = rtol * np.linalg.norm(w)
+        masks[p] = (moved > limit) & (g != 0)
+        if masks[p].any():
+            left_out[p] = int(masks[p].sum())
+        far = masks[p] & (np.abs(np.asarray(got[p], np.float64) - w) >
+                          limit / np.sqrt(w.size))
+        parted += [{"name": p, "index": int(i),
+                    "grad_want": float(g.flat[i]),
+                    "grad_got": float(got_grads[p].flat[i]),
+                    "grad_largest": a / rtol,
+                    "before": float(before[p].flat[i]),
+                    "want": float(w.flat[i]), "got": float(got[p].flat[i]),
+                    "tensor_limit": limit}
+                   for i in np.flatnonzero(far)]
+    second = {slots[p][0]["Moment2"] for p in want_grads}
+    for n in want:
+        w, g = np.asarray(want[n], np.float64), np.asarray(got[n], np.float64)
+        if n in masks:
+            w, g = w[~masks[n]], g[~masks[n]]
+        elif n in second:
+            w, g = np.sqrt(w), np.sqrt(g)
+        held("state", n, norm_rel_err(g, w))
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"worst": {check: max(e.items(), key=lambda kv: kv[1])
+                      for check, e in errs.items()},
+            "left_out": left_out, "parted": parted}
+
+
+def dcgan_batch(rng, batch=DCGAN_BATCH, image=DCGAN_IMAGE):
+    """A synthetic LSUN-shaped batch: ``[batch, 3, image, image]`` images
+    in [-1, 1], each a 4 x 4 field of colour blocks with noise over it."""
+    import numpy as np
+
+    coarse = np.repeat(np.repeat(
+        rng.uniform(-1, 1, (batch, 3, 4, 4)).astype(np.float32),
+        image // 4, 2), image // 4, 3)
+    img = 0.8 * coarse + 0.2 * rng.uniform(-1, 1, coarse.shape)
+    return np.clip(img, -1, 1).astype(np.float32)
+
+
 def phase_train_ssd(profile_run=False):
     """MobileNet-SSD at upstream's widths on the card (3 x 300 x 300, 21
     classes, batch 64, ``ssd_loss`` summed, RMSProp on ``piecewise_decay``
@@ -8078,6 +8408,716 @@ def phase_rpn_parity(feed, places):
             "worst": max(worst, key=worst.get), "launches": counts}
 
 
+def dcgan_step(exe, progs, side, scope, img, noise=None, fetch_noise=False):
+    """One D or G step: its loss (and noise), as device tensors."""
+    feed = {"img": img} if noise is None else {"img": img, "noise": noise}
+    fetches = [progs[f"{side}_loss"]]
+    if fetch_noise:
+        fetches.append(progs[f"{side}_noise"])
+    return exe.run(progs[side], feed=feed, fetch_list=fetches, scope=scope,
+                   return_numpy=False)
+
+
+DECONV_OPS = ("conv2d_transpose", "conv2d_transpose_grad")
+
+
+def dcgan_profile(exe, progs, scope, img):
+    """One more iteration (a D and a G step) under ``torch.profiler`` with
+    each op dispatch annotated by its type: the device's busy share of the
+    wall time, and the device time and busy share of the kernels that the
+    ``conv2d_transpose`` ops and their grads launched (kernels matched to
+    their launch calls by correlation id, launch calls to the op whose
+    annotation holds them).  Fails unless every such op of the two
+    Programs was annotated and some kernel was matched to them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.fluid import executor
+
+    run_op = executor.run_op
+
+    def annotated(op, *args, **kwargs):
+        with record_function(f"op:{op.type}"):
+            return run_op(op, *args, **kwargs)
+
+    executor.run_op = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad_trace()
+            t0 = time.perf_counter()
+            for side in ("d", "g"):
+                dcgan_step(exe, progs, side, scope, img)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pad_trace()
+    finally:
+        executor.run_op = run_op
+    events = trace_events(prof)
+    spans = device_spans(prof, events)
+    busy_s, n_events, top = trace_summary(spans)
+    marks = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"] in [f"op:{t}" for t in DECONV_OPS]]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})
+                and any(tid == e["tid"] and a <= e["ts"] <= b
+                        for tid, a, b in marks)}
+    deconv = [e for e in events if e.get("cat") == "kernel"
+              and e.get("args", {}).get("correlation") in launched]
+    want = sum(op.type in DECONV_OPS for side in "dg"
+               for op in progs[side].global_block().ops)
+    if len(marks) != want or not deconv:
+        raise AssertionError(
+            f"train_dcgan_profile: {len(marks)} of the {want} transposed "
+            f"convolution ops annotated, {len(deconv)} kernels matched")
+    deconv_s = sum(e["dur"] for e in deconv) / 1e6
+    emit("train_dcgan_profile", wall_s=wall, device_busy_s=busy_s,
+         device_busy_share=busy_s / wall, device_events=n_events,
+         conv2d_transpose_ops=len(marks),
+         conv2d_transpose_kernels=len(deconv),
+         conv2d_transpose_device_s=deconv_s,
+         conv2d_transpose_share_of_busy=deconv_s / busy_s,
+         optimizer_kernels=optimizer_kernels(spans),
+         conv_kernels=kernel_family(spans, CONV_KEYS, busy_s), top_kernels=top)
+
+
+def phase_train_dcgan(profile_run=False):
+    """DCGAN at the paper's widths on the card (``dcgan_programs``: 64 x 64
+    images, batch 128, fp32): ``DCGAN_ITERS`` iterations of one D step and
+    one G step on fresh synthetic LSUN-shaped batches, the noise drawn on
+    the card by ``uniform_random_batch_size_like``.  Checks: finite
+    losses; each step's noise on the card, ``[128, 100]``, within [-1, 1];
+    exactly one Adam launch for D's 12 tensors a D step and one for G's 13
+    a G step, and no other kernel's; no host sync.  Reports images/s, D
+    and G step ms (CUDA events and host clock), op dispatches a step and
+    peak allocated; with ``--profile`` one more iteration under the
+    profiler (``dcgan_profile``).  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    progs = dcgan_programs(fluid)
+    for side, want in (("d", DCGAN_D_TENSORS), ("g", DCGAN_G_TENSORS)):
+        if len(progs[f"{side}_params"]) != want:
+            raise AssertionError(f"train_dcgan: {side} trains "
+                                 f"{len(progs[side + '_params'])} tensors")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    rng = np.random.RandomState(0)
+    batches = [dcgan_batch(rng) for _ in range(DCGAN_ITERS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_syncs()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms = {f"{side}_{clock}": [] for side in "dg"
+          for clock in ("host", "device")}
+    counts, dispatches, losses, noise = {}, {"d": 0, "g": 0}, [], []
+    for img in batches:
+        step = []
+        for side in ("d", "g"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with counting_dispatches() as box:
+                t0 = time.perf_counter()
+                start.record()
+                loss, z = dcgan_step(exe, progs, side, scope, img,
+                                     fetch_noise=True)
+                end.record()
+                torch.cuda.synchronize()
+            ms[f"{side}_host"].append((time.perf_counter() - t0) * 1e3)
+            ms[f"{side}_device"].append(start.elapsed_time(end))
+            dispatches[side] += box[0]
+            got = launch_counts()
+            check_launches(f"train_dcgan {side} step", got, {
+                "adam": 1, "adam_tensors": DCGAN_D_TENSORS if side == "d"
+                else DCGAN_G_TENSORS}, 1)
+            add_counts(counts, got)
+            step.append(float(loss.reshape(-1)[0]))
+            noise.append((z.device.type, tuple(z.shape), float(z.min()),
+                          float(z.max())))
+        losses.append(step)
+    syncs = host_syncs()
+    if not all(math.isfinite(v) for step in losses for v in step):
+        raise AssertionError(f"train_dcgan: non-finite losses {losses}")
+    want_z = ("cuda", (DCGAN_BATCH, DCGAN_NZ))
+    if any(z[:2] != want_z or z[2] < -1.0 or z[3] > 1.0 for z in noise):
+        raise AssertionError(f"train_dcgan: noise {noise}")
+    if syncs:
+        raise AssertionError(f"train_dcgan: {syncs} host syncs in "
+                             f"{DCGAN_ITERS} iterations")
+    n = DCGAN_ITERS - 1  # the first iteration warms up (first launches)
+    iter_dev = [a + b for a, b in zip(ms["d_device"], ms["g_device"])][1:]
+    iter_host = [a + b for a, b in zip(ms["d_host"], ms["g_host"])][1:]
+    params = {side: [scope.get(p) for p in progs[f"{side}_params"]]
+              for side in "dg"}
+    emit("train_dcgan", model="DCGAN (Radford et al. 2016, LSUN 64 x 64; "
+         "dcgan.torch kernels)", data="synthetic LSUN-shaped",
+         image=[3, DCGAN_IMAGE, DCGAN_IMAGE], batch=DCGAN_BATCH,
+         noise_dim=DCGAN_NZ, base_width=DCGAN_BASE, lr=DCGAN_LR,
+         beta1=DCGAN_BETA1, iterations=DCGAN_ITERS,
+         ops={side: len(progs[side].global_block().ops) for side in "dg"},
+         parameter_values={side: sum(t.numel() for t in ts)
+                           for side, ts in params.items()},
+         losses={"d": [s[0] for s in losses], "g": [s[1] for s in losses]},
+         noise_min=min(z[2] for z in noise),
+         noise_max=max(z[3] for z in noise),
+         launches=counts, **{f"{k}_step_ms": v for k, v in ms.items()},
+         images_per_s_events=DCGAN_BATCH * n * 1e3 / sum(iter_dev),
+         images_per_s_host=DCGAN_BATCH * n * 1e3 / sum(iter_host),
+         op_dispatches_per_step={side: v / DCGAN_ITERS
+                                 for side, v in dispatches.items()},
+         host_syncs_per_step=syncs / (2 * DCGAN_ITERS),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if profile_run:
+        dcgan_profile(exe, progs, scope, batches[0])
+    return counts, progs
+
+
+def phase_train_dcgan_parity():
+    """Card against CPU: ``DCGAN_SMALL`` (16 x 16 images, base width 16) at
+    batch 8 with the noise fed from numpy, ``DCGAN_PARITY_ITERS``
+    iterations of a D and a G step, fp32, each step from the CPU's state
+    (copied to the card before it): the step's loss within rtol 1e-5 in
+    the first iteration and 1e-4 after, and every persistable, each
+    parameter's gradient and the card's Adam update of its own gradients
+    tensor by tensor within the same rtol (:func:`adam_step_check`, which
+    also lists the elements left out of the state's check: those where
+    Adam turns gradient rounding into a visible step).  Beside them, the
+    same step in float64 on the CPU from the same state: each side's
+    gradients' distance from it, D's fc bias gradient (the real batch's
+    mean sigmoid less 1 plus the fake batch's: a difference of near-equal
+    sums) in the three runs, and each left-out element's float64
+    gradient.  One Adam launch a step on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    framework.fresh_session()
+    progs = dcgan_programs(fluid, **DCGAN_SMALL)
+    framework.fresh_session()
+    exact = dcgan_programs(fluid, **DCGAN_SMALL, dtype="float64")
+    image = DCGAN_SMALL["image"]
+    rng = np.random.RandomState(5)
+    data = [(dcgan_batch(rng, DCGAN_SMALL_BATCH, image),
+             [rng.uniform(-1, 1, (DCGAN_SMALL_BATCH, DCGAN_NZ)).astype(
+                 np.float32) for _ in range(2)])
+            for _ in range(DCGAN_PARITY_ITERS)]
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0), fluid.CPUPlace())
+    runs = []
+    for place, p in zip(places, (progs, progs, exact)):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(p["startup"], scope=scope)
+        runs.append((exe, scope))
+    names = [v.name for v in progs["startup"].list_vars() if v.persistable]
+    slots = adam_slots(progs["d"])
+    slots.update(adam_slots(progs["g"]))
+
+    def state(scope):
+        return {n: scope.get(n).detach().cpu().numpy().copy() for n in names}
+
+    wide = {n: v.dtype for n, v in state(runs[2][1]).items()}
+
+    rtol = [1e-5] + [1e-4] * (DCGAN_PARITY_ITERS - 1)
+    result = {"loss_rel_err": [], "worst": [], "left_out": [], "parted": [],
+              "grad_err_vs_float64": [], "d_fc_b_grad": []}
+    reset_launch_counts()
+    for k, (img, noises) in enumerate(data):
+        for side, z in zip(("d", "g"), noises):
+            before = state(runs[0][1])
+            load_reference_params(runs[1][1], before, places[1])
+            load_reference_params(runs[2][1], {
+                n: v.astype(wide[n]) for n, v in before.items()}, places[2])
+            params = progs[f"{side}_params"]
+            fetch = [progs[f"{side}_loss"]] + [p + "@GRAD" for p in params]
+            outs = []
+            for (exe, scope), p, dtype in zip(
+                    runs, (progs, progs, exact),
+                    (np.float32, np.float32, np.float64)):
+                got = exe.run(p[side], feed={"img": img.astype(dtype),
+                                             "noise": z.astype(dtype)},
+                              fetch_list=fetch, scope=scope,
+                              return_numpy=False)
+                outs.append([np.asarray(t.detach().cpu().numpy(), dtype)
+                             for t in got])
+            losses = [float(o[0].reshape(-1)[0]) for o in outs]
+            grads = [dict(zip(params, o[1:])) for o in outs]
+            rel = abs(losses[1] - losses[0]) / abs(losses[0])
+            where = f"train_dcgan_parity: iteration {k} {side} step"
+            if not (np.isfinite(losses).all() and rel <= rtol[k]):
+                raise AssertionError(f"{where}: losses {losses} (rel {rel}, "
+                                     f"rtol {rtol[k]})")
+            try:
+                held = adam_step_check(slots, before, state(runs[0][1]),
+                                       state(runs[1][1]), grads[0],
+                                       grads[1], rtol[k])
+            except AssertionError as err:
+                raise AssertionError(f"{where}: {err}") from None
+            for e in held["parted"]:
+                e.update(iteration=k, side=side, grad_float64=float(
+                    grads[2][e["name"]].flat[e["index"]]))
+            result["loss_rel_err"].append(rel)
+            result["worst"].append(held["worst"])
+            result["left_out"].append(held["left_out"])
+            result["parted"] += held["parted"]
+            result["grad_err_vs_float64"].append({
+                run: max((norm_rel_err(g[p], grads[2][p]), p)
+                         for p in params)
+                for run, g in (("cpu", grads[0]), ("card", grads[1]))})
+            if side == "d":
+                result["d_fc_b_grad"].append(
+                    {run: float(g["d_fc.b"].reshape(-1)[0]) for run, g
+                     in zip(("cpu", "card", "float64"), grads)})
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(adam=2 * DCGAN_PARITY_ITERS, adam_tensors=DCGAN_PARITY_ITERS
+                * (DCGAN_D_TENSORS + DCGAN_G_TENSORS))
+    if counts != want:
+        raise AssertionError(f"train_dcgan_parity: the card's steps "
+                             f"launched {counts}, expected {want}")
+    emit("train_dcgan_parity", image=image, base_width=DCGAN_SMALL["base"],
+         batch=DCGAN_SMALL_BATCH, iterations=DCGAN_PARITY_ITERS,
+         noise="fed", rtol=rtol, persistables=len(names), launches=counts,
+         **result)
+
+
+# ops_tranche6_parity: the per-sample shapes of the public models that use
+# each op, their batch cut to what the CPU side's time allows
+T6_BATCH = {"lrn": 8, "group_norm": 4, "spp": 8, "segnet": 2, "c3d": 1,
+            "mobilenet": 4, "shufflenet": 8, "maxout": 8, "dcgan": 8,
+            "unet3d": 1, "fcn": 8, "bert": 32}
+T6_SOURCES = {
+    "lrn": "AlexNet conv1 96 x 55 x 55, n 5, k 2, alpha 1e-4, beta 0.75 "
+           "(Krizhevsky et al. 2012 s3.3)",
+    "group_norm": "32 groups on ResNet-50 conv2 256 x 56 x 56 (Wu & He 2018)",
+    "spp": "pyramid height 3 on 256 x 13 x 13 (SPP-net, He et al. 2014)",
+    "max_pool2d_with_index+unpool": "2 x 2 / 2 on 64 x 360 x 480 (SegNet "
+                                    "on CamVid, Badrinarayanan et al. 2017)",
+    "conv3d+pool3d+max_pool3d_with_index": "3 x 16 x 112 x 112 clips, 64 "
+        "3x3x3 filters, 1x2x2 pool1; pool5 2x2x2 with padding on 512 x 2 x 7 "
+        "x 7 (C3D, Tran et al. 2015)",
+    "depthwise_conv2d": "MobileNet v1's 3 x 3 depthwise layers 1, 2 and 13 "
+                        "(Howard et al. 2017)",
+    "shuffle_channel": "g = 3, 240 x 28 x 28 (ShuffleNet, Zhang et al. 2018)",
+    "maxout": "2 pieces on 192 x 32 x 32 (maxout networks on CIFAR-10, "
+              "Goodfellow et al. 2013)",
+    "conv2d_transpose": "DCGAN generator layer 3, 256 x 16 x 16 -> 128 x 32 x"
+                        " 32 (Radford et al. 2016)",
+    "conv3d_transpose": "2 x 2 x 2 / 2 up-convolution, 256 channels from 8 x"
+                        " 8 x 8 (3D U-Net, Cicek et al. 2016)",
+    "depthwise_conv2d_transpose": "2x bilinear upsampling (Bilinear "
+        "initializer) of 21 x 56 x 56 class scores (FCN, Long et al. 2015)",
+    "truncated_gaussian_random": "BERT-base word embedding 30,522 x 768, std"
+                                 " 0.02 (Devlin et al. 2019)",
+    "uniform/gaussian_random_batch_size_like": "DCGAN's 100-d noise for a "
+                                               "batch of 128",
+    "sampling_id": "100-way rows, unnormalized p, 100,000 rows (a shape "
+                   "chosen for the chi-square's power)",
+    "print/fill_zeros_like/range": "a BERT-base activation 32 x 128 x 768 "
+                                   "and its 512 positions",
+    "scale_sub_region": "boxes on AlexNet conv1 maps",
+}
+# a 0.1 % test: the Kolmogorov-Smirnov bound is KS_C / sqrt(n), the
+# chi-square bound that of 98 degrees of freedom
+KS_C, CHI2_98 = 1.9495, 147.01
+
+
+def tie_free(rng, shape, window):
+    """Normal values on a grid of 1/8, each position of every
+    ``window``-shaped tile of the trailing dims plus its own multiple of
+    1/(8·|window|): no tile holds two equal values, so a max pool over
+    those tiles has one maximum a window."""
+    import numpy as np
+
+    base = np.round(rng.standard_normal(shape) * 8) / 8
+    k = int(np.prod(window))
+    offs = (np.arange(k) / (8.0 * k)).reshape(window)
+    reps = [s // w for s, w in zip(shape[-len(window):], window)]
+    return (base + np.tile(offs, reps)).astype(np.float32)
+
+
+def tranche6_inputs(rng):
+    """The inputs of ``tranche6_groups`` by key: (array, whether its grad
+    is checked)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import fluid
+
+    def normal(shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    b = T6_BATCH
+    segnet = tie_free(rng, (b["segnet"], 64, 360, 480), (2, 2))
+    pooled, mask = F.max_pool2d(torch.from_numpy(segnet), 2, 2,
+                                return_indices=True)
+    boxes = np.stack([rng.integers(1, 40, b["lrn"]),
+                      rng.integers(50, 97, b["lrn"]),
+                      rng.integers(1, 20, b["lrn"]),
+                      rng.integers(30, 56, b["lrn"]),
+                      rng.integers(1, 20, b["lrn"]),
+                      rng.integers(30, 56, b["lrn"])], 1).astype(np.int32)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        w = startup.global_block().create_var(
+            name="bilinear", shape=[21, 1, 4, 4], dtype="float32",
+            persistable=True)
+        fluid.initializer.Bilinear()(w, startup.global_block())
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {
+        "alexnet": (normal((b["lrn"], 96, 55, 55), 2.0), True),
+        "boxes": (boxes, False),
+        "resnet": (normal((b["group_norm"], 256, 56, 56), 2.0), True),
+        "gn_scale": (normal((256,)), True), "gn_bias": (normal((256,)), True),
+        "spp": (normal((b["spp"], 256, 13, 13)), True),
+        "segnet": (segnet, True), "segnet_pooled": (pooled.numpy(), True),
+        "segnet_mask": (mask.numpy(), False),
+        "c3d_clip": (normal((b["c3d"], 3, 16, 112, 112)), True),
+        "c3d_filter": (normal((64, 3, 3, 3, 3), 1 / 9), True),
+        "c3d_act": (tie_free(rng, (b["c3d"], 64, 16, 112, 112), (1, 2, 2)),
+                    True),
+        "c3d_pool5": (normal((b["c3d"], 512, 2, 7, 7)), True),
+        "dw1": (normal((b["mobilenet"], 32, 112, 112)), True),
+        "dw1_w": (normal((32, 1, 3, 3), 1 / 3), True),
+        "dw2": (normal((b["mobilenet"], 64, 112, 112)), True),
+        "dw2_w": (normal((64, 1, 3, 3), 1 / 3), True),
+        "dw13": (normal((b["mobilenet"], 1024, 7, 7)), True),
+        "dw13_w": (normal((1024, 1, 3, 3), 1 / 3), True),
+        "shufflenet": (normal((b["shufflenet"], 240, 28, 28)), True),
+        "maxout": (normal((b["maxout"], 192, 32, 32)), True),
+        "dcgan": (normal((b["dcgan"], 256, 16, 16)), True),
+        "dcgan_w": (normal((256, 128, 4, 4), 1 / 32), True),
+        "unet3d": (normal((b["unet3d"], 256, 8, 8, 8)), True),
+        "unet3d_w": (normal((256, 256, 2, 2, 2), 1 / 16), True),
+        "fcn": (normal((b["fcn"], 21, 56, 56)), True),
+        "bilinear": (np.array(scope.get("bilinear")), False),
+        "bert": (normal((b["bert"], 128, 768)), True),
+    }
+
+
+def tranche6_groups():
+    """The 15 nn / misc op types and ``fill_zeros_like`` / ``shuffle_
+    channel`` in groups for ``op_group_program``, as
+    :func:`tranche5_groups`."""
+    def conv(op, x, w, **attrs):
+        return (op, {"Input": [x], "Filter": [w]}, attrs, {"Output": 1})
+
+    convs = [
+        conv("conv3d", "c3d_clip", "c3d_filter", strides=[1, 1, 1],
+             paddings=[1, 1, 1], dilations=[1, 1, 1], groups=1),
+        conv("depthwise_conv2d", "dw1", "dw1_w", strides=[1, 1],
+             paddings=[1, 1], groups=0),
+        conv("depthwise_conv2d", "dw2", "dw2_w", strides=[2, 2],
+             paddings=[1, 1], groups=0),
+        conv("depthwise_conv2d", "dw13", "dw13_w", strides=[1, 1],
+             paddings=[1, 1], groups=0),
+        conv("conv2d_transpose", "dcgan", "dcgan_w", strides=[2, 2],
+             paddings=[1, 1], groups=1),
+        conv("conv3d_transpose", "unet3d", "unet3d_w", strides=[2, 2, 2],
+             paddings=[0, 0, 0], groups=1),
+        ("depthwise_conv2d_transpose", {"Input": ["fcn"],
+                                        "Filter": ["bilinear"]},
+         {"strides": [2, 2], "paddings": [1, 1], "groups": 0},
+         {"Output": 1})]
+    norms = [
+        ("lrn", {"X": ["alexnet"]}, {"n": 5, "k": 2.0, "alpha": 1e-4,
+                                     "beta": 0.75},
+         {"Out": 1, "MidOut": 1}),
+        ("group_norm", {"X": ["resnet"], "Scale": ["gn_scale"],
+                        "Bias": ["gn_bias"]}, {"groups": 32, "epsilon": 1e-5},
+         {"Y": 1, "Mean": 1, "Variance": 1}),
+        ("maxout", {"X": ["maxout"]}, {"groups": 2}, {"Out": 1}),
+        ("scale_sub_region", {"X": ["alexnet"], "Indices": ["boxes"]},
+         {"scale": 0.5}, {"Out": 1}),
+        ("shuffle_channel", {"X": ["shufflenet"]}, {"group": 3}, {"Out": 1}),
+        ("fill_zeros_like", {"X": ["bert"]}, {}, {"Out": 1})]
+    pools = [
+        ("spp", {"X": ["spp"]}, {"pyramid_height": 3, "pooling_type": "max"},
+         {"Out": 1}),
+        ("spp", {"X": ["spp"]}, {"pyramid_height": 3, "pooling_type": "avg"},
+         {"Out": 1}),
+        ("max_pool2d_with_index", {"X": ["segnet"]},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]},
+         {"Out": 1, "Mask": 1}),
+        ("unpool", {"X": ["segnet_pooled"], "Indices": ["segnet_mask"]},
+         {"ksize": [2, 2], "strides": [2, 2], "unpooled_height": 360,
+          "unpooled_width": 480}, {"Out": 1}),
+        ("pool3d", {"X": ["c3d_act"]}, {"pooling_type": "max",
+                                        "ksize": [1, 2, 2],
+                                        "strides": [1, 2, 2],
+                                        "paddings": [0, 0, 0]}, {"Out": 1}),
+        ("max_pool3d_with_index", {"X": ["c3d_act"]},
+         {"ksize": [1, 2, 2], "strides": [1, 2, 2], "paddings": [0, 0, 0]},
+         {"Out": 1, "Mask": 1}),
+        ("pool3d", {"X": ["c3d_pool5"]}, {"pooling_type": "avg",
+                                          "ksize": [2, 2, 2],
+                                          "strides": [2, 2, 2],
+                                          "paddings": [0, 1, 1],
+                                          "exclusive": True}, {"Out": 1})]
+    return [("conv", convs, SEQ_PARITY_TOL, True),
+            ("norm", norms, SEQ_PARITY_TOL, True),
+            ("pool", pools, ELEMENTWISE_TOL, False)]
+
+
+def ks_stat(x, cdf):
+    """The Kolmogorov-Smirnov statistic of the samples ``x`` (a tensor)
+    against ``cdf`` (of a float64 tensor), computed where ``x`` lies."""
+    import torch
+
+    xs = torch.sort(x.reshape(-1).double()).values
+    n = xs.numel()
+    f = cdf(xs)
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=xs.device)
+    return float(torch.maximum(i / n - f, f - (i - 1) / n).max()), n
+
+
+def random_draws(fluid, place, seed=0):
+    """The draw ops of the tranche in one Program on ``place`` (``seed``
+    their attr): the outputs by name."""
+    import numpy as np
+
+    main, startup = fluid.Program(), fluid.Program()
+    names = {}
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        block = main.global_block()
+        img = fluid.layers.data(name="img", shape=[3, 64, 64],
+                                dtype="float32")
+        probs = fluid.layers.data(name="probs", shape=[100],
+                                  dtype="float32")
+
+        def op(op_type, inputs, **attrs):
+            out = block.create_var(name=f"out_{op_type}", dtype="float32")
+            block.append_op(type=op_type, inputs=inputs,
+                            outputs={"Out": [out]},
+                            attrs=dict(attrs, seed=seed))
+            names[op_type] = out.name
+
+        op("uniform_random_batch_size_like", {"Input": [img]},
+           shape=[-1, DCGAN_NZ], min=-1.0, max=1.0)
+        op("gaussian_random_batch_size_like", {"Input": [img]},
+           shape=[-1, DCGAN_NZ], mean=0.0, std=1.0)
+        op("truncated_gaussian_random", {}, shape=[30522, 768], mean=0.0,
+           std=0.02)
+        op("sampling_id", {"X": [probs]})
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    feed = {"img": np.zeros((128, 3, 64, 64), np.float32),
+            "probs": np.repeat(sampling_p()[None], 100000, 0)}
+    outs = exe.run(main, feed=feed, fetch_list=list(names.values()),
+                   scope=scope, return_numpy=False)
+    return dict(zip(names, outs))
+
+
+def sampling_p():
+    """``sampling_id``'s rows: 100 classes with odds 1-7 in turn (not
+    summing to 1), class 0 at odds 0 (never drawn)."""
+    import numpy as np
+
+    p = ((np.arange(100) % 7 + 1) * 0.01).astype(np.float32)
+    p[0] = 0.0
+    return p
+
+
+def check_random_draws(phase, draws):
+    """Each draw against its distribution (``KS_C / sqrt(n)``; the
+    truncation bounds exactly; ``sampling_id``'s counts by chi-square, its
+    zero-odds class never drawn): the statistics."""
+    import torch
+
+    ndtr = torch.special.ndtr
+    lo, hi = ndtr(torch.tensor(-2.0, dtype=torch.float64)), ndtr(
+        torch.tensor(2.0, dtype=torch.float64))
+    cdfs = {
+        "uniform_random_batch_size_like": lambda x: (x + 1.0) / 2.0,
+        "gaussian_random_batch_size_like": ndtr,
+        "truncated_gaussian_random":
+            lambda x: (ndtr(x / 0.02) - lo.to(x.device)) / (hi - lo).to(
+                x.device)}
+    shapes = {"uniform_random_batch_size_like": (128, DCGAN_NZ),
+              "gaussian_random_batch_size_like": (128, DCGAN_NZ),
+              "truncated_gaussian_random": (30522, 768)}
+    out = {}
+    for name, cdf in cdfs.items():
+        x = draws[name]
+        if tuple(x.shape) != shapes[name] or x.dtype != torch.float32:
+            raise AssertionError(f"{phase}: {name} drew {x.dtype} "
+                                 f"{tuple(x.shape)}")
+        d, n = ks_stat(x, cdf)
+        bound = KS_C / n ** 0.5
+        if d > bound:
+            raise AssertionError(f"{phase}: {name}'s KS statistic {d} > "
+                                 f"{bound}")
+        out[name] = {"ks": d, "ks_bound": bound, "n": n,
+                     "min": float(x.min()), "max": float(x.max())}
+    t = out["truncated_gaussian_random"]
+    if t["min"] < -0.04 or t["max"] > 0.04:
+        raise AssertionError(f"{phase}: truncated draw outside [-0.04, "
+                             f"0.04]: {t}")
+    u = out["uniform_random_batch_size_like"]
+    if u["min"] < -1.0 or u["max"] > 1.0:
+        raise AssertionError(f"{phase}: uniform draw outside [-1, 1]: {u}")
+    ids = draws["sampling_id"]
+    if ids.dtype != torch.int64 or tuple(ids.shape) != (100000,):
+        raise AssertionError(f"{phase}: sampling_id drew {ids.dtype} "
+                             f"{tuple(ids.shape)}")
+    counts = torch.bincount(ids, minlength=100).double()
+    p = torch.from_numpy(sampling_p()).double().to(counts.device)
+    expected = p / p.sum() * ids.numel()
+    keep = p > 0
+    chi2 = float(((counts[keep] - expected[keep]) ** 2
+                  / expected[keep]).sum())
+    if chi2 > CHI2_98 or float(counts[~keep].sum()):
+        raise AssertionError(f"{phase}: sampling_id's chi-square {chi2} > "
+                             f"{CHI2_98}, or class 0 drawn")
+    out["sampling_id"] = {"chi2": chi2, "chi2_bound": CHI2_98,
+                          "rows": ids.numel()}
+    return out
+
+
+def print_run(fluid, place, x, runs=3):
+    """``layers.Print`` (first 2 runs, 20 values) of ``x`` in a Program run
+    ``runs`` times on ``place``: the printed text, the output of the last
+    run and the host reads the prints made."""
+    import io
+    from contextlib import redirect_stdout
+
+    from paddle_tpu_torch.ops import nn_ops
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        v = fluid.layers.data(name="x", shape=list(x.shape[1:]),
+                              dtype="float32")
+        out = fluid.layers.Print(v, first_n=2, message="bert_encoder_out",
+                                 summarize=20)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    before = nn_ops.stats["host_reads"]
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        for _ in range(runs):
+            got = exe.run(main, feed={"x": x}, fetch_list=[out], scope=scope,
+                          return_numpy=False)[0]
+    return buf.getvalue(), got, nn_ops.stats["host_reads"] - before
+
+
+def range_run(fluid, place):
+    """``range`` in float32 and int64 (512 positions) from ``assign``
+    constants on ``place``."""
+    import numpy as np
+
+    main, startup = fluid.Program(), fluid.Program()
+    outs = []
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        block = main.global_block()
+        for dtype, start, step in (("float32", 0.5, 0.25), ("int64", 0, 1)):
+            ins = {slot: [fluid.layers.assign(np.array([v], dtype))]
+                   for slot, v in (("Start", start), ("End", 512),
+                                   ("Step", step))}
+            out = block.create_var(name=f"range_{dtype}", dtype=dtype)
+            block.append_op(type="range", inputs=ins, outputs={"Out": [out]},
+                            attrs={"_static_len": 512})
+            outs.append(out.name)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    return exe.run(main, fetch_list=outs, scope=scope, return_numpy=False)
+
+
+def phase_ops_tranche6_parity():
+    """The tranche's 22 op types at the per-sample shapes of the public
+    models that use them (``T6_SOURCES``; the batches ``T6_BATCH``): the
+    15 nn / misc ops with ``shuffle_channel`` and ``fill_zeros_like``,
+    forward and input grads, one Program a group on each place, the
+    card's within the group's tolerance of the CPU's, integer outputs
+    (``Mask``) equal, on tie-free inputs (``tie_free``); ``range`` equal;
+    ``print``'s text on the card equal to the CPU's, one host read a
+    print; the draws on the card held to their distributions
+    (``check_random_draws``), their shapes and dtypes the CPU's, and a
+    nonzero ``seed`` drawing the same numbers twice.  Returns the op
+    types it ran."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+
+    t0 = time.perf_counter()
+    inputs = tranche6_inputs(np.random.default_rng(22))
+    inputs_s = time.perf_counter() - t0
+    places = (("cpu", fluid.CPUPlace()), ("card", fluid.CUDAPlace(0)))
+    covered, result = set(), {}
+    for group, specs, tol, of_largest in tranche6_groups():
+        framework.fresh_session()
+        main, startup, feeds, outs, grads = op_group_program(fluid, specs,
+                                                             inputs)
+        feed = {n: inputs[k][0] for n, k in feeds.items()}
+        runs, secs = [], {}
+        for tag, place in places:
+            t1 = time.perf_counter()
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            runs.append(exe.run(main, feed=feed, fetch_list=outs + grads,
+                                scope=scope, return_numpy=False))
+            torch.cuda.synchronize()
+            secs[f"{tag}_s"] = time.perf_counter() - t1
+        worst = compare_on_card(f"ops_tranche6_parity {group}", outs + grads,
+                                *runs, tol, of_largest)
+        covered |= {spec[0] for spec in specs}
+        result[group] = {"ops": len(specs), "fetches": len(outs + grads),
+                         "tol": list(tol), "atol_of_largest": of_largest,
+                         "max_abs_err": worst, **secs}
+        del feed, runs
+    framework.fresh_session()
+    cpu, card = (range_run(fluid, place) for _, place in places)
+    compare_on_card("ops_tranche6_parity range", ["f32", "i64"], cpu, card,
+                    (0.0, 0.0), False)
+    x = inputs["bert"][0]
+    (cpu_text, cpu_out, _), (card_text, card_out, reads) = (
+        print_run(fluid, place, x) for _, place in places)
+    if card_text != cpu_text or cpu_text.count("bert_encoder_out") != 2 \
+            or reads != 2:
+        raise AssertionError(f"ops_tranche6_parity: print wrote "
+                             f"{card_text!r} on the card ({reads} host "
+                             f"reads), {cpu_text!r} on the CPU")
+    compare_on_card("ops_tranche6_parity print", ["out"], [cpu_out],
+                    [card_out], (0.0, 0.0), False)
+    covered |= {"range", "print"}
+    t1 = time.perf_counter()
+    draws = random_draws(fluid, fluid.CUDAPlace(0))
+    cpu_draws = random_draws(fluid, fluid.CPUPlace())
+    for name, t in draws.items():
+        c = cpu_draws[name]
+        if t.device.type != "cuda" or t.dtype != c.dtype or \
+                t.shape != c.shape:
+            raise AssertionError(f"ops_tranche6_parity: {name} drew "
+                                 f"{t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}, {c.dtype} {tuple(c.shape)} "
+                                 f"on the CPU")
+    stats_ = check_random_draws("ops_tranche6_parity", draws)
+    seeded = [random_draws(fluid, fluid.CUDAPlace(0), seed=7)
+              for _ in range(2)]
+    for name in draws:
+        if not torch.equal(seeded[0][name], seeded[1][name]):
+            raise AssertionError(f"ops_tranche6_parity: {name} with seed 7 "
+                                 f"drew different numbers twice")
+        if torch.equal(seeded[0][name], draws[name]):
+            raise AssertionError(f"ops_tranche6_parity: {name} drew the "
+                                 f"same with seed 7 as with the scope's")
+    covered |= set(draws)
+    result["random"] = {**stats_, "seconds": time.perf_counter() - t1}
+    if len(covered) != 22:
+        raise AssertionError(f"ops_tranche6_parity: ran {sorted(covered)}")
+    emit("ops_tranche6_parity", op_types=len(covered), groups=result,
+         batch_cuts=T6_BATCH, sources=T6_SOURCES, print_text=card_text,
+         print_host_reads=reads, torch_threads=torch.get_num_threads(),
+         inputs_s=inputs_s, seconds=time.perf_counter() - t0)
+    return covered
+
+
 def main():
     import argparse
 
@@ -8275,6 +9315,21 @@ def main():
     torch.cuda.empty_cache()
     phase_rcnn_parity()
     add_counts(total, {"momentum": detection["momentum"]})
+    torch.cuda.empty_cache()
+    # DCGAN through the transposed convolutions: row 7 at D's and G's
+    # shapes, then card against CPU, and the tranche's 22 op types
+    counts, dcgan = phase_train_dcgan(args.profile)
+    add_counts(total, counts)
+    adam["by_model"].update(optimizer_at_model_shapes(
+        phase_kernel_adam, "adam",
+        [(f"dcgan_{side}", dcgan[side], want, dcgan[f"{side}_params"])
+         for side, want in (("d", DCGAN_D_TENSORS),
+                            ("g", DCGAN_G_TENSORS))]))
+    del dcgan
+    torch.cuda.empty_cache()
+    phase_train_dcgan_parity()
+    torch.cuda.empty_cache()
+    phase_ops_tranche6_parity()
     for k in (xent_fwd, xent_bwd):
         k["launches"] += detection[k["name"]]
         for layout in ("narrow", "wide"):

@@ -1,11 +1,11 @@
 """Parameter initializers (counterpart of ``paddle_tpu/fluid/initializer.py``).
 
 Each initializer appends the same init op to the startup block as the
-reference does.  The port's Executor runs ``uniform_random`` and
-``gaussian_random`` from a seeded ``torch.Generator``, which gives other
-numbers than the reference's JAX threefry draw: tests that compare the two
-packages copy the reference's weights across
-(``models.params.load_reference_params``).
+reference does.  The port's Executor runs ``uniform_random``,
+``gaussian_random`` and ``truncated_gaussian_random`` from a seeded
+``torch.Generator``, which gives other numbers than the reference's JAX
+threefry draw: tests that compare the two packages copy the reference's
+weights across (``models.params.load_reference_params``).
 """
 
 from __future__ import annotations
@@ -53,6 +53,20 @@ class NormalInitializer(Initializer):
                    "mean": self._mean, "std": self._std, "seed": self._seed})
 
 
+class TruncatedNormalInitializer(Initializer):
+    """``truncated_gaussian_random``: a normal draw truncated to two
+    standard deviations of ``loc``."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="truncated_gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self._mean, "std": self._std, "seed": self._seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -96,6 +110,26 @@ class MSRAInitializer(Initializer):
         return NormalInitializer(0.0, std, self._seed)(var, block)
 
 
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling filter of a ``conv2d_transpose`` (4-D
+    ``[C_in, C_out / groups, k, k]``), every channel pair the same
+    ``k`` x ``k`` tent, emitted as ``assign_value``."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("Bilinear init needs a 4-D filter")
+        weight = np.zeros(shape, dtype=np.float32)
+        k = shape[3]
+        f = int(np.ceil(k / 2.0))
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(np.prod(shape)):
+            x = i % k
+            y = (i // k) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        return NumpyArrayInitializer(weight)(var, block)
+
+
 class NumpyArrayInitializer(Initializer):
     def __init__(self, value):
         self._value = np.asarray(value)
@@ -110,5 +144,7 @@ class NumpyArrayInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

@@ -8,8 +8,9 @@ sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
 (``clip``, ``clip_by_norm``, ``l2_normalize``, ``dice_loss``,
 ``prelu``, the pads, ``squeeze`` / ``unsqueeze``, ``stack`` /
 ``unstack``, ``expand``, ``scatter``, ``shape``, ``crop``,
-``multiplex``, the image resizes), copied so the same calls emit the
-same IR."""
+``multiplex``, the image resizes), and the builders of the 3-D and
+transposed convolutions, ``group_norm``, ``lrn``, ``maxout``,
+``pool3d`` and ``Print``, copied so the same calls emit the same IR."""
 
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ __all__ = [
     "clip_by_norm", "dice_loss", "scatter", "pad", "pad2d",
     "pad_constant_like", "squeeze", "unsqueeze", "stack", "unstack",
     "expand", "shape", "crop", "image_resize", "resize_bilinear", "prelu",
-    "multiplex", "image_resize_short",
+    "multiplex", "image_resize_short", "conv3d", "conv2d_transpose",
+    "conv3d_transpose", "group_norm", "lrn", "maxout", "pool3d", "Print",
 ]
 
 
@@ -1184,4 +1186,229 @@ def multiplex(inputs, index):
     helper.append_op(type="multiplex",
                      inputs={"X": list(inputs), "Ids": [index]},
                      outputs={"Out": [out]})
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _to_list(filter_size, 3)
+    stride = _to_list(stride, 3)
+    padding = _to_list(padding, 3)
+    dilation = _to_list(dilation, 3)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    dims = input.shape
+    out.shape = (dims[0], num_filters) + tuple(
+        _conv_out_dim(dims[2 + i], filter_size[i], padding[i], stride[i],
+                      dilation[i]) for i in range(3))
+    helper.append_op(
+        type="conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride = _to_list(stride, 2)
+    padding = _to_list(padding, 2)
+    dilation = _to_list(dilation, 2)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("need filter_size or output_size")
+        output_size = _to_list(output_size, 2)
+        h, w_ = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h - 1) * stride[0] + 2 * padding[0] - 1) //
+            dilation[0] + 1,
+            (output_size[1] - (w_ - 1) * stride[1] + 2 * padding[1] - 1) //
+            dilation[1] + 1]
+    else:
+        filter_size = _to_list(filter_size, 2)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    n, c, h, wd = input.shape
+
+    def _out_dim(size, k, pad, s, d):
+        if size in (-1, None):
+            return -1
+        return (size - 1) * s - 2 * pad + d * (k - 1) + 1
+
+    out.shape = (n, num_filters) + tuple(
+        _out_dim(size, filter_size[i], padding[i], stride[i], dilation[i])
+        for i, size in enumerate((h, wd)))
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """3-D transposed convolution: filter ``[C_in, C_out / groups, kD, kH,
+    kW]``, the size rule of ``conv2d_transpose``."""
+    helper = LayerHelper("conv3d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride = _to_list(stride, 3)
+    padding = _to_list(padding, 3)
+    dilation = _to_list(dilation, 3)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("need filter_size or output_size")
+        output_size = _to_list(output_size, 3)
+        dims_in = input.shape
+        filter_size = [
+            (output_size[i] - (dims_in[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(3)]
+    else:
+        filter_size = _to_list(filter_size, 3)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    dims = input.shape
+
+    def _out_dim(size, k, pad, st, d):
+        if size in (-1, None):
+            return -1
+        return (size - 1) * st - 2 * pad + d * (k - 1) + 1
+
+    out.shape = (dims[0], num_filters) + tuple(
+        _out_dim(dims[2 + i], filter_size[i], padding[i], stride[i],
+                 dilation[i]) for i in range(3))
+    helper.append_op(
+        type="conv3d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        s = helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                    dtype=dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean_out],
+                              "Variance": [var_out]},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    out.shape = input.shape
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        n, c, h, w = x.shape
+        out.shape = (n, c // groups, h, w)
+    helper.append_op(type="maxout", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"groups": groups})
+    return out
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    """3-D pooling, the rules of ``pool2d`` over D, H and W."""
+    helper = LayerHelper("pool3d", **locals())
+    pool_size = _to_list(pool_size, 3)
+    pool_stride = _to_list(pool_stride, 3)
+    pool_padding = _to_list(pool_padding, 3)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    dims = input.shape
+
+    def _po(size, k, pad, st):
+        if size in (-1, None):
+            return -1
+        if ceil_mode:
+            return (size - k + 2 * pad + st - 1) // st + 1
+        return (size - k + 2 * pad) // st + 1
+
+    if global_pooling:
+        out.shape = tuple(dims[:2]) + (1, 1, 1)
+    else:
+        out.shape = tuple(dims[:2]) + tuple(
+            _po(dims[2 + i], pool_size[i], pool_padding[i], pool_stride[i])
+            for i in range(3))
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """Pass ``input`` through and print it as the op runs (``print``:
+    message, shape, dtype and the first ``summarize`` values, the first
+    ``first_n`` runs)."""
+    helper = LayerHelper("Print", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(input.shape)
+    helper.append_op(
+        type="print", inputs={"In": [input]}, outputs={"Out": [out]},
+        attrs={"first_n": first_n, "message": message or "",
+               "summarize": summarize,
+               "print_tensor_name": print_tensor_name,
+               "print_tensor_dtype": print_tensor_type,
+               "print_tensor_shape": print_tensor_shape})
     return out

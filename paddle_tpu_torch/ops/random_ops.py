@@ -1,7 +1,9 @@
 """Fill / assign / random ops (counterpart of
 ``paddle_tpu/ops/random_ops.py``): the startup ops, constants (host
 values where every reader takes one), ``assign``, the backward seed
-(``fill_any_like``) and dropout.
+(``fill_any_like``), ``fill_zeros_like``, the draws (uniform, normal,
+their batch-size-like forms, truncated normal, ``sampling_id``), dropout,
+``shuffle_channel`` and ``range``.
 
 RNG: the reference threads a JAX threefry key through the program; here
 the Executor hands random ops the scope's ``torch.Generator`` for the
@@ -76,6 +78,11 @@ def fill_constant_batch_size_like(ctx):
                               dtype=_dtype(ctx), device=x.device)}
 
 
+@register_op("fill_zeros_like")
+def fill_zeros_like(ctx):
+    return {"Out": torch.zeros_like(ctx.input("X"))}
+
+
 @register_op("fill_any_like")
 def fill_any_like(ctx):
     """Also the backward seed ``append_backward`` tags ``__loss_seed__``;
@@ -98,6 +105,58 @@ def gaussian_random(ctx):
     z = torch.randn(tuple(ctx.attr("shape")), dtype=_dtype(ctx),
                     device=device, generator=_generator(ctx, device))
     return {"Out": ctx.attr("mean", 0.0) + ctx.attr("std", 1.0) * z}
+
+
+def _batch_size_like_shape(ctx, x):
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = x.shape[
+        ctx.attr("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+@register_op("uniform_random_batch_size_like", stateful=True)
+def uniform_random_batch_size_like(ctx):
+    """``uniform_random`` of ``shape`` with ``shape[output_dim_idx] =
+    Input.shape[input_dim_idx]``."""
+    x = ctx.input("Input")
+    out = torch.empty(_batch_size_like_shape(ctx, x), dtype=_dtype(ctx),
+                      device=x.device)
+    return {"Out": out.uniform_(ctx.attr("min", -1.0), ctx.attr("max", 1.0),
+                                generator=_generator(ctx, x.device))}
+
+
+@register_op("gaussian_random_batch_size_like", stateful=True)
+def gaussian_random_batch_size_like(ctx):
+    x = ctx.input("Input")
+    z = torch.randn(_batch_size_like_shape(ctx, x), dtype=_dtype(ctx),
+                    device=x.device, generator=_generator(ctx, x.device))
+    return {"Out": ctx.attr("mean", 0.0) + ctx.attr("std", 1.0) * z}
+
+
+@register_op("truncated_gaussian_random", stateful=True)
+def truncated_gaussian_random(ctx):
+    """``mean + std · z`` with ``z`` standard normal truncated to [−2, 2]
+    (the bounds of ``trunc_normal_`` are absolute, so they are given in
+    the standard variable, before the scaling)."""
+    device = ctx.device
+    z = torch.empty(tuple(ctx.attr("shape")), dtype=_dtype(ctx),
+                    device=device)
+    torch.nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0,
+                                generator=_generator(ctx, device))
+    return {"Out": ctx.attr("mean", 0.0) + ctx.attr("std", 1.0) * z}
+
+
+@register_op("sampling_id", stateful=True, no_grad_inputs=("X",))
+def sampling_id(ctx):
+    """One int64 draw a row of ``X`` with odds proportional to the row
+    (the reference's ``categorical(log(max(x, 1e-20)))``; rows need not
+    sum to 1), by Gumbel-max: the argmax of ``log p − log(−log U)``, on
+    the device with no host sync."""
+    x = ctx.input("X")
+    u = torch.rand(x.shape, dtype=torch.float32, device=x.device,
+                   generator=_generator(ctx, x.device))
+    logits = torch.log(torch.clamp(x.float(), min=1e-20))
+    return {"Out": torch.argmax(logits - torch.log(-torch.log(u)), -1)}
 
 
 @register_op("dropout", stateful=True)
@@ -127,3 +186,27 @@ def dropout_grad(ctx):
     """Reuses the saved mask: a fresh draw would decorrelate forward and
     backward (ref: ``paddle_tpu/ops/random_ops.py:dropout_grad``)."""
     return {"X@GRAD": ctx.input("Out@GRAD") * ctx.input("Mask")}
+
+
+@register_op("shuffle_channel")
+def shuffle_channel(ctx):
+    """Channels ``g·(c/g)`` read as ``[g, c/g]`` and written transposed."""
+    x = ctx.input("X")
+    g = ctx.attr("group", 1)
+    n, c, h, w = x.shape
+    return {"Out": x.reshape(n, g, c // g, h, w).transpose(1, 2).reshape(
+        n, c, h, w)}
+
+
+@register_op("range", no_grad_inputs=("Start", "End", "Step"))
+def range_op(ctx):
+    """``Start + Step · arange(_static_len)`` in Start's dtype; like the
+    reference, the length must be the static attr (a length read from the
+    device values is not supported)."""
+    n = ctx.attr("_static_len", None)
+    if n is None:
+        raise NotImplementedError("range op requires its static length "
+                                  "(the _static_len attr)")
+    s = ctx.input("Start").reshape(())
+    st = ctx.input("Step").reshape(())
+    return {"Out": s + st * torch.arange(n, dtype=s.dtype, device=s.device)}

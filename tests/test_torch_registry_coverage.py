@@ -1,7 +1,9 @@
 """The port's op registry against the JAX package's, by name: the port has
 no op type the reference lacks, and holds every one of the one-line
-activation, math, reduce and shape ops (63).  The op types still to port
-are printed (``pytest -s``)."""
+activation, math, reduce and shape ops (63) and of the convolution,
+norm, pooling-with-index and random ops (22), each in its module with the
+reference's registry flags.  The op types still to port are printed
+(``pytest -s``)."""
 
 from paddle_tpu.ops.registry import REGISTRY as REF
 from paddle_tpu_torch.ops.registry import REGISTRY as PORT
@@ -27,6 +29,19 @@ ONE_LINE_OPS = {
         "where", "tile", "bilinear_interp", "nearest_interp"],
 }
 
+TRANCHE6_OPS = {
+    "nn_ops": [
+        "conv3d", "depthwise_conv2d", "conv2d_transpose", "conv3d_transpose",
+        "lrn", "maxout", "group_norm", "spp", "pool3d",
+        "max_pool2d_with_index", "max_pool3d_with_index", "unpool",
+        "scale_sub_region", "print"],
+    "misc_ops": ["depthwise_conv2d_transpose"],
+    "random_ops": [
+        "fill_zeros_like", "uniform_random_batch_size_like",
+        "gaussian_random_batch_size_like", "truncated_gaussian_random",
+        "sampling_id", "shuffle_channel", "range"],
+}
+
 
 def test_port_has_no_op_the_reference_lacks():
     assert sorted(set(PORT) - set(REF)) == []
@@ -43,8 +58,28 @@ def test_one_line_ops_are_ported_in_their_modules():
             assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
 
 
+def test_tranche6_ops_are_ported_in_their_modules_with_reference_flags():
+    names = [n for ops in TRANCHE6_OPS.values() for n in ops]
+    assert len(names) == len(set(names)) == 22
+    for module, ops in TRANCHE6_OPS.items():
+        for name in ops:
+            assert name in PORT, name
+            assert PORT[name].fn.__module__ == \
+                f"paddle_tpu_torch.ops.{module}", (name, PORT[name].fn)
+            assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
+            assert PORT[name].stateful == REF[name].stateful, name
+
+
+def test_tranche6_convolutions_have_explicit_grads():
+    for name in ("conv2d", "conv3d", "depthwise_conv2d", "conv2d_transpose",
+                 "conv3d_transpose", "depthwise_conv2d_transpose",
+                 "max_pool2d_with_index", "max_pool3d_with_index"):
+        assert PORT[name].grad_fn is not None, name
+
+
 def test_missing_op_types_are_listed():
     missing = sorted(set(REF) - set(PORT))
     print(f"\n{len(PORT)} of {len(REF)} op types ported; {len(missing)} "
           f"still to port: {', '.join(missing)}")
     assert len(PORT) + len(missing) == len(REF)
+    assert len(PORT) == 230
