@@ -26,8 +26,10 @@ and RoI head through the proposal, sampling and RoI-pooling ops, trains
 BERT-base under global-norm gradient clipping and holds the clip kinds
 and the one-line activation, math, reduce and shape ops against the CPU,
 trains DCGAN through the transposed convolutions and holds the
-convolution, norm, indexed-pool and random ops against the CPU, and
-checks them all.
+convolution, norm, indexed-pool and random ops against the CPU, runs
+ResNet-50 and Transformer-base inference on int8 weights and DeepFM under
+the streaming AUC, holds the misc, quant and metric ops against the CPU,
+and checks them all.
 
     python3 chip_smoke.py
 
@@ -523,6 +525,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    equal, and the draws held to their distributions
                    (Kolmogorov-Smirnov, exact truncation bounds,
                    chi-square, a seed repeating its draw)
+56. infer_resnet_int8 - ``bench.py``'s ``bench_resnet_infer`` with
+                   ``BENCH_INT8=1``: ResNet-50 (224 px, 1,000 classes,
+                   batch 16, random weights from a seed), the test clone
+                   in fp32, then ``Int8WeightTranspiler`` after startup:
+                   the 53 conv filters and the fc weight each read through
+                   one ``dequantize_weight``, no float original left, the
+                   int8 weights ~1/4 of fp32's bytes; top-1 of the logits
+                   of 64 images against fp32's (images whose fp32 margin
+                   is under twice their int8 gap apart), the largest gap;
+                   int8 card against int8 CPU; images/s of both and the dequantize
+                   ops' time and bytes a batch; then the same through
+                   ``AnalysisConfig(enable_int8=True)`` against the fp32
+                   analysis predictor
+57. infer_transformer_int8 - phase 28's Transformer-base inference model
+                   (batch 64 x 256, flash, fp32, random weights) through a
+                   native predictor and ``AnalysisConfig(enable_int8=
+                   True)``: every mul and lookup_table weight int8 (a
+                   scale a row for the embeddings), exactly 18 fp32 flash
+                   forwards a batch and nothing else, the logits within
+                   ``INT8_LOGIT_TOL`` of fp32's largest; ms a batch
+58. train_deepfm_auc - phase 35's DeepFM with ``fluid.layers.auc`` at
+                   4,095 thresholds, 5 steps: the stats count the 160
+                   examples, each AUC the numpy trapezoid over the same
+                   buckets, the auc op on the CPU over the card's
+                   predictions gives the same stats bitwise
+59. ops_tranche7_parity - the 31 misc, quant and metric op types at public
+                   models' shapes (DSSM's cos_sim, SSD's L2 norm, NTN,
+                   NTM's shift, ResNet-50's weights through the
+                   quantizers, VOC's mean IoU, MQ2007's pairs, ImageNet's
+                   precision and recall, DeepFM's sparse grad through the
+                   SelectedRows utilities), forward and input grads card
+                   against CPU; the checkpoint ops' files read on both
+                   places, ``run_steps`` refusing a save; ``get_places``;
+                   ``random_crop`` windows and uniform starts on the card
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -9118,6 +9154,886 @@ def phase_ops_tranche6_parity():
     return covered
 
 
+
+# -- the misc, quant and metric tranche: int8 inference, DeepFM under auc --
+
+# bench.py's bench_resnet_infer on an accelerator (bench.py:503-568,
+# BENCH_INT8=1): ResNet-50, 224 px, 1,000 classes, batch 16, the
+# for_test clone, the int8 transpiler after startup; 4 batches for top-1
+INT8_BATCH, INT8_HW, INT8_CLASSES, INT8_BATCHES = 16, 224, 1000, 4
+# the weights the transpiler takes: conv2d Filter and mul Y of >= 64 values
+INT8_MIN_ELEMENTS = 64
+# top-1 may drop 0.01 under int8 (tests/test_inference_api.py:218-271);
+# an image whose fp32 top-1 leads its runner-up by less than twice the
+# image's largest int8 gap may flip by rounding alone and is counted
+# apart
+INT8_TOP1_DROP = 0.01
+# int8 on the card against int8 on the CPU from the same int8 weights:
+# cuDNN and oneDNN add the convolutions in other orders (as SEQ_PARITY_TOL,
+# the atol of the largest logit)
+INT8_PARITY_TOL = SEQ_PARITY_TOL
+# the int8 logits against fp32's, of the largest logit: per-channel int8
+# rounds each weight by at most 1/254 of its channel's largest; measured
+# 1.0e-2 on the CPU's 2-layer Transformer, 1.6e-2 on ResNet-20
+# (tests/test_torch_int8_transpiler.py)
+INT8_LOGIT_TOL = 0.05
+# DeepFM under fluid.layers.auc at upstream's CTR setting (4,095
+# thresholds: models/PaddleRec ctr's num_thresholds=2**12 - 1)
+AUC_THRESHOLDS, AUC_RTOL = 4095, 1e-6
+# ops_tranche7_parity: public models' per-sample shapes, batches cut for
+# the CPU side
+T7_BATCH = {"dssm": 1024, "ssd": 4, "ntn": 512, "ntm": 256, "huber": 4096,
+            "xent": 1024, "bert": 8, "resnet": 8, "voc": 2, "mq2007": 40,
+            "imagenet": 256, "crop": 16, "crop_draws": 33000}
+T7_SOURCES = {
+    "cos_sim": "DSSM's 128-d query and document vectors, a [1, 128] "
+               "document broadcast (Huang et al. 2013)",
+    "norm": "SSD's L2 normalization of conv4_3, 512 x 38 x 38 (Liu et al. "
+            "2016)",
+    "l1_norm/fake_quantize_*/dequantize_weight": "ResNet-50 conv5 3 x 3 "
+        "weight 512 x 512 x 3 x 3, its res3 activation 256 x 56 x 56 and "
+        "its fc 2048 x 1000",
+    "bilinear_tensor_product": "NTN, d = 100, k = 4 slices (Socher et al. "
+                               "2013)",
+    "conv_shift": "NTM's shift over 128 memory locations, 3 shifts (Graves "
+                  "et al. 2014)",
+    "modified_huber_loss": "a binary classifier's scores",
+    "label_smooth": "Transformer-base's 30,000-way one-hot targets, eps 0.1",
+    "minus": "BERT-base activations 128 x 768",
+    "flatten2/squeeze2/unsqueeze2": "ResNet-50's pool5 2048 x 1 x 1",
+    "mean_iou": "21 VOC classes over a 513 x 513 map (DeepLab)",
+    "auc": "DeepFM's 160 predictions at 4,095 thresholds",
+    "positive_negative_pair": "MQ2007 (LETOR 4.0): 41 documents a query, "
+                              "3 relevance levels",
+    "precision_recall": "1,000 ImageNet classes",
+    "random_crop": "224 x 224 crops of 256 x 256 images; 8 of 40 for the "
+                   "draws' chi-square",
+    "selected_rows": "DeepFM's 832 looked-up ids of 100,000, k = 16, two "
+                     "shards",
+}
+# chi-square at 0.1 % with 32 degrees of freedom (33 crop starts)
+CHI2_32 = 62.487
+
+
+def _top1_check(phase, fp32, int8):
+    """Top-1 of int8 logits against fp32's over ``[N, C]`` arrays: (share
+    that agrees, images whose fp32 margin over the runner-up exceeds twice
+    the image's largest int8 gap, share of those that agree, largest gap
+    of the largest logit).  Raises if the clear images' share falls below
+    1 − ``INT8_TOP1_DROP``."""
+    import numpy as np
+
+    gap = np.abs(int8 - fp32).max(1)
+    top2 = np.sort(fp32, 1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * gap
+    agree = fp32.argmax(1) == int8.argmax(1)
+    share = float(agree[clear].mean()) if clear.any() else 1.0
+    if share < 1 - INT8_TOP1_DROP:
+        raise AssertionError(f"{phase}: int8 top-1 agrees with fp32's on "
+                             f"{share} of the clear images")
+    return (float(agree.mean()), int(clear.sum()), share,
+            float(gap.max() / np.abs(fp32).max()))
+
+
+def _quant_targets(program, scope):
+    """The names and per-channel axes of the weights the int8 transpiler
+    takes in ``program``: conv2d Filter and mul Y of at least
+    ``INT8_MIN_ELEMENTS`` values, and lookup_table W."""
+    slots = {"conv2d": ("Filter", 0), "mul": ("Y", 1),
+             "lookup_table": ("W", 0)}
+    out = {}
+    for op in program.global_block().ops:
+        if op.type in slots:
+            slot, axis = slots[op.type]
+            name = op.input(slot)[0]
+            w = scope.get(name)
+            if w is not None and w.numel() >= INT8_MIN_ELEMENTS:
+                out[name] = axis
+    return out
+
+
+def _dequantize_axes(program):
+    """The weights ``program``'s dequantize_weight ops rebuild, with their
+    per-channel axes."""
+    return {op.input("X")[0][:-len("@INT8")]: op.attr("quant_axis")
+            for op in program.global_block().ops
+            if op.type == "dequantize_weight"}
+
+
+def _int8_scope_check(phase, scope, names, fp32_bytes):
+    """Every quantized weight int8 on the card with a float32 scale, its
+    float original gone: the int8 bytes (weights and scales) and their
+    share of ``fp32_bytes``."""
+    int8_bytes = 0
+    for name in names:
+        q, s = scope.get(name + "@INT8"), scope.get(name + "@SCALE")
+        if scope.get(name) is not None or q is None or \
+                str(q.dtype) != "torch.int8" or q.device.type != "cuda" or \
+                str(s.dtype) != "torch.float32":
+            raise AssertionError(f"{phase}: {name} is not int8 on the card "
+                                 f"with its float original dropped")
+        int8_bytes += q.numel() + 4 * s.numel()
+    share = int8_bytes / fp32_bytes
+    # the int8 values are a quarter of the fp32 bytes; the scales add
+    # 4 bytes a channel (under 2 % of fp32's above 50 values a channel)
+    if not 0.25 < share < 0.27:
+        raise AssertionError(f"{phase}: int8 weights {int8_bytes} bytes, "
+                             f"{share} of fp32's {fp32_bytes}")
+    return int8_bytes, share
+
+
+def _dequantize_ms(scope, axes, device):
+    """Device time of the dequantize_weight ops of one batch, alone (CUDA
+    events around the ops, their own outputs discarded)."""
+    from paddle_tpu_torch.ops import quant_ops
+    from paddle_tpu_torch.ops.registry import ExecContext
+
+    ctxs = [ExecContext("dequantize_weight",
+                        {"X": [scope.get(n + "@INT8")],
+                         "Scale": [scope.get(n + "@SCALE")]},
+                        {"Out": [n + "@DEQ"]}, {"quant_axis": axis}, device)
+            for n, axis in axes.items()]
+    return cuda_time_ms(
+        lambda: [quant_ops.dequantize_weight(c) for c in ctxs], 10)
+
+
+def phase_infer_resnet_int8(tmp, card):
+    """``bench.py``'s ``bench_resnet_infer`` with ``BENCH_INT8=1`` at its
+    accelerator configuration: ResNet-50 (224 px, 1,000 classes, random
+    weights from seed 1), the ``clone(for_test=True)`` program, fp32 on
+    the card, then ``Int8WeightTranspiler().transpile`` after startup
+    (the global scope): every conv2d Filter and mul Y of >= 64 values (53
+    + 1) read through one ``dequantize_weight``, no float original left in
+    the scope, the int8 weights ~1/4 of fp32's bytes; the logits' top-1
+    over 4 batches of 16 against fp32's (``_top1_check``), the largest
+    gap printed; int8
+    on the card against int8 on the CPU (same int8 weights) within
+    ``INT8_PARITY_TOL``; images/s of both (CUDA events, the feed staged
+    on the card as ``bench.py`` stages it) and the dequantize ops' time
+    and bytes a batch.  Then the same model through
+    ``save_inference_model`` and ``AnalysisConfig(enable_int8=True)``
+    (batch norm folded first) against the fp32 ``AnalysisConfig``
+    predictor: the same counts, top-1 check and images/s."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.fluid.transpiler import Int8WeightTranspiler
+    from paddle_tpu_torch.inference import (AnalysisConfig, PaddleTensor,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models import resnet
+
+    phase = "infer_resnet_int8"
+    framework.fresh_session()
+    main, startup = fluid.default_main_program(), \
+        fluid.default_startup_program()
+    main.random_seed = startup.random_seed = 1
+    _, _, prediction, _, _ = resnet.build(
+        class_dim=INT8_CLASSES, depth=50,
+        image_shape=(3, INT8_HW, INT8_HW), lr=0.1)
+    # the classifier's logits (the softmax's input): at random weights the
+    # softmax saturates, and equal probabilities would hide the int8 gap
+    logits = main.global_block().var(next(
+        op.input("X")[0] for op in main.global_block().ops
+        if op.type == "softmax" and op.output("Out")[0] == prediction.name))
+    infer = main.clone(for_test=True)
+    fp32_prog = main.clone(for_test=True)
+    exe = fluid.Executor()
+    exe.run(startup)
+    scope = fluid.global_scope()
+    imgs = [np.random.RandomState(k).normal(
+        size=(INT8_BATCH, 3, INT8_HW, INT8_HW)).astype(np.float32)
+        for k in range(INT8_BATCHES)]
+    dev = [{"img": torch.from_numpy(x).cuda()} for x in imgs]
+
+    def run(prog, feed):
+        return exe.run(prog, feed=feed, fetch_list=[logits],
+                       return_numpy=False)[0]
+
+    fp32 = np.concatenate([run(fp32_prog, f).cpu().numpy() for f in dev])
+    fp32_ms = cuda_time_ms(lambda: run(fp32_prog, dev[0]), 10, warmup=2)
+    axes = _quant_targets(fp32_prog, scope)
+    fp32_bytes = sum(scope.get(n).numel() * 4 for n in axes)
+    infer_dir = os.path.join(tmp, "resnet50_int8")
+    fluid.io.save_inference_model(infer_dir, ["img"], [logits], exe,
+                                  main_program=main)
+
+    quantized = Int8WeightTranspiler().transpile(infer)
+    ops = infer.global_block().ops
+    deq = [op for op in ops if op.type == "dequantize_weight"]
+    slot_of = {"conv2d": "Filter", "mul": "Y"}
+    reads = [op.input(slot_of[op.type])[0] for op in ops
+             if op.type in slot_of]
+    float_reads = [r for r in reads if r in axes]
+    if sorted(quantized) != sorted(axes) or len(axes) != 54 or \
+            len(deq) != 54 or float_reads or \
+            sum(r.endswith("@DEQ") for r in reads) != 54:
+        raise AssertionError(f"{phase}: {len(quantized)} weights quantized, "
+                             f"{len(deq)} dequantize ops for {len(axes)} "
+                             f"weights")
+    int8_bytes, share = _int8_scope_check(phase, scope, axes, fp32_bytes)
+    int8 = np.concatenate([run(infer, f).cpu().numpy() for f in dev])
+    int8_ms = cuda_time_ms(lambda: run(infer, dev[0]), 10, warmup=2)
+    agree, clear, clear_share, gap = _top1_check(phase, fp32, int8)
+    deq_ms = _dequantize_ms(scope, axes, torch.device("cuda", 0))
+    deq_values = sum(scope.get(n + "@INT8").numel() for n in axes)
+
+    # the same int8 program on the CPU from the card's int8 weights
+    cpu_scope = fluid.Scope()
+    for v in infer.list_vars():
+        t = scope.get(v.name) if v.persistable else None
+        if isinstance(t, torch.Tensor):
+            cpu_scope.set(v.name, t.cpu())
+    t0 = time.perf_counter()
+    (cpu,) = fluid.Executor(fluid.CPUPlace()).run(
+        infer, feed={"img": imgs[0]}, fetch_list=[logits], scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    card_err = compare_on_card(
+        phase, ["logits"], [torch.from_numpy(np.asarray(cpu))],
+        [torch.from_numpy(int8[:INT8_BATCH]).cuda()], INT8_PARITY_TOL, True)
+    del cpu_scope, dev
+    framework.fresh_session()
+    torch.cuda.empty_cache()
+
+    inputs = [PaddleTensor(name="img", data=imgs[0])]
+    preds = {}
+    for kind, int8_mode in (("fp32", False), ("int8", True)):
+        pred = create_paddle_predictor(AnalysisConfig(
+            model_dir=infer_dir, enable_int8=int8_mode))
+        outs = np.concatenate([pred.run([PaddleTensor(name="img", data=x)])[
+            0].data for x in imgs])
+        ms = cuda_time_ms(lambda: pred.run(inputs), 5, warmup=1)
+        n_deq = sum(op.type == "dequantize_weight"
+                    for op in pred._program.global_block().ops)
+        preds[kind] = {"outs": outs, "ms_per_batch": ms,
+                       "images_per_s": INT8_BATCH * 1e3 / ms,
+                       "dequantize_ops": n_deq}
+        if int8_mode:
+            names = list(_dequantize_axes(pred._program))
+            preds[kind]["int8_bytes"] = _int8_scope_check(
+                phase, pred._scope, names, preds["fp32"]["fp32_bytes"])[0]
+        else:
+            preds[kind]["fp32_bytes"] = sum(
+                pred._scope.get(n).numel() * 4
+                for n in _quant_targets(pred._program, pred._scope))
+        pred.close()
+        del pred
+        torch.cuda.empty_cache()
+    if preds["int8"]["dequantize_ops"] != 54:
+        raise AssertionError(f"{phase}: the int8 predictor holds "
+                             f"{preds['int8']['dequantize_ops']} dequantize "
+                             f"ops")
+    p_agree, p_clear, p_share, p_gap = _top1_check(
+        phase, preds["fp32"].pop("outs"), preds["int8"].pop("outs"))
+    emit(phase, card=card, model="resnet50", image_hw=INT8_HW,
+         classes=INT8_CLASSES, batch=INT8_BATCH, batches=INT8_BATCHES,
+         quantized_weights=len(quantized), dequantize_ops=len(deq),
+         fp32_weight_bytes=fp32_bytes, int8_weight_bytes=int8_bytes,
+         int8_share_of_fp32=share,
+         top1_agreement=agree, clear_images=clear,
+         clear_top1_agreement=clear_share, logits_max_rel_gap=gap,
+         fp32_ms_per_batch=fp32_ms, fp32_images_per_s=INT8_BATCH * 1e3
+         / fp32_ms, int8_ms_per_batch=int8_ms,
+         int8_images_per_s=INT8_BATCH * 1e3 / int8_ms,
+         dequantize_ms_per_batch=deq_ms,
+         dequantize_bytes_per_batch=5 * deq_values,
+         card_vs_cpu_max_abs_err=card_err, parity_tol=list(INT8_PARITY_TOL),
+         cpu_int8_s=cpu_s,
+         predictor={"top1_agreement": p_agree, "clear_images": p_clear,
+                    "clear_top1_agreement": p_share,
+                    "logits_max_rel_gap": p_gap, **preds})
+
+
+def phase_infer_transformer_int8(tmp, card):
+    """Transformer-base (batch 64 x 256, flash, dropout 0, fp32, random
+    weights from seed 1) saved by ``save_inference_model`` and run by a
+    native fp32 predictor and by ``AnalysisConfig(enable_int8=True)``:
+    every mul Y and lookup_table W quantized (per row for the
+    embeddings), no float original left, the int8 bytes ~1/4; exactly
+    ``FLASH_OPS`` fp32 flash forwards a batch and no other kernel; the
+    int8 logits within ``INT8_LOGIT_TOL`` of fp32's largest, the top-1
+    token agreement printed; ms a batch of each.  Returns the phase's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                            PaddleTensor,
+                                            create_paddle_predictor)
+
+    phase = "infer_transformer_int8"
+    main, startup, _ = build_training(TRAIN_LEN, dropout=0.0, flash=True)
+    xent = next(op for op in main.global_block().ops
+                if op.type == "softmax_with_cross_entropy")
+    logits = main.global_block().var(xent.input("Logits")[0])
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    infer_dir = os.path.join(tmp, "transformer_int8")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(infer_dir, ["src_word", "tgt_word"],
+                                      [logits], exe, main_program=main)
+    del scope
+    exe.close()
+    torch.cuda.empty_cache()
+    feed = train_feed(TRAIN_BATCH, TRAIN_LEN, seed=2)
+    inputs = [PaddleTensor(name=n, data=feed[n])
+              for n in ("src_word", "tgt_word")]
+    total, res, outs = {}, {}, {}
+    for kind, cfg in (("fp32", NativeConfig(model_dir=infer_dir)),
+                      ("int8", AnalysisConfig(model_dir=infer_dir,
+                                              enable_int8=True))):
+        pred = create_paddle_predictor(cfg)
+        reset_launch_counts()
+        (out,) = pred.run(inputs)
+        counts = launch_counts()
+        add_counts(total, counts)
+        want = {k: 0 for k in counts}
+        want.update(flash_fwd=FLASH_OPS)
+        if counts != want:
+            raise AssertionError(f"{phase}: {kind} predictor launches "
+                                 f"{counts}, expected {want}")
+        outs[kind] = out.data
+        reset_launch_counts()
+        ms = cuda_time_ms(lambda: pred.run(inputs), 3, warmup=1)
+        add_counts(total, launch_counts())
+        res[kind] = {"ms_per_batch": ms, "launches_a_batch": counts[
+            "flash_fwd"]}
+        axes = _quant_targets(pred._program, pred._scope)
+        if kind == "fp32":
+            fp32_bytes = sum(pred._scope.get(n).numel() * 4 for n in axes)
+            res[kind]["weights"] = len(axes)
+        else:
+            names = list(_dequantize_axes(pred._program))
+            tables = [op.input("W")[0] for op in pred._program.global_block(
+                ).ops if op.type == "lookup_table"]
+            if len(names) != res["fp32"]["weights"] or not tables or \
+                    not all(t.endswith("@DEQ") for t in tables):
+                raise AssertionError(f"{phase}: {len(names)} weights "
+                                     f"quantized of {res['fp32']['weights']}"
+                                     f"; tables read {tables}")
+            res[kind]["dequantize_ops"] = len(names)
+            res[kind]["int8_weight_bytes"], res[kind]["int8_share"] = \
+                _int8_scope_check(phase, pred._scope, names, fp32_bytes)
+            res[kind]["dequantize_ms_per_batch"] = _dequantize_ms(
+                pred._scope, _dequantize_axes(pred._program),
+                torch.device("cuda", 0))
+        pred.close()
+        del pred, out
+        torch.cuda.empty_cache()
+    fp32, int8 = outs["fp32"], outs["int8"]
+    if int8.shape != fp32.shape or not np.isfinite(int8).all():
+        raise AssertionError(f"{phase}: int8 logits {int8.shape}")
+    err = float(np.abs(int8 - fp32).max() / np.abs(fp32).max())
+    if not 0 < err <= INT8_LOGIT_TOL:
+        raise AssertionError(f"{phase}: int8 logits {err} of the largest "
+                             f"from fp32's")
+    agree = float((int8.argmax(-1) == fp32.argmax(-1)).mean())
+    emit(phase, card=card, model="transformer_base", batch=TRAIN_BATCH,
+         seq_len=TRAIN_LEN, flash=True, fp32_weight_bytes=fp32_bytes,
+         logits_max_rel_err=err, logits_tol=INT8_LOGIT_TOL,
+         top1_token_agreement=agree, phase_launches=total, **res)
+    return total
+
+
+def phase_train_deepfm_auc():
+    """``train_deepfm``'s DeepFM (26 fields, 100,000 ids, k = 16, sparse
+    SGD, batch 32) with ``fluid.layers.auc(predict, label)`` at
+    ``AUC_THRESHOLDS`` on the card, 5 steps on fresh batches: the stats
+    float32 ``[4096]`` on the card, StatPos + StatNeg summing to the 160
+    examples seen; each step's AUC the numpy float64 trapezoid over the
+    same buckets within ``AUC_RTOL``; the auc op run on the CPU over the
+    card's predictions and labels gives the card's stats bitwise and its
+    AUC within ``AUC_RTOL``; no kernel launched."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import deepfm
+
+    phase = "train_deepfm_auc"
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, label, predict, loss = deepfm.build(
+            num_fields=DEEPFM_FIELDS, vocab_size=DEEPFM_VOCAB,
+            embed_dim=DEEPFM_DIM, lr=DEEPFM_LR)
+        auc, stats = fluid.layers.auc(predict, label,
+                                      num_thresholds=AUC_THRESHOLDS)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    # the same auc op alone on the CPU, fed the card's predictions
+    cpu_main, cpu_start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(cpu_main, cpu_start), fluid.unique_name.guard():
+        p_in = fluid.layers.data("p", shape=[1], dtype="float32")
+        l_in = fluid.layers.data("l", shape=[1], dtype="float32")
+        cpu_auc, cpu_stats = fluid.layers.auc(
+            p_in, l_in, num_thresholds=AUC_THRESHOLDS)
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu_exe.run(cpu_start, scope=cpu_scope)
+    reset_launch_counts()
+    aucs, step_ms = [], []
+    for step in range(DEEPFM_STEPS):
+        feed = deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, 200 + step)
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, auc, predict],
+                      scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        value = float(out[1].reshape(-1)[0])
+        pos, neg = (scope.get(s.name) for s in stats)
+        if pos.device.type != "cuda" or pos.dtype != torch.float32 or \
+                tuple(pos.shape) != (AUC_THRESHOLDS + 1,):
+            raise AssertionError(f"{phase}: StatPos {pos.dtype} "
+                                 f"{tuple(pos.shape)} on {pos.device}")
+        seen = float((pos + neg).sum())
+        if seen != DEEPFM_BATCH * (step + 1):
+            raise AssertionError(f"{phase}: the stats count {seen} examples "
+                                 f"after {step + 1} steps")
+        p64, n64 = pos.double().cpu().numpy(), neg.double().cpu().numpy()
+        pc, nc = np.cumsum(p64[::-1]), np.cumsum(n64[::-1])
+        want = float(np.sum((nc - np.concatenate([[0.0], nc[:-1]]))
+                            * (pc + np.concatenate([[0.0], pc[:-1]])) / 2)
+                     / (pc[-1] * nc[-1]))
+        if abs(value - want) > AUC_RTOL * abs(want):
+            raise AssertionError(f"{phase}: step {step} AUC {value}, the "
+                                 f"numpy trapezoid {want}")
+        (cpu_value,) = cpu_exe.run(
+            cpu_main, feed={"p": out[2].cpu().numpy(), "l": feed["label"]},
+            fetch_list=[cpu_auc], scope=cpu_scope)
+        for card_t, cpu_v in zip((pos, neg), cpu_stats):
+            if not torch.equal(card_t.cpu(), cpu_scope.get(cpu_v.name)):
+                raise AssertionError(f"{phase}: step {step}'s stats differ "
+                                     f"card against CPU")
+        if abs(float(np.asarray(cpu_value).reshape(-1)[0]) - value) > \
+                AUC_RTOL * abs(value):
+            raise AssertionError(f"{phase}: AUC {value} on the card, "
+                                 f"{cpu_value} on the CPU")
+        aucs.append(value)
+    counts = launch_counts()
+    check_launches(phase, counts, {}, DEEPFM_STEPS)
+    emit(phase, model="deepfm", batch=DEEPFM_BATCH, steps=DEEPFM_STEPS,
+         num_thresholds=AUC_THRESHOLDS, aucs=aucs, examples_seen=seen,
+         stats_bitwise_cpu=True, auc_rtol=AUC_RTOL, host_step_ms=step_ms,
+         launches=counts)
+
+
+def tranche7_inputs(rng):
+    """The inputs of ``tranche7_groups`` by key: (array, whether its grad
+    is checked)."""
+    import numpy as np
+
+    def normal(shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    b = T7_BATCH
+    n_docs = b["mq2007"] * 41
+    imagenet = rng.integers(0, 1000, (b["imagenet"], 1))
+    hits = rng.random((b["imagenet"], 1)) < 0.7
+    voc_label = rng.integers(0, 21, (b["voc"] * 513 * 513,)).astype(np.int32)
+    voc_pred = np.where(rng.random(voc_label.shape) < 0.6, voc_label,
+                        rng.integers(0, 21, voc_label.shape)).astype(np.int32)
+    prob = rng.random(160).astype(np.float32)
+    conv_w = normal((512, 512, 3, 3), 0.02)
+    fc_w = normal((2048, 1000), 0.02)
+    res3 = np.maximum(normal((b["resnet"], 256, 56, 56)), 0)
+    ids = rng.integers(0, DEEPFM_VOCAB, (DEEPFM_BATCH * DEEPFM_FIELDS, 1))
+    return {
+        "dssm_q": (normal((b["dssm"], 128)), True),
+        "dssm_d": (normal((b["dssm"], 128)), True),
+        "dssm_doc": (normal((1, 128)), True),
+        "ssd": (normal((b["ssd"], 512, 38, 38), 20.0), True),
+        "conv_w": (conv_w, True),
+        "res3": (res3, True), "res3_state": (res3, False),
+        "in_scale": (np.array([3.0], np.float32), False),
+        "iter": (np.array([10007], np.int64), False),
+        "quantized": (np.round(normal((b["resnet"], 256, 56, 56), 40.0)),
+                      True),
+        "q_scale": (np.array([2.75], np.float32), False),
+        "fc_int8": (rng.integers(-127, 128, (2048, 1000)).astype(np.int8),
+                    False),
+        "fc_scale": (np.abs(fc_w).max(0) + np.float32(0.01), False),
+        "conv_int8": (rng.integers(-127, 128, (512, 512, 3, 3)).astype(
+            np.int8), False),
+        "conv_scale": (np.abs(conv_w).reshape(512, -1).max(1), False),
+        "ntn_x": (normal((b["ntn"], 100)), True),
+        "ntn_y": (normal((b["ntn"], 100)), True),
+        "ntn_w": (normal((4, 100, 100), 0.1), True),
+        "ntn_b": (normal((1, 4)), True),
+        "ntm_mem": (normal((b["ntm"], 128)), True),
+        "ntm_shift": (np.abs(normal((b["ntm"], 3))), True),
+        "huber_x": (normal((b["huber"], 1), 1.5), True),
+        "huber_y": (rng.integers(0, 2, (b["huber"], 1)).astype(np.float32),
+                    False),
+        "onehot": (np.eye(30000, dtype=np.float32)[rng.integers(
+            0, 30000, b["xent"])], True),
+        "bert_a": (normal((b["bert"], 128, 768)), True),
+        "bert_b": (normal((b["bert"], 128, 768)), True),
+        "pool5": (normal((b["resnet"], 2048, 1, 1)), True),
+        "pool5_flat": (normal((b["resnet"], 2048)), True),
+        "voc_pred": (voc_pred, False), "voc_label": (voc_label, False),
+        "auc_pred": (np.stack([1 - prob, prob], 1), False),
+        "auc_label": (rng.integers(0, 2, (160, 1)), False),
+        "auc_pos": (np.zeros(AUC_THRESHOLDS + 1, np.float32), False),
+        "auc_neg": (np.zeros(AUC_THRESHOLDS + 1, np.float32), False),
+        "mq_score": (normal((n_docs, 1)), False),
+        "mq_label": (rng.integers(0, 3, (n_docs, 1)).astype(np.float32),
+                     False),
+        "mq_query": (np.repeat(np.arange(b["mq2007"]), 41).reshape(-1, 1),
+                     False),
+        "pr_probs": (rng.random((b["imagenet"], 1)).astype(np.float32),
+                     False),
+        "pr_idx": (np.where(hits, imagenet, rng.integers(
+            0, 1000, imagenet.shape)), False),
+        "pr_label": (imagenet, False),
+        "pr_states": (rng.integers(0, 50, (1000, 4)).astype(np.float32),
+                      False),
+        "ids": (ids, False),
+        "shard_rows0": (ids[ids % 2 == 0].reshape(-1, 1), False),
+        "shard_rows1": (ids[ids % 2 == 1].reshape(-1, 1), False),
+        "shard_vals0": (normal((int((ids % 2 == 0).sum()), 16)), False),
+        "shard_vals1": (normal((int((ids % 2 == 1).sum()), 16)), False),
+    }
+
+
+def tranche7_groups():
+    """The tranche's op types in groups for ``op_group_program``, with
+    each group's tolerance: (name, specs, (rtol, atol), atol of the
+    largest)."""
+    elementwise = [
+        ("minus", {"X": ["bert_a"], "Y": ["bert_b"]}, {}, {"Out": 1}),
+        ("modified_huber_loss", {"X": ["huber_x"], "Y": ["huber_y"]}, {},
+         {"Out": 1, "IntermediateVal": 1}),
+        ("label_smooth", {"X": ["onehot"]}, {"epsilon": 0.1}, {"Out": 1}),
+        ("fill", {}, {"value": [float(v) for v in range(-50, 50)],
+                      "shape": [10, 10], "dtype": 5}, {"Out": 1}),
+        ("flatten2", {"X": ["pool5"]}, {"axis": 1},
+         {"Out": 1, "XShape": 1}),
+        ("squeeze2", {"X": ["pool5"]}, {"axes": [2, 3]},
+         {"Out": 1, "XShape": 1}),
+        ("unsqueeze2", {"X": ["pool5_flat"]}, {"axes": [2, 3]},
+         {"Out": 1, "XShape": 1}),
+        ("fake_quantize_abs_max", {"X": ["conv_w"]}, {"bit_length": 8},
+         {"Out": 1, "OutScale": 1}),
+        ("fake_quantize_range_abs_max",
+         {"X": ["res3"], "InScale": ["in_scale"], "Iter": ["iter"]},
+         {"window_size": 10000, "bit_length": 8, "is_test": False},
+         {"Out": 1, "OutScale": 1}),
+        # the window and the counter (outputs no grad goes through)
+        ("fake_quantize_range_abs_max",
+         {"X": ["res3_state"], "InScale": ["in_scale"], "Iter": ["iter"]},
+         {"window_size": 10000, "bit_length": 8, "is_test": False},
+         {"Out": 1, "OutScale": 1, "OutScales": 1, "IterOut": 1}),
+        ("fake_dequantize_max_abs", {"X": ["quantized"],
+                                     "Scale": ["q_scale"]},
+         {"max_range": 127.0}, {"Out": 1}),
+        ("dequantize_weight", {"X": ["fc_int8"], "Scale": ["fc_scale"]},
+         {"quant_axis": 1}, {"Out": 1}),
+        ("dequantize_weight", {"X": ["conv_int8"], "Scale": ["conv_scale"]},
+         {"quant_axis": 0}, {"Out": 1}),
+        ("split_ids", {"Ids": ["ids"]}, {}, {"Out": 2}),
+        ("merge_ids", {"Ids": ["ids"], "Rows": ["shard_rows0",
+                                                "shard_rows1"],
+                       "X": ["shard_vals0", "shard_vals1"]}, {}, {"Out": 1})]
+    sums = [
+        ("cos_sim", {"X": ["dssm_q"], "Y": ["dssm_d"]}, {},
+         {"Out": 1, "XNorm": 1, "YNorm": 1}),
+        ("cos_sim", {"X": ["dssm_q"], "Y": ["dssm_doc"]}, {},
+         {"Out": 1, "XNorm": 1, "YNorm": 1}),
+        ("norm", {"X": ["ssd"]}, {"axis": 1, "epsilon": 1e-10},
+         {"Out": 1, "Norm": 1}),
+        ("l1_norm", {"X": ["conv_w"]}, {}, {"Out": 1}),
+        ("bilinear_tensor_product", {"X": ["ntn_x"], "Y": ["ntn_y"],
+                                     "Weight": ["ntn_w"], "Bias": ["ntn_b"]},
+         {}, {"Out": 1}),
+        ("conv_shift", {"X": ["ntm_mem"], "Y": ["ntm_shift"]}, {},
+         {"Out": 1})]
+    metrics = [
+        ("mean_iou", {"Predictions": ["voc_pred"], "Labels": ["voc_label"]},
+         {"num_classes": 21},
+         {"OutMeanIou": 1, "OutWrong": 1, "OutCorrect": 1}),
+        ("auc", {"Predict": ["auc_pred"], "Label": ["auc_label"],
+                 "StatPos": ["auc_pos"], "StatNeg": ["auc_neg"]},
+         {"num_thresholds": AUC_THRESHOLDS},
+         {"AUC": 1, "StatPosOut": 1, "StatNegOut": 1}),
+        ("positive_negative_pair", {"Score": ["mq_score"],
+                                    "Label": ["mq_label"],
+                                    "QueryID": ["mq_query"]}, {"column": 0},
+         {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1}),
+        ("precision_recall", {"MaxProbs": ["pr_probs"],
+                              "Indices": ["pr_idx"], "Labels": ["pr_label"],
+                              "StatesInfo": ["pr_states"]},
+         {"class_number": 1000},
+         {"BatchMetrics": 1, "AccumMetrics": 1, "AccumStatesInfo": 1})]
+    return [("elementwise", elementwise, (1e-5, 1e-6), False),
+            ("sums", sums, SEQ_PARITY_TOL, True),
+            ("metrics", metrics, (1e-6, 0.0), False)]
+
+
+def selected_rows_run(fluid, place, ids, table):
+    """DeepFM's sparse table grad (``lookup_table(is_sparse=True)`` of
+    ``ids`` into ``table``) through ``extract_rows`` and
+    ``split_selected_rows`` (two shards of the 100,000 rows) on
+    ``place``: the fetched rows tensor and the two shards
+    (SelectedRows)."""
+    import torch
+
+    from paddle_tpu_torch.fluid import framework
+
+    framework.fresh_session()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("ids", shape=[1], dtype="int64")
+        emb = fluid.layers.embedding(x, size=[DEEPFM_VOCAB, DEEPFM_DIM],
+                                     is_sparse=True, param_attr="sr_table")
+        fluid.append_backward(fluid.layers.reduce_sum(
+            fluid.layers.elementwise_mul(emb, emb)))
+        block = main.global_block()
+        rows = block.create_var(name="sr_rows", dtype="int64")
+        parts = [block.create_var(name=f"sr_part{i}", dtype="float32")
+                 for i in range(2)]
+        block.append_op(type="extract_rows",
+                        inputs={"X": ["sr_table@GRAD"]},
+                        outputs={"Out": [rows]})
+        half = DEEPFM_VOCAB // 2
+        block.append_op(type="split_selected_rows",
+                        inputs={"X": ["sr_table@GRAD"]},
+                        outputs={"Out": parts},
+                        attrs={"height_sections": [half,
+                                                   DEEPFM_VOCAB - half]})
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    scope.get("sr_table").copy_(torch.from_numpy(table))
+    return exe.run(main, feed={"ids": ids}, fetch_list=[rows] + parts,
+                   scope=scope, return_numpy=False)
+
+
+def checkpoint_save(fluid, place, dirname, arrays):
+    """``save`` of the first of ``arrays`` (name -> array, fed) and
+    ``save_combine`` of all, then ``delete_var``, on ``place``, fetching
+    nothing."""
+    from paddle_tpu_torch.fluid import framework
+
+    framework.fresh_session()
+    names = sorted(arrays)
+    save = fluid.Program()
+    with fluid.program_guard(save, fluid.Program()):
+        block = save.global_block()
+        xs = [fluid.layers.data(n, shape=list(arrays[n].shape[1:]),
+                                dtype=str(arrays[n].dtype)) for n in names]
+        block.append_op(type="save", inputs={"X": [xs[0]]}, outputs={},
+                        attrs={"file_path": os.path.join(dirname, "one")})
+        block.append_op(type="save_combine", inputs={"X": xs}, outputs={},
+                        attrs={"file_path": os.path.join(dirname,
+                                                         "all.npz")})
+        block.append_op(type="delete_var", inputs={"X": xs}, outputs={})
+    fluid.Executor(place).run(save, feed=arrays, fetch_list=[],
+                              scope=fluid.Scope())
+
+
+def checkpoint_load(fluid, place, dirname, arrays):
+    """``load`` and ``load_combine`` of ``checkpoint_save``'s files on
+    ``place``: the loaded tensors, the first array's then all."""
+    from paddle_tpu_torch.fluid import framework
+
+    framework.fresh_session()
+    names = sorted(arrays)
+    load = fluid.Program()
+    with fluid.program_guard(load, fluid.Program()):
+        block = load.global_block()
+        one = block.create_var(name="one", dtype=str(arrays[names[0]].dtype))
+        fluid.layers.load(one, os.path.join(dirname, "one"))
+        outs = [block.create_var(name=f"all_{n}", dtype=str(arrays[n].dtype))
+                for n in names]
+        block.append_op(type="load_combine", inputs={},
+                        outputs={"Out": outs},
+                        attrs={"file_path": os.path.join(dirname,
+                                                         "all.npz")})
+    return fluid.Executor(place).run(load, fetch_list=[one] + outs,
+                                     scope=fluid.Scope(), return_numpy=False)
+
+
+def phase_ops_tranche7_parity(tmp):
+    """The 31 op types of the misc, quant and metric tranche at the
+    per-sample shapes of the public models that use them
+    (``T7_SOURCES``; batches ``T7_BATCH``), card against CPU: the dense,
+    quant, shape and id ops and the sums (forward and input grads, one
+    Program a group, ``tranche7_groups``' tolerances), the metric ops
+    (counts equal, metrics within 1e-6); DeepFM's sparse grad through
+    ``extract_rows`` / ``split_selected_rows`` (rows and heights equal,
+    values within ``SEQ_PARITY_TOL``); the checkpoint ops writing on the
+    card and loading on both places (bitwise, on the loading place;
+    ``run_steps`` refuses a program that saves); ``get_places``;
+    ``random_crop`` on the card: every crop a window of its image, 33
+    starts each drawn ~1,000 times within chi-square ``CHI2_32``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+
+    phase = "ops_tranche7_parity"
+    t0 = time.perf_counter()
+    inputs = tranche7_inputs(np.random.default_rng(23))
+    places = (("cpu", fluid.CPUPlace()), ("card", fluid.CUDAPlace(0)))
+    covered, result = set(), {}
+    for group, specs, tol, of_largest in tranche7_groups():
+        framework.fresh_session()
+        main, startup, feeds, outs, grads = op_group_program(fluid, specs,
+                                                             inputs)
+        feed = {n: inputs[k][0] for n, k in feeds.items()}
+        runs, secs = [], {}
+        for tag, place in places:
+            t1 = time.perf_counter()
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            runs.append(exe.run(main, feed=feed, fetch_list=outs + grads,
+                                scope=scope, return_numpy=False))
+            torch.cuda.synchronize()
+            secs[f"{tag}_s"] = time.perf_counter() - t1
+        worst = compare_on_card(f"{phase} {group}", outs + grads, *runs, tol,
+                                of_largest)
+        covered |= {spec[0] for spec in specs}
+        result[group] = {"ops": len(specs), "fetches": len(outs + grads),
+                         "tol": list(tol), "atol_of_largest": of_largest,
+                         "max_abs_err": worst, **secs}
+        del feed, runs
+
+    # SelectedRows utilities on DeepFM's sparse grad
+    ids = inputs["ids"][0]
+    table = np.random.default_rng(5).standard_normal(
+        (DEEPFM_VOCAB, DEEPFM_DIM), dtype=np.float32)
+    cpu, card = (selected_rows_run(fluid, place, ids, table)
+                 for _, place in places)
+    compare_on_card(f"{phase} extract_rows", ["rows"], cpu[:1], card[:1],
+                    (0.0, 0.0), False)
+    for i, (c, g) in enumerate(zip(cpu[1:], card[1:])):
+        if c.height != g.height or g.values.device.type != "cuda":
+            raise AssertionError(f"{phase}: shard {i} height {g.height} on "
+                                 f"{g.values.device}, {c.height} on the CPU")
+        compare_on_card(f"{phase} split_selected_rows {i}",
+                        ["rows", "values"], [c.rows, c.values],
+                        [g.rows, g.values], SEQ_PARITY_TOL, True)
+    covered |= {"extract_rows", "split_selected_rows"}
+
+    # checkpoint ops: each place's files read on both places
+    arrays = {"conv_w": np.ascontiguousarray(inputs["conv_w"][0][:8]),
+              "ids": inputs["ids"][0]}
+    names = sorted(arrays)
+    want = [arrays[names[0]]] + [arrays[n] for n in names]
+    for writer, wplace in places:
+        dirname = os.path.join(tmp, f"t7_{writer}")
+        os.makedirs(dirname)
+        checkpoint_save(fluid, wplace, dirname, arrays)
+        for reader, rplace in places:
+            got = checkpoint_load(fluid, rplace, dirname, arrays)
+            for g, w in zip(got, want):
+                if g.device.type != ("cuda" if reader == "card" else "cpu") \
+                        or not torch.equal(g.cpu(), torch.from_numpy(w)):
+                    raise AssertionError(
+                        f"{phase}: {writer}'s file loaded on the {reader} "
+                        f"as {g.dtype} {tuple(g.shape)} on {g.device}")
+    framework.fresh_session()
+    save = fluid.Program()
+    with fluid.program_guard(save, fluid.Program()):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        save.global_block().append_op(
+            type="save", inputs={"X": [x]}, outputs={},
+            attrs={"file_path": os.path.join(tmp, "t7_window")})
+    try:
+        fluid.Executor().run_steps(save, {"x": np.ones((2, 4), np.float32)},
+                                   [], 2, scope=fluid.Scope())
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{phase}: run_steps captured a save")
+    if os.path.exists(os.path.join(tmp, "t7_window.npy")):
+        raise AssertionError(f"{phase}: run_steps wrote the save's file")
+    covered |= {"save", "load", "save_combine", "load_combine",
+                "delete_var"}
+
+    # get_places
+    framework.fresh_session()
+    gp, gp_start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(gp, gp_start):
+        counted = fluid.layers.get_places()
+        four = fluid.layers.get_places(device_count=4)
+    places_out = {tag: fluid.Executor(place).run(
+        gp, fetch_list=[counted, four], scope=fluid.Scope(),
+        return_numpy=False) for tag, place in places}
+    card_places = places_out["card"][0]
+    if card_places.device.type != "cuda" or card_places.tolist() != list(
+            range(torch.cuda.device_count())) or \
+            places_out["card"][1].tolist() != [0, 1, 2, 3] or \
+            places_out["cpu"][1].tolist() != [0, 1, 2, 3]:
+        raise AssertionError(f"{phase}: get_places gave {places_out}")
+    covered.add("get_places")
+
+    # random_crop on the card: windows and uniform starts
+    framework.fresh_session()
+    crops = {}
+    b = T7_BATCH
+    images = np.arange(b["crop"] * 3 * 256 * 256, dtype=np.float32).reshape(
+        b["crop"], 3, 256, 256)
+    lines = np.arange(b["crop_draws"] * 40, dtype=np.float32).reshape(
+        b["crop_draws"], 40)
+    for key, x, shape in (("imagenet", images, [224, 224]),
+                          ("draws", lines, [8])):
+        prog, prog_start = fluid.Program(), fluid.Program()
+        prog.random_seed = 23
+        with fluid.program_guard(prog, prog_start):
+            xv = fluid.layers.data("x", shape=list(x.shape[1:]),
+                                   dtype="float32")
+            out = fluid.layers.random_crop(xv, shape)
+        exe = fluid.Executor()
+        crops[key] = exe.run(prog, feed={"x": x}, fetch_list=[out],
+                             scope=fluid.Scope(), return_numpy=False)[0]
+        cpu_out = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={"x": x}, fetch_list=[out], scope=fluid.Scope(),
+            return_numpy=False)[0]
+        if crops[key].device.type != "cuda" or \
+                crops[key].shape != cpu_out.shape or \
+                crops[key].dtype != cpu_out.dtype:
+            raise AssertionError(f"{phase}: random_crop {key} "
+                                 f"{tuple(crops[key].shape)} on the card, "
+                                 f"{tuple(cpu_out.shape)} on the CPU")
+    got = crops["imagenet"].cpu().numpy()
+    first = got[:, :, 0, 0] - images[:, :, 0, 0]
+    row, col = np.divmod(first.astype(np.int64), 256)
+    for i in range(b["crop"]):
+        if len(set(row[i])) != 1 or len(set(col[i])) != 1 or not \
+                np.array_equal(got[i], images[i, :, row[i, 0]:row[i, 0]
+                                               + 224, col[i, 0]:col[i, 0]
+                                               + 224]):
+            raise AssertionError(f"{phase}: crop {i} is no window of its "
+                                 f"image")
+    starts = (crops["draws"][:, 0].cpu().numpy()
+              - lines[:, 0]).astype(np.int64)
+    counts = np.bincount(starts, minlength=33)
+    expect = b["crop_draws"] / 33
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    windows = lines[np.arange(b["crop_draws"])[:, None],
+                    starts[:, None] + np.arange(8)]
+    if counts.size != 33 or chi2 > CHI2_32 or not np.array_equal(
+            crops["draws"].cpu().numpy(), windows):
+        raise AssertionError(f"{phase}: random_crop starts {counts}, "
+                             f"chi-square {chi2}")
+    covered.add("random_crop")
+    if len(covered) != 31:
+        raise AssertionError(f"{phase}: ran {sorted(covered)}")
+    emit(phase, op_types=len(covered), groups=result, batch_cuts=T7_BATCH,
+         sources=T7_SOURCES, run_steps_refused=refused,
+         crop_start_counts=counts.tolist(), crop_chi2=chi2,
+         crop_chi2_bound=CHI2_32, get_places=card_places.tolist(),
+         seconds=time.perf_counter() - t0)
+    return covered
+
+
 def main():
     import argparse
 
@@ -9330,6 +10246,18 @@ def main():
     phase_train_dcgan_parity()
     torch.cuda.empty_cache()
     phase_ops_tranche6_parity()
+    torch.cuda.empty_cache()
+    # the misc, quant and metric tranche: int8 inference (row 1 on the
+    # int8 Transformer), DeepFM under auc, the 31 op types card against CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_infer_resnet_int8(tmp, smi)
+        torch.cuda.empty_cache()
+        int8_counts = phase_infer_transformer_int8(tmp, smi)
+        torch.cuda.empty_cache()
+        phase_train_deepfm_auc()
+        phase_ops_tranche7_parity(tmp)
+    for k in flash:
+        k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):
         k["launches"] += detection[k["name"]]
         for layout in ("narrow", "wide"):

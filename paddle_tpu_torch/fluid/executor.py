@@ -121,6 +121,13 @@ from ..ops.array_ops import TensorArray
 from ..ops.registry import LOD_SUFFIX
 
 _CONST_OPS = frozenset(["assign_value", "fill_constant"])
+# ops a run keeps whoever reads their outputs (the reference's
+# ``_SIDE_EFFECT_OPS``): they print or write files
+_SIDE_EFFECT_OPS = frozenset(["print", "save", "save_combine"])
+# ops that read the value an output already holds (``ExecContext.cur_out``):
+# an array appended to, the range quantizer's window of scales
+_CURRENT_OUTPUTS = {"write_to_array": "Out",
+                    "fake_quantize_range_abs_max": "OutScales"}
 # ops whose grad op reads a host index the loop may since have moved
 _HOST_STASH_OPS = frozenset(["write_to_array", "read_from_array",
                              "shrink_rnn_memory"])
@@ -345,7 +352,8 @@ def _find_groups(ops, const_ops) -> List[List[int]]:
 
 def _live_ops(block, fetch_names) -> list:
     """The ops a run needs: those feeding a fetch or writing a
-    persistable, in program order."""
+    persistable, and the ops with a side effect (``_SIDE_EFFECT_OPS``), in
+    program order."""
     def _is_persistable(name: str) -> bool:
         return block._has_var_recursive(name) and \
             block._var_recursive(name).persistable
@@ -354,7 +362,8 @@ def _live_ops(block, fetch_names) -> list:
     kept = []
     for op in reversed(block.ops):
         outs = [n for n in op.output_arg_names if n]
-        if not (any(n in needed for n in outs)
+        if not (op.type in _SIDE_EFFECT_OPS
+                or any(n in needed for n in outs)
                 or any(_is_persistable(n) for n in outs)):
             continue
         kept.append(op)
@@ -503,9 +512,10 @@ def _context(op, env, device, generator, outputs_spec):
         if any(lod is not None for lod in lods):
             inputs[slot + LOD_SUFFIX] = lods
     host = False
-    if op.type == "write_to_array":
-        inputs["Out" + _reg.CURRENT_SUFFIX] = [
-            env.get(n) if n else None for n in op.outputs.get("Out", [])]
+    cur_slot = _CURRENT_OUTPUTS.get(op.type)
+    if cur_slot is not None:
+        inputs[cur_slot + _reg.CURRENT_SUFFIX] = [
+            env.get(n) if n else None for n in op.outputs.get(cur_slot, [])]
     elif op.type == "fill_constant":
         hosts = host_names(op.block.program)
         host = all(n in hosts for n in op.output_arg_names if n)

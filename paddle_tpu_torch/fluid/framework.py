@@ -234,6 +234,14 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type=None, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
     def to_string(self, throw_on_error=False, with_details=False):
         lines = [f"-- block {self.idx} (parent {self.parent_idx}) --"]
         for v in self.vars.values():

@@ -1,10 +1,11 @@
 """fluid.layers namespace (counterpart of ``paddle_tpu/fluid/layers``)."""
 
-from . import (control_flow, detection, io, metric_op, nn, ops, sequence,
-               tensor)
+from . import (control_flow, detection, device, io, metric_op, nn, ops,
+               sequence, tensor)
 from . import learning_rate_scheduler, math_op_patch
 from .control_flow import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
+from .device import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
@@ -15,6 +16,7 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 
 math_op_patch.monkey_patch_variable()
 
-__all__ = (control_flow.__all__ + detection.__all__ + io.__all__
+__all__ = (control_flow.__all__ + detection.__all__ + device.__all__
+           + io.__all__
            + metric_op.__all__ + nn.__all__ + ops.__all__ + tensor.__all__
            + learning_rate_scheduler.__all__ + sequence.__all__)

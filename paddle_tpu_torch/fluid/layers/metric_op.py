@@ -1,11 +1,12 @@
 """Metric layers (counterpart of ``paddle_tpu/fluid/layers/metric_op.py``):
-accuracy and chunk_eval."""
+accuracy, auc and chunk_eval."""
 
 from __future__ import annotations
 
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["accuracy", "chunk_eval"]
+__all__ = ["accuracy", "auc", "chunk_eval"]
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -31,6 +32,31 @@ def accuracy(input, label, k=1, correct=None, total=None):
         outputs={"Accuracy": [acc_out], "Correct": [correct],
                  "Total": [total]})
     return acc_out
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1):
+    """Streaming AUC of the positive-class probability ``input[:, -1]``:
+    (the AUC so far, [StatPos, StatNeg]), the bucket counts persistable
+    float32 ``[num_thresholds + 1]`` vars that start at 0."""
+    helper = LayerHelper("auc")
+    stats = []
+    for _ in range(2):
+        stat = helper.create_global_variable(
+            persistable=True, dtype="float32", shape=[num_thresholds + 1])
+        helper.set_variable_initializer(stat, ConstantInitializer(0.0))
+        stats.append(stat)
+    stat_pos, stat_neg = stats
+    auc_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    auc_out.shape = (1,)
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": [input], "Label": [label], "StatPos": [stat_pos],
+                "StatNeg": [stat_neg]},
+        outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                 "StatNegOut": [stat_neg]},
+        attrs={"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out, [stat_pos, stat_neg]
 
 
 def chunk_eval(input, label, chunk_scheme, num_chunk_types,

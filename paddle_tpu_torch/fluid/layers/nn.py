@@ -10,7 +10,9 @@ sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
 ``unstack``, ``expand``, ``scatter``, ``shape``, ``crop``,
 ``multiplex``, the image resizes), and the builders of the 3-D and
 transposed convolutions, ``group_norm``, ``lrn``, ``maxout``,
-``pool3d`` and ``Print``, copied so the same calls emit the same IR."""
+``pool3d`` and ``Print``, and ``cos_sim``, ``mean_iou``,
+``random_crop`` and the in-graph ``load``, copied so the same calls emit
+the same IR."""
 
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ __all__ = [
     "expand", "shape", "crop", "image_resize", "resize_bilinear", "prelu",
     "multiplex", "image_resize_short", "conv3d", "conv2d_transpose",
     "conv3d_transpose", "group_norm", "lrn", "maxout", "pool3d", "Print",
+    "cos_sim", "mean_iou", "random_crop", "load",
 ]
 
 
@@ -1411,4 +1414,57 @@ def Print(input, first_n=-1, message=None, summarize=20,
                "print_tensor_name": print_tensor_name,
                "print_tensor_dtype": print_tensor_type,
                "print_tensor_shape": print_tensor_shape})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    """The cosine of each row of ``X`` with ``Y``'s (or its one row)."""
+    helper = LayerHelper("cos_sim", **locals())
+    dtype = helper.input_dtype("X")
+    out, xn, yn = (helper.create_variable_for_type_inference(dtype)
+                   for _ in range(3))
+    out.shape = (X.shape[0], 1)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def mean_iou(input, label, num_classes):
+    """Mean IoU of predicted against true class ids: (mean, wrong counts,
+    correct counts)."""
+    helper = LayerHelper("mean_iou", **locals())
+    out_mean_iou, out_wrong, out_correct = (
+        helper.create_variable_for_type_inference("float32",
+                                                  stop_gradient=True)
+        for _ in range(3))
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [out_mean_iou],
+                              "OutWrong": [out_wrong],
+                              "OutCorrect": [out_correct]},
+                     attrs={"num_classes": num_classes})
+    return out_mean_iou, out_wrong, out_correct
+
+
+def random_crop(x, shape, seed=None):
+    """A random window of ``shape`` over the trailing dims, per
+    instance."""
+    helper = LayerHelper("random_crop", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    lead = len(x.shape) - len(shape)
+    out.shape = tuple(x.shape[:lead]) + tuple(shape)
+    seed_out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="random_crop", inputs={"X": [x]},
+                     outputs={"Out": [out], "SeedOut": [seed_out]},
+                     attrs={"shape": list(shape),
+                            "startup_seed": seed or 0})
+    return out
+
+
+def load(out, file_path, load_as_fp16=False):
+    """Load ``out`` from ``file_path`` when the program runs."""
+    helper = LayerHelper("load", **locals())
+    helper.append_op(type="load", inputs={}, outputs={"Out": [out]},
+                     attrs={"file_path": file_path,
+                            "load_as_fp16": load_as_fp16})
     return out

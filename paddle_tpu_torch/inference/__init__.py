@@ -8,9 +8,10 @@ port's Executor: on the card (``use_tpu=True``, the reference's field
 name for "the accelerator", as ``TPUPlace`` maps to the card here) unless
 ``use_tpu=False`` pins the CPU.  ``AnalysisConfig(enable_ir_optim=True)``
 runs the inference transpiler (is_test flips, conv + batch_norm folded
-into the filter).  The engine-backed (``enable_serving``) and int8-weight
-(``enable_int8``) modes raise: the batch serving engine and the int8
-transpiler are not ported yet.
+into the filter); ``enable_int8`` then the weight-only int8 transpiler
+(the scope keeps int8 weights and their scales on the predictor's
+device).  The engine-backed mode (``enable_serving``) raises: the batch
+serving engine is not ported yet.
 
 A predictor runs in the AMP mode (``fluid.amp``) active when it runs.
 Outputs come back as numpy arrays (bfloat16 as float32, exact) with the
@@ -56,9 +57,10 @@ class NativeConfig:
 
 @dataclass
 class AnalysisConfig(NativeConfig):
-    """``enable_ir_optim`` runs the inference transpiler at load.
-    ``enable_int8`` and ``enable_serving`` raise until their modules are
-    ported (the reference's ``serving_*`` fields come with the latter)."""
+    """``enable_ir_optim`` runs the inference transpiler at load,
+    ``enable_int8`` the int8 weight transpiler after it.
+    ``enable_serving`` raises until the batch serving engine is ported
+    (the reference's ``serving_*`` fields come with it)."""
     enable_ir_optim: bool = True
     enable_int8: bool = False
     enable_serving: bool = False
@@ -72,17 +74,11 @@ class PaddlePredictor:
         from .. import fluid
         from ..fluid.executor import Scope
 
-        if isinstance(config, AnalysisConfig):
-            if config.enable_int8:
-                raise NotImplementedError(
-                    "AnalysisConfig(enable_int8=True) needs "
-                    "fluid.transpiler.Int8WeightTranspiler, which "
-                    "paddle_tpu_torch does not port yet")
-            if config.enable_serving:
-                raise NotImplementedError(
-                    "AnalysisConfig(enable_serving=True) needs the batch "
-                    "ServingEngine (serving/engine.py), which "
-                    "paddle_tpu_torch does not port yet")
+        if isinstance(config, AnalysisConfig) and config.enable_serving:
+            raise NotImplementedError(
+                "AnalysisConfig(enable_serving=True) needs the batch "
+                "ServingEngine (serving/engine.py), which "
+                "paddle_tpu_torch does not port yet")
         self._config = config
         self._scope = Scope()
         place = fluid.CUDAPlace(config.device) if config.use_tpu \
@@ -103,6 +99,12 @@ class PaddlePredictor:
 
             self._program = InferenceTranspiler().transpile(
                 self._program, place, scope=self._scope)
+        if isinstance(config, AnalysisConfig) and config.enable_int8:
+            from ..fluid.transpiler import Int8WeightTranspiler
+
+            # quantizes in place and returns the weights' names
+            Int8WeightTranspiler().transpile(self._program, place,
+                                             scope=self._scope)
 
     def close(self) -> None:
         """Nothing to release: only the engine-backed mode holds one."""

@@ -12,8 +12,8 @@ the JAX package, on the CPU:
    transpiler's return value) on the port, with the reference's
    persistables carried across, held against the reference's predictor at
    that file's tolerances (native rtol 1e-5 / atol 1e-6, folded rtol 1e-4
-   / atol 1e-5); ``enable_int8`` and ``enable_serving`` raise, and so does
-   ``use_tpu=True`` with no card;
+   / atol 1e-5); ``enable_serving`` raises (``enable_int8`` quantizes the
+   weights), and so does ``use_tpu=True`` with no card;
  - the cases of ``tests/test_ir_passes.py`` on the port, each against the
    reference's result.
 """
@@ -322,10 +322,19 @@ def test_inference_transpiler_returns_fused_program(tmp_path):
 
 @pytest.mark.parametrize("field", ["enable_int8", "enable_serving"])
 def test_unported_analysis_modes_raise(tmp_path, field):
+    """``enable_serving`` raises; ``enable_int8``, ported since, builds a
+    predictor whose weights are int8 (``tests/test_torch_int8_transpiler.py``
+    holds it against the reference)."""
     ref_dir, port_dir, _ = _saved_pair(tmp_path)
+    cfg = port_inf.AnalysisConfig(model_dir=port_dir, use_tpu=False,
+                                  **{field: True})
+    if field == "enable_int8":
+        pred = port_inf.create_paddle_predictor(cfg)
+        assert "dequantize_weight" in [
+            op.type for op in pred._program.global_block().ops]
+        return
     with pytest.raises(NotImplementedError, match="not port yet"):
-        port_inf.create_paddle_predictor(port_inf.AnalysisConfig(
-            model_dir=port_dir, use_tpu=False, **{field: True}))
+        port_inf.create_paddle_predictor(cfg)
 
 
 def test_accelerator_predictor_without_a_card_raises(tmp_path, monkeypatch):

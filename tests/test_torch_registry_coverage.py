@@ -1,9 +1,9 @@
 """The port's op registry against the JAX package's, by name: the port has
 no op type the reference lacks, and holds every one of the one-line
 activation, math, reduce and shape ops (63) and of the convolution,
-norm, pooling-with-index and random ops (22), each in its module with the
-reference's registry flags.  The op types still to port are printed
-(``pytest -s``)."""
+norm, pooling-with-index and random ops (22) and of the misc, quant and
+metric ops (31), each in its module with the reference's registry flags.
+The op types still to port are printed (``pytest -s``)."""
 
 from paddle_tpu.ops.registry import REGISTRY as REF
 from paddle_tpu_torch.ops.registry import REGISTRY as PORT
@@ -43,6 +43,21 @@ TRANCHE6_OPS = {
 }
 
 
+TRANCHE7_OPS = {
+    "misc_ops": [
+        "minus", "cos_sim", "l1_norm", "norm", "bilinear_tensor_product",
+        "conv_shift", "modified_huber_loss", "label_smooth", "fill",
+        "random_crop", "flatten2", "squeeze2", "unsqueeze2", "extract_rows",
+        "split_ids", "merge_ids", "split_selected_rows", "save", "load",
+        "save_combine", "load_combine", "delete_var", "get_places"],
+    "quant_ops": [
+        "dequantize_weight", "fake_quantize_abs_max",
+        "fake_quantize_range_abs_max", "fake_dequantize_max_abs"],
+    "metric_ops": ["auc", "mean_iou", "positive_negative_pair",
+                   "precision_recall"],
+}
+
+
 def test_port_has_no_op_the_reference_lacks():
     assert sorted(set(PORT) - set(REF)) == []
 
@@ -70,6 +85,21 @@ def test_tranche6_ops_are_ported_in_their_modules_with_reference_flags():
             assert PORT[name].stateful == REF[name].stateful, name
 
 
+def test_tranche7_ops_are_ported_in_their_modules_with_reference_flags():
+    """And an explicit grad exactly where the reference registers one (the
+    quantizers' straight-through grads)."""
+    names = [n for ops in TRANCHE7_OPS.values() for n in ops]
+    assert len(names) == len(set(names)) == 31
+    for module, ops in TRANCHE7_OPS.items():
+        for name in ops:
+            assert PORT[name].fn.__module__ == \
+                f"paddle_tpu_torch.ops.{module}", (name, PORT[name].fn)
+            assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
+            assert PORT[name].stateful == REF[name].stateful, name
+            assert (PORT[name].grad_fn is None) == \
+                (REF[name].grad_fn is None), name
+
+
 def test_tranche6_convolutions_have_explicit_grads():
     for name in ("conv2d", "conv3d", "depthwise_conv2d", "conv2d_transpose",
                  "conv3d_transpose", "depthwise_conv2d_transpose",
@@ -82,4 +112,4 @@ def test_missing_op_types_are_listed():
     print(f"\n{len(PORT)} of {len(REF)} op types ported; {len(missing)} "
           f"still to port: {', '.join(missing)}")
     assert len(PORT) + len(missing) == len(REF)
-    assert len(PORT) == 230
+    assert len(PORT) == 261 and len(missing) == 12
