@@ -29,7 +29,9 @@ trains DCGAN through the transposed convolutions and holds the
 convolution, norm, indexed-pool and random ops against the CPU, runs
 ResNet-50 and Transformer-base inference on int8 weights and DeepFM under
 the streaming AUC, holds the misc, quant and metric ops against the CPU,
-and checks them all.
+trains ResNet-50 under LARS momentum with a model average, the book's
+MNIST MLP under Adam with LARS and DeepFM under each remaining optimizer,
+holds their update ops against the CPU, and checks them all.
 
     python3 chip_smoke.py
 
@@ -559,6 +561,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    against CPU; the checkpoint ops' files read on both
                    places, ``run_steps`` refusing a save; ``get_places``;
                    ``random_crop`` windows and uniform starts on the card
+60. train_resnet_lars_amp - ResNet-50 in bf16 (kept activations) at batch
+                   256 x 224 px under Momentum with LARS (weight decay
+                   1e-4) and ``ModelAverage(0.15, 2, 4)``: 5 steps on
+                   batches drawn on the card; 1 momentum launch for 161
+                   tensors and no host read a step (and no warning of
+                   torch's sync debug mode); the step-0 LARS rates
+                   against float64; the window closes the rule gives;
+                   ``apply()`` bitwise numpy's average of the scope's
+                   sums, an eval batch through the test clone,
+                   ``restore()`` bitwise; beside ``train_resnet_amp``'s
+                   images/s and dispatches, and the momentum wrapper's
+                   host us a call with the same and with new rate tensors
+61. train_window_resnet_lars_amp - the same program as two ``run_steps``
+                   windows of 10 on fresh batches against the per-step
+                   path: the state (sums and counters included) bitwise,
+                   else the loss within 2^-8; 1 momentum launch a step
+62. train_mnist_lars - the book's recognize_digits MLP (200, 200 tanh, 10
+                   softmax) under Adam(1e-3, LARS 0.3) at batch 64, 10
+                   steps card against CPU: losses and the 6 LARS rates
+                   within rtol 1e-5 at step 0, 1e-4 after; 1 Adam launch
+                   for 6 tensors a step
+63. train_deepfm_optims - DeepFM (phase 35's widths, sparse tables) under
+                   SGD and each optimizer that folds a SelectedRows grad
+                   (Adagrad, Adamax, DecayedAdagrad, Adadelta, Ftrl), 5
+                   steps card against CPU: losses, both tables; no kernel
+                   launch, no host read; examples/s and dispatches
+64. optim_ops_parity - the 8 new op types over ResNet-50's 161 parameter
+                   shapes (FTRL at lr_power -0.5 and -0.25, the proximal
+                   ops with l1 and l2, ``average_accumulates`` from
+                   seeded counters through a window close and the
+                   16,384-update fold), 3 steps card against CPU, each
+                   group bitwise its ops one by one on the card; the
+                   folding ops through DeepFM's sparse table; the
+                   proximal ops refusing a SelectedRows
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -3548,7 +3584,7 @@ def conv_tflop_per_step(main, batch):
 def phase_train_resnet(progs, profile_run=False, amp=False):
     """ResNet-50 training on the card (under bf16 AMP with kept activations
     with ``amp``, the caller having enabled it): returns the kernels'
-    launch counts over its steps."""
+    launch counts over its steps and the step's numbers."""
     import math
 
     import torch
@@ -3593,14 +3629,17 @@ def phase_train_resnet(progs, profile_run=False, amp=False):
     # the convolutions' least time at the dtype's peak (bf16 dense tensor
     # cores under AMP, fp32 CUDA cores otherwise)
     conv_peak = PEAK_BF16_FLOPS if amp else PEAK_FP32_FLOPS
+    stats = {"steady_step_ms": steady_ms,
+             "images_per_s": RESNET_BATCH * 1e3 / steady_ms,
+             "op_dispatches_per_step": op_dispatches(exe, main, loss, acc),
+             "max_memory_allocated": peak}
     emit(phase, model="resnet50", batch=RESNET_BATCH,
          image_hw=224, classes=1000, steps=RESNET_STEPS, losses=losses,
          loss_fell=losses[-1] < losses[0], accuracies=accs,
          launches=counts, startup_s=startup_s, step_ms=step_ms,
-         steady_step_ms=steady_ms,
-         images_per_s=RESNET_BATCH * 1e3 / steady_ms,
+         steady_step_ms=steady_ms, images_per_s=stats["images_per_s"],
          ops_per_step=len(main.global_block().ops),
-         op_dispatches_per_step=op_dispatches(exe, main, loss, acc),
+         op_dispatches_per_step=stats["op_dispatches_per_step"],
          conv_tflop_per_step=conv_tflop,
          conv_bound_ms=conv_tflop / conv_peak * 1e15,
          max_memory_allocated=peak,
@@ -3610,7 +3649,7 @@ def phase_train_resnet(progs, profile_run=False, amp=False):
         profile_step(phase, lambda: exe.run(main, feed=feed,
                                             fetch_list=[loss], scope=scope),
                      {"conv": CONV_KEYS})
-    return counts
+    return counts, stats
 
 
 def phase_conv_fp32():
@@ -3835,9 +3874,9 @@ def window_profile(exe, main, feed, fetches, scope, steps,
 
 
 def window_against_steps(phase, progs, fetches, feed, per_step, items,
-                         profile_run, loss_rtol):
-    """``WINDOW_STEPS`` x 2 Executor.run steps on the card against two
-    ``run_steps(n_steps=WINDOW_STEPS)`` windows of one executor from the
+                         profile_run, loss_rtol, steps=WINDOW_STEPS):
+    """``steps`` x 2 Executor.run steps on the card against two
+    ``run_steps(n_steps=steps)`` windows of one executor from the
     same state (a copy of the scope, generators included; the first
     window runs a step, captures the next and replays).  ``feed`` is one
     feed for every step, or a list of one a step (the windows take theirs
@@ -3847,7 +3886,7 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
     the worst difference printed; the other fetches (dropout masks, drawn
     from the generators alone) bitwise.  The windows' launches must be ``per_step`` x
     steps.  Prints the graphed and the eager step's device ms (CUDA
-    events around 5 steps), the capture's time and the graph pool's
+    events around ``steps`` steps), the capture's time and the graph pool's
     bytes; with ``profile_run`` a profiled third window.  Returns
     (executor, window scope, numbers)."""
     import numpy as np
@@ -3856,7 +3895,7 @@ def window_against_steps(phase, progs, fetches, feed, per_step, items,
     from paddle_tpu_torch import fluid
 
     main, startup = progs
-    n = WINDOW_STEPS
+    n = steps
     per_step_feed = isinstance(feed, list)
     steps = feed if per_step_feed else [feed] * (2 * n)
     window_feeds = ([{k: np.stack([f[k] for f in steps[w * n:(w + 1) * n]])
@@ -5152,7 +5191,8 @@ def phase_ops_tranche5_parity():
 
 def place_steps(progs, feed, fetches, steps, places):
     """``steps`` steps of ``progs`` (main, startup) on each place from the
-    first place's initial state: each place's fetches ``[places][steps]
+    first place's initial state (``feed`` one feed for every step, or a
+    list of one a step): each place's fetches ``[places][steps]
     [fetches]`` as float64 arrays, the launches of the last place's steps,
     and each place's scope."""
     import numpy as np
@@ -5170,13 +5210,14 @@ def place_steps(progs, feed, fetches, steps, places):
             for v in startup.list_vars() if v.persistable}
     for _, scope, place in runs[1:]:
         load_reference_params(scope, init, place)
+    feeds = feed if isinstance(feed, list) else [feed] * steps
     out = []
     for i, (exe, scope, _) in enumerate(runs):
         if i == len(runs) - 1:
             reset_launch_counts()
         out.append([[np.asarray(v, np.float64) for v in exe.run(
-            main, feed=feed, fetch_list=fetches, scope=scope)]
-            for _ in range(steps)])
+            main, feed=feeds[k], fetch_list=fetches, scope=scope)]
+            for k in range(steps)])
     return out, launch_counts(), [r[1] for r in runs]
 
 
@@ -10034,6 +10075,827 @@ def phase_ops_tranche7_parity(tmp):
     return covered
 
 
+# ---------------------------------------------------------------------------
+# The remaining optimizers, LARS and ModelAverage (phases 60-64)
+# ---------------------------------------------------------------------------
+
+# ResNet-50 under LARS momentum: Momentum(lr, 0.9) with LARS at ResNet-50's
+# weight decay in He et al. 2016 (1e-4), and a model average whose window
+# closes within the run (the reference's own test takes min 2, max 10).
+# This LARS has no trust coefficient (You et al. 2017's eta): a step moves
+# each parameter by about lr x its norm, so He et al.'s lr 0.1 diverged to
+# NaN at the second step on the CPU (64 px, batch 8, fresh batches), 0.01
+# doubled the loss in 20 steps, 1e-3 held it at ln(1000) (random labels)
+LARS_LR, LARS_WEIGHT_DECAY = 1e-3, 1e-4
+MA_RATE, MA_MIN, MA_MAX = 0.15, 2, 4
+LARS_STEPS, LARS_WINDOW_STEPS = 5, 10
+# the step-0 LARS rates against the same arithmetic in float64: fp32 sums
+# of up to 2.4 M squares
+LARS_LR_RTOL = 1e-5
+# the book's recognize_digits MLP (two fc of 200 with tanh, a 10-way
+# softmax) under Adam(1e-3, LARS_weight_decay=0.3): 3 weights, 3 biases
+MNIST_BATCH, MNIST_STEPS, MNIST_LARS_DECAY, MNIST_ADAM_TENSORS = \
+    64, 10, 0.3, 6
+# card against CPU: losses at step 0 and after it; the sparse one-op
+# tables (rtol, atol as a share of the table's largest magnitude: a
+# SelectedRows grad's duplicate ids add in another order on each place,
+# and FTRL's weights, made from those sums, carried that to ~4e-6 of the
+# largest in 5 steps of tests/test_torch_optimizers_rest.py); DeepFM's
+# trained tables in the 2-norm (an adaptive step divides a grad by its own
+# size, so an element whose grad is rounding noise, as the FM term's
+# cancelling sums give, moves by up to lr on one place and not the other:
+# 2.3e-4 of fm_v's largest under Adagrad on an H100); one-op
+# parity (rtol, atol)
+OPTIM_LOSS_RTOL = (1e-5, 1e-4)
+OPTIM_TABLE_TOL = (1e-4, 1e-5)
+OPTIM_TABLE_NORM_RTOL = 1e-4
+OPTIM_DEEPFM_STEPS, OPTIM_PARITY_STEPS = 5, 3
+OPTIM_PARITY_TOL = (1e-5, 1e-6)
+# each optimizer kind: (class in fluid.optimizer, arguments); ftrl_quarter
+# is FTRL's other branch (lr_power -0.25)
+OPTIMIZER_ARGS = {
+    "adagrad": ("Adagrad", dict(learning_rate=0.05)),
+    "adamax": ("Adamax", dict(learning_rate=0.01)),
+    "decayed_adagrad": ("DecayedAdagrad", dict(learning_rate=0.01)),
+    "adadelta": ("Adadelta", dict(learning_rate=1.0)),
+    "ftrl": ("Ftrl", dict(learning_rate=0.05, l1=1e-3, l2=1e-3)),
+    "ftrl_quarter": ("Ftrl", dict(learning_rate=0.05, l1=1e-3, l2=1e-3,
+                                  lr_power=-0.25)),
+    "proximal_gd": ("ProximalGD", dict(learning_rate=0.05, l1=1e-3,
+                                       l2=1e-3)),
+    "proximal_adagrad": ("ProximalAdagrad", dict(learning_rate=0.05,
+                                                 l1=1e-3, l2=1e-3)),
+}
+# the kinds whose op folds a SelectedRows grad to dense
+FOLDING_KINDS = ("adagrad", "adamax", "decayed_adagrad", "adadelta", "ftrl")
+# average_accumulates' seeded counters: num_updates 16,382 and
+# num_accumulates 3, so that step 1 closes a window (4 >= min(4, 0.15 x
+# 16,383)) and step 2 folds sum_1 into sum_2 (16,384 updates)
+MA_SEED_COUNTS = {"num_accumulates": 3, "old_num_accumulates": 5,
+                  "num_updates": 16382}
+
+
+def optimizer_op_type(kind):
+    return "ftrl" if kind == "ftrl_quarter" else kind
+
+
+def make_optimizer(fluid, kind, **kwargs):
+    """The optimizer of ``kind`` (``OPTIMIZER_ARGS``) in ``fluid`` (either
+    package)."""
+    cls, args = OPTIMIZER_ARGS[kind]
+    return getattr(fluid.optimizer, cls)(**{**args, **kwargs})
+
+
+def mnist_lars_programs(fluid, hidden=200, decay=MNIST_LARS_DECAY):
+    """The book's recognize_digits MLP in ``fluid`` (either package):
+    ``[1, 28, 28]`` images, two fc layers of ``hidden`` with tanh, a
+    10-way softmax, cross entropy, ``Adam(1e-3, LARS_weight_decay=
+    decay)``.  Returns (main, startup, loss, acc, the LARS rates' names in
+    the update ops' order)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[1, 28, 28], dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(img, hidden, act="tanh")
+        h = fluid.layers.fc(h, hidden, act="tanh")
+        pred = fluid.layers.fc(h, 10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        acc = fluid.layers.accuracy(pred, label)
+        _, params_grads = fluid.optimizer.Adam(
+            learning_rate=1e-3, LARS_weight_decay=decay).minimize(loss)
+    lrs = [p.optimize_attr["learning_rate"].name for p, _ in params_grads]
+    return main, startup, loss, acc, lrs
+
+
+def mnist_feed(rng, batch=MNIST_BATCH):
+    import numpy as np
+
+    return {"img": rng.uniform(-1, 1, (batch, 1, 28, 28)).astype(np.float32),
+            "label": rng.randint(0, 10, (batch, 1)).astype(np.int64)}
+
+
+def resnet_lars_programs(fluid, resnet, image_hw=224, class_dim=1000):
+    """ResNet-50 (``resnet.resnet_imagenet``, either package) with the
+    mean cross entropy under ``Momentum(LARS_LR, 0.9, LARS_weight_decay=
+    LARS_WEIGHT_DECAY)``, then ``ModelAverage(MA_RATE, MA_MIN, MA_MAX)``
+    and the test clone.  Returns a dict: main, startup, test, loss, acc,
+    ma, the parameter and grad names, the LARS rates' names (in the update
+    ops' order), the global rate's and the first parameter's counters'."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, image_hw, image_hw],
+                                dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        pred = resnet.resnet_imagenet(img, class_dim, depth=50)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        acc = fluid.layers.accuracy(pred, label)
+        opt = fluid.optimizer.Momentum(
+            learning_rate=LARS_LR, momentum=0.9,
+            LARS_weight_decay=LARS_WEIGHT_DECAY)
+        _, params_grads = opt.minimize(loss)
+        ma = fluid.optimizer.ModelAverage(MA_RATE,
+                                          min_average_window=MA_MIN,
+                                          max_average_window=MA_MAX)
+    p0 = ma.params_grads[0][0]
+    return {"main": main, "startup": startup,
+            "test": main.clone(for_test=True), "loss": loss, "acc": acc,
+            "ma": ma, "params": [p.name for p, _ in params_grads],
+            "grads": [g.name for _, g in params_grads],
+            "lrs": [p.optimize_attr["learning_rate"].name
+                    for p, _ in params_grads],
+            "global_lr": opt._global_learning_rate(main).name,
+            "counters": [ma._get_accumulator(n, p0).name
+                         for n in ("num_accumulates",
+                                   "old_num_accumulates")]}
+
+
+def expected_windows(steps, rate=MA_RATE, min_w=MA_MIN, max_w=MA_MAX,
+                     na=0, ona=0, nu=0):
+    """The (num_accumulates, old_num_accumulates) after each of ``steps``
+    updates, by average_accumulates' rule in float64, and the steps (from
+    1) that close a window."""
+    out, closes = [], []
+    for k in range(1, steps + 1):
+        na, nu = na + 1, nu + 1
+        if na >= min_w and na >= min(float(max_w), rate * nu):
+            ona, na = na, 0
+            closes.append(k)
+        out.append((na, ona))
+    return out, closes
+
+
+def resnet_feeds(n, batch, image_hw, class_dim, seed):
+    """``n`` fresh ResNet batches from ``default_rng(seed)``: normal
+    images, uniform labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"img": rng.standard_normal((batch, 3, image_hw, image_hw),
+                                        dtype=np.float32),
+             "label": rng.integers(0, class_dim, (batch, 1))}
+            for _ in range(n)]
+
+
+def resnet_device_feed(gen, batch, image_hw, class_dim):
+    """A fresh ResNet batch drawn on the card from ``gen``: normal images,
+    uniform labels (no host copy in the step)."""
+    import torch
+
+    return {"img": torch.randn(batch, 3, image_hw, image_hw, generator=gen,
+                               device=gen.device),
+            "label": torch.randint(0, class_dim, (batch, 1), generator=gen,
+                                   device=gen.device)}
+
+
+@contextlib.contextmanager
+def ungrouped():
+    """Inside the block a new Executor plan runs every op on its own (no
+    group impl), as the members of a group one by one."""
+    from paddle_tpu_torch.fluid import executor
+
+    find = executor._find_groups
+    executor._find_groups = lambda ops, const_ops: []
+    try:
+        yield
+    finally:
+        executor._find_groups = find
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, box):
+    """Wrap ``module.name``: each call's host seconds appended to
+    ``box``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            box.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield box
+    finally:
+        setattr(module, name, fn)
+
+
+def check_lars_rates(phase, before, grads, rates, lr, decay, rtol):
+    """Each LARS rate against ``lr·‖p‖ / (‖g‖ + decay·‖p‖)`` in float64
+    from the parameters before the step and its grads; the largest
+    relative error."""
+    import torch
+
+    worst = 0.0
+    for p, g, got in zip(before, grads, rates):
+        pn = torch.linalg.vector_norm(p.double())
+        gn = torch.linalg.vector_norm(g.double())
+        want = float(lr * pn / (gn + decay * pn))
+        got = float(got.reshape(-1)[0])
+        err = abs(got - want) / abs(want) if want else abs(got)
+        if not err <= rtol:
+            raise AssertionError(f"{phase}: a LARS rate {got} against "
+                                 f"{want} in float64 (rel {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def momentum_host_us(scope, params, calls=20):
+    """The momentum group wrapper's host µs a call over ResNet-50's 161
+    tensors (copies: the training state stays), with the same ``lr``
+    tensors each call (the persistent-tensor check cached) and with new
+    ones each call, as LARS hands it; also its table's (``_group_cols``)
+    share."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused
+
+    ps = [scope.get(n).clone() for n in params]
+    vs = [torch.zeros_like(p) for p in ps]
+    gs = [torch.full_like(p, 1e-3) for p in ps]
+    base = [torch.full((1,), 1e-4, device=ps[0].device) for _ in ps]
+    out = {}
+    for case in ("same_lr", "new_lr"):
+        call_s, cols_s = [], []
+        with timed_calls(fused, "_group_cols", cols_s):
+            for k in range(calls + 2):
+                lrs_k = base if case == "same_lr" else \
+                    [t.clone() for t in base]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused.momentum_group(ps, gs, vs, lrs_k, 0.9, False)
+                call_s.append(time.perf_counter() - t0)
+        out[case] = {"call_us": sum(call_s[2:]) / calls * 1e6,
+                     "table_us": sum(cols_s[2:]) / calls * 1e6}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_train_resnet_lars_amp(beside, profile_run=False):
+    """ResNet-50 in bf16 with kept activations at batch 256 under LARS
+    momentum with a model average (``resnet_lars_programs``):
+    ``LARS_STEPS`` steps on fresh batches drawn on the card, then
+    ``apply()``, one eval batch through the test clone and ``restore()``.
+    Holds one momentum launch for 161 tensors a step, no host sync in a
+    step (the ops' read counters, and torch's sync debug mode around each
+    step's ``Executor.run``), the step-0 LARS rates within
+    ``LARS_LR_RTOL`` of float64, the window closes the rule predicts, the
+    averaged parameters bitwise numpy's ``(s1 + s2 + s3) / total`` over
+    the scope's sums, and after ``restore()`` every parameter the trained
+    tensor; prints the eval's loss and accuracy beside the trained
+    parameters' on the same batch.  Prints images/s, step ms, dispatches and peak beside
+    ``train_resnet_amp``'s, and the momentum wrapper's host µs a call.
+    Returns the launch counts."""
+    import math
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import fused
+
+    phase = "train_resnet_lars_amp"
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        framework.fresh_session()
+        progs = resnet_lars_programs(fluid, resnet)
+        main, test, loss, acc = (progs[k] for k in ("main", "test", "loss",
+                                                    "acc"))
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(progs["startup"], scope=scope)
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        feeds = [resnet_device_feed(gen, RESNET_BATCH, 224, 1000)
+                 for _ in range(LARS_STEPS + 1)]
+        params = progs["params"]
+        fetches = [loss, acc] + progs["counters"]
+        lr0 = float(scope.get(progs["global_lr"]).reshape(-1)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_host_syncs()
+        # step 0: the LARS rates and grads fetched beside the loss
+        before = [scope.get(n).clone() for n in params]
+        out = exe.run(main, feed=feeds[0], fetch_list=fetches + progs["lrs"]
+                      + progs["grads"], scope=scope, return_numpy=False)
+        lars_err = check_lars_rates(
+            phase, before, out[len(fetches) + len(params):],
+            out[len(fetches):len(fetches) + len(params)], lr0,
+            LARS_WEIGHT_DECAY, LARS_LR_RTOL)
+        del before
+        fetched = [out[:len(fetches)]]
+        del out
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        host_ms, device_ms, sync_warnings, group_s = [], [], [], []
+        with timed_calls(fused, "momentum_group", group_s):
+            for step in range(1, LARS_STEPS):
+                torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    t0 = time.perf_counter()
+                    start.record()
+                    try:
+                        fetched.append(exe.run(
+                            main, feed=feeds[step], fetch_list=fetches,
+                            scope=scope, return_numpy=False))
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    end.record()
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                device_ms.append(start.elapsed_time(end))
+                # the mode's own notice ("... is a prototype feature")
+                # is no sync
+                sync_warnings += [str(w.message).split("\n")[0]
+                                  for w in caught if "called a synchronizing"
+                                  in str(w.message)]
+        counts = launch_counts()
+        syncs = host_syncs()
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(phase, counts,
+                       {"momentum": MOMENTUM_PER_STEP,
+                        "momentum_tensors": MOMENTUM_TENSORS_PER_STEP},
+                       LARS_STEPS)
+        if syncs:
+            raise AssertionError(f"{phase}: {syncs} host reads in "
+                                 f"{LARS_STEPS} steps")
+        losses = [float(f[0].reshape(-1)[0]) for f in fetched]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: losses {losses}")
+        counters = [(int(f[2].reshape(-1)[0]), int(f[3].reshape(-1)[0]))
+                    for f in fetched]
+        want, closes = expected_windows(LARS_STEPS)
+        if counters != want:
+            raise AssertionError(f"{phase}: (num_accumulates, old_num_"
+                                 f"accumulates) a step {counters}, the "
+                                 f"rule gives {want}")
+        dispatches = op_dispatches(exe, main, *fetches)
+        # ModelAverage: the averages against numpy's over the scope's sums
+        ma = progs["ma"]
+        trained = {n: scope.get(n) for n in params}
+        copies = {n: t.clone() for n, t in trained.items()}
+        if sorted(p.name for p, _ in ma.params_grads) != sorted(params):
+            raise AssertionError(f"{phase}: the model average holds other "
+                                 f"parameters than the optimizer")
+        sums = {p.name: [scope.get(ma._get_accumulator(s, p).name).cpu()
+                         .numpy().copy() for s in ma._SUMS]
+                for p, _ in ma.params_grads}
+        counts_now = {p.name: [int(scope.get(ma._get_accumulator(c, p).name)
+                                   .reshape(-1)[0]) for c in ma._COUNTS]
+                      for p, _ in ma.params_grads}
+        if len({tuple(c) for c in counts_now.values()}) != 1:
+            raise AssertionError(f"{phase}: the parameters' counters part")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            with ma.apply(exe):
+                apply_s = time.perf_counter() - t0
+                for n in params:
+                    s1, s2, s3 = sums[n]
+                    na, ona, _ = counts_now[n]
+                    want_avg = (s1 + s2 + s3) / float(na + ona)
+                    got = scope.get(n)
+                    if got is trained[n] or not np.array_equal(
+                            got.cpu().numpy(), want_avg):
+                        raise AssertionError(f"{phase}: {n}'s average is "
+                                             f"not numpy's bitwise")
+                ev = exe.run(test, feed=feeds[-1], fetch_list=[loss, acc],
+                             scope=scope)
+        for n in params:
+            if scope.get(n) is not trained[n] or not torch.equal(
+                    trained[n], copies[n]):
+                raise AssertionError(f"{phase}: restore() left {n} other "
+                                     f"than trained")
+        eval_loss, eval_acc = (float(v.reshape(-1)[0]) for v in ev)
+        if not 0.0 <= eval_acc <= 1.0:
+            raise AssertionError(f"{phase}: eval accuracy {eval_acc}")
+        # the same batch on the trained parameters, for comparison
+        trained_eval = [float(v.reshape(-1)[0]) for v in exe.run(
+            test, feed=feeds[-1], fetch_list=[loss, acc], scope=scope)]
+        del copies, sums
+        host_us = momentum_host_us(scope, params)
+        # the first timed step builds the plan of its fetch list
+        steady_ms = sum(device_ms[1:]) / len(device_ms[1:])
+        emit(phase, model="resnet50", batch=RESNET_BATCH, image_hw=224,
+             classes=1000, steps=LARS_STEPS, lars_weight_decay=
+             LARS_WEIGHT_DECAY, lr=LARS_LR, model_average=dict(
+                 rate=MA_RATE, min_window=MA_MIN, max_window=MA_MAX),
+             losses=losses, launches=counts, host_syncs=syncs,
+             sync_debug_warnings=len(sync_warnings),
+             sync_debug_first=sync_warnings[:3],
+             lars_rates=len(progs["lrs"]), lars_rate_max_rel_err=lars_err,
+             lars_rate_rtol=LARS_LR_RTOL, counters=counters,
+             window_closes_at_step=closes, host_step_ms=host_ms,
+             device_step_ms=device_ms, steady_device_step_ms=steady_ms,
+             images_per_s=RESNET_BATCH * 1e3 / steady_ms,
+             images_per_s_host=RESNET_BATCH * 1e3
+             / (sum(host_ms[1:]) / len(host_ms[1:])),
+             ops_per_step=len(main.global_block().ops),
+             op_dispatches_per_step=dispatches,
+             momentum_group_host_us=sum(group_s) / len(group_s) * 1e6,
+             momentum_wrapper_host_us=host_us,
+             max_memory_allocated=peak, apply_s=apply_s,
+             averaged_bitwise_numpy=True, restored_bitwise=True,
+             eval_loss=eval_loss, eval_acc=eval_acc,
+             eval_loss_finite=math.isfinite(eval_loss),
+             trained_eval_loss_acc=trained_eval,
+             beside={"train_resnet_amp": beside},
+             amp={"dtype": "bfloat16", "keep_activations": True})
+        if profile_run:
+            profile_step(phase, lambda: exe.run(
+                main, feed=feeds[0], fetch_list=fetches, scope=scope),
+                {"conv": CONV_KEYS})
+    return counts
+
+
+def phase_train_window_resnet_lars_amp(profile_run=False):
+    """The same program as two ``run_steps`` windows of
+    ``LARS_WINDOW_STEPS`` against as many ``Executor.run`` steps on the
+    same fresh batches (``window_against_steps``): every state tensor, the model average's
+    sums and counters included, bitwise, else the loss within 2^-8; one
+    graph replay a step after the first; one momentum launch for 161
+    tensors a step."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import resnet
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        framework.fresh_session()
+        progs = resnet_lars_programs(fluid, resnet)
+        per_step = {"momentum": MOMENTUM_PER_STEP,
+                    "momentum_tensors": MOMENTUM_TENSORS_PER_STEP}
+        # fresh batches: on one batch repeated the net fits it, the grads
+        # vanish and the LARS rates grow to lr / weight decay
+        feeds = resnet_feeds(2 * LARS_WINDOW_STEPS, RESNET_BATCH, 224, 1000,
+                             seed=24)
+        exe, _, stats = window_against_steps(
+            "train_window_resnet_lars_amp", (progs["main"], progs["startup"]),
+            [progs["loss"]], feeds, per_step, RESNET_BATCH, profile_run,
+            AMP_PARITY_RTOL, steps=LARS_WINDOW_STEPS)
+    exe.close()
+    return stats
+
+
+def phase_train_mnist_lars():
+    """The book's recognize_digits MLP (``mnist_lars_programs``) at batch
+    ``MNIST_BATCH``, ``MNIST_STEPS`` steps on fresh batches on the CPU and
+    on the card from one state: one Adam launch for 6 tensors a step, the
+    losses and the six LARS rates within ``OPTIM_LOSS_RTOL``."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+
+    phase = "train_mnist_lars"
+    framework.fresh_session()
+    main, startup, loss, acc, lrs = mnist_lars_programs(fluid)
+    rng = np.random.RandomState(24)
+    feeds = [mnist_feed(rng) for _ in range(MNIST_STEPS)]
+    t0 = time.perf_counter()
+    (cpu, card), counts, _ = place_steps(
+        (main, startup), feeds, [loss, acc] + lrs, MNIST_STEPS,
+        (fluid.CPUPlace(), fluid.CUDAPlace(0)))
+    check_launches(phase, counts, {"adam": ADAM_PER_STEP,
+                                   "adam_tensors": MNIST_ADAM_TENSORS},
+                   MNIST_STEPS)
+    rtol = np.array([OPTIM_LOSS_RTOL[0]]
+                    + [OPTIM_LOSS_RTOL[1]] * (MNIST_STEPS - 1))
+    losses = [np.array([step[0].reshape(-1)[0] for step in run])
+              for run in (cpu, card)]
+    rel = check_parity(phase, *losses, rtol)
+    rates = [np.array([[float(v.reshape(-1)[0]) for v in step[2:]]
+                       for step in run]) for run in (cpu, card)]
+    if not np.all(np.abs(rates[1] - rates[0])
+                  <= rtol[:, None] * np.abs(rates[0])):
+        raise AssertionError(f"{phase}: LARS rates card {rates[1]} against "
+                             f"CPU {rates[0]}")
+    emit(phase, model="book_recognize_digits_mlp", batch=MNIST_BATCH,
+         hidden=[200, 200], lars_weight_decay=MNIST_LARS_DECAY,
+         steps=MNIST_STEPS, cpu_losses=losses[0].tolist(),
+         card_losses=losses[1].tolist(), loss_rel_err=rel,
+         rates_step0=rates[1][0].tolist(), launches=counts,
+         rtol=rtol.tolist(), seconds_both=time.perf_counter() - t0)
+    return counts
+
+
+def deepfm_optim_programs(fluid, deepfm, kind):
+    """``deepfm.build`` (either package) at ``fluid_benchmark.py``'s
+    accelerator widths, sparse tables, under ``kind`` (``sgd``: the
+    model's own SGD at ``DEEPFM_LR``): (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss = deepfm.build(
+            num_fields=DEEPFM_FIELDS, vocab_size=DEEPFM_VOCAB,
+            embed_dim=DEEPFM_DIM,
+            lr=DEEPFM_LR if kind == "sgd" else None)
+        if kind != "sgd":
+            make_optimizer(fluid, kind).minimize(loss)
+    return main, startup, loss
+
+
+def close_of_largest(got, want, tol):
+    """Whether ``got`` is within ``rtol`` of ``want`` plus ``atol`` of
+    ``want``'s largest magnitude, and the largest error over that
+    largest."""
+    import numpy as np
+
+    rtol, atol = tol
+    big = max(float(np.abs(want).max()), 1e-30)
+    err = np.abs(got.astype(np.float64) - want)
+    return bool(np.all(err <= rtol * np.abs(want) + atol * big)), \
+        float(err.max() / big)
+
+
+def phase_train_deepfm_optims():
+    """DeepFM (26 fields, 100,000 ids, k = 16, sparse tables, batch 32)
+    under SGD and each folding optimizer (``FOLDING_KINDS``),
+    ``OPTIM_DEEPFM_STEPS`` steps on fresh batches on the card, then the
+    same steps on the CPU from the card's initial state: the losses within
+    ``OPTIM_LOSS_RTOL`` and both tables within ``OPTIM_TABLE_NORM_RTOL``
+    in the 2-norm (the largest element's error printed); no
+    kernel of the port launched and no host read; examples/s, step ms and
+    dispatches a step of each."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    phase = "train_deepfm_optims"
+    feeds = [deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, 200 + k)
+             for k in range(OPTIM_DEEPFM_STEPS)]
+    rtol = np.array([OPTIM_LOSS_RTOL[0]]
+                    + [OPTIM_LOSS_RTOL[1]] * (OPTIM_DEEPFM_STEPS - 1))
+    result = {}
+    for kind in ("sgd",) + FOLDING_KINDS:
+        framework.fresh_session()
+        main, startup, loss = deepfm_optim_programs(fluid, deepfm, kind)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = {v.name: scope.get(v.name).cpu().numpy().copy()
+                for v in startup.list_vars() if v.persistable}
+        reset_launch_counts()
+        reset_host_syncs()
+        card, host_ms = [], []
+        for fd in feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.append(float(exe.run(main, feed=fd, fetch_list=[loss],
+                                      scope=scope)[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, syncs = launch_counts(), host_syncs()
+        check_launches(f"{phase} {kind}", counts, {}, OPTIM_DEEPFM_STEPS)
+        if syncs:
+            raise AssertionError(f"{phase} {kind}: {syncs} host reads")
+        cexe, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        cexe.run(startup, scope=cscope)
+        load_reference_params(cscope, init, fluid.CPUPlace())
+        cpu = [float(cexe.run(main, feed=fd, fetch_list=[loss],
+                              scope=cscope)[0].reshape(-1)[0])
+               for fd in feeds]
+        rel = check_parity(f"{phase} {kind}", np.array(cpu), np.array(card),
+                           rtol)
+        tables = {}
+        for t in ("fm_v", "fm_w1"):
+            got, want = scope.get(t).cpu().numpy(), cscope.get(t).numpy()
+            err = norm_rel_err(got, want)
+            if not err <= OPTIM_TABLE_NORM_RTOL:
+                raise AssertionError(f"{phase} {kind}: {t} on the card is "
+                                     f"{err} from the CPU's in the 2-norm")
+            tables[t] = {"norm_rel_err": err, "max_err_of_largest":
+                         close_of_largest(got, want, OPTIM_TABLE_TOL)[1]}
+        steady = sum(host_ms[1:]) / len(host_ms[1:])
+        result[kind] = {"op_type": optimizer_op_type(kind) if kind != "sgd"
+                        else "sgd", "card_losses": card,
+                        "loss_rel_err": rel, "tables": tables,
+                        "host_step_ms": host_ms, "steady_host_step_ms":
+                        steady, "examples_per_s": DEEPFM_BATCH * 1e3
+                        / steady, "op_dispatches_per_step":
+                        op_dispatches(exe, main, loss), "host_syncs": syncs}
+        del exe, scope, cexe, cscope, init
+    emit(phase, model="deepfm", batch=DEEPFM_BATCH, fields=DEEPFM_FIELDS,
+         vocab=DEEPFM_VOCAB, embed_dim=DEEPFM_DIM, steps=OPTIM_DEEPFM_STEPS,
+         grad="SelectedRows, folded to dense by each optimizer but sgd",
+         loss_rtol=rtol.tolist(), table_norm_rtol=OPTIM_TABLE_NORM_RTOL,
+         optimizers=result)
+
+
+def optim_op_program(fluid, kind, shapes):
+    """One update op of ``kind`` (``OPTIMIZER_ARGS``, or
+    ``average_accumulates`` through ``ModelAverage``) per shape, in
+    ``fluid`` (either package): parameters ``p<i>``, grads fed as
+    ``g<i>``.  Returns (main, startup, the grads' names)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        params = [fluid.layers.create_parameter(list(s), "float32",
+                                                name=f"p{i}")
+                  for i, s in enumerate(shapes)]
+        if kind == "average_accumulates":
+            fluid.optimizer.ModelAverage(MA_RATE,
+                                         min_average_window=MA_MIN,
+                                         max_average_window=MA_MAX)
+            return main, startup, []
+        grads = [fluid.layers.data(f"g{i}", shape=list(s), dtype="float32",
+                                   append_batch_size=False)
+                 for i, s in enumerate(shapes)]
+        make_optimizer(fluid, kind)._create_optimization_pass(
+            list(zip(params, grads)), params[0], startup)
+    return main, startup, [g.name for g in grads]
+
+
+def optim_op_state(startup, shapes, rng):
+    """A start for ``optim_op_program``'s state: the parameters (and for
+    ``ModelAverage`` the sums) normal, the counters ``MA_SEED_COUNTS``,
+    every other accumulator as its startup op makes it (absent)."""
+    import numpy as np
+
+    state = {}
+    for v in startup.list_vars():
+        if not v.persistable:
+            continue
+        name = v.name
+        if name.startswith("p") and name[1:].isdigit():
+            state[name] = 0.1 * rng.standard_normal(
+                shapes[int(name[1:])], dtype=np.float32)
+        elif "sum_" in name:
+            state[name] = 0.1 * rng.standard_normal(tuple(v.shape),
+                                                    dtype=np.float32)
+        else:
+            for count, value in MA_SEED_COUNTS.items():
+                if name.startswith(count + "_"):
+                    state[name] = np.full(tuple(v.shape), value, np.int64)
+    return state
+
+
+def sparse_optim_programs(fluid, kind):
+    """DeepFM's table (``DEEPFM_VOCAB`` x ``DEEPFM_DIM``) looked up by
+    ``DEEPFM_FIELDS`` ids, ``is_sparse=True``, loss the summed square of
+    each looked-up value less 1 (grads of order 1: FTRL's l1 keeps its
+    weights off 0), under ``kind``: (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("feats", shape=[DEEPFM_FIELDS],
+                                dtype="int64")
+        emb = fluid.layers.embedding(
+            ids, size=[DEEPFM_VOCAB, DEEPFM_DIM], is_sparse=True,
+            param_attr=fluid.ParamAttr(name="table"))
+        loss = fluid.layers.reduce_sum(fluid.layers.square(
+            fluid.layers.scale(emb, bias=-1.0)))
+        make_optimizer(fluid, kind).minimize(loss)
+    return main, startup, loss
+
+
+def phase_optim_ops_parity():
+    """The 8 new op types, card against CPU: each optimizer kind
+    (``OPTIMIZER_ARGS``: FTRL at both ``lr_power`` branches, the proximal
+    ops with l1 and l2 > 0) over ResNet-50's 161 parameter shapes, 3 steps
+    of fed grads from one state, and ``average_accumulates`` (through
+    ``ModelAverage``) from seeded sums and counters (``MA_SEED_COUNTS``:
+    step 1 closes a window, step 2 folds); every state tensor within
+    ``OPTIM_PARITY_TOL``, counters equal, and the group run (one call
+    for the 161) bitwise the same ops run one by one on the card.  Then
+    the folding kinds through DeepFM's sparse table (SelectedRows grads),
+    and both proximal ops refusing one."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models.params import load_reference_params
+
+    phase = "optim_ops_parity"
+    t0 = time.perf_counter()
+    shapes = trainable_shapes(build_resnet()[0], MOMENTUM_TENSORS_PER_STEP)
+    rng = np.random.default_rng(24)
+    grads = [[0.01 * rng.standard_normal(s, dtype=np.float32)
+              for s in shapes] for _ in range(OPTIM_PARITY_STEPS)]
+    runs = (("cpu", fluid.CPUPlace(), True),
+            ("card", fluid.CUDAPlace(0), True),
+            ("card_one_by_one", fluid.CUDAPlace(0), False))
+    result, covered = {}, set()
+    for kind in list(OPTIMIZER_ARGS) + ["average_accumulates"]:
+        framework.fresh_session()
+        main, startup, gnames = optim_op_program(fluid, kind, shapes)
+        state = optim_op_state(startup, shapes, np.random.default_rng(7))
+        names = sorted(v.name for v in startup.list_vars() if v.persistable)
+        got, secs = {}, {}
+        for tag, place, grouped in runs:
+            t1 = time.perf_counter()
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            load_reference_params(scope, state, place)
+            with contextlib.nullcontext() if grouped else ungrouped():
+                for k in range(OPTIM_PARITY_STEPS):
+                    exe.run(main, feed=dict(zip(gnames, grads[k])),
+                            scope=scope)
+                plan = next(p for key, p in exe._plans.items()
+                            if key[0] == main._cache_token)
+            sizes = sorted(len(r) for r in plan.groups.values())
+            if sizes != ([MOMENTUM_TENSORS_PER_STEP] if grouped else []):
+                raise AssertionError(f"{phase} {kind}: {tag} ran groups "
+                                     f"of {sizes}")
+            got[tag] = {n: scope.get(n) for n in names}
+            if tag != "cpu":
+                torch.cuda.synchronize()
+            secs[f"{tag}_s"] = time.perf_counter() - t1
+            del exe, scope
+        worst = 0.0
+        for n in names:
+            cpu, card, one = (got[tag][n] for tag, _, _ in runs)
+            if not torch.equal(card, one):
+                raise AssertionError(f"{phase} {kind}: {n} of the group "
+                                     f"is not its ops' one by one")
+            if card.dtype == torch.int64:
+                if not torch.equal(card.cpu(), cpu):
+                    raise AssertionError(f"{phase} {kind}: {n} {card} on "
+                                         f"the card, {cpu} on the CPU")
+                continue
+            err = (card.cpu().double() - cpu.double()).abs()
+            bound = OPTIM_PARITY_TOL[0] * cpu.double().abs() \
+                + OPTIM_PARITY_TOL[1]
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"{phase} {kind}: {n} card against "
+                                     f"CPU by up to {float(err.max())}")
+            worst = max(worst, float(err.max()))
+        if kind == "average_accumulates":
+            counts = {c: int(got["card"][n].reshape(-1)[0])
+                      for n in names for c in MA_SEED_COUNTS
+                      if n.startswith(c + "_p0_")}
+            (na, ona), = expected_windows(
+                OPTIM_PARITY_STEPS, na=MA_SEED_COUNTS["num_accumulates"],
+                ona=MA_SEED_COUNTS["old_num_accumulates"],
+                nu=MA_SEED_COUNTS["num_updates"])[0][-1:]
+            want = {"num_accumulates": na, "old_num_accumulates": ona,
+                    "num_updates": MA_SEED_COUNTS["num_updates"]
+                    + OPTIM_PARITY_STEPS}
+            if counts != want:
+                raise AssertionError(f"{phase}: counters {counts}, the "
+                                     f"window and fold give {want}")
+        covered.add(optimizer_op_type(kind))
+        result[kind] = {"tensors": len(names), "max_abs_err": worst, **secs}
+        del got
+    # SelectedRows grads through DeepFM's table
+    ids = [deepfm_feed(DEEPFM_BATCH, DEEPFM_VOCAB, 300 + k)
+           for k in range(OPTIM_PARITY_STEPS)]
+    loss_rtol = np.array([OPTIM_LOSS_RTOL[0]]
+                         + [OPTIM_LOSS_RTOL[1]] * (OPTIM_PARITY_STEPS - 1))
+    sparse = {}
+    for kind in FOLDING_KINDS:
+        framework.fresh_session()
+        main, startup, loss = sparse_optim_programs(fluid, kind)
+        tables, losses = [], []
+        init = None
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            if init is None:
+                init = {v.name: scope.get(v.name).cpu().numpy().copy()
+                        for v in startup.list_vars() if v.persistable}
+            else:
+                load_reference_params(scope, init, place)
+            losses.append(np.array([float(exe.run(
+                main, feed={"feats": fd["feats"]}, fetch_list=[loss],
+                scope=scope)[0].reshape(-1)[0]) for fd in ids]))
+            tables.append(scope.get("table").cpu().numpy())
+        ok, err = close_of_largest(tables[0], tables[1], OPTIM_TABLE_TOL)
+        rel = check_parity(f"{phase} sparse {kind}", losses[1], losses[0],
+                           loss_rtol)
+        if not ok:
+            raise AssertionError(f"{phase} sparse {kind}: the table on the "
+                                 f"card is {err} of its largest off")
+        sparse[kind] = {"loss_rel_err": rel, "table_err_of_largest": err}
+    refused = {}
+    for kind in ("proximal_gd", "proximal_adagrad"):
+        framework.fresh_session()
+        main, startup, loss = sparse_optim_programs(fluid, kind)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        try:
+            exe.run(main, feed={"feats": ids[0]["feats"]}, scope=scope)
+        except TypeError as e:
+            if kind not in str(e):
+                raise
+            refused[kind] = str(e)
+        else:
+            raise AssertionError(f"{phase}: {kind} ran a SelectedRows grad")
+    if len(covered) != 8:
+        raise AssertionError(f"{phase}: ran {sorted(covered)}")
+    emit(phase, op_types=sorted(covered), tensors=len(shapes),
+         elements=int(sum(np.prod(s) for s in shapes)),
+         steps=OPTIM_PARITY_STEPS, tol=list(OPTIM_PARITY_TOL),
+         kinds=result, sparse=sparse, sparse_refused=refused,
+         seconds=time.perf_counter() - t0)
+
+
 def main():
     import argparse
 
@@ -10096,7 +10958,7 @@ def main():
         trainable_shapes(resnet_progs[0], MOMENTUM_TENSORS_PER_STEP))
     torch.cuda.empty_cache()
     momentum["launches"] = phase_train_resnet(
-        resnet_progs, args.profile)["momentum"]
+        resnet_progs, args.profile)[0]["momentum"]
     torch.cuda.empty_cache()
     phase_conv_fp32()
     phase_train_resnet_parity(
@@ -10117,7 +10979,8 @@ def main():
     phase_train_amp_parity()
     torch.cuda.empty_cache()
     with fluid.amp.amp_guard("bfloat16", keep_activations=True):
-        phase_train_resnet(build_resnet(), args.profile, amp=True)
+        _, resnet_amp = phase_train_resnet(build_resnet(), args.profile,
+                                           amp=True)
     torch.cuda.empty_cache()
     counts = phase_train_amp_fp16_scaler()
     for k in xent_amp:
@@ -10256,6 +11119,18 @@ def main():
         torch.cuda.empty_cache()
         phase_train_deepfm_auc()
         phase_ops_tranche7_parity(tmp)
+    torch.cuda.empty_cache()
+    # the remaining optimizers, LARS and ModelAverage: rows 6 and 7 fed
+    # per-parameter rates computed each step, the eight new op types
+    add_counts(total, phase_train_resnet_lars_amp(resnet_amp, args.profile))
+    torch.cuda.empty_cache()
+    phase_train_window_resnet_lars_amp(args.profile)
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_mnist_lars())
+    phase_train_deepfm_optims()
+    torch.cuda.empty_cache()
+    phase_optim_ops_parity()
+    torch.cuda.empty_cache()
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):

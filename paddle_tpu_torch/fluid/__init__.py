@@ -11,7 +11,7 @@ from .core import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace
 from . import framework
 from .framework import (Program, Operator, Parameter, Variable,
                         default_main_program, default_startup_program,
-                        program_guard)
+                        name_scope, program_guard)
 from . import executor
 from .executor import Executor, Scope, global_scope, scope_guard
 from . import initializer
@@ -26,7 +26,8 @@ from . import guardian
 from . import prefetch
 from .prefetch import DevicePrefetcher
 from .backward import append_backward, calc_gradient
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
+from . import average
 from . import lod_tensor
 from . import selected_rows
 from .lod_tensor import (LoDTensor, create_lod_tensor,
@@ -41,7 +42,7 @@ from . import transpiler
 from . import contrib
 from . import metrics
 from . import evaluator
-from .transpiler import InferenceTranspiler
+from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 
 __all__ = [
     "amp", "core", "framework", "executor", "initializer", "layers", "nets",
@@ -49,10 +50,13 @@ __all__ = [
     "backward", "clip", "optimizer", "regularizer", "append_backward",
     "calc_gradient",
     "Program", "Operator", "Parameter", "Variable", "default_main_program",
-    "default_startup_program", "program_guard", "Executor", "Scope",
+    "default_startup_program", "program_guard", "name_scope", "Executor",
+    "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
-    "ParamAttr", "guardian", "prefetch", "DevicePrefetcher",
+    "ParamAttr", "WeightNormParamAttr", "average", "guardian", "prefetch",
+    "DevicePrefetcher",
     "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
+    "memory_optimize", "release_memory",
     "DataFeeder", "contrib", "metrics", "evaluator", "selected_rows",
     "lod_tensor", "LoDTensor",
     "create_lod_tensor",

@@ -457,6 +457,13 @@ def program_guard(main_program, startup_program=None):
             switch_startup_program(old_startup)
 
 
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """A context manager that changes nothing: in the reference it only
+    names ops for display."""
+    yield
+
+
 def fresh_session():
     """Reset ALL build-session globals: default programs, unique-name
     counters, global scope."""

@@ -148,3 +148,22 @@ TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
 Bilinear = BilinearInitializer
+
+
+def force_init_on_cpu():
+    """False: the startup program's place decides where parameters are
+    made, as in the reference."""
+    return False
+
+
+def init_on_cpu():
+    """A context manager that does nothing: the startup program's place
+    decides where its ops run, so there is no separate CPU init to force
+    (the reference's does nothing either)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def _noop():
+        yield
+
+    return _noop()

@@ -1,7 +1,8 @@
 """fluid.layers namespace (counterpart of ``paddle_tpu/fluid/layers``)."""
 
-from . import (control_flow, detection, device, io, metric_op, nn, ops,
-               sequence, tensor)
+from . import (control_flow, detection, device, io,
+               layer_function_generator, metric_op, nn, ops, sequence,
+               tensor)
 from . import learning_rate_scheduler, math_op_patch
 from .control_flow import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
@@ -13,6 +14,8 @@ from .ops import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from .layer_function_generator import (  # noqa: F401
+    autodoc, deprecated, generate_layer_fn, templatedoc)
 
 math_op_patch.monkey_patch_variable()
 

@@ -7,8 +7,9 @@ Each schedule is a few ops of the main program over the auto-incremented
 step counter (``@STEP_COUNTER@``, int64, 1 at the first run), so the
 learning rate advances with the step on the device: an
 ``Executor.run_steps`` window replays them with the rest of the step.
-LARS (``append_LARS``) is not ported yet, as the Optimizer's
-``LARS_weight_decay``."""
+``append_LARS`` (the Optimizer's ``LARS_weight_decay``) gives each
+parameter a learning rate computed every step from its norm and its
+grad's."""
 
 from __future__ import annotations
 
@@ -105,6 +106,35 @@ def cosine_decay(learning_rate, step_each_epoch, epochs):
 
 
 def append_LARS(params_grads, learning_rate, weight_decay):
-    raise NotImplementedError(
-        "LARS (layer-wise adaptive rate scaling) is not ported yet: "
-        "ROADMAP.md queue 1 item 6, with the Optimizer's LARS_weight_decay")
+    """LARS, layer-wise adaptive rate scaling: per parameter, ``lr =
+    learning_rate · ‖param‖ / (‖grad‖ + weight_decay · ‖param‖)``, the
+    ops ``square``, ``reduce_sum``, ``sqrt``, ``scale`` and
+    ``elementwise_{mul,div,add}`` appended to the current program.  The
+    result becomes the parameter's ``optimize_attr["learning_rate"]``,
+    which ``Optimizer._create_param_lr`` hands to the update op; a
+    parameter's own rate (a number or a Variable) multiplies in."""
+    from . import nn as _nn
+
+    def _balanced_weight(param_norm, grad_norm):
+        if weight_decay == 1.0:
+            return _nn.elementwise_add(grad_norm, param_norm)
+        return _nn.elementwise_add(
+            grad_norm, _nn.scale(param_norm, scale=float(weight_decay)))
+
+    for param, grad in params_grads:
+        if grad is None:
+            continue
+        attr = param.optimize_attr or {}
+        param_lr = attr.get("learning_rate", 1.0)
+        param_norm = _ops.sqrt(_nn.reduce_sum(_ops.square(param)))
+        grad_norm = _ops.sqrt(_nn.reduce_sum(_ops.square(grad)))
+        if isinstance(param_lr, (int, float)):
+            scaled = learning_rate if param_lr == 1.0 else \
+                _nn.scale(learning_rate, scale=float(param_lr))
+        else:  # a Variable (a rate of its own, or an earlier LARS pass)
+            scaled = _nn.elementwise_mul(learning_rate, param_lr)
+        decayed = _nn.elementwise_div(
+            _nn.elementwise_mul(scaled, param_norm),
+            _balanced_weight(param_norm, grad_norm))
+        attr["learning_rate"] = decayed
+        param.optimize_attr = attr

@@ -4,12 +4,14 @@ clip + regularization + one update op per parameter, with
 ``OpRole.Optimize``.  The port's Executor runs the update ops eagerly and
 updates the parameters and moments in place.
 
-``sgd``, ``momentum`` and ``adam`` have ops in the port
-(``ops/optimizer_ops.py``; on the card a run of ``momentum`` or ``adam``
-ops is one kernel launch); the other optimizers build, and their ops
-raise ``NotImplementedError`` when run.  Under fp16 AMP ``minimize``
-adds the dynamic loss scaler (``fluid/amp.py``).  Not ported yet:
-``ModelAverage`` and LARS weight decay.
+Every optimizer's op runs (``ops/optimizer_ops.py``): on the card a run
+of ``momentum`` or ``adam`` ops is one kernel launch, the other types'
+runs are ``torch._foreach_*`` calls.  ``LARS_weight_decay > 0`` appends
+LARS (``layers.append_LARS``): each parameter's learning rate is computed
+every step from its norm and its grad's, and still feeds the one launch.
+Under fp16 AMP ``minimize`` adds the dynamic loss scaler
+(``fluid/amp.py``).  ``ModelAverage`` keeps running sums of the
+parameters on the device and swaps their average in for evaluation.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ __all__ = ["SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
            "DecayedAdagradOptimizer", "AdadeltaOptimizer", "RMSPropOptimizer",
            "FtrlOptimizer", "Optimizer",
     "ProximalGDOptimizer", "ProximalAdagradOptimizer", "ProximalGD",
-    "ProximalAdagrad",
+    "ProximalAdagrad", "ModelAverage",
 ]
 
 
@@ -45,8 +47,6 @@ class Optimizer:
         self._accumulators = defaultdict(dict)
         self.helper = None
         self._LARS_weight_decay = float(LARS_weight_decay)
-        if self._LARS_weight_decay > 0.0:
-            raise NotImplementedError("LARS weight decay is not ported yet")
 
     # -- learning rate plumbing --
     def _create_global_learning_rate(self):
@@ -72,7 +72,7 @@ class Optimizer:
         param = param_and_grad[0]
         param_lr = (param.optimize_attr or {}).get("learning_rate", 1.0)
         if not isinstance(param_lr, (int, float)):
-            # a Variable: used as the lr as it is
+            # a Variable (append_LARS's): the global lr is folded in
             return param_lr
         base = self._global_learning_rate()
         if param_lr == 1.0:
@@ -122,6 +122,12 @@ class Optimizer:
                            default_startup_program()):
             self.helper = LayerHelper(self.__class__.__name__)
             self._create_global_learning_rate()
+            if self._LARS_weight_decay > 0.0:
+                from .layers.learning_rate_scheduler import append_LARS
+
+                append_LARS(parameters_and_grads,
+                            self._global_learning_rate(),
+                            self._LARS_weight_decay)
             self._create_accumulators(
                 program.global_block(),
                 [p for p, g in parameters_and_grads if g is not None])
@@ -474,6 +480,118 @@ class ProximalAdagradOptimizer(Optimizer):
                     "LearningRate": [self._create_param_lr(param_and_grad)]},
             outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [m]},
             attrs={"l1": self._l1, "l2": self._l2})
+
+
+class ModelAverage(Optimizer):
+    """Running averages of the parameters for evaluation (counterpart of
+    the reference's ``ModelAverage``).  Construct it AFTER the training
+    optimizer's ``minimize``: it appends one ``average_accumulates`` op
+    per trainable parameter to the default main program, so every step
+    adds the parameters to sums on the device.  ``apply()`` is a context
+    manager that puts ``(sum_1 + sum_2 + sum_3) / (num_accumulates +
+    old_num_accumulates)`` in the scope in each parameter's place;
+    ``restore()`` puts back the tensors it took out."""
+
+    _SUMS = ("sum_1", "sum_2", "sum_3")
+    _COUNTS = ("num_accumulates", "old_num_accumulates", "num_updates")
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.type = "average_accumulates"
+        self.average_window = float(average_window_rate)
+        self.min_average_window = int(min_average_window)
+        self.max_average_window = int(max_average_window)
+        from .framework import Parameter
+
+        self.helper = LayerHelper(self.__class__.__name__)
+        block = default_main_program().global_block()
+        self.params_grads = [(p, None) for p in block.vars.values()
+                             if isinstance(p, Parameter) and p.trainable]
+        self._backup = {}
+        for p, _ in self.params_grads:
+            for name in self._SUMS:
+                self._add_accumulator(name, p)
+            for name in self._COUNTS:
+                self._add_accumulator(name, p, dtype="int64", shape=[1])
+            self._append_average_accumulate_op(block, p)
+
+    def _append_average_accumulate_op(self, block, param):
+        accs = {n: self._get_accumulator(n, param)
+                for n in self._SUMS + self._COUNTS}
+        block.append_op(
+            type="average_accumulates",
+            inputs={"param": [param], "in_sum_1": [accs["sum_1"]],
+                    "in_sum_2": [accs["sum_2"]], "in_sum_3": [accs["sum_3"]],
+                    "in_num_accumulates": [accs["num_accumulates"]],
+                    "in_old_num_accumulates": [accs["old_num_accumulates"]],
+                    "in_num_updates": [accs["num_updates"]]},
+            outputs={"out_sum_1": [accs["sum_1"]],
+                     "out_sum_2": [accs["sum_2"]],
+                     "out_sum_3": [accs["sum_3"]],
+                     "out_num_accumulates": [accs["num_accumulates"]],
+                     "out_old_num_accumulates":
+                         [accs["old_num_accumulates"]],
+                     "out_num_updates": [accs["num_updates"]]},
+            attrs={"average_window": self.average_window,
+                   "min_average_window": self.min_average_window,
+                   "max_average_window": self.max_average_window,
+                   OpRole.KEY: OpRole.Optimize})
+
+    def _totals(self, scope):
+        """Each parameter's ``num_accumulates + old_num_accumulates``, as
+        Python numbers: every counter read in one copy."""
+        import torch
+
+        counts = torch.cat([
+            scope.get(self._get_accumulator(n, p).name).reshape(1)
+            for p, _ in self.params_grads
+            for n in ("num_accumulates", "old_num_accumulates")]).tolist()
+        return [float(na) + float(ona)
+                for na, ona in zip(counts[::2], counts[1::2])]
+
+    def apply(self, executor=None, need_restore=True):
+        """Context manager: inside it each parameter with a nonzero count
+        holds its average, computed on its own device in fp32 in the
+        reference's order, ``((sum_1 + sum_2) + sum_3) / total``, with the
+        total as a device tensor (a CPU scalar would turn the division
+        into a product with its reciprocal on the card); ``restore()`` at
+        its end unless ``need_restore`` is False."""
+        import contextlib
+
+        import torch
+
+        from .executor import global_scope
+
+        @contextlib.contextmanager
+        def _ctx():
+            scope = global_scope()
+            self._backup = {}
+            for (p, _), total in zip(self.params_grads, self._totals(scope)):
+                if total <= 0:
+                    continue
+                s1, s2, s3 = (scope.get(self._get_accumulator(n, p).name)
+                              for n in self._SUMS)
+                trained = scope.get(p.name)
+                den = torch.full((), total, dtype=s1.dtype, device=s1.device)
+                self._backup[p.name] = trained
+                scope.set(p.name, ((s1 + s2 + s3) / den).to(trained.dtype))
+            try:
+                yield
+            finally:
+                if need_restore:
+                    self.restore(executor)
+
+        return _ctx()
+
+    def restore(self, executor=None):
+        """Put back the parameter tensors ``apply()`` took out."""
+        from .executor import global_scope
+
+        scope = global_scope()
+        for name, val in self._backup.items():
+            scope.set(name, val)
+        self._backup = {}
 
 
 SGD = SGDOptimizer

@@ -55,3 +55,12 @@ class ParamAttr:
         if with_initializer:
             kwargs["initializer"] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ``ParamAttr`` that also holds ``dim``, the dimension a weight
+    normalisation would keep; an attribute holder, as the reference's."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

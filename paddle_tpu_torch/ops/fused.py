@@ -333,9 +333,9 @@ class SoftmaxXent(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 _F32 = torch.float32
-# groups whose params, states and one-value tensors passed the checks, by
-# kernel, newest last: (weak references, addresses, sizes); grads are
-# checked on every call
+# groups whose params, states and one-value tensors (but the rates) passed
+# the checks, by kernel, newest last: (weak references, addresses, sizes);
+# grads and rates are checked on every call
 _checked = {"momentum": [], "adam": []}
 _CHECKED_KEEP = 4
 # the Adam kernel's per-entry counters of finished blocks, zeroed, by device
@@ -369,10 +369,13 @@ def _group_cols(kind, ps, gs, like_p, scalars):
     """The kernel's table for a group on the card, as ``int64`` columns:
     the addresses of the params, the grads, each ``like_p`` state and each
     ``scalars`` column (both by name), then the sizes.  Raises unless every
-    tensor suits the kernel.  Params, states and one-value tensors persist
-    across steps: they are checked once per set of objects, addresses and
-    sizes; the grads on every call."""
-    named = [("param", ps), *like_p.items(), *scalars.items()]
+    tensor suits the kernel.  Params, states and the one-value tensors but
+    ``lr`` persist across steps: they are checked once per set of objects,
+    addresses and sizes.  The grads and the ``lr`` tensors are checked on
+    every call: LARS computes each parameter's rate anew every step, which
+    would otherwise re-check the whole persistent set every step."""
+    named = [("param", ps), *like_p.items(),
+             *((k, col) for k, col in scalars.items() if k != "lr")]
     stable = [t for _, col in named for t in col]
     ptrs = [t.data_ptr() for t in stable]
     sizes = [p.numel() for p in ps]
@@ -388,16 +391,27 @@ def _group_cols(kind, ps, gs, like_p, scalars):
         seen.append(([weakref.ref(t) for t in stable], ptrs, sizes))
         del seen[:-_CHECKED_KEEP]
     idx = ps[0].get_device()
-    if not all([g.dtype is _F32 and g.is_contiguous()
-                and g.get_device() == idx and g.shape == p.shape
-                for p, g in zip(ps, gs)]):
-        _on_cpu(ps[0], *gs)
+    lrs = scalars["lr"]
+    if not (all([g.dtype is _F32 and g.is_contiguous()
+                 and g.get_device() == idx and g.shape == p.shape
+                 for p, g in zip(ps, gs)])
+            and all([t.dtype is _F32 and t.numel() == 1
+                     and t.get_device() == idx for t in lrs])):
+        _on_cpu(ps[0], *gs, *lrs)
         for g in gs:
             _check("grad", g)
+        for t in lrs:
+            _check("lr", t)
         _check_entries(ps, gs, like_p, scalars)
-    n = len(ps)
-    return np.array(ptrs[:n] + [g.data_ptr() for g in gs] + ptrs[n:]
-                    + sizes, dtype=np.int64)
+    cols = ptrs[:len(ps)] + [g.data_ptr() for g in gs]
+    k = len(ps)
+    for name, col in (*like_p.items(), *scalars.items()):
+        if name == "lr":
+            cols += [t.data_ptr() for t in col]
+        else:
+            cols += ptrs[k:k + len(col)]
+            k += len(col)
+    return np.array(cols + sizes, dtype=np.int64)
 
 
 def adam_ref(p, g, m1, m2, lr_eff, b1, b2, eps):

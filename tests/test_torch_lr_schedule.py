@@ -13,7 +13,7 @@ JAX package, on the CPU:
    reference's grads (rtol 1e-5, atol 1e-6), ties of max / min included;
  - the operators of ``math_op_patch`` on ``Variable`` build the
    reference's ops;
- - ``append_LARS`` raises, as the Optimizer's LARS does, and
+ - ``append_LARS`` builds the reference's ops and gives its rates, and
    ``transformer.build(warmup_steps=)`` builds the reference's noam
    Program.
 """
@@ -27,6 +27,7 @@ from paddle_tpu.fluid import framework as ref_framework
 from paddle_tpu.models import transformer as ref_tm
 from paddle_tpu_torch.fluid import framework as port_framework
 from paddle_tpu_torch.models import transformer as port_tm
+from paddle_tpu_torch.models.params import load_reference_params
 
 RTOL = 1e-6
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -227,9 +228,44 @@ def test_variable_operators_build_reference_ops():
         np.testing.assert_allclose(p, r, rtol=RTOL, err_msg=str(i))
 
 
+def _lars(pkg):
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 2
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = pkg.layers.data("x", shape=[4], dtype="float32")
+        h = pkg.layers.fc(x, 3, act="tanh",
+                          param_attr=pkg.ParamAttr(learning_rate=2.0))
+        loss = pkg.layers.mean(pkg.layers.fc(h, 2))
+        params_grads = pkg.append_backward(loss)
+        lr = pkg.layers.fill_constant([1], "float32", 0.1)
+        pkg.layers.learning_rate_scheduler.append_LARS(params_grads, lr, 0.1)
+    return main, startup, [p.optimize_attr["learning_rate"]
+                           for p, _ in params_grads]
+
+
 def test_append_lars_raises():
-    with pytest.raises(NotImplementedError, match="LARS"):
-        tf.layers.learning_rate_scheduler.append_LARS([], None, 0.1)
+    """``append_LARS`` builds the reference's ops (a parameter's own rate
+    through ``scale``) and gives its rates: ``lr·‖p‖ / (‖g‖ + 0.1·‖p‖)``
+    per parameter."""
+    got = []
+    for pkg in (rf, tf):
+        main, startup, rates = _lars(pkg)
+        got.append((_ops(main), main, startup, rates))
+    assert got[1][0] == got[0][0]
+    feed = {"x": _rand(5, 4, seed=4)}
+    vals = []
+    for pkg, (_, main, startup, rates) in zip((rf, tf), got):
+        exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+        exe.run(startup, scope=scope)
+        if pkg is tf:
+            load_reference_params(scope, init, tf.CPUPlace())
+        else:
+            init = {v.name: np.array(scope.get(v.name))
+                    for v in startup.list_vars() if v.persistable}
+        vals.append([float(np.asarray(v).reshape(-1)[0]) for v in exe.run(
+            main, feed=feed, fetch_list=rates, scope=scope)])
+    assert len(vals[1]) == 4 and min(vals[1]) >= 0 and max(vals[1]) > 0
+    np.testing.assert_allclose(vals[1], vals[0], rtol=1e-5)
 
 
 def test_transformer_warmup_builds_reference_noam():

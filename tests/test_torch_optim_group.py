@@ -455,3 +455,32 @@ def test_card_table_holds_addresses_and_sizes():
     with pytest.raises(TypeError, match="velocity must be"):
         fused._group_cols("momentum", ps, gs,
                           {"velocity": [vs[0].double(), vs[1]]}, {"lr": lrs})
+
+
+def test_card_table_reads_rates_afresh():
+    """LARS hands the group a new rate tensor each step: its address
+    comes from each call (between the states and the beta pows for
+    Adam), and a rate that does not suit the kernel raises though the
+    persistent set is cached."""
+    ps = [torch.zeros(3, 4), torch.zeros(5)]
+    m1s, m2s = [torch.zeros(3, 4), torch.zeros(5)], \
+        [torch.zeros(3, 4), torch.zeros(5)]
+    b1ps, b2ps = [torch.ones(1), torch.ones(1)], [torch.ones(1),
+                                                  torch.ones(1)]
+    gs = [torch.ones(3, 4), torch.ones(5)]
+    for _ in range(3):
+        lrs = [torch.full((1,), 0.1), torch.full((1,), 0.2)]
+        cols = fused._group_cols(
+            "adam", ps, gs, {"moment1": m1s, "moment2": m2s},
+            {"lr": lrs, "beta1_pow": b1ps, "beta2_pow": b2ps})
+        assert cols.tolist() == [t.data_ptr() for t in
+                                 ps + gs + m1s + m2s + lrs + b1ps + b2ps] \
+            + [12, 5]
+    with pytest.raises(TypeError, match="lr must be"):
+        fused._group_cols("adam", ps, gs, {"moment1": m1s, "moment2": m2s},
+                          {"lr": [lrs[0].double(), lrs[1]],
+                           "beta1_pow": b1ps, "beta2_pow": b2ps})
+    with pytest.raises(ValueError, match="lr must hold one value"):
+        fused._group_cols("adam", ps, gs, {"moment1": m1s, "moment2": m2s},
+                          {"lr": [torch.ones(2), lrs[1]],
+                           "beta1_pow": b1ps, "beta2_pow": b2ps})

@@ -1,8 +1,10 @@
 """The port's op registry against the JAX package's, by name: the port has
 no op type the reference lacks, and holds every one of the one-line
 activation, math, reduce and shape ops (63) and of the convolution,
-norm, pooling-with-index and random ops (22) and of the misc, quant and
-metric ops (31), each in its module with the reference's registry flags.
+norm, pooling-with-index and random ops (22), of the misc, quant and
+metric ops (31) and of the remaining optimizer ops with
+``average_accumulates`` (8), each in its module with the reference's
+registry flags.
 The op types still to port are printed (``pytest -s``)."""
 
 from paddle_tpu.ops.registry import REGISTRY as REF
@@ -57,6 +59,9 @@ TRANCHE7_OPS = {
                    "precision_recall"],
 }
 
+OPTIMIZER_OPS = ["adagrad", "adamax", "decayed_adagrad", "adadelta", "ftrl",
+                 "proximal_gd", "proximal_adagrad", "average_accumulates"]
+
 
 def test_port_has_no_op_the_reference_lacks():
     assert sorted(set(PORT) - set(REF)) == []
@@ -100,6 +105,20 @@ def test_tranche7_ops_are_ported_in_their_modules_with_reference_flags():
                 (REF[name].grad_fn is None), name
 
 
+def test_optimizer_ops_are_ported_with_reference_flags_and_groups():
+    """And each registers a group impl, which the Executor hands a run of
+    them (the reference has none: XLA fuses its whole step)."""
+    assert len(set(OPTIMIZER_OPS)) == 8
+    for name in OPTIMIZER_OPS:
+        assert PORT[name].fn.__module__ == \
+            "paddle_tpu_torch.ops.optimizer_ops", (name, PORT[name].fn)
+        assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
+        assert PORT[name].stateful == REF[name].stateful, name
+        assert (PORT[name].grad_fn is None) == \
+            (REF[name].grad_fn is None), name
+        assert PORT[name].group_fn is not None, name
+
+
 def test_tranche6_convolutions_have_explicit_grads():
     for name in ("conv2d", "conv3d", "depthwise_conv2d", "conv2d_transpose",
                  "conv3d_transpose", "depthwise_conv2d_transpose",
@@ -112,4 +131,4 @@ def test_missing_op_types_are_listed():
     print(f"\n{len(PORT)} of {len(REF)} op types ported; {len(missing)} "
           f"still to port: {', '.join(missing)}")
     assert len(PORT) + len(missing) == len(REF)
-    assert len(PORT) == 261 and len(missing) == 12
+    assert len(PORT) == 269 and len(missing) == 4
