@@ -31,7 +31,10 @@ ResNet-50 and Transformer-base inference on int8 weights and DeepFM under
 the streaming AUC, holds the misc, quant and metric ops against the CPU,
 trains ResNet-50 under LARS momentum with a model average, the book's
 MNIST MLP under Adam with LARS and DeepFM under each remaining optimizer,
-holds their update ops against the CPU, and checks them all.
+holds their update ops against the CPU, then trains Transformer-base
+through ``fluid.Trainer`` with serial checkpoints and the checkpointable
+``data`` pipeline, kills it and resumes it in subprocesses, runs it as
+windows and under the numerics guardian's drill, and checks them all.
 
     python3 chip_smoke.py
 
@@ -595,6 +598,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    group bitwise its ops one by one on the card; the
                    folding ops through DeepFM's sparse table; the
                    proximal ops refusing a SelectedRows
+65. trainer_transformer_amp - Transformer-base (bf16, kept activations,
+                   flash, label smoothing 0.1, dropout 0, Adam) through
+                   ``fluid.Trainer`` for 8 steps on
+                   ``data.from_reader(src).shuffle(512, seed=7).batch(64)``
+                   (``bench.py``'s feed shapes from a seeded RandomState),
+                   a checkpoint every 2 steps (max 2) with the data state
+                   under _SUCCESS: the reference's event order, exactly
+                   ``train_flash_amp``'s launches a step, the serials on
+                   disk, each save's ms, an async save's foreground and
+                   total ms beside a sync one's and its files bitwise
+66. trainer_kill_resume - phase 65's run in a subprocess with
+                   ``PADDLE_FAULT_KILL_STEP=5`` exits 137; beside its
+                   serials (steps 1 and 3) an incomplete one is left; a
+                   second subprocess resumes at step 4 from the kernels
+                   the parent built and trains steps 4-7: losses and fed
+                   batches bitwise phase 65's, no step replayed
+67. trainer_windowed_amp - the same under ``PADDLE_TPU_SPD=4`` through
+                   ``CheckpointablePrefetcher``: one eager step, then one
+                   graph replay a step; each window's last loss bitwise
+                   phase 65's steps 3 and 7; checkpoints stamped with the
+                   windows' last steps; a resume from the first window's
+                   serial trains the second window bitwise again
+68. guardian_transformer_amp - the skip guardian (spike factor 10, window
+                   4) with grad-Inf at step 2 and a x1e4 loss spike at
+                   step 5, per step: trips at 2 and 5 and every state
+                   tensor bitwise across each; as 6 windows of 4 (spike
+                   at step 21: a window gives the recorder one record)
+                   against the same per-step run: the same trips, the
+                   state bitwise; the boundary's wait, sync-debug
+                   warnings and host ms of guarded and unguarded steps;
+                   ``dump_and_halt``: NumericsTripped at the step-3
+                   boundary, the bundle replayed on the card bitwise,
+                   naming the first non-finite variable
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -10896,6 +10932,715 @@ def phase_optim_ops_parity():
          seconds=time.perf_counter() - t0)
 
 
+# Transformer-base through fluid.Trainer (the training machinery's slice):
+# TRAINER_STEPS steps on one epoch of TRAINER_STEPS batches, a checkpoint
+# every TRAINER_INTERVAL steps, the worker killed at TRAINER_KILL_STEP,
+# windows of TRAINER_SPD steps
+TRAINER_STEPS, TRAINER_INTERVAL, TRAINER_KILL_STEP, TRAINER_SPD = 8, 2, 5, 4
+TRAINER_FEEDS = ("src_word", "tgt_word", "lbl_word")
+TRAINER_WORKER_TIMEOUT_S = 300
+# the guardian drill: grad-Inf at step 2 and a x1e4 loss spike at step 5
+# against a cap of 10 x the median of the last 4 clean losses.  A window
+# gives the recorder one record (its first trip, else its worst values),
+# and the cap needs 4 clean records, so the windowed drill runs 6 windows
+# of TRAINER_SPD and spikes step 21, in the sixth
+GUARD_INF_STEP, GUARD_SPIKE_STEP, GUARD_SPIKE_FACTOR = 2, 5, 10.0
+GUARD_SPIKE_WINDOW, GUARD_WINDOW_STEPS, GUARD_WINDOW_SPIKE_STEP = 4, 24, 21
+
+
+def trainer_source(n_batches, seed=0):
+    """A reader factory of ``n_batches`` x TRAIN_BATCH samples of
+    ``bench.py``'s Transformer feed (ids uniform in [1, vocab)), each a
+    (src, tgt, lbl) tuple, from a seeded RandomState."""
+    import numpy as np
+
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(n_batches * TRAIN_BATCH):
+            yield (rng.randint(1, VOCAB, size=TRAIN_LEN),
+                   rng.randint(1, VOCAB, size=TRAIN_LEN),
+                   rng.randint(1, VOCAB, size=(TRAIN_LEN, 1)))
+    return reader
+
+
+def batch_hash(batch):
+    import hashlib
+
+    h = hashlib.sha256()
+    for sample in batch:
+        for a in sample:
+            h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def f32_bits(v):
+    import numpy as np
+
+    return np.float32(v).tobytes().hex()
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set (value) or unset (None) environment variables inside the
+    block."""
+    old = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def trainer_run(ckpt_dir, n_batches=TRAINER_STEPS, spd=0, interval=None,
+                on_event=None, save_log=None, place=None):
+    """Transformer-base (6 + 6 layers, d_model 512, vocab 30000, bf16 with
+    kept activations, flash attention, label smoothing 0.1, dropout 0,
+    Adam 1e-3) through ``fluid.Trainer`` for one epoch of ``n_batches``
+    batches of ``data.from_reader(src).shuffle(512, seed=7).batch(64)``,
+    in a fresh scope; ``spd`` > 1 runs ``PADDLE_TPU_SPD`` windows;
+    ``ckpt_dir``: checkpoints there (max 2) every ``interval`` steps
+    (None: no CheckpointConfig).  Returns the run's record: losses by step
+    (value and float32 bits), each fed batch's hash, the events, the step
+    the run resumed at, every save (its trainer args and ms) and the
+    launches."""
+    from paddle_tpu_torch import data, fluid
+    from paddle_tpu_torch.fluid import trainer as trainer_mod
+    from paddle_tpu_torch.models import transformer
+
+    hashes, events, losses, step_ms, saves = [], [], {}, {}, []
+    pipe = (data.from_reader(trainer_source(n_batches)).shuffle(512, seed=7)
+            .batch(TRAIN_BATCH)
+            .map(lambda b: hashes.append(batch_hash(b)) or b))
+    cfg = transformer.base_config()
+    cfg.flash_attention, cfg.dropout = True, 0.0
+
+    def train_func():
+        return transformer.forward(cfg, TRAIN_LEN, TRAIN_LEN)[3]
+
+    def optimizer_func():
+        return fluid.optimizer.Adam(learning_rate=1e-3, beta1=0.9,
+                                    beta2=0.98, epsilon=1e-9)
+
+    save = trainer_mod.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = save(*args, **kwargs)
+        saves.append({"serial": serial, "args": kwargs.get("trainer_args"),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "background": bool(kwargs.get("background"))})
+        if save_log is not None:
+            save_log(args[1], serial)
+        return serial
+
+    t_begin = {}
+
+    def handler(ev):
+        events.append([type(ev).__name__, getattr(ev, "epoch", None),
+                       getattr(ev, "step", None)])
+        if isinstance(ev, fluid.BeginStepEvent):
+            t_begin[ev.step] = time.perf_counter()
+        if isinstance(ev, fluid.EndStepEvent):
+            first = min(k for k in t_begin if k <= ev.step)
+            step_ms[ev.step] = (time.perf_counter() - t_begin.pop(first)) \
+                * 1e3
+            if ev.metrics:
+                v = float(ev.metrics[0].reshape(-1)[0])
+                losses[ev.step] = {"loss": v, "bits": f32_bits(v)}
+        if on_event is not None:
+            on_event(ev)
+
+    ckpt = (fluid.CheckpointConfig(ckpt_dir, max_num_checkpoints=2,
+                                   step_interval=interval)
+            if interval else None)
+    trainer_mod.save_checkpoint = timed_save
+    scope = fluid.Scope()
+    try:
+        with env_set(PADDLE_TPU_SPD=spd or None, PADDLE_DATA_CKPT=1), \
+                fluid.amp.amp_guard("bfloat16", keep_activations=True), \
+                fluid.scope_guard(scope):
+            t0 = time.perf_counter()
+            tr = fluid.Trainer(train_func, optimizer_func, place=place,
+                               checkpoint_config=ckpt)
+            build_s = time.perf_counter() - t0
+            resumed = (ckpt.epoch_id, ckpt.step_id) if ckpt else (0, 0)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                tr.train(1, handler, reader=pipe, feed_order=TRAINER_FEEDS)
+            finally:
+                train_s = time.perf_counter() - t0
+                counts = launch_counts()
+                windows = [{"eager_steps": w.graph.eager_steps,
+                            "replays": w.graph.replays,
+                            "capture_s": w.graph.capture_s,
+                            "graph_pool_bytes": w.graph.pool_bytes}
+                           for w in tr.exe._windows.values()]
+                tr.exe.close()
+    finally:
+        trainer_mod.save_checkpoint = save
+    return {"losses": losses, "hashes": hashes, "events": events,
+            "resumed_at": list(resumed), "saves": saves,
+            "step_ms": step_ms, "build_s": build_s, "train_s": train_s,
+            "launches": counts, "windows": windows, "trainer": tr,
+            "scope": scope}
+
+
+def trainer_per_step_counts(steps):
+    """Every kernel's launches over ``steps`` Transformer-base AMP flash
+    steps (bf16 flash and xent, one Adam group)."""
+    per_step = {"softmax_xent_fwd": XENT_FWD_PER_STEP,
+                "softmax_xent_bwd": XENT_BWD_PER_STEP,
+                "softmax_xent_fwd_bf16": XENT_FWD_PER_STEP,
+                "softmax_xent_bwd_bf16": XENT_BWD_PER_STEP,
+                "adam": ADAM_PER_STEP,
+                "adam_tensors": ADAM_TENSORS_PER_STEP,
+                "flash_fwd": FLASH_FWD_PER_STEP,
+                "flash_dq": FLASH_DQ_PER_STEP,
+                "flash_dkv": FLASH_DKV_PER_STEP,
+                "flash_fwd_bf16": FLASH_FWD_PER_STEP,
+                "flash_dq_bf16": FLASH_DQ_PER_STEP,
+                "flash_dkv_bf16": FLASH_DKV_PER_STEP}
+    return {k: per_step.get(k, 0) * steps for k in launch_counts()}
+
+
+def check_trainer_launches(phase, counts, steps):
+    want = trainer_per_step_counts(steps)
+    if counts != want:
+        raise AssertionError(f"{phase}: kernel launches over {steps} "
+                             f"Trainer steps: {counts}, expected {want}")
+
+
+def expected_events(steps, first=0, window=1):
+    """The reference Trainer's event sequence for one epoch (epoch 0) of
+    steps ``first`` .. ``steps - 1``, a step event pair per window."""
+    out = [["BeginEpochEvent", 0, None]]
+    for s in range(first, steps, window):
+        out += [["BeginStepEvent", 0, s],
+                ["EndStepEvent", 0, min(s + window, steps) - 1]]
+    return out + [["EndEpochEvent", 0, None]]
+
+
+def serials(ckpt_dir):
+    """``{serial dir: its trainer args, or "incomplete"}`` on disk."""
+    out = {}
+    for name in sorted(os.listdir(ckpt_dir)):
+        path = os.path.join(ckpt_dir, name)
+        if not name.startswith("checkpoint_"):
+            continue
+        if not os.path.exists(os.path.join(path, "_SUCCESS")):
+            out[name] = "incomplete"
+            continue
+        with open(os.path.join(path, "trainer_args.json")) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def public(run):
+    return {k: v for k, v in run.items() if k not in ("trainer", "scope")}
+
+
+def phase_trainer_transformer_amp(tmp):
+    """Phase 65: Transformer-base through ``fluid.Trainer``, 8 steps per
+    step with a checkpoint every 2 and the data state under _SUCCESS;
+    the reference's event order; exactly the kernels of
+    ``train_flash_amp`` a step; then an async save beside the sync ones.
+    Returns the run (the uninterrupted run the resumes are held to)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.fluid import trainer as trainer_mod
+
+    ckpt = os.path.join(tmp, "trainer_full")
+    run = trainer_run(ckpt, interval=TRAINER_INTERVAL)
+    check_trainer_launches("trainer_transformer_amp", run["launches"],
+                           TRAINER_STEPS)
+    if run["events"] != expected_events(TRAINER_STEPS):
+        raise AssertionError(f"trainer_transformer_amp: events "
+                             f"{run['events']} are not the reference's "
+                             f"order")
+    losses = [run["losses"][s]["loss"] for s in range(TRAINER_STEPS)]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"trainer_transformer_amp: losses {losses}")
+    if len(set(run["hashes"])) != TRAINER_STEPS:
+        raise AssertionError(f"trainer_transformer_amp: batches "
+                             f"{run['hashes']} are not 8 distinct ones")
+    on_disk = serials(ckpt)
+    want_saves = [{"epoch_id": 0, "step_id": s}
+                  for s in range(TRAINER_INTERVAL - 1, TRAINER_STEPS,
+                                 TRAINER_INTERVAL)] + \
+        [{"epoch_id": 1, "step_id": -1}]
+    if [s["args"] for s in run["saves"]] != want_saves or \
+            len(on_disk) != 2:
+        raise AssertionError(f"trainer_transformer_amp: saves "
+                             f"{run['saves']}, on disk {on_disk}")
+    # an async save of the same state beside a sync one
+    import shutil
+
+    from paddle_tpu_torch import fluid
+
+    tr = run["trainer"]
+    timed, dirs = {}, {}
+    for background, kind in ((False, "sync"), (True, "async")):
+        d = os.path.join(tmp, f"trainer_save_{kind}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(run["scope"]):
+            serial = trainer_mod.save_checkpoint(
+                tr.exe, d, tr.train_program, trainer_args={"step_id": 7},
+                background=background)
+        fore_ms = (time.perf_counter() - t0) * 1e3
+        trainer_mod.wait_for_checkpoints(d)
+        timed[kind] = {"foreground_ms": fore_ms,
+                       "total_ms": (time.perf_counter() - t0) * 1e3}
+        dirs[kind] = os.path.join(d, f"checkpoint_{serial}")
+    same = _dirs_equal(dirs["sync"], dirs["async"])
+    if not same:
+        raise AssertionError("trainer_transformer_amp: the async save's "
+                             "files differ from the sync save's")
+    nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(ckpt) for f in fs) / len(on_disk)
+    for d in (ckpt, *dirs.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    emit("trainer_transformer_amp", model="transformer_base",
+         batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=TRAINER_STEPS,
+         amp={"dtype": "bfloat16", "keep_activations": True},
+         losses=losses, loss_bits=[run["losses"][s]["bits"]
+                                   for s in range(TRAINER_STEPS)],
+         batch_hashes=run["hashes"], events_in_reference_order=True,
+         serials_on_disk=on_disk, serial_bytes=nbytes,
+         saves=run["saves"], sync_vs_async=timed,
+         async_files_bitwise_sync=same,
+         launches=run["launches"],
+         launches_per_step={k: v / TRAINER_STEPS
+                            for k, v in run["launches"].items()},
+         host_step_ms=[run["step_ms"][s] for s in range(TRAINER_STEPS)],
+         build_s=run["build_s"], train_s=run["train_s"])
+    del tr
+    run = public(run)
+    torch.cuda.empty_cache()
+    return run
+
+
+def _dirs_equal(a, b):
+    names = sorted(n for n in os.listdir(a) if n != "trainer_args.json")
+    if names != sorted(n for n in os.listdir(b)
+                       if n != "trainer_args.json"):
+        return False
+    for n in names:
+        with open(os.path.join(a, n), "rb") as f, \
+                open(os.path.join(b, n), "rb") as g:
+            if f.read() != g.read():
+                return False
+    return True
+
+
+def trainer_worker(ckpt_dir, out):
+    """``chip_smoke.py --trainer-worker DIR --worker-out FILE``: one
+    ``trainer_run`` in a process of its own (the kill and the resume of
+    phase 66), its record written to FILE.  A kill armed by
+    ``PADDLE_FAULT_KILL_STEP`` ends the process with exit code 137 before
+    anything is written.  Builds nothing: the kernels come from the
+    parent's build under ``build/paddle_tpu_torch/``."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device")
+    # the parent's numerics (phase_device): no TF32 in fp32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = public(trainer_run(ckpt_dir, interval=TRAINER_INTERVAL))
+    run["nvcc_runs"] = sorted(_build.build_logs)
+    with open(out, "w") as f:
+        json.dump(run, f)
+
+
+def run_worker(ckpt_dir, out, **env):
+    """A ``trainer_worker`` subprocess with ``env`` added; (exit code,
+    seconds, its stderr's tail)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trainer-worker",
+         ckpt_dir, "--worker-out", out],
+        env={**os.environ, **{k: str(v) for k, v in env.items()}},
+        capture_output=True, text=True, timeout=TRAINER_WORKER_TIMEOUT_S)
+    return proc.returncode, time.perf_counter() - t0, proc.stderr[-2000:]
+
+
+def phase_trainer_kill_resume(tmp, full):
+    """Phase 66: the Trainer run of phase 65 in a subprocess killed at the
+    step-5 boundary (exit 137, checkpoints after steps 1 and 3 on disk);
+    an incomplete serial (no _SUCCESS) is left beside them; a second
+    subprocess resumes from the newest complete serial and trains steps
+    4-7: its losses and fed batches bitwise phase 65's steps 4-7, no step
+    replayed, the incomplete serial ignored, nothing rebuilt.  Returns
+    the resumed worker's launches."""
+    import shutil
+
+    ckpt = os.path.join(tmp, "trainer_kill")
+    out1, out2 = (os.path.join(tmp, f"worker{i}.json") for i in (1, 2))
+    rc1, s1, err1 = run_worker(ckpt, out1,
+                               PADDLE_FAULT_KILL_STEP=TRAINER_KILL_STEP)
+    if rc1 != 137 or os.path.exists(out1):
+        raise AssertionError(f"trainer_kill_resume: the killed worker "
+                             f"exited {rc1} (expected 137): {err1}")
+    after_kill = serials(ckpt)
+    newest = f"checkpoint_{len(after_kill) - 1}"
+    want = {f"checkpoint_{i}": {"epoch_id": 0, "step_id": s}
+            for i, s in enumerate(range(TRAINER_INTERVAL - 1,
+                                        TRAINER_KILL_STEP, TRAINER_INTERVAL))}
+    if after_kill != want:
+        raise AssertionError(f"trainer_kill_resume: serials after the kill "
+                             f"{after_kill}, expected {want}")
+    # a serial cut mid-write: some files, no _SUCCESS, a higher number
+    cut = os.path.join(ckpt, f"checkpoint_{len(after_kill)}")
+    src = os.path.join(ckpt, newest)
+    os.makedirs(cut)
+    for n in sorted(os.listdir(src))[:3]:
+        if n not in ("_SUCCESS", "trainer_args.json"):
+            with open(os.path.join(src, n), "rb") as f:
+                payload = f.read()
+            with open(os.path.join(cut, n), "wb") as f:
+                f.write(payload[:len(payload) // 2])
+    rc2, s2, err2 = run_worker(ckpt, out2)
+    if rc2 != 0:
+        raise AssertionError(f"trainer_kill_resume: the resumed worker "
+                             f"exited {rc2}: {err2}")
+    with open(out2) as f:
+        res = json.load(f)
+    first = TRAINER_KILL_STEP - 1
+    steps = list(range(first, TRAINER_STEPS))
+    got = [res["losses"][str(s)]["bits"] for s in steps]
+    want_bits = [full["losses"][s]["bits"] for s in steps]
+    checks = {
+        "resumed_at": res["resumed_at"] == [0, first],
+        "losses_bitwise": got == want_bits,
+        "batches_bitwise": res["hashes"] == full["hashes"][first:],
+        "no_step_replayed": res["events"] == expected_events(
+            TRAINER_STEPS, first),
+        "incomplete_serial_ignored": os.path.isdir(cut) and not
+        os.path.exists(os.path.join(cut, "_SUCCESS")),
+        "nothing_rebuilt": res["nvcc_runs"] == []}
+    if not all(checks.values()):
+        raise AssertionError(f"trainer_kill_resume: {checks}; resumed "
+                             f"losses {got} against {want_bits}")
+    check_trainer_launches("trainer_kill_resume", res["launches"],
+                           len(steps))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("trainer_kill_resume", kill_step=TRAINER_KILL_STEP,
+         killed_exit_code=rc1, killed_s=s1, serials_after_kill=after_kill,
+         incomplete_serial=os.path.basename(cut), resumed_s=s2,
+         resumed_at=res["resumed_at"],
+         resumed_losses=[res["losses"][str(s)]["loss"] for s in steps],
+         uninterrupted_losses=[full["losses"][s]["loss"] for s in steps],
+         resumed_batch_hashes=res["hashes"], checks=checks,
+         resumed_saves=res["saves"], resumed_build_s=res["build_s"],
+         resumed_launches=res["launches"])
+    return res["launches"]
+
+
+def phase_trainer_windowed_amp(tmp, full):
+    """Phase 67: the same Trainer under ``PADDLE_TPU_SPD=4`` (two windows,
+    the step captured once as a CUDA graph and replayed) through
+    ``CheckpointablePrefetcher``: each window's last loss bitwise phase
+    65's steps 3 and 7, its batches phase 65's; a checkpoint at each
+    window that crosses a step_interval boundary stamped with the
+    window's last step; then a resume from the first window's serial
+    (its data state the window's, not the prefetch head's) trains the
+    second window bitwise again."""
+    import shutil
+
+    import torch
+
+    ckpt = os.path.join(tmp, "trainer_window")
+    first_serial = os.path.join(tmp, "trainer_window_resume")
+
+    def keep_first(dirname, serial):
+        if not os.path.exists(first_serial):
+            shutil.copytree(os.path.join(dirname, f"checkpoint_{serial}"),
+                            os.path.join(first_serial,
+                                         f"checkpoint_{serial}"))
+
+    run = trainer_run(ckpt, spd=TRAINER_SPD, interval=TRAINER_INTERVAL,
+                      save_log=keep_first)
+    check_trainer_launches("trainer_windowed_amp", run["launches"],
+                           TRAINER_STEPS)
+    last = [TRAINER_SPD - 1, TRAINER_STEPS - 1]
+    got = [run["losses"][s]["bits"] for s in last]
+    want = [full["losses"][s]["bits"] for s in last]
+    saves = [s["args"] for s in run["saves"]]
+    want_saves = [{"epoch_id": 0, "step_id": s} for s in last] + \
+        [{"epoch_id": 1, "step_id": -1}]
+    checks = {"events": run["events"] == expected_events(
+                  TRAINER_STEPS, window=TRAINER_SPD),
+              "one_graph_replay_a_step": [
+                  (w["eager_steps"], w["replays"]) for w in run["windows"]]
+              == [(1, TRAINER_STEPS - 1)],
+              "window_losses_bitwise": got == want,
+              "staged_batches": run["hashes"] == full["hashes"],
+              "checkpoints_at_window_ends": saves == want_saves}
+    del run["trainer"], run["scope"]
+    torch.cuda.empty_cache()
+    resumed = trainer_run(first_serial, spd=TRAINER_SPD,
+                          interval=TRAINER_INTERVAL)
+    checks["resume_from_first_window"] = (
+        resumed["resumed_at"] == [0, TRAINER_SPD]
+        and resumed["losses"][TRAINER_STEPS - 1]["bits"] == want[1]
+        and resumed["hashes"] == full["hashes"][TRAINER_SPD:])
+    if not all(checks.values()):
+        raise AssertionError(f"trainer_windowed_amp: {checks}; window "
+                             f"losses {got} against {want}; saves {saves}; "
+                             f"resumed {public(resumed)['losses']}")
+    check_trainer_launches("trainer_windowed_amp (resumed)",
+                           resumed["launches"], TRAINER_STEPS - TRAINER_SPD)
+    counts = dict(run["launches"])
+    add_counts(counts, resumed["launches"])
+    emit("trainer_windowed_amp", window_steps=TRAINER_SPD,
+         steps=TRAINER_STEPS, window_losses=[run["losses"][s]["loss"]
+                                             for s in last],
+         per_step_losses=[full["losses"][s]["loss"] for s in last],
+         checks=checks, saves=run["saves"], windows=run["windows"],
+         host_window_ms=[run["step_ms"][s] for s in last],
+         resumed_at=resumed["resumed_at"], launches=counts)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(first_serial, ignore_errors=True)
+    del resumed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scope_tensors(scope):
+    """Copies of every tensor of ``scope`` (on the card)."""
+    import torch
+
+    return {k: v.clone() for k, v in scope._values.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def guardian_drill(n_batches, spd, spike_step, trips_at, tmp,
+                   snapshot=False):
+    """Arm the skip guardian (spike factor 10, window 4) and a plan of
+    grad-Inf at GUARD_INF_STEP and a x1e4 spike at ``spike_step``, and
+    train ``n_batches`` steps through the Trainer (windows of ``spd``
+    with spd > 1).  With ``snapshot``: every tensor of the scope before
+    each step in ``trips_at``, compared bitwise after it.  Returns (the
+    run, the guardian's metrics, its records, the per-trip comparisons,
+    the final scope's tensors)."""
+    import torch
+
+    from paddle_tpu_torch.fluid import fault, guardian
+
+    fault.install(fault.FaultPlan(grad_inf_step=GUARD_INF_STEP,
+                                  loss_spike_step=spike_step, mode="raise"))
+    g = guardian.enable("skip", spike_factor=GUARD_SPIKE_FACTOR,
+                        spike_window=GUARD_SPIKE_WINDOW,
+                        bundle_dir=os.path.join(tmp, "guardian_dumps"))
+    before, kept = {}, {}
+    holder = {}
+
+    def on_event(ev):
+        from paddle_tpu_torch import fluid
+
+        if not snapshot:
+            return
+        if isinstance(ev, fluid.BeginStepEvent) and ev.step in trips_at:
+            before[ev.step] = scope_tensors(fluid.global_scope())
+        if isinstance(ev, fluid.EndStepEvent) and ev.step in before:
+            after = fluid.global_scope()
+            names = sorted(before[ev.step])
+            moved = [n for n in names
+                     if not torch.equal(before[ev.step][n], after.get(n))]
+            kept[ev.step] = {"tensors": len(names), "moved": moved}
+            del before[ev.step]
+
+    try:
+        run = trainer_run(None, n_batches=n_batches, spd=spd,
+                          on_event=on_event)
+        final = scope_tensors(run["scope"])
+    finally:
+        fault.clear()
+        guardian.disable()
+    holder["records"] = [r.to_dict() for r in g.recorder.records()
+                         if not r.ok]
+    holder["waits_ms"] = [w * 1e3 for w in g.boundary_waits_s]
+    return run, g.metrics(), holder, kept, final
+
+
+def phase_guardian_transformer_amp(tmp):
+    """Phase 68: the guardian on Transformer-base through the Trainer,
+    policy skip, grad-Inf at step 2 and a x1e4 loss spike at step 5
+    (spike factor 10, window 4), per step: the trips land at steps 2
+    and 5 (trips 2, skips 2, nonfinite 1, spikes 1) and after each every
+    parameter and Adam moment is bitwise what it was before it; then as
+    6 windows of 4 with the spike at step 21 against the same per-step
+    run: the same trips and the final state bitwise; the host's wait at
+    the boundary a step, sync-debug warnings of a guarded and an
+    unguarded step, host step ms guarded beside unguarded; then
+    ``dump_and_halt``: NumericsTripped at the step-3 boundary, and the
+    bundle's replay on the card reproduces the recorded loss bitwise and
+    names the first non-finite variable."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import fault, guardian
+
+    counts = {}
+    want_metrics = {"trips": 2, "skips": 2, "halts": 0, "spikes": 1,
+                    "nonfinite": 1}
+    trips = (GUARD_INF_STEP, GUARD_SPIKE_STEP)
+    run, metrics, held, kept, _ = guardian_drill(
+        TRAINER_STEPS, 0, GUARD_SPIKE_STEP, trips, tmp, snapshot=True)
+    add_counts(counts, run["launches"])
+    check_trainer_launches("guardian_transformer_amp", run["launches"],
+                           TRAINER_STEPS)
+    moved = {s: k["moved"] for s, k in kept.items()}
+    ok = ({k: metrics[k] for k in want_metrics} == want_metrics
+          and [r["step"] for r in held["records"]] == list(trips)
+          and sorted(kept) == list(trips)
+          and not any(moved.values()))
+    if not ok:
+        raise AssertionError(f"guardian_transformer_amp: metrics {metrics}, "
+                             f"trips {held['records']}, state moved by a "
+                             f"tripped step: {moved}")
+    per_step = {"metrics": metrics, "trips": held["records"],
+                "tensors_compared": {s: k["tensors"]
+                                     for s, k in kept.items()},
+                "boundary_wait_ms": held["waits_ms"],
+                "host_step_ms": [run["step_ms"][s]
+                                 for s in range(TRAINER_STEPS)]}
+    del run
+    torch.cuda.empty_cache()
+
+    # windows against the per-step path, the same faults
+    wtrips = (GUARD_INF_STEP, GUARD_WINDOW_SPIKE_STEP)
+    steps_run, steps_m, steps_held, _, steps_state = guardian_drill(
+        GUARD_WINDOW_STEPS, 0, GUARD_WINDOW_SPIKE_STEP, (), tmp)
+    add_counts(counts, steps_run["launches"])
+    del steps_run
+    torch.cuda.empty_cache()
+    win_run, win_m, win_held, _, win_state = guardian_drill(
+        GUARD_WINDOW_STEPS, TRAINER_SPD, GUARD_WINDOW_SPIKE_STEP, (), tmp)
+    add_counts(counts, win_run["launches"])
+    check_trainer_launches("guardian_transformer_amp (windows)",
+                           win_run["launches"], GUARD_WINDOW_STEPS)
+    differ = sorted(n for n in steps_state
+                    if not torch.equal(steps_state[n], win_state.get(n)))
+    windows = {"metrics": win_m, "trips": win_held["records"],
+               "per_step_metrics": steps_m,
+               "per_step_trips": steps_held["records"],
+               "state_bitwise_per_step": not differ,
+               "tensors_compared": len(steps_state),
+               "windows": win_run["windows"],
+               "boundary_wait_ms": win_held["waits_ms"]}
+    ok = ({k: win_m[k] for k in want_metrics} == want_metrics
+          and {k: steps_m[k] for k in want_metrics} == want_metrics
+          and [r["step"] for r in win_held["records"]] == list(wtrips)
+          and [r["step"] for r in steps_held["records"]] == list(wtrips)
+          and not differ)
+    if not ok:
+        raise AssertionError(f"guardian_transformer_amp (windows): {windows}"
+                             f"; differing tensors {differ[:8]}")
+    del win_run, steps_state, win_state
+    torch.cuda.empty_cache()
+
+    # sync-debug warnings and host ms of one more step, guarded and not
+    syncs = {}
+    step_host_ms = {}
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, cost = build_training(TRAIN_LEN, dropout=0.0,
+                                             flash=True)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        # fed from the card: the step's own host syncs alone are counted
+        feed = {k: torch.from_numpy(v).cuda()
+                for k, v in train_feed(TRAIN_BATCH, TRAIN_LEN).items()}
+        for guarded in (False, True, True, False):
+            if guarded:
+                guardian.enable("skip")
+            exe.run(main, feed=feed, scope=scope)  # a fetch-free step
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, scope=scope)
+                host = (time.perf_counter() - t0) * 1e3
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            kind = "guarded" if guarded else "unguarded"
+            syncs.setdefault(kind, []).append(sum(
+                "synchroniz" in str(w.message) for w in caught))
+            step_host_ms.setdefault(kind, []).append(host)
+            guardian.disable()
+        exe.close()
+        del scope
+    torch.cuda.empty_cache()
+
+    # dump_and_halt: the halt at the next boundary, the bundle replayed
+    fault.install(fault.FaultPlan(grad_inf_step=GUARD_INF_STEP,
+                                  mode="raise"))
+    g = guardian.enable("dump_and_halt",
+                        bundle_dir=os.path.join(tmp, "guardian_dumps"))
+    tripped = None
+    try:
+        trainer_run(None, n_batches=GUARD_INF_STEP + 2)
+    except guardian.NumericsTripped as e:
+        tripped = e
+    finally:
+        fault.clear()
+        guardian.disable()
+    if tripped is None or tripped.record.step != GUARD_INF_STEP \
+            or tripped.bundle is None:
+        raise AssertionError(f"guardian_transformer_amp: dump_and_halt "
+                             f"raised {tripped!r}")
+    t0 = time.perf_counter()
+    report = guardian.replay(tripped.bundle, place=fluid.CUDAPlace(0))
+    replay_s = time.perf_counter() - t0
+    if not (report["bitwise_match"] and report["first_nonfinite"]):
+        raise AssertionError(f"guardian_transformer_amp: replay {report}")
+    bundle_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                       for dp, _, fs in os.walk(tripped.bundle) for f in fs)
+    emit("guardian_transformer_amp", policy="skip",
+         grad_inf_step=GUARD_INF_STEP, loss_spike_step=GUARD_SPIKE_STEP,
+         spike_factor=GUARD_SPIKE_FACTOR, spike_window=GUARD_SPIKE_WINDOW,
+         per_step=per_step, windows=windows,
+         boundary_wait_ms_per_step=float(np.mean(per_step[
+             "boundary_wait_ms"])),
+         sync_debug_warnings_per_step=syncs,
+         host_step_ms_guarded_vs_unguarded=step_host_ms,
+         dump_and_halt={"raised_at_step_boundary": tripped.record.step + 1,
+                        "record": tripped.record.to_dict(),
+                        "bundle_bytes": bundle_bytes,
+                        "replay": {k: report[k] for k in (
+                            "bitwise_match", "recorded_loss_bits",
+                            "replayed_loss_bits", "first_nonfinite",
+                            "device", "n_ops")},
+                        "replay_s": replay_s},
+         launches=counts)
+    import shutil
+
+    shutil.rmtree(os.path.join(tmp, "guardian_dumps"), ignore_errors=True)
+    del g
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import argparse
 
@@ -10906,12 +11651,20 @@ def main():
                          "print where their time goes")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the decoder's training data (phase 41)")
+    ap.add_argument("--trainer-worker", metavar="DIR",
+                    help="run phase 66's Trainer worker over the checkpoint "
+                         "directory DIR (used by the script itself)")
+    ap.add_argument("--worker-out", metavar="FILE",
+                    help="where the Trainer worker writes its record")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repo "
                          "(paddle_tpu_torch/ not found beside this script)")
     sys.path.insert(0, here)
+    if args.trainer_worker:
+        trainer_worker(args.trainer_worker, args.worker_out)
+        return
     started = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -11130,6 +11883,16 @@ def main():
     phase_train_deepfm_optims()
     torch.cuda.empty_cache()
     phase_optim_ops_parity()
+    torch.cuda.empty_cache()
+    # the training machinery: Transformer-base through fluid.Trainer per
+    # step with serial checkpoints, killed and resumed in subprocesses, as
+    # windows, and under the guardian's drill (rows 1-5 and 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = phase_trainer_transformer_amp(tmp)
+        add_counts(total, full["launches"])
+        add_counts(total, phase_trainer_kill_resume(tmp, full))
+        add_counts(total, phase_trainer_windowed_amp(tmp, full))
+        add_counts(total, phase_guardian_transformer_amp(tmp))
     torch.cuda.empty_cache()
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)

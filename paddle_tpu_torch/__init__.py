@@ -10,11 +10,19 @@ It carries serving (the paged continuous-batching ``DecodeEngine``, with
 speculative decoding), training (Transformer and ResNet through
 ``fluid.Executor``, in fp32 and mixed precision, step by step or as CUDA
 graphs), evaluation, checkpoints in the JAX package's format
-(``fluid.io``) and the inference predictor (``paddle_tpu_torch.inference``).
+(``fluid.io``), the inference predictor (``paddle_tpu_torch.inference``),
+the training machinery (``fluid.Trainer`` with serial checkpoints,
+``fluid.guardian``, ``fluid.fault``) and the input side (``reader``,
+``dataset``, the checkpointable ``data`` pipeline).
 Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
 ``CPUPlace()``.
 """
 
 from . import fluid  # noqa: F401
+from . import reader  # noqa: F401
+from . import dataset  # noqa: F401
+from . import data  # noqa: F401
 
-__all__ = ["fluid"]
+batch = reader.batch
+
+__all__ = ["fluid", "reader", "dataset", "data", "batch"]

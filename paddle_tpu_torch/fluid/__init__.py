@@ -22,6 +22,7 @@ from . import backward
 from . import clip
 from . import optimizer
 from . import regularizer
+from . import fault
 from . import guardian
 from . import prefetch
 from .prefetch import DevicePrefetcher
@@ -43,6 +44,9 @@ from . import contrib
 from . import metrics
 from . import evaluator
 from .transpiler import InferenceTranspiler, memory_optimize, release_memory
+from . import trainer
+from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                      EndEpochEvent, EndStepEvent, Inferencer, Trainer)
 
 __all__ = [
     "amp", "core", "framework", "executor", "initializer", "layers", "nets",
@@ -63,4 +67,6 @@ __all__ = [
     "create_random_int_lodtensor", "save_vars", "save_params",
     "save_persistables", "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model", "get_inference_program",
+    "fault", "trainer", "Trainer", "Inferencer", "CheckpointConfig",
+    "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
 ]

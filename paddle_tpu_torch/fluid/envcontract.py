@@ -1,9 +1,12 @@
 """Env-knob contract (counterpart of ``paddle_tpu/fluid/envcontract.py``):
-the ``PADDLE_SERVE_*`` knobs the serving slice reads, the fault knobs of
-``fluid.fault``, the I/O retry knobs of ``fluid.retry``, the
-``PADDLE_TPU_AMP*`` knobs of ``fluid.amp`` and the prefetcher's
-``PADDLE_TPU_PREFETCH_DEPTH``, with the reference's names, types and
-defaults.  Values are read live through :func:`get`."""
+the ``PADDLE_SERVE_*`` knobs the serving slice reads, every
+``PADDLE_FAULT_*`` knob of ``fluid.fault``, the I/O retry knobs of
+``fluid.retry``, the ``PADDLE_TPU_AMP*`` knobs of ``fluid.amp``, the
+``PADDLE_TPU_GUARDIAN*`` knobs of ``fluid.guardian``, the trainer's
+``PADDLE_TPU_SPD`` and ``PADDLE_TPU_PREFETCH_DEPTH``, the data plane's
+``PADDLE_DATA_*`` knobs, and the rank and incident-log knobs they read,
+with the reference's names, types and defaults.  Values are read live
+through :func:`get`."""
 
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 __all__ = ["EnvKnob", "declare", "get", "REGISTRY"]
 
-_TYPES = ("str", "int", "float", "bool", "enum")
+_TYPES = ("str", "int", "float", "bool", "enum", "path", "prefix")
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -49,7 +52,7 @@ class EnvKnob:
         if self.type == "enum":
             low = raw.lower()
             return low if low in self.choices else self.default
-        return raw
+        return raw  # str / path / prefix
 
 
 REGISTRY: Dict[str, EnvKnob] = {}
@@ -122,20 +125,106 @@ declare("PADDLE_SERVE_SPEC_WINDOW", "int", 32, "serving",
         "Spec-tick window of the rolling acceptance rate and the adaptive "
         "controller (also the fallback cooldown, in plain ticks)")
 
-# -- fault injection (fluid/fault.py) --
-declare("PADDLE_FAULT_SPEC_DRAFT_POISON", "int", None, "fault",
-        "Speculative-draft poison: from engine tick n on, every drafted "
-        "token is replaced with deterministic garbage, so acceptance "
-        "collapses and the spec controller must fall back, while the "
-        "emitted streams stay bitwise correct")
+# -- fault injection (PADDLE_FAULT_* family; fluid/fault.py) --
+declare("PADDLE_FAULT_", "prefix", None, "fault",
+        "Family prefix: any PADDLE_FAULT_* key is part of the injection "
+        "contract parsed by fluid.fault.FaultPlan.from_env")
+declare("PADDLE_FAULT_KILL_STEP", "int", None, "fault",
+        "Kill this process at training step N")
+declare("PADDLE_FAULT_MODE", "str", "exit", "fault",
+        "Crash flavor: hard process exit (default) or an in-process "
+        "InjectedFault raise (exit|raise)")
+declare("PADDLE_FAULT_RANK", "int", None, "fault",
+        "Restrict armed faults to one trainer rank")
+declare("PADDLE_FAULT_CKPT_CRASH", "str", None, "fault",
+        "Crash inside checkpoint save (before|after the _SUCCESS commit)")
 declare("PADDLE_FAULT_IO_DELAY_MS", "float", 0.0, "fault",
-        "Inject IO delay into checkpoint read/write paths (ms)")
+        "Inject IO delay into checkpoint writes and prefetch staging (ms)")
+declare("PADDLE_FAULT_NAN_VAR", "str", None, "fault",
+        "Corrupt this state var with NaNs after a step")
+declare("PADDLE_FAULT_NAN_STEP", "int", 0, "fault",
+        "Step at which the NaN corruption fires")
+declare("PADDLE_FAULT_GRAD_INF_STEP", "int", None, "fault",
+        "Poison the backward seed with Inf at step N (on the device)")
+declare("PADDLE_FAULT_GRAD_INF_VALUE", "float", float("inf"), "fault",
+        "Poison value for the grad-Inf injection")
+declare("PADDLE_FAULT_LOSS_SPIKE_STEP", "int", None, "fault",
+        "Multiply the observed loss at step N (spike injection)")
+declare("PADDLE_FAULT_LOSS_SPIKE_FACTOR", "float", 1e4, "fault",
+        "Spike multiplication factor")
+declare("PADDLE_FAULT_BARRIER_STALL", "float", 0.0, "fault",
+        "Stall this rank's barrier entry (seconds)")
+declare("PADDLE_FAULT_SERVE_DELAY_MS", "float", 0.0, "fault",
+        "Per-request serving delay injection (ms)")
+declare("PADDLE_FAULT_SERVE_FAIL_EVERY", "int", 0, "fault",
+        "Fail every Nth serving request with InjectedFault")
+declare("PADDLE_FAULT_DECODE_STALL_MS", "float", 0.0, "fault",
+        "Stall every continuous-batching decode tick (ms): deterministic "
+        "inter-token-latency inflation")
+declare("PADDLE_FAULT_CKPT_POISON_SERIAL", "int", None, "fault",
+        "NaN-poison checkpoint serial n at save time, committed WITH a "
+        "valid _SUCCESS")
+declare("PADDLE_FAULT_CACHE_CORRUPT", "bool", False, "fault",
+        "Deterministically corrupt the next compile-cache read")
+declare("PADDLE_FAULT_DATA_STALL_MS", "float", 0.0, "fault",
+        "Stall the input pipeline per pulled sample (ms)")
+declare("PADDLE_FAULT_DATA_STALL_AT", "int", None, "fault",
+        "Fire the data stall once, at this source sample cursor")
+declare("PADDLE_FAULT_SHARD_CORRUPT", "bool", False, "fault",
+        "Truncate the next data_state blob write (one-shot)")
+declare("PADDLE_FAULT_MEM_PRESSURE", "float", 0.0, "fault",
+        "Synthesize a memory leak: after PADDLE_FAULT_MEM_PRESSURE_AT "
+        "ledger observations, add this many MB of phantom live bytes, "
+        "doubling per observation")
+declare("PADDLE_FAULT_MEM_PRESSURE_AT", "int", 8, "fault",
+        "Ledger observation count at which the synthetic leak starts")
+declare("PADDLE_FAULT_STRAGGLER_RANK", "int", None, "fault",
+        "Deterministic straggler oracle: slow down exactly this trainer "
+        "rank (ignores PADDLE_FAULT_RANK)")
+declare("PADDLE_FAULT_STRAGGLER_MS", "float", 0.0, "fault",
+        "Per-step delay (ms) injected into the straggler rank's step "
+        "boundary")
+declare("PADDLE_FAULT_HOST_LOSS_RANK", "int", None, "fault",
+        "Permanent host loss: this rank exits hard at the armed step "
+        "boundary and drops a host_lost marker for the supervisor census")
+declare("PADDLE_FAULT_HOST_LOSS_AT_STEP", "int", 0, "fault",
+        "Training step at which the host-loss fault fires")
+declare("PADDLE_FAULT_REPLICA_KILL_AFTER", "int", None, "fault",
+        "Serving-fleet replica death: kill the replica that served the "
+        "n-th fleet request (one-shot)")
 declare("PADDLE_FAULT_IO_ERROR_RATE", "float", 0.0, "fault",
         "Transient-storage oracle: fraction of (path, op) keys whose "
         "FIRST read/write attempt raises OSError (seeded per-path hash; "
         "the retry always succeeds)")
 declare("PADDLE_FAULT_IO_ERROR_SEED", "int", 0, "fault",
         "Seed for the transient-I/O oracle's per-path failure hash")
+declare("PADDLE_FAULT_KV_PAGE_LEAK", "int", None, "fault",
+        "Paged-KV leak oracle: the page-pool allocator SKIPS the next n "
+        "frees (one-shot), so pages_free never returns to its initial "
+        "level")
+declare("PADDLE_FAULT_SPEC_DRAFT_POISON", "int", None, "fault",
+        "Speculative-draft poison: from engine tick n on, every drafted "
+        "token is replaced with deterministic garbage, so acceptance "
+        "collapses and the spec controller must fall back, while the "
+        "emitted streams stay bitwise correct")
+
+# -- the rank and the incident log the fault and guardian hooks read --
+declare("PADDLE_TRAINER_ID", "int", 0, "parallel",
+        "This process's trainer rank (the fault rank filter's source)")
+declare("PADDLE_ELASTIC_INCIDENTS", "path", None, "elastic",
+        "Incident log (jsonl) a guardian trip appends one line to")
+
+# -- guardian (fluid/guardian.py) --
+declare("PADDLE_TPU_GUARDIAN", "str", None, "guardian",
+        "Arm the numerics guardian (skip|halt|dump_and_halt, or 1=skip)")
+declare("PADDLE_TPU_GUARDIAN_SPIKE", "float", 0.0, "guardian",
+        "Loss-spike rejection factor over the window median (0 = off)")
+declare("PADDLE_TPU_GUARDIAN_WINDOW", "int", 32, "guardian",
+        "Spike-median window length (steps)")
+declare("PADDLE_TPU_GUARDIAN_RING", "int", 128, "guardian",
+        "Flight-recorder ring size (steps)")
+declare("PADDLE_TPU_GUARDIAN_DIR", "path", None, "guardian",
+        "Flight-recorder replay-bundle directory")
 
 # -- transient-I/O retry (fluid.retry, wraps checkpoint read/write) --
 declare("PADDLE_IO_RETRIES", "int", 3, "io",
@@ -146,6 +235,9 @@ declare("PADDLE_IO_RETRY_BASE_S", "float", 0.05, "io",
         "doubling per attempt, capped at 2 s)")
 
 # -- trainer --
+declare("PADDLE_TPU_SPD", "int", 0, "trainer",
+        "Steps per dispatch: K>1 runs the trainer loop as K-step "
+        "windows (Executor.run_steps)")
 declare("PADDLE_TPU_PREFETCH_DEPTH", "int", 2, "trainer",
         "Device prefetch depth for windowed training (0 = synchronous)")
 
@@ -158,3 +250,11 @@ declare("PADDLE_TPU_AMP_INIT_SCALE", "float", 2.0 ** 15, "amp",
         "Initial dynamic fp16 loss scale")
 declare("PADDLE_TPU_AMP_SCALE_INTERVAL", "int", 1000, "amp",
         "Overflow-free steps between loss-scale growth events")
+
+# -- data plane (paddle_tpu_torch.data) --
+declare("PADDLE_DATA_CKPT", "bool", True, "data",
+        "Commit/restore checkpointable-reader state with checkpoints "
+        "(0 falls back to sample-skip replay)")
+declare("PADDLE_DATA_STALL_EVENT_MS", "float", 100.0, "data",
+        "Input waits above this count as a data stall "
+        "(data.stall_events)")

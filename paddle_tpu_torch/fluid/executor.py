@@ -39,13 +39,19 @@ runs it eagerly, op by op, with PyTorch on the place's device:
    that an op of the plan updates in place is cloned first, so the
    caller's tensor is never written; numpy feeds are always copied.
 
- - a program built with ``fluid.amp`` dynamic loss scaling runs guarded
-   (``fluid/guardian.py``): the backward seed is multiplied by the loss
-   scale; before the first ``Optimize``-role op one host read checks that
-   the loss and every raw grad are finite; on overflow the ``Optimize``
-   ops are skipped and every read-write persistable keeps the value the
-   step started from (the ops before them only rebind names), and the
-   scale vars are updated either way.
+ - a training program runs guarded (``fluid/guardian.py``) while a
+   guardian is armed, or when built with ``fluid.amp`` dynamic loss
+   scaling: the backward seed is multiplied by the loss scale and the
+   fault layer's grad-Inf injection; with a guardian armed, the ops that
+   update state in place are snapshot before the first ``Optimize``-role
+   op, every read-write persistable is committed as ``torch.where(ok,
+   new, old)`` and the step's health goes to the guardian; a loss-scaled
+   program with no guardian keeps one host read of the finite flag before
+   the first ``Optimize`` op and skips those ops on overflow (bitwise the
+   device gate).  The scale vars are updated either way.
+ - a training program's run (or window) passes the fault layer's step
+   boundary first (``fluid/fault.py``: kill-at-step, the straggler), and
+   its new state passes ``fault.corrupt_state`` (the NaN injection).
 
 ``run_steps`` runs ``n`` steps as one window (the reference's ``lax.scan``
 over its traced step): ``_Window`` keeps a static buffer per state name
@@ -96,13 +102,13 @@ would otherwise keep that batch's LoD (through its grad and the optimizer
 op) and refuse the next batch (a repair of the rule the reference still
 has).
 
-No jit, compile cache or verifier in this slice, and of the guardian only
-the loss scaler's part.
+No jit, compile cache or verifier in this slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 import weakref
 from typing import Dict, List, Sequence
 
@@ -636,26 +642,25 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
              seed_mul=None, device_flag=False):
     """Run ``plan``'s ops against ``env``.  Guarded (``guard``): before the
     first ``Optimize`` op, either read the finite flag on the host and skip
-    the ``Optimize`` ops on overflow, or (``device_flag``) take the flag as
-    a device tensor, snapshot what those ops update in place and run them
-    all.  Returns ``(finite, snapshot)``: the flag (None if no
-    ``Optimize`` op came: the caller takes it at the end) and the
-    snapshot."""
+    the ``Optimize`` ops on overflow (the loss scaler's host gate), or
+    (``device_flag``) snapshot what those ops update in place and run them
+    all (the caller commits ``torch.where(ok, new, old)``).  Returns
+    ``(finite, snapshot)``: the host flag (None on the device gate, or if
+    no ``Optimize`` op came) and the snapshot."""
     from . import guardian as _guardian
 
     updated = None if plan.checked else {}
     finite, snapshot, skip = None, {}, False
     for k, op in enumerate(plan.ops):
         if guard is not None and k == plan.first_optimize:
-            loss = env[guard.loss_name]
-            grads = [env[n] for n in guard.grad_names]
             if device_flag:
-                finite = _guardian.finite_flag(loss, grads)
                 snapshot = {n: env[n].clone()
                             for n in plan.optimize_in_place
                             if isinstance(env.get(n), torch.Tensor)}
             else:
-                finite = _guardian.step_finite(loss, grads)
+                finite = _guardian.step_finite(
+                    env[guard.loss_name],
+                    [env[n] for n in guard.grad_names])
                 skip = not finite
         if skip and plan.optimize[k]:
             # overflow: the update is skipped (its group with it)
@@ -698,6 +703,37 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
         _check_no_alias("the fetch list", fetch_names, env, updated)
         plan.checked = True
     return finite, snapshot
+
+
+def _run_step(plan, env, device, generator, fetch_names, guard=None,
+              sentinel=None, gate=None, state=None):
+    """One step of ``plan`` over ``env``; returns ``(new_state, health)``.
+    Unguarded: the persistable outputs, health None.  Guarded: the seed
+    multiplied by :func:`~.guardian.seed_multiplier` (``sentinel``: the
+    step's ``seed_mul``, ``loss_mul``, ``loss_cap``; ``state``: the scale
+    vars), then the commit of :func:`~.guardian.fold_health`: with
+    ``gate="device"`` a snapshot of what the ``Optimize`` ops update in
+    place and ``torch.where(ok, new, old)`` on the device (health: 0-d
+    device tensors); with ``gate="host"`` the loss scaler's host read,
+    the ``Optimize`` ops skipped on overflow (health None)."""
+    from . import guardian as _guardian
+
+    if guard is None:
+        _execute(plan, env, device, generator, fetch_names)
+        return {n: env[n] for n in plan.state_out}, None
+    start = dict(env)
+    seed_mul = _guardian.seed_multiplier(guard, state, sentinel, device)
+    finite, snapshot = _execute(plan, env, device, generator, fetch_names,
+                                guard, seed_mul,
+                                device_flag=gate == "device")
+    extra = [env[n] for n in guard.extra_fetch_names()]
+    if gate != "device" and finite is None:
+        finite = _guardian.step_finite(extra[0], extra[1:])
+    return _guardian.fold_health(
+        guard, extra, {n: env[n] for n in plan.state_out},
+        {n: snapshot.get(n, start[n]) for n in plan.state_out
+         if n in start},
+        state, sentinel, finite=finite)
 
 
 def _check_nan_inf(named_vals):
@@ -789,21 +825,39 @@ class _Window:
     window by a :class:`~.cuda_graph.StepGraph`: a buffer per state name
     (``state_in``, ``state_out`` and the guard's scale vars), a buffer per
     feed (one step's slice), and the tensors the last step fetched.  The
-    scope holds the state buffers between windows."""
+    scope holds the state buffers between windows.  A guarded step also
+    reads static sentinel buffers (``seed_mul``, ``loss_mul``,
+    ``loss_cap``, the step's index in the window and the window's length,
+    written before each step) and folds its health into the window's
+    aggregate buffers (:func:`~.guardian.window_health_update`)."""
 
     def __init__(self, plan, guard, fetch_names, feed_specs, scope, device,
                  generator):
+        from . import guardian as _guardian
+
         self.plan, self.guard, self.device = plan, guard, device
         self.fetch_names = fetch_names
         self.scope = weakref.ref(scope)
         self.generator = generator
-        scale_vars = list(guard.scale_vars) if guard is not None else []
+        scale_vars = list(guard.scale_vars or ()) if guard is not None \
+            else []
         self.read = [n for n in dict.fromkeys(plan.state_in + scale_vars)
                      if n not in feed_specs]
         self.bufs: Dict[str, torch.Tensor] = {}
         self.feed_bufs = {n: torch.empty(shape, dtype=dtype, device=device)
                           for n, (shape, dtype) in feed_specs.items()}
         self.fetched: List[torch.Tensor] = []
+        self.sent: Dict[str, torch.Tensor] = {}
+        self.agg: Dict[str, torch.Tensor] = {}
+        if guard is not None:
+            self.sent = {k: torch.ones((), dtype=torch.float32,
+                                       device=device)
+                         for k in ("seed_mul", "loss_mul", "loss_cap")}
+            self.sent["step_i"] = torch.zeros((), dtype=torch.int32,
+                                              device=device)
+            self.sent["n_steps"] = torch.zeros((), dtype=torch.int32,
+                                               device=device)
+            self.agg = _guardian.window_health_init(0, device)
         self.graph = StepGraph(self._step, device,
                                [generator] if generator is not None else [])
 
@@ -835,22 +889,15 @@ class _Window:
                                   if n in bufs}
         env.update(self.feed_bufs)
         env.update(plan.consts)
-        start = dict(env)
-        seed_mul = (_guardian.seed_multiplier(guard, bufs)
-                    if guard is not None else None)
-        finite, snapshot = _execute(plan, env, self.device, self.generator,
-                                    self.fetch_names, guard, seed_mul,
-                                    device_flag=True)
-        new_state = {n: env[n] for n in plan.state_out}
-        if guard is not None:
-            if finite is None:
-                finite = _guardian.finite_flag(
-                    env[guard.loss_name], [env[n] for n in guard.grad_names])
-            new_state = _guardian.fold_health(
-                guard, finite, new_state,
-                {n: snapshot.get(n, start[n]) for n in plan.state_out
-                 if n in start}, bufs)
+        new_state, health = _run_step(plan, env, self.device,
+                                      self.generator, self.fetch_names,
+                                      guard, self.sent, "device", bufs)
         self._commit(new_state)
+        if health is not None:
+            agg = _guardian.window_health_update(
+                self.agg, health, self.sent["step_i"], self.sent["n_steps"])
+            for k, v in agg.items():
+                self.agg[k].copy_(v)
         self.fetched = [env[n] for n in self.fetch_names]
 
     def _commit(self, new_state):
@@ -878,9 +925,22 @@ class _Window:
         for b, v in pending:
             b.copy_(v)
 
-    def run(self, scope, feed_vals, n_steps, feed_per_step):
+    def _start_window(self, n_steps, sentinel):
+        """Before a guarded window's first step: its length, its loss cap
+        and a fresh aggregate, written into the static buffers."""
+        from . import guardian as _guardian
+
+        self.sent["n_steps"].fill_(n_steps)
+        self.sent["loss_cap"].fill_(float(sentinel["loss_cap"]))
+        for k, v in _guardian.window_health_init(n_steps,
+                                                 self.device).items():
+            self.agg[k].copy_(v)
+
+    def run(self, scope, feed_vals, n_steps, feed_per_step, sentinel=None):
+        """Run ``n_steps`` steps; ``sentinel`` (guarded): the window's
+        ``loss_cap`` and per-step ``seed_mul`` / ``loss_mul`` arrays."""
         if feed_per_step:
-            def before(i):
+            def feed_step(i):
                 for k, v in feed_vals.items():
                     self.feed_bufs[k].copy_(v[i])
         else:
@@ -889,9 +949,20 @@ class _Window:
             # a feed that an op updates in place starts each step afresh
             again = [k for k in feed_vals if k in self.plan.in_place_names]
 
-            def before(i):
+            def feed_step(i):
                 for k in again:
                     self.feed_bufs[k].copy_(feed_vals[k])
+
+        if self.guard is not None:
+            self._start_window(n_steps, sentinel)
+
+            def before(i):
+                feed_step(i)
+                self.sent["step_i"].fill_(i)
+                self.sent["seed_mul"].fill_(float(sentinel["seed_mul"][i]))
+                self.sent["loss_mul"].fill_(float(sentinel["loss_mul"][i]))
+        else:
+            before = feed_step
         self.graph.run(n_steps, before)
         for n, b in self.bufs.items():
             scope.set(n, b)
@@ -966,6 +1037,48 @@ class Executor:
             gen.manual_seed(int(program.random_seed or 0))
         return gen
 
+    @staticmethod
+    def _step_boundary(n_steps: int = 1) -> int:
+        """The training-step boundary of a run (``n_steps`` 1) or a window:
+        fires the armed step faults (a kill armed inside a window fires
+        before it) and the straggler's delay.  Returns the first step the
+        dispatch runs (the index the guardian's sentinel keys on)."""
+        from . import fault as _fault
+
+        fired = _fault.current_step()
+        if _fault.active() is not None:
+            if n_steps == 1:
+                fired = _fault.on_step()
+            else:
+                _fault.advance(n_steps)
+            _fault.straggler_delay(n_steps)
+        else:
+            _fault._step += n_steps  # the guardian's step index flows on
+        return fired
+
+    def _dump_context(self, plan, guard, scope, env, feed_vals, feed_lods,
+                      fetch_names, generator):
+        """What a replay bundle needs of the step (or window) about to run,
+        under the ``dump_and_halt`` policy: copies of its feeds and of
+        every state tensor it reads (the step updates some in place), the
+        scale vars among them, the generator's state and the AMP mode
+        (ops cast by it as they run)."""
+        from . import amp as _amp
+
+        state = {}
+        for n in dict.fromkeys(plan.state_in + list(guard.scale_vars or ())):
+            v = env.get(n, scope.get(n))
+            if n not in feed_vals and isinstance(v, torch.Tensor):
+                state[n] = v.clone()
+        return {"feeds": {k: v.clone() for k, v in feed_vals.items()},
+                "feed_lods": {k[:-len(LOD_SUFFIX)]: v
+                              for k, v in feed_lods.items()},
+                "state": state, "fetch_names": list(fetch_names),
+                "device": self.device.type,
+                "amp": [_amp.compute_dtype(), _amp.keep_low_activations()],
+                "rng_state": (generator.get_state() if generator is not None
+                              else None)}
+
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
@@ -976,7 +1089,15 @@ class Executor:
         nothing.  ``feed_var_name`` and ``fetch_var_name`` are accepted as
         in the reference, which names no feed or fetch var either.  With
         ``return_numpy=False`` a fetch that carries a LoD comes back as a
-        ``LoDTensor`` over the copy."""
+        ``LoDTensor`` over the copy.
+
+        A training program (built by ``Optimizer.minimize``) passes the
+        fault layer's step boundary first (``fluid.fault``); guarded
+        (``fluid.guardian``: a guardian armed, or a loss-scaled program)
+        it runs the sentinel, and with a guardian armed the commit gate is
+        on the device and the step's health goes to the guardian, which
+        reads it at the next boundary."""
+        from . import fault as _fault
         from . import guardian as _guardian
 
         program = program or default_main_program()
@@ -992,7 +1113,8 @@ class Executor:
         program = _prune_for_unfed(program, feed_vals, fetch_names, scope)
         guard = _guardian.for_program(program)
         key = (program._cache_token, program._version,
-               tuple(sorted(feed_vals)), tuple(fetch_names))
+               tuple(sorted(feed_vals)), tuple(fetch_names),
+               guard.cache_token() if guard is not None else None)
         plan = self._plans.get(key) if use_program_cache else None
         if plan is None:
             # a guarded step keeps the loss and the raw grads to its check
@@ -1022,23 +1144,33 @@ class Executor:
         env.update(plan.consts)
         generator = self._generator(scope, program) if plan.needs_rng \
             else None
-        started, seed_mul = None, None
+        step_idx = 0
+        if getattr(program, "_params_grads", None) is not None:
+            # the training-step boundary: armed step faults fire here
+            step_idx = self._step_boundary()
+        g = _guardian.current() if guard is not None else None
+        if g is not None:
+            # one step late: observe the PREVIOUS step's health and apply
+            # the policy before this step runs
+            g.on_boundary()
+        sentinel, ctx = None, None
         if guard is not None:
-            started = dict(env)
-            seed_mul = _guardian.seed_multiplier(
-                guard, {n: scope.get(n) for n in guard.scale_vars})
-        finite, _ = _execute(plan, env, self.device, generator, fetch_names,
-                             guard, seed_mul)
-        new_state = {name: env[name] for name in plan.state_out}
-        if guard is not None:
-            if finite is None:
-                finite = _guardian.step_finite(
-                    env[guard.loss_name], [env[n] for n in guard.grad_names])
-            scale_state = {n: scope.get(n) for n in guard.scale_vars}
-            new_state = _guardian.fold_health(
-                guard, finite, new_state,
-                {n: started[n] for n in plan.state_out if n in started},
-                scale_state)
+            seed_mul, loss_mul = _fault.sentinel_injection(step_idx)
+            sentinel = {"loss_cap": np.float32(g.loss_cap() if g is not None
+                                               else float("inf")),
+                        "seed_mul": np.float32(seed_mul),
+                        "loss_mul": np.float32(loss_mul)}
+        if g is not None and g.config.policy == "dump_and_halt":
+            ctx = self._dump_context(plan, guard, scope, env, feed_vals,
+                                     feed_lods, fetch_names, generator)
+        t0 = time.perf_counter()
+        new_state, health = _run_step(
+            plan, env, self.device, generator, fetch_names, guard, sentinel,
+            "device" if g is not None else "host",
+            {n: scope.get(n) for n in (guard.scale_vars or ())}
+            if guard is not None else None)
+        if _fault.active() is not None:
+            new_state = _fault.corrupt_state(new_state)
         for name, val in new_state.items():
             scope.set(name, val)
             lod = env.get(name + LOD_SUFFIX)
@@ -1046,6 +1178,10 @@ class Executor:
                 scope._lods[name] = lod
         _check_nan_inf(list(new_state.items())
                        + [(n, env[n]) for n in fetch_names])
+        if g is not None:
+            ctx = dict(ctx or {}, program=program, sentinel=sentinel,
+                       duration_s=time.perf_counter() - t0)
+            g.defer(guard, step_idx, _guardian.HealthCopy(health), ctx)
         if not return_numpy:
             out = []
             for n in fetch_names:
@@ -1070,13 +1206,17 @@ class Executor:
         captured as one CUDA graph and every later step replays it
         (``fluid/cuda_graph.py``); on the CPU every step runs eagerly.
         There is no eager loop on the card: a step that cannot be captured
-        raises.  A guarded (fp16 loss-scaled) program gates its update on
-        the device (``fluid/guardian.py``), bitwise as ``run`` does.  A
-        value ``scope.set`` between windows is copied into its buffer, or
-        the step is built anew if its shape or dtype changed.  Programs
-        with data-dependent ops and LoD feeds raise, as in the
-        reference."""
+        raises.  A guarded program (a guardian armed, or fp16 loss
+        scaling) gates its update on the device (``fluid/guardian.py``),
+        bitwise as ``run`` does; the window's fault boundary fires a kill
+        armed inside it before it runs, its per-step sentinel inputs are
+        written before each step, and its aggregate health goes to the
+        guardian, read at the next boundary.  A value ``scope.set``
+        between windows is copied into its buffer, or the step is built
+        anew if its shape or dtype changed.  Programs with data-dependent
+        ops and LoD feeds raise, as in the reference."""
         from . import amp as _amp
+        from . import fault as _fault
         from . import guardian as _guardian
 
         program = program or default_main_program()
@@ -1108,7 +1248,7 @@ class Executor:
                tuple(sorted((k, shape, str(dt))
                             for k, (shape, dt) in specs.items())),
                _amp.compute_dtype(), _amp.keep_low_activations(),
-               guard is not None)
+               guard.cache_token() if guard is not None else None)
         win = self._windows.get(key)
         if win is None:
             extra = guard.extra_fetch_names() if guard is not None else []
@@ -1135,7 +1275,35 @@ class Executor:
                           self.device, generator)
             win.load(scope)
             self._windows[key] = win
-        fetched = win.run(scope, feed_vals, n_steps, feed_per_step)
+        window_start = 0
+        if getattr(program, "_params_grads", None) is not None:
+            window_start = self._step_boundary(n_steps)
+        g = _guardian.current() if guard is not None else None
+        if g is not None:
+            g.on_boundary()  # the previous dispatch's health, one late
+        sentinel, ctx = None, None
+        if guard is not None:
+            seed_mul, loss_mul = _fault.sentinel_injection_window(
+                window_start, n_steps)
+            sentinel = {"loss_cap": np.float32(g.loss_cap() if g is not None
+                                               else float("inf")),
+                        "seed_mul": seed_mul, "loss_mul": loss_mul}
+        if g is not None and g.config.policy == "dump_and_halt":
+            ctx = self._dump_context(plan, guard, scope, win.bufs, feed_vals,
+                                     {}, fetch_names, generator)
+        t0 = time.perf_counter()
+        fetched = win.run(scope, feed_vals, n_steps, feed_per_step, sentinel)
+        if _fault.active() is not None:
+            state = {n: scope.get(n) for n in win.plan.state_out}
+            for n, v in _fault.corrupt_state(state).items():
+                if v is not state[n]:
+                    scope.set(n, v)
         _check_nan_inf([(n, scope.get(n)) for n in win.plan.state_out]
                        + list(zip(fetch_names, fetched)))
+        if g is not None:
+            ctx = dict(ctx or {}, program=program, sentinel=sentinel,
+                       duration_s=time.perf_counter() - t0,
+                       window={"start": window_start, "n_steps": n_steps,
+                               "feed_per_step": bool(feed_per_step)})
+            g.defer(guard, window_start, _guardian.HealthCopy(win.agg), ctx)
         return fetched

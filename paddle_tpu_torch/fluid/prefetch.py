@@ -25,8 +25,10 @@ Contract (the reference's):
    wedging on a queue nobody reads;
  - ``depth=0`` stages synchronously in the caller's thread.
 
-The reference's fault-injection delay (``fluid.fault.io_delay``) and its
-trace spans and memory ledger are not ported.
+Each staged window first takes the fault layer's slow-input delay
+(``fluid.fault.io_delay``, ``PADDLE_FAULT_IO_DELAY_MS``), as in the
+reference.  The reference's trace spans and memory ledger come with
+``observe`` (``ROADMAP.md`` queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -196,6 +198,9 @@ class DevicePrefetcher:
         self._abort = Event()
 
     def _stage(self, batches) -> Tuple[Dict[str, torch.Tensor], int, object]:
+        from . import fault as _fault
+
+        _fault.io_delay()  # the deterministic slow-input oracle
         if self._stager is None:
             self._stager = _Stager(_resolve_device(self._place))
         staged, event = self._stager.stage(

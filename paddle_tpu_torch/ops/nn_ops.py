@@ -240,11 +240,13 @@ def lookup_table_grad(ctx):
     """``is_sparse``: a :class:`~..fluid.selected_rows.SelectedRows` of
     (the ids, one row of dOut per occurrence), padding rows zeroed, in the
     table's dtype; no dense ``[V, D]`` grad is made.  Dense: scatter-add
-    the rows of dOut into zeros, like the reference's dense kernel.  On
-    CUDA ``index_add_`` adds repeated ids with atomics in no fixed order,
-    so the dense grad (and a sparse one once folded) is not bitwise
-    repeatable from run to run there; no training result of the port is
-    claimed bitwise."""
+    the rows of dOut into zeros, like the reference's dense kernel: on the
+    CPU by ``index_add_``; on CUDA by ``embedding_dense_backward``, which
+    sorts the ids and sums each id's rows in a fixed order, where
+    ``index_add_`` adds repeated ids with atomics in no fixed order.  So
+    the dense grad is bitwise repeatable from run to run on the card too
+    (a resumed run, and a graphed window, can equal the run they stand
+    for); a sparse grad once folded by ``index_add_`` is not."""
     from ..fluid.selected_rows import SelectedRows
 
     w = ctx.input("W")
@@ -257,6 +259,9 @@ def lookup_table_grad(ctx):
     vals = dout.reshape(-1, dout.shape[-1]).to(w.dtype)
     if ctx.attr("is_sparse", False):
         return {"W@GRAD": SelectedRows(rows, vals, height=w.shape[0])}
+    if vals.device.type == "cuda":
+        return {"W@GRAD": torch.ops.aten.embedding_dense_backward(
+            vals, rows, w.shape[0], -1, False)}
     return {"W@GRAD": torch.zeros_like(w).index_add_(0, rows, vals)}
 
 

@@ -245,6 +245,8 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def _loop(self):
+        from ..fluid import fault as _fault
+
         while True:
             with self._cond:
                 while not self._n_active and not self._stopped \
@@ -253,6 +255,8 @@ class DecodeEngine:
                 if self._stopped:
                     break
             with self._dispatch_lock:
+                # the per-tick injected stall (PADDLE_FAULT_DECODE_STALL_MS)
+                _fault.decode_stall()
                 self._reap_abandoned()
                 self._admit()
                 if self._n_active:

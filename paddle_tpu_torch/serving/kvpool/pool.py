@@ -94,10 +94,10 @@ class PagePool:
 
     @property
     def pages_leaked(self) -> int:
-        """Pages neither free nor held by any slot: 0 unless a release path
-        lost one.  (The reference counts the frees its page-leak fault
-        oracle skipped; the port has no such oracle, so it counts what the
-        free list and the slots' page lists miss.)"""
+        """Pages neither free nor held by any slot: the frees the page-leak
+        fault oracle (``PADDLE_FAULT_KV_PAGE_LEAK``, ``fluid.fault.
+        kv_page_leak``) made the pool skip, and any page a release path
+        lost: what the free list and the slots' page lists miss."""
         with self._lock:
             held = {p for pages in self._slot_pages.values() for p in pages}
             return self.num_pages - len(self._free) - len(held)
@@ -203,8 +203,11 @@ class PagePool:
 
     def _drop_page_locked(self, page: int) -> int:
         """The single page-release path: refcount decrement, prefix-index
-        eviction at zero, then the free.  Returns pages actually freed (0
-        for a page still shared)."""
+        eviction at zero, then the free, unless the page-leak fault oracle
+        skips it (the page then never returns).  Returns pages actually
+        freed (0 for a page still shared or leaked)."""
+        from ...fluid import fault as _fault
+
         self._ref[page] -= 1
         if self._ref[page] > 0:
             return 0
@@ -213,6 +216,8 @@ class PagePool:
         # evict the prefix entry only if it still names this page
         if key is not None and self._index.get(key) == page:
             del self._index[key]
+        if _fault.kv_page_leak():
+            return 0  # the skipped free: the page never returns
         self._free.append(page)
         return 1
 

@@ -278,10 +278,19 @@ def test_fp16_loss_scaler_matches_reference():
 
 
 def test_guardian_policies_are_not_ported():
+    """The guardian's policies are ported now (this test once held that
+    ``enable`` raised): ``enable`` arms a guardian with the policy, an
+    unknown policy raises, ``disable`` disarms it."""
     from paddle_tpu_torch.fluid import guardian
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        guardian.enable("skip")
+    try:
+        g = guardian.enable("skip")
+        assert guardian.current() is g and g.config.policy == "skip"
+        with pytest.raises(ValueError, match="policy"):
+            guardian.enable("bogus")
+    finally:
+        guardian.disable()
+    assert guardian.current() is None
 
 
 def test_unscaled_program_runs_unguarded():
