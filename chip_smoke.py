@@ -34,7 +34,11 @@ MNIST MLP under Adam with LARS and DeepFM under each remaining optimizer,
 holds their update ops against the CPU, then trains Transformer-base
 through ``fluid.Trainer`` with serial checkpoints and the checkpointable
 ``data`` pipeline, kills it and resumes it in subprocesses, runs it as
-windows and under the numerics guardian's drill, and checks them all.
+windows and under the numerics guardian's drill, then builds the native
+input library and trains ResNet-50 from recordio shards through the
+in-graph readers (``open_files``, ``batch``, ``double_buffer``,
+``read_file``) and a sequence model through ``py_reader`` with a LoD slot,
+and checks them all.
 
     python3 chip_smoke.py
 
@@ -631,6 +635,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    ``dump_and_halt``: NumericsTripped at the step-3
                    boundary, the bundle replayed on the card bitwise,
                    naming the first non-finite variable
+69. reader_native - the native input library (``paddle_tpu_torch/native``:
+                   recordio, the byte queue, the shard prefetcher) built
+                   by g++ here, its seconds; a zlib and an uncompressed
+                   shard round trip through it and the plain versions
+                   (the same bytes written); a corrupt chunk raises; the
+                   prefetcher over 4 shards with 2 threads yields every
+                   record once, its MB/s beside the plain version's
+70. train_resnet_reader_amp - upstream's ``--use_reader_op`` path: 384
+                   seeded 224 px samples into 2 recordio shards (zlib,
+                   none) by ``convert_reader_to_recordio_files``, then
+                   ``open_files`` -> ``batch(64)`` -> ``double_buffer``
+                   -> ``read_file`` into ResNet-50 (bf16, kept
+                   activations, Momentum): 6 steps, EOFException on the
+                   7th run, pass 2's first batch bitwise pass 1's; the
+                   popped batches bitwise their numpy batches, the losses
+                   bitwise the dict-fed ``build_resnet`` twin's from the
+                   same initial scope (else 2^-8 with the twin's spread),
+                   1 momentum launch for 161 tensors a step, no
+                   sync-debug warning in a reader-fed step; host and
+                   CUDA-event ms a step each way, the read op's wait,
+                   images/s, peak memory
+71. reader_py_lod - ``py_reader`` with a LoD slot, a seeded ``shuffle`` and
+                   ``batch`` (staged by ``double_buffer``) into
+                   embedding -> sequence_pool -> fc -> xent (SGD), 2
+                   epochs card against CPU: losses rtol 1e-5, LoDs
+                   equal, the same steps each epoch;
+                   ``create_py_reader_by_data`` the same ops and losses;
+                   a ``Preprocessor`` on the card; a producer error
+                   raises ``RuntimeError``
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -11641,6 +11674,564 @@ def phase_guardian_transformer_amp(tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the in-graph readers (phases 69-71)
+# ---------------------------------------------------------------------------
+
+# reader_native: shards of packed float32 arrays (64 KiB of values a
+# record), two zlib and two uncompressed, read by 2 prefetcher threads
+READER_NATIVE_SHARDS, READER_NATIVE_RECORDS = 4, 256
+READER_NATIVE_SHAPE, READER_NATIVE_THREADS = (128, 128), 2
+# train_resnet_reader_amp: upstream's --use_reader_op path for ResNet-50,
+# 384 seeded samples in 2 shards (zlib, uncompressed), batch 64: 6 steps
+READER_SAMPLES, READER_BATCH, READER_HW, READER_CLASSES = 384, 64, 224, 1000
+READER_STEPS = READER_SAMPLES // READER_BATCH
+READER_SEED = 26
+# the reader-fed losses against the dict-fed twin's: bitwise when the twin
+# repeats itself bitwise; only when two twin runs differ, within this and
+# within READER_SPREAD_FACTOR times the twin's own spread, both printed
+READER_LOSS_RTOL = 2.0 ** -8
+READER_SPREAD_FACTOR = 4.0
+# reader_py_lod: a LoD slot through py_reader, shuffle and batch into a
+# small sequence model, card against CPU
+LOD_VOCAB, LOD_EMB, LOD_CLASSES = 5000, 64, 10
+LOD_SAMPLES, LOD_BATCH, LOD_SHUFFLE, LOD_MAX_LEN = 160, 16, 32, 40
+LOD_SEED, LOD_EPOCHS = 11, 2
+LOD_LOSS_RTOL = 1e-5
+
+
+def reader_image_samples(n=READER_SAMPLES, hw=READER_HW,
+                         classes=READER_CLASSES, seed=READER_SEED):
+    """``n`` seeded samples: normal 3 x hw x hw float32 images, int64
+    labels in [0, classes)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    imgs = rng.normal(size=(n, 3, hw, hw)).astype(np.float32)
+    labels = rng.randint(0, classes, size=(n, 1)).astype(np.int64)
+    return imgs, labels
+
+
+def write_image_shards(fluid, tmp, imgs, labels, compressors=(1, 0)):
+    """``fluid.recordio_writer.convert_reader_to_recordio_files`` over
+    equal consecutive parts of the samples, part i into a shard of its own
+    with ``compressors[i]`` (1 zlib, 0 none); either package's ``fluid``.
+    Returns the shards' paths in sample order."""
+    import importlib
+
+    writer = importlib.import_module(fluid.__name__ + ".recordio_writer")
+    hw = imgs.shape[-1]
+    prep, prep_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prep, prep_startup):
+        img = fluid.layers.data("img", shape=[3, hw, hw], dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        feeder = fluid.DataFeeder(feed_list=[img, label],
+                                  place=fluid.CPUPlace())
+    per = len(imgs) // len(compressors)
+    paths = []
+    for i, comp in enumerate(compressors):
+        part = range(i * per, (i + 1) * per)
+        paths += writer.convert_reader_to_recordio_files(
+            os.path.join(tmp, f"images_{i}.recordio"), per,
+            lambda part=part: ((imgs[k], labels[k]) for k in part), feeder,
+            compressor=comp)
+    return paths
+
+
+def resnet_reader_programs(fluid, resnet, paths, batch=READER_BATCH,
+                           hw=READER_HW, classes=READER_CLASSES, lr=0.1):
+    """Upstream's ``resnet.py --use_reader_op`` input: ``open_files``
+    (one thread, one pass) -> ``batch`` -> ``double_buffer`` ->
+    ``read_file``, into ``resnet_imagenet`` at depth 50 with
+    ``build_resnet``'s loss, accuracy and ``Momentum(lr, 0.9)``; built
+    under ``unique_name.guard()``, so its parameters are named as
+    ``build_resnet``'s."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        reader = fluid.layers.open_files(
+            paths, shapes=[[-1, 3, hw, hw], [-1, 1]],
+            dtypes=["float32", "int64"], thread_num=1, pass_num=1)
+        reader = fluid.layers.double_buffer(fluid.layers.batch(reader,
+                                                               batch))
+        img, label = fluid.layers.read_file(reader)
+        prediction = resnet.resnet_imagenet(img, classes, depth=50)
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=prediction, label=label))
+        acc = fluid.layers.accuracy(input=prediction, label=label)
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(
+            loss)
+    return {"main": main, "startup": startup, "loss": loss, "acc": acc,
+            "reader": reader, "img": img, "label": label}
+
+
+def reader_lod_programs(fluid, by_data=False, double=True, vocab=LOD_VOCAB,
+                        emb=LOD_EMB, classes=LOD_CLASSES, batch=LOD_BATCH,
+                        shuffle_buf=LOD_SHUFFLE):
+    """A LoD slot (word ids) and a label through ``py_reader`` (or
+    ``create_py_reader_by_data`` over two data vars), ``shuffle`` and
+    ``batch``, into ``embedding`` -> ``sequence_pool`` (sum) -> ``fc`` ->
+    softmax cross entropy, ``SGD(0.1)``; either package's ``fluid``."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if by_data:
+            words = fluid.layers.data("words", shape=[1], dtype="int64",
+                                      lod_level=1)
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            reader = fluid.layers.create_py_reader_by_data(
+                capacity=8, feed_list=[words, label],
+                use_double_buffer=double)
+        else:
+            reader = fluid.layers.py_reader(
+                capacity=8, shapes=[[-1, 1], [-1, 1]],
+                dtypes=["int64", "int64"], lod_levels=[1, 0],
+                use_double_buffer=double)
+        reader = fluid.layers.batch(fluid.layers.shuffle(reader, shuffle_buf),
+                                    batch)
+        words, label = fluid.layers.read_file(reader)
+        vec = fluid.layers.embedding(words, size=[vocab, emb])
+        pooled = fluid.layers.sequence_pool(vec, "sum")
+        logits = fluid.layers.fc(pooled, size=classes)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return {"main": main, "startup": startup, "loss": loss,
+            "reader": reader, "words": words, "label": label}
+
+
+def lod_samples(n=LOD_SAMPLES, vocab=LOD_VOCAB, classes=LOD_CLASSES,
+                max_len=LOD_MAX_LEN, seed=LOD_SEED):
+    """``n`` seeded (word ids, [label]) samples of 1 to ``max_len``
+    words."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, size=int(rng.randint(1, max_len + 1)))
+             .tolist(), [int(rng.randint(0, classes))]) for _ in range(n)]
+
+
+def host_array(v):
+    """A fetched value of either package as a host numpy array."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def lod_reader_epochs(fluid, progs, samples, place, init=None,
+                      epochs=LOD_EPOCHS, seed=LOD_SEED):
+    """Train ``progs`` on ``place`` from ``init`` (the startup's values
+    when None) for ``epochs`` passes of ``start`` / run until
+    ``EOFException`` / ``reset``, the shuffle seeded per epoch: (losses,
+    the word slot's LoD, steps, by epoch, and the initial values)."""
+    import random
+
+    import numpy as np
+
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(progs["startup"], scope=scope)
+    if init is None:
+        init = {v.name: np.array(scope.get(v.name))
+                for v in progs["startup"].list_vars() if v.persistable}
+    else:
+        from paddle_tpu_torch.models.params import load_reference_params
+
+        load_reference_params(scope, init, place)
+    reader = progs["reader"]
+    reader.decorate_paddle_reader(lambda: ([s] for s in samples))
+    losses, lods, steps = [], [], []
+    for epoch in range(epochs):
+        random.seed(seed + epoch)
+        reader.start()
+        n = 0
+        while True:
+            try:
+                loss, words = exe.run(
+                    progs["main"], fetch_list=[progs["loss"],
+                                               progs["words"]],
+                    scope=scope, return_numpy=False)
+            except fluid.core.EOFException:
+                reader.reset()
+                break
+            losses.append(float(host_array(loss).reshape(-1)[0]))
+            lods.append(tuple(tuple(level) for level in words.lod()))
+            n += 1
+        steps.append(n)
+    return losses, lods, steps, init
+
+
+def phase_reader_native(tmp):
+    """The port's native library built by g++ here; a zlib and an
+    uncompressed shard round trip through it and through the plain
+    versions; a corrupt chunk raises; ``PrefetchReader`` over 4 shards
+    with 2 threads yields every record once, native and plain, with their
+    MB/s (the shards just written: a warm page cache)."""
+    import numpy as np
+
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.native.tensor_pack import pack_batch
+
+    phase = "reader_native"
+    t0 = time.perf_counter()
+    native.get_lib()
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(READER_SEED)
+    recs = [rng.bytes(n) for n in (1, 10, 1000, 100000)] + [bytes(4096),
+                                                            b""]
+    roundtrip = {}
+    for comp in (1, 0):
+        files = []
+        for plain in (False, True):
+            path = os.path.join(tmp, f"rt_{comp}_{int(plain)}.recordio")
+            with native.RecordIOWriter(path, compressor=comp,
+                                       max_chunk_bytes=8192,
+                                       plain=plain) as w:
+                for r in recs:
+                    w.write(r)
+            files.append(path)
+            for read_plain in (False, True):
+                got = list(native.RecordIOScanner(path, plain=read_plain))
+                if got != recs:
+                    raise AssertionError(f"{phase}: compressor {comp} "
+                                         f"written plain={plain}, read "
+                                         f"plain={read_plain}: records "
+                                         f"differ")
+        same = open(files[0], "rb").read() == open(files[1], "rb").read()
+        if not same:
+            raise AssertionError(f"{phase}: the library and the plain "
+                                 f"writer wrote other bytes (compressor "
+                                 f"{comp})")
+        roundtrip["zlib" if comp else "none"] = os.path.getsize(files[0])
+    bad = os.path.join(tmp, "corrupt.recordio")
+    data = bytearray(open(os.path.join(tmp, "rt_1_0.recordio"),
+                          "rb").read())
+    data[-3] ^= 0xFF
+    open(bad, "wb").write(bytes(data))
+    for plain in (False, True):
+        try:
+            list(native.RecordIOScanner(bad, plain=plain))
+        except IOError:
+            continue
+        raise AssertionError(f"{phase}: a corrupt chunk read without error "
+                             f"(plain={plain})")
+    # the prefetcher: every record once, native and plain
+    paths, expected = [], []
+    for s in range(READER_NATIVE_SHARDS):
+        path = os.path.join(tmp, f"prefetch_{s}.recordio")
+        with native.RecordIOWriter(path, compressor=int(s < 2)) as w:
+            for i in range(READER_NATIVE_RECORDS):
+                rec = pack_batch([(np.array([s, i], np.int64), ()),
+                                  (rng.normal(size=READER_NATIVE_SHAPE)
+                                   .astype(np.float32), ())])
+                w.write(rec)
+                expected.append(rec)
+        paths.append(path)
+    total = sum(len(r) for r in expected)
+    rates, got = {}, {}
+    for kind, plain in (("native", False), ("plain", True),
+                        ("native_again", False)):
+        t0 = time.perf_counter()
+        got[kind] = list(native.PrefetchReader(
+            paths, n_threads=READER_NATIVE_THREADS, plain=plain))
+        rates[kind] = total / (time.perf_counter() - t0) / 1e6
+    want = sorted(expected)
+    for kind, recs_got in got.items():
+        if sorted(recs_got) != want:
+            raise AssertionError(f"{phase}: {kind} prefetcher yielded "
+                                 f"{len(recs_got)} records, not each of "
+                                 f"the {len(want)} once")
+    emit(phase, build_s=native.build_seconds, load_s=load_s,
+         library=os.path.relpath(native.library_path()),
+         roundtrip_bytes=roundtrip, library_equals_plain_bytes=True,
+         corrupt_chunk_raises=True, shards=READER_NATIVE_SHARDS,
+         threads=READER_NATIVE_THREADS, records=len(expected),
+         megabytes=total / 1e6, mb_per_s=rates,
+         native_over_plain=rates["native"] / rates["plain"],
+         page_cache="warm")
+
+
+def timed_runs(exe, program, fetches, scope, feeds, state=None):
+    """Run ``program`` once per feed (None: the readers feed it): (the
+    fetched values, each step's host ms and CUDA-event ms, the sync-debug
+    warnings of the steps, and with a reader's ``state`` the ms each
+    step's read op waited)."""
+    import warnings
+
+    import torch
+
+    fetched, host_ms, device_ms, syncs, waits = [], [], [], [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for feed in feeds:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            start.record()
+            try:
+                fetched.append(exe.run(program, feed=feed,
+                                       fetch_list=fetches, scope=scope,
+                                       return_numpy=False))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        syncs += [str(w.message).split("\n")[0] for w in caught
+                  if "called a synchronizing" in str(w.message)]
+        if state is not None:
+            waits.append(state.stats["wait_s"] * 1e3 - sum(waits))
+    return fetched, host_ms, device_ms, syncs, waits
+
+
+def phase_train_resnet_reader_amp(tmp):
+    """Upstream's ``--use_reader_op`` path at ResNet-50's full width:
+    ``READER_SAMPLES`` seeded samples written into 2 recordio shards
+    (zlib, uncompressed) by ``convert_reader_to_recordio_files``, read by
+    ``open_files`` -> ``batch`` -> ``double_buffer`` -> ``read_file`` in
+    bf16 AMP with kept activations: ``READER_STEPS`` steps, then
+    ``EOFException``; after ``reset()`` / ``start()`` pass 2's first
+    batch bitwise pass 1's.  The twin, ``build_resnet``'s program on data
+    vars from a clone of the same initial scope, is fed the same batches
+    from numpy: every popped batch bitwise its numpy batch, the losses
+    bitwise the twin's (only where two twin runs differ, within
+    ``READER_LOSS_RTOL`` and ``READER_SPREAD_FACTOR`` times the twin's own
+    spread), 1 momentum launch for 161 tensors a step and no other,
+    no sync-debug warning in a reader-fed step.  Prints host and
+    CUDA-event ms a step each way, the read op's mean wait, images/s and
+    peak memory.  Returns the launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.models import resnet
+
+    phase = "train_resnet_reader_amp"
+    t0 = time.perf_counter()
+    imgs, labels = reader_image_samples()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = write_image_shards(fluid, tmp, imgs, labels)
+    write_s = time.perf_counter() - t0
+    shard_bytes = [os.path.getsize(p) for p in paths]
+    batches = [(imgs[k:k + READER_BATCH], labels[k:k + READER_BATCH])
+               for k in range(0, READER_SAMPLES, READER_BATCH)]
+    total = {}
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        framework.fresh_session()
+        progs = resnet_reader_programs(fluid, resnet, paths)
+        twin_main, twin_startup, twin_loss, twin_acc = build_resnet()
+        main, reader = progs["main"], progs["reader"]
+        test = main.clone(for_test=True)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(progs["startup"], scope=scope)
+        init = clone_scope(scope)
+        state = reader._reader_state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reader.start()
+        fetches = [progs["loss"], progs["acc"], progs["img"], progs["label"]]
+        fetched, host_ms, device_ms, syncs, waits = timed_runs(
+            exe, main, fetches, scope, [None] * READER_STEPS, state)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        pops = state.stats["pops"]
+        wait_ms = state.stats["wait_s"] / pops * 1e3
+        try:
+            exe.run(main, fetch_list=[progs["loss"]], scope=scope)
+        except fluid.core.EOFException:
+            eof = True
+        else:
+            eof = False
+        if not eof:
+            raise AssertionError(f"{phase}: run {READER_STEPS + 1} popped "
+                                 f"a batch after {READER_SAMPLES} samples")
+        check_launches(phase, counts,
+                       {"momentum": MOMENTUM_PER_STEP,
+                        "momentum_tensors": MOMENTUM_TENSORS_PER_STEP},
+                       READER_STEPS)
+        add_counts(total, counts)
+        if syncs:
+            raise AssertionError(f"{phase}: sync-debug warnings in the "
+                                 f"reader-fed steps: {syncs[:3]}")
+        for k, (f, (x, y)) in enumerate(zip(fetched, batches)):
+            if not (np.array_equal(f[2].cpu().numpy(), x)
+                    and np.array_equal(f[3].cpu().numpy(), y)):
+                raise AssertionError(f"{phase}: popped batch {k} is not "
+                                     f"its numpy batch bitwise")
+        # pass 2: the first batch again, through the test clone (no step)
+        reader.reset()
+        reader.start()
+        again = exe.run(test, fetch_list=[progs["img"], progs["label"]],
+                        scope=scope)
+        reader.reset()
+        if not (np.array_equal(again[0], batches[0][0])
+                and np.array_equal(again[1], batches[0][1])):
+            raise AssertionError(f"{phase}: pass 2's first batch differs "
+                                 f"from pass 1's")
+        losses = [float(f[0].reshape(-1)[0]) for f in fetched]
+        del fetched
+        # the dict-fed twin from the same initial state
+        twin = []
+        for run in range(2):
+            reset_launch_counts()
+            twin_scope = clone_scope(init)
+            out, twin_host, twin_device, twin_syncs, _ = timed_runs(
+                exe, twin_main, [twin_loss, twin_acc], twin_scope,
+                [{"img": x, "label": y} for x, y in batches])
+            add_counts(total, launch_counts())
+            twin.append([float(f[0].reshape(-1)[0]) for f in out])
+            del twin_scope, out
+            if run == 0 and twin[0] == losses:
+                break
+        bitwise = losses in twin
+        spread = (max(abs(a - b) / abs(b) for a, b in zip(*twin))
+                  if len(twin) == 2 else 0.0)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, twin[0]))
+        # a twin that repeats itself bitwise leaves no room for a
+        # difference: only cuDNN's own spread may be tolerated
+        if not bitwise and (spread == 0.0 or rel > READER_LOSS_RTOL
+                            or rel > READER_SPREAD_FACTOR * spread):
+            raise AssertionError(f"{phase}: reader-fed losses {losses} "
+                                 f"against the dict-fed {twin} (rel {rel}, "
+                                 f"the twin's own spread {spread})")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: losses {losses}")
+        steady = device_ms[1:]
+        emit(phase, model="resnet50", batch=READER_BATCH,
+             image_hw=READER_HW, classes=READER_CLASSES,
+             samples=READER_SAMPLES, steps=READER_STEPS, shards=len(paths),
+             shard_bytes=shard_bytes, compressors=[1, 0], sample_gen_s=gen_s,
+             write_s=write_s, losses=losses, twin_losses=twin[0],
+             losses_bitwise_twin=bitwise, loss_max_rel_err=rel,
+             twin_runs=len(twin), twin_self_rel_spread=spread,
+             loss_rel_limit=(0.0 if spread == 0.0 else
+                             min(READER_LOSS_RTOL,
+                                 READER_SPREAD_FACTOR * spread)),
+             batches_bitwise=True, eof_after=READER_STEPS,
+             pass2_first_batch_bitwise=True, launches=counts,
+             sync_debug_warnings=len(syncs),
+             twin_sync_debug_warnings=len(twin_syncs),
+             host_step_ms=host_ms, device_step_ms=device_ms,
+             twin_host_step_ms=twin_host, twin_device_step_ms=twin_device,
+             read_wait_ms_mean=wait_ms, read_pops=pops, read_wait_ms=waits,
+             steady_device_step_ms=sum(steady) / len(steady),
+             twin_steady_device_step_ms=sum(twin_device[1:])
+             / len(twin_device[1:]),
+             images_per_s=READER_BATCH * 1e3 / (sum(steady) / len(steady)),
+             images_per_s_host=READER_BATCH * 1e3
+             / (sum(host_ms[1:]) / len(host_ms[1:])),
+             twin_images_per_s_host=READER_BATCH * 1e3
+             / (sum(twin_host[1:]) / len(twin_host[1:])),
+             max_memory_allocated=peak,
+             amp={"dtype": "bfloat16", "keep_activations": True})
+    return total
+
+
+def phase_reader_py_lod():
+    """``py_reader`` with a LoD slot (``decorate_paddle_reader``, a seeded
+    ``shuffle`` and ``batch``) into a small sequence model, 2 epochs of
+    ``start`` / ``EOFException`` / ``reset`` on the card and on the CPU:
+    losses within ``LOD_LOSS_RTOL``, LoD offsets equal, the same step
+    counts each epoch; ``create_py_reader_by_data`` builds the same ops
+    and gives the same losses; a ``Preprocessor`` (``scale``) on the card
+    hands out the transformed batches; a producer error raises
+    ``RuntimeError`` (not EOF)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework
+
+    phase = "reader_py_lod"
+    samples = lod_samples()
+    card = fluid.CUDAPlace(0)
+    framework.fresh_session()
+    progs = reader_lod_programs(fluid)
+    ops = [op.type for op in progs["main"].global_block().ops]
+    cpu_losses, cpu_lods, cpu_steps, init = lod_reader_epochs(
+        fluid, progs, samples, fluid.CPUPlace())
+    losses, lods, steps, _ = lod_reader_epochs(fluid, progs, samples, card,
+                                               init=init)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    want_steps = [LOD_SAMPLES // LOD_BATCH] * LOD_EPOCHS
+    if steps != want_steps or cpu_steps != want_steps:
+        raise AssertionError(f"{phase}: steps by epoch {steps} (card), "
+                             f"{cpu_steps} (CPU); expected {want_steps}")
+    if lods != cpu_lods or rel > LOD_LOSS_RTOL:
+        raise AssertionError(f"{phase}: card against CPU: LoDs equal "
+                             f"{lods == cpu_lods}, losses rel {rel}")
+    framework.fresh_session()
+    by_data = reader_lod_programs(fluid, by_data=True)
+    by_data_ops = [op.type for op in by_data["main"].global_block().ops]
+    data_losses, data_lods, _, _ = lod_reader_epochs(
+        fluid, by_data, samples, card, init=init)
+    data_rel = max(abs(a - b) / abs(b) for a, b in zip(data_losses, losses))
+    if by_data_ops != ops or data_lods != lods or data_rel > LOD_LOSS_RTOL:
+        raise AssertionError(f"{phase}: create_py_reader_by_data: same ops "
+                             f"{by_data_ops == ops}, LoDs "
+                             f"{data_lods == lods}, losses rel {data_rel}")
+    # a Preprocessor on the card: scale by 0.5 (exact) before the step
+    framework.fresh_session()
+    rd = fluid.layers.py_reader(capacity=4, shapes=[[-1, 8], [-1, 1]],
+                                dtypes=["float32", "int64"])
+    pre = fluid.layers.Preprocessor(rd)
+    with pre.block():
+        x_in, y_in = pre.inputs()
+        pre.outputs(fluid.layers.scale(x_in, scale=0.5), y_in)
+    x, y = fluid.layers.read_file(pre())
+    rng = np.random.RandomState(LOD_SEED)
+    raw = [(rng.normal(size=(4, 8)).astype(np.float32),
+            rng.randint(0, 5, size=(4, 1)).astype(np.int64))
+           for _ in range(3)]
+    rd.decorate_tensor_provider(lambda: (list(b) for b in raw))
+    exe = fluid.Executor(card)
+    rd.start()
+    got = [exe.run(fluid.default_main_program(), fetch_list=[x, y])
+           for _ in raw]
+    rd.reset()
+    if not all(np.array_equal(g[0], b[0] * 0.5) and np.array_equal(g[1], b[1])
+               for g, b in zip(got, raw)):
+        raise AssertionError(f"{phase}: the Preprocessor's batches are not "
+                             f"the scaled inputs")
+    # a producer error is an error, not the end of the data
+    framework.fresh_session()
+    rd = fluid.layers.py_reader(capacity=4, shapes=[[-1, 2]],
+                                dtypes=["float32"])
+    xv = fluid.layers.read_file(rd)
+
+    def failing():
+        yield [np.zeros((2, 2), np.float32)]
+        raise ValueError("bad record")
+
+    rd.decorate_tensor_provider(failing)
+    rd.start()
+    exe.run(fluid.default_main_program(), fetch_list=[xv])
+    try:
+        exe.run(fluid.default_main_program(), fetch_list=[xv])
+    except RuntimeError as exc:
+        error = str(exc)
+    else:
+        error = None
+    rd.reset()
+    if error is None or "producer thread failed" not in error:
+        raise AssertionError(f"{phase}: a producer error gave {error!r}")
+    emit(phase, samples=LOD_SAMPLES, batch=LOD_BATCH, shuffle=LOD_SHUFFLE,
+         vocab=LOD_VOCAB, emb=LOD_EMB, epochs=LOD_EPOCHS, steps=steps,
+         losses=losses, cpu_losses=cpu_losses, loss_max_rel_err=rel,
+         loss_rtol=LOD_LOSS_RTOL, lods_equal=True,
+         losses_bitwise_cpu=losses == cpu_losses,
+         by_data_same_ops=True, by_data_loss_max_rel_err=data_rel,
+         preprocessor_batches_exact=True, producer_error=error)
+
+
 def main():
     import argparse
 
@@ -11894,6 +12485,13 @@ def main():
         add_counts(total, phase_trainer_windowed_amp(tmp, full))
         add_counts(total, phase_guardian_transformer_amp(tmp))
     torch.cuda.empty_cache()
+    # the in-graph readers: the native library, ResNet-50 from recordio
+    # shards through open_files + double_buffer (row 6), py_reader's LoD
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_reader_native(tmp)
+        add_counts(total, phase_train_resnet_reader_amp(tmp))
+    torch.cuda.empty_cache()
+    phase_reader_py_lod()
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):

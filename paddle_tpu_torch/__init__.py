@@ -13,7 +13,9 @@ graphs), evaluation, checkpoints in the JAX package's format
 (``fluid.io``), the inference predictor (``paddle_tpu_torch.inference``),
 the training machinery (``fluid.Trainer`` with serial checkpoints,
 ``fluid.guardian``, ``fluid.fault``) and the input side (``reader``,
-``dataset``, the checkpointable ``data`` pipeline).
+``dataset``, the checkpointable ``data`` pipeline, and the in-graph
+readers of ``fluid.layers`` over ``native``'s recordio shards, byte queue
+and shard prefetcher).
 Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
 ``CPUPlace()``.
 """
@@ -22,7 +24,8 @@ from . import fluid  # noqa: F401
 from . import reader  # noqa: F401
 from . import dataset  # noqa: F401
 from . import data  # noqa: F401
+from . import native  # noqa: F401
 
 batch = reader.batch
 
-__all__ = ["fluid", "reader", "dataset", "data", "batch"]
+__all__ = ["fluid", "reader", "dataset", "data", "native", "batch"]

@@ -24,6 +24,7 @@ from . import optimizer
 from . import regularizer
 from . import fault
 from . import guardian
+from .guardian import NumericsTripped
 from . import prefetch
 from .prefetch import DevicePrefetcher
 from .backward import append_backward, calc_gradient
@@ -47,6 +48,9 @@ from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 from . import trainer
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)
+from . import recordio_writer
+
+Tensor = framework.Variable
 
 __all__ = [
     "amp", "core", "framework", "executor", "initializer", "layers", "nets",
@@ -57,7 +61,8 @@ __all__ = [
     "default_startup_program", "program_guard", "name_scope", "Executor",
     "Scope",
     "global_scope", "scope_guard", "CPUPlace", "CUDAPlace", "TPUPlace",
-    "ParamAttr", "WeightNormParamAttr", "average", "guardian", "prefetch",
+    "ParamAttr", "WeightNormParamAttr", "average", "guardian",
+    "NumericsTripped", "prefetch", "recordio_writer",
     "DevicePrefetcher",
     "CUDAPinnedPlace", "io", "ir", "transpiler", "InferenceTranspiler",
     "memory_optimize", "release_memory",

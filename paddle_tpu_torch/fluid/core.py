@@ -39,6 +39,7 @@ class VarType:
     STEP_SCOPES = 24
     LOD_RANK_TABLE = 25
     LOD_TENSOR_ARRAY = 26
+    READER = 28
 
 
 _STR_TO_VARTYPE = {
@@ -55,6 +56,7 @@ _STR_TO_VARTYPE = {
 }
 
 _VARTYPE_TO_STR = {v: k for k, v in _STR_TO_VARTYPE.items()}
+_VARTYPE_TO_STR[VarType.READER] = "reader"
 
 _STR_TO_TORCH = {
     "bool": torch.bool,
@@ -154,6 +156,33 @@ def torch_device(place: Place) -> torch.device:
     return torch.device("cuda", place.device_id)
 
 
+def is_compiled_with_cuda() -> bool:
+    """Whether this torch build has CUDA.  The reference answers ``False``
+    (a JAX build has no CUDA); the port answers for its own build."""
+    return torch.backends.cuda.is_built()
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def get_device_count(kind: str = None) -> int:
+    """The CUDA devices this process sees (``kind`` is accepted as in the
+    reference; ``"cpu"`` counts the host as one)."""
+    if kind == "cpu":
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def init_devices():
+    return True
+
+
+class EOFException(Exception):
+    """Raised by ``Executor.run`` when a reader's queue is exhausted (the
+    reference's read op throws it; a train loop catches
+    ``fluid.core.EOFException`` and calls the reader's ``reset()``)."""
+
 
 # gflags-style runtime flags (ref: platform/init.cc InitGflags).  A plain
 # dict; init_gflags takes the reference's two arg forms:
@@ -204,3 +233,8 @@ def init_gflags(args=None):
             name, _, val = body.partition("=")
             GLOBAL_FLAGS[name.strip()] = _flag_value(val)
     return True
+
+
+# the host LoDTensor lives in fluid.lod_tensor; the reference exposes it as
+# core.LoDTensor too
+from .lod_tensor import LoDTensor  # noqa: E402,F401

@@ -130,6 +130,9 @@ _CONST_OPS = frozenset(["assign_value", "fill_constant"])
 # ops a run keeps whoever reads their outputs (the reference's
 # ``_SIDE_EFFECT_OPS``): they print or write files
 _SIDE_EFFECT_OPS = frozenset(["print", "save", "save_combine"])
+# ops no step runs (the reference's ``_SKIP_OPS``): ``Executor.run`` pops a
+# reader's batch into the feed before the step (``_pop_readers``)
+_SKIP_OPS = frozenset(["read", "create_py_reader"])
 # ops that read the value an output already holds (``ExecContext.cur_out``):
 # an array appended to, the range quantizer's window of scales
 _CURRENT_OUTPUTS = {"write_to_array": "Out",
@@ -359,7 +362,7 @@ def _find_groups(ops, const_ops) -> List[List[int]]:
 def _live_ops(block, fetch_names) -> list:
     """The ops a run needs: those feeding a fetch or writing a
     persistable, and the ops with a side effect (``_SIDE_EFFECT_OPS``), in
-    program order."""
+    program order; never a reader op (``_SKIP_OPS``)."""
     def _is_persistable(name: str) -> bool:
         return block._has_var_recursive(name) and \
             block._var_recursive(name).persistable
@@ -367,6 +370,8 @@ def _live_ops(block, fetch_names) -> list:
     needed = set(fetch_names)
     kept = []
     for op in reversed(block.ops):
+        if op.type in _SKIP_OPS:
+            continue
         outs = [n for n in op.output_arg_names if n]
         if not (op.type in _SIDE_EFFECT_OPS
                 or any(n in needed for n in outs)
@@ -813,6 +818,29 @@ def _try_prunes(program, fetch_names, unfed, scope, feeds):
     return b if _viable(b) else program
 
 
+def _pop_readers(program, feed, device):
+    """The feed with one batch popped from each ``read`` op's reader into
+    its outputs (the reference's host infeed, ``paddle_tpu/fluid/
+    executor.py:936-947``); raises ``core.EOFException`` when a reader is
+    exhausted.  A batch ``double_buffer`` staged is on ``device`` already
+    and goes through ``_coerce_feed`` without another copy."""
+    ver, ops = getattr(program, "_read_ops_cache", (None, None))
+    if ver != program._version:  # one walk of the ops per program version
+        ops = [op for op in program.global_block().ops if op.type == "read"]
+        program._read_ops_cache = (program._version, ops)
+    if not ops:
+        return feed
+    from .layers import io as _io
+
+    feed = dict(feed)
+    for op in ops:
+        state = _io._reader_state(op.inputs["Reader"][0])
+        for name, (value, lod) in zip(op.outputs["Out"],
+                                      state.next_batch(device)):
+            feed[name] = LoDTensor(value, lod) if lod else value
+    return feed
+
+
 def _has_lod(value) -> bool:
     """Whether a feed value offers a non-empty ``lod`` (a method or an
     attribute)."""
@@ -1087,7 +1115,9 @@ class Executor:
         tensor copies on the place's device with ``return_numpy=False``.
         ``use_program_cache=False`` analyses the block afresh and keeps
         nothing.  ``feed_var_name`` and ``fetch_var_name`` are accepted as
-        in the reference, which names no feed or fetch var either.  With
+        in the reference, which names no feed or fetch var either.  Each
+        ``read`` op first pops its reader's next batch into the feed
+        (``core.EOFException`` at the end of the data).  With
         ``return_numpy=False`` a fetch that carries a LoD comes back as a
         ``LoDTensor`` over the copy.
 
@@ -1104,7 +1134,7 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list or []]
-        feed = feed or {}
+        feed = _pop_readers(program, feed or {}, self.device)
         feed_vals, feed_lods = {}, {}
         for k, v in feed.items():
             feed_vals[k], lod = self._coerce_feed(program, k, v)
@@ -1214,7 +1244,9 @@ class Executor:
         guardian, read at the next boundary.  A value ``scope.set``
         between windows is copied into its buffer, or the step is built
         anew if its shape or dtype changed.  Programs with data-dependent
-        ops and LoD feeds raise, as in the reference."""
+        ops and LoD feeds raise, as in the reference.  As in the reference,
+        a window pops no reader: a ``read`` op's outputs are data vars the
+        caller feeds, else the window raises."""
         from . import amp as _amp
         from . import fault as _fault
         from . import guardian as _guardian

@@ -72,9 +72,12 @@ def _resolve_device(place) -> torch.device:
                              else core.CUDAPlace(0))
 
 
-def _background_iter(src_iter, stage_fn, depth: int, abort: Event):
+def _background_iter(src_iter, stage_fn, depth: int, abort: Event,
+                     join: bool = False):
     """Yield ``stage_fn(item)`` for every item of ``src_iter``, staged on a
-    background thread ``depth`` items ahead."""
+    background thread ``depth`` items ahead.  ``join``: closing the
+    generator also waits for the thread to stop (its source must then
+    return once the caller stops feeding it)."""
     q: Queue = Queue(maxsize=max(1, depth))
 
     def _put(item) -> bool:
@@ -115,6 +118,8 @@ def _background_iter(src_iter, stage_fn, depth: int, abort: Event):
             yield item
     finally:
         abort.set()
+        if join:
+            t.join()
 
 
 def _windows(source, n_steps: int):

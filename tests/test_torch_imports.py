@@ -176,3 +176,48 @@ def test_momentum_wrapper_launches_nothing_on_the_cpu():
                        nesterov)
     assert fused.momentum_launches == before
     assert bool((p < 1).all()) and bool((v > 0).all())
+
+
+def test_native_sources_are_scanned():
+    assert "paddle_tpu_torch/native/__init__.py" in PORT_FILES
+    assert "paddle_tpu_torch/native/tensor_pack.py" in PORT_FILES
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that fails makes the native library raise, and each
+    native object with it; nothing switches to the plain versions on its
+    own.  The reference's library is never loaded."""
+    from paddle_tpu_torch import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="compiler"):
+        native.get_lib()
+    for make in (lambda: native.BlockingQueue(2),
+                 lambda: native.RecordIOWriter(str(tmp_path / "x.rio")),
+                 lambda: native.PrefetchReader([str(tmp_path / "x.rio")])):
+        with pytest.raises(RuntimeError, match="compiler"):
+            make()
+    assert not native.native_available()
+    assert native._lib is None
+    assert os.listdir(tmp_path) == []  # no partial library left
+    # asked for explicitly, the plain versions still run
+    q = native.BlockingQueue(2, plain=True)
+    assert q.push(b"a") and q.pop() == b"a"
+    assert "paddle_tpu/native" not in native.library_path()
+
+
+def test_native_compile_error_raises(monkeypatch, tmp_path):
+    """A compiler that runs and fails (here: on a source it cannot parse)
+    raises with its output, and leaves no library behind."""
+    from paddle_tpu_torch import native
+
+    bad = tmp_path / "bad.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "SOURCES", (str(bad),))
+    with pytest.raises(RuntimeError, match="failed to build"):
+        native.get_lib()
+    assert os.listdir(tmp_path / "build") == []
