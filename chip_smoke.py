@@ -38,7 +38,10 @@ windows and under the numerics guardian's drill, then builds the native
 input library and trains ResNet-50 from recordio shards through the
 in-graph readers (``open_files``, ``batch``, ``double_buffer``,
 ``read_file``) and a sequence model through ``py_reader`` with a LoD slot,
-and checks them all.
+then trains ``fluid_benchmark.py``'s ``moe_transformer`` (MoE
+feed-forward layers) and the stacked Transformer-base (the layer-stack
+ops, with and without recompute) and holds the routing, the stacks and
+``gpipe_mlp_stack`` against the CPU, and checks them all.
 
     python3 chip_smoke.py
 
@@ -664,6 +667,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    ``create_py_reader_by_data`` the same ops and losses;
                    a ``Preprocessor`` on the card; a producer error
                    raises ``RuntimeError``
+72. train_moe_amp - (after ``kernel_adam_moe_transformer`` and
+                   ``kernel_adam_transformer_stacked``: the Adam kernel at
+                   the two models' 196 and 34 parameter shapes)
+                   ``fluid_benchmark.py``'s ``moe_transformer``:
+                   Transformer-base widths, every FFN an 8-expert
+                   ``moe_ffn`` (top 2, capacity factor 1.25, aux weight
+                   1e-2, dropout 0.1), batch 32 x 256, bf16 with kept
+                   activations, flash: 5 steps, finite losses, exactly 36
+                   / 18 / 18 bf16 flash, 2 / 1 bf16 xent and 1 Adam launch
+                   (196 tensors) a step; per step each expert's kept
+                   tokens, the dropped share and the aux losses; tokens/s
+                   and step ms (events, host), peak, dispatches; under
+                   ``--profile`` the MoE ops' share of device busy
+73. moe_parity   - ``moe_config()`` 5 steps card against CPU (rtol 1e-5
+                   step 0, 1e-4 after); one full-width moe_ffn op (8,192
+                   x 512, 8 experts, hidden 2048) and its grad, the CPU
+                   choosing from the card's fp32 gate probabilities: the
+                   routing equal, Out, AuxLoss and every input grad within
+                   ``SEQ_PARITY_TOL``
+74. train_stacked_amp - the stacked Transformer-base (two layer-stack
+                   ops) at 64 x 256, bf16 kept, flash, dropout 0.1: 5
+                   steps, the same launches a step as ``train_flash_amp``
+                   (Adam over 34 tensors), step ms beside its, peak; then
+                   one step and one ``recompute=True`` step from one state
+                   and generator: loss, grads and masks bitwise, both
+                   peaks
+75. stack_parity - card against CPU: the tiny stacked Transformer and the
+                   tiny stacked BERT (3 steps, rtol 1e-5 step 0, 1e-4
+                   after), ``gpipe_mlp_stack`` relu / tanh / gelu (out and
+                   grads within ``SEQ_PARITY_TOL``)
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -3079,17 +3112,23 @@ def _flash_library(times, kind):
     return {"library_ms": None}
 
 
-def build_training(batch_len, dropout=None, flash=False):
-    """Transformer-base as the training slice builds it (unfused attention,
-    or every attention through the flash kernels with ``flash``; the
-    config's dropout unless given): (main, startup, avg_cost)."""
+def build_training(batch_len, dropout=None, flash=False, moe=0,
+                   stacked=False, recompute=False, config=None):
+    """Transformer-base (or ``config()``) as the training slice builds it
+    (unfused attention, or every attention through the flash kernels with
+    ``flash``; the config's dropout unless given), with ``moe`` experts in
+    every FFN, or as the layer-stack ops with ``stacked`` (``recompute``
+    its layers in the backward): (main, startup, avg_cost)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.fluid import framework
     from paddle_tpu_torch.models import transformer
 
     framework.fresh_session()
-    cfg = transformer.base_config()
+    cfg = (config or transformer.base_config)()
     cfg.flash_attention = flash
+    if moe:
+        cfg.name, cfg.moe_experts = f"moe_{cfg.name}", moe
+    cfg.stacked, cfg.recompute = stacked, recompute
     if dropout is not None:
         cfg.dropout = dropout
     main, startup = fluid.Program(), fluid.Program()
@@ -12232,6 +12271,542 @@ def phase_reader_py_lod():
          preprocessor_batches_exact=True, producer_error=error)
 
 
+# fluid_benchmark.py's moe_transformer on an accelerator: Transformer-base
+# widths with every FFN an 8-expert MoE layer (top 2, capacity factor
+# 1.25, aux weight 1e-2; dropout 0.1), batch 32 x 256 (its defaults); 12
+# moe_ffn ops, each a generic grad; the 18 attentions and the loss as
+# Transformer-base's.  One Adam launch for the group of 196 adam ops (184
+# with 5 MoE tensors in place of each FFN's 4)
+MOE_BATCH, MOE_LEN, MOE_STEPS, MOE_EXPERTS, MOE_LAYERS = 32, 256, 5, 8, 12
+MOE_ADAM_TENSORS = 196
+# the one full-width moe_ffn op of moe_parity: 32 x 256 tokens of width
+# 512, hidden 2048
+MOE_OP_TOKENS, MOE_OP_D, MOE_OP_H = MOE_BATCH * MOE_LEN, 512, 2048
+# the stacked Transformer-base (Config.stacked) at bench.py's 64 x 256:
+# one encoder and one decoder stack op, the 18 attentions inside them,
+# each launching the flash forward in the op and again in the op's grad's
+# re-run; 34 adam ops (12 + 18 stacked slots, 2 tables, the output
+# projection's weight and bias)
+STACK_STEPS, STACK_DROPOUT = 5, 0.1
+STACK_ADAM_TENSORS = 34
+
+
+def flash_amp_per_step():
+    """One bf16 Transformer-base step's launches through the flash kernels:
+    every attention's flash forward twice, dQ and dK/dV once, the bf16
+    xent forward twice and backward once, one Adam launch."""
+    return {"flash_fwd": FLASH_FWD_PER_STEP,
+            "flash_fwd_bf16": FLASH_FWD_PER_STEP,
+            "flash_dq": FLASH_DQ_PER_STEP, "flash_dq_bf16": FLASH_DQ_PER_STEP,
+            "flash_dkv": FLASH_DKV_PER_STEP,
+            "flash_dkv_bf16": FLASH_DKV_PER_STEP,
+            "softmax_xent_fwd": XENT_FWD_PER_STEP,
+            "softmax_xent_fwd_bf16": XENT_FWD_PER_STEP,
+            "softmax_xent_bwd": XENT_BWD_PER_STEP,
+            "softmax_xent_bwd_bf16": XENT_BWD_PER_STEP,
+            "adam": ADAM_PER_STEP}
+
+
+@contextlib.contextmanager
+def routed():
+    """Record each MoE forward's routing (the op's own run, not its
+    generic grad's re-run, whose x and gate are autograd leaves): per call
+    the tokens each expert kept, on the device."""
+    from paddle_tpu_torch.parallel import moe
+
+    route, kept = moe.route, []
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if not any(t.requires_grad for t in args[:2]):
+            kept.append(r.kept)
+        return r
+
+    moe.route = recording
+    try:
+        yield kept
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def annotated_ops(op_types, label):
+    """Each executor run of an op of ``op_types`` inside a profiler range
+    named ``label``."""
+    import torch
+
+    from paddle_tpu_torch.fluid import executor
+
+    run_op = executor.run_op
+
+    def wrapped(op, *args, **kwargs):
+        if op.type in op_types:
+            with torch.profiler.record_function(label):
+                return run_op(op, *args, **kwargs)
+        return run_op(op, *args, **kwargs)
+
+    executor.run_op = wrapped
+    try:
+        yield
+    finally:
+        executor.run_op = run_op
+
+
+@contextlib.contextmanager
+def op_peaks(op_types):
+    """Each executor run of an op of ``op_types``: the most memory it
+    allocated above what was allocated as it began (bytes), in order."""
+    import torch
+
+    from paddle_tpu_torch.fluid import executor
+
+    run_op, peaks = executor.run_op, []
+
+    def wrapped(op, *args, **kwargs):
+        if op.type not in op_types:
+            return run_op(op, *args, **kwargs)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_op(op, *args, **kwargs)
+        peaks.append(torch.cuda.max_memory_allocated() - before)
+        return out
+
+    executor.run_op = wrapped
+    try:
+        yield peaks
+    finally:
+        executor.run_op = run_op
+
+
+def op_device_share(run, op_types, label="ops_of_interest"):
+    """One more step ``run()`` under ``torch.profiler`` with the ops of
+    ``op_types`` annotated: the device time of the kernels they launched
+    (matched to their launch calls by correlation id) and its share of the
+    step's device busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with annotated_ops(set(op_types), label), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pad_trace()
+    events = trace_events(prof)
+    spans = device_spans(prof, events)
+    busy_s, n_events, _ = trace_summary(spans)
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("name") == label
+                    and e.get("cat") == "user_annotation")
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+
+    def inside(ts):
+        return any(a <= ts <= b for a, b in ranges)
+
+    ours = [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and inside(launches.get(e.get("args", {}).get("correlation"),
+                                    -1.0))]
+    us = sum(e["dur"] for e in ours)
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall, "device_events": n_events,
+            "ops": len(ranges), "their_device_events": len(ours),
+            "their_device_ms": us / 1e3,
+            "their_share_of_busy": us / 1e6 / busy_s}
+
+
+def phase_train_moe_amp(profile_run=False):
+    """``fluid_benchmark.py``'s ``moe_transformer`` on the card: the
+    Transformer-base widths with every FFN an ``MOE_EXPERTS``-expert
+    ``moe_ffn`` (top 2, capacity factor 1.25, aux weight 1e-2, dropout
+    0.1), batch ``MOE_BATCH`` x ``MOE_LEN`` (``train_feed``), bf16 AMP with
+    kept activations, through the flash kernels: ``MOE_STEPS`` steps,
+    finite losses; exactly ``flash_amp_per_step``'s launches a step with
+    one Adam launch for ``MOE_ADAM_TENSORS`` tensors; per step each
+    expert's kept tokens over the 12 layers, the share of choices dropped
+    and the aux losses; tokens/s and step ms by CUDA events and the host
+    clock, peak allocated, dispatches a step; under ``--profile`` the MoE
+    ops' (forward and generic grad) share of the device's busy time.
+    Returns the launch counts and the step's numbers."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        main, startup, cost = build_training(MOE_LEN, flash=True,
+                                             moe=MOE_EXPERTS)
+        auxes = [op.output("AuxLoss")[0] for op in main.global_block().ops
+                 if op.type == "moe_ffn"]
+        if len(auxes) != MOE_LAYERS:
+            raise AssertionError(f"train_moe_amp: {len(auxes)} moe_ffn ops")
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = train_feed(MOE_BATCH, MOE_LEN)
+        torch.cuda.reset_peak_memory_stats()
+        with routed() as kept:
+            out, host_ms, device_ms, counts = timed_steps(
+                exe, main, feed, [cost] + auxes, scope, MOE_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = dict(flash_amp_per_step(), adam_tensors=MOE_ADAM_TENSORS)
+        check_launches("train_moe_amp", counts, per_step, MOE_STEPS)
+        losses = [float(o[0].reshape(-1)[0]) for o in out]
+        aux = [[float(a.reshape(-1)[0]) for a in o[1:]] for o in out]
+        if not all(math.isfinite(v) for v in losses + sum(aux, [])):
+            raise AssertionError(f"train_moe_amp: non-finite losses "
+                                 f"{losses} / aux {aux}")
+        if len(kept) != MOE_LAYERS * MOE_STEPS:
+            raise AssertionError(f"train_moe_amp: {len(kept)} routings")
+        kept = torch.stack(kept).view(MOE_STEPS, MOE_LAYERS,
+                                      MOE_EXPERTS).cpu().numpy()
+        choices = MOE_BATCH * MOE_LEN * 2
+        cap = math.ceil(MOE_BATCH * MOE_LEN * 2 / MOE_EXPERTS * 1.25)
+        if kept.max() > cap:
+            raise AssertionError(f"train_moe_amp: an expert kept "
+                                 f"{kept.max()} tokens, capacity {cap}")
+        routing = [{"kept_by_expert": kept[s].sum(0).tolist(),
+                    "dropped_share": 1.0 - kept[s].sum() / (MOE_LAYERS
+                                                            * choices),
+                    "layer_dropped_share_max": float(
+                        (1.0 - kept[s].sum(1) / choices).max()),
+                    "aux_mean": float(np.mean(aux[s]))}
+                   for s in range(MOE_STEPS)]
+        steady = device_ms[1:]
+        step_ms = sum(steady) / len(steady)
+        host_steady = sum(host_ms[1:]) / len(host_ms[1:])
+        tokens = MOE_BATCH * MOE_LEN
+        stats = {"steady_step_ms": step_ms, "host_steady_step_ms": host_steady,
+                 "tokens_per_s": tokens * 1e3 / step_ms,
+                 "host_tokens_per_s": tokens * 1e3 / host_steady,
+                 "max_memory_allocated": peak,
+                 "op_dispatches_per_step": op_dispatches(exe, main, cost,
+                                                         *auxes)}
+        emit("train_moe_amp", model="moe_transformer_base",
+             batch=MOE_BATCH, seq_len=MOE_LEN, steps=MOE_STEPS,
+             experts=MOE_EXPERTS, top_k=2, capacity=cap,
+             amp={"dtype": "bfloat16", "keep_activations": True},
+             losses=losses, loss_fell=losses[-1] < losses[0],
+             routing=routing, launches=counts,
+             ops_per_step=len(main.global_block().ops),
+             host_step_ms=host_ms, device_step_ms=device_ms, **stats)
+        if profile_run:
+            emit("train_moe_amp_profile", **op_device_share(
+                lambda: exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope),
+                ("moe_ffn", "moe_ffn_grad"), "moe_layer"))
+    return counts, stats
+
+
+def moe_op_inputs(gen, device):
+    """One full-width moe_ffn op's inputs, drawn on the card from ``gen``
+    (the Xavier scales ``layers.moe_ffn`` gives its experts)."""
+    import torch
+
+    n, d, h, e = MOE_OP_TOKENS, MOE_OP_D, MOE_OP_H, MOE_EXPERTS
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    return {"X": randn(n, d), "GateW": randn(d, e, scale=d ** -0.5),
+            "W1": randn(e, d, h, scale=(2.0 / (d + h)) ** 0.5),
+            "B1": randn(e, h, scale=0.02),
+            "W2": randn(e, h, d, scale=(2.0 / (d + h)) ** 0.5),
+            "B2": randn(e, d, scale=0.02)}
+
+
+def moe_op_run(inputs, d_out, d_aux):
+    """The moe_ffn op's impl and its generic grad on ``inputs``' device, as
+    the Executor runs them: Out, AuxLoss and the grad of every input."""
+    from paddle_tpu_torch.ops import registry
+
+    attrs = {"top_k": 2, "capacity_factor": 1.25, "activation": "relu"}
+    device = inputs["X"].device
+    slots = {k: [v] for k, v in inputs.items()}
+    outs = registry.REGISTRY["moe_ffn"].fn(registry.ExecContext(
+        "moe_ffn", slots, {"Out": ["o"], "AuxLoss": ["a"]}, attrs, device))
+    grads = registry.run_grad_generic(
+        registry.REGISTRY["moe_ffn"], registry.ExecContext(
+            "moe_ffn_grad", dict(slots, Out=[outs["Out"]],
+                                 AuxLoss=[outs["AuxLoss"]],
+                                 **{"Out@GRAD": [d_out],
+                                    "AuxLoss@GRAD": [d_aux]}),
+            {k + "@GRAD": [k + "@GRAD"] for k in inputs}, attrs, device))
+    return [outs["Out"], outs["AuxLoss"]] + [grads[k + "@GRAD"][0]
+                                             for k in inputs]
+
+
+def phase_moe_parity():
+    """Card against CPU: ``moe_config()`` (tiny, 4 experts, flash, dropout
+    0) at batch 4 x 8 from one initial state over 5 steps, losses within
+    rtol 1e-5 at step 0 and 1e-4 after; then one full-width moe_ffn op
+    (``MOE_OP_TOKENS`` x 512, 8 experts, hidden 2048, top 2, capacity
+    factor 1.25) and its generic grad on inputs drawn on the card: the CPU
+    takes each token's experts from the card's own fp32 gate
+    probabilities (``moe.top_k`` on them, on the CPU, gives the card's
+    choices: a near-tie decided by a rounding is not the comparison's
+    subject), so the routing (choices, slots, kept counts) must come out
+    equal; Out, AuxLoss and the grad of every input within
+    ``SEQ_PARITY_TOL``, the parameters' grads (sums over the tokens) with
+    its atol of each tensor's largest magnitude."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parallel import moe
+
+    progs = build_training(8, dropout=0.0, flash=True,
+                           config=transformer.moe_config)
+    rng = np.random.RandomState(2)
+    feed = {"src_word": rng.randint(1, 1000, size=(4, 8)),
+            "tgt_word": rng.randint(1, 1000, size=(4, 8)),
+            "lbl_word": rng.randint(1, 1000, size=(4, 8, 1))}
+    feed["src_word"][0, -2:] = 0
+    (cpu, card), counts, _ = parity_runs(
+        progs, feed, 5, (fluid.CPUPlace(), fluid.CUDAPlace(0)))
+    tol = np.array([1e-5] + [1e-4] * 4)
+    rel = check_parity("moe_parity", cpu, card, tol)
+    if counts["flash_fwd"] != 5 * 2 * 6 or counts["adam"] != 5:
+        raise AssertionError(f"moe_parity: the card's run launched {counts}")
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(12)
+    inputs = moe_op_inputs(gen, device)
+    d_out = torch.randn(MOE_OP_TOKENS, MOE_OP_D, generator=gen,
+                        device=device)
+    d_aux = torch.tensor(0.5, device=device)
+    with routed() as card_kept:
+        r_card = moe.route(inputs["X"], inputs["GateW"], 2, 1.25)
+        t0 = time.perf_counter()
+        card_out = moe_op_run(inputs, d_out, d_aux)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
+    # the card's choices from its probabilities, chosen again on the CPU
+    cpu_choice = moe.top_k(r_card.probs.cpu(), 2)[1]
+    if not torch.equal(cpu_choice, r_card.gate_idx.cpu()):
+        raise AssertionError("moe_parity: top_k of the card's probabilities "
+                             "on the CPU chose other experts")
+    top_k = moe.top_k
+
+    def card_choices(probs, k):
+        return probs.gather(-1, cpu_choice), cpu_choice
+
+    moe.top_k = card_choices
+    try:
+        r_cpu = moe.route(cpu_inputs["X"], cpu_inputs["GateW"], 2, 1.25)
+        with routed() as cpu_kept:
+            t0 = time.perf_counter()
+            cpu_out = moe_op_run(cpu_inputs, d_out.cpu(), d_aux.cpu())
+            cpu_s = time.perf_counter() - t0
+    finally:
+        moe.top_k = top_k
+    for what, a, b in (("slots", r_cpu.slot, r_card.slot),
+                       ("kept", r_cpu.kept, r_card.kept),
+                       ("op kept", cpu_kept[0], card_kept[-1])):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"moe_parity: the routing's {what} differ "
+                                 f"between the card and the CPU")
+    names = ["Out", "AuxLoss"] + [k + "@GRAD" for k in inputs]
+    # the parameters' grads are sums over the tokens: atol of each one's
+    # largest magnitude, as the tranche phases hold sums
+    worst = {n: {"max_abs_err": compare_on_card(
+        "moe_parity", [n], [c], [g], SEQ_PARITY_TOL,
+        n not in ("Out", "AuxLoss", "X@GRAD")),
+        "largest": float(c.abs().max()),
+        "norm_rel_err": norm_rel_err(g.cpu().numpy(), c.numpy())}
+        for n, c, g in zip(names, cpu_out, card_out)}
+    kept = r_card.kept.cpu().tolist()
+    emit("moe_parity", config="moe_tiny", batch=4, seq_len=8, steps=5,
+         cpu_losses=cpu.tolist(), card_losses=card.tolist(), rel_err=rel,
+         rtol=tol.tolist(), launches=counts,
+         op={"tokens": MOE_OP_TOKENS, "d_model": MOE_OP_D,
+             "hidden": MOE_OP_H, "experts": MOE_EXPERTS, "top_k": 2,
+             "capacity": r_card.capacity, "kept_by_expert": kept,
+             "dropped_share": 1.0 - sum(kept) / (2 * MOE_OP_TOKENS),
+             "routing_equal": True, "errors": worst,
+             "tol": list(SEQ_PARITY_TOL), "card_s": card_s, "cpu_s": cpu_s})
+
+
+def phase_train_stacked_amp(beside, profile_run=False):
+    """The stacked Transformer-base (``Config.stacked``: one encoder and
+    one decoder stack op) at ``TRAIN_BATCH`` x ``TRAIN_LEN`` in bf16 with
+    kept activations through the flash kernels, dropout
+    ``STACK_DROPOUT``: ``STACK_STEPS`` steps, finite losses, exactly
+    ``flash_amp_per_step``'s launches a step with one Adam launch for
+    ``STACK_ADAM_TENSORS`` tensors; step ms (events, host) beside
+    ``beside``'s (``train_flash_amp``), peak allocated.  Then from one
+    state and generator (``clone_scope``) one step of the same program
+    and one of its ``recompute=True`` twin: the loss, every grad and the
+    stack ops' masks bitwise equal, both peaks printed; then two more
+    steps each way: their device ms and the memory each stack grad op
+    allocates above its start.  Returns the launch counts of the plain
+    steps."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+        plain = build_training(TRAIN_LEN, dropout=STACK_DROPOUT, flash=True,
+                               stacked=True)
+        main, startup, cost = plain
+        ops = main.global_block().ops
+        stacks = [op for op in ops if op.type.startswith("transformer_")
+                  and not op.type.endswith("_grad")]
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = train_feed(TRAIN_BATCH, TRAIN_LEN)
+        torch.cuda.reset_peak_memory_stats()
+        out, host_ms, device_ms, counts = timed_steps(
+            exe, main, feed, [cost], scope, STACK_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches("train_stacked_amp", counts,
+                       dict(flash_amp_per_step(),
+                            adam_tensors=STACK_ADAM_TENSORS), STACK_STEPS)
+        losses = [float(o[0].reshape(-1)[0]) for o in out]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train_stacked_amp: losses {losses}")
+        # one more step each way from one state and generator
+        grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()
+                 if p.trainable]
+        masks = [op.output("RngKey")[0] for op in stacks]
+        fetches = [cost] + grads + masks
+        twin = clone_scope(scope)
+        recompute = build_training(TRAIN_LEN, dropout=STACK_DROPOUT,
+                                   flash=True, stacked=True, recompute=True)
+        runs = {}
+        for name, progs, sc in (("plain", plain, scope),
+                                ("recompute", recompute, twin)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got, host, dev, launched = timed_steps(
+                exe, progs[0], feed, [progs[2]] + fetches[1:], sc, 1)
+            runs[name] = {"fetched": got[0], "host_ms": host[0],
+                          "device_ms": dev[0], "launches": launched,
+                          "peak": torch.cuda.max_memory_allocated()}
+        differ = [n for n, a, b in zip(
+            ["loss"] + fetches[1:], runs["plain"]["fetched"],
+            runs["recompute"]["fetched"]) if not torch.equal(
+                torch.as_tensor(a), torch.as_tensor(b))]
+        if differ:
+            raise AssertionError(f"train_stacked_amp: the recompute step "
+                                 f"differs from the plain step in {differ}")
+        # two more steps each way: device ms, and what the stack ops'
+        # grads allocate above their start (their re-run's activations)
+        for name, progs, sc in (("plain", plain, scope),
+                                ("recompute", recompute, twin)):
+            with op_peaks({"transformer_encoder_stack_grad",
+                           "transformer_decoder_stack_grad"}) as peaks:
+                _, _, dev, _ = timed_steps(exe, progs[0], feed, [progs[2]],
+                                           sc, 2)
+            runs[name].update(steady_device_ms=dev,
+                              stack_grad_peaks=peaks)
+        del twin
+        steady = device_ms[1:]
+        step_ms = sum(steady) / len(steady)
+        stats = {"steady_step_ms": step_ms,
+                 "host_steady_step_ms": sum(host_ms[1:]) / len(host_ms[1:]),
+                 "target_tokens_per_s": TRAIN_BATCH * TRAIN_LEN * 1e3
+                 / step_ms, "max_memory_allocated": peak}
+        emit("train_stacked_amp", model="transformer_base_stacked",
+             batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=STACK_STEPS,
+             dropout=STACK_DROPOUT,
+             amp={"dtype": "bfloat16", "keep_activations": True},
+             losses=losses, loss_fell=losses[-1] < losses[0],
+             launches=counts, ops_per_step=len(ops),
+             op_dispatches_per_step=op_dispatches(exe, main, cost),
+             host_step_ms=host_ms, device_step_ms=device_ms, **stats,
+             beside=beside,
+             recompute={"bitwise": True, "fetches_compared": len(fetches),
+                        **{f"{k}_{f}": v[f] for k, v in runs.items()
+                           for f in ("host_ms", "device_ms", "launches",
+                                     "peak", "steady_device_ms",
+                                     "stack_grad_peaks")}})
+        if profile_run:
+            profile_step("train_stacked_amp", lambda: exe.run(
+                main, feed=feed, fetch_list=[cost], scope=scope),
+                {"gemm": GEMM_KEYS, "flash": ("flash_",)})
+    return counts
+
+
+def phase_stack_parity():
+    """Card against CPU (the plain versions), fp32, from one initial state:
+    the tiny stacked Transformer (flash, dropout 0, batch 4 x 8, padded
+    keys) and the tiny stacked BERT (flash, batch 2 x 32, padded keys), 3
+    steps each, losses within rtol 1e-5 at step 0 and 1e-4 after, every
+    attention through the flash kernels on the card; then
+    ``gpipe_mlp_stack`` (3 layers of width 256, relu / tanh / gelu) at 512
+    rows: out and the grads of x and the stacked weights within
+    ``SEQ_PARITY_TOL``, the weights' grads (sums over the rows) with its
+    atol of each tensor's largest magnitude."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert, transformer
+
+    places = (fluid.CPUPlace(), fluid.CUDAPlace(0))
+    tol = np.array([1e-5, 1e-4, 1e-4])
+    result = {}
+    rng = np.random.RandomState(4)
+    tm_feed = {"src_word": rng.randint(1, 1000, size=(4, 8)),
+               "tgt_word": rng.randint(1, 1000, size=(4, 8)),
+               "lbl_word": rng.randint(1, 1000, size=(4, 8, 1))}
+    tm_feed["src_word"][0, -2:] = 0
+    (cpu, card), counts, _ = parity_runs(
+        build_training(8, dropout=0.0, flash=True, stacked=True,
+                       config=transformer.tiny_config), tm_feed, 3, places)
+    if counts["flash_fwd"] != 3 * 2 * 6 or counts["flash_dq"] != 3 * 6:
+        raise AssertionError(f"stack_parity: the stacked Transformer's card "
+                             f"run launched {counts}")
+    result["transformer_tiny"] = {
+        "cpu_losses": cpu.tolist(), "card_losses": card.tolist(),
+        "rel_err": check_parity("stack_parity", cpu, card, tol)}
+    cfg = bert.tiny_config()
+    cfg.stacked = True
+    bert_feed = bert.synthetic_batch(cfg, 2, 32, 4, np.random.RandomState(3))
+    bert_feed["src_ids"][1, -5:] = 0
+    (cpu, card), counts, _ = parity_runs(build_bert(cfg, 32, 4, 1e-3),
+                                         bert_feed, 3, places)
+    if counts["flash_fwd"] != 3 * 2 * cfg.n_layer:
+        raise AssertionError(f"stack_parity: the stacked BERT's card run "
+                             f"launched {counts}")
+    result["bert_tiny"] = {
+        "cpu_losses": cpu.tolist(), "card_losses": card.tolist(),
+        "rel_err": check_parity("stack_parity", cpu, card, tol)}
+    x = np.random.RandomState(5).standard_normal((512, 256)).astype(
+        np.float32)
+    for act in ("relu", "tanh", "gelu"):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 6
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            xv = fluid.layers.data("x", shape=[256], dtype="float32",
+                                   stop_gradient=False)
+            out = fluid.layers.gpipe_mlp_stack(xv, n_layers=3, act=act)
+            loss = fluid.layers.reduce_sum(fluid.layers.square(out))
+            params = fluid.backward.append_backward(loss)
+        fetches = [out.name, "x@GRAD"] + [g.name for _, g in params]
+        (cpu, card), _, _ = place_steps((main, startup), {"x": x}, fetches,
+                                        1, places)
+        # the stacked weights' grads are sums over the rows: atol of each
+        # one's largest magnitude, as the tranche phases hold sums
+        result[f"gpipe_{act}"] = {
+            name: compare_on_card(
+                "stack_parity", [name], [torch.from_numpy(c)],
+                [torch.from_numpy(g)], SEQ_PARITY_TOL, k >= 2)
+            for k, (name, c, g) in enumerate(zip(fetches, cpu[0], card[0]))}
+    emit("stack_parity", tol_losses=tol.tolist(),
+         tol_ops=list(SEQ_PARITY_TOL), **result)
+
+
 def main():
     import argparse
 
@@ -12334,7 +12909,7 @@ def main():
     flash_amp = phase_kernel_flash_amp()
     torch.cuda.empty_cache()
     with fluid.amp.amp_guard("bfloat16", keep_activations=True):
-        counts, _ = phase_train(
+        counts, flash_amp_stats = phase_train(
             build_training(TRAIN_LEN, flash=True), args.profile, flash=True,
             beside={"train_amp": amp_stats, "train_flash": flash_stats},
             amp=True)
@@ -12492,6 +13067,27 @@ def main():
         add_counts(total, phase_train_resnet_reader_amp(tmp))
     torch.cuda.empty_cache()
     phase_reader_py_lod()
+    torch.cuda.empty_cache()
+    # the layer stacks and the MoE feed-forward: fluid_benchmark.py's
+    # moe_transformer and the stacked Transformer-base (rows 1-5 and 7),
+    # the routing and the stacks card against CPU
+    adam["by_model"].update(optimizer_at_model_shapes(
+        phase_kernel_adam, "adam",
+        [("moe_transformer", build_training(MOE_LEN, flash=True,
+                                            moe=MOE_EXPERTS)[0],
+          MOE_ADAM_TENSORS),
+         ("transformer_stacked", build_training(TRAIN_LEN, flash=True,
+                                                stacked=True)[0],
+          STACK_ADAM_TENSORS)]))
+    counts, _ = phase_train_moe_amp(args.profile)
+    add_counts(total, counts)
+    torch.cuda.empty_cache()
+    phase_moe_parity()
+    torch.cuda.empty_cache()
+    add_counts(total, phase_train_stacked_amp(
+        {"train_flash_amp": flash_amp_stats}, args.profile))
+    torch.cuda.empty_cache()
+    phase_stack_parity()
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):

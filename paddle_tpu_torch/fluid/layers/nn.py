@@ -11,10 +11,14 @@ sigmoid, CTC, edit distance, the CTC greedy decoder) with ``im2sequence``,
 ``multiplex``, the image resizes), and the builders of the 3-D and
 transposed convolutions, ``group_norm``, ``lrn``, ``maxout``,
 ``pool3d`` and ``Print``, and ``cos_sim``, ``mean_iou``,
-``random_crop`` and the in-graph ``load``, copied so the same calls emit
-the same IR."""
+``random_crop`` and the in-graph ``load``, and the MoE feed-forward, the
+fc stack and the transformer layer stacks (``moe_ffn``,
+``gpipe_mlp_stack``, ``transformer_{encoder,decoder}_stack``), copied so
+the same calls emit the same IR."""
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -43,7 +47,9 @@ __all__ = [
     "expand", "shape", "crop", "image_resize", "resize_bilinear", "prelu",
     "multiplex", "image_resize_short", "conv3d", "conv2d_transpose",
     "conv3d_transpose", "group_norm", "lrn", "maxout", "pool3d", "Print",
-    "cos_sim", "mean_iou", "random_crop", "load",
+    "cos_sim", "mean_iou", "random_crop", "load", "moe_ffn",
+    "gpipe_mlp_stack", "transformer_encoder_stack",
+    "transformer_decoder_stack",
 ]
 
 
@@ -587,6 +593,194 @@ def ring_attention(q, k, v, causal=False, scale=None, sp_axis="sp",
                "sp_axis": sp_axis,
                "flash": -1 if flash is None else int(bool(flash))})
     return out
+
+
+def moe_ffn(input, num_experts, hidden_size, top_k=2, capacity_factor=1.25,
+            activation="relu", param_attr=None, name=None):
+    """Mixture-of-experts feed-forward (ops/moe_ops.py, parallel/moe.py).
+    input: [..., D].  Returns (out [..., D], aux_loss scalar): callers add
+    the Switch load-balancing ``aux_loss`` (weighted ~1e-2) to their loss
+    and wrap ``out`` in a residual connection (a dropped token outputs
+    zero).  The expert weights carry ``dist_hint="ep"``, the axis their
+    expert dim shards over under expert parallelism."""
+    if top_k > num_experts:
+        raise ValueError(
+            f"moe_ffn: top_k={top_k} exceeds num_experts={num_experts}")
+    from ..initializer import XavierInitializer
+
+    helper = LayerHelper("moe_ffn", **locals())
+    dtype = helper.input_dtype()
+    d = int(input.shape[-1])
+    # each create_parameter names its attr: every param takes its own copy
+    _pa = lambda: copy.deepcopy(param_attr)  # noqa: E731
+    gate_w = helper.create_parameter(attr=_pa(), shape=[d, num_experts],
+                                     dtype=dtype)
+    # stacked expert weights need PER-EXPERT fans: the default convention
+    # would read the expert dim as part of the receptive field
+    w1 = helper.create_parameter(attr=_pa(),
+                                 shape=[num_experts, d, hidden_size],
+                                 dtype=dtype,
+                                 default_initializer=XavierInitializer(
+                                     fan_in=d, fan_out=hidden_size))
+    b1 = helper.create_parameter(attr=_pa(),
+                                 shape=[num_experts, hidden_size],
+                                 dtype=dtype, is_bias=True)
+    w2 = helper.create_parameter(attr=_pa(),
+                                 shape=[num_experts, hidden_size, d],
+                                 dtype=dtype,
+                                 default_initializer=XavierInitializer(
+                                     fan_in=hidden_size, fan_out=d))
+    b2 = helper.create_parameter(attr=_pa(), shape=[num_experts, d],
+                                 dtype=dtype, is_bias=True)
+    for p in (w1, b1, w2, b2):
+        p.dist_hint = "ep"
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(input.shape)
+    aux = helper.create_variable_for_type_inference(dtype)
+    aux.shape = ()
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"top_k": int(top_k), "capacity_factor": float(capacity_factor),
+               "activation": activation})
+    return out, aux
+
+
+def gpipe_mlp_stack(input, n_layers, act="relu", n_microbatches=4,
+                    pp_axis="pp", param_attr=None, name=None):
+    """A stack of ``n_layers`` equal-width fc layers (ops/pipeline_ops.py):
+    single-device the layers apply in order; the GPipe schedule over a
+    ``pp`` axis comes with the multi-GPU slice.  input: [N, D]; weights
+    are stacked [L, D, D] with ``dist_hint="pp"``."""
+    from ..initializer import XavierInitializer
+
+    helper = LayerHelper("gpipe_mlp_stack", **locals())
+    dtype = helper.input_dtype()
+    d = int(input.shape[-1])
+    w = helper.create_parameter(attr=copy.deepcopy(param_attr),
+                                shape=[n_layers, d, d],
+                                dtype=dtype,
+                                default_initializer=XavierInitializer(
+                                    fan_in=d, fan_out=d))
+    b = helper.create_parameter(attr=copy.deepcopy(param_attr),
+                                shape=[n_layers, d],
+                                dtype=dtype, is_bias=True)
+    w.dist_hint = "pp"
+    b.dist_hint = "pp"
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(input.shape)
+    helper.append_op(
+        type="gpipe_mlp_stack",
+        inputs={"X": [input], "W": [w], "B": [b]},
+        outputs={"Out": [out]},
+        attrs={"act": act, "n_microbatches": int(n_microbatches),
+               "pp_axis": pp_axis})
+    return out
+
+
+def _stack_params(helper, dtype, n_layer, d_model, d_inner, decoder,
+                  param_attr):
+    """Create the stacked [L, ...] parameters of a transformer layer stack,
+    tagged with per-dim ``dist_spec`` mesh hints
+    (``parallel/transformer_stack.dist_spec_for``)."""
+    from ...parallel import transformer_stack as ts
+    from ..initializer import ConstantInitializer, XavierInitializer
+
+    shapes = {
+        "WQ": [n_layer, d_model, d_model], "WK": [n_layer, d_model, d_model],
+        "WV": [n_layer, d_model, d_model], "WO": [n_layer, d_model, d_model],
+        "FFN1W": [n_layer, d_model, d_inner], "FFN1B": [n_layer, d_inner],
+        "FFN2W": [n_layer, d_inner, d_model], "FFN2B": [n_layer, d_model],
+        "LN1S": [n_layer, d_model], "LN1B": [n_layer, d_model],
+        "LN2S": [n_layer, d_model], "LN2B": [n_layer, d_model],
+    }
+    if decoder:
+        shapes.update({
+            "CQ": [n_layer, d_model, d_model],
+            "CK": [n_layer, d_model, d_model],
+            "CV": [n_layer, d_model, d_model],
+            "CO": [n_layer, d_model, d_model],
+            "LN3S": [n_layer, d_model], "LN3B": [n_layer, d_model],
+        })
+    params = {}
+    for slot, shape in shapes.items():
+        if slot.endswith("S") and slot.startswith("LN"):
+            init = ConstantInitializer(1.0)
+        elif slot.endswith("B") or len(shape) == 2:
+            init = ConstantInitializer(0.0)
+        else:
+            # stacked weights need PER-LAYER fans: the default convention
+            # would read the layer dim as receptive field
+            init = XavierInitializer(fan_in=shape[1], fan_out=shape[2])
+        p = helper.create_parameter(attr=copy.deepcopy(param_attr),
+                                    shape=shape, dtype=dtype,
+                                    default_initializer=init)
+        p.dist_spec = ts.dist_spec_for(slot, len(shape), decoder)
+        params[slot] = p
+    return params
+
+
+def _stack_op(helper, op_type, input, inputs, params, n_head, dropout,
+              is_test, n_microbatches, recompute, flash):
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    out.shape = tuple(input.shape)
+    rng_key = helper.create_variable_for_type_inference("int32")
+    rng_key.shape = (2,)
+    rng_key.stop_gradient = True
+    inputs.update({slot: [p] for slot, p in params.items()})
+    helper.append_op(
+        type=op_type, inputs=inputs,
+        outputs={"Out": [out], "RngKey": [rng_key]},
+        attrs={"n_head": int(n_head), "dropout": float(dropout),
+               "is_test": bool(is_test),
+               "n_microbatches": int(n_microbatches),
+               "recompute": bool(recompute),
+               "flash": -1 if flash is None else int(bool(flash))})
+    return out
+
+
+def transformer_encoder_stack(input, bias=None, n_layer=2, n_head=4,
+                              d_inner=None, dropout=0.0, is_test=False,
+                              n_microbatches=4, recompute=False,
+                              flash=None, param_attr=None, name=None):
+    """A transformer ENCODER stack as one op (ops/transformer_ops.py,
+    parallel/transformer_stack.py).  input: [N, T, D]; bias: optional
+    [N, 1, 1, T] additive key bias (padding mask).  Single-device the
+    layers apply in order over the stacked [L, ...] params; residual
+    dropout only; ``recompute`` recomputes each layer's activations in the
+    backward; ``flash`` as ``ring_attention``'s."""
+    helper = LayerHelper("transformer_encoder_stack", **locals())
+    d = int(input.shape[-1])
+    params = _stack_params(helper, helper.input_dtype(), n_layer, d,
+                           d_inner or 4 * d, False, param_attr)
+    inputs = {"X": [input]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    return _stack_op(helper, "transformer_encoder_stack", input, inputs,
+                     params, n_head, dropout, is_test, n_microbatches,
+                     recompute, flash)
+
+
+def transformer_decoder_stack(input, enc_out, src_bias=None, n_layer=2,
+                              n_head=4, d_inner=None, dropout=0.0,
+                              is_test=False, n_microbatches=4,
+                              recompute=False, flash=None,
+                              param_attr=None, name=None):
+    """A transformer DECODER stack (causal self-attn + cross-attn + FFN per
+    layer) as one op; see transformer_encoder_stack.  input: [N, Tt, D];
+    enc_out: [N, Ts, D]; src_bias: [N, 1, 1, Ts]."""
+    helper = LayerHelper("transformer_decoder_stack", **locals())
+    d = int(input.shape[-1])
+    params = _stack_params(helper, helper.input_dtype(), n_layer, d,
+                           d_inner or 4 * d, True, param_attr)
+    inputs = {"X": [input], "EncOut": [enc_out]}
+    if src_bias is not None:
+        inputs["Bias"] = [src_bias]
+    return _stack_op(helper, "transformer_decoder_stack", input, inputs,
+                     params, n_head, dropout, is_test, n_microbatches,
+                     recompute, flash)
 
 
 def paged_attention(q, cache_k, cache_v, page_table, bias, scale=1.0,

@@ -8,7 +8,8 @@ an NSP head on the [CLS] vector.
 Attention runs the unfused chain, or with ``flash_attention`` /
 ``ring_attention`` set the ``ring_attention`` op, which runs the flash
 kernels on CUDA tensors (under bf16 AMP the bf16 ones).  ``stacked=True``
-(the reference's one layer-stack op) is not ported yet.
+builds the encoder as one layer-stack op
+(``layers.transformer_encoder_stack``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ class BertConfig:
     attention through the ``ring_attention`` op and its flash kernels,
     False forbids them, None = on when torch sees a CUDA device when the
     model is built; ``ring_attention`` routes through the same op.
-    ``stacked``, ``n_microbatches`` and ``recompute`` belong to the
-    layer-stack op, which is not ported yet (``forward`` raises)."""
+    ``stacked`` builds the encoder as one layer-stack op, its layers
+    recomputed in the backward with ``recompute``; ``n_microbatches`` is
+    the pipeline's, kept in the IR."""
 
     def __init__(self, name, vocab_size=30522, d_model=768, d_inner=3072,
                  n_head=12, n_layer=12, type_vocab_size=2, max_len=512,
@@ -82,10 +84,12 @@ def _bert_embed(ids, type_ids, cfg, seq_len):
 
 def encoder_stack(emb, pad_bias, cfg):
     if getattr(cfg, "stacked", False):
-        raise NotImplementedError(
-            "BertConfig.stacked: the layer-stack op "
-            "(transformer_encoder_stack) is not ported yet: ROADMAP.md "
-            "queue 1 item 12")
+        return layers.transformer_encoder_stack(
+            emb, bias=pad_bias, n_layer=cfg.n_layer, n_head=cfg.n_head,
+            d_inner=cfg.d_inner, dropout=cfg.dropout,
+            n_microbatches=getattr(cfg, "n_microbatches", 4),
+            recompute=getattr(cfg, "recompute", False),
+            flash=getattr(cfg, "flash_attention", None))
     enc = emb
     for i in range(cfg.n_layer):
         attn = _multi_head_attention(

@@ -8,9 +8,11 @@ Attention in training is the unfused chain (matmul -> softmax -> dropout
 -> matmul) or, with ``flash_attention`` or ``ring_attention`` set, the
 ``ring_attention`` op, which runs the flash kernels
 (``ops/flash_attention.py``) single-device; attention-probability dropout
-is skipped on that path, as in the reference.  The stacked layer-stack ops
-and MoE feed-forward layers are not ported yet and raise
-``NotImplementedError``.
+is skipped on that path, as in the reference.  ``stacked`` builds the
+encoder and decoder as one layer-stack op each
+(``layers.transformer_{encoder,decoder}_stack``, residual dropout only),
+and ``moe_experts`` replaces every FFN by a Switch-style MoE layer
+(``layers.moe_ffn``) whose aux losses join the cost.
 """
 
 from __future__ import annotations
@@ -34,14 +36,18 @@ class Config:
     ``ring_attention`` routes through the same op (single-device it is the
     flash kernels on CUDA tensors, full attention on CPU ones; the sp ring
     comes with the multi-GPU slice).  Attention-probability dropout is
-    skipped on the op's path.  ``stacked`` and ``moe_experts`` are not
-    ported yet (the builders raise); the MoE routing, pipeline and
-    recompute fields come with their slices."""
+    skipped on the op's path.  ``moe_experts`` > 0 replaces every FFN by
+    an MoE layer of that many experts, top ``moe_top_k``, its aux loss
+    weighted ``moe_aux_weight``.  ``stacked`` builds each of encoder and
+    decoder as one layer-stack op (residual dropout only), its layers
+    recomputed in the backward with ``recompute``; ``n_microbatches`` is
+    the pipeline's, kept in the IR."""
 
     def __init__(self, name, src_vocab_size, tgt_vocab_size, d_model,
                  d_inner, n_head, n_layer, dropout=0.1, label_smooth=0.1,
-                 moe_experts=0, stacked=False, ring_attention=False,
-                 flash_attention=None):
+                 moe_experts=0, moe_top_k=2, moe_aux_weight=1e-2,
+                 stacked=False, ring_attention=False, n_microbatches=4,
+                 recompute=False, flash_attention=None):
         self.name = name
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
@@ -52,9 +58,13 @@ class Config:
         self.dropout = dropout
         self.label_smooth = label_smooth
         self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_aux_weight = moe_aux_weight
         self.stacked = stacked
         self.ring_attention = ring_attention
         self.flash_attention = flash_attention
+        self.n_microbatches = n_microbatches
+        self.recompute = recompute
 
 
 def base_config():
@@ -161,7 +171,14 @@ def _multi_head_attention(q_in, k_in, v_in, bias, d_model, n_head,
                      param_attr=ParamAttr(name=f"{prefix}_o_w"))
 
 
-def _ffn(x, d_inner, d_model, prefix):
+def _ffn(x, d_inner, d_model, prefix, cfg=None, aux_losses=None):
+    if cfg is not None and cfg.moe_experts:
+        out, aux = layers.moe_ffn(x, num_experts=cfg.moe_experts,
+                                  hidden_size=d_inner,
+                                  top_k=cfg.moe_top_k)
+        if aux_losses is not None:
+            aux_losses.append(aux)
+        return out
     h = layers.fc(x, d_inner, num_flatten_dims=2, act="relu",
                   param_attr=ParamAttr(name=f"{prefix}_ffn1_w"))
     return layers.fc(h, d_model, num_flatten_dims=2,
@@ -197,34 +214,47 @@ def _padding_bias(word, seq_len):
     return layers.reshape(bias, [-1, 1, 1, seq_len])
 
 
-def _check_ported(cfg):
-    """The reference's other layer paths are later slices (ROADMAP: the
-    MoE and pipeline items)."""
-    for field, what in (("stacked", "the stacked layer-stack ops"),
-                        ("moe_experts", "MoE feed-forward layers")):
-        if getattr(cfg, field, None):
-            raise NotImplementedError(
-                f"Config.{field}: {what} is not ported yet; see ROADMAP.md")
+def moe_config():
+    """Switch-Transformer-style MoE variant of the tiny config (4
+    experts)."""
+    c = tiny_config()
+    c.name = "moe_tiny"
+    c.moe_experts = 4
+    return c
 
 
-def encoder(src_word, cfg, src_len):
-    _check_ported(cfg)
+def encoder(src_word, cfg, src_len, aux_losses=None):
     enc = _embed(src_word, cfg.src_vocab_size, src_len, cfg, "src")
     src_bias = _padding_bias(src_word, src_len)
+    if cfg.stacked:
+        enc = layers.transformer_encoder_stack(
+            enc, bias=src_bias, n_layer=cfg.n_layer, n_head=cfg.n_head,
+            d_inner=cfg.d_inner, dropout=cfg.dropout,
+            n_microbatches=cfg.n_microbatches, recompute=cfg.recompute,
+            flash=cfg.flash_attention)
+        return enc, src_bias
     for i in range(cfg.n_layer):
         attn = _multi_head_attention(
             enc, enc, enc, src_bias, cfg.d_model, cfg.n_head, cfg.dropout,
             prefix=f"enc{i}_self", use_ring=cfg.ring_attention,
             flash=cfg.flash_attention)
         enc = _postprocess(enc, attn, cfg.dropout)
-        ff = _ffn(enc, cfg.d_inner, cfg.d_model, prefix=f"enc{i}")
+        ff = _ffn(enc, cfg.d_inner, cfg.d_model, prefix=f"enc{i}",
+                  cfg=cfg, aux_losses=aux_losses)
         enc = _postprocess(enc, ff, cfg.dropout)
     return enc, src_bias
 
 
-def decoder(tgt_word, enc_out, src_bias, cfg, tgt_len):
-    _check_ported(cfg)
+def decoder(tgt_word, enc_out, src_bias, cfg, tgt_len, aux_losses=None):
     dec = _embed(tgt_word, cfg.tgt_vocab_size, tgt_len, cfg, "tgt")
+    if cfg.stacked:
+        dec = layers.transformer_decoder_stack(
+            dec, enc_out, src_bias=src_bias, n_layer=cfg.n_layer,
+            n_head=cfg.n_head, d_inner=cfg.d_inner, dropout=cfg.dropout,
+            n_microbatches=cfg.n_microbatches, recompute=cfg.recompute,
+            flash=cfg.flash_attention)
+        return layers.fc(dec, cfg.tgt_vocab_size, num_flatten_dims=2,
+                         param_attr=ParamAttr(name="out_proj_w"))
     for i in range(cfg.n_layer):
         self_attn = _multi_head_attention(
             dec, dec, dec, None, cfg.d_model, cfg.n_head, cfg.dropout,
@@ -236,7 +266,8 @@ def decoder(tgt_word, enc_out, src_bias, cfg, tgt_len):
             cfg.dropout, prefix=f"dec{i}_cross", use_ring=cfg.ring_attention,
             flash=cfg.flash_attention)
         dec = _postprocess(dec, cross, cfg.dropout)
-        ff = _ffn(dec, cfg.d_inner, cfg.d_model, prefix=f"dec{i}")
+        ff = _ffn(dec, cfg.d_inner, cfg.d_model, prefix=f"dec{i}",
+                  cfg=cfg, aux_losses=aux_losses)
         dec = _postprocess(dec, ff, cfg.dropout)
     return layers.fc(dec, cfg.tgt_vocab_size, num_flatten_dims=2,
                      param_attr=ParamAttr(name="out_proj_w"))
@@ -249,8 +280,9 @@ def forward(cfg, src_len, tgt_len):
     tgt_word = layers.data(name="tgt_word", shape=[tgt_len], dtype="int64")
     lbl_word = layers.data(name="lbl_word", shape=[tgt_len, 1], dtype="int64")
 
-    enc_out, src_bias = encoder(src_word, cfg, src_len)
-    logits = decoder(tgt_word, enc_out, src_bias, cfg, tgt_len)
+    aux_losses = []
+    enc_out, src_bias = encoder(src_word, cfg, src_len, aux_losses)
+    logits = decoder(tgt_word, enc_out, src_bias, cfg, tgt_len, aux_losses)
 
     if cfg.label_smooth:
         hot = layers.one_hot(lbl_word, cfg.tgt_vocab_size)
@@ -269,6 +301,9 @@ def forward(cfg, src_len, tgt_len):
         layers.reduce_sum(cost),
         layers.elementwise_add(layers.reduce_sum(non_pad),
                                layers.fill_constant([1], "float32", 1e-8)))
+    for aux in aux_losses:  # Switch load-balancing losses (MoE configs)
+        avg_cost = layers.elementwise_add(
+            avg_cost, layers.scale(aux, scale=cfg.moe_aux_weight))
     return src_word, tgt_word, lbl_word, avg_cost, logits
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import refuse_process_group
 from ..parallel.ring_attention import full_attention
 from .flash_attention import FlashAttention, bias_supported
 from .registry import register_op
@@ -28,12 +29,9 @@ def ring_attention_op(ctx):
     bias = ctx.input("Bias") if ctx.has_input("Bias") else None
     causal = bool(ctx.attr("causal", False))
     scale = ctx.attr("scale", 0.0) or None
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            f"ring_attention over the {ctx.attr('sp_axis', 'sp')!r} axis of "
-            f"a process group (the sequence-parallel ring) comes with the "
-            f"multi-GPU slice; see ROADMAP.md")
+    refuse_process_group(
+        f"ring_attention over the {ctx.attr('sp_axis', 'sp')!r} axis (the "
+        f"sequence-parallel ring)")
     if _flash_decision(int(ctx.attr("flash", -1)), q.device) \
             and bias_supported(bias, q.shape[0], k.shape[2]):
         out = FlashAttention.apply(q, k, v, bias, scale, causal)

@@ -24,7 +24,9 @@ on the CPU:
    a logit moves the mean loss by ~3e-4 (measured 3.0e-4 at step 0, 6.0e-4
    at step 2): within bf16's relative step 2^-8, the card-against-CPU
    bound of ``chip_smoke.AMP_PARITY_RTOL``;
- - ``stacked=True`` raises ``NotImplementedError``.
+ - ``stacked=True`` (the encoder as one ``transformer_encoder_stack``
+   op): the same Programs, and the same 4 steps within the same
+   tolerances, flash off and on.
 """
 
 import functools
@@ -187,9 +189,34 @@ def test_bf16_keep_matches_reference(flash, bf16_keep_strict_reference):
     assert (rel <= rtol).all(), (port[:, 0], ref[:, 0], rel)
 
 
-def test_stacked_is_not_ported():
-    cfg = port_bert.tiny_config()
-    cfg.stacked = True
-    with tf.program_guard(tf.Program(), tf.Program()):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            port_bert.build(cfg, seq_len=SEQ, n_mask=N_MASK)
+@pytest.mark.parametrize("flash", [False, True], ids=["unfused", "flash"])
+def test_stacked_training_matches_reference(flash, monkeypatch):
+    """``stacked=True``: the encoder as one ``transformer_encoder_stack`` op,
+    the same Programs in both packages, and the tiny model's 4 Adam steps
+    from the JAX package's initial scope as the unstacked model's are
+    held."""
+    for model in (ref_bert, port_bert):
+        config = model.tiny_config
+
+        def stacked(config=config):
+            cfg = config()
+            cfg.stacked = True
+            return cfg
+
+        monkeypatch.setattr(model, "tiny_config", stacked)
+    rmain, rstart, _ = _build(rf, ref_bert, "tiny_config", flash)
+    pmain, pstart, _ = _build(tf, port_bert, "tiny_config", flash)
+    for rp, pp in ((rstart, pstart), (rmain, pmain)):
+        assert _ops(pp) == _ops(rp)
+        assert _vars(pp, port_core) == _vars(rp, ref_core)
+    types = [op.type for op in pmain.global_block().ops]
+    assert types.count("transformer_encoder_stack") == 1
+    assert "ring_attention" not in types
+    port_framework.fresh_session()
+    ref_framework.fresh_session()
+    ref, init = _train(rf, ref_bert, flash)
+    port, _ = _train(tf, port_bert, flash, init)
+    rel = np.abs(port - ref) / np.abs(ref)
+    assert (rel[:, 0] <= LOSS_RTOL).all(), (port[:, 0], ref[:, 0], rel)
+    assert (rel[-1] <= LOSS_RTOL[-1]).all(), (port[-1], ref[-1])
+    assert port[-1, 0] < port[0, 0]

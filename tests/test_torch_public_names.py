@@ -29,7 +29,7 @@ import paddle_tpu_torch.serving as port_serving
 ITEM_9 = "ROADMAP.md queue 1 item 9 (observability: profiler, debugger)"
 ITEM_10 = "ROADMAP.md queue 1 item 10 (the batch ServingEngine, registry)"
 ITEM_11 = "ROADMAP.md queue 1 item 11 (fleet, router)"
-ITEM_12 = "ROADMAP.md queue 1 item 12 (multi-GPU, stacks, MoE)"
+ITEM_12 = "ROADMAP.md queue 1 item 12b (multi-GPU)"
 
 TO_PORT = {
     "fluid": {
@@ -38,11 +38,7 @@ TO_PORT = {
         "DistributeTranspiler": ITEM_12,
         "profiler": ITEM_9, "debugger": ITEM_9,
     },
-    "fluid.layers": {
-        "transformer_encoder_stack": ITEM_12,
-        "transformer_decoder_stack": ITEM_12,
-        "gpipe_mlp_stack": ITEM_12, "moe_ffn": ITEM_12,
-    },
+    "fluid.layers": {},
     "fluid.core": {
         # a JAX device has no meaning here: the port's counterpart names
         # the torch device of a Place

@@ -2,10 +2,11 @@
 no op type the reference lacks, and holds every one of the one-line
 activation, math, reduce and shape ops (63) and of the convolution,
 norm, pooling-with-index and random ops (22), of the misc, quant and
-metric ops (31) and of the remaining optimizer ops with
-``average_accumulates`` (8), each in its module with the reference's
-registry flags.
-The op types still to port are printed (``pytest -s``)."""
+metric ops (31), of the remaining optimizer ops with
+``average_accumulates`` (8) and of the layer-stack, pipeline and MoE ops
+(4), each in its module with the reference's registry flags.
+The op types still to port are printed (``pytest -s``): none since the
+layer stacks."""
 
 from paddle_tpu.ops.registry import REGISTRY as REF
 from paddle_tpu_torch.ops.registry import REGISTRY as PORT
@@ -126,9 +127,32 @@ def test_tranche6_convolutions_have_explicit_grads():
         assert PORT[name].grad_fn is not None, name
 
 
+STACK_OPS = {
+    "transformer_ops": ["transformer_encoder_stack",
+                        "transformer_decoder_stack"],
+    "pipeline_ops": ["gpipe_mlp_stack"],
+    "moe_ops": ["moe_ffn"],
+}
+
+
+def test_stack_pipeline_and_moe_ops_are_ported_with_reference_flags():
+    """The stack ops draw dropout masks (stateful) and have explicit grads;
+    the other two take the generic grad, as in the reference."""
+    for module, ops in STACK_OPS.items():
+        for name in ops:
+            assert PORT[name].fn.__module__ == \
+                f"paddle_tpu_torch.ops.{module}", (name, PORT[name].fn)
+            assert PORT[name].no_grad_inputs == REF[name].no_grad_inputs, name
+            assert PORT[name].stateful == REF[name].stateful, name
+            assert (PORT[name].grad_fn is None) == \
+                (REF[name].grad_fn is None), name
+    assert PORT["transformer_encoder_stack"].stateful
+    assert PORT["moe_ffn"].grad_fn is None
+
+
 def test_missing_op_types_are_listed():
     missing = sorted(set(REF) - set(PORT))
     print(f"\n{len(PORT)} of {len(REF)} op types ported; {len(missing)} "
           f"still to port: {', '.join(missing)}")
     assert len(PORT) + len(missing) == len(REF)
-    assert len(PORT) == 269 and len(missing) == 4
+    assert len(PORT) == 273 and len(missing) == 0

@@ -14,8 +14,10 @@
    label-smoothed (soft) and plain (hard) labels;
  - the Executor's generator advances from run to run and a fresh scope
    with the same seed replays it;
- - the model paths not ported yet (stacked, MoE) raise; the flash and
-   ring paths are held in ``tests/test_torch_flash.py``.
+ - the stacked and MoE paths build the reference's Programs (their
+   training is held in ``tests/test_torch_transformer_stack.py`` and
+   ``tests/test_torch_moe.py``); the flash and ring paths are held in
+   ``tests/test_torch_flash.py``.
 """
 
 import numpy as np
@@ -101,17 +103,37 @@ def test_slice_op_types_are_registered():
 @pytest.mark.parametrize("field,value", [("stacked", True),
                                          ("moe_experts", 4)])
 def test_unported_paths_raise(field, value):
-    cfg = port_tm.tiny_config()
-    setattr(cfg, field, value)
-    with tf.program_guard(tf.Program(), tf.Program()), \
-            pytest.raises(NotImplementedError, match=field):
-        port_tm.build(cfg, src_len=L, tgt_len=L)
+    """The paths that raised until the layer stacks and the MoE layer were
+    ported now build the reference's Program (their training is held in
+    ``tests/test_torch_transformer_stack.py`` and
+    ``tests/test_torch_moe.py``)."""
+    programs = []
+    for pkg, tm in ((rf, ref_tm), (tf, port_tm)):
+        cfg = tm.tiny_config()
+        cfg.flash_attention = False
+        setattr(cfg, field, value)
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            tm.build(cfg, src_len=L, tgt_len=L)
+        programs.append((main, startup))
+    (rmain, rstart), (pmain, pstart) = programs
+    for rp, pp in ((rstart, pstart), (rmain, pmain)):
+        assert _ops(pp) == _ops(rp)
+    op = "transformer_encoder_stack" if field == "stacked" else "moe_ffn"
+    assert op in {o.type for o in pmain.global_block().ops}
 
 
 def test_config_takes_no_unported_fields():
-    # recompute would otherwise be accepted and ignored
+    """The Config takes exactly the reference's fields, in its order and
+    with its defaults: each is one the port's model functions read."""
+    import inspect
+
+    want = inspect.signature(ref_tm.Config.__init__).parameters
+    got = inspect.signature(port_tm.Config.__init__).parameters
+    assert [(p.name, p.default) for p in got.values()] == \
+        [(p.name, p.default) for p in want.values()]
     with pytest.raises(TypeError):
-        port_tm.Config("x", 10, 10, 8, 16, 2, 1, recompute=True)
+        port_tm.Config("x", 10, 10, 8, 16, 2, 1, pipeline_stages=2)
 
 
 def test_error_clip_raises_until_ported():
