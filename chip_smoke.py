@@ -41,7 +41,11 @@ in-graph readers (``open_files``, ``batch``, ``double_buffer``,
 then trains ``fluid_benchmark.py``'s ``moe_transformer`` (MoE
 feed-forward layers) and the stacked Transformer-base (the layer-stack
 ops, with and without recompute) and holds the routing, the stacks and
-``gpipe_mlp_stack`` against the CPU, and checks them all.
+``gpipe_mlp_stack`` against the CPU, then trains data-parallel through
+``fluid.ParallelExecutor``: ResNet-50 and Transformer-base (ZeRO-1) in a
+world-1 NCCL group, bitwise the single-device steps, and ResNet-50 over
+two processes sharing the card through a gloo group, against one
+process at the global batch, and checks them all.
 
     python3 chip_smoke.py
 
@@ -697,6 +701,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    tiny stacked BERT (3 steps, rtol 1e-5 step 0, 1e-4
                    after), ``gpipe_mlp_stack`` relu / tanh / gelu (out and
                    grads within ``SEQ_PARITY_TOL``)
+76. pe_world1    - ``ParallelExecutor`` in a world-1 NCCL group: ResNet-50
+                   (bf16 kept, 224 px, batch 64) 3 steps bitwise
+                   ``Executor.run`` (losses and every state tensor), one
+                   momentum launch and one all-reduce of the grads a step;
+                   a 4-step ``run_steps`` window (its all-reduce captured
+                   in the graph) bitwise 4 per-step runs; Transformer-base
+                   (bf16 kept, flash) at 64 x 256 under ``Reduce``
+                   (ZeRO-1: one reduce-scatter, one Adam launch over all
+                   184 tensors, one all-gather a step) 3 steps bitwise the
+                   unsharded Executor; 0 sync-debug warnings in a
+                   fetch-free step of each; step ms beside the Executor's
+                   and the grad bucket's all-reduce ms
+77. pe_dp2_resnet - two processes on the one card over a gloo group with
+                   CUDA tensors, each ResNet-50 fp32 at 224 px and 64
+                   images (global batch 128), given the state of a
+                   one-process ``Executor`` run at batch 128 before each
+                   of 3 steps: each step's loss within
+                   ``RESNET_PARITY_LOSS_RTOL``, the running statistics
+                   after it within ``RESNET_PARITY_STATS_TOL`` and the
+                   velocities' cosine at least
+                   ``RESNET_PARITY_VELOCITY_COSINE`` against that run's
+                   step; the parameters bitwise across the ranks after
+                   every step; one momentum launch a step a rank; step ms
+                   and the grad bucket's all-reduce ms (gloo's, staged
+                   through the host), by host clock and CUDA events
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -12807,6 +12836,497 @@ def phase_stack_parity():
          tol_ops=list(SEQ_PARITY_TOL), **result)
 
 
+# -- data parallelism (phases 76-77) -----------------------------------------
+
+PE_BATCH, PE_STEPS, PE_WINDOW = 64, 3, 4
+DP2_RANKS, DP2_BATCH, DP2_STEPS = 2, 64, 3
+DP2_WORKER_TIMEOUT_S = 420
+DP2_GLOO_TIMEOUT_S = 300
+# the velocities' norm ratio |v_ranks| / |v_one| and the parameters' update
+# against the one-process step's (relative L2), held beside the velocities'
+# cosine, which ignores scale: a grad sum counted twice doubles the update.
+# Between the sound runs' largest readings and those of a tree whose grads
+# are summed twice (PERF.md section 2)
+DP2_VELOCITY_NORM_TOL = 0.01
+DP2_UPDATE_RTOL = 0.1
+BUCKET_TIMING_REPS = 5
+
+
+def collective_counts():
+    from paddle_tpu_torch.ops import collectives as coll
+
+    return {k: getattr(coll, k) for k in (
+        "all_reduce_launches", "reduce_scatter_launches",
+        "all_gather_launches", "broadcast_launches")}
+
+
+def count_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def grad_bucket_numel(main):
+    """The elements of the flat grad bucket a step all-reduces: the
+    parameters' (every one trainable in these programs)."""
+    import numpy as np
+
+    return int(sum(np.prod(p.shape)
+                   for p in main.global_block().all_parameters()
+                   if p.trainable))
+
+
+def bucket_all_reduce_ms(group, numel, device):
+    """The grad bucket's all-reduce alone, ``BUCKET_TIMING_REPS`` calls
+    after one warm-up: host-clocked ms (to the call's end on the card) and
+    CUDA-event ms, the mean of each."""
+    import torch
+
+    flat = torch.ones(numel, dtype=torch.float32, device=device)
+    group.all_reduce_(flat)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host, dev = [], []
+    for _ in range(BUCKET_TIMING_REPS):
+        t0 = time.perf_counter()
+        start.record()
+        group.all_reduce_(flat)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return {"host_ms": sum(host) / len(host),
+            "cuda_event_ms": sum(dev) / len(dev), "numel": numel}
+
+
+def fetch_free_syncs(run):
+    """Sync-debug warnings in one call of ``run`` (a fetch-free step fed
+    from the card), after one unwatched call: their count and where the
+    first three came from."""
+    import warnings
+
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # (the mode's one notice a process, "a prototype feature", is none)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype feature" not in str(w.message)]
+    return len(syncs), [f"{w.filename}:{w.lineno}: {str(w.message)[:160]}"
+                        for w in syncs[:3]]
+
+
+def timed_pe_steps(run, steps):
+    """``steps`` calls of ``run``: (results, host-clocked ms a step)."""
+    import torch
+
+    out, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out.append(run())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def phase_pe_world1(smi):
+    """Phase 76: ``ParallelExecutor`` in a world-1 NCCL group, bitwise the
+    single-device paths.  Returns the kernels' launches of its
+    ParallelExecutor steps."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.ops.collectives import DPGroup
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DP2_GLOO_TIMEOUT_S))
+    total, out = {}, {}
+    # cuDNN's deterministic algorithms: both paths then run the same ones
+    # (its default may pick an atomics-based one per call)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+            main, startup, loss, _ = build_resnet()
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            pe_scope = clone_scope(scope)
+            feed = resnet_feed(PE_BATCH, 224, 1000)
+            exe_out, exe_ms = timed_pe_steps(lambda: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope), PE_STEPS)
+            pe = fluid.ParallelExecutor(loss_name=loss.name,
+                                        main_program=main, scope=pe_scope)
+            reset_launch_counts()
+            c0 = collective_counts()
+            pe_out, pe_ms = timed_pe_steps(
+                lambda: pe.run([loss], feed=feed), PE_STEPS)
+            counts, coll = launch_counts(), count_delta(
+                c0, collective_counts())
+            add_counts(total, counts)
+            diff = state_diff(pe_scope, scope)
+            same = all(np.array_equal(a[0], b[0])
+                       for a, b in zip(pe_out, exe_out))
+            if not (same and diff["bitwise"]):
+                raise AssertionError(f"pe_world1: ParallelExecutor.run is not "
+                                     f"bitwise Executor.run: losses "
+                                     f"{pe_out} / {exe_out}, state {diff}")
+            want = {"momentum": PE_STEPS, "momentum_tensors":
+                    MOMENTUM_TENSORS_PER_STEP * PE_STEPS}
+            if {k: counts[k] for k in want} != want or \
+                    coll["all_reduce_launches"] != PE_STEPS:
+                raise AssertionError(f"pe_world1: {PE_STEPS} ResNet steps "
+                                     f"launched {counts}, collectives {coll}")
+            # a captured window against the same steps one by one
+            win_scope, step_scope = clone_scope(pe_scope), \
+                clone_scope(pe_scope)
+            pe_win = fluid.ParallelExecutor(loss_name=loss.name,
+                                            main_program=main,
+                                            scope=win_scope)
+            pe_step = fluid.ParallelExecutor(loss_name=loss.name,
+                                             main_program=main,
+                                             scope=step_scope)
+            steps = [pe_step.run([loss], feed=feed)
+                     for _ in range(PE_WINDOW)]
+            reset_launch_counts()
+            c0 = collective_counts()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            win = pe_win.run_steps([loss], feed=feed, n_steps=PE_WINDOW)
+            end.record()
+            torch.cuda.synchronize()
+            first_ms = start.elapsed_time(end) / PE_WINDOW
+            w_counts, w_coll = launch_counts(), count_delta(
+                c0, collective_counts())
+            add_counts(total, w_counts)
+            graph = next(w.graph for w in pe_win._exe._windows.values())
+            w_diff = state_diff(win_scope, step_scope)
+            if not (w_diff["bitwise"]
+                    and np.array_equal(win[0], steps[-1][0])):
+                raise AssertionError(f"pe_world1: the window is not bitwise "
+                                     f"its steps: {win} / {steps[-1]}, "
+                                     f"state {w_diff}")
+            if (graph.eager_steps, graph.replays) != (1, PE_WINDOW - 1) or \
+                    w_counts["momentum"] != PE_WINDOW or \
+                    w_coll["all_reduce_launches"] != PE_WINDOW:
+                raise AssertionError(
+                    f"pe_world1: window of {PE_WINDOW}: {graph.eager_steps} "
+                    f"eager, {graph.replays} replays, {w_counts}, {w_coll}")
+            # a second window: replays alone
+            start.record()
+            pe_win.run_steps([loss], feed=feed, n_steps=PE_WINDOW)
+            end.record()
+            torch.cuda.synchronize()
+            replay_ms = start.elapsed_time(end) / PE_WINDOW
+            dev_feed = {k: torch.from_numpy(v).cuda()
+                        for k, v in feed.items()}
+            resnet_syncs, resnet_where = fetch_free_syncs(
+                lambda: pe.run([], feed=dev_feed))
+            group = DPGroup()
+            bucket = bucket_all_reduce_ms(
+                group, grad_bucket_numel(main),
+                core.torch_device(fluid.CUDAPlace(0)))
+            out["resnet"] = {
+                "losses": [float(v[0].reshape(-1)[0]) for v in pe_out],
+                "state": diff, "launches": counts, "collectives": coll,
+                "pe_step_ms": pe_ms, "executor_step_ms": exe_ms,
+                "window": {"steps": PE_WINDOW, "state": w_diff,
+                           "first_window_step_ms": first_ms,
+                           "graph_step_ms": replay_ms,
+                           "collectives": w_coll,
+                           "capture_s": graph.capture_s},
+                "sync_debug_warnings_per_step": resnet_syncs,
+                "grad_bucket_all_reduce": bucket}
+            for e in (exe, pe, pe_win, pe_step):
+                e.close()
+            del scope, pe_scope, win_scope, step_scope
+        torch.cuda.empty_cache()
+        with fluid.amp.amp_guard("bfloat16", keep_activations=True):
+            main, startup, cost = build_training(TRAIN_LEN, flash=True)
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            pe_scope = clone_scope(scope)
+            feed = train_feed(TRAIN_BATCH, TRAIN_LEN)
+            exe_out, exe_ms = timed_pe_steps(lambda: exe.run(
+                main, feed=feed, fetch_list=[cost], scope=scope), PE_STEPS)
+            bs = fluid.BuildStrategy()
+            bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+            pe = fluid.ParallelExecutor(loss_name=cost.name,
+                                        main_program=main, scope=pe_scope,
+                                        build_strategy=bs)
+            reset_launch_counts()
+            c0 = collective_counts()
+            pe_out, pe_ms = timed_pe_steps(
+                lambda: pe.run([cost], feed=feed), PE_STEPS)
+            counts, coll = launch_counts(), count_delta(
+                c0, collective_counts())
+            add_counts(total, counts)
+            diff = state_diff(pe_scope, scope)
+            same = all(np.array_equal(a[0], b[0])
+                       for a, b in zip(pe_out, exe_out))
+            if not (same and diff["bitwise"]):
+                raise AssertionError(f"pe_world1: ZeRO-1 is not bitwise the "
+                                     f"unsharded step: {pe_out} / {exe_out}, "
+                                     f"state {diff}")
+            if (counts["adam"], counts["adam_tensors"]) != (
+                    PE_STEPS, ADAM_TENSORS_PER_STEP * PE_STEPS) or \
+                    coll["reduce_scatter_launches"] != PE_STEPS or \
+                    coll["all_gather_launches"] != PE_STEPS or \
+                    coll["all_reduce_launches"] != 0:
+                raise AssertionError(f"pe_world1: {PE_STEPS} ZeRO-1 steps "
+                                     f"launched {counts}, collectives {coll}")
+            dev_feed = {k: torch.from_numpy(v).cuda()
+                        for k, v in feed.items()}
+            zero1_syncs, zero1_where = fetch_free_syncs(
+                lambda: pe.run([], feed=dev_feed))
+            out["transformer_zero1"] = {
+                "losses": [float(v[0].reshape(-1)[0]) for v in pe_out],
+                "state": diff, "launches": counts, "collectives": coll,
+                "pe_step_ms": pe_ms, "executor_step_ms": exe_ms,
+                "sync_debug_warnings_per_step": zero1_syncs}
+            exe.close()
+            pe.close()
+            del scope, pe_scope
+        if resnet_syncs or zero1_syncs:
+            raise AssertionError(f"pe_world1: host syncs in a fetch-free "
+                                 f"step: ResNet {resnet_syncs} "
+                                 f"{resnet_where}, ZeRO-1 {zero1_syncs} "
+                                 f"{zero1_where}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("pe_world1", backend="nccl", world=1, nvidia_smi=smi,
+         cudnn_deterministic=True,
+         resnet_batch=PE_BATCH, transformer_batch=TRAIN_BATCH,
+         transformer_len=TRAIN_LEN, steps=PE_STEPS, **out)
+    return total
+
+
+def dp2_state_path(dirname, step):
+    return os.path.join(dirname, f"state_{step}.npz")
+
+
+def dp2_worker(rank, dirname):
+    """``chip_smoke.py --dp-worker RANK --dp-dir DIR``: one rank of phase
+    77.  Joins the gloo group (a FileStore in DIR), builds ResNet-50 fp32
+    and before each step loads the one-process run's state from DIR, runs
+    one ParallelExecutor step on its half of the global batch, and
+    records the loss, the running statistics, the velocities' cosine and
+    norm ratio and the parameters' update against the one-process step's,
+    a digest of the parameters, the step's ms and launches; then times
+    the grad bucket's all-reduce.  Its record goes to DIR/rank<RANK>.json.
+    Builds nothing."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.models.params import load_reference_params
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.collectives import DPGroup
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(dirname, "store"),
+                                     DP2_RANKS),
+        rank=rank, world_size=DP2_RANKS,
+        timeout=datetime.timedelta(seconds=DP2_GLOO_TIMEOUT_S))
+    main, startup, loss, _ = build_resnet()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(v.name for v in startup.list_vars() if v.persistable)
+    stats = [n for n in names if ".w_mean" in n or ".w_variance" in n]
+    vel = [n for n in names if "velocity" in n]
+    params = sorted(p.name for p in main.global_block().all_parameters())
+    full = resnet_feed(DP2_BATCH * DP2_RANKS, 224, 1000)
+    feed = {k: v[rank * DP2_BATCH:(rank + 1) * DP2_BATCH]
+            for k, v in full.items()}
+    pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                scope=scope, place=fluid.CUDAPlace(0))
+    rtol_s, _ = RESNET_PARITY_STATS_TOL
+    reset_launch_counts()
+    steps = []
+    for step in range(DP2_STEPS):
+        with np.load(dp2_state_path(dirname, step)) as z:
+            load_reference_params(scope, {n: z[n] for n in z.files
+                                          if n != "__loss__"},
+                                  fluid.CUDAPlace(0))
+            before = np.concatenate([z[n].ravel() for n in params])
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        lv = pe.run([loss], feed=feed)[0]
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with np.load(dp2_state_path(dirname, step + 1)) as z:
+            want = {n: z[n] for n in stats + vel + params}
+            want_loss = float(z["__loss__"])
+        got = {n: scope.get(n).detach().cpu().numpy()
+               for n in stats + vel + params}
+        a = np.concatenate([want[n].ravel() for n in vel])
+        b = np.concatenate([got[n].ravel() for n in vel])
+        # the step's update of the parameters, against one process's (in
+        # float64: the update is ~1e-4 of a parameter)
+        ref_upd = np.concatenate([want[n].ravel() for n in params]
+                                 ).astype(np.float64) - before
+        upd = np.concatenate([got[n].ravel() for n in params]
+                             ).astype(np.float64) - before
+        digest = hashlib.sha256()
+        for n in params:
+            digest.update(scope.get(n).detach().cpu().numpy().tobytes())
+        steps.append({
+            "loss": float(lv.reshape(-1)[0]), "one_process_loss": want_loss,
+            "loss_rel_err": abs(float(lv.reshape(-1)[0]) - want_loss)
+            / abs(want_loss),
+            "stats_excess_over_rtol": max(float(
+                (np.abs(got[n] - want[n]) - rtol_s * np.abs(want[n])).max())
+                for n in stats),
+            "velocity_cosine": float(a @ b / np.linalg.norm(a)
+                                     / np.linalg.norm(b)),
+            "velocity_norm_ratio": float(np.linalg.norm(b)
+                                         / np.linalg.norm(a)),
+            "update_rel_err": float(np.linalg.norm(upd - ref_upd)
+                                    / np.linalg.norm(ref_upd)),
+            "params_sha256": digest.hexdigest(), "host_ms": host_ms,
+            "cuda_event_ms": start.elapsed_time(end)})
+    counts = launch_counts()
+    bucket = bucket_all_reduce_ms(DPGroup(), grad_bucket_numel(main),
+                                  core.torch_device(fluid.CUDAPlace(0)))
+    dist.destroy_process_group()
+    with open(os.path.join(dirname, f"rank{rank}.json"), "w") as f:
+        json.dump({"steps": steps, "launches": counts,
+                   "grad_bucket_all_reduce": bucket,
+                   "nvcc_runs": sorted(_build.build_logs)}, f)
+
+
+def phase_pe_dp2_resnet(tmp, smi):
+    """Phase 77: two ranks on the one card over gloo against one process
+    at the global batch, re-synced before each step.  Returns the ranks'
+    launches."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, _ = build_resnet()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(v.name for v in startup.list_vars() if v.persistable)
+    feed = resnet_feed(DP2_BATCH * DP2_RANKS, 224, 1000)
+    dirname = os.path.join(tmp, "dp2")
+    os.makedirs(dirname)
+    one_ms = []
+    for step in range(DP2_STEPS + 1):
+        state = {n: scope.get(n).detach().cpu().numpy() for n in names}
+        if step:
+            state["__loss__"] = np.float32(lv.reshape(-1)[0])
+        np.savez(dp2_state_path(dirname, step), **state)
+        if step == DP2_STEPS:
+            break
+        t0 = time.perf_counter()
+        lv = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         "--dp-dir", dirname], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DP2_RANKS)]
+    # a rank that fails ends the phase at once: the other would wait on
+    # the group's timeout
+    deadline = time.perf_counter() + DP2_WORKER_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    spawn_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"pe_dp2_resnet: rank {r} exited "
+                                 f"{p.returncode}: {log[-3000:]}")
+    ranks = []
+    for r in range(DP2_RANKS):
+        with open(os.path.join(dirname, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    _, atol_s = RESNET_PARITY_STATS_TOL
+    for r, rec in enumerate(ranks):
+        if rec["nvcc_runs"]:
+            raise AssertionError(f"pe_dp2_resnet: rank {r} ran nvcc for "
+                                 f"{rec['nvcc_runs']}")
+        if (rec["launches"]["momentum"], rec["launches"]["momentum_tensors"]
+                ) != (DP2_STEPS, DP2_STEPS * MOMENTUM_TENSORS_PER_STEP):
+            raise AssertionError(f"pe_dp2_resnet: rank {r} launched "
+                                 f"{rec['launches']}")
+        for s, st in enumerate(rec["steps"]):
+            if not (np.isfinite(st["loss"])
+                    and st["loss_rel_err"] <= RESNET_PARITY_LOSS_RTOL
+                    and st["stats_excess_over_rtol"] <= atol_s
+                    and st["velocity_cosine"]
+                    >= RESNET_PARITY_VELOCITY_COSINE
+                    and abs(st["velocity_norm_ratio"] - 1.0)
+                    <= DP2_VELOCITY_NORM_TOL
+                    and st["update_rel_err"] <= DP2_UPDATE_RTOL):
+                raise AssertionError(f"pe_dp2_resnet: rank {r} step {s} "
+                                     f"against one process: {st}")
+    digests = [[st["params_sha256"] for st in rec["steps"]] for rec in ranks]
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"pe_dp2_resnet: parameters differ across the "
+                             f"ranks: {digests}")
+    total = {}
+    for rec in ranks:
+        add_counts(total, rec["launches"])
+    emit("pe_dp2_resnet", backend="gloo (CUDA tensors staged through the "
+         "host: gloo's numbers, not NCCL's)", ranks=DP2_RANKS,
+         nvidia_smi=smi, local_batch=DP2_BATCH,
+         global_batch=DP2_BATCH * DP2_RANKS, steps=DP2_STEPS,
+         loss_rtol=RESNET_PARITY_LOSS_RTOL,
+         stats_tol=list(RESNET_PARITY_STATS_TOL),
+         velocity_cosine_min=RESNET_PARITY_VELOCITY_COSINE,
+         velocity_norm_ratio_tol=DP2_VELOCITY_NORM_TOL,
+         update_rtol=DP2_UPDATE_RTOL,
+         per_rank=[{"steps": rec["steps"], "launches": rec["launches"],
+                    "grad_bucket_all_reduce": rec["grad_bucket_all_reduce"]}
+                   for rec in ranks],
+         one_process_step_ms=one_ms, params_bitwise_across_ranks=True,
+         spawn_s=spawn_s)
+    return total
+
+
 def main():
     import argparse
 
@@ -12822,6 +13342,12 @@ def main():
                          "directory DIR (used by the script itself)")
     ap.add_argument("--worker-out", metavar="FILE",
                     help="where the Trainer worker writes its record")
+    ap.add_argument("--dp-worker", metavar="RANK", type=int,
+                    help="run rank RANK of phase 77 (used by the script "
+                         "itself)")
+    ap.add_argument("--dp-dir", metavar="DIR",
+                    help="phase 77's directory: the group's store, the "
+                         "states, the ranks' records")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -12830,6 +13356,9 @@ def main():
     sys.path.insert(0, here)
     if args.trainer_worker:
         trainer_worker(args.trainer_worker, args.worker_out)
+        return
+    if args.dp_worker is not None:
+        dp2_worker(args.dp_worker, args.dp_dir)
         return
     started = time.perf_counter()
     smi = phase_device()
@@ -13088,6 +13617,13 @@ def main():
         {"train_flash_amp": flash_amp_stats}, args.profile))
     torch.cuda.empty_cache()
     phase_stack_parity()
+    torch.cuda.empty_cache()
+    # data parallelism: a world-1 NCCL group bitwise the single-device
+    # steps (rows 1-7 through ParallelExecutor), two ranks over gloo
+    # against one process at the global batch (row 6 on each rank)
+    add_counts(total, phase_pe_world1(smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(total, phase_pe_dp2_resnet(tmp, smi))
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):

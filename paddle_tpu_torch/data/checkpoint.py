@@ -9,9 +9,10 @@ prunes them together.  ``fluid.trainer.save_checkpoint(data_state=...)``
 writes it and ``load_checkpoint`` reads it, treating an unreadable blob
 like an unreadable param file: it FALLS BACK to the previous complete
 serial (a corrupt cursor silently resuming at the wrong sample is the
-exact failure this subsystem exists to kill).  The sharded multi-process
-serials that also carry it come with multi-GPU (``ROADMAP.md`` queue 1
-item 12).
+exact failure this subsystem exists to kill).  Under
+``Trainer(parallel=True)`` every rank writes its own blob into the serial
+rank 0 writes, before ``_SUCCESS``; the sharded serials come with the
+later part of ``ROADMAP.md`` queue 1 item 12b.
 
 ``PADDLE_FAULT_SHARD_CORRUPT=1`` truncates the next write (one-shot):
 the deterministic oracle for the fallback path.

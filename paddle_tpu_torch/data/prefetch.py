@@ -51,8 +51,9 @@ class CheckpointablePrefetcher(DevicePrefetcher):
 
     def __init__(self, source: Iterable[Dict[str, object]],
                  pipeline: CheckpointableIterator, n_steps: int = 1,
-                 place=None, depth: Optional[int] = None):
-        super().__init__(source, n_steps=n_steps, place=place, depth=depth)
+                 place=None, depth: Optional[int] = None, stage_fn=None):
+        super().__init__(source, n_steps=n_steps, place=place, depth=depth,
+                         stage_fn=stage_fn)
         self._pipeline = pipeline
         self._win_states: deque = deque()
         #: resume point covering everything consumed so far; before any

@@ -11,16 +11,18 @@ the union over all hosts must cover the dataset exactly once per dp
 group.  :func:`shard_spec` reduces that to the round-robin
 ``(num_shards, shard_index)`` pair ``Pipeline.shard`` consumes; hosts are
 assumed laid out process-major along the dp axis.  These computations need
-no mesh object: a spec string, an ``[[name, extent], ...]`` list or an
-``{axis: extent}`` dict describes the topology.  A device mesh object
-comes with multi-GPU (``ROADMAP.md`` queue 1 item 12).
+no device: a :class:`~..parallel.mesh.Mesh` (the ranks' grid
+``ParallelExecutor`` runs over), a spec string, an ``[[name, extent],
+...]`` list or an ``{axis: extent}`` dict describes the topology.
 """
 
 from __future__ import annotations
 
 import copy
-import re
 from typing import Dict, Optional, Tuple
+
+# one parser and one normal form for every consumer of a mesh
+from ..parallel.mesh import axes_of, parse_mesh_spec
 
 __all__ = ["shard_spec", "data_axis_extent", "shard_layout",
            "merge_cursor_states", "parse_mesh_spec", "axes_of"]
@@ -29,53 +31,6 @@ __all__ = ["shard_spec", "data_axis_extent", "shard_layout",
 #: the batch — tp shards activations, fsdp shards weights, pp stages see
 #: the same microbatch stream)
 DATA_AXES = ("dp",)
-
-_AXIS_RE = re.compile(r"([a-zA-Z_]+?)(\d+)$")
-
-
-def parse_mesh_spec(spec: str) -> Dict[str, int]:
-    """``"dp4,tp2"`` -> ``{"dp": 4, "tp": 2}`` (insertion-ordered); raises
-    ``ValueError`` on a malformed token or a duplicate axis."""
-    axes: Dict[str, int] = {}
-    for tok in str(spec).split(","):
-        tok = tok.strip()
-        if not tok:
-            continue
-        m = _AXIS_RE.fullmatch(tok)
-        if m is None:
-            raise ValueError(
-                f"bad mesh axis {tok!r} in spec {spec!r} — expected "
-                f"<name><extent> tokens like 'dp4,tp2'")
-        name, size = m.group(1), int(m.group(2))
-        if name in axes:
-            raise ValueError(f"duplicate mesh axis {name!r} in {spec!r}")
-        if size < 1:
-            raise ValueError(f"mesh axis {tok!r} must have extent >= 1")
-        axes[name] = size
-    if not axes:
-        raise ValueError(f"empty mesh spec {spec!r}")
-    return axes
-
-
-def axes_of(mesh=None) -> Dict[str, int]:
-    """Ordered ``{axis: extent}`` for a spec string (``"dp4,tp2"``), an
-    ``[[name, extent], ...]`` list, a dict, or ``None`` (the
-    ``PADDLE_TPU_MESH`` spec; ``{}`` when unset)."""
-    if mesh is None:
-        from ..fluid import envcontract
-
-        spec = envcontract.get("PADDLE_TPU_MESH")
-        return parse_mesh_spec(spec) if spec else {}
-    if isinstance(mesh, str):
-        return parse_mesh_spec(mesh)
-    if isinstance(mesh, dict):
-        return {str(a): int(e) for a, e in mesh.items()}
-    if isinstance(mesh, (list, tuple)):
-        return {str(a): int(e) for a, e in mesh}
-    raise TypeError(
-        f"a mesh object ({type(mesh).__name__}) is not ported yet "
-        f"(ROADMAP.md queue 1 item 12): pass a spec string such as "
-        f"'dp4,tp2'")
 
 
 def data_axis_extent(mesh) -> int:

@@ -40,11 +40,15 @@ from .io import (save_vars, save_params, save_persistables, load_vars,
                  load_params, load_persistables, save_inference_model,
                  load_inference_model, get_inference_program)
 from . import ir
+from . import parallel_executor
+from .parallel_executor import (BuildStrategy, ExecutionStrategy,
+                                ParallelExecutor)
 from . import transpiler
 from . import contrib
 from . import metrics
 from . import evaluator
-from .transpiler import InferenceTranspiler, memory_optimize, release_memory
+from .transpiler import (DistributeTranspiler, InferenceTranspiler,
+                         memory_optimize, release_memory)
 from . import trainer
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)
@@ -74,4 +78,6 @@ __all__ = [
     "save_inference_model", "load_inference_model", "get_inference_program",
     "fault", "trainer", "Trainer", "Inferencer", "CheckpointConfig",
     "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent", "EndStepEvent",
+    "parallel_executor", "ParallelExecutor", "ExecutionStrategy",
+    "BuildStrategy", "DistributeTranspiler",
 ]

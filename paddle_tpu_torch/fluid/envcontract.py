@@ -211,6 +211,16 @@ declare("PADDLE_FAULT_SPEC_DRAFT_POISON", "int", None, "fault",
 # -- the rank and the incident log the fault and guardian hooks read --
 declare("PADDLE_TRAINER_ID", "int", 0, "parallel",
         "This process's trainer rank (the fault rank filter's source)")
+declare("PADDLE_TPU_MESH", "str", None, "parallel",
+        "Named mesh spec, e.g. dp4,tp2 (axis order = spec order)")
+declare("PADDLE_TRAINERS", "int", 1, "parallel",
+        "Process count of the torch.distributed group")
+declare("PADDLE_COORDINATOR_ADDR", "str", None, "parallel",
+        "host:port of the group's tcp rendezvous (rank 0)")
+declare("PADDLE_PSERVER_EPS", "str", None, "parallel",
+        "Legacy pserver endpoint list (transpiler compatibility)")
+declare("PADDLE_LOCAL_DEVICE_IDS", "str", None, "parallel",
+        "Comma-separated local device ids visible to this process")
 declare("PADDLE_ELASTIC_INCIDENTS", "path", None, "elastic",
         "Incident log (jsonl) a guardian trip appends one line to")
 

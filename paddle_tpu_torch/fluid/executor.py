@@ -644,14 +644,18 @@ def _check_no_alias(reader, names, env, updated):
 
 
 def _execute(plan, env, device, generator, fetch_names, guard=None,
-             seed_mul=None, device_flag=False):
+             seed_mul=None, device_flag=False, dp=None):
     """Run ``plan``'s ops against ``env``.  Guarded (``guard``): before the
     first ``Optimize`` op, either read the finite flag on the host and skip
     the ``Optimize`` ops on overflow (the loss scaler's host gate), or
     (``device_flag``) snapshot what those ops update in place and run them
     all (the caller commits ``torch.where(ok, new, old)``).  Returns
     ``(finite, snapshot)``: the host flag (None on the device gate, or if
-    no ``Optimize`` op came) and the snapshot."""
+    no ``Optimize`` op came) and the snapshot.  ``dp``: a data-parallel
+    step's hooks (``parallel/spmd.py`` ``ShardedTrainStep``): the group
+    around the ops that cross the batch, the grads' sum after the last op
+    that writes one, ZeRO-1's optimizer ops on a rank's chunk and the
+    parameters' all-gather after them."""
     from . import guardian as _guardian
 
     updated = None if plan.checked else {}
@@ -691,9 +695,17 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
                         if isinstance(t, torch.Tensor):
                             ptr = before[n] = _storage(t)
                             seen[ptr] = n
-            if len(members) > 1:
+            if dp is not None and dp.sliced(k):
+                dp.run_sliced([plan.ops[j] for j in members], env, device,
+                              generator,
+                              [plan.live_outputs[j] for j in members],
+                              run_op, run_group)
+            elif len(members) > 1:
                 run_group([plan.ops[j] for j in members], env, device,
                           generator, [plan.live_outputs[j] for j in members])
+            elif dp is not None:
+                with dp.op_scope(k):
+                    run_op(op, env, device, generator, plan.live_outputs[k])
             else:
                 run_op(op, env, device, generator, plan.live_outputs[k])
             for n, ptr in before.items():
@@ -702,6 +714,8 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
             if seed_mul is not None and "__loss_seed__" in op.attrs:
                 for n in op.output_arg_names:
                     env[n] = env[n] * seed_mul.to(env[n].dtype)
+        if dp is not None:
+            dp.after(k, env)
         for n in plan.release[k]:
             env.pop(n, None)
     if updated is not None:
@@ -711,7 +725,7 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
 
 
 def _run_step(plan, env, device, generator, fetch_names, guard=None,
-              sentinel=None, gate=None, state=None):
+              sentinel=None, gate=None, state=None, dp=None):
     """One step of ``plan`` over ``env``; returns ``(new_state, health)``.
     Unguarded: the persistable outputs, health None.  Guarded: the seed
     multiplied by :func:`~.guardian.seed_multiplier` (``sentinel``: the
@@ -720,17 +734,18 @@ def _run_step(plan, env, device, generator, fetch_names, guard=None,
     ``gate="device"`` a snapshot of what the ``Optimize`` ops update in
     place and ``torch.where(ok, new, old)`` on the device (health: 0-d
     device tensors); with ``gate="host"`` the loss scaler's host read,
-    the ``Optimize`` ops skipped on overflow (health None)."""
+    the ``Optimize`` ops skipped on overflow (health None).  ``dp``: see
+    :func:`_execute`."""
     from . import guardian as _guardian
 
     if guard is None:
-        _execute(plan, env, device, generator, fetch_names)
+        _execute(plan, env, device, generator, fetch_names, dp=dp)
         return {n: env[n] for n in plan.state_out}, None
     start = dict(env)
     seed_mul = _guardian.seed_multiplier(guard, state, sentinel, device)
     finite, snapshot = _execute(plan, env, device, generator, fetch_names,
                                 guard, seed_mul,
-                                device_flag=gate == "device")
+                                device_flag=gate == "device", dp=dp)
     extra = [env[n] for n in guard.extra_fetch_names()]
     if gate != "device" and finite is None:
         finite = _guardian.step_finite(extra[0], extra[1:])
@@ -860,10 +875,11 @@ class _Window:
     aggregate buffers (:func:`~.guardian.window_health_update`)."""
 
     def __init__(self, plan, guard, fetch_names, feed_specs, scope, device,
-                 generator):
+                 generator, dp=None):
         from . import guardian as _guardian
 
         self.plan, self.guard, self.device = plan, guard, device
+        self.dp = dp
         self.fetch_names = fetch_names
         self.scope = weakref.ref(scope)
         self.generator = generator
@@ -919,7 +935,8 @@ class _Window:
         env.update(plan.consts)
         new_state, health = _run_step(plan, env, self.device,
                                       self.generator, self.fetch_names,
-                                      guard, self.sent, "device", bufs)
+                                      guard, self.sent, "device", bufs,
+                                      self.dp)
         self._commit(new_state)
         if health is not None:
             agg = _guardian.window_health_update(
@@ -1058,12 +1075,23 @@ class Executor:
         if gens is None:
             gens = {}
             scope.set(RNG_STATE_VAR, gens)
-        key = str(self.device)
+        key, seed = self._rng_stream(program)
         gen = gens.get(key)
         if gen is None:
             gen = gens[key] = torch.Generator(device=self.device)
-            gen.manual_seed(int(program.random_seed or 0))
+            gen.manual_seed(seed)
         return gen
+
+    def _rng_stream(self, program):
+        """The key of this executor's generator in the scope and its seed
+        (``ParallelExecutor``'s executor gives each rank its own)."""
+        return str(self.device), int(program.random_seed or 0)
+
+    def _dp_step(self, program, plan, feed_vals, feed_lods, scope):
+        """The data-parallel hooks of a step (``ParallelExecutor``'s
+        executor gives a ``parallel/spmd.py`` ``ShardedTrainStep``); None:
+        a single-device step."""
+        return None
 
     @staticmethod
     def _step_boundary(n_steps: int = 1) -> int:
@@ -1159,6 +1187,7 @@ class Executor:
                     _storage(t) == _storage(feed[name]):
                 # an op updates this name in place: never the caller's
                 feed_vals[name] = t.clone()
+        dp = self._dp_step(program, plan, feed_vals, feed_lods, scope)
         env: Dict[str, object] = {}
         for name in plan.state_in:
             val = scope.get(name)
@@ -1198,7 +1227,7 @@ class Executor:
             plan, env, self.device, generator, fetch_names, guard, sentinel,
             "device" if g is not None else "host",
             {n: scope.get(n) for n in (guard.scale_vars or ())}
-            if guard is not None else None)
+            if guard is not None else None, dp)
         if _fault.active() is not None:
             new_state = _fault.corrupt_state(new_state)
         for name, val in new_state.items():
@@ -1303,8 +1332,11 @@ class Executor:
             win.close()  # another scope, or a value that no longer fits
             win = None
         if win is None:
+            dp = self._dp_step(program, plan,
+                               {k: v[0] if feed_per_step else v
+                                for k, v in feed_vals.items()}, {}, scope)
             win = _Window(plan, guard, fetch_names, specs, scope,
-                          self.device, generator)
+                          self.device, generator, dp)
             win.load(scope)
             self._windows[key] = win
         window_start = 0

@@ -591,10 +591,10 @@ class Preprocessor:
 class ParallelDo:
     """Upstream's deprecated in-graph data parallelism (parallel_do_op.cc).
     The reference replaced it by ``ParallelExecutor``; the port's
-    multi-GPU executor is ``ROADMAP.md`` queue 1 item 12."""
+    port's counterpart is ``fluid.ParallelExecutor`` (data parallelism over
+    a process group)."""
 
     def __init__(self, *a, **kw):
         raise NotImplementedError(
             "ParallelDo was replaced by ParallelExecutor (data parallelism "
-            "over the devices), which the port has not yet ported "
-            "(ROADMAP.md queue 1 item 12)")
+            "over the devices): use fluid.ParallelExecutor")

@@ -190,22 +190,29 @@ class DevicePrefetcher:
     dim and put on the device — ready for ``Executor.run_steps(feed=
     feed_dev, n_steps=count, feed_per_step=True)``.  The last window may be
     short (``count < n_steps``); the caller runs it with its count.
-    ``place``: the device's place (default the card).
+    ``place``: the device's place (default the card).  ``stage_fn``: takes
+    the stacked window (``{name: array}``) and returns its tensors, ready
+    on the device (``ParallelExecutor.stage_window``), in place of the
+    default staging.
     """
 
     def __init__(self, source: Iterable[Dict[str, object]], n_steps: int = 1,
-                 place=None, depth: Optional[int] = None):
+                 place=None, depth: Optional[int] = None, stage_fn=None):
         self.n_steps = max(1, int(n_steps))
         self.depth = default_depth() if depth is None else max(0, int(depth))
         self._source = source
         self._place = place
         self._stager = None
+        self._stage_fn = stage_fn
         self._abort = Event()
 
     def _stage(self, batches) -> Tuple[Dict[str, torch.Tensor], int, object]:
         from . import fault as _fault
 
         _fault.io_delay()  # the deterministic slow-input oracle
+        if self._stage_fn is not None:
+            return self._stage_fn({name: np.stack([b[name] for b in batches])
+                                   for name in batches[0]}), len(batches), None
         if self._stager is None:
             self._stager = _Stager(_resolve_device(self._place))
         staged, event = self._stager.stage(
@@ -215,7 +222,8 @@ class DevicePrefetcher:
 
     def _yield(self, item):
         staged, count, event = item
-        _hand_over(staged.values(), event, self._stager.device)
+        if event is not None:
+            _hand_over(staged.values(), event, self._stager.device)
         return staged, count
 
     def __iter__(self):

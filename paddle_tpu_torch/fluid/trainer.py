@@ -14,8 +14,13 @@ first sample no committed step consumed.
 
 ``Trainer`` and ``Inferencer`` run on the card (``CUDAPlace(0)``) unless
 given a place, and raise when there is none; the reference defaults to
-``CPUPlace()``.  ``parallel=True`` (the SPMD path) raises: multi-GPU is
-``ROADMAP.md`` queue 1 item 12.  The reference's goodput ledger, trace
+``CPUPlace()``.  ``parallel=True`` trains data-parallel through
+``ParallelExecutor`` over the process group (both loops; the windowed one
+stages its windows with ``ParallelExecutor.stage_window``): rank 0 alone
+writes a serial's persistables (dp state is replicated), every rank writes
+its data state into it, and rank 0 commits ``_SUCCESS`` after all have;
+the save is synchronous then.  The sharded serials come with the later
+part of ``ROADMAP.md`` queue 1 item 12b.  The reference's goodput ledger, trace
 spans, SLO watchdog and checkpoint run events come with ``observe``
 (item 9).
 """
@@ -163,6 +168,16 @@ def wait_for_checkpoints(checkpoint_dir=None):
                     f"{exc!r}") from exc
 
 
+def _rank() -> int:
+    """This process's rank: the process group's in a group of more than
+    one, else ``PADDLE_TRAINER_ID``."""
+    from ..parallel import multihost
+
+    if multihost.process_count() > 1:
+        return multihost.process_index()
+    return int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0)
+
+
 def save_checkpoint(executor, checkpoint_dir, main_program,
                     trainer_args=None, max_num_checkpoints=3,
                     background=False, data_state=None):
@@ -252,8 +267,7 @@ def _finish_checkpoint(checkpoint_dir, cur, trainer_args,
         from ..data.checkpoint import save_data_state
 
         save_data_state(cur, data_state,
-                        rank=int(os.environ.get("PADDLE_TRAINER_ID",
-                                                "0") or 0))
+                        rank=_rank())
     # fault hooks bracket the commit point: a crash 'before' leaves an
     # unmarked dir restore must skip; 'after' leaves a complete serial a
     # crash cannot un-commit; the poison hook rewrites this serial's
@@ -307,7 +321,7 @@ def load_checkpoint(executor, checkpoint_dir, main_program):
                 if os.path.exists(os.path.join(
                     checkpoint_dir, name, SUCCESS_MARK))]
     last_exc = None
-    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0)
+    rank = _rank()
     for serial in reversed(complete):
         cur = os.path.join(checkpoint_dir, f"{CKPT_PREFIX}_{serial}")
         try:
@@ -368,19 +382,14 @@ class Trainer:
     """``train_func() -> loss`` (or [loss, ...]) builds the model;
     ``optimizer_func() -> Optimizer`` attaches the backward + update.
     ``place``: the card (``CUDAPlace(0)``) unless given; with no card and
-    no place, construction raises.  ``parallel=True`` (the SPMD path)
-    raises: multi-GPU is ``ROADMAP.md`` queue 1 item 12."""
+    no place, construction raises.  ``parallel=True``: data-parallel
+    through ``ParallelExecutor`` (module docstring)."""
 
     def __init__(self, train_func, optimizer_func, param_path=None,
                  place=None, parallel=False, checkpoint_config=None):
         if checkpoint_config is not None and \
                 not isinstance(checkpoint_config, CheckpointConfig):
             raise TypeError("checkpoint_config must be a CheckpointConfig")
-        if parallel:
-            raise NotImplementedError(
-                "Trainer(parallel=True): the SPMD path (ParallelExecutor, "
-                "a named mesh, sharded serials) is not ported yet: "
-                "ROADMAP.md queue 1 item 12")
         self.checkpoint_cfg = checkpoint_config
         self.place = place if place is not None else core.CUDAPlace(0)
         self.parallel = parallel
@@ -419,6 +428,16 @@ class Trainer:
                 self._restored_data_state = args.get("data_state")
         elif param_path:
             io.load_persistables(self.exe, param_path, self.train_program)
+        # parallel=True: steps and windows through the data-parallel
+        # executor, built after startup and restore (its first run
+        # broadcasts rank 0's state)
+        self.parallel_exe = None
+        if parallel:
+            from .parallel_executor import ParallelExecutor
+
+            self.parallel_exe = ParallelExecutor(
+                loss_name=self.loss.name, main_program=self.train_program,
+                scope=global_scope(), place=self.place)
 
     def stop(self):
         self.stop_flag = True
@@ -510,9 +529,13 @@ class Trainer:
                 begin = BeginStepEvent(epoch_id, step_id)
                 event_handler(begin)
                 fetch = self.train_func_outputs if begin.fetch_metrics else []
-                metrics = self.exe.run(self.train_program,
-                                       feed=feeder.feed(data),
-                                       fetch_list=fetch)
+                if self.parallel_exe is not None:
+                    metrics = self.parallel_exe.run(
+                        fetch, feed=feeder.feed(data))
+                else:
+                    metrics = self.exe.run(self.train_program,
+                                           feed=feeder.feed(data),
+                                           fetch_list=fetch)
                 event_handler(EndStepEvent(epoch_id, step_id, metrics))
                 if self.checkpoint_cfg and \
                         (step_id + 1) % self.checkpoint_cfg.step_interval == 0:
@@ -561,6 +584,8 @@ class Trainer:
             # first un-committed sample, so nothing is sliced off — the
             # step numbering below still starts at the resume step
             step_id = skip_until
+            stage_fn = (self.parallel_exe.stage_window
+                        if self.parallel_exe is not None else None)
             if self._ckpt_reader is not None:
                 from ..data import CheckpointablePrefetcher
 
@@ -569,10 +594,11 @@ class Trainer:
                 # to, not the prefetch head (lookahead is replayed)
                 prefetcher = CheckpointablePrefetcher(
                     feeds, self._ckpt_reader, n_steps=n_steps,
-                    place=self.place)
+                    place=self.place, stage_fn=stage_fn)
             else:
                 prefetcher = DevicePrefetcher(feeds, n_steps=n_steps,
-                                              place=self.place)
+                                              place=self.place,
+                                              stage_fn=stage_fn)
             with prefetcher as pf:
                 for feed_dev, count in pf:
                     if self.stop_flag:
@@ -581,9 +607,15 @@ class Trainer:
                     event_handler(begin)
                     fetch = (self.train_func_outputs
                              if begin.fetch_metrics else [])
-                    metrics = self.exe.run_steps(
-                        self.train_program, feed=feed_dev, fetch_list=fetch,
-                        n_steps=count, feed_per_step=True)
+                    if self.parallel_exe is not None:
+                        metrics = self.parallel_exe.run_steps(
+                            fetch, feed=feed_dev, n_steps=count,
+                            feed_per_step=True)
+                    else:
+                        metrics = self.exe.run_steps(
+                            self.train_program, feed=feed_dev,
+                            fetch_list=fetch, n_steps=count,
+                            feed_per_step=True)
                     last_step = step_id + count - 1
                     event_handler(EndStepEvent(epoch_id, last_step, metrics))
                     if self.checkpoint_cfg and \
@@ -647,11 +679,50 @@ class Trainer:
                          data_state=None):
         args = {"epoch_id": epoch_id + 1 if end_of_epoch else epoch_id,
                 "step_id": -1 if end_of_epoch else step_id}
+        if self.parallel_exe is not None and \
+                self.parallel_exe.device_count > 1:
+            _save_checkpoint_dp(self.exe, self.checkpoint_cfg,
+                                self.train_program, args, data_state)
+            return
         save_checkpoint(self.exe, self.checkpoint_cfg.checkpoint_dir,
                         self.train_program, trainer_args=args,
                         max_num_checkpoints=self.checkpoint_cfg.max_num_checkpoints,
                         background=self.checkpoint_cfg.async_save,
                         data_state=data_state)
+
+
+def _save_checkpoint_dp(executor, cfg, main_program, trainer_args,
+                        data_state):
+    """A data-parallel run's serial: rank 0 reserves it and writes the
+    persistables (replicated, so one copy), every rank writes its data
+    state into it, and rank 0 commits ``_SUCCESS`` (and scroll-deletes)
+    once all have; every rank leaves after the commit."""
+    import torch.distributed as dist
+
+    from ..data.checkpoint import save_data_state
+
+    rank = dist.get_rank()
+    box = [None]
+    if rank == 0:
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        serial = _latest_complete_serial(cfg.checkpoint_dir) + 1
+        while True:
+            cur = os.path.join(cfg.checkpoint_dir, f"{CKPT_PREFIX}_{serial}")
+            try:
+                os.makedirs(cur, exist_ok=False)
+                break
+            except FileExistsError:
+                serial += 1
+        io.save_persistables(executor, cur, main_program)
+        box = [cur]
+    dist.broadcast_object_list(box, src=0)
+    if data_state is not None:
+        save_data_state(box[0], data_state, rank=rank)
+    dist.barrier()
+    if rank == 0:
+        _finish_checkpoint(cfg.checkpoint_dir, box[0], trainer_args,
+                           cfg.max_num_checkpoints)
+    dist.barrier()
 
 
 class Inferencer:
@@ -660,13 +731,10 @@ class Inferencer:
     parameter names align with a Trainer-built model saved via
     save_params), load the params into a private scope, and answer
     feed-dict queries.  ``place``: the card unless given (raises with no
-    card); ``parallel=True`` raises (``ROADMAP.md`` queue 1 item 12)."""
+    card); ``parallel=True`` is accepted and runs on the one device, as
+    the reference's does."""
 
     def __init__(self, infer_func, param_path, place=None, parallel=False):
-        if parallel:
-            raise NotImplementedError(
-                "Inferencer(parallel=True) is not ported yet: ROADMAP.md "
-                "queue 1 item 12")
         self.param_path = param_path
         self.scope = Scope()
         self.place = place if place is not None else core.CUDAPlace(0)

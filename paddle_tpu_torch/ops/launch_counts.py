@@ -2,7 +2,8 @@
 
 Each wrapper adds one to its module's counter where it launches its kernel
 (``fused.adam_launches``, ``flash_attention.flash_fwd_launches_by_dtype``,
-``paged_attention.launches``, ...).  A CUDA graph captures a wrapper's
+``paged_attention.launches``, ...), and each collective of a
+data-parallel step to its own (``collectives.all_reduce_launches``, ...).  A CUDA graph captures a wrapper's
 launch once and replays it without calling the wrapper, so a graph runner
 takes what one capture added (:func:`snapshot` before and after,
 :func:`delta`), takes it back (the capture launched nothing) and adds it
@@ -13,7 +14,7 @@ from __future__ import annotations
 import sys
 from typing import Dict, Optional, Tuple
 
-_MODULES = ("fused", "flash_attention", "paged_attention")
+_MODULES = ("fused", "flash_attention", "paged_attention", "collectives")
 
 Key = Tuple[str, str, Optional[str]]
 

@@ -175,8 +175,19 @@ def sum_op(ctx):
 
 @register_op("mean")
 def mean(ctx):
-    """Shape ``[1]``, not 0-d, as Fluid's mean op (and the reference)."""
-    return {"Out": torch.mean(ctx.input("X")).reshape(1)}
+    """Shape ``[1]``, not 0-d, as Fluid's mean op (and the reference).  Of
+    a batch-sharded input in a data-parallel step: the mean over every
+    rank's rows (the local sum in fp32, summed over the ranks, divided by
+    the global count; ``collectives.replicated_sum``)."""
+    from . import collectives
+
+    x = ctx.input("X")
+    group = collectives.batch_group()
+    if group is None:
+        return {"Out": torch.mean(x).reshape(1)}
+    total = collectives.replicated_sum(x.sum(dtype=torch.float32), group)
+    return {"Out": (total / (x.numel() * group.world)).to(x.dtype)
+            .reshape(1)}
 
 
 @register_op("cast")

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from . import collectives
 from .registry import register_op
 
 
@@ -14,7 +15,7 @@ from .registry import register_op
 def accuracy(ctx):
     """Share of rows whose label is among the top-k ``Indices [N, k]``;
     ``Correct`` and ``Total`` are int32 ``[1]``, ``Accuracy`` float32
-    ``[1]``."""
+    ``[1]``; in a data-parallel step, over every rank's rows."""
     indices, label = ctx.input("Indices"), ctx.input("Label")
     if label.dim() == 2:
         label = label.reshape(-1)
@@ -23,6 +24,11 @@ def accuracy(ctx):
     # a fill, not a copy from the host: a CUDA graph can capture it
     total = torch.full((), indices.shape[0], dtype=torch.int32,
                        device=indices.device)
+    group = collectives.batch_group()
+    if group is not None:
+        # every rank's rows: one all-reduce of both counts
+        both = group.all_reduce_(torch.stack([correct, total]))
+        correct, total = both[0], both[1]
     acc = correct.to(torch.float32) / total.to(torch.float32)
     return {"Accuracy": acc.reshape(1), "Correct": correct.reshape(1),
             "Total": total.reshape(1)}

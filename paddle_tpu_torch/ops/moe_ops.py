@@ -1,9 +1,10 @@
 """The ``moe_ffn`` op (counterpart of ``paddle_tpu/ops/moe_ops.py``),
 single-device: routing by indices and the expert products as batched
 products (``parallel/moe.py``).  Inside a process group of more than one
-it raises.  The grad is the generic one, as in the reference: the gate
-values, the expert weights and the input get gradients, the routing
-indices none.
+it raises, except in a data-parallel step, whose plan refuses it on a
+batch-sharded input (its capacity counts the global batch's tokens).
+The grad is the generic one, as in the reference: the gate values, the
+expert weights and the input get gradients, the routing indices none.
 """
 
 from __future__ import annotations

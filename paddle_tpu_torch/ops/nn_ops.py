@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import collectives
 from .registry import register_grad, register_op
 
 
@@ -156,7 +157,9 @@ def batch_norm(ctx):
     the running stats.  The stats are built only when some op or the
     caller reads them (not in the generic grad's re-run).  A bf16 / fp16
     input (AMP keep_activations) is normalized in fp32 and ``Y`` cast back
-    to its dtype; the statistics stay fp32, as in the reference."""
+    to its dtype; the statistics stay fp32, as in the reference.  In a
+    data-parallel step the training statistics span every rank's rows
+    (:func:`_batch_norm_global`)."""
     from ..fluid import amp
 
     x_in = ctx.input("X")
@@ -169,6 +172,10 @@ def batch_norm(ctx):
     is_test = ctx.attr("is_test", False)
     nchw = ctx.attr("data_layout", "NCHW") == "NCHW"
     xc = x if nchw else x.movedim(-1, 1)
+    group = None if is_test else collectives.batch_group()
+    if group is not None:
+        return _batch_norm_global(ctx, x_in, xc, scale, bias, mean, var,
+                                  momentum, eps, nchw, group)
     y = F.batch_norm(xc, mean if is_test else None,
                      var if is_test else None, scale, bias,
                      training=not is_test, eps=eps)
@@ -189,6 +196,34 @@ def batch_norm(ctx):
     out.update(MeanOut=momentum * mean + (1.0 - momentum) * use_mean,
                VarianceOut=momentum * var + (1.0 - momentum) * use_var,
                SavedMean=use_mean, SavedVariance=torch.rsqrt(use_var + eps))
+    return out
+
+
+def _batch_norm_global(ctx, x_in, xc, scale, bias, mean, var, momentum,
+                       eps, nchw, group):
+    """Training batch norm of a batch-sharded input in a data-parallel
+    step: the statistics of every rank's rows, in two passes as the
+    reference's ``jnp.mean`` / ``jnp.var`` (the per-channel sums, then the
+    sums of squared deviations, each summed over the ranks by
+    :func:`~.collectives.shared_sum`, whose backward sums the ranks' parts
+    of the cotangent).  The generic grad differentiates this forward."""
+    dims = [d for d in range(xc.dim()) if d != 1]
+    shape = [1, -1] + [1] * (xc.dim() - 2)
+    count = (xc.numel() // xc.shape[1]) * group.world
+    use_mean = collectives.shared_sum(xc.sum(dim=dims), group) / count
+    dev = xc - use_mean.reshape(shape)
+    use_var = collectives.shared_sum((dev * dev).sum(dim=dims),
+                                     group) / count
+    inv = torch.rsqrt(use_var + eps)
+    y = dev * (inv * scale).reshape(shape) + bias.reshape(shape)
+    y = y.to(x_in.dtype)
+    out = {"Y": y if nchw else y.movedim(1, -1)}
+    stats = ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
+    if any(s in ctx.outputs_spec for s in stats):
+        use_mean, use_var = use_mean.detach(), use_var.detach()
+        out.update(MeanOut=momentum * mean + (1.0 - momentum) * use_mean,
+                   VarianceOut=momentum * var + (1.0 - momentum) * use_var,
+                   SavedMean=use_mean, SavedVariance=inv.detach())
     return out
 
 

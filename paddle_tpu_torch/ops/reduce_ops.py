@@ -3,12 +3,15 @@
 reduce_min, reduce_prod, cumsum, arg_max, arg_min, argsort and top_k.
 reduce_max / reduce_min are ``torch.amax`` / ``amin``, whose grad splits
 evenly between tied extremes as ``jnp.max``'s does (``torch.max(dim)``
-gives it all to one); argsort is stable, as ``jnp.argsort``."""
+gives it all to one); argsort is stable, as ``jnp.argsort``.  In a data-parallel step a
+reduction over the batch of a batch-sharded input spans every rank's
+rows (:func:`_global_reduce`)."""
 
 from __future__ import annotations
 
 import torch
 
+from . import collectives
 from .registry import register_op
 
 
@@ -20,12 +23,43 @@ def _reduce(name, fn):
     def _impl(ctx, _fn=fn):
         x = ctx.input("X")
         dim = ctx.attr("dim", None)
+        group = collectives.batch_group()
+        if group is not None:
+            return {"Out": _global_reduce(name, x, dim, ctx, group)}
         if ctx.attr("reduce_all", False) or dim is None:
             return {"Out": _fn(x)}
         dims = [dim] if isinstance(dim, int) else list(dim)
         return {"Out": _fn(x, dim=tuple(d % x.dim() for d in dims),
                            keepdim=bool(ctx.attr("keep_dim", False)))}
     return _impl
+
+
+def _global_reduce(name, x, dim, ctx, group):
+    """A reduction over dims that include the batch of a batch-sharded
+    input, over every rank's rows (``collectives``): sums and means by
+    :func:`~.collectives.replicated_sum`, extremes by
+    :func:`~.collectives.global_extreme`; a product raises."""
+    if ctx.attr("reduce_all", False) or dim is None:
+        dims, keep = tuple(range(x.dim())), False
+    else:
+        dims = tuple(sorted({d % x.dim() for d in (
+            [dim] if isinstance(dim, int) else dim)}))
+        keep = bool(ctx.attr("keep_dim", False))
+    if name in ("reduce_max", "reduce_min"):
+        return collectives.global_extreme(x, dims, keep, group,
+                                          name == "reduce_max")
+    if name not in ("reduce_sum", "reduce_mean"):
+        raise NotImplementedError(
+            f"{name} over the batch of a batch-sharded input has no "
+            f"data-parallel form")
+    s = collectives.replicated_sum(torch.sum(x, dim=dims, keepdim=keep),
+                                   group)
+    if name == "reduce_mean":
+        count = 1
+        for d in dims:
+            count *= x.shape[d]
+        s = s / (count * group.world)
+    return s
 
 
 def _prod(x, dim=None, keepdim=False):

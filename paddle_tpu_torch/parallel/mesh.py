@@ -1,0 +1,162 @@
+"""Named meshes over the ranks of a process group (counterpart of
+``paddle_tpu/parallel/mesh.py``).
+
+The reference lays a ``jax.sharding.Mesh`` over devices; the port runs one
+process per rank, each on one device, so its :class:`Mesh` is a grid of
+ranks: named axes, their extents, and this rank's coordinates.
+``PADDLE_TPU_MESH`` carries the topology as a spec string — ``dp4,tp2`` is
+a 4×2 mesh whose first axis shards the batch and whose second would shard
+model weights; axis order = spec order, later axes vary fastest over the
+ranks.  The same strings give the same axes and labels as the reference
+(``mesh_label`` -> ``dp4xtp2``).  This slice runs the ``dp`` axis only
+(``parallel/spmd.py``); a mesh with another axis of extent > 1 is refused
+where it would run.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Optional
+
+import numpy as np
+
+MESH_ENV = "PADDLE_TPU_MESH"
+
+_AXIS_RE = re.compile(r"([a-zA-Z_]+?)(\d+)$")
+
+
+class Mesh:
+    """A grid of ``size`` ranks with named axes (``shape``: ``{axis:
+    extent}``, ordered) and this process's ``rank`` and ``coords`` on it
+    (later axes vary fastest, as the reference's device order)."""
+
+    def __init__(self, axes: Dict[str, int], rank: int = 0):
+        self.shape = {str(a): int(e) for a, e in axes.items()}
+        if not self.shape:
+            raise ValueError("a mesh needs at least one axis")
+        self.axis_names = tuple(self.shape)
+        self.size = int(np.prod(list(self.shape.values())))
+        if not 0 <= int(rank) < self.size:
+            raise ValueError(f"rank {rank} is outside a mesh of {self.size} "
+                             f"ranks ({mesh_label(self)})")
+        self.rank = int(rank)
+        where = np.unravel_index(self.rank, tuple(self.shape.values()))
+        self.coords = {a: int(c) for a, c in zip(self.axis_names, where)}
+
+    def __repr__(self):
+        return f"Mesh({mesh_label(self)}, rank={self.rank})"
+
+
+def _world() -> tuple:
+    """``(rank, world size)`` of the default process group, ``(0, 1)``
+    outside one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_mesh(n_devices=None, tp=1, axis_names=("dp", "mp")) -> Mesh:
+    """A (dp × tp) mesh over ``n_devices`` ranks (default: the group's
+    world size)."""
+    rank, world = _world()
+    n = int(n_devices or world)
+    if n % tp != 0:
+        raise ValueError(f"n_devices={n} not divisible by tp={tp}")
+    return Mesh(dict(zip(axis_names, (n // tp, tp))), rank % n)
+
+
+def parse_mesh_spec(spec: str) -> Dict[str, int]:
+    """``"dp4,tp2"`` -> ``{"dp": 4, "tp": 2}`` (insertion-ordered).
+
+    Raises ``ValueError`` on malformed tokens or duplicate axes, so a typo
+    in ``PADDLE_TPU_MESH`` fails at mesh construction."""
+    axes: Dict[str, int] = {}
+    for tok in str(spec).split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        m = _AXIS_RE.fullmatch(tok)
+        if m is None:
+            raise ValueError(
+                f"bad mesh axis {tok!r} in spec {spec!r} — expected "
+                f"<name><extent> tokens like 'dp4,tp2'")
+        name, size = m.group(1), int(m.group(2))
+        if name in axes:
+            raise ValueError(f"duplicate mesh axis {name!r} in {spec!r}")
+        if size < 1:
+            raise ValueError(f"mesh axis {tok!r} must have extent >= 1")
+        axes[name] = size
+    if not axes:
+        raise ValueError(f"empty mesh spec {spec!r}")
+    return axes
+
+
+def env_mesh_spec() -> Optional[str]:
+    """The ``PADDLE_TPU_MESH`` spec string, or None when unset/empty."""
+    from ..fluid import envcontract
+
+    return envcontract.get(MESH_ENV) or None
+
+
+def mesh_from_spec(spec: Optional[str] = None, world: Optional[int] = None,
+                   rank: Optional[int] = None) -> Mesh:
+    """A named mesh from a ``dp4,tp2``-style spec over the group's ranks.
+
+    ``spec=None`` reads ``PADDLE_TPU_MESH``; with neither, a 1-axis
+    ``("dp",)`` mesh over all ranks.  The spec must name exactly the
+    group's world size (the reference takes the first devices of a larger
+    pool; a process group has no spare ranks)."""
+    if spec is None:
+        spec = env_mesh_spec()
+    g_rank, g_world = _world()
+    world = g_world if world is None else int(world)
+    rank = g_rank if rank is None else int(rank)
+    if not spec:
+        return Mesh({"dp": world}, rank)
+    axes = parse_mesh_spec(spec)
+    n = int(np.prod(list(axes.values())))
+    if n != world:
+        raise ValueError(
+            f"mesh spec {spec!r} needs {n} ranks; the process group has "
+            f"{world}")
+    return Mesh(axes, rank)
+
+
+def mesh_label(mesh: Mesh) -> str:
+    """Canonical topology label for metrics/events: ``dp4xtp2``."""
+    return "x".join(f"{a}{mesh.shape[a]}" for a in mesh.axis_names)
+
+
+def axes_of(mesh=None) -> Dict[str, int]:
+    """Ordered ``{axis: extent}`` for a :class:`Mesh`, a spec string
+    (``"dp4,tp2"``), an ``[[name, extent], ...]`` list, a dict, or
+    ``None`` (the ``PADDLE_TPU_MESH`` env spec; ``{}`` when unset)."""
+    if mesh is None:
+        spec = env_mesh_spec()
+        return parse_mesh_spec(spec) if spec else {}
+    if isinstance(mesh, str):
+        return parse_mesh_spec(mesh)
+    if isinstance(mesh, Mesh):
+        return dict(mesh.shape)
+    if isinstance(mesh, dict):
+        return {str(a): int(e) for a, e in mesh.items()}
+    if isinstance(mesh, (list, tuple)):
+        return {str(a): int(e) for a, e in mesh}
+    raise TypeError(f"not a mesh: {type(mesh).__name__}")
+
+
+def axes_label(axes: Dict[str, int]) -> Optional[str]:
+    """``{"dp": 4, "tp": 2}`` -> ``dp4xtp2`` (None for an empty dict)."""
+    if not axes:
+        return None
+    return "x".join(f"{a}{int(e)}" for a, e in axes.items())
+
+
+def make_mesh_nd(**axes) -> Mesh:
+    """N-D mesh from named axis sizes, e.g. ``make_mesh_nd(dp=2, tp=2)``;
+    axis order = keyword order, later axes vary fastest over the ranks."""
+    rank, _ = _world()
+    n = int(np.prod([int(s) for s in axes.values()]))
+    return Mesh({a: int(s) for a, s in axes.items()}, rank % n)

@@ -266,8 +266,14 @@ def test_mesh_spec_errors_and_objects():
         port_sharding.shard_spec("dp3", 0, 2)
     with pytest.raises(ValueError, match="bad mesh axis"):
         port_sharding.parse_mesh_spec("dp,4")
-    with pytest.raises(TypeError, match="item 12"):
+    with pytest.raises(TypeError, match="not a mesh"):
         port_sharding.axes_of(object())
+    from paddle_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"dp": 4, "tp": 2}, rank=5)
+    assert port_sharding.axes_of(mesh) == {"dp": 4, "tp": 2}
+    assert port_sharding.shard_spec(mesh, 1, 2) == \
+        ref_sharding.shard_spec("dp4,tp2", 1, 2)
 
 
 def _elastic_pipe(data, n, num_shards, shard_index, batch):

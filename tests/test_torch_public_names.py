@@ -29,13 +29,9 @@ import paddle_tpu_torch.serving as port_serving
 ITEM_9 = "ROADMAP.md queue 1 item 9 (observability: profiler, debugger)"
 ITEM_10 = "ROADMAP.md queue 1 item 10 (the batch ServingEngine, registry)"
 ITEM_11 = "ROADMAP.md queue 1 item 11 (fleet, router)"
-ITEM_12 = "ROADMAP.md queue 1 item 12b (multi-GPU)"
 
 TO_PORT = {
     "fluid": {
-        "ParallelExecutor": ITEM_12, "BuildStrategy": ITEM_12,
-        "ExecutionStrategy": ITEM_12, "parallel_executor": ITEM_12,
-        "DistributeTranspiler": ITEM_12,
         "profiler": ITEM_9, "debugger": ITEM_9,
     },
     "fluid.layers": {},
@@ -107,7 +103,7 @@ def test_public_names_resolve_in_the_port(which, missing_names):
 def test_to_port_names_only_roadmap_items():
     for which, table in TO_PORT.items():
         for name, why in table.items():
-            assert why in (ITEM_9, ITEM_10, ITEM_11, ITEM_12) or (
+            assert why in (ITEM_9, ITEM_10, ITEM_11) or (
                 which, name) == ("fluid.core", "get_jax_device"), (which,
                                                                    name)
     assert hasattr(port_core, "torch_device")

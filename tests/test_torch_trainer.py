@@ -18,8 +18,9 @@ seed=7).batch(8)``, with a checkpoint every 2 steps:
  - ``test``, ``save_params`` + ``Inferencer`` and
    ``save_inference_model`` give the reference's numbers (rtol 1e-5);
  - with no card and no place, ``Trainer`` and ``Inferencer`` raise (the
-   port's entry points default to the card; the reference's to the CPU);
-   ``parallel=True`` raises.
+   port's entry points default to the card; the reference's to the CPU).
+   ``parallel=True`` is held to the reference in
+   ``tests/test_torch_parallel_executor.py``.
 """
 
 import os
@@ -371,6 +372,3 @@ def test_no_card_and_no_place_raises(monkeypatch):
         tf.Trainer(_train_func(tf), _opt(tf))
     with pytest.raises(RuntimeError, match="CPUPlace"):
         tf.Inferencer(_infer_func(tf), "/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tf.Trainer(_train_func(tf), _opt(tf), place=tf.CPUPlace(),
-                   parallel=True)
