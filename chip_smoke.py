@@ -45,7 +45,9 @@ ops, with and without recompute) and holds the routing, the stacks and
 ``fluid.ParallelExecutor``: ResNet-50 and Transformer-base (ZeRO-1) in a
 world-1 NCCL group, bitwise the single-device steps, and ResNet-50 over
 two processes sharing the card through a gloo group, against one
-process at the global batch, and checks them all.
+process at the global batch, then Transformer-base tensor-parallel (tp2,
+fp32 and bf16) and fsdp-sharded (fsdp2, bf16) over two such processes,
+against one process, and checks them all.
 
     python3 chip_smoke.py
 
@@ -726,6 +728,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    every step; one momentum launch a step a rank; step ms
                    and the grad bucket's all-reduce ms (gloo's, staged
                    through the host), by host clock and CUDA events
+78. kernel_xent_partial - the xent kernels' partials entry (row 4 as the
+                   tp-sharded loss runs it) against its plain version at
+                   a tp2 rank's vocabulary slice of Transformer-base
+                   (4,096 x 15,000 bf16, fp32 soft and shifted hard
+                   labels: the wide layout) and at SSD's 122,688 x 21
+                   (fp32, the narrow layout); bitwise repeatability;
+                   kernel and plain times (CUDA-graph replays over cold
+                   inputs) and bounds
+79. pe_tp2_transformer - two processes on the one card over gloo, through
+                   ``ParallelExecutor``: Transformer-base (flash, 16 x
+                   256) on the mesh tp2 in fp32 (2 steps) and bf16 AMP (3
+                   steps), and on fsdp2 in bf16 AMP (2 steps), against
+                   one process's trajectory from the same seeded start:
+                   fp32 losses within ``TP2_LOSS_RTOL0`` / ``TP2_LOSS_
+                   RTOL``, bf16 within 2^-8, the replicated parameters
+                   bitwise across the ranks, fsdp2's losses and parameter
+                   shards bitwise one process's; a rank's launches a step
+                   (flash 36 / 18 / 18 on 4 heads, the xent partials twice
+                   and its backward once on [4096, 15000], one Adam
+                   launch), its tp all-reduces and fsdp all-gathers a
+                   step, step ms by host clock and CUDA events, peak
+                   allocated beside one process's
 
 Every phase's line carries ``seconds``: the wall time since the previous
 line.
@@ -2157,6 +2181,108 @@ def phase_kernel_xent_by_model():
     return fwd_out, bwd_out
 
 
+XENT_PARTIAL_SHAPES = (("tp2_transformer", TRAIN_BATCH // 4 * TRAIN_LEN,
+                        VOCAB // 2),
+                       ("ssd", 64 * 1917, 21))
+
+
+def xent_partial_bound_ms(r, v, soft, x_bytes, y_bytes=4):
+    """The partials entry's bound: logits (and soft labels, or one int64
+    label a row) read once, m, l, a (and b) written once a row; the
+    forward's operations a logit (``xent_bound_ms``)."""
+    elems = r * v
+    nbytes = elems * x_bytes + (elems * y_bytes if soft else r * 8) \
+        + (4 if soft else 3) * r * 4
+    return bound_ms(nbytes, elems * (7 if soft else 4))
+
+
+def phase_kernel_xent_partial():
+    """The partials entry (``pta_xent_partial_*``, row 4 as the tp-sharded
+    loss runs it) against its plain version: at the tp2 Transformer-base
+    phase's shape, a rank's vocabulary slice of bf16 logits (4,096 x
+    15,000: the wide layout) with fp32 soft labels and with hard labels
+    shifted as a shard's are (some outside ``[0, V)``), and at SSD's
+    122,688 x 21 fp32 (the narrow layout), hard and soft.  m, l, a, b
+    within ``ATOL`` / ``RTOL``, two launches bitwise equal, the layout
+    each took.  Times (kernel and plain, CUDA-graph replays over input sets
+    of ``XENT_COLD_BYTES`` in all) and bounds for the labels the path runs
+    (soft at the Transformer's shape, hard at SSD's).  Returns the kernels
+    line's entry."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops import fused
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(29)
+    worst, cases, timing = 0.0, {}, {}
+    for name, r, v in XENT_PARTIAL_SHAPES:
+        dtype = torch.bfloat16 if name == "tp2_transformer" \
+            else torch.float32
+        x = (torch.randn(r, v, generator=gen, device=device) * 2).to(dtype)
+        y = torch.rand(r, v, generator=gen, device=device)
+        y /= y.sum(-1, keepdim=True)
+        # a shard's shifted labels: in [-v, 2v), a third of them its own
+        lab = torch.randint(-v, 2 * v, (r,), generator=gen, device=device)
+        for soft, labels in ((True, y), (False, lab)):
+            kind = "soft" if soft else "hard"
+            before = dict(fused.xent_partial_launches_by_layout)
+            got = fused.softmax_xent_partial(x, labels, soft)
+            again = fused.softmax_xent_partial(x, labels, soft)
+            torch.cuda.synchronize()
+            layout = next(k for k, c in fused.xent_partial_launches_by_layout
+                          .items() if c != before[k])
+            want = fused.softmax_xent_partial_ref(x, labels, soft)
+            errs = {}
+            for col, g, g2, w in zip("mlab", got, again, want):
+                if w is None:
+                    continue
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"xent partials ({name}, {kind}): "
+                                         f"{col} is not bitwise repeatable")
+                if not bool((g - w).abs().le(ATOL + RTOL * w.abs()).all()):
+                    raise AssertionError(
+                        f"xent partials ({name}, {kind}): {col} disagrees "
+                        f"with the plain version: max abs/rel err "
+                        f"{_max_errs(g, w)}")
+                errs[col] = _max_errs(g, w)
+                worst = max(worst, errs[col][0])
+            cases[f"{name}_{kind}"] = {"shape": [r, v],
+                                       "dtype": str(dtype)[6:],
+                                       "layout": layout, "errs": errs}
+        soft = name == "tp2_transformer"
+        per_set = r * v * (x.element_size() + (4 if soft else 0)) \
+            + (0 if soft else r * 8)
+        n_sets = max(1, math.ceil(XENT_COLD_BYTES / per_set))
+        sets = [((torch.randn(r, v, generator=gen, device=device) * 2).to(
+            dtype), y if soft else lab) for _ in range(n_sets)]
+        timing[name] = {
+            "labels": "soft fp32" if soft else "hard", "input_sets": n_sets,
+            "ms": rotating_graph_ms(
+                lambda a, b: fused.softmax_xent_partial(a, b, soft), sets),
+            "plain_ms": rotating_graph_ms(
+                lambda a, b: fused.softmax_xent_partial_ref(a, b, soft),
+                sets),
+            "bound_ms": xent_partial_bound_ms(r, v, soft,
+                                              x.element_size())[0]}
+        del x, y, lab, sets
+        torch.cuda.empty_cache()
+    emit("kernel_xent_partial", cases=cases, atol=ATOL, rtol=RTOL,
+         bitwise_repeat=True, timing=timing,
+         timing_method="CUDA-graph replays over cold input sets")
+    main = timing["tp2_transformer"]
+    r, v = XENT_PARTIAL_SHAPES[0][1:]
+    return {"name": "softmax_xent_partial", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/softmax_xent.cu",
+            "replaces": "paddle_tpu/ops/pallas_fused.py:221",
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": xent_partial_bound_ms(r, v, True, 2)[1],
+            "library_ms": None, "shape": [r, v], "dtype": "bfloat16",
+            "by_model": {"ssd": timing["ssd"]}}
+
+
 def _ulp(got, want):
     """Per element, the ulp of two low-precision tensors' dtype at the
     larger magnitude of the pair (subnormals: the smallest normal's ulp)."""
@@ -3234,6 +3360,9 @@ def launch_counts():
                       fused.xent_bwd_launches_by_dtype)
     return {"softmax_xent_fwd": fused.xent_fwd_launches,
             "softmax_xent_bwd": fused.xent_bwd_launches,
+            "softmax_xent_partial": fused.xent_partial_launches,
+            "softmax_xent_partial_bf16":
+                fused.xent_partial_launches_by_dtype["bfloat16"],
             "softmax_xent_fwd_bf16": by_fwd["bfloat16"],
             "softmax_xent_bwd_bf16": by_bwd["bfloat16"],
             "softmax_xent_fwd_f16": by_fwd["float16"],
@@ -13327,6 +13456,411 @@ def phase_pe_dp2_resnet(tmp, smi):
     return total
 
 
+# tensor and fsdp parallelism: two ranks share the one card over gloo
+# (NCCL refuses two ranks on one GPU), Transformer-base at full width with
+# flash at a batch of 16 x 256 (gloo stages every activation all-reduce
+# through the host: the batch is cut, not the width)
+TP2_RANKS, TP2_BATCH, TP2_LEN = 2, 16, 256
+TP2_MODES = (("tp2_fp32", "tp2", False, 2), ("tp2_bf16", "tp2", True, 3),
+             ("fsdp2_bf16", "fsdp2", True, 2))
+TP2_WORKER_TIMEOUT_S = 400
+TP2_GLOO_TIMEOUT_S = 300
+TP2_LOSS_RTOL0, TP2_LOSS_RTOL = 1e-6, 1e-6
+TP2_BF16_LOSS_RTOL = 2.0 ** -8
+# the update since the start of the parameters (gathered from the tp
+# ranks) against the one process's, relative L2: in fp32 of each
+# parameter, under bf16 of all together (bf16 rounding alone moves the
+# last decoder layers' q / k updates by ~0.9: the one process's bf16
+# against its fp32).  An update zeroed or doubled reads 1.0 on its
+# parameter; out_proj_w's alone reads ~0.55 together under bf16.
+TP2_UPDATE_RTOL, TP2_BF16_UPDATE_RTOL = 0.2, 0.35
+# the parameter the sharded xent's backward feeds directly
+TP2_LOGITS_W = "out_proj_w"
+# launches a rank a step: 18 attentions on H / 2 = 4 heads (forward twice),
+# the xent partials twice and its backward once on the rank's [4096,
+# 15000] vocabulary slice, one Adam launch over the rank's shards; fsdp
+# runs the whole heads and the whole vocabulary
+TP2_PER_STEP = {"flash_fwd": 2 * FLASH_OPS, "flash_dq": FLASH_OPS,
+                "flash_dkv": FLASH_OPS, "softmax_xent_partial": 2,
+                "softmax_xent_fwd": 0, "softmax_xent_bwd": 1, "adam": 1}
+FSDP2_PER_STEP = dict(TP2_PER_STEP, softmax_xent_partial=0,
+                      softmax_xent_fwd=2)
+
+
+def tp2_feeds():
+    return [train_feed(TP2_BATCH, TP2_LEN, seed=s)
+            for s in range(max(m[3] for m in TP2_MODES))]
+
+
+def param_digests(scope, names, halves=False):
+    """sha256 of each parameter's bytes as the scope holds it; with
+    ``halves``, also of each half along each dim it splits evenly (the
+    slices two fsdp ranks hold)."""
+    import hashlib
+
+    out = {}
+    for n in names:
+        a = scope.get(n).detach().cpu().numpy()
+        d = {"full": hashlib.sha256(a.tobytes()).hexdigest()}
+        if halves:
+            for dim, size in enumerate(a.shape):
+                if size % 2 == 0:
+                    d[str(dim)] = [hashlib.sha256(
+                        np_half(a, dim, r).tobytes()).hexdigest()
+                        for r in range(2)]
+        out[n] = d
+    return out
+
+
+def update_rel_l2(step, scope, names, initial, path):
+    """``{name: [||u - u_one||, ||u_one||]}``: ``u`` the update since the
+    start of each parameter as the ranks hold it (gathered; ``initial``
+    the host copy of the values before the first step), ``u_one`` the one
+    process's, saved at ``path``.  Every rank calls it (the gathers are
+    collective); a rank with no ``initial`` gathers only and returns
+    None."""
+    import torch
+
+    one = torch.load(path) if initial is not None else None
+    out = {}
+    for n in names:
+        full = step.fetch(n, scope.get(n))
+        if initial is None:
+            continue
+        want = one[n]
+        diff = (full.detach().float().cpu() - initial[n] - want).norm()
+        out[n] = [float(diff), float(want.norm())]
+    return out if initial is not None else None
+
+
+def update_summary(mode, step, norms, amp):
+    """Check and summarize ``update_rel_l2``'s ``norms`` of one tp2 step:
+    each parameter's relative L2 within ``TP2_UPDATE_RTOL`` in fp32, all
+    parameters' together within ``TP2_BF16_UPDATE_RTOL`` under bf16; with
+    what the together reading would be were ``TP2_LOGITS_W``'s update
+    zero (the gap to a fault)."""
+    import math
+
+    rel = {n: d / r if r > 0 else d for n, (d, r) in norms.items()}
+    worst = max(rel, key=rel.get)
+    diff2 = sum(d * d for d, _ in norms.values())
+    ref2 = sum(r * r for _, r in norms.values())
+    together = math.sqrt(diff2 / ref2)
+    d_w, r_w = norms[TP2_LOGITS_W]
+    out = {"max": rel[worst], "max_param": worst,
+           "median": sorted(rel.values())[len(rel) // 2],
+           "together": together, TP2_LOGITS_W: rel[TP2_LOGITS_W],
+           "together_were_" + TP2_LOGITS_W + "_zeroed": math.sqrt(
+               (diff2 - d_w * d_w + r_w * r_w) / ref2),
+           "params": len(rel)}
+    got, tol, what = (together, TP2_BF16_UPDATE_RTOL, "all parameters'") \
+        if amp else (rel[worst], TP2_UPDATE_RTOL, f"{worst}'s")
+    if not got <= tol:
+        raise AssertionError(
+            f"pe_tp2_transformer {mode}: step {step}: {what} update is "
+            f"{got} (relative L2) off one process's (tol {tol})")
+    return out
+
+
+def np_half(a, dim, r):
+    import numpy as np
+
+    return np.ascontiguousarray(np.split(a, 2, axis=dim)[r])
+
+
+def tp2_worker(rank, dirname):
+    """``chip_smoke.py --tp-worker RANK --tp-dir DIR``: one rank of the
+    pe_tp2_transformer phase.  Joins the gloo group (a FileStore in DIR)
+    and runs each of ``TP2_MODES``: Transformer-base with flash through
+    ``ParallelExecutor`` on its mesh, from the seeded startup (rank 0's
+    state, broadcast), recording per step the loss, host and CUDA-event
+    ms, the tp all-reduces and fsdp all-gathers, and digests of the
+    parameters it holds (its shards); per mode its launches, the head
+    counts the flash forward saw and the logits shapes the xent partials
+    saw, and its peak allocated bytes.  Its record goes to
+    DIR/rank<RANK>.json.  Builds nothing."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops import _build, collectives
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(dirname, "store"),
+                                     TP2_RANKS),
+        rank=rank, world_size=TP2_RANKS,
+        timeout=datetime.timedelta(seconds=TP2_GLOO_TIMEOUT_S))
+    feeds = tp2_feeds()
+    # what the kernels were handed (the wrappers' callers look them up
+    # here at every call)
+    seen = {"heads": set(), "xent": set()}
+    flash_forward, partial = fa.flash_forward, fused.softmax_xent_partial
+
+    def watch_flash(q, *a, **kw):
+        seen["heads"].add(int(q.shape[1]))
+        return flash_forward(q, *a, **kw)
+
+    def watch_partial(x, *a, **kw):
+        seen["xent"].add(tuple(x.shape))
+        return partial(x, *a, **kw)
+
+    fa.flash_forward, fused.softmax_xent_partial = watch_flash, watch_partial
+    records = {}
+    for mode, spec, amp, steps in TP2_MODES:
+        main, startup, loss = build_training(TP2_LEN, dropout=0.0,
+                                             flash=True)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = sorted(p.name for p in main.global_block().all_parameters())
+        pe = fluid.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                    scope=scope, place=fluid.CUDAPlace(0),
+                                    mesh=spec)
+        for v in seen.values():
+            v.clear()
+        initial = {n: scope.get(n).detach().to("cpu", torch.float32,
+                                                copy=True)
+                   for n in params} if spec == "tp2" and rank == 0 else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = []
+        guard = fluid.amp.amp_guard("bfloat16", keep_activations=True) \
+            if amp else contextlib.nullcontext()
+        with guard:
+            for s in range(steps):
+                ar = dict(collectives.all_reduce_launches_by_axis)
+                ag = dict(collectives.all_gather_launches_by_axis)
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                lv = pe.run([loss], feed=feeds[s])[0]
+                end.record()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                out.append({
+                    "loss": float(lv.reshape(-1)[0]), "host_ms": host_ms,
+                    "cuda_event_ms": start.elapsed_time(end),
+                    "all_reduces": {a: c - ar.get(a, 0) for a, c in
+                                    collectives.all_reduce_launches_by_axis
+                                    .items()},
+                    "all_gathers": {a: c - ag.get(a, 0) for a, c in
+                                    collectives.all_gather_launches_by_axis
+                                    .items()},
+                    "digests": {n: d["full"] for n, d in param_digests(
+                        scope, params).items()}})
+                if spec == "tp2":
+                    out[-1]["update_rel_l2"] = update_rel_l2(
+                        next(iter(pe._steps.values())), scope, params,
+                        initial, os.path.join(dirname, "one_{}_{}.pt".format(
+                            "bf16" if amp else "fp32", s)))
+        step = next(iter(pe._steps.values()))
+        records[mode] = {
+            "steps": out, "launches": {**launch_counts(),
+                                       **xent_layout_counts()},
+            "flash_heads": sorted(seen["heads"]),
+            "xent_partial_shapes": sorted(seen["xent"]),
+            "tp_sharded": sorted(step.placement.storage)
+            if step.placement is not None else [],
+            "fsdp": step.fsdp,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        pe.close()
+        del scope, pe, step
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    with open(os.path.join(dirname, f"rank{rank}.json"), "w") as f:
+        json.dump({"records": records,
+                   "nvcc_runs": sorted(_build.build_logs)}, f)
+
+
+def phase_pe_tp2_transformer(tmp, smi):
+    """Two ranks on the one card over gloo through ``ParallelExecutor``:
+    Transformer-base tp2 fp32 and bf16 AMP and fsdp2 bf16 AMP (flash),
+    against one process's trajectory from the same seeded start at the
+    same batch: tp2 fp32 losses within ``TP2_LOSS_RTOL0`` at step 0 and
+    ``TP2_LOSS_RTOL`` after, tp2 bf16 within ``TP2_BF16_LOSS_RTOL`` and
+    its replicated parameters bitwise across the ranks after each step,
+    the update since the start (gathered) against the one process's after
+    each tp2 step (``update_summary``), fsdp2 bf16 losses and parameter shards bitwise the one process's; the
+    launches a rank a step (``TP2_PER_STEP``, ``FSDP2_PER_STEP``), flash
+    on 4 heads and the xent partials on [4096, 15000] under tp.  Returns
+    the ranks' launches."""
+    import torch
+
+    from paddle_tpu_torch import fluid
+
+    feeds = tp2_feeds()
+    dirname = os.path.join(tmp, "tp2")
+    os.makedirs(dirname)
+    ref = {}
+    for prec, amp, steps in (("fp32", False, 2), ("bf16", True, 3)):
+        main, startup, loss = build_training(TP2_LEN, dropout=0.0,
+                                             flash=True)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = sorted(p.name for p in main.global_block().all_parameters())
+        initial = {n: scope.get(n).detach().to("cpu", torch.float32,
+                                                copy=True) for n in params}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        guard = fluid.amp.amp_guard("bfloat16", keep_activations=True) \
+            if amp else contextlib.nullcontext()
+        losses, ms, digests = [], [], []
+        with guard:
+            for s in range(steps):
+                t0 = time.perf_counter()
+                lv = exe.run(main, feed=feeds[s], fetch_list=[loss],
+                             scope=scope)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(lv.reshape(-1)[0]))
+                digests.append(param_digests(scope, params, halves=amp))
+                # the update since the start, for the tp ranks' check
+                torch.save({n: scope.get(n).detach().float().cpu()
+                            - initial[n] for n in params},
+                           os.path.join(dirname, f"one_{prec}_{s}.pt"))
+        ref[prec] = {"losses": losses, "host_ms": ms, "digests": digests,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        exe.close()
+        del scope
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         "--tp-dir", dirname], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(TP2_RANKS)]
+    deadline = time.perf_counter() + TP2_WORKER_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    spawn_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"pe_tp2_transformer: rank {r} exited "
+                                 f"{p.returncode}: {log[-3000:]}")
+    ranks = []
+    for r in range(TP2_RANKS):
+        with open(os.path.join(dirname, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    total, per_mode = {}, {}
+    for r, rec in enumerate(ranks):
+        if rec["nvcc_runs"]:
+            raise AssertionError(f"pe_tp2_transformer: rank {r} ran nvcc "
+                                 f"for {rec['nvcc_runs']}")
+        # rows of 15,000 and 30,000 logits: every xent launch is wide
+        narrow = {m: {k: v for k, v in r_["launches"].items()
+                      if k.endswith("_narrow") and v}
+                  for m, r_ in rec["records"].items()}
+        if any(narrow.values()):
+            raise AssertionError(f"pe_tp2_transformer: rank {r} launched "
+                                 f"the narrow xent layout: {narrow}")
+    for mode, spec, amp, steps in TP2_MODES:
+        one = ref["bf16" if amp else "fp32"]
+        recs = [rec["records"][mode] for rec in ranks]
+        per_step = TP2_PER_STEP if spec == "tp2" else FSDP2_PER_STEP
+        for r, rec in enumerate(recs):
+            got = {k: rec["launches"][k + ("_bf16" if amp and k != "adam"
+                                           else "")]
+                   for k in per_step}
+            want = {k: n * steps for k, n in per_step.items()}
+            if got != want:
+                raise AssertionError(f"pe_tp2_transformer {mode}: rank {r} "
+                                     f"launched {got}, want {want}")
+            heads = [FLASH_HEADS // TP2_RANKS if spec == "tp2"
+                     else FLASH_HEADS]
+            shapes = [[TP2_BATCH * TP2_LEN, VOCAB // TP2_RANKS]] \
+                if spec == "tp2" else []
+            if rec["flash_heads"] != heads or \
+                    rec["xent_partial_shapes"] != shapes:
+                raise AssertionError(
+                    f"pe_tp2_transformer {mode}: rank {r} ran flash on "
+                    f"{rec['flash_heads']} heads and the xent partials on "
+                    f"{rec['xent_partial_shapes']}")
+            for s, st in enumerate(rec["steps"]):
+                err = abs(st["loss"] - one["losses"][s]) / abs(
+                    one["losses"][s])
+                st["loss_rel_err"] = err
+                tol = (TP2_BF16_LOSS_RTOL if amp else
+                       TP2_LOSS_RTOL0 if s == 0 else TP2_LOSS_RTOL)
+                if spec == "fsdp2":
+                    tol = 0.0
+                if not err <= tol:
+                    raise AssertionError(
+                        f"pe_tp2_transformer {mode}: rank {r} step {s} loss "
+                        f"{st['loss']} against one process's "
+                        f"{one['losses'][s]} (rel err {err}, tol {tol})")
+                if spec == "tp2" and r == 0:
+                    st["update_rel_l2"] = update_summary(
+                        mode, s, st.pop("update_rel_l2"), amp)
+                if spec == "fsdp2":
+                    for n, dg in st["digests"].items():
+                        d = rec["fsdp"].get(n)
+                        want_dg = one["digests"][s][n]["full"] if d is None \
+                            else one["digests"][s][n][str(d)][r]
+                        if dg != want_dg:
+                            raise AssertionError(
+                                f"pe_tp2_transformer {mode}: rank {r} step "
+                                f"{s}: {n} is not bitwise one process's")
+        # the replicated parameters each rank updated itself: bitwise the
+        # same on both ranks
+        sharded = set(recs[0]["tp_sharded"]) | set(recs[0]["fsdp"])
+        for s in range(steps):
+            a, b = (rec["steps"][s]["digests"] for rec in recs)
+            diff = [n for n in a if n not in sharded and a[n] != b[n]]
+            if diff:
+                raise AssertionError(f"pe_tp2_transformer {mode}: step {s}: "
+                                     f"replicated {diff[:3]} differ across "
+                                     f"the ranks")
+            if recs[0]["steps"][s]["loss"] != recs[1]["steps"][s]["loss"]:
+                raise AssertionError(f"pe_tp2_transformer {mode}: step {s}: "
+                                     f"the ranks' losses differ")
+        replicated = len([n for n in recs[0]["steps"][0]["digests"]
+                          if n not in sharded])
+        for rec in recs:
+            add_counts(total, rec["launches"])
+            for st in rec["steps"]:
+                del st["digests"]
+        per_mode[mode] = {
+            "mesh": spec, "amp": "bf16" if amp else None, "steps": steps,
+            "one_process_losses": one["losses"],
+            "one_process_host_ms": one["host_ms"],
+            "one_process_peak_allocated_bytes": one["peak_allocated_bytes"],
+            "replicated_params_bitwise_across_ranks": replicated,
+            "per_rank": [{k: rec[k] for k in (
+                "steps", "launches", "flash_heads", "xent_partial_shapes",
+                "peak_allocated_bytes")} for rec in recs],
+            "tp_sharded_state": len(recs[0]["tp_sharded"]),
+            "fsdp_sharded_state": len(recs[0]["fsdp"])}
+    emit("pe_tp2_transformer", backend="gloo (CUDA tensors staged through "
+         "the host: gloo's numbers, not NCCL's)", ranks=TP2_RANKS,
+         nvidia_smi=smi, batch=TP2_BATCH, seq_len=TP2_LEN,
+         loss_rtol=[TP2_LOSS_RTOL0, TP2_LOSS_RTOL],
+         bf16_loss_rtol=TP2_BF16_LOSS_RTOL,
+         update_rtol=[TP2_UPDATE_RTOL, TP2_BF16_UPDATE_RTOL],
+         fsdp_bitwise=True,
+         tp2_per_step=TP2_PER_STEP, fsdp2_per_step=FSDP2_PER_STEP,
+         modes=per_mode, spawn_s=spawn_s)
+    return total
+
+
 def main():
     import argparse
 
@@ -13348,6 +13882,12 @@ def main():
     ap.add_argument("--dp-dir", metavar="DIR",
                     help="phase 77's directory: the group's store, the "
                          "states, the ranks' records")
+    ap.add_argument("--tp-worker", metavar="RANK", type=int,
+                    help="run rank RANK of the pe_tp2_transformer phase "
+                         "(used by the script itself)")
+    ap.add_argument("--tp-dir", metavar="DIR",
+                    help="pe_tp2_transformer's directory: the group's "
+                         "store, the ranks' records")
     args = ap.parse_args()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paddle_tpu_torch")):
@@ -13360,6 +13900,9 @@ def main():
     if args.dp_worker is not None:
         dp2_worker(args.dp_worker, args.dp_dir)
         return
+    if args.tp_worker is not None:
+        tp2_worker(args.tp_worker, args.tp_dir)
+        return
     started = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -13371,6 +13914,8 @@ def main():
     xent_fwd["by_model"], xent_bwd["by_model"] = phase_kernel_xent_by_model()
     torch.cuda.empty_cache()
     xent_amp = phase_kernel_xent_amp()
+    torch.cuda.empty_cache()
+    xent_partial = phase_kernel_xent_partial()
     torch.cuda.empty_cache()
     progs = build_training(TRAIN_LEN)
     adam = phase_kernel_adam(trainable_shapes(progs[0],
@@ -13624,6 +14169,21 @@ def main():
     add_counts(total, phase_pe_world1(smi))
     with tempfile.TemporaryDirectory() as tmp:
         add_counts(total, phase_pe_dp2_resnet(tmp, smi))
+    # tensor and fsdp parallelism: Transformer-base tp2 (fp32, bf16) and
+    # fsdp2 (bf16) over two ranks sharing the card (rows 1-3, 4's
+    # partials, 5 and 7 on each rank's shards)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp2 = phase_pe_tp2_transformer(tmp, smi)
+    add_counts(total, tp2)
+    xent_partial["launches"] = tp2["softmax_xent_partial"]
+    for k in flash:
+        k["launches"] += tp2.get(k["name"], 0) - tp2.get(
+            k["name"] + "_bf16", 0)
+    for k in (xent_fwd, xent_bwd):  # all wide (the phase checks)
+        fp32 = tp2[k["name"]] - tp2[k["name"] + "_bf16"]
+        k["launches"] += fp32
+        k["launches_by_layout"]["wide"] += fp32
     for k in flash:
         k["launches"] += int8_counts.get(k["name"], 0)
     for k in (xent_fwd, xent_bwd):
@@ -13639,7 +14199,8 @@ def main():
             k["bert_shape"] = bert_shape[kind]
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": [paged, xent_fwd, xent_bwd, adam, *flash,
-                                  momentum, *xent_amp, *flash_amp]}))
+                                  momentum, *xent_amp, *flash_amp,
+                                  xent_partial]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,16 @@
 // 5.90 GB, 1.17 ms and 1.76 ms at the H100's 3.35 TB/s, against ~0.12 ms of
 // exps on the special-function units.
 //
+// The partials entry (pta_xent_partial_<x>_<y>) is the TPU kernel's own
+// form: per row it writes m = max x, l = sum e^(x - m), a (sum y * x, or the
+// hard label's logit) and, when soft, b = sum y, unfinished.  The tp-sharded
+// loss (paddle_tpu/ops/pallas_fused.py:361 softmax_xent_sharded) runs it on
+// each rank's vocabulary slice, the labels shifted by the slice's offset, and
+// combines the rows' partials across the slices (one max, one sum) before it
+// finishes the loss; a is never derived from a finished loss and lse, which
+// would cancel.  It is the forward kernel with its last step swapped, in both
+// layouts (a small vocabulary split over tp can reach the narrow one).
+//
 // Logits may be float, bf16 or fp16 (AMP), as the TPU kernels take them
 // (_FUSABLE_DTYPES, pallas_fused.py:60): every logit and label is widened to
 // fp32 as it is read, all math is fp32, loss / lse / sum_y are fp32, and dx
@@ -211,12 +221,17 @@ template <typename T>
 __host__ __device__ constexpr int vec_width() { return 16 / (int)sizeof(T); }
 
 // T: logits; L: soft labels (float or T; unused for hard labels).
-template <typename T, typename L, bool kSoft, bool kVec>
+// kPartial: the partials entry's form, which writes the row's (m, l, a[, b])
+// to (loss, lse, a_out[, sum_y]) instead of finishing the loss: m = max x,
+// l = sum e^(x - m), a = sum y * x (soft) or the label's logit (hard, 0 when
+// the label is outside [0, v)), b = sum y.
+template <typename T, typename L, bool kSoft, bool kVec, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 xent_fwd_kernel(const T* __restrict__ x, const L* __restrict__ y,
                 const long long* __restrict__ label,
                 float* __restrict__ loss, float* __restrict__ lse,
-                float* __restrict__ sum_y, int v, long long ignore) {
+                float* __restrict__ sum_y, int v, long long ignore,
+                float* __restrict__ a_out) {
   constexpr int kN = vec_width<T>();
   const long long r = blockIdx.x;
   const T* xr = x + r * v;
@@ -252,6 +267,18 @@ xent_fwd_kernel(const T* __restrict__ x, const L* __restrict__ y,
     }
   }
   block_reduce(m, l, a, b);
+  if (kPartial && threadIdx.x == 0) {
+    loss[r] = m;
+    lse[r] = l;
+    if (kSoft) {
+      a_out[r] = a;
+      sum_y[r] = b;
+    } else {
+      const long long lab = label[r];
+      a_out[r] = (lab >= 0 && lab < v) ? to_f(xr[lab]) : 0.f;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     const float s = m + logf(fmaxf(l, 1e-30f));
     float out;
@@ -436,13 +463,14 @@ __device__ __forceinline__ void await_tile(const NarrowSmem<T, L, kSoft>& sm, ui
   }
 }
 
-template <typename T, typename L, bool kSoft, int G>
+template <typename T, typename L, bool kSoft, int G, bool kPartial = false>
 __global__ void __launch_bounds__(kNarrowThreads)
 xent_fwd_narrow_kernel(const T* __restrict__ x, const L* __restrict__ y,
                        const long long* __restrict__ label,
                        float* __restrict__ loss, float* __restrict__ lse,
                        float* __restrict__ sum_y, long long r, int v,
-                       long long ignore, int tile_rows, int bulk) {
+                       long long ignore, int tile_rows, int bulk,
+                       float* __restrict__ a_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar[kStages];
   const NarrowSmem<T, L, kSoft> sm(smem, tile_rows, v);
@@ -501,7 +529,17 @@ xent_fwd_narrow_kernel(const T* __restrict__ x, const L* __restrict__ y,
         a = group_sum(a, G);
         b = group_sum(b, G);
       }
-      if (live && lane == 0) {
+      if (kPartial && live && lane == 0) {  // the partials entry
+        loss[row0 + k] = m;
+        lse[row0 + k] = l;
+        if (kSoft) {
+          a_out[row0 + k] = a;
+          sum_y[row0 + k] = b;
+        } else {
+          const long long lab = sm.label()[k];
+          a_out[row0 + k] = (lab >= 0 && lab < v) ? to_f(xr[lab]) : 0.f;
+        }
+      } else if (live && lane == 0) {
         const float sl = m + logf(fmaxf(l, 1e-30f));
         float out;
         if (kSoft) {
@@ -725,15 +763,16 @@ int launch_narrow(Kernel kernel, const NarrowPlan& p, long long r, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename L, bool kSoft>
+template <typename T, typename L, bool kSoft, bool kPartial = false>
 int fwd_narrow(const T* x, const L* y, const long long* lb, float* lo, float* ls,
-               float* sy, long long r, int v, long long ignore, cudaStream_t st) {
+               float* sy, long long r, int v, long long ignore, cudaStream_t st,
+               float* ao = nullptr) {
   const NarrowPlan p = narrow_plan(r, v, sizeof(T), kSoft ? sizeof(L) : 0, kFwdSideBytes);
   const int bulk = aligned16(x) && (!kSoft || aligned16(y));
-#define PTA_FWD_NARROW(G)                                                                \
-  case G:                                                                                \
-    return launch_narrow(xent_fwd_narrow_kernel<T, L, kSoft, G>, p, r, st, x, y, lb, lo, \
-                         ls, sy, r, v, ignore, p.tile_rows, bulk);
+#define PTA_FWD_NARROW(G)                                                             \
+  case G:                                                                             \
+    return launch_narrow(xent_fwd_narrow_kernel<T, L, kSoft, G, kPartial>, p, r, st, \
+                         x, y, lb, lo, ls, sy, r, v, ignore, p.tile_rows, bulk, ao);
   switch (p.g) {
     PTA_FWD_NARROW(1)
     PTA_FWD_NARROW(2)
@@ -780,10 +819,10 @@ int bwd_narrow(const T* x, const L* y, const long long* lb, const float* ls,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename L>
+template <typename T, typename L, bool kPartial = false>
 int xent_fwd(const void* x, const void* y, const void* label, int soft,
              void* loss, void* lse, void* sum_y, long long r, int v,
-             long long ignore, void* stream) {
+             long long ignore, void* stream, void* a_out = nullptr) {
   if (r == 0) return 0;
   const bool vec = (v % vec_width<T>() == 0) && aligned16(x) && (!soft || aligned16(y));
   const T* xt = static_cast<const T*>(x);
@@ -793,18 +832,24 @@ int xent_fwd(const void* x, const void* y, const void* label, int soft,
   float* ls = static_cast<float*>(lse);
   float* sy = static_cast<float*>(sum_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ao = static_cast<float*>(a_out);
   if (narrow_layout(r, v, false))  // hard labels: one kernel whatever L is
-    return soft ? fwd_narrow<T, L, true>(xt, yt, lb, lo, ls, sy, r, v, ignore, st)
-                : fwd_narrow<T, float, false>(xt, nullptr, lb, lo, ls, sy, r, v, ignore, st);
+    return soft ? fwd_narrow<T, L, true, kPartial>(xt, yt, lb, lo, ls, sy, r, v, ignore, st, ao)
+                : fwd_narrow<T, float, false, kPartial>(xt, nullptr, lb, lo, ls, sy, r, v,
+                                                        ignore, st, ao);
   const dim3 grid((unsigned)r);
   if (soft && vec)
-    xent_fwd_kernel<T, L, true, true><<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore);
+    xent_fwd_kernel<T, L, true, true, kPartial>
+        <<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore, ao);
   else if (soft)
-    xent_fwd_kernel<T, L, true, false><<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore);
+    xent_fwd_kernel<T, L, true, false, kPartial>
+        <<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore, ao);
   else if (vec)
-    xent_fwd_kernel<T, L, false, true><<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore);
+    xent_fwd_kernel<T, L, false, true, kPartial>
+        <<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore, ao);
   else
-    xent_fwd_kernel<T, L, false, false><<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore);
+    xent_fwd_kernel<T, L, false, false, kPartial>
+        <<<grid, kThreads, 0, st>>>(xt, yt, lb, lo, ls, sy, v, ignore, ao);
   return (int)cudaGetLastError();
 }
 
@@ -848,8 +893,20 @@ int xent_bwd(const void* x, const void* y, const void* label, int soft,
 // Backward.  As the forward, plus lse, g1, g2 [r] (fp32); writes dx [r, v]
 // in the logits' type.
 //
+// Partials (the tp-sharded forward: the TPU kernel's own outputs, combined
+// across the vocabulary shards by the caller).  As the forward, but writes
+// the row's m [r], l [r], a [r] and, when soft, b [r] (fp32): m = max x,
+// l = sum e^(x - m), a = sum y * x or the hard label's logit (0 for a label
+// outside [0, v): a shard that does not hold it), b = sum y.  Both layouts.
+//
 // The i64 entries are the hard-label ones (soft must be 0).
 #define PTA_XENT_ENTRIES(SX, SY, T, L)                                             \
+  extern "C" int pta_xent_partial_##SX##_##SY(const void* x, const void* y,        \
+                                              const void* label, int soft,         \
+                                              void* m, void* l, void* a, void* b,  \
+                                              long long r, int v, void* stream) {  \
+    return xent_fwd<T, L, true>(x, y, label, soft, m, l, b, r, v, -1, stream, a);  \
+  }                                                                                \
   extern "C" int pta_xent_fwd_##SX##_##SY(const void* x, const void* y,            \
                                           const void* label, int soft, void* loss, \
                                           void* lse, void* sum_y, long long r,     \

@@ -652,15 +652,20 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
     all (the caller commits ``torch.where(ok, new, old)``).  Returns
     ``(finite, snapshot)``: the host flag (None on the device gate, or if
     no ``Optimize`` op came) and the snapshot.  ``dp``: a data-parallel
-    step's hooks (``parallel/spmd.py`` ``ShardedTrainStep``): the group
-    around the ops that cross the batch, the grads' sum after the last op
-    that writes one, ZeRO-1's optimizer ops on a rank's chunk and the
-    parameters' all-gather after them."""
+    step's hooks (``parallel/spmd.py`` ``ShardedTrainStep``): the fsdp
+    gathers before an op, each op run under its tp rule
+    (``parallel/placement.py``), the group around the ops that cross the
+    batch, the grads' sum after the last op that writes one, ZeRO-1's
+    optimizer ops on a rank's chunk and the parameters' all-gather after
+    them."""
     from . import guardian as _guardian
 
     updated = None if plan.checked else {}
     finite, snapshot, skip = None, {}, False
     for k, op in enumerate(plan.ops):
+        if dp is not None:
+            for j in plan.groups.get(k, [k]):
+                dp.before(j, env)
         if guard is not None and k == plan.first_optimize:
             if device_flag:
                 snapshot = {n: env[n].clone()
@@ -700,12 +705,13 @@ def _execute(plan, env, device, generator, fetch_names, guard=None,
                               generator,
                               [plan.live_outputs[j] for j in members],
                               run_op, run_group)
-            elif len(members) > 1:
+            elif len(members) > 1 and (dp is None or dp.groupable(k)):
                 run_group([plan.ops[j] for j in members], env, device,
                           generator, [plan.live_outputs[j] for j in members])
             elif dp is not None:
-                with dp.op_scope(k):
-                    run_op(op, env, device, generator, plan.live_outputs[k])
+                for j in members:
+                    dp.run_op(j, plan.ops[j], env, device, generator,
+                              plan.live_outputs[j], run_op)
             else:
                 run_op(op, env, device, generator, plan.live_outputs[k])
             for n, ptr in before.items():
@@ -943,7 +949,8 @@ class _Window:
                 self.agg, health, self.sent["step_i"], self.sent["n_steps"])
             for k, v in agg.items():
                 self.agg[k].copy_(v)
-        self.fetched = [env[n] for n in self.fetch_names]
+        self.fetched = [env[n] if self.dp is None else
+                        self.dp.fetch(n, env[n]) for n in self.fetch_names]
 
     def _commit(self, new_state):
         """Copy each new value into its buffer, unless it is the buffer
@@ -1241,14 +1248,16 @@ class Executor:
             ctx = dict(ctx or {}, program=program, sentinel=sentinel,
                        duration_s=time.perf_counter() - t0)
             g.defer(guard, step_idx, _guardian.HealthCopy(health), ctx)
+        vals = [env[n] if dp is None else dp.fetch(n, env[n])
+                for n in fetch_names]
         if not return_numpy:
             out = []
-            for n in fetch_names:
+            for n, v in zip(fetch_names, vals):
                 lod = env.get(n + LOD_SUFFIX)
-                out.append(_copy(env[n], self.device) if lod is None
-                           else LoDTensor(_copy(env[n], self.device), lod))
+                out.append(_copy(v, self.device) if lod is None
+                           else LoDTensor(_copy(v, self.device), lod))
             return out
-        return [_snapshot(env[n]) for n in fetch_names]
+        return [_snapshot(v) for v in vals]
 
     def run_steps(self, program, feed, fetch_list, n_steps, scope=None,
                   feed_per_step=False):

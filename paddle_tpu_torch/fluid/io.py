@@ -72,9 +72,32 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     write_var_files(dirname, snap)
 
 
+SHARDED_LATER = "ROADMAP.md queue 1 item 12b, step 3 (sharded serials)"
+
+
+class ShardedScopeError(NotImplementedError):
+    """The scope holds the rank's shards of a var (a ``ParallelExecutor``
+    over a tp or fsdp mesh): a file of them would not be the var."""
+
+
+def check_unsharded(scope, names) -> None:
+    """Raise :class:`ShardedScopeError` if ``scope`` holds a shard of any
+    of ``names`` (``ShardedTrainStep.place_state`` marks them)."""
+    shards = getattr(scope, "_shards", None) or {}
+    held = [n for n in names if n in shards]
+    if held:
+        label, spec = shards[held[0]]
+        raise ShardedScopeError(
+            f"the scope holds this rank's shard of {held[0]!r} (mesh "
+            f"{label}, spec {spec}) and of {len(held) - 1} more; saving a "
+            f"sharded scope comes with {SHARDED_LATER}")
+
+
 def snapshot_vars(scope, var_list) -> dict:
     """Host-side ``{name: ndarray}`` of the vars present in ``scope``;
-    raises ``TypeError`` on a bfloat16 one before copying anything."""
+    raises ``TypeError`` on a bfloat16 one before copying anything, and
+    :class:`ShardedScopeError` on a scope that holds shards."""
+    check_unsharded(scope, [v.name for v in var_list])
     vals = [(v.name, scope.get(v.name)) for v in var_list]
     vals = [(n, t) for n, t in vals if t is not None]
     for name, t in vals:

@@ -1,35 +1,49 @@
-"""ParallelExecutor: data-parallel training over a ``torch.distributed``
-group (counterpart of ``paddle_tpu/fluid/parallel_executor.py``).
+"""ParallelExecutor: data-, tensor- and fsdp-parallel training over a
+``torch.distributed`` group (counterpart of
+``paddle_tpu/fluid/parallel_executor.py``).
 
 The reference jits the block over a mesh of local devices and lets GSPMD
 partition it; upstream replicates the program per GPU and inserts NCCL
 all-reduce op handles.  The port runs one process per rank, each on one
 device, and keeps the reference's multi-process contract
 (``paddle_tpu/parallel/multihost.py:197,205``): every process feeds its
-own shard of the global batch (global batch = ranks × local batch); a
-replicated fetch (a loss, a metric, a parameter) is the same value on
-every rank; a batch-sharded fetch is the rank's own rows.  A step over N
-ranks equals the single-device ``Executor`` step at the same global batch,
-batch statistics included: the Executor's own eager step runs with the
-collectives of ``parallel/spmd.py`` ``ShardedTrainStep`` in it (the
-ops that cross the batch reduce over every rank's rows, the grads are
-summed once a step in one flat bucket, ZeRO-1 under
-``BuildStrategy.ReduceStrategy.Reduce``), and the persistables are
-broadcast from rank 0 at their first run (upstream
-``BCastParamsToDevices``).
+own shard of the global batch along the mesh's dp axis (global batch = dp
+ranks × local batch; the ranks of one dp coordinate, tp or fsdp peers,
+feed the same rows); a fetch is the full value (a sharded one is
+gathered), the same on every rank but a batch-sharded one, which is the
+rank's own rows.  A step over the mesh equals the single-device
+``Executor`` step at the same global batch, batch statistics included:
+the Executor's own eager step runs with the collectives of
+``parallel/spmd.py`` ``ShardedTrainStep`` in it (the ops that cross the
+batch reduce over every dp rank's rows, the grads are summed once a step
+in one flat bucket over the dp group, ZeRO-1 under
+``BuildStrategy.ReduceStrategy.Reduce``), each op under its tp placement
+rule on a mesh with a ``tp`` (or ``mp``) axis (``parallel/
+placement.py``), fsdp-stored parameters gathered before their first
+reader; and the persistables are broadcast from rank 0 at their first run
+(upstream ``BCastParamsToDevices``), then cut to the rank's shards.  The
+rank's scope then holds shards: ``fluid.io``'s savers refuse it.
+
+The mesh: ``mesh=`` (a :class:`~..parallel.mesh.Mesh` or a spec string
+like ``dp2,tp2``), else the program's ``DistributeTranspiler``
+annotation, else ``PADDLE_TPU_MESH``, else dp over every rank.  Its
+``dp``, ``tp`` / ``mp`` and ``fsdp`` axes run; an ``sp``, ``pp`` or ``ep``
+axis of extent > 1 raises (``spmd.check_axes``).
 
 The group: one the caller initialized is adopted (a gloo group over CUDA
 tensors is how two ranks share one card); else one is joined from the
 program's ``DistributeTranspiler`` annotation or the ``PADDLE_*`` env
 (``parallel/multihost.py``): NCCL for a CUDA place, gloo for the CPU; a
-world of one gets a group of one.  Over more than one rank each rank draws
-its random numbers (dropout masks) from its own stream, the rank folded
-into the program's seed: the masks of the ranks' rows are independent, as
-one device's over the global batch are, but not the same draws.
+world of one gets a group of one.  Each axis of the mesh gets its
+sub-group (``mesh.axis_groups``).  Over more than one dp rank each dp
+coordinate draws its random numbers (dropout masks) from its own stream,
+the coordinate folded into the program's seed: the masks of the dp ranks'
+rows are independent, as one device's over the global batch are, but not
+the same draws; the ranks of one dp coordinate draw the same.
 ``run_steps`` captures each step, collectives included, as one CUDA graph
 on the card: under a group whose collectives cannot be captured (gloo) it
 raises. Plans are cached per program version, fetches and feed names (the
-Executor's cache) and per feed shapes (the data-parallel step's).
+Executor's cache) and per feed shapes (the parallel step's).
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ from .framework import default_main_program
 from ..ops.collectives import DPGroup
 from ..parallel import multihost as _mh
 from ..parallel import spmd as _spmd
-from ..parallel.mesh import Mesh, env_mesh_spec, mesh_from_spec, mesh_label
+from ..parallel.mesh import (Mesh, axis_groups, env_mesh_spec,
+                             mesh_from_spec, mesh_label)
 
 __all__ = ["ExecutionStrategy", "BuildStrategy", "ParallelExecutor"]
 
@@ -101,14 +116,16 @@ class _DPExecutor(Executor):
                                   scope)
 
     def _rng_stream(self, program):
-        """Over more than one rank, the rank's own stream: its dropout
-        masks are drawn independently of the other ranks'."""
+        """Over more than one dp rank, the dp coordinate's own stream: its
+        dropout masks are drawn independently of the other dp ranks', and
+        the same as its tp and fsdp peers'."""
         key, seed = super()._rng_stream(program)
-        group = self._pe._group
-        if group.world == 1:
+        mesh = self._pe._mesh
+        n = mesh.shape.get("dp", 1)
+        if n == 1:
             return key, seed
-        return (f"{key}/rank{group.rank}of{group.world}",
-                _spmd.rank_seed(seed, group.rank))
+        c = mesh.coords["dp"]
+        return f"{key}/rank{c}of{n}", _spmd.rank_seed(seed, c)
 
 
 def _default_place():
@@ -122,8 +139,8 @@ class ParallelExecutor:
     """Upstream ``python/paddle/fluid/parallel_executor.py:32``; runs on
     ``place`` (default the card: ``CUDAPlace(rank % device count)``).
     ``mesh``: a :class:`~..parallel.mesh.Mesh` or spec string (else the
-    annotation's, else ``PADDLE_TPU_MESH``, else dp over every rank);
-    only its dp axis may have extent > 1."""
+    annotation's, else ``PADDLE_TPU_MESH``, else dp over every rank); its
+    dp, tp (mp) and fsdp axes may have extent > 1."""
 
     def __init__(self, use_cuda=False, loss_name=None, main_program=None,
                  share_vars_from=None, exec_strategy=None,
@@ -142,25 +159,30 @@ class ParallelExecutor:
             raise NotImplementedError(
                 "DistributeTranspiler(sync_mode=False): local SGD "
                 "(parallel/local_sgd.py) comes with the later part of "
-                "ROADMAP.md queue 1 item 12b")
+                "ROADMAP.md queue 1 item 12b, step 3")
         self._place = place if place is not None else _default_place()
         self._device = core.torch_device(self._place)
         _mh.ensure_init(dist_info, self._place)
-        self._group = DPGroup()
+        self._world = DPGroup()
         if isinstance(mesh, Mesh):
             self._mesh = mesh
         else:
             spec = mesh if isinstance(mesh, str) else (
                 dist_info.get("mesh") or env_mesh_spec())
             if spec:
-                _spmd.check_dp_only(spec)
-            self._mesh = mesh_from_spec(spec, self._group.world,
-                                        self._group.rank)
-        _spmd.check_dp_only(self._mesh)
-        if self._mesh.size != self._group.world:
+                _spmd.check_axes(spec)
+            self._mesh = mesh_from_spec(spec, self._world.world,
+                                        self._world.rank)
+        _spmd.check_axes(self._mesh)
+        if self._mesh.size != self._world.world:
             raise ValueError(
                 f"mesh {mesh_label(self._mesh)} has {self._mesh.size} ranks; "
-                f"the process group has {self._group.world}")
+                f"the process group has {self._world.world}")
+        self._groups = axis_groups(self._mesh)
+        # the group the grads are summed over and ZeRO-1 shards over (a
+        # mesh with no dp axis has one dp rank)
+        self._group = self._groups.get("dp") or DPGroup(
+            [self._world.rank], axis="dp")
         self._zero1 = (self._build_strategy.reduce_strategy
                        == BuildStrategy.ReduceStrategy.Reduce)
         self._exe = _DPExecutor(self._place, self)
@@ -170,9 +192,15 @@ class ParallelExecutor:
         self._stager = None
 
     @property
+    def _sharded(self) -> bool:
+        """Whether the scope holds shards: a mesh axis other than dp has
+        extent > 1."""
+        return any(e > 1 for a, e in self._mesh.shape.items() if a != "dp")
+
+    @property
     def device_count(self):
         """The ranks of the group (one device each)."""
-        return self._group.world
+        return self._world.world
 
     @property
     def mesh(self):
@@ -198,8 +226,18 @@ class ParallelExecutor:
                     "ZeRO-1 (ReduceStrategy.Reduce) with a guarded step (a "
                     "guardian armed, or fp16 loss scaling): the check reads "
                     "every grad, and a rank holds the sum of its chunk only")
+            if self._sharded and \
+                    _guardian.for_program(program) is not None:
+                raise NotImplementedError(
+                    f"a guarded step (a guardian armed, or fp16 loss "
+                    f"scaling) on the mesh {self.mesh_label}: the check "
+                    f"reads every grad, and a rank holds its shards only; "
+                    f"it comes with a later part of ROADMAP.md queue 1 item "
+                    f"12b")
             step = _spmd.ShardedTrainStep(program, plan, shapes, self._mesh,
-                                          self._group, zero1=self._zero1)
+                                          self._group, zero1=self._zero1,
+                                          groups=self._groups,
+                                          world=self._world)
             self._steps[key] = step
         new = [n for n in plan.state_in
                if n not in self._broadcast and n not in feed_vals]
@@ -256,11 +294,14 @@ class ParallelExecutor:
     def bcast_params(self):
         """Broadcast every persistable of the program the scope holds from
         rank 0, in place (upstream ``BCastParamsToDevices``); the first
-        run of each plan does this for the state it reads."""
+        run of each plan does this for the state it reads (and, on a tp or
+        fsdp mesh, cuts it to the rank's shards)."""
         gb = self._program.global_block()
-        names = [n for n, v in gb.vars.items() if v.persistable]
-        _spmd.broadcast_state(self._group, self._scope, names)
-        self._broadcast.update(names)
+        names = [n for n, v in gb.vars.items() if v.persistable
+                 and n not in self._broadcast]
+        _spmd.broadcast_state(self._world, self._scope, names)
+        if not self._sharded:
+            self._broadcast.update(names)
 
     def close(self):
         self._exe.close()

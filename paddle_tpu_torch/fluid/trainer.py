@@ -438,6 +438,11 @@ class Trainer:
             self.parallel_exe = ParallelExecutor(
                 loss_name=self.loss.name, main_program=self.train_program,
                 scope=global_scope(), place=self.place)
+            if self.parallel_exe._sharded:
+                raise io.ShardedScopeError(
+                    f"Trainer(parallel=True) over the mesh "
+                    f"{self.parallel_exe.mesh_label}: its scope would hold "
+                    f"shards, and its serials come with {io.SHARDED_LATER}")
 
     def stop(self):
         self.stop_flag = True

@@ -1,12 +1,15 @@
 """The ``ring_attention`` op (counterpart of ``paddle_tpu/ops/attention_ops.py``).
 
-Single-device it runs the flash kernels (:class:`~.flash_attention.
-FlashAttention`: the CUDA kernels for CUDA tensors, their plain versions
-for CPU tensors) when flash is on and the bias is a key-padding bias, and
-the plain full-softmax attention otherwise, as the reference does.  The
-sequence-parallel ring over an ``sp`` mesh axis comes with the multi-GPU
-slice: inside a ``torch.distributed`` group of more than one process the
-op raises instead of guessing whether the sequence is sharded.
+The op runs :func:`~.flash_attention.flash_attention_sharded` on the
+heads it is given: every head on one device, the rank's heads in a
+tensor-parallel step (``parallel/placement.py``).  That runs the flash
+kernels (:class:`~.flash_attention.FlashAttention`: the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors) when flash is on and
+the bias is a key-padding bias, and the plain full-softmax attention
+otherwise, as the reference does.  The sequence-parallel ring over an
+``sp`` mesh axis comes with ROADMAP.md queue 1 item 12b step 4: inside a
+group of more than one process, outside a dp / tp / fsdp step, the op
+raises instead of guessing whether the sequence is sharded.
 
 The op's grad is the generic one (``registry.run_grad_generic``): it
 re-runs this forward under autograd, so each op launches the forward
@@ -18,8 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import refuse_process_group
-from ..parallel.ring_attention import full_attention
-from .flash_attention import FlashAttention, bias_supported
+from .flash_attention import flash_attention_sharded
 from .registry import register_op
 
 
@@ -32,12 +34,9 @@ def ring_attention_op(ctx):
     refuse_process_group(
         f"ring_attention over the {ctx.attr('sp_axis', 'sp')!r} axis (the "
         f"sequence-parallel ring)")
-    if _flash_decision(int(ctx.attr("flash", -1)), q.device) \
-            and bias_supported(bias, q.shape[0], k.shape[2]):
-        out = FlashAttention.apply(q, k, v, bias, scale, causal)
-    else:
-        out = full_attention(q, k, v, causal, scale, bias=bias)
-    return {"Out": out}
+    return {"Out": flash_attention_sharded(
+        q, k, v, bias, scale, causal,
+        _flash_decision(int(ctx.attr("flash", -1)), q.device))}
 
 
 def _flash_decision(flash_req: int = -1, device=None) -> bool:

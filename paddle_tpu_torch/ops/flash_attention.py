@@ -12,6 +12,9 @@ their plain versions (counterpart of ``paddle_tpu/ops/pallas_flash.py``).
  - :class:`FlashAttention` ties them into a ``torch.autograd.Function``;
    ``delta = rowsum(dO ∘ O)`` is computed in torch between them, as the
    reference leaves it to XLA, and the bias gets a zero gradient.
+ - :func:`flash_attention_sharded` is the reference's tp-sharded wrapper
+   (``pallas_fused.py:666``) on one rank: the kernels on the rank's heads,
+   no exchange.
 
 q, k, v are ``[B, H, T, D]``; the bias is the additive key-padding bias
 ``[B|1, 1, 1, Tk]`` or ``[B|1, Tk]`` (:func:`bias_supported`); the causal
@@ -35,11 +38,13 @@ import ctypes
 
 import torch
 
+from ..parallel.ring_attention import full_attention
 from .fused import _on_cpu
 
 __all__ = ["bias_supported", "kernel_dtype", "flash_forward",
            "flash_forward_ref", "flash_dq", "flash_dq_ref", "flash_dkv",
-           "flash_dkv_ref", "flash_backward_ref", "FlashAttention"]
+           "flash_dkv_ref", "flash_backward_ref", "FlashAttention",
+           "flash_attention_sharded"]
 
 NEG_INF = -1e30
 #: head widths the kernels are built for
@@ -383,3 +388,19 @@ class FlashAttention(torch.autograd.Function):
                            ctx.causal)
         dbias = None if bias is None else torch.zeros_like(bias)
         return dq, dk, dv, dbias, None, None
+
+
+def flash_attention_sharded(q, k, v, bias=None, scale=None, causal=False,
+                            flash=True):
+    """Attention on one rank of a tp group that holds the heads ``q, k, v
+    [B, H / tp, T, D]`` (its contiguous slice, in rank order) and the
+    whole key-padding bias of its rows (``[B|1, 1, 1, Tk]``, sharded with
+    the batch over dp as the rows are): the reference's
+    ``flash_attention_sharded`` (``pallas_fused.py:666``).  Attention is
+    head-independent, so each rank runs :class:`FlashAttention` on its
+    heads and nothing is exchanged.  With ``flash`` off, or a bias the
+    kernels do not take, the plain full attention on the same heads, as
+    the single-device op does."""
+    if flash and bias_supported(bias, q.shape[0], k.shape[2]):
+        return FlashAttention.apply(q, k, v, bias, scale, causal)
+    return full_attention(q, k, v, causal, scale, bias=bias)

@@ -11,6 +11,14 @@ and their plain versions (counterpart of ``paddle_tpu/ops/pallas_fused.py``).
  - :class:`SoftmaxXent` ties the two into a ``torch.autograd.Function``,
    so the op's generic grad (``torch.autograd.grad`` over the forward)
    reaches the backward kernel.
+ - :func:`softmax_xent_partial` is ``_xent_partial_kernel`` itself: the
+   per-row partials ``(m, l, a[, b])``, unfinished.
+   :class:`SoftmaxXentSharded` is the reference's
+   ``softmax_xent_sharded`` (``pallas_fused.py:361``) on one rank of a tp
+   group: the partials of the rank's vocabulary slice (hard labels
+   shifted by its offset), one max and one sum exchange over the group,
+   ``_finalize_loss`` with the ignore mask on the original label; its
+   backward is the backward kernel on the slice with the global lse.
  - :func:`adam_group` replaces ``_adam_kernel`` and the adam op's scalar
    math: one launch updates ``p, m1, m2`` of every entry of a group in
    place, each with its bias-corrected ``lr_eff`` computed in the kernel
@@ -32,6 +40,8 @@ dtype; the optimizer kernels take float32.  ``xent_fwd_launches``,
 ``xent_fwd_launches_by_layout`` / ``xent_bwd_launches_by_layout`` by the
 kernels' layout: ``narrow``, tiles of whole rows, for rows of up to 256
 logits forward and 128 backward, or ``wide``, a block a row),
+``xent_partial_launches`` (with ``xent_partial_launches_by_dtype`` and
+``xent_partial_launches_by_layout``),
 ``adam_launches`` and ``momentum_launches`` count kernel launches, so a
 run can show the main path went through them; ``adam_tensors`` and
 ``momentum_tensors`` count the parameters those launches updated.
@@ -47,6 +57,8 @@ import torch
 
 __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_bwd",
            "softmax_xent_bwd_ref", "xent_bwd_coeffs", "SoftmaxXent",
+           "softmax_xent_partial", "softmax_xent_partial_ref",
+           "SoftmaxXentSharded",
            "adam_group", "adam_group_ref", "adam", "adam_ref",
            "momentum_group", "momentum_group_ref", "momentum", "momentum_ref"]
 
@@ -59,6 +71,10 @@ xent_bwd_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
 #: ... and by the layout the kernel entry chose (``pta_xent_layout``)
 xent_fwd_launches_by_layout = {"narrow": 0, "wide": 0}
 xent_bwd_launches_by_layout = {"narrow": 0, "wide": 0}
+#: the partials entry's launches, by dtype and by layout as the forward's
+xent_partial_launches = 0
+xent_partial_launches_by_dtype = {"float32": 0, "bfloat16": 0, "float16": 0}
+xent_partial_launches_by_layout = {"narrow": 0, "wide": 0}
 adam_launches = 0
 momentum_launches = 0
 #: parameters the Adam and momentum launches updated since the last reset
@@ -87,7 +103,12 @@ def _lib(name):
                     [ctypes.c_void_p] * 3 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 4
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-                fwd.restype = bwd.restype = ctypes.c_int
+                part = getattr(lib, f"pta_xent_partial_{sx}_{sy}")
+                part.argtypes = (
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 4
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                fwd.restype = bwd.restype = part.restype = ctypes.c_int
             lib.pta_xent_layout.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_int]
             lib.pta_xent_layout.restype = ctypes.c_int
@@ -326,6 +347,109 @@ class SoftmaxXent(torch.autograd.Function):
                                  ctx.ignore_index)
         return (softmax_xent_bwd(x, label, lse, g1, g2, ctx.soft), None,
                 None, None)
+
+
+def softmax_xent_partial_ref(x, label, soft):
+    """The plain version of the partials: fp32 ``(m, l, a, b)`` ``[R, 1]``
+    columns, ``b`` None for hard labels: ``m = max x``, ``l = Σ e^(x −
+    m)``, ``a = Σ y·x`` (soft) or the label's logit (hard; 0 for a label
+    outside ``[0, V)``), ``b = Σ y``.  bf16 / fp16 values are widened to
+    fp32 first, as the kernel reads them."""
+    x = _f32(x)
+    m = x.max(dim=-1, keepdim=True).values
+    l = torch.exp(x - m).sum(-1, keepdim=True)
+    if soft:
+        label = _f32(label)
+        return m, l, (label * x).sum(-1, keepdim=True), \
+            label.sum(-1, keepdim=True)
+    lab = label.reshape(-1, 1).long()
+    v = x.shape[-1]
+    valid = (lab >= 0) & (lab < v)
+    return m, l, torch.where(valid, x.gather(-1, lab.clamp(0, v - 1)),
+                             0.0), None
+
+
+def softmax_xent_partial(x, label, soft):
+    """The per-row partials of logits ``x [R, V]`` (float32, bfloat16 or
+    float16) against hard labels ``[R]`` (int) or soft labels ``[R, V]``
+    (:func:`softmax_xent_partial_ref`'s ``(m, l, a, b)``, fp32 ``[R, 1]``,
+    ``b`` None for hard labels).  On the card one launch of
+    ``pta_xent_partial_*``; there is no fallback."""
+    global xent_partial_launches
+    _check_xent(x, label, soft)
+    if _on_cpu(x, label):
+        return softmax_xent_partial_ref(x, label, soft)
+    entry = _xent_entry("partial", x, label, soft)
+    lib = _lib("softmax_xent")
+    if not soft:
+        label = label.to(torch.int64).contiguous()
+    r, v = x.shape
+    m, l, a = (torch.empty(r, 1, dtype=torch.float32, device=x.device)
+               for _ in range(3))
+    b = torch.empty_like(m) if soft else None
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), label.data_ptr() if soft else None,
+            None if soft else label.data_ptr(), int(soft), m.data_ptr(),
+            l.data_ptr(), a.data_ptr(), b.data_ptr() if soft else None, r, v,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        _raise(lib.pta_xent_error_string, rc, "softmax_xent partials")
+    xent_partial_launches += 1
+    xent_partial_launches_by_dtype[str(x.dtype)[6:]] += 1
+    xent_partial_launches_by_layout[_xent_layout(lib, x, False)] += 1
+    return m, l, a, b
+
+
+def finalize_xent(m, l, a, b, label, soft, ignore_index=-100):
+    """The reference's ``_finalize_loss``: ``(loss, lse)`` from the
+    (combined) partials; the ignore mask reads the original hard label."""
+    lse = m + torch.log(l.clamp_min(1e-30))
+    if soft:
+        return lse * b - a, lse
+    loss = lse - a
+    if ignore_index >= 0:
+        loss = torch.where(label.reshape(-1, 1) == ignore_index, 0.0, loss)
+    return loss, lse
+
+
+class SoftmaxXentSharded(torch.autograd.Function):
+    """``SoftmaxXentSharded.apply(x, label, soft, ignore_index, group)``
+    -> ``(loss [R, 1], lse [R, 1])`` of the whole rows, on one rank of the
+    tp group ``group`` (``ops/collectives.py``) that holds the vocabulary
+    slice ``x [R, V / tp]`` (in rank order) and the whole labels (hard
+    ``[R]``, or soft ``[R, V / tp]``: its slice).  The partials of the
+    slice (:func:`softmax_xent_partial`, hard labels shifted by ``rank ·
+    V / tp``, so that a label on another slice picks nothing), ``m_g`` by
+    one MAX all-reduce, ``l · e^(m − m_g)``, ``a`` and ``b`` summed by one
+    SUM all-reduce, then :func:`finalize_xent`.  The backward runs the
+    backward kernel on the slice with the whole rows' lse: no exchange."""
+
+    @staticmethod
+    def forward(ctx, x, label, soft, ignore_index, group):
+        v_loc = x.shape[1]
+        lab_k = label if soft else \
+            label.to(torch.int64) - group.rank * v_loc
+        m, l, a, b = softmax_xent_partial(x, lab_k, soft)
+        m_g = group.all_reduce_(m.clone(), torch.distributed.ReduceOp.MAX)
+        parts = [l * torch.exp(m - m_g), a] + ([b] if soft else [])
+        summed = group.all_reduce_(torch.cat(parts, dim=1))
+        l, a = summed[:, :1], summed[:, 1:2]
+        b = summed[:, 2:3] if soft else None
+        loss, lse = finalize_xent(m_g, l, a, b, label, soft, ignore_index)
+        ctx.save_for_backward(x, lab_k, label, lse, b)
+        ctx.soft, ctx.ignore_index = soft, ignore_index
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, dloss, dlse):
+        x, lab_k, label, lse, sum_y = ctx.saved_tensors
+        if dloss is None:
+            dloss = torch.zeros_like(lse)
+        g1, g2 = xent_bwd_coeffs(label, sum_y, dloss, dlse, ctx.soft,
+                                 ctx.ignore_index)
+        return (softmax_xent_bwd(x, lab_k, lse.contiguous(), g1, g2,
+                                 ctx.soft), None, None, None, None)
 
 
 # ---------------------------------------------------------------------------

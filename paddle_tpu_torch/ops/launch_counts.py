@@ -26,8 +26,8 @@ def _module(name):
 def snapshot() -> Dict[Key, int]:
     """Every counter: ``(module, name, None)`` for an int counter (names
     ``launches``, ``*_launches``, ``*_tensors``), ``(module, name, key)``
-    for each entry of a ``*_launches_by_dtype`` or ``*_launches_by_layout``
-    dict.  A module that was never imported launched nothing and is left
+    for each entry of a ``*_launches_by_dtype``, ``*_launches_by_layout``
+    or ``*_launches_by_axis`` dict.  A module that was never imported launched nothing and is left
     out."""
     out: Dict[Key, int] = {}
     for m in _MODULES:
@@ -36,7 +36,8 @@ def snapshot() -> Dict[Key, int]:
             continue
         for name, v in vars(mod).items():
             if isinstance(v, dict) and name.endswith(
-                    ("_launches_by_dtype", "_launches_by_layout")):
+                    ("_launches_by_dtype", "_launches_by_layout",
+                     "_launches_by_axis")):
                 out.update(((m, name, k), c) for k, c in v.items())
             elif (type(v) is int and (name == "launches" or name.endswith(
                     ("_launches", "_tensors")))):

@@ -55,15 +55,27 @@ def softmax_with_cross_entropy(ctx):
     ``[R, V]`` tensor.  Logits in bf16 or fp16 (AMP keep_activations) go
     to the kernels as they are, which compute in fp32; ``Loss`` is fp32
     and ``Softmax`` is ``exp(float32(logits) − lse)`` in the logits'
-    dtype, as the reference's ``softmax_xent_op``."""
+    dtype, as the reference's ``softmax_xent_op``.  In a tp step whose
+    logits are sharded over the vocabulary the loss goes through
+    :class:`fused.SoftmaxXentSharded` (the partials entry and one max /
+    sum exchange), and ``Softmax`` is the rank's slice."""
+    from . import collectives
+
     logits, label = ctx.input("Logits"), ctx.input("Label")
     soft = bool(ctx.attr("soft_label", False))
     v = logits.shape[-1]
     lead = tuple(logits.shape[:-1])
     x2 = logits.reshape(-1, v).contiguous()
     lab2 = label.reshape(-1, v).contiguous() if soft else label.reshape(-1)
-    loss, lse = fused.SoftmaxXent.apply(x2, lab2, soft,
-                                        int(ctx.attr("ignore_index", -100)))
+    ignore = int(ctx.attr("ignore_index", -100))
+    group = collectives.shard_group()
+    if group is not None:
+        # the logits are this rank's vocabulary slice (a tp step,
+        # ``parallel/placement.py``); a soft label is sliced with them
+        loss, lse = fused.SoftmaxXentSharded.apply(x2, lab2, soft, ignore,
+                                                   group)
+    else:
+        loss, lse = fused.SoftmaxXent.apply(x2, lab2, soft, ignore)
     out = {"Loss": loss.reshape(lead + (1,))}
     if "Softmax" in ctx.outputs_spec:
         out["Softmax"] = torch.exp(

@@ -8,15 +8,17 @@ ranks: named axes, their extents, and this rank's coordinates.
 a 4×2 mesh whose first axis shards the batch and whose second would shard
 model weights; axis order = spec order, later axes vary fastest over the
 ranks.  The same strings give the same axes and labels as the reference
-(``mesh_label`` -> ``dp4xtp2``).  This slice runs the ``dp`` axis only
-(``parallel/spmd.py``); a mesh with another axis of extent > 1 is refused
-where it would run.
+(``mesh_label`` -> ``dp4xtp2``).  ``ParallelExecutor`` runs the ``dp``,
+``tp`` (or the legacy ``mp``) and ``fsdp`` axes (``parallel/spmd.py``);
+:func:`axis_groups` makes the ``torch.distributed`` sub-group of each of
+them.  A mesh with an ``sp``, ``pp`` or ``ep`` axis of extent > 1 is
+refused where it would run.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -160,3 +162,51 @@ def make_mesh_nd(**axes) -> Mesh:
     rank, _ = _world()
     n = int(np.prod([int(s) for s in axes.values()]))
     return Mesh({a: int(s) for a, s in axes.items()}, rank % n)
+
+
+def resolve_tp_axis(mesh, tp_axis: Optional[str] = None) -> str:
+    """The mesh's tensor-parallel axis name: an explicit request wins, the
+    canonical ``tp`` name (``PADDLE_TPU_MESH`` meshes) is preferred, and
+    the legacy ``mp`` name (``make_mesh(n, tp=m)``) is the fallback."""
+    if tp_axis is not None:
+        return tp_axis
+    return "tp" if "tp" in mesh.axis_names else "mp"
+
+
+def axis_ranks(mesh: Mesh, axis: str) -> List[List[int]]:
+    """The rank lists of ``axis``'s groups: one per coordinate of the other
+    axes (in rank order of its first member), each listing the ranks that
+    differ from it only along ``axis``, in axis order."""
+    extents = tuple(mesh.shape.values())
+    grid = np.arange(mesh.size).reshape(extents)
+    i = mesh.axis_names.index(axis)
+    lines = np.moveaxis(grid, i, -1).reshape(-1, extents[i])
+    return [[int(r) for r in line] for line in lines]
+
+
+def axis_groups(mesh: Mesh, axes=None) -> Dict[str, "object"]:
+    """``{axis: DPGroup}``: this rank's group along each of ``axes``
+    (default every axis of the mesh).  Every rank of the default process
+    group must call this with the same mesh and axes: each group of each
+    axis is created on every rank, in the same order, as
+    ``torch.distributed.new_group`` requires.  An axis whose ranks are
+    the whole world gets the default group (its collectives are issued
+    even over one process); any other axis of extent 1 gets a group of one
+    rank, which issues nothing."""
+    import torch.distributed as dist
+
+    from ..ops.collectives import DPGroup
+
+    out = {}
+    for axis in (mesh.axis_names if axes is None else axes):
+        extent = mesh.shape.get(axis, 1)
+        if extent == mesh.size:
+            out[axis] = DPGroup(axis=axis)
+        elif extent == 1:
+            out[axis] = DPGroup([mesh.rank], axis=axis)
+        else:
+            for ranks in axis_ranks(mesh, axis):
+                pg = dist.new_group(ranks)
+                if mesh.rank in ranks:
+                    out[axis] = DPGroup(ranks, pg, axis)
+    return out

@@ -249,9 +249,9 @@ def test_ring_attention_op_routes_by_attr_and_bias(monkeypatch):
     """flash 1 with a key-padding bias takes the FlashAttention function;
     flash 0, or a bias the kernels do not take, the full attention."""
     calls = []
-    monkeypatch.setattr(attention_ops.FlashAttention, "apply",
+    monkeypatch.setattr(fa.FlashAttention, "apply",
                         lambda *a: calls.append("flash") or a[0])
-    monkeypatch.setattr(attention_ops, "full_attention",
+    monkeypatch.setattr(fa, "full_attention",
                         lambda *a, **kw: calls.append("full") or a[0])
     from paddle_tpu_torch.ops.registry import ExecContext
 

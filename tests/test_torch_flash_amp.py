@@ -254,7 +254,7 @@ def test_ring_attention_op_hands_low_inputs_to_flash(monkeypatch):
     bias in fp32 (or none): dtypes the kernels take."""
     from paddle_tpu_torch.ops import attention_ops
 
-    seen, apply = [], attention_ops.FlashAttention.apply
+    seen, apply = [], fa.FlashAttention.apply
 
     def spy(q, k, v, bias, *rest):
         seen.append((q.dtype, k.dtype, v.dtype,
@@ -262,7 +262,7 @@ def test_ring_attention_op_hands_low_inputs_to_flash(monkeypatch):
                      fa.kernel_dtype(q, k, v, bias)))
         return apply(q, k, v, bias, *rest)
 
-    monkeypatch.setattr(attention_ops.FlashAttention, "apply", spy)
+    monkeypatch.setattr(fa.FlashAttention, "apply", spy)
     port_amp.enable("bfloat16", keep_activations=True)
     main, startup, cost = _build(tf, port_tm)
     exe, scope = tf.Executor(tf.CPUPlace()), tf.Scope()

@@ -2,8 +2,8 @@
 process (no spawn): mesh specs and labels, ``DistributeTranspiler``'s
 ``_dist_info``, the PS dispatchers, the strategies' fields; a world-1
 gloo group in which ``ParallelExecutor`` is bitwise ``Executor`` (per
-step, as a window, under AllReduce and Reduce); and the refusals: a tp
-mesh, ``moe_ffn`` under dp, ``sync_mode=False``, a CUDA place with no
+step, as a window, under AllReduce and Reduce); and the refusals: an sp,
+pp or ep mesh, ``moe_ffn`` under dp, ``sync_mode=False``, a CUDA place with no
 NCCL, a world of more than one with no group, a window under gloo on the
 card, a batch-crossing op with no data-parallel form.
 """
@@ -196,9 +196,13 @@ def test_world1_gloo_pe_is_bitwise_executor(world1, reduce):
 def test_refusals_tp_mesh_sync_mode_and_crossing_op(world1):
     cpu = tf.CPUPlace()
     main, startup, loss = _mlp()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tf.ParallelExecutor(loss_name=loss.name, main_program=main,
-                            mesh="dp1,tp2", place=cpu)
+    # a tp or fsdp mesh runs (tests/test_torch_tensor_parallel.py); the sp,
+    # pp and ep axes are still refused, by spec and by Mesh
+    for axis in ("sp", "pp", "ep"):
+        for mesh in (f"dp1,{axis}2", port_mesh.Mesh({"dp": 1, axis: 2})):
+            with pytest.raises(NotImplementedError, match="item 12b, step 4"):
+                tf.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                    mesh=mesh, place=cpu)
     prog = main.clone()
     tf.DistributeTranspiler().transpile(0, program=prog, trainers=1,
                                         sync_mode=False)
